@@ -1,0 +1,350 @@
+// Exact top-k scoring kernels for Hopper (sm_90a), plain C interface.
+//
+// Three kernels carry the exact search path; each replaces one Pallas kernel
+// of better_search_rag_rust_tpu/ops/topk_pallas.py:
+//
+//   K1 bsr_matmul_blockmax2   <- matmul_blockmax2_only (:527, body :367)
+//   K2 bsr_gather_rescore     <- gather_rescore        (:656, body :631)
+//   K3 bsr_matmul_blockmax    <- matmul_blockmax       (:120, body :103)
+//
+// ONE ARITHMETIC RULE. Every score any of the three kernels produces is the
+// f32 chain
+//     acc = 0.0f;  for d = 0 .. D-1:  acc = __fmaf_rn(row[d], q[d], acc)
+// with bf16 operands widened by __bfloat162float (exact). fma_chunk() below
+// is the only code that advances an accumulator, and all three kernels call
+// it over consecutive D chunks, so each accumulator sees d in order no
+// matter how a kernel tiles rows, queries or D. Zero padding of a ragged D
+// chunk appends exact +0 terms, which leave the chain's bits unchanged (an
+// accumulator that starts at +0.0 never becomes -0.0). Hence the same
+// (query, row) pair scores bit for bit the same in K1, K2 and K3. The
+// rescore route's argmax fast path (ops/topk.py) sorts K1 maxima and K2
+// rescored scores together and is exact only because of this identity; the
+// port's oracle scores through K3. There is no split-K and no tensor-core
+// path here. A later change that moves any one kernel to tensor cores
+// (wgmma) or to another summation order must move the other two with it, or
+// turn the argmax fast path off.
+//
+// Because the chain is exact f32 arithmetic, float32 stores are sound on
+// these kernels as well as bf16 ones (the TPU's Mosaic f32 product was not).
+//
+// Every entry point launches on the caller's stream, allocates nothing and
+// returns cudaGetLastError() (0 on success); the Python wrappers raise on
+// anything else.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float PAD_SIM = -3.0f;
+
+// Score tile of K1/K3: TR store rows x TQ queries per block, NT threads, each
+// thread a MR x MQ micro-tile of accumulators; D staged through shared memory
+// DK features at a time, transposed and widened to f32.
+constexpr int TR = 128;
+constexpr int TQ = 128;
+constexpr int DK = 16;
+constexpr int NT = 256;
+constexpr int MR = 8;
+constexpr int MQ = 8;
+constexpr int LDS = TR + 4;       // padded leading dim of the staged tiles
+constexpr int LDO = TQ + 1;       // padded leading dim of the score tile
+
+// K2: one query x GR gathered rows per block, one row per thread.
+constexpr int GR = 128;
+constexpr int GDK = 32;
+constexpr int GLD = GR + 4;
+static_assert(TR == TQ, "score_tile stages rows and queries in one loop");
+
+template <typename T> __device__ __forceinline__ float widen(T x);
+template <> __device__ __forceinline__ float widen<float>(float x) { return x; }
+template <> __device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// THE dot routine (see the header): advance every accumulator acc[i][j] by
+// the features d = 0 .. dk-1 of a staged chunk, in order, one FMA each.
+// r[d * r_ld + i] is row i's feature d, q[d * q_ld + j] query j's.
+template <int M, int N>
+__device__ __forceinline__ void fma_chunk(float (&acc)[M][N],
+                                          const float* __restrict__ r, int r_ld,
+                                          const float* __restrict__ q, int q_ld,
+                                          int dk) {
+#pragma unroll 4
+  for (int d = 0; d < dk; ++d) {
+    float rv[M], qv[N];
+#pragma unroll
+    for (int i = 0; i < M; ++i) rv[i] = r[d * r_ld + i];
+#pragma unroll
+    for (int j = 0; j < N; ++j) qv[j] = q[d * q_ld + j];
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[i][j] = __fmaf_rn(rv[i], qv[j], acc[i][j]);
+  }
+}
+
+// Scores of store rows [row0, row0 + TR) against queries [q0, q0 + TQ) into
+// the shared score tile st[r * LDO + c]; rows at or past valid_rows are
+// masked to PAD_SIM. Queries past Tn score against zeros and are never
+// written out by the callers. Requires R % TR == 0.
+template <typename T>
+__device__ __forceinline__ void score_tile(const T* __restrict__ q,
+                                           const T* __restrict__ shard,
+                                           int Tn, int D, int valid_rows,
+                                           int row0, int q0, float* smem) {
+  float* rs = smem;             // [DK][LDS]
+  float* qs = smem + DK * LDS;  // [DK][LDS]
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;      // query micro-tile: queries tx*MQ ..
+  const int ty = tid / 16;      // row micro-tile:   rows    ty*MR ..
+  float acc[MR][MQ];
+#pragma unroll
+  for (int i = 0; i < MR; ++i)
+#pragma unroll
+    for (int j = 0; j < MQ; ++j) acc[i][j] = 0.0f;
+
+  for (int d0 = 0; d0 < D; d0 += DK) {
+    // Consecutive threads read consecutive features of one row: each warp
+    // covers two rows' DK-feature runs.
+    for (int e = tid; e < TR * DK; e += NT) {
+      const int r = e / DK, dd = e % DK, gd = d0 + dd;
+      rs[dd * LDS + r] = gd < D ? widen(shard[(size_t)(row0 + r) * D + gd]) : 0.0f;
+      const int gq = q0 + r;
+      qs[dd * LDS + r] = (gd < D && gq < Tn) ? widen(q[(size_t)gq * D + gd]) : 0.0f;
+    }
+    __syncthreads();
+    fma_chunk<MR, MQ>(acc, rs + ty * MR, LDS, qs + tx * MQ, LDS, DK);
+    __syncthreads();
+  }
+
+  float* st = smem;  // reuse the staging space: [TR][LDO]
+#pragma unroll
+  for (int i = 0; i < MR; ++i) {
+    const int r = ty * MR + i;
+    const bool ok = row0 + r < valid_rows;
+#pragma unroll
+    for (int j = 0; j < MQ; ++j) st[r * LDO + tx * MQ + j] = ok ? acc[i][j] : PAD_SIM;
+  }
+  __syncthreads();
+}
+
+// m2_sort_key + pack_m2_argmax_key (topk_pallas.py:267-304): m2's
+// order-preserving uint image (-0.0 folded into +0.0) rounded UP to a
+// multiple of 128, OR the sub-local argmax, sign bit flipped into int32.
+__device__ __forceinline__ int32_t pack_key(float m2, int arg) {
+  const float z = m2 == 0.0f ? 0.0f : m2;
+  const uint32_t b = __float_as_uint(z);
+  const uint32_t mono = z < 0.0f ? ~b : (b | 0x80000000u);
+  const uint32_t key = ((mono + 0x7Fu) & 0xFFFFFF80u) | (uint32_t)arg;
+  return (int32_t)(key ^ 0x80000000u);
+}
+
+constexpr size_t SCORE_SMEM = sizeof(float) * (size_t)TR * LDO;  // >= staging
+constexpr int MAX_UNITS = TR / 8;                                // sub >= 8
+
+// K1: sub-unit maxima, optional packed (second max, argmax) key, optional
+// coarse maxima at emit width ew; scores never leave shared memory.
+// Outputs are transposed like the TPU kernel's: [R/sub, T], [R/ew, T].
+template <typename T>
+__global__ void __launch_bounds__(NT, 2)
+k1_blockmax2(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
+             int D, int valid_rows, int sub, int ew, float* __restrict__ bm_sub,
+             int32_t* __restrict__ key, float* __restrict__ bm) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int row0 = blockIdx.x * TR, q0 = blockIdx.y * TQ;
+  score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
+  const float* st = smem;
+  float* um = smem + TR * LDO;  // [MAX_UNITS][TQ] unit maxima
+  const int units = TR / sub;
+  for (int p = threadIdx.x; p < units * TQ; p += NT) {
+    const int u = p / TQ, c = p % TQ;
+    const float* col = st + (size_t)u * sub * LDO + c;
+    float m1 = col[0];
+    int arg = 0;
+    for (int r = 1; r < sub; ++r) {
+      const float v = col[r * LDO];
+      if (v > m1) { m1 = v; arg = r; }  // strict: lowest attaining row
+    }
+    um[u * TQ + c] = m1;
+    if (q0 + c >= Tn) continue;
+    const size_t o = (size_t)(row0 / sub + u) * Tn + q0 + c;
+    bm_sub[o] = m1;
+    if (key != nullptr) {
+      // second max: the max with the argmax ROW replaced by PAD_SIM
+      float m2 = __uint_as_float(0xff800000u);  // -inf
+      for (int r = 0; r < sub; ++r) m2 = fmaxf(m2, r == arg ? PAD_SIM : col[r * LDO]);
+      key[o] = pack_key(m2, arg);
+    }
+  }
+  if (bm == nullptr) return;
+  __syncthreads();
+  const int groups = TR / ew, per = ew / sub;
+  for (int p = threadIdx.x; p < groups * TQ; p += NT) {
+    const int g = p / TQ, c = p % TQ;
+    if (q0 + c >= Tn) continue;
+    float m = um[(g * per) * TQ + c];
+    for (int u = 1; u < per; ++u) m = fmaxf(m, um[(g * per + u) * TQ + c]);
+    bm[(size_t)(row0 / ew + g) * Tn + q0 + c] = m;
+  }
+}
+
+// K3: masked scores sims [T, R] plus per-block maxima bm_t [R/block, T].
+template <typename T>
+__global__ void __launch_bounds__(NT, 2)
+k3_blockmax(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int R,
+            int D, int valid_rows, int block, float* __restrict__ sims,
+            float* __restrict__ bm_t) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int row0 = blockIdx.x * TR, q0 = blockIdx.y * TQ;
+  score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
+  const float* st = smem;
+  // consecutive threads -> consecutive rows of one query: coalesced stores
+  for (int e = threadIdx.x; e < TR * TQ; e += NT) {
+    const int c = e / TR, r = e % TR;
+    if (q0 + c < Tn) sims[(size_t)(q0 + c) * R + row0 + r] = st[r * LDO + c];
+  }
+  const int groups = TR / block;
+  for (int p = threadIdx.x; p < groups * TQ; p += NT) {
+    const int g = p / TQ, c = p % TQ;
+    if (q0 + c >= Tn) continue;
+    const float* col = st + (size_t)g * block * LDO + c;
+    float m = col[0];
+    for (int r = 1; r < block; ++r) m = fmaxf(m, col[r * LDO]);
+    bm_t[(size_t)(row0 / block + g) * Tn + q0 + c] = m;
+  }
+}
+
+// K2: query t's KS selected unit-row blocks (ids [T, KS]) rescored with the
+// same chain. Block (x, t) covers candidate slots [x*GR, x*GR + GR) of
+// query t; an id outside [0, R/unit) scores NaN instead of reading out of
+// bounds.
+template <typename T>
+__global__ void __launch_bounds__(GR)
+k2_gather_rescore(const T* __restrict__ q, const T* __restrict__ shard,
+                  const int32_t* __restrict__ ids, int R, int D, int KS,
+                  int unit, float* __restrict__ out) {
+  __shared__ float rs[GDK * GLD];
+  __shared__ float qs[GDK];
+  const int t = blockIdx.y, s0 = blockIdx.x * GR, tid = threadIdx.x;
+  const int C = KS * unit, n_units = R / unit;
+  const int32_t* my_ids = ids + (size_t)t * KS;
+  float acc[1][1] = {{0.0f}};
+  for (int d0 = 0; d0 < D; d0 += GDK) {
+    for (int e = tid; e < GR * GDK; e += GR) {
+      const int r = e / GDK, dd = e % GDK, gd = d0 + dd, s = s0 + r;
+      float v = 0.0f;
+      if (s < C && gd < D) {
+        const int uid = my_ids[s / unit];
+        if (uid >= 0 && uid < n_units)
+          v = widen(shard[((size_t)uid * unit + s % unit) * D + gd]);
+      }
+      rs[dd * GLD + r] = v;
+    }
+    if (tid < GDK) qs[tid] = d0 + tid < D ? widen(q[(size_t)t * D + d0 + tid]) : 0.0f;
+    __syncthreads();
+    fma_chunk<1, 1>(acc, rs + tid, GLD, qs, 1, GDK);
+    __syncthreads();
+  }
+  const int s = s0 + tid;
+  if (s < C) {
+    const int uid = my_ids[s / unit];
+    out[(size_t)t * C + s] = (uid >= 0 && uid < n_units) ? acc[0][0] : __uint_as_float(0x7fffffffu);
+  }
+}
+
+template <typename K>
+int raise_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+constexpr int DTYPE_F32 = 0;
+constexpr int DTYPE_BF16 = 1;
+
+template <typename T>
+int launch_k1(const void* q, const void* shard, int Tn, int R, int D, int valid_rows,
+              int sub, int ew, float* bm_sub, int32_t* key, float* bm, cudaStream_t st) {
+  const size_t smem = SCORE_SMEM + sizeof(float) * MAX_UNITS * TQ;
+  if (int err = raise_smem(k1_blockmax2<T>, smem)) return err;
+  dim3 grid(R / TR, (Tn + TQ - 1) / TQ);
+  k1_blockmax2<T><<<grid, NT, smem, st>>>(static_cast<const T*>(q),
+                                          static_cast<const T*>(shard), Tn, D,
+                                          valid_rows, sub, ew, bm_sub, key, bm);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_k3(const void* q, const void* shard, int Tn, int R, int D, int valid_rows,
+              int block, float* sims, float* bm_t, cudaStream_t st) {
+  if (int err = raise_smem(k3_blockmax<T>, SCORE_SMEM)) return err;
+  dim3 grid(R / TR, (Tn + TQ - 1) / TQ);
+  k3_blockmax<T><<<grid, NT, SCORE_SMEM, st>>>(static_cast<const T*>(q),
+                                               static_cast<const T*>(shard), Tn, R,
+                                               D, valid_rows, block, sims, bm_t);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_k2(const void* q, const void* shard, const int32_t* ids, int Tn, int R,
+              int D, int KS, int unit, float* out, cudaStream_t st) {
+  dim3 grid((KS * unit + GR - 1) / GR, Tn);
+  k2_gather_rescore<T><<<grid, GR, 0, st>>>(static_cast<const T*>(q),
+                                            static_cast<const T*>(shard), ids, R, D,
+                                            KS, unit, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Geometry the wrappers must respect (checked in Python too): R % 128 == 0;
+// K1: sub in {8, 16, 32, 64, 128}, ew a multiple of sub dividing 128; K3:
+// block dividing 128. key / bm may be null to skip those outputs.
+
+int bsr_matmul_blockmax2(const void* q, const void* shard, int dtype, int Tn, int R,
+                         int D, int valid_rows, int sub, int ew, float* bm_sub,
+                         int32_t* key, float* bm, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_BF16)
+    return launch_k1<__nv_bfloat16>(q, shard, Tn, R, D, valid_rows, sub, ew, bm_sub,
+                                    key, bm, st);
+  if (dtype == DTYPE_F32)
+    return launch_k1<float>(q, shard, Tn, R, D, valid_rows, sub, ew, bm_sub, key, bm,
+                            st);
+  return (int)cudaErrorInvalidValue;
+}
+
+int bsr_gather_rescore(const void* q, const void* shard, const int32_t* ids, int dtype,
+                       int Tn, int R, int D, int KS, int unit, float* out,
+                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_BF16)
+    return launch_k2<__nv_bfloat16>(q, shard, ids, Tn, R, D, KS, unit, out, st);
+  if (dtype == DTYPE_F32)
+    return launch_k2<float>(q, shard, ids, Tn, R, D, KS, unit, out, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+int bsr_matmul_blockmax(const void* q, const void* shard, int dtype, int Tn, int R,
+                        int D, int valid_rows, int block, float* sims, float* bm_t,
+                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_BF16)
+    return launch_k3<__nv_bfloat16>(q, shard, Tn, R, D, valid_rows, block, sims, bm_t,
+                                    st);
+  if (dtype == DTYPE_F32)
+    return launch_k3<float>(q, shard, Tn, R, D, valid_rows, block, sims, bm_t, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* bsr_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

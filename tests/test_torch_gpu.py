@@ -1,0 +1,133 @@
+"""CUDA kernels of the port on the card: against their plain versions, each
+other, and the oracle. Marked ``gpu``; without a card every test skips.
+
+The machine with the card has no jax, so run this file without the suite's
+conftest (which imports jax):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from better_search_rag_rust_tpu_torch.config import SearchConfig
+from better_search_rag_rust_tpu_torch.metrics import top_k_overlap
+from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+from better_search_rag_rust_tpu_torch.ops.engine import SearchEngine
+from better_search_rag_rust_tpu_torch.store.device_store import DeviceStore
+
+pytestmark = pytest.mark.gpu
+TOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _operands(cuda, dtype, rows=4096, dim=256, t=40, seed=0):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    mat = torch.randn((rows, dim), generator=g, device=cuda)
+    mat = (mat / mat.norm(dim=1, keepdim=True)).to(dtype).contiguous()
+    q = mat[torch.randint(0, rows, (t,), generator=g, device=cuda)]
+    return q.contiguous(), mat
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sub", [16, 64])
+@pytest.mark.parametrize("dim", [256, 100])  # 100: a ragged D chunk
+def test_k1_matches_plain(cuda, dtype, sub, dim):
+    q, mat = _operands(cuda, dtype, dim=dim)
+    valid = 4000
+    out = tk.matmul_blockmax2_only(q, mat, valid, sub=sub, block=128,
+                                   emit_block=True, emit_argmax=True)
+    ref = tk.matmul_blockmax2_only_plain(q, mat, valid, sub=sub, block=128,
+                                         emit_block=True, emit_argmax=True)
+    torch.cuda.synchronize()
+    assert (out[0] - ref[0]).abs().max() <= TOL
+    assert (out[2] - ref[2]).abs().max() <= TOL
+    sims = q.float() @ mat.float().T
+    sims[:, valid:] = tk.PAD_SIM
+    top2 = sims.T.reshape(-1, sub, q.shape[0]).topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > TOL
+    assert torch.equal((out[1] & 0x7F)[clear], (ref[1] & 0x7F)[clear])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("unit,ks", [(64, 4), (64, 100), (16, 8), (128, 3)])
+def test_k2_matches_plain_and_k1(cuda, dtype, unit, ks):
+    q, mat = _operands(cuda, dtype)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    ids = torch.randint(0, mat.shape[0] // unit, (q.shape[0], ks),
+                        generator=g, device=cuda).to(torch.int32)
+    out = tk.gather_rescore(q, mat, ids, unit=unit)
+    ref = tk.gather_rescore_plain(q, mat, ids, unit=unit)
+    assert (out - ref).abs().max() <= TOL
+    # bitwise identity with K3's scores of the same pairs
+    sims, _ = tk.matmul_blockmax(q, mat, mat.shape[0])
+    rows = (ids.long()[:, :, None] * unit
+            + torch.arange(unit, device=cuda)).reshape(q.shape[0], -1)
+    assert torch.equal(out, torch.gather(sims, 1, rows))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("block", [128, 64])
+def test_k3_matches_plain(cuda, dtype, block):
+    q, mat = _operands(cuda, dtype, t=300)
+    sims, bm = tk.matmul_blockmax(q, mat, 4001, block=block)
+    p_sims, p_bm = tk.matmul_blockmax_plain(q, mat, 4001, block=block)
+    assert (sims - p_sims).abs().max() <= TOL
+    assert (bm - p_bm).abs().max() <= TOL
+
+
+def test_k1_identity_with_k3(cuda):
+    q, mat = _operands(cuda, torch.bfloat16)
+    bms, key = tk.matmul_blockmax2_only(q, mat, 4096, sub=64, block=128,
+                                        emit_argmax=True)
+    sims, _ = tk.matmul_blockmax(q, mat, 4096)
+    s3 = sims.view(q.shape[0], -1, 64)
+    assert torch.equal(bms.T, s3.amax(dim=2))
+    arg = (key & 0x7F).T.long()
+    assert torch.equal(torch.gather(s3, 2, arg[:, :, None])[:, :, 0], bms.T)
+    m2 = torch.where(torch.arange(64, device=cuda) == arg[:, :, None],
+                     tk.PAD_SIM, s3).amax(dim=2)
+    assert torch.equal(key.T, tk.pack_m2_argmax_key(m2, arg))
+
+
+def test_wrapper_raises_on_refused_launch(cuda):
+    """A bad launch surfaces as an exception, never a silent fallback."""
+    q, mat = _operands(cuda, torch.float32)
+    with pytest.raises(ValueError):
+        tk.matmul_blockmax2_only(q, mat[:4000], 4000, sub=16)
+    before = dict(tk.launch_counts)
+    tk.matmul_blockmax(q, mat, 4096)
+    assert tk.launch_counts["matmul_blockmax"] == before["matmul_blockmax"] + 1
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kernel,argmax", [
+    ("rescore", "auto"), ("rescore", "off"), ("global", "auto"),
+])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_engine_exact_against_oracle(cuda, dtype, kernel, argmax, k):
+    rng = np.random.default_rng(k)
+    mat = rng.standard_normal((20000, 256)).astype(np.float32)
+    mat[[5000, 5001, 9000]] = mat[17]          # duplicates: lowest id first
+    store = DeviceStore.from_host(mat, dtype, device=cuda)
+    eng = SearchEngine(store, SearchConfig(kernel=kernel,
+                                           rescore_argmax=argmax))
+    queries = mat[rng.integers(0, 20000, 64)]
+    queries[0] = mat[17]
+    ids, dists = eng.search(queries, k)
+    o_ids, o_d = eng.oracle_topk(queries, k)
+    np.testing.assert_array_equal(ids, o_ids)
+    np.testing.assert_array_equal(dists, o_d)
+    assert top_k_overlap(o_ids.tolist(), ids.tolist(), k) == 1.0
+    if k >= 4:
+        np.testing.assert_array_equal(ids[0, :4], [17, 5000, 5001, 9000])
