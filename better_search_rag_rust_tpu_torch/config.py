@@ -14,3 +14,16 @@ from better_search_rag_rust_tpu.config import (  # noqa: F401
     StoreConfig,
     asdict,
 )
+
+
+def torch_dtype(name):
+    """A config dtype name ("bfloat16", "float32", "float16") or a dtype ->
+    the torch dtype."""
+    import torch
+
+    if isinstance(name, torch.dtype):
+        return name
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt

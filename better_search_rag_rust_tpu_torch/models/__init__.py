@@ -1,0 +1,15 @@
+"""Embedding models: the NomicBERT encoder (on the K8 attention kernel), the
+hermetic hash encoder, their tokenizers and the encoder service.
+
+Counterpart of ``better_search_rag_rust_tpu/models`` (its training modules
+are a later slice of the port).
+"""
+
+from .encoder import EncoderService, create_encoder  # noqa: F401
+from .hash_encoder import HashEncoder  # noqa: F401
+from .nomic import NomicBertConfig, NomicBertModel, NomicEncoder  # noqa: F401
+from .tokenizer import (  # noqa: F401
+    FixedLengthTokenizer,
+    HashingTokenizer,
+    load_tokenizer,
+)

@@ -1,11 +1,13 @@
-"""Build and load the hand-written CUDA kernels (``csrc/topk_kernels.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The source has a plain C interface, so it is compiled by ``nvcc`` alone into
-a shared library and loaded with ``ctypes`` — seconds, not the minutes a
-build against PyTorch's headers takes. The library goes to
-``build/kernels/`` beside the package (listed in ``.gitignore``), named by a
-hash of the source and flags, at first use in a process; a changed source
-rebuilds. Nothing here runs at import time.
+Each source has a plain C interface, so it is compiled by ``nvcc`` alone into
+a shared library of its own and loaded with ``ctypes`` — seconds, not the
+minutes a build against PyTorch's headers takes. The libraries go to
+``build/kernels/`` beside the package (listed in ``.gitignore``), each named
+by a hash of its source and the flags, at first use in a process; a changed
+source rebuilds. The first :func:`library` call starts one ``nvcc`` for every
+source whose library is missing, all at once, and waits for them together.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Dict
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "topk_kernels.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -27,17 +30,25 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C signature of every entry point: (restype, argtypes).
-_SIGNATURES = {
-    "bsr_matmul_blockmax2": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
-    "bsr_gather_rescore": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
-    "bsr_matmul_blockmax": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
-    "bsr_error_string": (ctypes.c_char_p, [_I]),
+_F = ctypes.c_float
+#: Per source (by library name): its file and the C signature of every entry
+#: point, (restype, argtypes).
+SOURCES = {
+    "topk": (CSRC / "topk_kernels.cu", {
+        "bsr_matmul_blockmax2": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
+        "bsr_gather_rescore": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
+        "bsr_matmul_blockmax": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+        "bsr_error_string": (ctypes.c_char_p, [_I]),
+    }),
+    "attention": (CSRC / "attention_kernels.cu", {
+        "bsr_fused_attention_qkv": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P]),
+        "bsr_error_string": (ctypes.c_char_p, [_I]),
+    }),
 }
 
 
 class KernelLibrary:
-    """The loaded kernel library plus what its build reported."""
+    """One loaded kernel library plus what its build reported."""
 
     def __init__(self, lib: ctypes.CDLL, path: Path, build_s: float, log: str):
         self.lib = lib
@@ -62,41 +73,61 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> tuple[Path, float, str]:
-    """Compile the source unless a library for it already exists; returns
-    (library path, build seconds, compiler report)."""
-    src = SOURCE.read_bytes()
+def library_path(name: str) -> Path:
+    """Where the library of source ``name`` lives, tagged by a hash of the
+    source and the flags."""
+    src = SOURCES[name][0].read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libbsr_topk_{tag}.so"
-    if out.exists():
-        return out, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}"
+    return BUILD_DIR / f"libbsr_{name}_{tag}.so"
+
+
+def build_all() -> Dict[str, tuple[Path, float, str]]:
+    """Compile every source whose library is missing, one ``nvcc`` each, all
+    started together; returns {name: (library path, build seconds, compiler
+    report)}."""
+    results: Dict[str, tuple[Path, float, str]] = {}
+    procs = {}
+    for name, (source, _sig) in SOURCES.items():
+        out = library_path(name)
+        if out.exists():
+            results[name] = (out, 0.0, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return out, time.perf_counter() - t0, proc.stderr
+        procs[name] = (proc, tmp, out, source, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, source, t0) in procs.items():
+        _stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) on {source}:\n"
+                          f"{stderr}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+        results[name] = (out, time.perf_counter() - t0, stderr)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return results
 
 
-_LIBRARY: KernelLibrary | None = None
+_LIBRARIES: Dict[str, KernelLibrary] = {}
+_BUILT: Dict[str, tuple[Path, float, str]] = {}
 
 
-def library() -> KernelLibrary:
-    """The process's kernel library, built and loaded on first call."""
-    global _LIBRARY
-    if _LIBRARY is None:
-        path, build_s, log = build()
+def library(name: str = "topk") -> KernelLibrary:
+    """The process's kernel library ``name``, every missing library built
+    (in parallel) and this one loaded on first call."""
+    if name not in _LIBRARIES:
+        if name not in _BUILT:
+            _BUILT.update(build_all())
+        path, build_s, log = _BUILT[name]
         lib = ctypes.CDLL(str(path))
-        for name, (restype, argtypes) in _SIGNATURES.items():
-            fn = getattr(lib, name)
+        for fn_name, (restype, argtypes) in SOURCES[name][1].items():
+            fn = getattr(lib, fn_name)
             fn.restype = restype
             fn.argtypes = argtypes
-        _LIBRARY = KernelLibrary(lib, path, build_s, log)
-    return _LIBRARY
+        _LIBRARIES[name] = KernelLibrary(lib, path, build_s, log)
+    return _LIBRARIES[name]

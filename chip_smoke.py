@@ -1,35 +1,54 @@
-"""Smoke run of the PyTorch port's exact search path on one CUDA card.
+"""Smoke run of the PyTorch port on one CUDA card: search and build paths.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
-Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``,
-then, at the main path's shapes (a 1M x 768 store, nomic-embed-text-v1.5's
-width, queried 512 at a time, top-100):
+Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
+(one nvcc per source, started together), then:
 
-1. device: card name and power limit; kernel build time;
-2. each kernel (K1 matmul_blockmax2_only, K2 gather_rescore, K3
-   matmul_blockmax) against its plain PyTorch version, max |diff| <= 1e-5
-   (the plain versions sum in cuBLAS's order, not the kernels');
-3. the kernels against each other, bit for bit (one FMA chain per score);
-4. the main path — Pipeline.engine + evaluate (1024 queries, k=100: MRR,
+1. device: card name and power limit; kernel build times;
+2. each search kernel (K1 matmul_blockmax2_only, K2 gather_rescore, K3
+   matmul_blockmax) against its plain PyTorch version at the search path's
+   shapes (a 1M x 768 store, nomic-embed-text-v1.5's width, queried 512 at
+   a time, top-100), max |diff| <= 1e-5 (the plain versions sum in cuBLAS's
+   order, not the kernels');
+3. the search kernels against each other, bit for bit (one FMA chain per
+   score);
+4. the search path — Pipeline.engine + evaluate (1024 queries, k=100: MRR,
    recall@k and oracle overlap must be 1.0) + three search_stream batches —
    on a 1M x 768 bf16 store (route rescore: K1 + K2), a 100k x 768 bf16
-   store (route global: K3) and a 1M x 768 f32 store (route rescore),
-   with every kernel's launch count over that run;
+   store (route global: K3) and a 1M x 768 f32 store (route rescore), with
+   every kernel's launch count over that run;
 5. timings: queries/sec of search and search_device on the 1M bf16 store,
-   and each kernel's time beside its plain version's.
+   and each search kernel's time beside its plain version's;
+6. K8 fused_attention_qkv against its plain version at the encoder's shape
+   (B=256, S=512, H=12, hd=64, bf16; per-row key padding, one row fully
+   padded): max |diff| < 0.02 and cosine > 0.999 on valid query rows, the
+   padded row finite; kernel and plain times;
+7. the NomicBERT encoder at full width (12 layers, 768 hidden, random
+   weights from ``--seed``) on 256 x 512 tokens: the K8 forward against the
+   plain f32-logit attention forward, per-row cosine >= 0.999; files/s of
+   both; K8's share of the forward's device time (torch.profiler);
+8. build mode end to end on a seeded 4096-file Java tree: Pipeline.run()
+   with the nomic backend (ingest, shard, merge, device store, search),
+   then evaluate (oracle overlap 1.0) and query() on 8 files (ids equal the
+   oracle's); the same tree with the hash backend (MRR = recall = overlap =
+   1.0); ingest files/s, the report's phase times and K8's launch count.
 
 Prints one line per phase, then the card line, the kernels JSON line and,
 last, ``{"ok": true, "device": ...}``. Any failed check raises: the exit
-code is non-zero and the last line is not printed. Stores are seeded
-(``--seed``); nothing is downloaded.
+code is non-zero and the last line is not printed. Stores, weights and the
+tree are seeded (``--seed``); nothing is downloaded.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
+import os
+import shutil
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -39,12 +58,22 @@ K = 100
 T = 512
 SUB, BLOCK = 64, 128
 TOL = 1e-5
-SOURCE = "better_search_rag_rust_tpu_torch/ops/csrc/topk_kernels.cu"
-REPLACES = {
-    "matmul_blockmax2_only": "better_search_rag_rust_tpu/ops/topk_pallas.py:527",
-    "gather_rescore": "better_search_rag_rust_tpu/ops/topk_pallas.py:656",
-    "matmul_blockmax": "better_search_rag_rust_tpu/ops/topk_pallas.py:120",
+CSRC = "better_search_rag_rust_tpu_torch/ops/csrc/"
+#: kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "matmul_blockmax2_only": (CSRC + "topk_kernels.cu",
+                              "better_search_rag_rust_tpu/ops/topk_pallas.py:527"),
+    "gather_rescore": (CSRC + "topk_kernels.cu",
+                       "better_search_rag_rust_tpu/ops/topk_pallas.py:656"),
+    "matmul_blockmax": (CSRC + "topk_kernels.cu",
+                        "better_search_rag_rust_tpu/ops/topk_pallas.py:120"),
+    "fused_attention_qkv": (CSRC + "attention_kernels.cu",
+                            "better_search_rag_rust_tpu/ops/attention_pallas.py:177"),
 }
+#: the encoder's shape: batch, sequence, heads, head width
+B_ENC, S_ENC, H_ENC, HD_ENC = 256, 512, 12, 64
+ATT_TOL, ATT_COS = 0.02, 0.999
+TREE_FILES = 4096
 
 
 def card_line() -> str:
@@ -194,6 +223,194 @@ def drive_main_path(name, store, cfg, gen, route):
     return engine
 
 
+def check_attention(gen):
+    """Phase 6: K8 against its plain version at the encoder's shape."""
+    from better_search_rag_rust_tpu_torch.models.nomic import rotary_tables
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    b, s, h, hd = B_ENC, S_ENC, H_ENC, HD_ENC
+    qkv = torch.randn((b, s, 3 * h * hd), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+    lens[-1] = 0                                   # one fully padded row
+    valid = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    bias = torch.where(valid, 0.0, -1e9).to(torch.float32).contiguous()
+    cos, sin = (torch.from_numpy(t).cuda() for t in rotary_tables(s, hd, 1000.0))
+    c2, s2 = ak.rotary_roll_tables(cos, sin)
+    scale = 1.0 / math.sqrt(hd)
+
+    def kern():
+        return ak.fused_attention_qkv(qkv, c2, s2, bias, h, scale)
+
+    def plain():
+        return ak.fused_attention_qkv_plain(qkv, c2, s2, bias, h, scale)
+
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    a, r = out.float()[valid], ref.float()[valid]
+    err = max_abs(a, r)
+    cos_sim = float((a * r).sum() / (a.norm() * r.norm()))
+    padded_finite = bool(torch.isfinite(out[-1].float()).all())
+    phase(f"phase 6 K8 [{b} x {s} x {h} heads x {hd}] bf16: max|out-plain| "
+          f"on valid rows={err:.4g} (bound {ATT_TOL}), cosine={cos_sim:.7f} "
+          f"(bound {ATT_COS}), fully padded row finite: {padded_finite}")
+    assert err < ATT_TOL and cos_sim > ATT_COS and padded_finite
+    times = (cuda_ms(kern), cuda_ms(plain))
+    del qkv, out, ref, a, r
+    return err, times
+
+
+def _forward_profile(fn):
+    """Device time by kernel over one call of ``fn`` (torch.profiler):
+    (K8 ms, GEMM ms, other ms, top kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+            rows.append((us / 1e3, evt.key))
+    rows.sort(reverse=True)
+    k8 = sum(ms for ms, key in rows if "k8_fused_attention_qkv" in key)
+    gemm = sum(ms for ms, key in rows if "k8_" not in key and any(
+        w in key.lower() for w in ("gemm", "nvjet", "xmma", "cutlass")))
+    total = sum(ms for ms, _ in rows)
+    return k8, gemm, total - k8 - gemm, rows[:6]
+
+
+def check_encoder(seed, card):
+    """Phase 7: the full-width encoder, K8 forward vs plain attention."""
+    from better_search_rag_rust_tpu_torch.models.nomic import (
+        NomicBertConfig,
+        NomicEncoder,
+    )
+
+    cfg = NomicBertConfig()
+    fused = NomicEncoder(cfg, seed=seed, device="cuda")
+    plain = NomicEncoder(NomicBertConfig(attention_impl="xla"),
+                         state_dict=fused.model.state_dict(), device="cuda")
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, cfg.vocab_size,
+                       size=(B_ENC, S_ENC)).astype(np.int32)
+    lens = rng.integers(S_ENC // 8, S_ENC + 1, size=B_ENC)
+    mask = (np.arange(S_ENC)[None, :] < lens[:, None]).astype(np.int32)
+    ids_d = torch.from_numpy(ids).cuda()
+    mask_d = torch.from_numpy(mask).cuda()
+    a = fused.encode_tokens(ids, mask)
+    b = plain.encode_tokens(ids, mask)
+    cos = np.sum(a * b, axis=1)
+    rates = {}
+    for name, enc in (("K8", fused), ("plain", plain)):
+        rates[name] = B_ENC / (cuda_ms(
+            lambda: enc.encode_tokens_device(ids_d, mask_d)) / 1e3)
+    k8, gemm, rest, top = _forward_profile(
+        lambda: fused.encode_tokens_device(ids_d, mask_d))
+    total = k8 + gemm + rest
+    phase(f"phase 7 [{card}] encoder 12 x 768, {B_ENC} x {S_ENC} tokens: "
+          f"per-row cosine K8 vs plain attention min={cos.min():.6f} (bound "
+          f"{ATT_COS}); forward {rates['K8']:.1f} files/s on K8, "
+          f"{rates['plain']:.1f} files/s plain")
+    phase(f"phase 7 [{card}] forward device time {total:.2f} ms: K8 "
+          f"{k8:.2f} ms ({100 * k8 / total:.1f} %), GEMMs {gemm:.2f} ms "
+          f"({100 * gemm / total:.1f} %), rest {rest:.2f} ms "
+          f"({100 * rest / total:.1f} %); top kernels: "
+          + "; ".join(f"{key[:60]} {ms:.2f}" for ms, key in top))
+    assert np.isfinite(a).all() and a.shape == (B_ENC, 768)
+    assert cos.min() >= ATT_COS, cos.min()
+    del fused, plain
+
+
+def write_tree(root, files, seed):
+    """The JAX package's pipeline-suite corpus: 400 random ``tokN`` words
+    per Java file."""
+    os.makedirs(root)
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 5000, size=(files, 400))
+    for i in range(files):
+        body = " ".join(f"tok{w}" for w in words[i])
+        with open(os.path.join(root, f"F{i}.java"), "w") as f:
+            f.write(f"class F{i} {{ {body} }}")
+
+
+def drive_build_mode(seed, card):
+    """Phase 8: Pipeline.run() in build mode (nomic, then hash), evaluate
+    and text queries; returns the K8 launches of the nomic run."""
+    from better_search_rag_rust_tpu_torch.config import (
+        CorpusConfig,
+        EncoderConfig,
+        PipelineConfig,
+        SearchConfig,
+        StoreConfig,
+    )
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+    from better_search_rag_rust_tpu_torch.pipeline import Pipeline
+
+    tmp = tempfile.mkdtemp(prefix="bsr_smoke_")
+    try:
+        src = os.path.join(tmp, "src")
+        write_tree(src, TREE_FILES, seed)
+        k8_launches = 0
+        for backend in ("nomic", "hash"):
+            cfg = PipelineConfig(
+                corpus=CorpusConfig(root=src, extensions=("java",),
+                                    files_per_batch=256),
+                encoder=EncoderConfig(backend=backend, batch_size=256),
+                store=StoreConfig(dir=os.path.join(tmp, backend)),
+                search=SearchConfig(top_k=K, store_dtype="bfloat16"),
+            )
+            pipe = Pipeline(cfg, device="cuda", seed=seed)
+            pipe.encoder.get_embeddings(["warm up the forward"])
+            torch.cuda.synchronize()
+            tk.reset_launch_counts()
+            ak.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = pipe.run()
+            run_s = time.perf_counter() - t0
+            launches = {**tk.launch_counts, **ak.launch_counts}
+            report = pipe.evaluate(num_queries=1024, k=K)
+            engine = pipe.engine()
+            manifest = json.loads(open(os.path.join(
+                tmp, backend, "manifest.json")).read())
+            picks = np.linspace(0, TREE_FILES - 1, 8, dtype=np.int64)
+            texts = [open(manifest[i]).read() for i in picks]
+            ranked = pipe.query(texts, k=K)
+            o_ids, _ = engine.oracle_topk(pipe.encoder.get_embeddings(texts),
+                                          K)
+            q_ids = np.asarray([[r[1] for r in rk] for rk in ranked])
+            stats = result.ingest
+            phase(f"phase 8 [{card}] build mode {backend}: {stats.embeddings}"
+                  f" files, run() {run_s:.2f}s = {stats.embeddings / run_s:.1f}"
+                  f" files/s end to end (route {engine.kernel_name(K)}); run "
+                  f"MRR={result.mrr} recall={result.recall} overlap="
+                  f"{result.overlap}; evaluate {report}; query ids == oracle:"
+                  f" {np.array_equal(q_ids, o_ids)}; launches {launches}")
+            for line in result.report.splitlines():
+                if line.strip() and not line.startswith(("=", "-")):
+                    phase(f"phase 8 [{card}] {backend} report | {line}")
+            assert stats.embeddings == TREE_FILES and stats.failed_batches == 0
+            assert report["oracle_overlap"] == 1.0
+            assert np.array_equal(q_ids, o_ids)
+            if backend == "nomic":
+                k8_launches = launches["fused_attention_qkv"]
+                assert k8_launches > 0, launches
+            else:
+                assert (result.mrr, result.recall, result.overlap) == (
+                    1.0, 1.0, 1.0)
+                assert report["mrr"] == report["recall_at_k"] == 1.0
+                assert [rk[0][0] for rk in ranked] == [manifest[i]
+                                                       for i in picks]
+            del pipe, engine
+        return k8_launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -215,11 +432,15 @@ def main() -> int:
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    lib = _build.library()
-    regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
-    phase(f"phase 1 device: {card} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | kernel build {lib.build_s:.1f}s "
-          f"({lib.path.name}); ptxas: {' / '.join(regs)}")
+    t0 = time.perf_counter()
+    libs = [_build.library(name) for name in _build.SOURCES]
+    build_wall = time.perf_counter() - t0
+    for lib in libs:
+        regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
+        phase(f"phase 1 device: {card} | torch {torch.__version__} cuda "
+              f"{torch.version.cuda} | {lib.path.name} built in "
+              f"{lib.build_s:.1f}s; ptxas: {' / '.join(regs)}")
+    phase(f"phase 1 kernel builds, in parallel: {build_wall:.1f}s wall")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
@@ -266,13 +487,24 @@ def main() -> int:
         phase(f"phase 5 [{card}] {name}: kernel {ms:.3f} ms, plain "
               f"{pms:.3f} ms")
 
+    del engine, store, store_100k, queries, qdev
+    torch.cuda.empty_cache()
+
+    errs["fused_attention_qkv"], times["fused_attention_qkv"] = \
+        check_attention(gen)
+    ms, pms = times["fused_attention_qkv"]
+    phase(f"phase 6 [{card}] fused_attention_qkv: kernel {ms:.3f} ms, plain "
+          f"{pms:.3f} ms")
+    check_encoder(args.seed, card)
+    launches["fused_attention_qkv"] = drive_build_mode(args.seed, card)
+
     print(card)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches[name],
          "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1]}
-        for name in REPLACES
+        for name, (source, replaces) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -131,3 +131,84 @@ def test_engine_exact_against_oracle(cuda, dtype, kernel, argmax, k):
     assert top_k_overlap(o_ids.tolist(), ids.tolist(), k) == 1.0
     if k >= 4:
         np.testing.assert_array_equal(ids[0, :4], [17, 5000, 5001, 9000])
+
+
+# -- K8 fused_attention_qkv ---------------------------------------------------
+
+
+def _attention_operands(cuda, b, s, h, hd, seed=0):
+    import math
+
+    from better_search_rag_rust_tpu_torch.models.nomic import rotary_tables
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    qkv = torch.randn((b, s, 3 * h * hd), generator=g, device=cuda)
+    lens = torch.randint(1, s + 1, (b,), generator=g, device=cuda)
+    lens[-1] = 0                                   # a fully padded row
+    valid = torch.arange(s, device=cuda)[None, :] < lens[:, None]
+    bias = torch.where(valid, 0.0, -1e9).to(torch.float32).contiguous()
+    cos, sin = (torch.from_numpy(t).to(cuda)
+                for t in rotary_tables(s, hd, 1000.0))
+    c2, s2 = ak.rotary_roll_tables(cos, sin)
+    return (qkv.to(torch.bfloat16), c2.contiguous(), s2.contiguous(), bias,
+            valid, 1.0 / math.sqrt(hd))
+
+
+@pytest.mark.parametrize("b,s,h,hd", [
+    (4, 72, 3, 16), (3, 200, 2, 32), (8, 512, 12, 64), (2, 136, 4, 128),
+    (2, 1024, 2, 64),
+])
+def test_k8_matches_plain(cuda, b, s, h, hd):
+    """Bound: max |diff| < 0.02 and cosine > 0.999 on valid query rows (the
+    JAX package's kernel-vs-einsum bound); fully padded rows finite."""
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    qkv, c2, s2, bias, valid, scale = _attention_operands(cuda, b, s, h, hd)
+    before = ak.launch_counts["fused_attention_qkv"]
+    out = ak.fused_attention_qkv(qkv, c2, s2, bias, h, scale)
+    ref = ak.fused_attention_qkv_plain(qkv, c2, s2, bias, h, scale)
+    torch.cuda.synchronize()
+    assert ak.launch_counts["fused_attention_qkv"] == before + 1
+    assert torch.isfinite(out.float()).all()
+    a, r = out.float()[valid], ref.float()[valid]
+    assert (a - r).abs().max() < 0.02
+    assert float((a * r).sum() / (a.norm() * r.norm())) > 0.999
+
+
+def test_k8_refuses_what_it_does_not_take(cuda):
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    qkv, c2, s2, bias, _, scale = _attention_operands(cuda, 2, 64, 2, 64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ak.fused_attention_qkv(qkv.float(), c2, s2, bias, 2, scale)
+    q24, c24, s24, b24, _, _ = _attention_operands(cuda, 2, 64, 2, 24)
+    with pytest.raises(ValueError, match="head dims"):
+        ak.fused_attention_qkv(q24, c24, s24, b24, 2, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        ak.fused_attention_qkv(qkv, c2.t().contiguous().t(), s2, bias, 2,
+                               scale)
+
+
+def test_encoder_fused_matches_plain_attention(cuda):
+    """The bf16 encoder on K8 against the same weights on the plain f32-logit
+    chain: cosine >= 0.999 per embedding row."""
+    from better_search_rag_rust_tpu_torch.models.nomic import (
+        NomicBertConfig,
+        NomicEncoder,
+    )
+
+    cfg = dict(vocab_size=1000, hidden_size=256, num_layers=2, num_heads=4,
+               mlp_dim=512, max_tokens=128)
+    fused = NomicEncoder(NomicBertConfig(attention_impl="fused", **cfg),
+                         seed=1, device=cuda)
+    plain = NomicEncoder(NomicBertConfig(attention_impl="xla", **cfg),
+                         state_dict=fused.model.state_dict(), device=cuda)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(3, 1000, size=(16, 128)).astype(np.int32)
+    mask = (np.arange(128)[None, :]
+            < rng.integers(1, 129, size=16)[:, None]).astype(np.int32)
+    a = fused.encode_tokens(ids, mask)
+    b = plain.encode_tokens(ids, mask)
+    assert np.all(np.sum(a * b, axis=1) >= 0.999)

@@ -22,6 +22,15 @@ def test_port_imports_without_jax():
         "import better_search_rag_rust_tpu_torch.cli\n"
         "import better_search_rag_rust_tpu_torch.store\n"
         "import better_search_rag_rust_tpu_torch.bench\n"
+        "import better_search_rag_rust_tpu_torch.corpus\n"
+        "import better_search_rag_rust_tpu_torch.models\n"
+        "import better_search_rag_rust_tpu_torch.models.encoder\n"
+        "import better_search_rag_rust_tpu_torch.models.hash_encoder\n"
+        "import better_search_rag_rust_tpu_torch.models.nomic\n"
+        "import better_search_rag_rust_tpu_torch.models.tokenizer\n"
+        "import better_search_rag_rust_tpu_torch.ops.attention_kernels\n"
+        "import better_search_rag_rust_tpu_torch.ops._build\n"
+        "import better_search_rag_rust_tpu_torch.store.vectorstore\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'flax', 'triton')))\n"
         "assert not bad, bad\n"

@@ -82,11 +82,27 @@ def test_partial_merge_refused(store_dir, tmp_path):
 
 
 def test_unported_phases_raise(store_dir):
+    """Serving and incremental update are later slices (build mode, merge
+    and text queries are ported: tests/test_torch_ingest.py)."""
     p = Pipeline(_cfg(store_dir).replace(skip_process=False), device="cpu")
-    for call in (p.run, p.ingest_shard, p.merge, p.update,
-                 lambda: p.query(["text"]), lambda: p.serve([])):
+    for call in (p.update, lambda: p.serve([])):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+
+
+def test_default_device_is_the_card(store_dir, monkeypatch):
+    """``device=None`` means CUDA and raises without a card — the pipeline
+    never picks the CPU on its own; the CLI fails the same way."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Pipeline(_cfg(store_dir))
+    assert Pipeline(_cfg(store_dir), device="cpu").device.type == "cpu"
+    from better_search_rag_rust_tpu_torch import cli
+
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["search", "--store-dir", str(store_dir)])
 
 
 def test_reader_bitwise_equals_reference(store_dir):
