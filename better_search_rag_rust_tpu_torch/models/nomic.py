@@ -6,11 +6,16 @@ keep HF's layout and names (``embeddings.word_embeddings``, ``emb_ln``,
 ``fc2``, ``norm1`` / ``norm2``), so an HF state dict loads with no transposes
 (:func:`convert_hf_state`); :func:`params_from_flax` carries the JAX
 package's parameter tree across. Numerics follow the reference: Linear and
-Embedding weights in the compute dtype (bf16 by default), every LayerNorm,
-the softmax, the pooling and the final normalization in f32.
+Embedding products in the compute dtype ``dtype`` (bf16 by default), every
+LayerNorm, the softmax, the pooling and the final normalization in f32.
+Linear and Embedding weights are held in ``param_dtype`` and cast to
+``dtype`` in the forward, as Flax's ``nn.Dense(dtype=...)`` does with its f32
+``param_dtype``: the trainer holds them in f32, the serving encoder in the
+compute dtype (the same rounding, done once at load).
 
 Attention implementations (:func:`_resolve_attention_impl`): ``fused`` runs
-the hand-written K8 kernel (:mod:`..ops.attention_kernels`), ``xla`` the
+the hand-written K8 kernel (:mod:`..ops.attention_kernels`), differentiable
+with the hand-written K9 kernel as its backward, ``xla`` the
 plain f32-logit chain, ``xla_bf16`` the plain bf16-logit chain; ``auto`` is
 ``fused``, which falls to ``xla_bf16`` for a sequence length or head width
 not divisible by 8. ``flash`` (the reference's library kernel) is not
@@ -54,10 +59,16 @@ class NomicBertConfig:
     dtype: torch.dtype = torch.bfloat16
     #: "auto" | "fused" | "xla" | "xla_bf16" (see _resolve_attention_impl)
     attention_impl: str = "auto"
+    #: dtype of the Linear and Embedding weights; None: ``dtype``
+    param_dtype: Optional[torch.dtype] = None
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    @property
+    def weight_dtype(self) -> torch.dtype:
+        return self.param_dtype or self.dtype
 
     @staticmethod
     def from_encoder_config(cfg: EncoderConfig) -> "NomicBertConfig":
@@ -136,6 +147,35 @@ def upload_tokens(x, device: torch.device) -> torch.Tensor:
     return t.to(device, torch.int64)
 
 
+class _Linear(nn.Linear):
+    """``nn.Linear`` holding its weights in ``cfg.weight_dtype`` and
+    computing in ``cfg.dtype`` (the input and the weights cast first)."""
+
+    def __init__(self, cfg: NomicBertConfig, d_in: int, d_out: int,
+                 bias: bool, device=None):
+        super().__init__(d_in, d_out, bias=bias, dtype=cfg.weight_dtype,
+                         device=device)
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class _Embedding(nn.Embedding):
+    """``nn.Embedding`` holding its table in ``cfg.weight_dtype``; the rows
+    it gathers are cast to ``cfg.dtype``."""
+
+    def __init__(self, cfg: NomicBertConfig, rows: int, device=None):
+        super().__init__(rows, cfg.hidden_size, dtype=cfg.weight_dtype,
+                         device=device)
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return super().forward(ids).to(self.compute_dtype)
+
+
 class _AttentionInputs:
     """Per-forward attention inputs shared by every layer."""
 
@@ -151,10 +191,8 @@ class NomicAttention(nn.Module):
         super().__init__()
         d = cfg.hidden_size
         self.cfg = cfg
-        self.Wqkv = nn.Linear(d, 3 * d, bias=cfg.qkv_bias, dtype=cfg.dtype,
-                              device=device)
-        self.out_proj = nn.Linear(d, d, bias=True, dtype=cfg.dtype,
-                                  device=device)
+        self.Wqkv = _Linear(cfg, d, 3 * d, cfg.qkv_bias, device)
+        self.out_proj = _Linear(cfg, d, d, True, device)
 
     def forward(self, x: torch.Tensor, rope: _AttentionInputs) -> torch.Tensor:
         cfg = self.cfg
@@ -188,16 +226,14 @@ class NomicAttention(nn.Module):
 class NomicMlp(nn.Module):
     def __init__(self, cfg: NomicBertConfig, device=None):
         super().__init__()
-        d, inner, dt = cfg.hidden_size, cfg.mlp_dim, cfg.dtype
+        d, inner = cfg.hidden_size, cfg.mlp_dim
         self.swiglu = cfg.activation == "swiglu"
         if self.swiglu:
-            self.fc11 = nn.Linear(d, inner, bias=cfg.mlp_bias, dtype=dt,
-                                  device=device)
-            self.fc12 = nn.Linear(d, inner, bias=cfg.mlp_bias, dtype=dt,
-                                  device=device)
+            self.fc11 = _Linear(cfg, d, inner, cfg.mlp_bias, device)
+            self.fc12 = _Linear(cfg, d, inner, cfg.mlp_bias, device)
         else:
-            self.fc1 = nn.Linear(d, inner, bias=True, dtype=dt, device=device)
-        self.fc2 = nn.Linear(inner, d, bias=True, dtype=dt, device=device)
+            self.fc1 = _Linear(cfg, d, inner, True, device)
+        self.fc2 = _Linear(cfg, inner, d, True, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.swiglu:
@@ -232,11 +268,9 @@ class NomicLayer(nn.Module):
 class NomicEmbeddings(nn.Module):
     def __init__(self, cfg: NomicBertConfig, device=None):
         super().__init__()
-        self.word_embeddings = nn.Embedding(
-            cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype, device=device)
-        self.token_type_embeddings = nn.Embedding(
-            cfg.type_vocab_size, cfg.hidden_size, dtype=cfg.dtype,
-            device=device)
+        self.word_embeddings = _Embedding(cfg, cfg.vocab_size, device)
+        self.token_type_embeddings = _Embedding(cfg, cfg.type_vocab_size,
+                                                device)
 
 
 class NomicEncoderLayers(nn.Module):
@@ -527,5 +561,6 @@ def load_hf_checkpoint(checkpoint_dir: str,
             qkv_bias=hf.get("qkv_proj_bias", config.qkv_bias),
             mlp_bias=hf.get("mlp_fc1_bias", config.mlp_bias),
             dtype=config.dtype, attention_impl=config.attention_impl,
+            param_dtype=config.param_dtype,
         )
     return config, convert_hf_state(_load_raw_state(ckpt), config)

@@ -42,6 +42,7 @@ SOURCES = {
     }),
     "attention": (CSRC / "attention_kernels.cu", {
         "bsr_fused_attention_qkv": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P]),
+        "bsr_fused_attention_qkv_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P]),
         "bsr_error_string": (ctypes.c_char_p, [_I]),
     }),
 }

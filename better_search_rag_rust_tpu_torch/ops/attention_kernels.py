@@ -1,17 +1,24 @@
-"""Fused rotary + attention of the encoder: wrapper and plain version.
+"""Fused rotary + attention of the encoder: wrappers and plain versions.
 
 Counterpart of ``better_search_rag_rust_tpu/ops/attention_pallas.py``. The
-Pallas kernel on the encoder's path, K8 ``fused_attention_qkv`` (:177), has a
-hand-written CUDA kernel (``csrc/attention_kernels.cu``) and, here, a wrapper
-and a plain PyTorch version of the same function. The wrapper takes the plain
-version only because its tensors lie on the CPU (that is how the CPU tests
-run the encoder); for CUDA tensors it launches the kernel or raises — there
-is no fallback. Each kernel launch adds one to :data:`launch_counts`.
+two Pallas kernels on the encoder's paths, K8 ``fused_attention_qkv`` (:177,
+the forward) and K9 ``_fused_qkv_bwd`` (:290, its recompute backward), have
+hand-written CUDA kernels (``csrc/attention_kernels.cu``) and, here, a
+wrapper and a plain PyTorch version each. A wrapper takes its plain version
+only because its tensors lie on the CPU (that is how the CPU tests run the
+encoder and the trainer); for CUDA tensors it launches the kernel or raises
+— there is no fallback. Each kernel launch adds one to :data:`launch_counts`.
 
-The kernel and its plain version sum in different orders (the plain version
-goes through [B, H, S, S] f32 logits and two f32 matrix products), so on the
-card they agree to a tolerance, not bit for bit: the JAX package's own bound
-for its kernel against the einsum chain is max |diff| < 0.02 with cosine >
+:func:`fused_attention_qkv` is differentiable: :class:`FusedAttentionQKV`
+pairs the K8 wrapper with the K9 wrapper as its backward, the counterpart
+of ``fused_attention_qkv_diff`` (:358). On the CPU the backward is the plain
+K9, not autograd of the plain forward, so the CPU tests hold the port's
+backward arithmetic against the JAX kernel's.
+
+The kernels and their plain versions sum in different orders (the plain
+versions go through [B, H, S, S] f32 tensors and f32 matrix products), so
+on the card they agree to a tolerance, not bit for bit: the JAX package's
+own bound for K8 against the einsum chain is max |diff| < 0.02 with cosine >
 0.999 on valid query rows (``tests/test_models.py:369-373``).
 """
 
@@ -22,12 +29,13 @@ from typing import Dict, Tuple
 import torch
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
-launch_counts: Dict[str, int] = {"fused_attention_qkv": 0}
+launch_counts: Dict[str, int] = {"fused_attention_qkv": 0,
+                                 "fused_attention_qkv_bwd": 0}
 
-#: Head widths the CUDA kernel is instantiated for (its register tiles).
+#: Head widths the CUDA kernels are instantiated for (their register tiles).
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 #: Longest sequence whose [32, S] f32 logits tile fits in shared memory
-#: (``MAX_S`` in the CUDA source).
+#: (``MAX_S`` in the CUDA source), forward and backward.
 KERNEL_MAX_SEQ = 1024
 
 
@@ -99,34 +107,37 @@ def _check(qkv, cos2, s2, bias, heads: int) -> int:
     return hd
 
 
-def fused_attention_qkv(qkv: torch.Tensor, cos2: torch.Tensor,
-                        s2: torch.Tensor, bias: torch.Tensor, heads: int,
-                        scale: float) -> torch.Tensor:
-    """K8. Rotary + softmax attention straight off the Wqkv projection:
-    ``qkv [B, S, 3*H*hd]`` (q, k, v of head h at lanes ``(c*H + h)*hd``),
-    rotary tables ``cos2, s2 [S, hd]`` f32 (:func:`rotary_roll_tables`),
-    additive key-padding ``bias [B, S]`` f32 -> context ``[B, S, H*hd]`` in
-    qkv's dtype, ready for ``out_proj``.
+def _check_kernel(name: str, hd: int, heads: int, *tensors) -> None:
+    """What the CUDA kernels take beyond :func:`_check`: bf16 qkv (and g),
+    their head widths, S up to :data:`KERNEL_MAX_SEQ`, contiguous operands
+    and a grid that fits."""
+    qkv = tensors[0]
+    b, s, _ = qkv.shape
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError(f"the {name} kernel takes bfloat16 qkv, got "
+                        f"{qkv.dtype}")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the {name} kernel takes head dims "
+                         f"{KERNEL_HEAD_DIMS}, got {hd}")
+    if s > KERNEL_MAX_SEQ:
+        raise ValueError(f"the {name} kernel takes sequences up to "
+                         f"{KERNEL_MAX_SEQ}, got {s}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("qkv, cos2, s2, bias (and g) must be contiguous")
+    if b * heads * (-(-s // 32)) >= 2**31:
+        raise ValueError(f"grid of {b} x {heads} heads x {s} rows too large")
 
-    Replaces ``attention_pallas.fused_attention_qkv`` (:177). On the card:
-    bf16 qkv, hd in :data:`KERNEL_HEAD_DIMS`, S a multiple of 8 up to
-    :data:`KERNEL_MAX_SEQ`, every operand contiguous."""
+
+def _fused_attention_qkv_fwd(qkv: torch.Tensor, cos2: torch.Tensor,
+                             s2: torch.Tensor, bias: torch.Tensor, heads: int,
+                             scale: float) -> torch.Tensor:
+    """The K8 wrapper: the plain version for CPU tensors, the kernel for
+    CUDA tensors (or an exception)."""
     hd = _check(qkv, cos2, s2, bias, heads)
     if qkv.device.type == "cpu":
         return fused_attention_qkv_plain(qkv, cos2, s2, bias, heads, scale)
+    _check_kernel("K8", hd, heads, qkv, cos2, s2, bias)
     b, s, _ = qkv.shape
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"the K8 kernel takes bfloat16 qkv, got {qkv.dtype}")
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the K8 kernel takes head dims {KERNEL_HEAD_DIMS}, "
-                         f"got {hd}")
-    if s > KERNEL_MAX_SEQ:
-        raise ValueError(f"the K8 kernel takes sequences up to "
-                         f"{KERNEL_MAX_SEQ}, got {s}")
-    if not all(t.is_contiguous() for t in (qkv, cos2, s2, bias)):
-        raise ValueError("qkv, cos2, s2 and bias must be contiguous")
-    if b * heads * (-(-s // 32)) >= 2**31:
-        raise ValueError(f"grid of {b} x {heads} heads x {s} rows too large")
     out = torch.empty((b, s, heads * hd), dtype=qkv.dtype, device=qkv.device)
     if b == 0:
         return out
@@ -141,3 +152,127 @@ def fused_attention_qkv(qkv: torch.Tensor, cos2: torch.Tensor,
     lib.check("fused_attention_qkv", err)
     launch_counts["fused_attention_qkv"] += 1
     return out
+
+
+def fused_attention_qkv_bwd_plain(qkv: torch.Tensor, cos2: torch.Tensor,
+                                  s2: torch.Tensor, bias: torch.Tensor,
+                                  g: torch.Tensor, heads: int,
+                                  scale: float) -> torch.Tensor:
+    """Plain K9: the gradient of :func:`fused_attention_qkv` with respect to
+    qkv, through ``[B, H, S, S]`` f32, rounding where the TPU kernel rounds
+    (``attention_pallas.py:214-281``): the softmax recomputed from the
+    rotated q and k (each rounded once to qkv's dtype), ``p = e / sum(e)``
+    normalized before the products, ``dv = round(p)^T g``, ``dp = g v^T``,
+    ``row = sum(dp * p)``, ``ds = round(p * (dp - row) * scale)``,
+    ``dq_r = ds k_r`` and ``dk_r = ds^T q_r`` in f32, then the rotary adjoint
+    ``x*cos2 + roll(x*s2, hd/2)`` and one rounding. ``g`` (the context's
+    gradient, ``[B, S, H*hd]``) is cast to qkv's dtype first, as JAX does
+    (:350). Returns ``dqkv`` in qkv's layout and dtype."""
+    b, s, width = qkv.shape
+    hd = width // (3 * heads)
+    dt = qkv.dtype
+    x = qkv.view(b, s, 3, heads, hd).permute(2, 0, 3, 1, 4)  # [3, B, H, S, hd]
+    gf = g.to(dt).view(b, s, heads, hd).permute(0, 2, 1, 3).to(torch.float32)
+
+    def rot(t):
+        tf = t.to(torch.float32)
+        return (tf * cos2 + torch.roll(tf, hd // 2, dims=-1) * s2).to(dt)
+
+    def rot_adjoint(t):
+        return t * cos2 + torch.roll(t * s2, hd // 2, dims=-1)
+
+    qr = rot(x[0]).to(torch.float32)
+    kr = rot(x[1]).to(torch.float32)
+    v = x[2].to(torch.float32)
+    logits = torch.matmul(qr, kr.transpose(-1, -2)) * scale + bias[:, None, None, :]
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p.to(dt).to(torch.float32).transpose(-1, -2), gf)
+    dp = torch.matmul(gf, v.transpose(-1, -2))
+    row = (dp * p).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - row) * scale).to(dt).to(torch.float32)
+    dq = rot_adjoint(torch.matmul(ds, kr))
+    dk = rot_adjoint(torch.matmul(ds.transpose(-1, -2), qr))
+    dqkv = torch.stack([dq, dk, dv]).to(dt)                  # [3, B, H, S, hd]
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(b, s, width)
+
+
+def fused_attention_qkv_bwd(qkv: torch.Tensor, cos2: torch.Tensor,
+                            s2: torch.Tensor, bias: torch.Tensor,
+                            g: torch.Tensor, heads: int,
+                            scale: float) -> torch.Tensor:
+    """K9. The recompute backward of :func:`fused_attention_qkv`: the
+    forward's own inputs plus ``g [B, S, H*hd]`` in qkv's dtype (the
+    context's gradient) -> ``dqkv [B, S, 3*H*hd]`` in the Wqkv layout.
+
+    Replaces ``attention_pallas._fused_qkv_bwd`` (:290). On the card: the
+    same limits as K8, and ``g`` bf16 and contiguous."""
+    hd = _check(qkv, cos2, s2, bias, heads)
+    b, s, _ = qkv.shape
+    if tuple(g.shape) != (b, s, heads * hd):
+        raise ValueError(f"g must be [{b}, {s}, {heads * hd}], got "
+                         f"{tuple(g.shape)}")
+    if g.dtype != qkv.dtype:
+        raise TypeError(f"g must have qkv's dtype {qkv.dtype}, got {g.dtype}")
+    if g.device != qkv.device:
+        raise ValueError(f"g on {g.device}, qkv on {qkv.device}")
+    if qkv.device.type == "cpu":
+        return fused_attention_qkv_bwd_plain(qkv, cos2, s2, bias, g, heads,
+                                             scale)
+    _check_kernel("K9", hd, heads, qkv, cos2, s2, bias, g)
+    dqkv = torch.empty_like(qkv)
+    # per-row softmax max, sum and sum(dp * p), pass 1 to pass 2
+    stats = torch.empty((3, b, heads, s), dtype=torch.float32,
+                        device=qkv.device)
+    if b == 0:
+        return dqkv
+    from ._build import library
+
+    lib = library("attention")
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.lib.bsr_fused_attention_qkv_bwd(
+            qkv.data_ptr(), cos2.data_ptr(), s2.data_ptr(), bias.data_ptr(),
+            g.data_ptr(), b, s, heads, hd, float(scale), stats.data_ptr(),
+            dqkv.data_ptr(), stream)
+    lib.check("fused_attention_qkv_bwd", err)
+    launch_counts["fused_attention_qkv_bwd"] += 1
+    return dqkv
+
+
+class FusedAttentionQKV(torch.autograd.Function):
+    """K8 forward, K9 backward: the counterpart of
+    ``fused_attention_qkv_diff`` (``attention_pallas.py:358-370``). Saves the
+    forward's inputs only; the softmax is recomputed. The rotary tables, the
+    key-padding bias, ``heads`` and ``scale`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, cos2, s2, bias, heads, scale):
+        ctx.save_for_backward(qkv, cos2, s2, bias)
+        ctx.heads, ctx.scale = heads, scale
+        return _fused_attention_qkv_fwd(qkv, cos2, s2, bias, heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, cos2, s2, bias = ctx.saved_tensors
+        g = g.to(qkv.dtype).contiguous()
+        dqkv = fused_attention_qkv_bwd(qkv, cos2, s2, bias, g, ctx.heads,
+                                       ctx.scale)
+        return dqkv, None, None, None, None, None
+
+
+def fused_attention_qkv(qkv: torch.Tensor, cos2: torch.Tensor,
+                        s2: torch.Tensor, bias: torch.Tensor, heads: int,
+                        scale: float) -> torch.Tensor:
+    """K8. Rotary + softmax attention straight off the Wqkv projection:
+    ``qkv [B, S, 3*H*hd]`` (q, k, v of head h at lanes ``(c*H + h)*hd``),
+    rotary tables ``cos2, s2 [S, hd]`` f32 (:func:`rotary_roll_tables`),
+    additive key-padding ``bias [B, S]`` f32 -> context ``[B, S, H*hd]`` in
+    qkv's dtype, ready for ``out_proj``. Differentiable in qkv, with K9
+    (:func:`fused_attention_qkv_bwd`) as the backward.
+
+    Replaces ``attention_pallas.fused_attention_qkv`` (:177) and
+    ``fused_attention_qkv_diff`` (:358). On the card: bf16 qkv, hd in
+    :data:`KERNEL_HEAD_DIMS`, S a multiple of 8 up to
+    :data:`KERNEL_MAX_SEQ`, every operand contiguous."""
+    return FusedAttentionQKV.apply(qkv, cos2, s2, bias, heads, scale)

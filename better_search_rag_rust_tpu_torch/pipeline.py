@@ -43,6 +43,7 @@ from .ops.engine import SearchEngine
 from .parallel.partition import slice_for_shard
 from .store import vectorstore as vs
 from .store.device_store import DeviceStore
+from .utils.device import resolve_device
 from .utils.logging import host_log
 
 
@@ -76,18 +77,6 @@ def _not_ported(what: str) -> NotImplementedError:
         f"{what} is not ported to the PyTorch package yet; see ROADMAP.md "
         "(Queue 1). Use better_search_rag_rust_tpu for it."
     )
-
-
-def resolve_device(device: Optional[torch.device | str]) -> torch.device:
-    """``None`` means the CUDA card, and raises when there is none: the CPU
-    runs only when asked for by name."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the pipeline runs on the card by default; "
-                "pass device='cpu' (CLI: --device cpu) to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 class Pipeline:

@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch port on one CUDA card: search and build paths.
+"""Smoke run of the PyTorch port on one CUDA card: search, build and
+training paths.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -32,7 +33,22 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    with the nomic backend (ingest, shard, merge, device store, search),
    then evaluate (oracle overlap 1.0) and query() on 8 files (ids equal the
    oracle's); the same tree with the hash backend (MRR = recall = overlap =
-   1.0); ingest files/s, the report's phase times and K8's launch count.
+   1.0); ingest files/s, the report's phase times and K8's launch count;
+9. K9 fused_attention_qkv_bwd against its plain version at the training
+   shape (B=64, S=512, H=12, hd=64, bf16; per-row key padding, one row
+   fully padded): cosine >= 0.999 and max |diff| <= 1e-2 x max |plain| for
+   each of dq, dk and dv, all finite, two launches bitwise equal; kernel
+   and plain times;
+10. the contrastive trainer at full width (12 x 768, random weights from
+   ``--seed``): at B=8 x 512 tokens the K8 + K9 parameter gradients against
+   the plain f32-logit attention's, per-parameter cosine > 0.99; then the
+   ``finetune`` measurement (bench/finetune.py) at B=64 x 512: 3 warm-up
+   and 8 timed steps, files/s, steps/s, peak memory, a finite loss and
+   exactly 24 K9 launches per step (2 towers x 12 layers); a torch.profiler
+   split of one step into K8, K9, GEMMs and the rest;
+11. ``cli.main(["finetune", ...])`` on phase 8's tree (4 steps of 64 pairs,
+   ``--save-dir``): the checkpoint reloads bit for bit equal to the
+   trainer's parameters.
 
 Prints one line per phase, then the card line, the kernels JSON line and,
 last, ``{"ok": true, "device": ...}``. Any failed check raises: the exit
@@ -69,11 +85,18 @@ KERNELS = {
                         "better_search_rag_rust_tpu/ops/topk_pallas.py:120"),
     "fused_attention_qkv": (CSRC + "attention_kernels.cu",
                             "better_search_rag_rust_tpu/ops/attention_pallas.py:177"),
+    "fused_attention_qkv_bwd": (CSRC + "attention_kernels.cu",
+                                "better_search_rag_rust_tpu/ops/attention_pallas.py:290"),
 }
 #: the encoder's shape: batch, sequence, heads, head width
 B_ENC, S_ENC, H_ENC, HD_ENC = 256, 512, 12, 64
 ATT_TOL, ATT_COS = 0.02, 0.999
 TREE_FILES = 4096
+#: the finetune shape (the JAX finetune suite's batch) and the smaller batch
+#: at which the plain attention's gradients fit beside the kernels'
+B_TRAIN, B_GRAD = 64, 8
+BWD_REL, BWD_COS, GRAD_COS = 1e-2, 0.999, 0.99
+TIMED_STEPS = 8
 
 
 def card_line() -> str:
@@ -260,9 +283,9 @@ def check_attention(gen):
     return err, times
 
 
-def _forward_profile(fn):
+def _device_profile(fn):
     """Device time by kernel over one call of ``fn`` (torch.profiler):
-    (K8 ms, GEMM ms, other ms, top kernels)."""
+    ({"K8": ms, "K9": ms, "GEMMs": ms, "rest": ms}, total ms, top kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -276,11 +299,17 @@ def _forward_profile(fn):
                          getattr(evt, "self_cuda_time_total", 0))
             rows.append((us / 1e3, evt.key))
     rows.sort(reverse=True)
-    k8 = sum(ms for ms, key in rows if "k8_fused_attention_qkv" in key)
-    gemm = sum(ms for ms, key in rows if "k8_" not in key and any(
-        w in key.lower() for w in ("gemm", "nvjet", "xmma", "cutlass")))
+    split = {
+        "K8": sum(ms for ms, key in rows if "k8_fused_attention_qkv" in key),
+        "K9": sum(ms for ms, key in rows if "k9_bwd_" in key),
+        "GEMMs": sum(ms for ms, key in rows
+                     if not key.startswith(("k8_", "k9_")) and any(
+                         w in key.lower()
+                         for w in ("gemm", "nvjet", "xmma", "cutlass"))),
+    }
     total = sum(ms for ms, _ in rows)
-    return k8, gemm, total - k8 - gemm, rows[:6]
+    split["rest"] = total - sum(split.values())
+    return split, total, rows[:6]
 
 
 def check_encoder(seed, card):
@@ -308,9 +337,9 @@ def check_encoder(seed, card):
     for name, enc in (("K8", fused), ("plain", plain)):
         rates[name] = B_ENC / (cuda_ms(
             lambda: enc.encode_tokens_device(ids_d, mask_d)) / 1e3)
-    k8, gemm, rest, top = _forward_profile(
+    split, total, top = _device_profile(
         lambda: fused.encode_tokens_device(ids_d, mask_d))
-    total = k8 + gemm + rest
+    k8, gemm, rest = split["K8"], split["GEMMs"], split["rest"]
     phase(f"phase 7 [{card}] encoder 12 x 768, {B_ENC} x {S_ENC} tokens: "
           f"per-row cosine K8 vs plain attention min={cos.min():.6f} (bound "
           f"{ATT_COS}); forward {rates['K8']:.1f} files/s on K8, "
@@ -337,9 +366,10 @@ def write_tree(root, files, seed):
             f.write(f"class F{i} {{ {body} }}")
 
 
-def drive_build_mode(seed, card):
-    """Phase 8: Pipeline.run() in build mode (nomic, then hash), evaluate
-    and text queries; returns the K8 launches of the nomic run."""
+def drive_build_mode(tmp, src, seed, card):
+    """Phase 8: Pipeline.run() in build mode (nomic, then hash) on the tree
+    ``src``, evaluate and text queries; returns the K8 launches of the
+    nomic run."""
     from better_search_rag_rust_tpu_torch.config import (
         CorpusConfig,
         EncoderConfig,
@@ -351,64 +381,238 @@ def drive_build_mode(seed, card):
     from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
     from better_search_rag_rust_tpu_torch.pipeline import Pipeline
 
-    tmp = tempfile.mkdtemp(prefix="bsr_smoke_")
+    k8_launches = 0
+    for backend in ("nomic", "hash"):
+        cfg = PipelineConfig(
+            corpus=CorpusConfig(root=src, extensions=("java",),
+                                files_per_batch=256),
+            encoder=EncoderConfig(backend=backend, batch_size=256),
+            store=StoreConfig(dir=os.path.join(tmp, backend)),
+            search=SearchConfig(top_k=K, store_dtype="bfloat16"),
+        )
+        pipe = Pipeline(cfg, device="cuda", seed=seed)
+        pipe.encoder.get_embeddings(["warm up the forward"])
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        ak.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = pipe.run()
+        run_s = time.perf_counter() - t0
+        launches = {**tk.launch_counts, **ak.launch_counts}
+        report = pipe.evaluate(num_queries=1024, k=K)
+        engine = pipe.engine()
+        manifest = json.loads(open(os.path.join(
+            tmp, backend, "manifest.json")).read())
+        picks = np.linspace(0, TREE_FILES - 1, 8, dtype=np.int64)
+        texts = [open(manifest[i]).read() for i in picks]
+        ranked = pipe.query(texts, k=K)
+        o_ids, _ = engine.oracle_topk(pipe.encoder.get_embeddings(texts),
+                                      K)
+        q_ids = np.asarray([[r[1] for r in rk] for rk in ranked])
+        stats = result.ingest
+        phase(f"phase 8 [{card}] build mode {backend}: {stats.embeddings}"
+              f" files, run() {run_s:.2f}s = {stats.embeddings / run_s:.1f}"
+              f" files/s end to end (route {engine.kernel_name(K)}); run "
+              f"MRR={result.mrr} recall={result.recall} overlap="
+              f"{result.overlap}; evaluate {report}; query ids == oracle:"
+              f" {np.array_equal(q_ids, o_ids)}; launches {launches}")
+        for line in result.report.splitlines():
+            if line.strip() and not line.startswith(("=", "-")):
+                phase(f"phase 8 [{card}] {backend} report | {line}")
+        assert stats.embeddings == TREE_FILES and stats.failed_batches == 0
+        assert report["oracle_overlap"] == 1.0
+        assert np.array_equal(q_ids, o_ids)
+        if backend == "nomic":
+            k8_launches = launches["fused_attention_qkv"]
+            assert k8_launches > 0, launches
+        else:
+            assert (result.mrr, result.recall, result.overlap) == (
+                1.0, 1.0, 1.0)
+            assert report["mrr"] == report["recall_at_k"] == 1.0
+            assert [rk[0][0] for rk in ranked] == [manifest[i]
+                                                   for i in picks]
+        del pipe, engine
+    return k8_launches
+
+
+def check_attention_bwd(gen):
+    """Phase 9: K9 against its plain version at the training shape."""
+    from better_search_rag_rust_tpu_torch.models.nomic import rotary_tables
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    b, s, h, hd = B_TRAIN, S_ENC, H_ENC, HD_ENC
+    qkv = torch.randn((b, s, 3 * h * hd), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    g = torch.randn((b, s, h * hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+    lens[-1] = 0                                   # one fully padded row
+    valid = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    bias = torch.where(valid, 0.0, -1e9).to(torch.float32).contiguous()
+    cos, sin = (torch.from_numpy(t).cuda() for t in rotary_tables(s, hd, 1000.0))
+    c2, s2 = ak.rotary_roll_tables(cos, sin)
+    scale = 1.0 / math.sqrt(hd)
+
+    def kern():
+        return ak.fused_attention_qkv_bwd(qkv, c2, s2, bias, g, h, scale)
+
+    def plain():
+        return ak.fused_attention_qkv_bwd_plain(qkv, c2, s2, bias, g, h, scale)
+
+    out, again, ref = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    same = torch.equal(out, again)
+    finite = bool(torch.isfinite(out.float()).all())
+    parts, err = [], 0.0
+    for name, a, r in zip(("dq", "dk", "dv"), out.double().chunk(3, -1),
+                          ref.double().chunk(3, -1)):
+        diff, top = float((a - r).abs().max()), float(r.abs().max())
+        cos_sim = float((a * r).sum() / (a.norm() * r.norm()))
+        parts.append((name, diff, top, cos_sim))
+        err = max(err, diff)
+    phase(f"phase 9 K9 [{b} x {s} x {h} heads x {hd}] bf16: " + "; ".join(
+        f"{n} max|diff|={d:.4g} (bound {BWD_REL} x {t:.4g}) cosine="
+        f"{c:.7f} (bound {BWD_COS})" for n, d, t, c in parts)
+        + f"; all finite (fully padded row too): {finite}; two launches "
+        f"bitwise equal: {same}")
+    assert finite and same
+    for _n, diff, top, cos_sim in parts:
+        assert diff <= BWD_REL * top and cos_sim >= BWD_COS
+    del out, again, ref
+    times = (cuda_ms(kern), cuda_ms(plain))
+    del qkv, g
+    torch.cuda.empty_cache()
+    return err, times
+
+
+def _pairs(rng, cfg, b):
+    """Seeded token batches of ``b`` pairs, ragged masks."""
+    s = cfg.max_tokens
+    out = []
+    for _ in range(2):
+        ids = rng.integers(1, cfg.vocab_size, size=(b, s))
+        lens = rng.integers(s // 8, s + 1, size=b)
+        mask = (np.arange(s)[None, :] < lens[:, None]).astype(np.int64)
+        out += [torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()]
+    return out
+
+
+def check_training(seed, card):
+    """Phase 10: the trainer at full width. K8 + K9 gradients against the
+    plain attention's at B_GRAD; then the finetune measurement at B_TRAIN
+    and a device-time split of one step. Returns K9's launches over the
+    timed steps."""
+    from better_search_rag_rust_tpu_torch.bench.finetune import (
+        run_finetune_suite,
+    )
+    from better_search_rag_rust_tpu_torch.models.nomic import NomicBertConfig
+    from better_search_rag_rust_tpu_torch.models.train import (
+        ContrastiveTrainer,
+    )
+
+    cfg = NomicBertConfig()
+    fused = ContrastiveTrainer(cfg, seed=seed, device="cuda")
+    plain = ContrastiveTrainer(NomicBertConfig(attention_impl="xla"),
+                               params=fused.state.params, device="cuda")
+    batch = _pairs(np.random.default_rng(seed), cfg, B_GRAD)
+    losses = []
+    for tr in (fused, plain):
+        loss = tr.loss(*batch)
+        loss.backward()
+        losses.append(float(loss.detach()))
+    worst, checked = (1.0, ""), 0
+    for (name, pf), (_, px) in zip(fused.model.named_parameters(),
+                                   plain.model.named_parameters()):
+        a, b = pf.grad.double().ravel(), px.grad.double().ravel()
+        if float(a.norm()) < 1e-12 and float(b.norm()) < 1e-12:
+            continue
+        cos_sim = float(a @ b / (a.norm() * b.norm()))
+        worst = min(worst, (cos_sim, name))
+        checked += 1
+    phase(f"phase 10 trainer 12 x 768, {B_GRAD} pairs x {S_ENC} tokens: loss "
+          f"K8+K9 {losses[0]:.6f}, plain attention {losses[1]:.6f}; "
+          f"gradient cosine over {checked} parameters min={worst[0]:.6f} "
+          f"({worst[1]}; bound {GRAD_COS})")
+    assert worst[0] > GRAD_COS and checked > 100
+    assert all(math.isfinite(x) for x in losses)
+    del fused, plain, batch
+    torch.cuda.empty_cache()
+
+    res = run_finetune_suite(batch=B_TRAIN, steps=TIMED_STEPS, seed=seed,
+                             device="cuda")
+    k9 = res["launches"]["fused_attention_qkv_bwd"]
+    k8 = res["launches"]["fused_attention_qkv"]
+    phase(f"phase 10 [{card}] finetune {B_TRAIN} pairs x {S_ENC} tokens, "
+          f"{TIMED_STEPS} timed steps after 3 warm-up: {res['value']:.2f} "
+          f"files/s, {res['steps_per_sec']:.4f} steps/s ({res['step_ms']:.1f} "
+          f"ms/step), peak memory {res['peak_memory_bytes'] / 2**30:.2f} GiB, "
+          f"final loss {res['final_loss']:.6f}, attention "
+          f"{res['attention_impl']}; launches K8 {k8}, K9 {k9}")
+    assert math.isfinite(res["final_loss"])
+    assert k9 == k8 == 2 * cfg.num_layers * TIMED_STEPS, res["launches"]
+    torch.cuda.empty_cache()
+
+    tr = ContrastiveTrainer(cfg, seed=seed, device="cuda")
+    batch = _pairs(np.random.default_rng(seed + 1), cfg, B_TRAIN)
+    tr.train_step(*batch)
+    split, total, top = _device_profile(lambda: tr.train_step_device(*batch))
+    phase(f"phase 10 [{card}] one step's device time {total:.2f} ms: "
+          + ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f} %)"
+                      for k, v in split.items())
+          + "; top kernels: "
+          + "; ".join(f"{key[:60]} {ms:.2f}" for ms, key in top))
+    del tr, batch
+    torch.cuda.empty_cache()
+    return k9
+
+
+def drive_finetune_cli(tmp, src, card):
+    """Phase 11: ``finetune`` through the CLI on the phase-8 tree; the saved
+    checkpoint reloads bit for bit equal to the trainer's parameters."""
+    import contextlib
+    import io
+
+    from better_search_rag_rust_tpu_torch import cli
+    from better_search_rag_rust_tpu_torch.models import train
+    from better_search_rag_rust_tpu_torch.models.checkpoint import load_params
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    made = []
+
+    class Recorded(train.ContrastiveTrainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    ckpt = os.path.join(tmp, "finetuned")
+    argv = ["finetune", "--root", src, "--extensions", "java", "--steps",
+            "4", "--train-batch", str(B_TRAIN), "--save-dir", ckpt,
+            "--device", "cuda"]
+    out = io.StringIO()
+    ak.reset_launch_counts()
+    t0 = time.perf_counter()
+    train.ContrastiveTrainer = Recorded
     try:
-        src = os.path.join(tmp, "src")
-        write_tree(src, TREE_FILES, seed)
-        k8_launches = 0
-        for backend in ("nomic", "hash"):
-            cfg = PipelineConfig(
-                corpus=CorpusConfig(root=src, extensions=("java",),
-                                    files_per_batch=256),
-                encoder=EncoderConfig(backend=backend, batch_size=256),
-                store=StoreConfig(dir=os.path.join(tmp, backend)),
-                search=SearchConfig(top_k=K, store_dtype="bfloat16"),
-            )
-            pipe = Pipeline(cfg, device="cuda", seed=seed)
-            pipe.encoder.get_embeddings(["warm up the forward"])
-            torch.cuda.synchronize()
-            tk.reset_launch_counts()
-            ak.reset_launch_counts()
-            t0 = time.perf_counter()
-            result = pipe.run()
-            run_s = time.perf_counter() - t0
-            launches = {**tk.launch_counts, **ak.launch_counts}
-            report = pipe.evaluate(num_queries=1024, k=K)
-            engine = pipe.engine()
-            manifest = json.loads(open(os.path.join(
-                tmp, backend, "manifest.json")).read())
-            picks = np.linspace(0, TREE_FILES - 1, 8, dtype=np.int64)
-            texts = [open(manifest[i]).read() for i in picks]
-            ranked = pipe.query(texts, k=K)
-            o_ids, _ = engine.oracle_topk(pipe.encoder.get_embeddings(texts),
-                                          K)
-            q_ids = np.asarray([[r[1] for r in rk] for rk in ranked])
-            stats = result.ingest
-            phase(f"phase 8 [{card}] build mode {backend}: {stats.embeddings}"
-                  f" files, run() {run_s:.2f}s = {stats.embeddings / run_s:.1f}"
-                  f" files/s end to end (route {engine.kernel_name(K)}); run "
-                  f"MRR={result.mrr} recall={result.recall} overlap="
-                  f"{result.overlap}; evaluate {report}; query ids == oracle:"
-                  f" {np.array_equal(q_ids, o_ids)}; launches {launches}")
-            for line in result.report.splitlines():
-                if line.strip() and not line.startswith(("=", "-")):
-                    phase(f"phase 8 [{card}] {backend} report | {line}")
-            assert stats.embeddings == TREE_FILES and stats.failed_batches == 0
-            assert report["oracle_overlap"] == 1.0
-            assert np.array_equal(q_ids, o_ids)
-            if backend == "nomic":
-                k8_launches = launches["fused_attention_qkv"]
-                assert k8_launches > 0, launches
-            else:
-                assert (result.mrr, result.recall, result.overlap) == (
-                    1.0, 1.0, 1.0)
-                assert report["mrr"] == report["recall_at_k"] == 1.0
-                assert [rk[0][0] for rk in ranked] == [manifest[i]
-                                                       for i in picks]
-            del pipe, engine
-        return k8_launches
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        train.ContrastiveTrainer = Recorded.__base__
+    run_s = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        phase(f"phase 11 [{card}] cli finetune | {line}")
+    (trainer,) = made
+    saved = load_params(ckpt)
+    params = trainer.state.params
+    equal = saved.keys() == params.keys() and all(
+        torch.equal(saved[k], v.cpu()) for k, v in params.items())
+    final = float(out.getvalue().split("final loss ")[1].split()[0])
+    phase(f"phase 11 [{card}] cli finetune: rc {rc}, {run_s:.2f}s for 4 steps "
+          f"of {B_TRAIN} pairs (walk, read, tokenize, train, save); "
+          f"checkpoint of {len(saved)} tensors equals the trainer's "
+          f"parameters bitwise: {equal}; K9 launches "
+          f"{ak.launch_counts['fused_attention_qkv_bwd']}")
+    assert rc == 0 and equal and math.isfinite(final)
+    assert ak.launch_counts["fused_attention_qkv_bwd"] == 4 * 2 * 12
 
 
 def main() -> int:
@@ -436,10 +640,15 @@ def main() -> int:
     libs = [_build.library(name) for name in _build.SOURCES]
     build_wall = time.perf_counter() - t0
     for lib in libs:
-        regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
+        regs = [ln.split(":", 1)[1].strip() for ln in lib.log.splitlines()
+                if "registers" in ln]
+        spills = [ln.strip() for ln in lib.log.splitlines()
+                  if "spill" in ln and not ln.strip().startswith(
+                      "0 bytes stack frame, 0 bytes spill stores")]
         phase(f"phase 1 device: {card} | torch {torch.__version__} cuda "
               f"{torch.version.cuda} | {lib.path.name} built in "
-              f"{lib.build_s:.1f}s; ptxas: {' / '.join(regs)}")
+              f"{lib.build_s:.1f}s; ptxas: {' / '.join(regs)}; spills: "
+              f"{' / '.join(spills) or 'none'}")
     phase(f"phase 1 kernel builds, in parallel: {build_wall:.1f}s wall")
 
     gen = torch.Generator(device="cuda")
@@ -496,7 +705,22 @@ def main() -> int:
     phase(f"phase 6 [{card}] fused_attention_qkv: kernel {ms:.3f} ms, plain "
           f"{pms:.3f} ms")
     check_encoder(args.seed, card)
-    launches["fused_attention_qkv"] = drive_build_mode(args.seed, card)
+    tmp = tempfile.mkdtemp(prefix="bsr_smoke_")
+    try:
+        src = os.path.join(tmp, "src")
+        write_tree(src, TREE_FILES, args.seed)
+        launches["fused_attention_qkv"] = drive_build_mode(tmp, src,
+                                                           args.seed, card)
+        torch.cuda.empty_cache()
+        errs["fused_attention_qkv_bwd"], times["fused_attention_qkv_bwd"] = \
+            check_attention_bwd(gen)
+        ms, pms = times["fused_attention_qkv_bwd"]
+        phase(f"phase 9 [{card}] fused_attention_qkv_bwd: kernel {ms:.3f} ms,"
+              f" plain {pms:.3f} ms")
+        launches["fused_attention_qkv_bwd"] = check_training(args.seed, card)
+        drive_finetune_cli(tmp, src, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     print(card)
     print(json.dumps({"kernels": [

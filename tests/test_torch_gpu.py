@@ -212,3 +212,92 @@ def test_encoder_fused_matches_plain_attention(cuda):
     a = fused.encode_tokens(ids, mask)
     b = plain.encode_tokens(ids, mask)
     assert np.all(np.sum(a * b, axis=1) >= 0.999)
+
+
+# -- K9 fused_attention_qkv_bwd and training ----------------------------------
+
+
+@pytest.mark.parametrize("b,s,h,hd", [
+    (4, 72, 3, 16), (3, 200, 2, 32), (8, 512, 12, 64), (2, 136, 4, 128),
+    (2, 1024, 2, 64), (2, 1024, 1, 128),
+])
+def test_k9_matches_plain(cuda, b, s, h, hd):
+    """Bound: cosine >= 0.999 and max |diff| <= 1e-2 * max |plain| for each
+    of dq, dk and dv (the kernel and plain version sum in other orders,
+    then round to bf16); every value finite, the fully padded row too;
+    the kernel deterministic (no atomics: two launches agree bitwise)."""
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    qkv, c2, s2, bias, _, scale = _attention_operands(cuda, b, s, h, hd)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    g = torch.randn((b, s, h * hd), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    before = ak.launch_counts["fused_attention_qkv_bwd"]
+    out = ak.fused_attention_qkv_bwd(qkv, c2, s2, bias, g, h, scale)
+    again = ak.fused_attention_qkv_bwd(qkv, c2, s2, bias, g, h, scale)
+    ref = ak.fused_attention_qkv_bwd_plain(qkv, c2, s2, bias, g, h, scale)
+    torch.cuda.synchronize()
+    assert ak.launch_counts["fused_attention_qkv_bwd"] == before + 2
+    assert torch.equal(out, again)
+    assert torch.isfinite(out.float()).all()
+    for a, r in zip(out.double().chunk(3, -1), ref.double().chunk(3, -1)):
+        assert float((a * r).sum() / (a.norm() * r.norm())) >= 0.999
+        assert (a - r).abs().max() <= 1e-2 * r.abs().max()
+
+
+def test_k9_refuses_what_it_does_not_take(cuda):
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    qkv, c2, s2, bias, _, scale = _attention_operands(cuda, 2, 64, 2, 64)
+    g = torch.zeros((2, 64, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ak.fused_attention_qkv_bwd(qkv.float(), c2, s2, bias, g.float(), 2,
+                                   scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        ak.fused_attention_qkv_bwd(qkv, c2, s2, bias,
+                                   g.transpose(0, 1).contiguous()
+                                   .transpose(0, 1), 2, scale)
+
+
+def test_fused_model_gives_wqkv_a_gradient(cuda):
+    """The K8 output carries a gradient on the card: backward through a
+    ``fused`` NomicBertModel reaches Wqkv through K9."""
+    from better_search_rag_rust_tpu_torch.models.nomic import (
+        NomicBertConfig,
+        NomicBertModel,
+        init_random,
+    )
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    cfg = NomicBertConfig(vocab_size=1000, hidden_size=256, num_layers=2,
+                          num_heads=4, mlp_dim=512, max_tokens=128,
+                          attention_impl="fused", param_dtype=torch.float32)
+    model = NomicBertModel(cfg, device=cuda)
+    init_random(model, 0)
+    ids = torch.randint(1, 1000, (4, 128), device=cuda)
+    mask = torch.ones_like(ids)
+    probe = torch.randn((4, 128, 256), device=cuda)
+    before = ak.launch_counts["fused_attention_qkv_bwd"]
+    (model(ids, mask).float() * probe).sum().backward()
+    assert ak.launch_counts["fused_attention_qkv_bwd"] == before + 2
+    for layer in model.encoder.layers:
+        grad = layer.attn.Wqkv.weight.grad
+        assert grad is not None and grad.dtype == torch.float32
+        assert bool(torch.isfinite(grad).all()) and grad.abs().sum() > 0
+
+
+def test_trainer_steps_on_the_card(cuda):
+    from better_search_rag_rust_tpu_torch.models.nomic import NomicBertConfig
+    from better_search_rag_rust_tpu_torch.models.train import (
+        ContrastiveTrainer,
+    )
+
+    cfg = NomicBertConfig(vocab_size=1000, hidden_size=128, num_layers=2,
+                          num_heads=2, mlp_dim=256, max_tokens=64)
+    tr = ContrastiveTrainer(cfg, learning_rate=1e-3, device=cuda)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, 1000, size=(16, 64)).astype(np.int32)
+    mask = np.ones_like(ids)
+    losses = [tr.train_step(ids, mask, ids, mask) for _ in range(4)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]

@@ -28,6 +28,11 @@ def test_port_imports_without_jax():
         "import better_search_rag_rust_tpu_torch.models.hash_encoder\n"
         "import better_search_rag_rust_tpu_torch.models.nomic\n"
         "import better_search_rag_rust_tpu_torch.models.tokenizer\n"
+        "import better_search_rag_rust_tpu_torch.models.train\n"
+        "import better_search_rag_rust_tpu_torch.models.train_data\n"
+        "import better_search_rag_rust_tpu_torch.models.checkpoint\n"
+        "import better_search_rag_rust_tpu_torch.bench.finetune\n"
+        "import better_search_rag_rust_tpu_torch.utils.device\n"
         "import better_search_rag_rust_tpu_torch.ops.attention_kernels\n"
         "import better_search_rag_rust_tpu_torch.ops._build\n"
         "import better_search_rag_rust_tpu_torch.store.vectorstore\n"
