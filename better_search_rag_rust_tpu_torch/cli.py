@@ -1,17 +1,20 @@
 """Command-line interface of the port: ``run``, ``ingest``, ``search``,
-``evaluate`` and ``finetune``.
+``evaluate``, ``update``, ``serve`` and ``finetune``.
 
-The reference CLI's flags and output (``cli.py:381-517``); the flag parsing
+The reference CLI's flags and output (``cli.py:226-517``); the flag parsing
 and result printing are the reference's own, whose module imports no jax.
 ``run`` ingests the corpus, merges and then runs the self-retrieval search
 (or, with ``--query TEXT``, retrieves the files matching the text);
 ``ingest`` stops after the merge; ``search`` and ``evaluate`` serve a
-persisted store; ``finetune`` trains the encoder contrastively on pairs
-from the corpus (one device; ``--tp`` above 1 is the multi-GPU slice).
-``--device`` names the torch device; the default is the CUDA card, and
-without one the command fails (``--device cpu`` runs on the CPU). The other
-reference subcommands (``serve``, ``update``, ``bench``) and ``--snapshot``
-/ ``--profile-dir`` belong to later slices of the port (ROADMAP.md).
+persisted store; ``update`` reconciles the store with the edited tree;
+``serve`` is the JSONL server over stdin/stdout or TCP (``--port``),
+optionally through the micro-batcher (``--serve-window-ms``); ``finetune``
+trains the encoder contrastively on pairs from the corpus (one device;
+``--tp`` above 1 is the multi-GPU slice). ``--snapshot`` keeps a
+device-store snapshot for fast restarts. ``--device`` names the torch
+device; the default is the CUDA card, and without one the command fails
+(``--device cpu`` runs on the CPU). ``bench`` and ``--profile-dir`` belong
+to later slices of the port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,6 +29,135 @@ from better_search_rag_rust_tpu.cli import (
     _config_from_args,
     _print_result,
 )
+
+
+def serve_loop(pipeline, in_stream, out_stream, k=None, depth: int = 1,
+               batcher=None) -> int:
+    """Drive :meth:`..pipeline.Pipeline.serve` over line-delimited JSON (the
+    reference's ``serve_loop``, ``cli.py:226-286``): one request per input
+    line, one response per output line, flushed at once; malformed lines
+    get an in-order error and blank lines are skipped. A reader thread
+    feeds the requests, and whenever no line is ready a flush token makes
+    the server answer everything in flight before it blocks on input — a
+    synchronous client never waits on an answer the server is holding."""
+    import queue
+    import threading
+
+    from .pipeline import MalformedRequest
+
+    q: "queue.Queue" = queue.Queue()
+    eof = object()
+
+    def _reader():
+        try:
+            for line in in_stream:
+                q.put(line)
+        except (UnicodeDecodeError, OSError) as exc:
+            q.put(MalformedRequest(f"unreadable input stream: {exc}"))
+        finally:
+            q.put(eof)
+
+    threading.Thread(target=_reader, daemon=True).start()
+
+    def _requests():
+        while True:
+            try:
+                line = q.get(timeout=0.002)
+            except queue.Empty:
+                yield None  # flush: answer everything in flight, then block
+                line = q.get()
+            if line is eof:
+                return
+            if isinstance(line, MalformedRequest):
+                yield line
+                continue
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                yield json.loads(line)
+            except json.JSONDecodeError as exc:
+                yield MalformedRequest(str(exc))
+
+    for resp in pipeline.serve(_requests(), k=k, depth=depth, batcher=batcher):
+        out_stream.write(json.dumps(resp) + "\n")
+        out_stream.flush()
+    return 0
+
+
+def make_tcp_server(pipeline, host: str, port: int, k=None, depth: int = 1,
+                    batcher=None):
+    """A threading JSONL-over-TCP server, one :func:`serve_loop` per
+    connection (the reference's ``make_tcp_server``). Returned unstarted:
+    call ``serve_forever()``; ``server.server_address`` is the bound
+    address (useful with port 0)."""
+    import io
+    import socketserver
+
+    class Handler(socketserver.StreamRequestHandler):
+        def handle(self):
+            # undecodable bytes become U+FFFD: that line gets a
+            # malformed-JSON answer, the connection lives on
+            rin = io.TextIOWrapper(self.rfile, encoding="utf-8",
+                                   errors="replace")
+            wout = io.TextIOWrapper(self.wfile, encoding="utf-8",
+                                    write_through=True)
+            try:
+                serve_loop(pipeline, rin, wout, k=k, depth=depth,
+                           batcher=batcher)
+            except (BrokenPipeError, ConnectionResetError):
+                pass  # the client went away mid-stream
+
+    class Server(socketserver.ThreadingTCPServer):
+        allow_reuse_address = True
+        daemon_threads = True
+
+    return Server((host, port), Handler)
+
+
+def _serve(args) -> int:
+    """``serve``: build the store on the device, then answer JSONL requests
+    on stdin or on ``--host:--port`` (the reference's ``_serve``)."""
+    from .pipeline import Pipeline
+
+    cfg = _config_from_args(args, skip_process=True)
+    pipeline = Pipeline(cfg, device=args.device)
+    engine = pipeline.engine()  # the store is on the card before accepting
+    where = (f"one JSON request per line on {args.host}:{args.port}"
+             if args.port is not None else "one JSON request per line on stdin")
+    batcher = None
+    if args.serve_window_ms > 0:
+        from .batcher import DynamicBatcher
+
+        batcher = DynamicBatcher(
+            engine, k=args.top_k, max_batch=args.serve_max_batch,
+            window_ms=args.serve_window_ms, upload=cfg.search.query_upload)
+    print(f"serving {engine.store.num_rows} rows (top_k={args.top_k}, "
+          f"kernel={engine.kernel_name()}, depth={args.serve_depth}"
+          + (f", batch window {args.serve_window_ms} ms" if batcher else "")
+          + f"); {where}", file=sys.stderr, flush=True)
+    try:
+        sys.stdin.reconfigure(errors="replace")
+    except (AttributeError, ValueError):
+        pass
+    try:
+        if args.port is not None:
+            with make_tcp_server(pipeline, args.host, args.port, k=args.top_k,
+                                 depth=args.serve_depth,
+                                 batcher=batcher) as server:
+                print(f"listening on {server.server_address[0]}:"
+                      f"{server.server_address[1]}", file=sys.stderr,
+                      flush=True)
+                try:
+                    server.serve_forever()
+                except KeyboardInterrupt:
+                    pass
+            return 0
+        return serve_loop(pipeline, sys.stdin, sys.stdout, k=args.top_k,
+                          depth=args.serve_depth, batcher=batcher)
+    finally:
+        if batcher is not None:
+            batcher.close()
 
 
 def _finetune(args) -> int:
@@ -88,6 +220,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         ("ingest", "embed the corpus and persist the global store"),
         ("search", "serve search from the persisted store (SKIP_PROCESS=true)"),
         ("evaluate", "batch self-retrieval quality report on a built store"),
+        ("update", "incrementally embed corpus files not yet in the store"),
     ]:
         sp = sub.add_parser(name, help=desc)
         _add_common(sp)
@@ -95,6 +228,27 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         help="torch device (default: the CUDA card)")
         if name == "evaluate":
             sp.add_argument("--num-queries", type=int, default=64)
+    sv = sub.add_parser(
+        "serve", help="persistent JSONL search server: one request per stdin "
+                      "line, one response per stdout line")
+    _add_common(sv)
+    sv.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    sv.add_argument("--serve-depth", type=int, default=1,
+                    help="requests kept in flight on the device before "
+                         "results are pulled (1 = synchronous)")
+    sv.add_argument("--port", type=int, default=None,
+                    help="listen for JSONL connections on this TCP port "
+                         "instead of stdin/stdout (0 = ephemeral)")
+    sv.add_argument("--host", default="127.0.0.1",
+                    help="bind address for --port")
+    sv.add_argument("--serve-window-ms", type=float, default=0.0,
+                    help="dynamic micro-batching: coalesce requests landing "
+                         "within this window (across all connections) into "
+                         "one dispatch; 0 disables")
+    sv.add_argument("--serve-max-batch", type=int, default=1024,
+                    help="max coalesced query rows per dispatch when "
+                         "--serve-window-ms is on")
     ft = sub.add_parser(
         "finetune", help="contrastive fine-tuning of the encoder on the corpus")
     _add_common(ft)
@@ -109,22 +263,30 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ft.add_argument("--save-dir", default=None,
                     help="checkpoint dir for the tuned params")
     args = parser.parse_args(argv)
-    for flag, value in (("--profile-dir", args.profile_dir),
-                        ("--snapshot", args.snapshot)):
-        if value:
-            raise NotImplementedError(
-                f"{flag} is not ported to the PyTorch package yet (ROADMAP.md)")
+    if args.profile_dir:
+        raise NotImplementedError(
+            "--profile-dir is not ported to the PyTorch package yet "
+            "(ROADMAP.md)")
     if args.command == "finetune":
         return _finetune(args)
+    if args.command == "serve":
+        return _serve(args)
 
     from .pipeline import Pipeline
 
     cfg = _config_from_args(
-        args, skip_process=args.command in ("search", "evaluate"))
+        args, skip_process=args.command in ("search", "evaluate", "update"))
     pipeline = Pipeline(cfg, device=args.device)
     if args.command == "evaluate":
         print(json.dumps(pipeline.evaluate(args.num_queries, args.top_k)))
         print(pipeline.bench.generate_report())
+        return 0
+    if args.command == "update":
+        stats = pipeline.update()
+        print(f"appended {stats.embeddings} embeddings, re-embedded "
+              f"{stats.rows_reembedded}, deleted {stats.rows_deleted} "
+              f"({stats.files_assigned} new files, "
+              f"{stats.files_skipped} skipped)")
         return 0
     if args.command == "ingest":
         stats = pipeline.ingest_shard()

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -116,11 +117,23 @@ def build_all() -> Dict[str, tuple[Path, float, str]]:
 
 _LIBRARIES: Dict[str, KernelLibrary] = {}
 _BUILT: Dict[str, tuple[Path, float, str]] = {}
+#: Serializes the first build and load: a server's threads (connections, the
+#: batcher's former) may reach their first search together, and two
+#: concurrent ``build_all`` calls would race on the same ``{pid}.tmp`` file.
+_LOCK = threading.Lock()
 
 
 def library(name: str = "topk") -> KernelLibrary:
     """The process's kernel library ``name``, every missing library built
-    (in parallel) and this one loaded on first call."""
+    (in parallel) and this one loaded on first call; thread-safe."""
+    lib = _LIBRARIES.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        return _load(name)
+
+
+def _load(name: str) -> KernelLibrary:
     if name not in _LIBRARIES:
         if name not in _BUILT:
             _BUILT.update(build_all())

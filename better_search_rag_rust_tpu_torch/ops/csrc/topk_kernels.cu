@@ -27,6 +27,25 @@
 // Because the chain is exact f32 arithmetic, float32 stores are sound on
 // these kernels as well as bf16 ones (the TPU's Mosaic f32 product was not).
 //
+// INT8 STORES (the lattice of ops/quantize.py) take the other rule: one
+// int32 accumulator per score, advanced only by dp4a_chunk() (__dp4a over
+// 4-byte packs of features; a ragged tail is zero-padded, adding exact
+// zeros), then ONE int8_score(): __fmul_rn(float(acc), INT8_INV_SCALE2).
+// Integer sums are exact in any order (|acc| <= D * 127^2, far inside
+// int32), and float(acc) is exact below 2^24 (D <= 1040), so every kernel,
+// every tiling and the plain versions give the same bits — the argmax fast
+// path's identity (K1 max == K2 rescore == K3 score) holds by construction.
+// K1's emission runs on these scaled f32 scores exactly as on the float
+// path. The reference packs (acc, row) into integer keys instead
+// (topk_pallas.py:320, _int8_bm2_emit); both name the same argmax and m2
+// unless two DISTINCT dots round to one scaled f32, and that needs |acc| near
+// 2^23 (scores above 512), while lattice rows of unit vectors keep
+// |acc| <~ 127^2 (scores near [-1, 1]), where adjacent integers stay ~500
+// f32 ulps apart after the multiply. This replaces the int8 bodies of K1
+// (topk_pallas.py:390-434) and the int8 arm of _sims_dot (:56-61) that K2
+// and K3 score through. SIMT dp4a, no tensor cores (mma.sync s8 is later
+// work).
+//
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (0 on success); the Python wrappers raise on
 // anything else.
@@ -35,9 +54,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float PAD_SIM = -3.0f;
+// f32(1) / f32(127 * 127), bitwise ops/quantize.py's INT8_INV_SCALE2.
+constexpr uint32_t INT8_INV_SCALE2_BITS = 0x38820610u;
 
 // Score tile of K1/K3: TR store rows x TQ queries per block, NT threads, each
 // thread a MR x MQ micro-tile of accumulators; D staged through shared memory
@@ -56,6 +79,9 @@ constexpr int GR = 128;
 constexpr int GDK = 32;
 constexpr int GLD = GR + 4;
 static_assert(TR == TQ, "score_tile stages rows and queries in one loop");
+// int8: 4-byte feature packs staged per step (64 features) in K1/K3 and K2.
+constexpr int DKP = 16;
+constexpr int GDKP = 16;
 
 template <typename T> __device__ __forceinline__ float widen(T x);
 template <> __device__ __forceinline__ float widen<float>(float x) { return x; }
@@ -130,6 +156,103 @@ __device__ __forceinline__ void score_tile(const T* __restrict__ q,
   __syncthreads();
 }
 
+// ---- int8 lattice (see the header) ----
+
+// Whether a row base pointer and D allow one aligned 4-byte load per pack.
+__device__ __forceinline__ bool packs_aligned(const int8_t* base, int D) {
+  return (D & 3) == 0 && (reinterpret_cast<uintptr_t>(base) & 3) == 0;
+}
+
+// Features gd .. gd+3 of one int8 row as a dp4a operand (byte b of the
+// word = feature gd+b); features at or past D read as 0.
+__device__ __forceinline__ int load_pack(const int8_t* __restrict__ row, int gd,
+                                         int D, bool aligned) {
+  if (aligned) return *reinterpret_cast<const int*>(row + gd);  // gd + 4 <= D
+  uint32_t p = 0;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    if (gd + b < D) p |= (uint32_t)(uint8_t)row[gd + b] << (8 * b);
+  return (int)p;
+}
+
+// THE int8 dot routine: advance every int32 accumulator by dk staged packs.
+template <int M, int N>
+__device__ __forceinline__ void dp4a_chunk(int (&acc)[M][N], const int* __restrict__ r,
+                                           int r_ld, const int* __restrict__ q,
+                                           int q_ld, int dk) {
+#pragma unroll 4
+  for (int p = 0; p < dk; ++p) {
+    int rv[M], qv[N];
+#pragma unroll
+    for (int i = 0; i < M; ++i) rv[i] = r[p * r_ld + i];
+#pragma unroll
+    for (int j = 0; j < N; ++j) qv[j] = q[p * q_ld + j];
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[i][j] = __dp4a(rv[i], qv[j], acc[i][j]);
+  }
+}
+
+// THE int8 score: one rounded multiply of the exact dot.
+__device__ __forceinline__ float int8_score(int acc) {
+  return __fmul_rn(__int2float_rn(acc), __uint_as_float(INT8_INV_SCALE2_BITS));
+}
+
+// score_tile for int8 operands: the same tile, masking and output layout,
+// D staged 4 * DKP features at a time as packs.
+__device__ __forceinline__ void score_tile_i8(const int8_t* __restrict__ q,
+                                              const int8_t* __restrict__ shard,
+                                              int Tn, int D, int valid_rows,
+                                              int row0, int q0, float* smem) {
+  int* rs = reinterpret_cast<int*>(smem);  // [DKP][LDS]
+  int* qs = rs + DKP * LDS;                // [DKP][LDS]
+  const bool s_al = packs_aligned(shard, D), q_al = packs_aligned(q, D);
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  int acc[MR][MQ];
+#pragma unroll
+  for (int i = 0; i < MR; ++i)
+#pragma unroll
+    for (int j = 0; j < MQ; ++j) acc[i][j] = 0;
+
+  for (int d0 = 0; d0 < D; d0 += 4 * DKP) {
+    for (int e = tid; e < TR * DKP; e += NT) {
+      const int r = e / DKP, p = e % DKP, gd = d0 + 4 * p;
+      rs[p * LDS + r] = gd < D ? load_pack(shard + (size_t)(row0 + r) * D, gd, D, s_al) : 0;
+      const int gq = q0 + r;
+      qs[p * LDS + r] =
+          (gd < D && gq < Tn) ? load_pack(q + (size_t)gq * D, gd, D, q_al) : 0;
+    }
+    __syncthreads();
+    dp4a_chunk<MR, MQ>(acc, rs + ty * MR, LDS, qs + tx * MQ, LDS, DKP);
+    __syncthreads();
+  }
+
+  float* st = smem;
+#pragma unroll
+  for (int i = 0; i < MR; ++i) {
+    const int r = ty * MR + i;
+    const bool ok = row0 + r < valid_rows;
+#pragma unroll
+    for (int j = 0; j < MQ; ++j)
+      st[r * LDO + tx * MQ + j] = ok ? int8_score(acc[i][j]) : PAD_SIM;
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__device__ __forceinline__ void any_score_tile(const T* __restrict__ q,
+                                               const T* __restrict__ shard, int Tn,
+                                               int D, int valid_rows, int row0, int q0,
+                                               float* smem) {
+  if constexpr (std::is_same<T, int8_t>::value)
+    score_tile_i8(q, shard, Tn, D, valid_rows, row0, q0, smem);
+  else
+    score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
+}
+
 // m2_sort_key + pack_m2_argmax_key (topk_pallas.py:267-304): m2's
 // order-preserving uint image (-0.0 folded into +0.0) rounded UP to a
 // multiple of 128, OR the sub-local argmax, sign bit flipped into int32.
@@ -155,7 +278,7 @@ k1_blockmax2(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int row0 = blockIdx.x * TR, q0 = blockIdx.y * TQ;
-  score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
+  any_score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
   const float* st = smem;
   float* um = smem + TR * LDO;  // [MAX_UNITS][TQ] unit maxima
   const int units = TR / sub;
@@ -200,7 +323,7 @@ k3_blockmax(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int R,
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int row0 = blockIdx.x * TR, q0 = blockIdx.y * TQ;
-  score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
+  any_score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
   const float* st = smem;
   // consecutive threads -> consecutive rows of one query: coalesced stores
   for (int e = threadIdx.x; e < TR * TQ; e += NT) {
@@ -256,6 +379,46 @@ k2_gather_rescore(const T* __restrict__ q, const T* __restrict__ shard,
   }
 }
 
+// K2 on int8 operands: the same blocks and NaN rule, packs staged GDKP at a
+// time, one int32 dot per gathered row, one int8_score.
+__global__ void __launch_bounds__(GR)
+k2_gather_rescore_i8(const int8_t* __restrict__ q, const int8_t* __restrict__ shard,
+                     const int32_t* __restrict__ ids, int R, int D, int KS, int unit,
+                     float* __restrict__ out) {
+  __shared__ int rs[GDKP * GLD];
+  __shared__ int qs[GDKP];
+  const int t = blockIdx.y, s0 = blockIdx.x * GR, tid = threadIdx.x;
+  const int C = KS * unit, n_units = R / unit;
+  const int32_t* my_ids = ids + (size_t)t * KS;
+  const bool s_al = packs_aligned(shard, D), q_al = packs_aligned(q, D);
+  int acc[1][1] = {{0}};
+  for (int d0 = 0; d0 < D; d0 += 4 * GDKP) {
+    for (int e = tid; e < GR * GDKP; e += GR) {
+      const int r = e / GDKP, p = e % GDKP, gd = d0 + 4 * p, s = s0 + r;
+      int v = 0;
+      if (s < C && gd < D) {
+        const int uid = my_ids[s / unit];
+        if (uid >= 0 && uid < n_units)
+          v = load_pack(shard + ((size_t)uid * unit + s % unit) * D, gd, D, s_al);
+      }
+      rs[p * GLD + r] = v;
+    }
+    if (tid < GDKP) {
+      const int gd = d0 + 4 * tid;
+      qs[tid] = gd < D ? load_pack(q + (size_t)t * D, gd, D, q_al) : 0;
+    }
+    __syncthreads();
+    dp4a_chunk<1, 1>(acc, rs + tid, GLD, qs, 1, GDKP);
+    __syncthreads();
+  }
+  const int s = s0 + tid;
+  if (s < C) {
+    const int uid = my_ids[s / unit];
+    out[(size_t)t * C + s] =
+        (uid >= 0 && uid < n_units) ? int8_score(acc[0][0]) : __uint_as_float(0x7fffffffu);
+  }
+}
+
 template <typename K>
 int raise_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
@@ -265,6 +428,7 @@ int raise_smem(K kernel, size_t bytes) {
 
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
+constexpr int DTYPE_INT8 = 2;
 
 template <typename T>
 int launch_k1(const void* q, const void* shard, int Tn, int R, int D, int valid_rows,
@@ -293,9 +457,14 @@ template <typename T>
 int launch_k2(const void* q, const void* shard, const int32_t* ids, int Tn, int R,
               int D, int KS, int unit, float* out, cudaStream_t st) {
   dim3 grid((KS * unit + GR - 1) / GR, Tn);
-  k2_gather_rescore<T><<<grid, GR, 0, st>>>(static_cast<const T*>(q),
-                                            static_cast<const T*>(shard), ids, R, D,
-                                            KS, unit, out);
+  if constexpr (std::is_same<T, int8_t>::value)
+    k2_gather_rescore_i8<<<grid, GR, 0, st>>>(static_cast<const T*>(q),
+                                              static_cast<const T*>(shard), ids, R, D,
+                                              KS, unit, out);
+  else
+    k2_gather_rescore<T><<<grid, GR, 0, st>>>(static_cast<const T*>(q),
+                                              static_cast<const T*>(shard), ids, R, D,
+                                              KS, unit, out);
   return (int)cudaGetLastError();
 }
 
@@ -305,7 +474,8 @@ extern "C" {
 
 // Geometry the wrappers must respect (checked in Python too): R % 128 == 0;
 // K1: sub in {8, 16, 32, 64, 128}, ew a multiple of sub dividing 128; K3:
-// block dividing 128. key / bm may be null to skip those outputs.
+// block dividing 128. key / bm may be null to skip those outputs. dtype:
+// 0 float32, 1 bfloat16, 2 int8 (the lattice; D <= 1040).
 
 int bsr_matmul_blockmax2(const void* q, const void* shard, int dtype, int Tn, int R,
                          int D, int valid_rows, int sub, int ew, float* bm_sub,
@@ -317,6 +487,9 @@ int bsr_matmul_blockmax2(const void* q, const void* shard, int dtype, int Tn, in
   if (dtype == DTYPE_F32)
     return launch_k1<float>(q, shard, Tn, R, D, valid_rows, sub, ew, bm_sub, key, bm,
                             st);
+  if (dtype == DTYPE_INT8)
+    return launch_k1<int8_t>(q, shard, Tn, R, D, valid_rows, sub, ew, bm_sub, key, bm,
+                             st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -328,6 +501,8 @@ int bsr_gather_rescore(const void* q, const void* shard, const int32_t* ids, int
     return launch_k2<__nv_bfloat16>(q, shard, ids, Tn, R, D, KS, unit, out, st);
   if (dtype == DTYPE_F32)
     return launch_k2<float>(q, shard, ids, Tn, R, D, KS, unit, out, st);
+  if (dtype == DTYPE_INT8)
+    return launch_k2<int8_t>(q, shard, ids, Tn, R, D, KS, unit, out, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -340,6 +515,8 @@ int bsr_matmul_blockmax(const void* q, const void* shard, int dtype, int Tn, int
                                     st);
   if (dtype == DTYPE_F32)
     return launch_k3<float>(q, shard, Tn, R, D, valid_rows, block, sims, bm_t, st);
+  if (dtype == DTYPE_INT8)
+    return launch_k3<int8_t>(q, shard, Tn, R, D, valid_rows, block, sims, bm_t, st);
   return (int)cudaErrorInvalidValue;
 }
 

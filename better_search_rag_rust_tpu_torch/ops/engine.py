@@ -30,7 +30,7 @@ import torch
 from ..config import SearchConfig
 from ..store.device_store import DeviceStore
 from .distance import distances_from_sims, normalize_rows
-from .quantize import cast_rows_to
+from .quantize import cast_rows_to, cast_rows_to_host
 from .topk import global_topk, rescore_feasible, rescore_topk, serial_topk
 from .topk_kernels import kernel_scoring_exact_for, matmul_blockmax
 
@@ -42,8 +42,11 @@ _NOT_PORTED = {
 }
 #: f32 score-buffer budget of the dense route per query tile, in bytes.
 _SIMS_BUDGET = 2 << 30
-#: Queries per oracle score tile (bounds its [tile, rows] f32 buffer).
+#: Queries per oracle score tile, and the most scores one tile may hold
+#: (its [tile, rows] f32 buffer and the sort's keys and indices beside it:
+#: 256 queries at 1M rows, 26 at 10M).
 _ORACLE_TILE = 256
+_ORACLE_SCORES = 1 << 28
 
 
 class SearchHandle:
@@ -107,16 +110,17 @@ class SearchEngine:
         return self.store.dtype.itemsize < 4
 
     def prepare_upload_queries(self, queries) -> torch.Tensor:
-        """Host-side query prep for the halved upload: the normalization in
-        host f32, then ONE rounding to the store dtype. Returns a CPU tensor
-        in the store dtype — the exact bits the precast search scores; feed
-        the same queries to :meth:`oracle_topk` with ``upload="store"``."""
+        """Host-side query prep for the smaller upload (half the f32 bytes
+        on bf16 stores, a quarter on int8): the normalization in host f32,
+        then ONE rounding to the store dtype. Returns a CPU tensor in the
+        store dtype — the exact bits the precast search scores; feed the
+        same queries to :meth:`oracle_topk` with ``upload="store"``."""
         queries = self._prepare_queries(queries)
         norms = np.sqrt(
             np.sum(queries * queries, axis=-1, keepdims=True, dtype=np.float32)
         )
         qn = queries / np.where(norms == 0.0, 1.0, norms)
-        return cast_rows_to(torch.from_numpy(qn), self.store.dtype)
+        return cast_rows_to_host(qn, self.store.dtype)
 
     def _resolve_upload(self, upload: str) -> bool:
         if upload not in ("f32", "store"):
@@ -176,7 +180,11 @@ class SearchEngine:
         uploads those bits (half the bytes on bf16 stores)."""
         k_eff = self._resolve_k(k)
         if isinstance(queries, torch.Tensor) and queries.device == self.device:
-            vals, ids = self.search_device(queries.to(torch.float32), k_eff)
+            q = queries.to(torch.float32)
+            if (self.store.matryoshka_from is not None
+                    and q.shape[-1] == self.store.matryoshka_from):
+                q = q[:, : self.store.dim]
+            vals, ids = self.search_device(q, k_eff)
         elif self._resolve_upload(upload):
             qc = self._upload(self.prepare_upload_queries(queries))
             vals, ids = self._run(qc.contiguous(), k_eff)
@@ -254,9 +262,10 @@ class SearchEngine:
             return serial_topk(self.effective_store(), queries, k_eff,
                                sims=sims[:, :n].numpy())
         ids, vals = [], []
-        for t0 in range(0, qc.shape[0], _ORACLE_TILE):
+        tile = max(1, min(_ORACLE_TILE, _ORACLE_SCORES // n))
+        for t0 in range(0, qc.shape[0], tile):
             sims, _ = matmul_blockmax(
-                qc[t0:t0 + _ORACLE_TILE].contiguous(), self.store.data, n)
+                qc[t0:t0 + tile].contiguous(), self.store.data, n)
             order = torch.sort(-(sims[:, :n] + 0.0), dim=1, stable=True
                                ).indices[:, :k_eff]
             ids.append(order.cpu())
@@ -277,10 +286,16 @@ class SearchEngine:
     # -- routing --------------------------------------------------------------
 
     def _argmax_enabled(self) -> bool:
-        """Whether the rescore argmax fast path runs: on unless
-        ``rescore_argmax="off"`` (int8 stores, where the reference turns it
-        off at low dim, are not ported)."""
-        return self.config.rescore_argmax != "off"
+        """Whether the rescore argmax fast path runs: the reference's rule
+        (``ops/engine.py:490-513``) — off with ``rescore_argmax="off"``,
+        and under ``"auto"`` off for low-dim int8 stores (``dim * 2 <
+        1024``, e.g. ``search_10m_int8_mat256``), which take the full
+        gather geometry. Exactness never depends on the choice."""
+        mode = self.config.rescore_argmax
+        if mode == "off":
+            return False
+        return not (mode == "auto" and self.store.dtype == torch.int8
+                    and self.store.dim * 2 < 1024)
 
     def _rescore_geometry(self, k_eff: int) -> Tuple[int, int]:
         """``(sub, block)`` of the rescore route: the reference's choice

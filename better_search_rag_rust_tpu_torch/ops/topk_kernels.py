@@ -24,6 +24,15 @@ a plain version agrees with its kernel to a tolerance, not bit for bit. The
 plain K2 scores the whole shard with the same product as plain K1 and K3
 and gathers, so on the CPU the three plain versions are bitwise consistent
 with each other too.
+
+int8 stores (the lattice of :mod:`.quantize`): the kernels take the exact
+int32 dot (``__dp4a``) times :data:`.quantize.INT8_INV_SCALE2`. The plain
+versions form the same dot as an f32 matrix product of the lattice
+integers — ``torch.matmul`` has no int32 CUDA kernel — and that is exact:
+every product and partial sum is an integer of magnitude at most
+``D * 127^2`` (12,386,304 at 768-d), below 2^24, so f32 holds it in any
+summation order (TF32 must be off). One multiply by the same constant
+follows, so plain and kernel agree bit for bit on int8.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+
+from .quantize import INT8_INV_SCALE2
 
 #: Default row-block width for block maxima.
 BLOCK = 128
@@ -41,14 +52,20 @@ PAD_SIM = -3.0
 TILE_ROWS = 128
 INT32_MAX = 2**31 - 1
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _K1_SUBS = (8, 16, 32, 64, 128)
+#: Widest int8 dim whose dot stays exact in f32 (D * 127^2 <= 2^24).
+INT8_MAX_DIM = 1040
 
-#: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
+#: Kernel launches per wrapper since the last :func:`reset_launch_counts`;
+#: the int8 bodies count under ``<wrapper>_int8``.
 launch_counts: Dict[str, int] = {
     "matmul_blockmax2_only": 0,
     "gather_rescore": 0,
     "matmul_blockmax": 0,
+    "matmul_blockmax2_only_int8": 0,
+    "gather_rescore_int8": 0,
+    "matmul_blockmax_int8": 0,
 }
 
 
@@ -60,7 +77,8 @@ def reset_launch_counts() -> None:
 def kernel_scoring_exact_for(dtype) -> bool:
     """Whether the kernels score this store dtype with the oracle's own
     arithmetic: true for float32 and bfloat16, whose scores are one exact
-    f32 FMA chain in every kernel (the TPU's Mosaic f32 product was not)."""
+    f32 FMA chain in every kernel (the TPU's Mosaic f32 product was not),
+    and for the int8 lattice, whose scores are an exact integer dot."""
     return dtype in _DTYPE_CODES
 
 
@@ -98,8 +116,12 @@ def pack_m2_argmax_key(m2: torch.Tensor, arg: torch.Tensor) -> torch.Tensor:
 
 def _plain_scores(queries: torch.Tensor, shard: torch.Tensor) -> torch.Tensor:
     """``[T, R]`` f32 scores as one f32 matrix product (bf16 operands widen
-    exactly; TF32 must be off, as it is by default)."""
-    return queries.to(torch.float32) @ shard.to(torch.float32).T
+    exactly; TF32 must be off, as it is by default); int8 operands: the
+    exact integer dot in f32, then one multiply by ``INT8_INV_SCALE2``."""
+    sims = queries.to(torch.float32) @ shard.to(torch.float32).T
+    if shard.dtype == torch.int8:
+        sims.mul_(INT8_INV_SCALE2)
+    return sims
 
 
 def _plain_masked(queries, shard, valid_rows: int) -> torch.Tensor:
@@ -164,9 +186,12 @@ def _check_operands(queries: torch.Tensor, shard: torch.Tensor) -> None:
         raise ValueError(f"dim mismatch {queries.shape[1]} vs {shard.shape[1]}")
     if queries.dtype != shard.dtype or queries.dtype not in _DTYPE_CODES:
         raise TypeError(
-            f"queries and shard must share a dtype in float32/bfloat16, got "
-            f"{queries.dtype} and {shard.dtype}"
+            f"queries and shard must share a dtype in float32/bfloat16/int8, "
+            f"got {queries.dtype} and {shard.dtype}"
         )
+    if shard.dtype == torch.int8 and shard.shape[1] > INT8_MAX_DIM:
+        raise ValueError(f"int8 dim {shard.shape[1]} > {INT8_MAX_DIM}: the "
+                         "dot would leave f32's exact integer range")
     if queries.device != shard.device:
         raise ValueError(f"device mismatch {queries.device} vs {shard.device}")
     if queries.device.type not in ("cpu", "cuda"):
@@ -181,14 +206,16 @@ def _check_operands(queries: torch.Tensor, shard: torch.Tensor) -> None:
         raise ValueError(f"query tile {queries.shape[0]} > 65535")
 
 
-def _launch(name: str, fn_name: str, device: torch.device, *args) -> None:
-    """Call a C entry point on ``device``'s current stream; raise on its
-    returned CUDA error; count the launch."""
+def _launch(name: str, fn_name: str, shard: torch.Tensor, *args) -> None:
+    """Call a C entry point on the shard's device and current stream; raise
+    on its returned CUDA error; count the launch (int8 bodies apart)."""
     from ._build import library
 
+    if shard.dtype == torch.int8:
+        name += "_int8"
     lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(shard.device):
+        stream = torch.cuda.current_stream(shard.device).cuda_stream
         err = getattr(lib.lib, fn_name)(*args, stream)
     lib.check(name, err)
     launch_counts[name] += 1
@@ -239,7 +266,7 @@ def matmul_blockmax2_only(queries, shard, valid_rows, *, sub=16, block=BLOCK,
     bm = (torch.empty((r // ew, t), dtype=torch.float32, device=dev)
           if emit_block else None)
     if t:
-        _launch("matmul_blockmax2_only", "bsr_matmul_blockmax2", dev,
+        _launch("matmul_blockmax2_only", "bsr_matmul_blockmax2", shard,
                 queries.data_ptr(), shard.data_ptr(),
                 _DTYPE_CODES[shard.dtype], t, r, d, valid, sub, ew,
                 bm_sub.data_ptr(), _ptr(key), _ptr(bm))
@@ -272,7 +299,7 @@ def gather_rescore(queries, shard, ids, *, unit=BLOCK):
     out = torch.empty((t, ks * unit), dtype=torch.float32,
                       device=queries.device)
     if t and ks:
-        _launch("gather_rescore", "bsr_gather_rescore", queries.device,
+        _launch("gather_rescore", "bsr_gather_rescore", shard,
                 queries.data_ptr(), shard.data_ptr(), ids.data_ptr(),
                 _DTYPE_CODES[shard.dtype], t, r, d, ks, unit, out.data_ptr())
     return out
@@ -297,7 +324,7 @@ def matmul_blockmax(queries, shard, valid_rows, *, block=BLOCK):
     sims = torch.empty((t, r), dtype=torch.float32, device=dev)
     bm_t = torch.empty((r // block, t), dtype=torch.float32, device=dev)
     if t:
-        _launch("matmul_blockmax", "bsr_matmul_blockmax", dev,
+        _launch("matmul_blockmax", "bsr_matmul_blockmax", shard,
                 queries.data_ptr(), shard.data_ptr(),
                 _DTYPE_CODES[shard.dtype], t, r, d, valid, block,
                 sims.data_ptr(), bm_t.data_ptr())

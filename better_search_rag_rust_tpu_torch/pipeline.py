@@ -8,23 +8,27 @@ on one card:
   write the shard (``rank_0.parquet`` with its ``.paths.json``,
   ``.attrs.json`` and ``.progress`` sidecars), merge into
   ``global.parquet`` with ``manifest.json`` and the encoder meta;
-* serve mode: load the merged store onto the device, build the engine, run
-  the self-retrieval search and its accuracy report, the batch
-  ``evaluate``, or text queries (``query``).
+* serve mode: load the merged store onto the device (or restore its
+  snapshot), build the engine, run the self-retrieval search and its
+  accuracy report, the batch ``evaluate``, or text queries (``query``);
+* the JSONL server (``serve``: pipelined, optionally through the
+  micro-batcher, with hot ``reload``) and the incremental ``update`` that
+  reconciles the store with an edited tree.
 
 One process is shard 0 of 1, so the reference's host barriers have nothing
 to wait for. Per-batch failures are logged and skipped; ``resume`` continues
-from the shard's ``.progress`` commit marker. Serving (``serve``) and
-incremental ``update`` are later slices of the port (ROADMAP.md) and raise
-``NotImplementedError``.
+from the shard's ``.progress`` commit marker.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,7 +36,14 @@ import torch
 
 from .bench import BenchmarkManager
 from .config import PipelineConfig
-from .corpus import file_attr, file_stat, find_files_by_extensions, read_files
+from .corpus import (
+    content_fingerprint,
+    file_attr,
+    file_stat,
+    find_files_by_extensions,
+    read_file,
+    read_files,
+)
 from .metrics import (
     accuracy_metrics_for_query,
     mean_reciprocal_rank,
@@ -40,11 +51,20 @@ from .metrics import (
     top_k_overlap,
 )
 from .ops.engine import SearchEngine
+from .ops.quantize import store_dtype
 from .parallel.partition import slice_for_shard
+from .store import device_cache as dc
 from .store import vectorstore as vs
 from .store.device_store import DeviceStore
 from .utils.device import resolve_device
 from .utils.logging import host_log
+
+
+def _source_identity(path: Path) -> dict:
+    """What a snapshot records of the Parquet file it was built from."""
+    st = path.stat()
+    return {"rows": vs.parquet_row_count(path), "bytes": st.st_size,
+            "mtime_ns": st.st_mtime_ns}
 
 
 @dataclass
@@ -57,6 +77,10 @@ class IngestStats:
     files_skipped: int = 0
     embeddings: int = 0
     failed_batches: int = 0
+    #: update() only: rows re-embedded in place (edited files) and rows
+    #: compacted away (deleted or now unreadable files).
+    rows_reembedded: int = 0
+    rows_deleted: int = 0
 
 
 @dataclass
@@ -72,11 +96,25 @@ class PipelineResult:
     ingest: Optional[IngestStats] = None  #: None in serve mode
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet; see ROADMAP.md "
-        "(Queue 1). Use better_search_rag_rust_tpu for it."
-    )
+class MalformedRequest:
+    """What the serve reader hands :meth:`Pipeline.serve` for an input line
+    that was not valid JSON: a wrapper type, so no well-formed request can
+    collide with it."""
+
+    def __init__(self, error: str):
+        self.error = error
+
+
+def _serve_batch_shape(nq: int) -> int:
+    """The reference's serve batch shapes: powers of two up to 1024, then
+    multiples of 1024. The port compiles nothing per shape; it keeps the
+    padding so both packages dispatch the same batches."""
+    if nq <= 1024:
+        return max(1, 1 << (nq - 1).bit_length())
+    return nq + (-nq) % 1024
+
+
+_UNSET = object()
 
 
 class Pipeline:
@@ -91,21 +129,27 @@ class Pipeline:
         self._encoder = None
         self._seed = seed  #: random encoder weights when no checkpoint
         self._engine: Optional[SearchEngine] = None
-        self._manifest = None
-        self._manifest_loaded = False
+        self._manifest_cache = _UNSET
         self._drift_warned: set = set()
+        # Serializes engine builds and the manifest cache: one Pipeline is
+        # shared by the TCP server's connection threads, and a reload's
+        # clear-then-rebuild racing another connection's engine() would
+        # build (and hold) a second store on the card.
+        self._build_lock = threading.RLock()
 
     @property
     def encoder(self):
-        """The encoder service, built on the pipeline's device at first use."""
-        if self._encoder is None:
-            from .models.encoder import create_encoder
+        """The encoder service, built on the pipeline's device at first use
+        (once, when the server's connections reach it together)."""
+        with self._build_lock:
+            if self._encoder is None:
+                from .models.encoder import create_encoder
 
-            timer = self.bench.start("llm_service_loading")
-            self._encoder = create_encoder(self.config.encoder,
-                                           device=self.device, seed=self._seed)
-            self.bench.record(timer.stop(device=self.device))
-        return self._encoder
+                timer = self.bench.start("llm_service_loading")
+                self._encoder = create_encoder(
+                    self.config.encoder, device=self.device, seed=self._seed)
+                self.bench.record(timer.stop(device=self.device))
+            return self._encoder
 
     # -- phase 1: ingest + embed ---------------------------------------------------
 
@@ -300,7 +344,7 @@ class Pipeline:
             vs.write_update_commit(store_dir)
         else:
             vs.update_commit_path(store_dir).unlink(missing_ok=True)
-        self._manifest_loaded = False
+        self._manifest_cache = _UNSET
         self.bench.record(timer.stop(items_processed=count))
         host_log(f"merged {num_shards} shards -> {count} vectors")
         return count
@@ -309,10 +353,13 @@ class Pipeline:
 
     def load_device_store(self) -> DeviceStore:
         """``global.parquet`` -> normalized store on the device. Refuses a
-        store published by a partial merge unless ``allow_partial_merge``."""
+        store published by a partial merge unless ``allow_partial_merge``.
+        With ``store.use_snapshot`` a snapshot of the built store
+        (:mod:`.store.device_cache`) restores straight onto the device when
+        its dtype is the requested one and its recorded source is the
+        Parquet file on disk; otherwise (logged) the store loads from
+        Parquet and the snapshot is rewritten."""
         cfg = self.config
-        if cfg.store.use_snapshot:
-            raise _not_ported("the device-store snapshot (store.use_snapshot)")
         path = vs.global_store_path(cfg.store.dir)
         marker = vs.partial_merge_marker(cfg.store.dir)
         if marker.exists():
@@ -324,6 +371,11 @@ class Pipeline:
                     "allow_partial_merge to serve it anyway"
                 )
             host_log(f"WARNING: serving a PARTIAL store ({marker.read_text()})")
+        snap_dir = dc.snapshot_dir(cfg.store.dir)
+        if cfg.store.use_snapshot:
+            store = self._restore_snapshot(snap_dir, path)
+            if store is not None:
+                return store
         if vs.parquet_row_count(path) == 0:
             raise RuntimeError(
                 f"global store at {cfg.store.dir} is empty — "
@@ -333,13 +385,50 @@ class Pipeline:
         store = DeviceStore.from_parquet(path, cfg.search.store_dtype,
                                          device=self.device)
         self.bench.record(timer.stop(store.num_rows, self.device))
+        if cfg.store.use_snapshot:
+            dc.save_device_store(snap_dir, store, source=_source_identity(path))
+            host_log(f"device store snapshot written to {snap_dir}")
+        return store
+
+    def _restore_snapshot(self, snap_dir: Path, path: Path
+                          ) -> Optional[DeviceStore]:
+        """The snapshot as a device store, or None (logged) when it is
+        missing, older than the Parquet file, of another dtype, built from
+        another source, or unreadable (``pipeline.py:574-623`` of the
+        reference)."""
+        if not (dc.snapshot_exists(snap_dir) and path.exists()
+                and dc.meta_path(snap_dir).stat().st_mtime
+                >= path.stat().st_mtime):
+            return None
+        try:
+            meta = dc.read_meta(snap_dir)
+            # dtype changes the scores (exactness is per dtype)
+            want = dc.DTYPE_NAMES[store_dtype(self.config.search.store_dtype)]
+            if meta.get("dtype") != want:
+                raise ValueError(
+                    f"snapshot dtype {meta.get('dtype')} != requested {want}")
+            # mtimes can lie (a Parquet restored from a backup keeps an old
+            # one), and an update's in-place rewrite keeps rows and bytes:
+            # the recorded identity must match all three
+            src, now = meta.get("source") or {}, _source_identity(path)
+            if src != now:
+                raise ValueError(
+                    f"snapshot source {src} != parquet on disk {now}")
+            timer = self.bench.start("device_store_loading")
+            store = dc.load_device_store(snap_dir, self.device)
+            self.bench.record(timer.stop(store.num_rows, self.device))
+        except Exception as exc:  # noqa: BLE001 — Parquet is the fallback
+            host_log(f"snapshot unusable ({exc}); falling back to Parquet")
+            return None
+        host_log(f"device store restored from snapshot {snap_dir}")
         return store
 
     def engine(self, store: Optional[DeviceStore] = None) -> SearchEngine:
-        if self._engine is None:
-            self._engine = SearchEngine(store or self.load_device_store(),
-                                        self.config.search)
-        return self._engine
+        with self._build_lock:
+            if self._engine is None:
+                self._engine = SearchEngine(store or self.load_device_store(),
+                                            self.config.search)
+            return self._engine
 
     # -- text retrieval -----------------------------------------------------------------
 
@@ -355,7 +444,7 @@ class Pipeline:
         if emb is None:
             emb = self.encoder.get_embeddings(list(texts))
         ids, dists = engine.search(emb, k)
-        manifest = self._validated_manifest(int(engine.store.num_rows))
+        manifest = self._serve_manifest(int(engine.store.num_rows))
         out = []
         for row_ids, row_dists in zip(ids, dists):
             out.append([
@@ -366,22 +455,39 @@ class Pipeline:
             ])
         return out
 
-    def _validated_manifest(self, num_rows: int):
-        """The row -> path manifest, read once per pipeline, refusing a torn
-        (store, manifest) pair or one whose length is not the store's."""
-        if not self._manifest_loaded:
-            store_dir = self.config.store.dir
-            torn = vs.validate_update_commit(store_dir)
-            if torn:
-                raise RuntimeError(f"refusing to serve a torn store: {torn}")
-            self._manifest = vs.load_manifest(store_dir)
-            self._manifest_loaded = True
-        if self._manifest is not None and len(self._manifest) != num_rows:
+    def _serve_manifest(self, num_rows: Optional[int] = None):
+        """The row -> path manifest, read and validated once per engine
+        (every TCP connection runs its own :meth:`serve`; re-parsing a
+        multi-million-row manifest per connection is waste). The cache is
+        dropped whenever the engine is (reload, update, merge)."""
+        with self._build_lock:
+            if self._manifest_cache is _UNSET:
+                self._manifest_cache = self._validated_manifest(num_rows)
+            return self._manifest_cache
+
+    def _validated_manifest(self, num_rows: Optional[int]):
+        """Load the manifest, refusing a torn (store, manifest) pair — an
+        update that crashed between its renames (the commit marker) or a
+        reload landing mid-update (the row-count cross-check) — with a
+        loud, retryable error instead of row-shifted paths."""
+        store_dir = self.config.store.dir
+        torn = vs.validate_update_commit(store_dir)
+        if torn:
+            raise RuntimeError(f"refusing to serve a torn store: {torn}")
+        manifest = vs.load_manifest(store_dir)
+        if (manifest is not None and num_rows is not None
+                and len(manifest) != num_rows):
             raise RuntimeError(
-                f"row manifest ({len(self._manifest)} paths) does not match "
-                f"the store ({num_rows} rows) — an update() may be writing "
+                f"row manifest ({len(manifest)} paths) does not match the "
+                f"store ({num_rows} rows) — an update() may be writing "
                 "concurrently; retry once it completes")
-        return self._manifest
+        return manifest
+
+    def _drop_engine(self) -> None:
+        """Forget the engine and its manifest (the next use rebuilds)."""
+        with self._build_lock:
+            self._engine = None
+            self._manifest_cache = _UNSET
 
     def _warn_encoder_drift(self, where: str) -> None:
         """Warn once per call site when the encoder's numerics differ from
@@ -402,13 +508,414 @@ class Pipeline:
                 "Query/stored embeddings may drift at bf16-noise level; "
                 "re-ingest to realign.")
 
-    # -- later slices ----------------------------------------------------------------
+    # -- serving -----------------------------------------------------------------------
 
-    def serve(self, *args, **kwargs):
-        raise _not_ported("the JSONL server (Pipeline.serve)")
+    def serve(self, requests, k: Optional[int] = None, depth: int = 1,
+              batcher=None):
+        """Pipelined request/response serving: yields exactly one response
+        dict per request, in request order (the reference's
+        ``Pipeline.serve``, ``pipeline.py:724-1077``, and its JSONL
+        protocol).
 
-    def update(self, *args, **kwargs):
-        raise _not_ported("incremental update (Pipeline.update)")
+        Requests carry exactly one of ``query`` (a text), ``queries`` (a
+        batch of texts), ``vector`` or ``vectors`` (raw embeddings), plus an
+        optional ``id`` (echoed) and ``k`` (trimmed from the serve-wide
+        ``k``, never above it). Responses: ``{"id", "results": [[{path,
+        row, distance}, ...] per query]}`` or ``{"id", "error"}``; a bad
+        request never ends the stream. Up to ``depth`` searches stay in
+        flight while earlier results copy back. A ``None`` item is a flush
+        token: every in-flight response is emitted first. ``{"cmd":
+        "reload"}`` drains, then rebuilds the engine and manifest from disk
+        (answer ``{"id", "reloaded": true, "rows"}``): without a batcher the
+        old store is dropped BEFORE the new one loads (both would not fit
+        the card at the largest stores); through a shared ``batcher`` the
+        new engine is built first and hot-swapped under it
+        (``swap_engine``), and each response formats with the manifest of
+        the generation that served it. A reload that fails (an update
+        mid-rewrite) answers a retryable error and the next request
+        rebuilds.
+
+        Text requests keep their embeddings on the device (no readback and
+        re-upload), except through a batcher, which coalesces host rows.
+        Batches pad to :func:`_serve_batch_shape` by repeating the last
+        query (``torch.cat`` on the device); the padding is trimmed from
+        the response."""
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        k_serve = self.config.search.top_k if k is None else k
+        self._warn_encoder_drift("serve")
+        engine = self.engine()
+        if batcher is not None and batcher.k < min(k_serve,
+                                                   engine.store.num_rows):
+            raise ValueError(
+                f"batcher was built for k={batcher.k} < serve-wide "
+                f"top_k={k_serve}; build it with k >= the serve k")
+        manifest = self._serve_manifest(int(engine.store.num_rows))
+        if batcher is not None:
+            # file this store's manifest for the batcher's generation only
+            # if the batcher serves this very engine (else: row:N)
+            batcher.register_manifest(engine, manifest)
+        meta: deque = deque()  # ("error", resp) | ("ok", id, k_req, nq)
+        bufs: deque = deque()  # search handles, aligned with the "ok" metas
+
+        def _parse(req):
+            """-> (embeddings [Q, dim], req_id, k_req); raises ValueError."""
+            if isinstance(req, MalformedRequest):
+                raise ValueError(f"malformed JSON: {req.error}")
+            if not isinstance(req, dict):
+                raise ValueError(
+                    f"request must be a JSON object, got {type(req).__name__}")
+            req_id = req.get("id")
+            k_req = req.get("k", k_serve)
+            if isinstance(k_req, bool) or not isinstance(k_req, int) \
+                    or k_req <= 0:
+                raise ValueError(f"k must be a positive integer, got {k_req!r}")
+            if k_req > k_serve:
+                raise ValueError(
+                    f"k={k_req} exceeds the serve-wide top_k={k_serve} the "
+                    "engine was started with; restart serve with a larger "
+                    "--top-k")
+            kinds = [key for key in ("query", "queries", "vector", "vectors")
+                     if key in req]
+            if len(kinds) != 1:
+                raise ValueError(
+                    "request needs exactly one of query/queries/vector/vectors"
+                    f" (got {kinds or 'none'})")
+            kind = kinds[0]
+            if kind in ("query", "queries"):
+                texts = ([req["query"]] if kind == "query"
+                         else list(req["queries"]))
+                if not texts:
+                    raise ValueError("queries must be non-empty")
+                if not all(isinstance(t, str) for t in texts):
+                    raise ValueError("query texts must be strings")
+                emb = (None if batcher is not None
+                       else self.encoder.get_embeddings_device(texts))
+                if emb is None:
+                    emb = self.encoder.get_embeddings(texts)
+            else:
+                vecs = ([req["vector"]] if kind == "vector"
+                        else list(req["vectors"]))
+                if not vecs:
+                    raise ValueError("vectors must be non-empty")
+                emb = np.asarray(vecs, dtype=np.float32)
+                if emb.ndim != 2:
+                    raise ValueError(
+                        f"vectors must be rank-2, got shape {emb.shape}")
+            # validate against the store that will serve: through a batcher
+            # that is the batcher's current engine (another connection may
+            # have swapped it)
+            store = (batcher.engine if batcher is not None else engine).store
+            if emb.shape[1] != store.dim and not (
+                    store.matryoshka_from is not None
+                    and emb.shape[1] == store.matryoshka_from):
+                raise ValueError(
+                    f"query dim {emb.shape[1]} != store dim {store.dim}")
+            return emb, req_id, k_req
+
+        def _path(idx: int, m) -> str:
+            if m is not None and 0 <= idx < len(m):
+                return m[idx]
+            return f"row:{idx}"
+
+        def _drain(target: int):
+            """Emit responses until at most ``target`` searches stay in
+            flight; errors at the head of the queue are always emittable."""
+            while meta and meta[0][0] == "error":
+                yield meta.popleft()[1]
+            while len(bufs) > target:
+                handle = bufs.popleft()
+                _, req_id, k_req, nq = meta.popleft()
+                m = manifest
+                if batcher is not None:
+                    try:
+                        ids, dists = handle.result()
+                    except Exception as exc:  # noqa: BLE001 — one batch
+                        yield {"id": req_id, "error": f"search failed: {exc}"}
+                        while meta and meta[0][0] == "error":
+                            yield meta.popleft()[1]
+                        continue
+                    # the manifest of the generation that served this
+                    # future; a generation pruned from the window gives
+                    # row:N, never a stale manifest's wrong path
+                    fut_gen = getattr(handle, "generation", None)
+                    if fut_gen is not None:
+                        m = batcher.manifest_by_gen.get(fut_gen, None)
+                else:
+                    ids, dists = engine.collect(handle)
+                results = [
+                    [{"path": _path(int(i), m), "row": int(i),
+                      "distance": float(d)}
+                     for i, d in zip(row_ids[:k_req], row_dists[:k_req])]
+                    for row_ids, row_dists in zip(ids[:nq].tolist(),
+                                                  dists[:nq].tolist())
+                ]
+                yield {"id": req_id, "results": results}
+                while meta and meta[0][0] == "error":
+                    yield meta.popleft()[1]
+
+        def _rebuild():
+            """A fresh engine and its manifest, atomically against the
+            other connections' engine() calls."""
+            with self._build_lock:
+                self._drop_engine()
+                new = self.engine()
+                return new, self._serve_manifest(int(new.store.num_rows))
+
+        for req in requests:
+            if req is None:  # flush token: answer everything in flight
+                yield from _drain(0)
+                continue
+            if isinstance(req, dict) and req.get("cmd") == "reload":
+                rid = req.get("id")
+                yield from _drain(0)  # old-engine handles finish first
+                if batcher is None:
+                    # drop every reference to the old store before the new
+                    # one loads
+                    engine = manifest = None
+                try:
+                    new_engine, new_manifest = _rebuild()
+                    if batcher is not None:
+                        batcher.swap_engine(new_engine, new_manifest)
+                except Exception as exc:  # noqa: BLE001 — reload mid-update
+                    # never serve a misaligned (store, manifest) pair: a
+                    # retryable error, and the next request rebuilds
+                    self._drop_engine()
+                    yield {"id": rid,
+                           "error": f"reload failed: {exc}; retry reload"}
+                    continue
+                engine, manifest = new_engine, new_manifest
+                self._warn_encoder_drift("serve")
+                yield {"id": rid, "reloaded": True,
+                       "rows": int(engine.store.num_rows)}
+                continue
+            if engine is None and batcher is None:
+                # a previous reload failed: rebuild per request, answering
+                # retryable errors until the update commits (before _parse,
+                # whose dim check reads the store)
+                try:
+                    engine, manifest = _rebuild()
+                except Exception as exc:  # noqa: BLE001
+                    self._drop_engine()
+                    rid = req.get("id") if isinstance(req, dict) else None
+                    meta.append(("error", {
+                        "id": rid, "error": f"store unavailable: {exc}; retry",
+                    }))
+                    yield from _drain(depth)
+                    continue
+            try:
+                emb, req_id, k_req = _parse(req)
+            except Exception as exc:  # noqa: BLE001 — bad request != dead server
+                rid = req.get("id") if isinstance(req, dict) else None
+                meta.append(("error", {"id": rid, "error": str(exc)}))
+                yield from _drain(depth)
+                continue
+            nq = emb.shape[0]
+            if batcher is not None:
+                # the batcher pads and coalesces itself; submit before the
+                # meta entry, so a refusal leaves nothing orphaned
+                try:
+                    handle = batcher.submit(emb)
+                except Exception as exc:  # noqa: BLE001
+                    meta.append(("error", {"id": req_id, "error": str(exc)}))
+                    yield from _drain(depth)
+                    continue
+                meta.append(("ok", req_id, k_req, nq))
+                bufs.append(handle)
+                yield from _drain(depth)
+                continue
+            padded = _serve_batch_shape(nq)
+            if padded != nq:
+                if isinstance(emb, torch.Tensor):  # stays on the device
+                    emb = torch.cat([emb, emb[-1:].expand(padded - nq, -1)])
+                else:
+                    emb = np.concatenate(
+                        [emb, np.repeat(emb[-1:], padded - nq, axis=0)])
+            meta.append(("ok", req_id, k_req, nq))
+            bufs.append(engine.search_async(
+                emb, k_serve, upload=self.config.search.query_upload))
+            yield from _drain(depth)
+        yield from _drain(0)
+
+    # -- incremental update ----------------------------------------------------------
+
+    def update(self) -> IngestStats:
+        """Reconcile the global store with the corpus (the reference's
+        ``Pipeline.update``, ``pipeline.py:1114-1376``, on one host):
+
+        * new files (not in the manifest) are embedded and appended;
+        * edited files — per-row identity ``[size, mtime_ns, fingerprint]``:
+          size and mtime as the no-read fast path, the fingerprint as the
+          truth — are re-embedded IN PLACE (their row ids stay);
+        * deleted (or now unreadable, oversized or empty) files' rows are
+          compacted away; later rows shift down and the rewritten manifest
+          is the authority.
+
+        Rows with no recorded identity are kept as they are. The store,
+        manifest and attrs are three atomic renames; the update-commit
+        marker written last binds them (a crash in between is detected and
+        refused by loaders), and ``global.parquet.ahead`` makes a later
+        merge refuse to drop the new rows. The engine and manifest cache
+        are dropped: the next search (or a server's ``reload``) loads the
+        reconciled store."""
+        cfg = self.config
+        stats = IngestStats()
+        try:
+            return self._update(cfg, stats)
+        finally:
+            self._drop_engine()
+
+    def _update(self, cfg, stats: IngestStats) -> IngestStats:
+        files = find_files_by_extensions(cfg.corpus.root, cfg.corpus.extensions)
+        stats.files_found = len(files)
+        manifest = vs.load_manifest(cfg.store.dir) or []
+        attrs = vs.load_attrs(cfg.store.dir) or []
+        attrs = (attrs + [None] * len(manifest))[: len(manifest)]
+        if not files and manifest:
+            # an empty walk against a populated store is far more likely a
+            # bad root than a mass deletion: never compact everything away
+            raise RuntimeError(
+                f"update: no files found under {cfg.corpus.root} "
+                f"(extensions {cfg.corpus.extensions}) but the store holds "
+                f"{len(manifest)} rows — refusing to compact everything "
+                "away; check the corpus root, or run a full ingest to "
+                "rebuild intentionally")
+        known = set(manifest)
+        fset = {str(f) for f in files}
+        new_files = [f for f in files if str(f) not in known]
+        stats.files_assigned = len(new_files)
+        store_rows = vs.parquet_row_count(vs.global_store_path(cfg.store.dir))
+        if store_rows != len(manifest):
+            raise RuntimeError(
+                f"manifest ({len(manifest)} paths) out of sync with store "
+                f"({store_rows} rows) — rebuild with a full ingest")
+        torn = vs.validate_update_commit(cfg.store.dir)
+        if torn:
+            raise RuntimeError(f"update: torn store detected: {torn}")
+
+        # classify every row: deleted / edited / identity refresh (touched,
+        # same content) / unchanged
+        deleted: List[int] = []
+        edited_rows: Dict[str, int] = {}   # path -> row
+        edited_attr: Dict[str, list] = {}  # path -> classification identity
+        refresh: Dict[int, Optional[list]] = {}  # row -> new identity
+        pre_attrs_rows = 0
+        for i, (p, a) in enumerate(zip(manifest, attrs)):
+            if p not in fset:
+                deleted.append(i)
+                continue
+            if a is None:
+                pre_attrs_rows += 1
+                continue
+            try:
+                st = os.stat(p)
+            except OSError:
+                deleted.append(i)
+                continue
+            if st.st_size == a[0] and st.st_mtime_ns == a[1]:
+                continue
+            content = read_file(p, cfg.corpus.max_file_bytes)
+            if not content:
+                # ingest never stores empty or unreadable files: the row goes
+                deleted.append(i)
+                continue
+            fp = content_fingerprint(content)
+            if fp == a[2]:
+                refresh[i] = [st.st_size, st.st_mtime_ns, a[2]]
+            else:
+                edited_rows[p] = i
+                # the fallback identity if the re-embed pass's own stat fails
+                edited_attr[p] = [st.st_size, st.st_mtime_ns, fp]
+        if pre_attrs_rows:
+            host_log(f"update: {pre_attrs_rows} rows have no recorded file "
+                     "identity (pre-attrs store) — edits to those files are "
+                     "undetectable; run a full ingest to record identities")
+        if not (new_files or edited_rows or deleted or refresh):
+            host_log("update: store already covers the corpus")
+            return stats
+
+        self._warn_encoder_drift("update")
+        timer = self.bench.start("embedding_generation")
+        replacements: Dict[int, np.ndarray] = {}
+        appended: List[np.ndarray] = []
+        new_paths: List[str] = []
+        new_attrs: List = []
+        to_embed = [Path(p) for p in edited_rows] + list(new_files)
+
+        def on_batch(batch_idx, files_through, kept, emb) -> None:
+            if emb is None or not kept:
+                return
+            for (p, _c, a), vec in zip(kept, emb):
+                sp = str(p)
+                row = edited_rows.get(sp)
+                if row is not None:
+                    replacements[row] = np.asarray(vec, dtype=np.float32)
+                    refresh[row] = a if a is not None else edited_attr.get(sp)
+                else:
+                    appended.append(np.asarray(vec, dtype=np.float32))
+                    new_paths.append(sp)
+                    new_attrs.append(a)
+
+        if to_embed:
+            self._embed_paths_pipelined(to_embed, stats, on_batch)
+        stats.rows_reembedded = len(replacements)
+        stats.rows_deleted = len(deleted)
+        stats.embeddings = len(appended)
+
+        store_changed = bool(replacements or deleted or appended)
+        if store_changed:
+            # rows are materialized only here; take_matrix hands over the
+            # store's own buffer, edited in place (one copy at most)
+            gstore = vs.global_store(cfg.store.dir, empty=False)
+            mat = gstore.take_matrix()
+            for i, vec in replacements.items():
+                mat[i] = vec
+            for i, a in refresh.items():
+                attrs[i] = a
+            if deleted:
+                keep = np.ones(len(manifest), dtype=bool)
+                keep[deleted] = False
+                if mat.size:
+                    # blocked in-place compaction: no second full matrix
+                    write, blk = 0, 65536
+                    for start in range(0, len(manifest), blk):
+                        sel = keep[start:start + blk]
+                        n = int(sel.sum())
+                        if n:
+                            mat[write:write + n] = mat[start:start + blk][sel]
+                            write += n
+                    mat = mat[:write]
+                manifest = [p for j, p in enumerate(manifest) if keep[j]]
+                attrs = [a for j, a in enumerate(attrs) if keep[j]]
+            if mat.size:
+                gstore.append_many(mat)
+            if appended:
+                gstore.append_many(np.stack(appended))
+                manifest.extend(new_paths)
+                attrs.extend(new_attrs)
+            gstore.persist()
+        else:
+            for i, a in refresh.items():
+                attrs[i] = a
+        vs.atomic_write_text(vs.manifest_path(cfg.store.dir),
+                             json.dumps(manifest))
+        vs.atomic_write_text(vs.attrs_path(cfg.store.dir), json.dumps(attrs))
+        # COMMIT POINT: binds the renamed (store, manifest, attrs) triple
+        vs.write_update_commit(cfg.store.dir)
+        if store_changed:
+            # global.parquet now holds rows no shard has: a merge must refuse
+            vs.global_ahead_marker(cfg.store.dir).write_text(json.dumps({
+                "rows": gstore.count,
+                "appended": stats.embeddings,
+                "reembedded": stats.rows_reembedded,
+                "deleted": stats.rows_deleted,
+            }))
+        self.bench.record(timer.stop(
+            items_processed=stats.embeddings + stats.rows_reembedded))
+        host_log(f"update: appended {stats.embeddings} embeddings, "
+                 f"re-embedded {stats.rows_reembedded} rows, deleted "
+                 f"{stats.rows_deleted} rows ({stats.files_skipped} skipped)")
+        return stats
 
     # -- evaluation --------------------------------------------------------------------
 

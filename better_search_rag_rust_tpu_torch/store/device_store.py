@@ -2,7 +2,8 @@
 
 Counterpart of ``better_search_rag_rust_tpu/store/device_store.py`` on one
 card. Rows are L2-normalized in float32 with the zero-magnitude guard, then
-rounded to the store dtype (bf16 by default) — what the kernels score.
+rounded to the store dtype (bf16 by default, float32, or the int8 lattice of
+:mod:`..ops.quantize`) — what the kernels score.
 
 Layout: ``data [padded_rows, dim]``, row-major and contiguous. The JAX store
 pads features to the TPU's 128 lanes; that padding is gone here. Rows are
@@ -170,13 +171,14 @@ class DeviceStore:
         ``np.asarray(jax_store.data)`` (``[padded_rows, padded_dim]``, valid
         rows first, bf16 as ``ml_dtypes.bfloat16`` or f32) with its
         ``num_rows``, ``dim`` and ``matryoshka_from``. Nothing is
-        re-normalized, so both packages score identical rows."""
+        re-normalized, so both packages score identical rows (for int8, the
+        same lattice integers)."""
         arr = np.array(np.asarray(data)[:num_rows, :dim], order="C")
         if arr.dtype.name == "bfloat16":
             # torch.from_numpy rejects ml_dtypes arrays: move the raw bits.
             src = torch.from_numpy(arr.view(np.uint16).view(np.int16)).view(
                 torch.bfloat16)
-        elif arr.dtype == np.float32:
+        elif arr.dtype in (np.float32, np.int8):
             src = torch.from_numpy(arr)
         else:
             raise ValueError(f"unsupported reference store dtype {arr.dtype}")
@@ -186,5 +188,8 @@ class DeviceStore:
 
     def effective_matrix(self) -> np.ndarray:
         """The valid rows as host float32, after normalization and dtype
-        rounding — exactly what the engine scores against."""
+        rounding — exactly what the engine scores against. For int8 stores
+        these are the lattice integers (exact in f32), as in the reference:
+        score them with :func:`..ops.quantize.int8_sims_host`, not by
+        re-normalizing."""
         return self.data[: self.num_rows].to(torch.float32).cpu().numpy()

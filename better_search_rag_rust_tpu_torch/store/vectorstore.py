@@ -235,6 +235,18 @@ class ParquetVectorStore:
         self._chunks.append(np.ascontiguousarray(mat))
         self._count += mat.shape[0]
 
+    def take_matrix(self) -> np.ndarray:
+        """Detach all rows as ONE writable ``[N, D]`` matrix and leave the
+        store empty — what ``Pipeline.update`` edits in place (rewritten
+        rows, compaction). At most one materialized copy exists: the
+        store's reference goes before a read-only (memory-mapped) matrix is
+        copied."""
+        mat = self.matrix()
+        self._chunks, self._count = [], 0
+        if mat.size and not mat.flags.writeable:
+            mat = np.array(mat)
+        return mat
+
     def truncate(self, n: int) -> None:
         """Keep the first ``n`` rows (resume drops rows persisted past the
         last commit marker)."""
@@ -291,6 +303,17 @@ def attrs_path(store_dir: str | os.PathLike) -> Path:
     """Row -> file-identity sidecar of the merged store, parallel to
     ``manifest.json``: ``[size, mtime_ns, fingerprint]`` or null per row."""
     return Path(store_dir) / "manifest.attrs.json"
+
+
+def load_attrs(store_dir: str | os.PathLike) -> Optional[List]:
+    """The row -> identity list, or None when never written or unreadable."""
+    p = attrs_path(store_dir)
+    if not p.exists():
+        return None
+    try:
+        return json.loads(p.read_text())
+    except ValueError:
+        return None
 
 
 def global_ahead_marker(store_dir: str | os.PathLike) -> Path:

@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch port on one CUDA card: search, build and
-training paths.
+"""Smoke run of the PyTorch port on one CUDA card: search, build, training
+and serving paths.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -48,7 +48,26 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    split of one step into K8, K9, GEMMs and the rest;
 11. ``cli.main(["finetune", ...])`` on phase 8's tree (4 steps of 64 pairs,
    ``--save-dir``): the checkpoint reloads bit for bit equal to the
-   trainer's parameters.
+   trainer's parameters;
+12. the int8 bodies of K1 (sub 64, argmax and block emission), K2 (KS 4
+   and 100) and K3 (256 queries) against their plain versions on a 1M x 768
+   int8 lattice store: max |diff| 0 and equal packed keys (an int8 score is
+   an exact integer dot times one constant), the argmax identity bit for
+   bit, kernel and plain times;
+13. the engine on ``search_1m_int8`` and ``search_10m_int8`` (1M and 10M x
+   768 int8, 1024 queries, k=100) as in phase 4: route rescore, MRR, recall
+   and oracle overlap 1.0, int8 launch counts over that run, q/s of search
+   and search_device;
+14. ``bench/serve.py`` at the ``serve_open`` shape (64 clients x 8
+   outstanding, 2 ms window, depth 2) on the 1M x 768 bf16 store and, with
+   32 requests per client, the 10M x 768 int8 store: every request answered
+   and equal to ``engine.search`` of its query; where the time goes in one
+   served batch of 512 queries (torch.profiler against wall clock);
+15. CLI ``serve --port 0 --serve-window-ms 2 --snapshot`` as a subprocess on
+   phase 8's nomic store with two TCP connections; 16 files edited, 8
+   deleted and 8 added, CLI ``update`` (nomic on K8), ``reload``: 4096
+   rows, every edited and added file at rank 1, no deleted file answered;
+   a second start restores from the snapshot and answers identically.
 
 Prints one line per phase, then the card line, the kernels JSON line and,
 last, ``{"ok": true, "device": ...}``. Any failed check raises: the exit
@@ -87,6 +106,14 @@ KERNELS = {
                             "better_search_rag_rust_tpu/ops/attention_pallas.py:177"),
     "fused_attention_qkv_bwd": (CSRC + "attention_kernels.cu",
                                 "better_search_rag_rust_tpu/ops/attention_pallas.py:290"),
+    # the int8 bodies: K1's int8 branch, and K2/K3 traced on int8 operands
+    # (their scores through _sims_dot's int8 arm, topk_pallas.py:56)
+    "matmul_blockmax2_only_int8": (CSRC + "topk_kernels.cu",
+                                   "better_search_rag_rust_tpu/ops/topk_pallas.py:390"),
+    "gather_rescore_int8": (CSRC + "topk_kernels.cu",
+                            "better_search_rag_rust_tpu/ops/topk_pallas.py:656"),
+    "matmul_blockmax_int8": (CSRC + "topk_kernels.cu",
+                             "better_search_rag_rust_tpu/ops/topk_pallas.py:120"),
 }
 #: the encoder's shape: batch, sequence, heads, head width
 B_ENC, S_ENC, H_ENC, HD_ENC = 256, 512, 12, 64
@@ -215,8 +242,9 @@ def check_kernels(store, store_100k, gen):
     return errs, times
 
 
-def drive_main_path(name, store, cfg, gen, route):
-    """Phase 4 on one store: engine, evaluate, three streamed batches."""
+def drive_main_path(name, store, cfg, gen, route, label="phase 4"):
+    """Phase 4 (or 13) on one store: engine, evaluate, three streamed
+    batches."""
     from better_search_rag_rust_tpu_torch.pipeline import Pipeline
 
     pipe = Pipeline(cfg, device="cuda")
@@ -235,7 +263,7 @@ def drive_main_path(name, store, cfg, gen, route):
     self_hits = [float(np.mean(ids[:, 0] == t))
                  for (ids, _), t in zip(streamed, truth)]
     again, _ = engine.search(batches[0], K)
-    phase(f"phase 4 {name}: route={engine.kernel_name(K)} "
+    phase(f"{label} {name}: route={engine.kernel_name(K)} "
           f"mrr={report['mrr']} recall@{K}={report['recall_at_k']} "
           f"oracle_overlap={report['oracle_overlap']} evaluate "
           f"{eval_s:.2f}s; 3 streamed batches self-hit@1={self_hits}")
@@ -285,7 +313,8 @@ def check_attention(gen):
 
 def _device_profile(fn):
     """Device time by kernel over one call of ``fn`` (torch.profiler):
-    ({"K8": ms, "K9": ms, "GEMMs": ms, "rest": ms}, total ms, top kernels)."""
+    ({"K8": ms, "K9": ms, "GEMMs": ms, "rest": ms}, total ms, [(ms, kernel)]
+    longest first)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -309,7 +338,7 @@ def _device_profile(fn):
     }
     total = sum(ms for ms, _ in rows)
     split["rest"] = total - sum(split.values())
-    return split, total, rows[:6]
+    return split, total, rows
 
 
 def check_encoder(seed, card):
@@ -348,7 +377,7 @@ def check_encoder(seed, card):
           f"{k8:.2f} ms ({100 * k8 / total:.1f} %), GEMMs {gemm:.2f} ms "
           f"({100 * gemm / total:.1f} %), rest {rest:.2f} ms "
           f"({100 * rest / total:.1f} %); top kernels: "
-          + "; ".join(f"{key[:60]} {ms:.2f}" for ms, key in top))
+          + "; ".join(f"{key[:60]} {ms:.2f}" for ms, key in top[:6]))
     assert np.isfinite(a).all() and a.shape == (B_ENC, 768)
     assert cos.min() >= ATT_COS, cos.min()
     del fused, plain
@@ -560,7 +589,7 @@ def check_training(seed, card):
           + ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f} %)"
                       for k, v in split.items())
           + "; top kernels: "
-          + "; ".join(f"{key[:60]} {ms:.2f}" for ms, key in top))
+          + "; ".join(f"{key[:60]} {ms:.2f}" for ms, key in top[:6]))
     del tr, batch
     torch.cuda.empty_cache()
     return k9
@@ -613,6 +642,369 @@ def drive_finetune_cli(tmp, src, card):
           f"{ak.launch_counts['fused_attention_qkv_bwd']}")
     assert rc == 0 and equal and math.isfinite(final)
     assert ak.launch_counts["fused_attention_qkv_bwd"] == 4 * 2 * 12
+
+
+def check_int8_kernels(store, gen):
+    """Phase 12: the int8 bodies of K1/K2/K3 against their plain versions on
+    a 1M x 768 int8 lattice store, bit for bit, and the argmax identity."""
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+
+    data, n = store.data, store.num_rows
+    rows = torch.randint(0, n, (T,), generator=gen, device="cuda")
+    q = data[rows].contiguous()
+    errs, times = {}, {}
+
+    def k1():
+        return tk.matmul_blockmax2_only(q, data, n, sub=SUB, block=BLOCK,
+                                        emit_block=True, emit_argmax=True)
+
+    def k1_plain():
+        return tk.matmul_blockmax2_only_plain(
+            q, data, n, sub=SUB, block=BLOCK, emit_block=True,
+            emit_argmax=True)
+
+    (bms, key, bm), (p_bms, p_key, p_bm) = k1(), k1_plain()
+    torch.cuda.synchronize()
+    keys_equal = torch.equal(key, p_key)
+    errs["matmul_blockmax2_only_int8"] = max(max_abs(bms, p_bms),
+                                             max_abs(bm, p_bm))
+    phase(f"phase 12 K1 int8 [{T} x {data.shape[0]} x {data.shape[1]}] "
+          f"sub={SUB}: max|bm_sub-plain|={max_abs(bms, p_bms)} "
+          f"max|bm-plain|={max_abs(bm, p_bm)} packed (m2, argmax) keys "
+          f"equal: {keys_equal}")
+    assert errs["matmul_blockmax2_only_int8"] == 0 and keys_equal
+    times["matmul_blockmax2_only_int8"] = (cuda_ms(k1), cuda_ms(k1_plain))
+    del p_bms, p_key, p_bm
+
+    n_units = data.shape[0] // SUB
+    errs["gather_rescore_int8"] = 0.0
+    for ks in (4, 100):
+        ids = torch.sort(torch.randint(0, n_units, (T, ks), generator=gen,
+                                       device="cuda"), dim=1).values
+        ids = ids.to(torch.int32).contiguous()
+        err = max_abs(tk.gather_rescore(q, data, ids, unit=SUB),
+                      tk.gather_rescore_plain(q, data, ids, unit=SUB))
+        errs["gather_rescore_int8"] = max(errs["gather_rescore_int8"], err)
+        times[f"gather_rescore_int8_ks{ks}"] = (
+            cuda_ms(lambda: tk.gather_rescore(q, data, ids, unit=SUB)),
+            cuda_ms(lambda: tk.gather_rescore_plain(q, data, ids, unit=SUB)))
+        phase(f"phase 12 K2 int8 KS={ks} unit={SUB}: max|out-plain|={err}")
+        assert err == 0
+    times["gather_rescore_int8"] = times["gather_rescore_int8_ks100"]
+
+    # the oracle scores 256 queries per K3 launch over the whole store
+    q256 = q[:256].contiguous()
+    sims, bm_t = tk.matmul_blockmax(q256, data, n)
+    p_sims, p_bm_t = tk.matmul_blockmax_plain(q256, data, n)
+    errs["matmul_blockmax_int8"] = max(max_abs(sims, p_sims),
+                                       max_abs(bm_t, p_bm_t))
+    phase(f"phase 12 K3 int8 [256 x {data.shape[0]} x {data.shape[1]}]: "
+          f"max|sims-plain|={max_abs(sims, p_sims)} "
+          f"max|bm-plain|={max_abs(bm_t, p_bm_t)}")
+    assert errs["matmul_blockmax_int8"] == 0
+    times["matmul_blockmax_int8"] = (
+        cuda_ms(lambda: tk.matmul_blockmax(q256, data, n)),
+        cuda_ms(lambda: tk.matmul_blockmax_plain(q256, data, n)))
+    del sims, bm_t, p_sims, p_bm_t
+
+    units = torch.sort(torch.randint(0, n // SUB, (T, 256), generator=gen,
+                                     device="cuda"), dim=1).values
+    resc = tk.gather_rescore(q, data, units.to(torch.int32).contiguous(),
+                             unit=SUB).view(T, 256, SUB)
+    arg = torch.gather((key & 0x7F).T.to(torch.int64), 1, units)
+    k1_max = torch.gather(bms.T, 1, units)
+    k2_at_arg = torch.gather(resc, 2, arg[:, :, None])[:, :, 0]
+    sims, _ = tk.matmul_blockmax(q, data, n)
+    same = (torch.equal(k2_at_arg, k1_max)
+            and torch.equal(torch.gather(sims, 1, units * SUB + arg), k1_max))
+    phase(f"phase 12 int8 identity on {units.numel()} (query, unit argmax) "
+          f"pairs: K1 == K2 == K3 bitwise: {same}")
+    assert same
+    for name, (ms, pms) in times.items():
+        phase(f"phase 12 {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    return errs, times
+
+
+def measure_qps(engine, store, gen, iters: int = 5):
+    """``search`` (host queries in, host ids out) and ``search_device``
+    queries/sec at 1024 queries, k = K."""
+    rows = torch.randint(0, store.num_rows, (1024,), generator=gen,
+                         device="cuda")
+    queries = store.data[rows].float().cpu().numpy()
+    engine.search(queries, K)  # warm-up
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        engine.search(queries, K)
+    host_qps = 1024 * iters / (time.perf_counter() - t0)
+    qdev = engine.prepare_device_queries(queries)
+    engine.search_device(qdev, K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        engine.search_device(qdev, K)
+    torch.cuda.synchronize()
+    return host_qps, 1024 * iters / (time.perf_counter() - t0)
+
+
+def serve_split(store, tmp, card):
+    """Where the time goes in one served batch of 512 vector queries
+    (``Pipeline.serve``, k = K): wall clock of the request against the
+    device time of its kernels (torch.profiler). The synthetic store has no
+    manifest: its store dir is an empty one, and paths read ``row:N``."""
+    from better_search_rag_rust_tpu_torch.config import (
+        PipelineConfig,
+        SearchConfig,
+        StoreConfig,
+    )
+    from better_search_rag_rust_tpu_torch.pipeline import Pipeline
+
+    pipe = Pipeline(PipelineConfig(
+        store=StoreConfig(dir=os.path.join(tmp, "synthetic")),
+        search=SearchConfig(top_k=K), skip_process=True), device="cuda")
+    engine = pipe.engine(store)
+    rows = np.linspace(0, store.num_rows - 1, 512, dtype=np.int64)
+    req = {"id": 0, "vectors": store.data[torch.from_numpy(rows).cuda()]
+           .float().cpu().numpy().tolist()}
+    list(pipe.serve([req], k=K))  # warm-up
+    t0 = time.perf_counter()
+    (resp,) = pipe.serve([req], k=K)
+    wall = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    engine.search(np.asarray(req["vectors"], np.float32), K)
+    search_ms = 1e3 * (time.perf_counter() - t0)
+    split, total, top = _device_profile(lambda: list(pipe.serve([req], k=K)))
+    k1 = sum(ms for ms, key in top if "k1_blockmax2" in key)
+    k2 = sum(ms for ms, key in top if "k2_gather_rescore" in key)
+    phase(f"phase 14 [{card}] one served batch of 512 queries on "
+          f"{store.num_rows} x {store.dim} {str(store.dtype)[6:]}, k={K}: "
+          f"request {wall:.2f} ms wall (engine.search alone {search_ms:.2f} "
+          f"ms; the rest is parsing the JSON vectors and formatting "
+          f"{512 * K} results); device {total:.2f} ms, of it K1 {k1:.2f} ms,"
+          f" K2 {k2:.2f} ms; top kernels: "
+          + "; ".join(f"{key[:40]} {ms:.2f}" for ms, key in top[:6]))
+    assert len(resp["results"]) == 512
+    assert all(len(r) == K for r in resp["results"])
+
+
+def drive_serve_bench(store_bf16, store_i8, card):
+    """Phase 14: ``bench/serve.py`` at the ``serve_open`` shape (64 clients x
+    8 outstanding, 2 ms window, depth 2) on the 1M x 768 bf16 store and,
+    with fewer requests per client, the 10M x 768 int8 store. Every answer
+    must equal ``engine.search`` of the same query."""
+    from better_search_rag_rust_tpu_torch.bench.serve import run_serve_suite
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+
+    launches = {}
+    for base, store, per_client, suffix in (
+            ("search_1m", store_bf16, 256, ""),
+            ("search_10m_int8", store_i8, 32, "_int8")):
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        res = run_serve_suite(base=base, clients=64, outstanding=8,
+                              requests_per_client=per_client, window_ms=2.0,
+                              depth=2, store=store)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in tk.launch_counts.items() if v}
+        phase(f"phase 14 [{card}] serve {base} ({res['rows']} x {res['dim']} "
+              f"{res['store_dtype']}, route {res['kernel']}), 64 clients x 8 "
+              f"outstanding, {res['requests']} requests: "
+              f"{res['value']:.1f} q/s, single-request "
+              f"{res['single_request_qps']:.1f} q/s, coalescing "
+              f"{res['coalescing']:.1f}, p50 "
+              f"{res['p50_latency_ms']:.2f} ms, p99 {res['p99_latency_ms']:.2f}"
+              f" ms, recall@10 {res['recall_at_10']}, answered "
+              f"{res['answered']}, failed {res['failed']}, differing from "
+              f"engine.search {res['mismatched']}; launches {counts}")
+        assert res["answered"] == res["requests"] and res["failed"] == 0
+        assert res["mismatched"] == 0 and res["recall_at_10"] == 1.0
+        assert res["kernel"] == "rescore"
+        for name in ("matmul_blockmax2_only", "gather_rescore"):
+            assert counts.get(name + suffix, 0) > 0, counts
+            launches[name + suffix] = counts[name + suffix]
+    return launches
+
+
+def _edit_tree(src, seed, edit=16, delete=8, add=8):
+    """Rewrite ``edit`` files, delete ``delete`` and add ``add`` new ones;
+    returns (edited paths, deleted paths, added paths)."""
+    rng = np.random.default_rng(seed + 7)
+    names = sorted(os.listdir(src))
+    picks = rng.choice(len(names), edit + delete, replace=False)
+    edited = [os.path.join(src, names[i]) for i in picks[:edit]]
+    deleted = [os.path.join(src, names[i]) for i in picks[edit:]]
+    added = [os.path.join(src, f"G{j}.java") for j in range(add)]
+    for path in edited + added:
+        body = " ".join(f"tok{w}" for w in rng.integers(0, 5000, 400))
+        with open(path, "w") as f:
+            f.write(f"class {os.path.basename(path)[:-5]} {{ {body} }}")
+    for path in deleted:
+        os.remove(path)
+    return edited, deleted, added
+
+
+class _Server:
+    """``python -m better_search_rag_rust_tpu_torch serve --port 0 ...`` as a
+    subprocess; its log (stdout and stderr) goes to ``log``."""
+
+    def __init__(self, args, log):
+        import re
+        import sys
+
+        repo = os.path.dirname(os.path.abspath(__file__))
+        self.log = log
+        with open(log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "better_search_rag_rust_tpu_torch",
+                 "serve", *args], cwd=repo, stdout=out,
+                stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONPATH=repo))
+        deadline = time.time() + 300
+        while time.time() < deadline:
+            text = self.text()
+            found = re.search(r"listening on ([\d.]+):(\d+)", text)
+            if found:
+                self.addr = (found.group(1), int(found.group(2)))
+                return
+            if self.proc.poll() is not None:
+                raise RuntimeError(f"serve exited ({self.proc.returncode}):"
+                                   f"\n{text[-3000:]}")
+            time.sleep(0.2)
+        self.stop()
+        raise TimeoutError(f"serve did not listen:\n{self.text()[-3000:]}")
+
+    def text(self) -> str:
+        with open(self.log) as f:
+            return f.read()
+
+    def stop(self) -> None:
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+class _Connection:
+    """One JSONL-over-TCP client connection."""
+
+    def __init__(self, addr):
+        import socket
+
+        self.sock = socket.create_connection(addr, timeout=300)
+        self.file = self.sock.makefile("rw", encoding="utf-8")
+
+    def ask(self, requests):
+        for req in requests:
+            self.file.write(json.dumps(req) + "\n")
+        self.file.flush()
+        return [json.loads(self.file.readline()) for _ in requests]
+
+    def close(self) -> None:
+        self.file.close()
+        self.sock.close()
+
+
+def _ask_both(conns, requests):
+    """Half of ``requests`` on each connection, both at once; the answers
+    in request order."""
+    import threading
+
+    halves = [requests[0::2], requests[1::2]]
+    out = [None, None]
+    threads = [threading.Thread(
+        target=lambda i=i: out.__setitem__(i, conns[i].ask(halves[i])))
+        for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert out[0] is not None and out[1] is not None, "a connection hung"
+    merged = [None] * len(requests)
+    merged[0::2], merged[1::2] = out
+    return merged
+
+
+def drive_cli_serve(tmp, src, seed, card, rows):
+    """Phase 15: CLI ``serve --port 0 --serve-window-ms 2 --snapshot`` on
+    phase 8's nomic store (a subprocess; two TCP connections), then an
+    edited tree (16 files rewritten, 8 deleted, 8 added), CLI ``update``
+    (nomic on K8, in this process) and ``reload``; the edited and added
+    files must retrieve themselves at rank 1 and no deleted file may be
+    answered. A second start restores the store from its snapshot and
+    answers the same requests identically. Both the server and ``update``
+    build the nomic encoder from the CLI's seed (0), so the rank-1 checks
+    hold for any ``--seed``. Returns the K8 launches of ``update``."""
+    import contextlib
+    import io
+
+    from better_search_rag_rust_tpu_torch import cli
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    store_dir = os.path.join(tmp, "nomic")
+    common = ["--root", src, "--extensions", "java", "--store-dir", store_dir,
+              "--encoder-backend", "nomic", "--top-k", "10"]
+    serve_args = [*common, "--port", "0", "--serve-window-ms", "2",
+                  "--snapshot"]
+    t0 = time.perf_counter()
+    server = _Server(serve_args, os.path.join(tmp, "serve1.log"))
+    conns = [_Connection(server.addr), _Connection(server.addr)]
+    try:
+        start_s = time.perf_counter() - t0
+        names = sorted(os.listdir(src))
+        before = [{"id": f"b{i}", "query": open(os.path.join(src, n)).read()}
+                  for i, n in enumerate(names[:: len(names) // 8][:8])]
+        first = _ask_both(conns, before)
+        edited, deleted, added = _edit_tree(src, seed)
+        out = io.StringIO()
+        ak.reset_launch_counts()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["update", *common])
+        update_s = time.perf_counter() - t1
+        k8 = ak.launch_counts["fused_attention_qkv"]
+        (reload,) = conns[0].ask([{"id": "reload", "cmd": "reload"}])
+        fresh = edited + added
+        requests = [{"id": p, "query": open(p).read()} for p in fresh]
+        after = _ask_both(conns, requests)
+    finally:
+        for conn in conns:
+            conn.close()
+        server.stop()
+    base = os.path.basename
+    rank1 = sum(base(r["results"][0][0]["path"]) == base(r["id"])
+                for r in after)
+    answered = {base(e["path"]) for r in after for q in r["results"]
+                for e in q}
+    gone = {base(p) for p in deleted}
+    stats_line = out.getvalue().strip().splitlines()[-1]
+    phase(f"phase 15 [{card}] cli serve (nomic, 2 TCP connections, 2 ms "
+          f"window): listening after {start_s:.1f}s; {len(first)} queries "
+          f"before the edit answered; cli update rc {rc} in {update_s:.2f}s: "
+          f"{stats_line}; K8 launches {k8}; reload {reload}; "
+          f"{rank1}/{len(fresh)} edited or added files at rank 1; deleted "
+          f"files answered: {len(answered & gone)}")
+    assert all("results" in r for r in first), first
+    assert rc == 0 and k8 > 0
+    assert "appended 8 embeddings, re-embedded 16, deleted 8" in stats_line
+    assert reload == {"id": "reload", "reloaded": True, "rows": rows}
+    assert rank1 == len(fresh)
+    assert not answered & gone
+
+    server = _Server(serve_args, os.path.join(tmp, "serve2.log"))
+    conns = [_Connection(server.addr), _Connection(server.addr)]
+    try:
+        again = _ask_both(conns, requests)
+    finally:
+        for conn in conns:
+            conn.close()
+        server.stop()
+    restored = "restored from snapshot" in server.text()
+    phase(f"phase 15 [{card}] second start with --snapshot: restored from "
+          f"the snapshot: {restored}; {len(again)} answers identical to the "
+          f"first server's: {again == after}")
+    assert restored and again == after
+    return k8
 
 
 def main() -> int:
@@ -668,35 +1060,20 @@ def main() -> int:
                                       args.seed + 2, device="cuda")
     drive_main_path("1M x 768 f32", store_f32, cfg, gen, "rescore")
     torch.cuda.synchronize()
-    launches = dict(tk.launch_counts)
+    launches = {name: tk.launch_counts[name] for name in
+                ("matmul_blockmax2_only", "gather_rescore", "matmul_blockmax")}
     phase(f"phase 4 kernel launches over the main path: {launches}")
     assert all(v > 0 for v in launches.values()), launches
     del store_f32
 
-    rows = torch.randint(0, store.num_rows, (1024,), generator=gen,
-                         device="cuda")
-    queries = store.data[rows].float().cpu().numpy()
-    engine.search(queries, K)  # warm-up
-    iters = 5
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        engine.search(queries, K)
-    host_qps = 1024 * iters / (time.perf_counter() - t0)
-    qdev = engine.prepare_device_queries(queries)
-    engine.search_device(qdev, K)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        engine.search_device(qdev, K)
-    torch.cuda.synchronize()
-    dev_qps = 1024 * iters / (time.perf_counter() - t0)
+    host_qps, dev_qps = measure_qps(engine, store, gen)
     phase(f"phase 5 [{card}] 1M x 768 bf16, 1024 queries, k={K}: "
           f"search {host_qps:.1f} q/s, search_device {dev_qps:.1f} q/s")
     for name, (ms, pms) in times.items():
         phase(f"phase 5 [{card}] {name}: kernel {ms:.3f} ms, plain "
               f"{pms:.3f} ms")
 
-    del engine, store, store_100k, queries, qdev
+    del engine, store, store_100k
     torch.cuda.empty_cache()
 
     errs["fused_attention_qkv"], times["fused_attention_qkv"] = \
@@ -719,6 +1096,42 @@ def main() -> int:
               f" plain {pms:.3f} ms")
         launches["fused_attention_qkv_bwd"] = check_training(args.seed, card)
         drive_finetune_cli(tmp, src, card)
+        torch.cuda.empty_cache()
+
+        store_i8 = DeviceStore.synthetic(1_000_000, 768, "int8",
+                                         args.seed + 3, device="cuda")
+        i8_errs, i8_times = check_int8_kernels(store_i8, gen)
+        errs.update(i8_errs)
+        times.update(i8_times)
+
+        store_i8_10m = DeviceStore.synthetic(10_000_000, 768, "int8",
+                                             args.seed + 4, device="cuda")
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        for name, st in (("search_1m_int8 (1M x 768 int8)", store_i8),
+                         ("search_10m_int8 (10M x 768 int8)", store_i8_10m)):
+            eng = drive_main_path(name, st, cfg, gen, "rescore", "phase 13")
+            host_qps, dev_qps = measure_qps(eng, st, gen, iters=3)
+            phase(f"phase 13 [{card}] {name}, 1024 queries, k={K}: search "
+                  f"{host_qps:.1f} q/s, search_device {dev_qps:.1f} q/s")
+        torch.cuda.synchronize()
+        for name in ("matmul_blockmax2_only", "gather_rescore",
+                     "matmul_blockmax"):
+            launches[name + "_int8"] = tk.launch_counts[name + "_int8"]
+        phase(f"phase 13 int8 kernel launches over the int8 search path: "
+              f"{ {n: v for n, v in launches.items() if 'int8' in n} }")
+        assert all(v > 0 for n, v in launches.items() if "int8" in n)
+        del store_i8, eng
+        torch.cuda.empty_cache()
+
+        store = DeviceStore.synthetic(1_000_000, 768, "bfloat16", args.seed,
+                                      device="cuda")
+        drive_serve_bench(store, store_i8_10m, card)
+        serve_split(store_i8_10m, tmp, card)
+        del store, store_i8_10m
+        torch.cuda.empty_cache()
+
+        drive_cli_serve(tmp, src, args.seed, card, TREE_FILES)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

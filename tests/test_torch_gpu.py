@@ -133,6 +133,97 @@ def test_engine_exact_against_oracle(cuda, dtype, kernel, argmax, k):
         np.testing.assert_array_equal(ids[0, :4], [17, 5000, 5001, 9000])
 
 
+# -- the int8 bodies of K1/K2/K3 ----------------------------------------------
+
+
+def _int8_operands(cuda, dim, rows=4096, t=40):
+    from better_search_rag_rust_tpu_torch.ops.quantize import quantize_unit
+
+    q, mat = _operands(cuda, torch.float32, rows=rows, dim=dim, t=t)
+    return quantize_unit(q).contiguous(), quantize_unit(mat).contiguous()
+
+
+@pytest.mark.parametrize("sub", [16, 64])
+@pytest.mark.parametrize("dim", [256, 768, 102])  # 102: a ragged last pack
+def test_k1_int8_matches_plain_bitwise(cuda, sub, dim):
+    """Bound: none. An int8 score is an exact integer dot times one f32
+    constant, so kernel and plain version agree bit for bit, keys too."""
+    q, mat = _int8_operands(cuda, dim)
+    before = tk.launch_counts["matmul_blockmax2_only_int8"]
+    for argmax, block in ((True, True), (True, False), (False, True),
+                          (False, False)):
+        out = tk.matmul_blockmax2_only(q, mat, 4000, sub=sub, block=128,
+                                       emit_block=block, emit_argmax=argmax)
+        ref = tk.matmul_blockmax2_only_plain(q, mat, 4000, sub=sub,
+                                             block=128, emit_block=block,
+                                             emit_argmax=argmax)
+        for a, b in zip(out if isinstance(out, tuple) else (out,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            assert torch.equal(a, b)
+    assert tk.launch_counts["matmul_blockmax2_only_int8"] == before + 4
+
+
+@pytest.mark.parametrize("dim", [256, 768, 102])
+@pytest.mark.parametrize("unit,ks", [(64, 4), (64, 100), (16, 8)])
+def test_k2_k3_int8_match_plain_bitwise(cuda, dim, unit, ks):
+    q, mat = _int8_operands(cuda, dim)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(2)
+    ids = torch.randint(0, mat.shape[0] // unit, (q.shape[0], ks),
+                        generator=g, device=cuda).to(torch.int32)
+    out = tk.gather_rescore(q, mat, ids, unit=unit)
+    assert torch.equal(out, tk.gather_rescore_plain(q, mat, ids, unit=unit))
+    sims, bm = tk.matmul_blockmax(q, mat, 4001)
+    p_sims, p_bm = tk.matmul_blockmax_plain(q, mat, 4001)
+    assert torch.equal(sims, p_sims) and torch.equal(bm, p_bm)
+    rows = (ids.long()[:, :, None] * unit
+            + torch.arange(unit, device=cuda)).reshape(q.shape[0], -1)
+    valid = rows < 4001
+    assert torch.equal(out[valid], torch.gather(sims, 1, rows)[valid])
+
+
+def test_k2_int8_unaligned_rows(cuda):
+    """Rows of an odd dim start at odd byte offsets: the packs are built a
+    byte at a time and still agree bit for bit."""
+    q, mat = _int8_operands(cuda, 99, rows=1024)
+    ids = torch.arange(8, device=cuda, dtype=torch.int32).expand(
+        q.shape[0], 8).contiguous()
+    assert torch.equal(tk.gather_rescore(q, mat, ids, unit=16),
+                       tk.gather_rescore_plain(q, mat, ids, unit=16))
+
+
+@pytest.mark.parametrize("kernel,argmax", [
+    ("rescore", "auto"), ("rescore", "off"), ("global", "auto"),
+])
+@pytest.mark.parametrize("dim", [768, 256])
+def test_engine_int8_exact_against_oracle(cuda, kernel, argmax, dim):
+    rng = np.random.default_rng(dim)
+    mat = rng.standard_normal((20000, dim)).astype(np.float32)
+    mat[[5000, 5001, 9000]] = mat[17]
+    store = DeviceStore.from_host(mat, "int8", device=cuda)
+    eng = SearchEngine(store, SearchConfig(kernel=kernel,
+                                           rescore_argmax=argmax))
+    queries = mat[rng.integers(0, 20000, 64)]
+    queries[0] = mat[17]
+    tk.reset_launch_counts()
+    ids, dists = eng.search(queries, 100)
+    o_ids, o_d = eng.oracle_topk(queries, 100)
+    np.testing.assert_array_equal(ids, o_ids)
+    np.testing.assert_array_equal(dists, o_d)
+    np.testing.assert_array_equal(ids[0, :4], [17, 5000, 5001, 9000])
+    first = "matmul_blockmax2_only" if kernel == "rescore" else "matmul_blockmax"
+    assert tk.launch_counts[first + "_int8"] > 0
+    assert tk.launch_counts[first] == 0
+
+
+def test_batcher_reads_the_card_memory(cuda):
+    from better_search_rag_rust_tpu_torch.batcher import _device_bytes_limit
+
+    t = torch.zeros(4, device=cuda)
+    assert _device_bytes_limit((t,)) == torch.cuda.get_device_properties(
+        cuda).total_memory
+
+
 # -- K8 fused_attention_qkv ---------------------------------------------------
 
 

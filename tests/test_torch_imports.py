@@ -36,6 +36,9 @@ def test_port_imports_without_jax():
         "import better_search_rag_rust_tpu_torch.ops.attention_kernels\n"
         "import better_search_rag_rust_tpu_torch.ops._build\n"
         "import better_search_rag_rust_tpu_torch.store.vectorstore\n"
+        "import better_search_rag_rust_tpu_torch.store.device_cache\n"
+        "import better_search_rag_rust_tpu_torch.batcher\n"
+        "import better_search_rag_rust_tpu_torch.bench.serve\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'flax', 'triton')))\n"
         "assert not bad, bad\n"

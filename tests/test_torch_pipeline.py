@@ -82,12 +82,17 @@ def test_partial_merge_refused(store_dir, tmp_path):
 
 
 def test_unported_phases_raise(store_dir):
-    """Serving and incremental update are later slices (build mode, merge
-    and text queries are ported: tests/test_torch_ingest.py)."""
-    p = Pipeline(_cfg(store_dir).replace(skip_process=False), device="cpu")
-    for call in (p.update, lambda: p.serve([])):
+    """Serving and update are ported (tests/test_torch_serve.py); the
+    f32cert and scan routes and --profile-dir are later slices and raise."""
+    from better_search_rag_rust_tpu_torch import cli
+
+    for kernel in ("f32cert", "scan", "blockmax"):
+        p = Pipeline(_cfg(store_dir, kernel=kernel), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+            p.engine().search(np.ones((1, DIM), np.float32), 5)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["search", "--store-dir", str(store_dir), "--device", "cpu",
+                  "--profile-dir", str(store_dir)])
 
 
 def test_default_device_is_the_card(store_dir, monkeypatch):

@@ -280,6 +280,11 @@ def test_from_reference_carries_bits(mesh1):
 
 
 def test_int8_store_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceStore.from_host(np.ones((4, 8), np.float32), "int8",
-                              device="cpu")
+    """int8 stores are served now (tests/test_torch_int8.py); a store dtype
+    the kernels do not take is still refused at build time."""
+    assert DeviceStore.from_host(np.ones((4, 8), np.float32), "int8",
+                                 device="cpu").dtype == torch.int8
+    for dtype in ("float16", "int16", torch.uint8):
+        with pytest.raises(ValueError, match="unsupported store dtype"):
+            DeviceStore.from_host(np.ones((4, 8), np.float32), dtype,
+                                  device="cpu")
