@@ -6,7 +6,7 @@ each issue ``requests_per_client`` single-query requests, ``outstanding`` in
 flight per client, through one :class:`..batcher.DynamicBatcher`
 (``window_ms``, ``depth``); the baseline is the same queries one dispatch
 each, serially (``single_request_qps``). The store configurations are the
-reference's ``SUITES`` (its module imports no jax); the store is generated
+reference's ``SUITES`` (:mod:`.suite`); the store is generated
 on the card from ``seed``.
 
 Timing is wall clock around the futures (a request's latency runs from its
@@ -26,14 +26,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from better_search_rag_rust_tpu.bench.suite import SUITES, SearchSuite
-
 from ..batcher import DynamicBatcher
 from ..config import SearchConfig
 from ..ops.engine import SearchEngine
 from ..pipeline import _serve_batch_shape
 from ..store.device_store import DeviceStore
 from ..utils.device import resolve_device
+from .suite import SUITES, SearchSuite
 
 __all__ = ["SUITES", "SearchSuite", "run_serve_suite"]
 

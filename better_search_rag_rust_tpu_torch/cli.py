@@ -2,8 +2,7 @@
 ``evaluate``, ``update``, ``serve`` and ``finetune``.
 
 The reference CLI's flags and output (``cli.py:226-517``); the flag parsing
-and result printing are the reference's own, whose module imports no jax.
-``run`` ingests the corpus, merges and then runs the self-retrieval search
+and result printing are in :mod:`.cli_args`. ``run`` ingests the corpus, merges and then runs the self-retrieval search
 (or, with ``--query TEXT``, retrieves the files matching the text);
 ``ingest`` stops after the merge; ``search`` and ``evaluate`` serve a
 persisted store; ``update`` reconciles the store with the edited tree;
@@ -24,11 +23,7 @@ import json
 import sys
 from typing import Optional, Sequence
 
-from better_search_rag_rust_tpu.cli import (
-    _add_common,
-    _config_from_args,
-    _print_result,
-)
+from .cli_args import _add_common, _config_from_args, _print_result
 
 
 def serve_loop(pipeline, in_stream, out_stream, k=None, depth: int = 1,

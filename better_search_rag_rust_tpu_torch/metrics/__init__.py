@@ -1,10 +1,6 @@
-"""Retrieval-quality metrics: the reference's framework-free module, shared.
+"""Retrieval-quality metrics (:mod:`.quality`, numpy only)."""
 
-``better_search_rag_rust_tpu.metrics.quality`` imports only numpy, so both
-packages score results with one implementation.
-"""
-
-from better_search_rag_rust_tpu.metrics.quality import (  # noqa: F401
+from .quality import (  # noqa: F401
     accuracy_metrics_for_query,
     mean_reciprocal_rank,
     recall_at_k,

@@ -6,8 +6,8 @@ imported. The ids are the reference's bit for bit:
 
 * :class:`HashingTokenizer` (:119) — word-level blake2b hashing into the
   vocab, CLS/SEP around the words, right-padded with PAD_ID to
-  ``max_tokens``; all-ASCII batches go through the reference's own native
-  tokenizer (``better_search_rag_rust_tpu.native.tokenize``, jax-free).
+  ``max_tokens``; all-ASCII batches go through the native tokenizer
+  (:mod:`..native.tokenize`, the port's copy of the reference's).
 * :class:`FixedLengthTokenizer` (:42) — a real HF ``tokenizers.Tokenizer``
   with truncation and fixed padding, ``add_special_tokens=False`` (the
   reference encodes the bare token stream).
@@ -142,11 +142,9 @@ class HashingTokenizer:
             return _empty(self.max_tokens)
         _check_batch(texts)
         s = self.max_tokens
-        # The reference's GIL-free C++ path for all-ASCII batches (bitwise the
-        # same ids); non-ASCII or NUL-bearing batches take the Python path.
-        from better_search_rag_rust_tpu.native.tokenize import (
-            encode_batch_native,
-        )
+        # The GIL-free C++ path for all-ASCII batches (bitwise the same
+        # ids); non-ASCII or NUL-bearing batches take the Python path.
+        from ..native.tokenize import encode_batch_native
 
         native = encode_batch_native(texts, s, self.vocab_size)
         if native is not None:

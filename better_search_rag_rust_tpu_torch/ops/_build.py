@@ -39,6 +39,8 @@ SOURCES = {
         "bsr_matmul_blockmax2": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
         "bsr_gather_rescore": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
         "bsr_matmul_blockmax": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+        "bsr_gather_rows": (_I, [_P, _P, _I, _I, _I, ctypes.c_longlong, _P, _P]),
+        "bsr_block_scores": (_I, [_P, _P, _I, _I, _I, _I, _P, _P]),
         "bsr_error_string": (ctypes.c_char_p, [_I]),
     }),
     "attention": (CSRC / "attention_kernels.cu", {

@@ -1,11 +1,16 @@
 // Exact top-k scoring kernels for Hopper (sm_90a), plain C interface.
 //
-// Three kernels carry the exact search path; each replaces one Pallas kernel
+// Five kernels carry the exact search routes; each replaces one Pallas kernel
 // of better_search_rag_rust_tpu/ops/topk_pallas.py:
 //
 //   K1 bsr_matmul_blockmax2   <- matmul_blockmax2_only (:527, body :367)
 //   K2 bsr_gather_rescore     <- gather_rescore        (:656, body :631)
 //   K3 bsr_matmul_blockmax    <- matmul_blockmax       (:120, body :103)
+//   K4 bsr_gather_rows        <- gather_rows           (:747, body :736)
+//   K6 bsr_block_scores       <- block_scores          (:846, body :828)
+//
+// K4 moves bytes only. K6 stages and sums exactly as K2 does (same chunks,
+// same routines), so what is said of K2 below holds for K6.
 //
 // ONE ARITHMETIC RULE. Every score any of the three kernels produces is the
 // f32 chain
@@ -419,6 +424,95 @@ k2_gather_rescore_i8(const int8_t* __restrict__ q, const int8_t* __restrict__ sh
   }
 }
 
+// K6: query t against its own C pre-gathered rows (gathered [T, C, D]).
+// Replaces block_scores (topk_pallas.py:846, body :828), whose keep-row-r
+// Mosaic dots existed to pin the scoring pass's arithmetic. Here the blocks,
+// the GDK-feature staging and fma_chunk are K2's, row s of query t being
+// gathered[t, s] instead of a store row, so K6 == K2 == K3 bit for bit.
+// Bound on the card: the gathered bytes (read once), far above the time of
+// the 2*T*C*D FLOPs.
+template <typename T>
+__global__ void __launch_bounds__(GR)
+k6_block_scores(const T* __restrict__ q, const T* __restrict__ gathered, int C, int D,
+                float* __restrict__ out) {
+  __shared__ float rs[GDK * GLD];
+  __shared__ float qs[GDK];
+  const int t = blockIdx.y, s0 = blockIdx.x * GR, tid = threadIdx.x;
+  const T* rows = gathered + (size_t)t * C * D;
+  float acc[1][1] = {{0.0f}};
+  for (int d0 = 0; d0 < D; d0 += GDK) {
+    for (int e = tid; e < GR * GDK; e += GR) {
+      const int r = e / GDK, dd = e % GDK, gd = d0 + dd, s = s0 + r;
+      rs[dd * GLD + r] = (s < C && gd < D) ? widen(rows[(size_t)s * D + gd]) : 0.0f;
+    }
+    if (tid < GDK) qs[tid] = d0 + tid < D ? widen(q[(size_t)t * D + d0 + tid]) : 0.0f;
+    __syncthreads();
+    fma_chunk<1, 1>(acc, rs + tid, GLD, qs, 1, GDK);
+    __syncthreads();
+  }
+  const int s = s0 + tid;
+  if (s < C) out[(size_t)t * C + s] = acc[0][0];
+}
+
+// K6 on int8 operands: K2 int8's packs, dp4a_chunk and int8_score.
+__global__ void __launch_bounds__(GR)
+k6_block_scores_i8(const int8_t* __restrict__ q, const int8_t* __restrict__ gathered,
+                   int C, int D, float* __restrict__ out) {
+  __shared__ int rs[GDKP * GLD];
+  __shared__ int qs[GDKP];
+  const int t = blockIdx.y, s0 = blockIdx.x * GR, tid = threadIdx.x;
+  const int8_t* rows = gathered + (size_t)t * C * D;
+  const bool s_al = packs_aligned(gathered, D), q_al = packs_aligned(q, D);
+  int acc[1][1] = {{0}};
+  for (int d0 = 0; d0 < D; d0 += 4 * GDKP) {
+    for (int e = tid; e < GR * GDKP; e += GR) {
+      const int r = e / GDKP, p = e % GDKP, gd = d0 + 4 * p, s = s0 + r;
+      rs[p * GLD + r] = (s < C && gd < D) ? load_pack(rows + (size_t)s * D, gd, D, s_al) : 0;
+    }
+    if (tid < GDKP) {
+      const int gd = d0 + 4 * tid;
+      qs[tid] = gd < D ? load_pack(q + (size_t)t * D, gd, D, q_al) : 0;
+    }
+    __syncthreads();
+    dp4a_chunk<1, 1>(acc, rs + tid, GLD, qs, 1, GDKP);
+    __syncthreads();
+  }
+  const int s = s0 + tid;
+  if (s < C) out[(size_t)t * C + s] = int8_score(acc[0][0]);
+}
+
+// K4: pure data movement, replacing gather_rows (topk_pallas.py:747, body
+// :736; the TPU's cpg DMA grouping and T % 8 / sublane rules are Mosaic's
+// and have no counterpart). A unit is `unit` consecutive store rows, so each
+// (query t, selected unit j) is one contiguous run of `chunk` bytes, copied
+// by block (j, t) whatever the dtype: 16-byte vector loads and stores where
+// both ends are 16-byte aligned, single bytes for a tail (or for the whole
+// run otherwise). An id outside [0, n_units) writes 0xFF bytes (NaN on float
+// stores) and reads nothing past the store. Bound: the bytes, read once and
+// written once.
+constexpr int CT = 256;
+
+__global__ void __launch_bounds__(CT)
+k4_gather_rows(const uint8_t* __restrict__ shard, const int32_t* __restrict__ ids,
+               int KS, int n_units, size_t chunk, uint8_t* __restrict__ out) {
+  const int j = blockIdx.x, t = blockIdx.y;
+  const int uid = ids[(size_t)t * KS + j];
+  const bool ok = uid >= 0 && uid < n_units;
+  const uint8_t* src = shard + (size_t)(ok ? uid : 0) * chunk;  // in bounds either way
+  uint8_t* dst = out + ((size_t)t * KS + j) * chunk;
+  size_t head = 0;
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0) {
+    const size_t n16 = chunk / 16;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    const uint4 fill = make_uint4(~0u, ~0u, ~0u, ~0u);
+#pragma unroll 4
+    for (size_t i = threadIdx.x; i < n16; i += CT) d4[i] = ok ? s4[i] : fill;
+    head = n16 * 16;
+  }
+  for (size_t i = head + threadIdx.x; i < chunk; i += CT) dst[i] = ok ? src[i] : 0xFF;
+}
+
 template <typename K>
 int raise_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
@@ -465,6 +559,19 @@ int launch_k2(const void* q, const void* shard, const int32_t* ids, int Tn, int 
     k2_gather_rescore<T><<<grid, GR, 0, st>>>(static_cast<const T*>(q),
                                               static_cast<const T*>(shard), ids, R, D,
                                               KS, unit, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_k6(const void* q, const void* gathered, int Tn, int C, int D, float* out,
+              cudaStream_t st) {
+  dim3 grid((C + GR - 1) / GR, Tn);
+  if constexpr (std::is_same<T, int8_t>::value)
+    k6_block_scores_i8<<<grid, GR, 0, st>>>(static_cast<const T*>(q),
+                                            static_cast<const T*>(gathered), C, D, out);
+  else
+    k6_block_scores<T><<<grid, GR, 0, st>>>(static_cast<const T*>(q),
+                                            static_cast<const T*>(gathered), C, D, out);
   return (int)cudaGetLastError();
 }
 
@@ -517,6 +624,27 @@ int bsr_matmul_blockmax(const void* q, const void* shard, int dtype, int Tn, int
     return launch_k3<float>(q, shard, Tn, R, D, valid_rows, block, sims, bm_t, st);
   if (dtype == DTYPE_INT8)
     return launch_k3<int8_t>(q, shard, Tn, R, D, valid_rows, block, sims, bm_t, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4: ids [Tn, KS] unit ids; out [Tn, KS, chunk_bytes] with chunk_bytes =
+// unit * D * itemsize; any dtype (a byte copy).
+int bsr_gather_rows(const void* shard, const int32_t* ids, int Tn, int KS, int n_units,
+                    long long chunk_bytes, void* out, void* stream) {
+  dim3 grid(KS, Tn);
+  k4_gather_rows<<<grid, CT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(shard), ids, KS, n_units, (size_t)chunk_bytes,
+      static_cast<uint8_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+// K6: queries [Tn, D], gathered [Tn, C, D] in one dtype; out [Tn, C] f32.
+int bsr_block_scores(const void* q, const void* gathered, int dtype, int Tn, int C,
+                     int D, float* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_BF16) return launch_k6<__nv_bfloat16>(q, gathered, Tn, C, D, out, st);
+  if (dtype == DTYPE_F32) return launch_k6<float>(q, gathered, Tn, C, D, out, st);
+  if (dtype == DTYPE_INT8) return launch_k6<int8_t>(q, gathered, Tn, C, D, out, st);
   return (int)cudaErrorInvalidValue;
 }
 

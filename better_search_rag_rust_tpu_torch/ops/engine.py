@@ -10,10 +10,13 @@ Routes. ``"rescore"`` is the sims-free route (K1 + K2, ``ops/topk.py``
 :func:`..topk.rescore_topk`); ``"global"`` is the dense route (K3,
 :func:`..topk.global_topk`), which also answers to the reference's
 ``"pallas"`` name — in the port the dense route always scores through its
-kernel. ``"auto"`` keeps the reference's rule: rescore for shards of at
-least 2^19 rows whose rescore traffic undercuts the dense route's, dense
-below. Where K1/K2 cannot take the geometry, the route is dense before
-dispatch, and :meth:`SearchEngine.kernel_name` reports the route that runs.
+kernel; ``"f32cert"`` is the certified f32 route (K1 + K4 + K6 with a dense
+fallback, :func:`..topk.rescore_f32_certified`). ``"auto"`` keeps the
+reference's rule: the certified route where ``f32_certified`` asks for it
+(:meth:`SearchEngine._f32_cert_wins`), else rescore for shards of at least
+2^19 rows whose rescore traffic undercuts the dense route's, dense below.
+Where K1/K2 cannot take the geometry, the route is dense before dispatch,
+and :meth:`SearchEngine.kernel_name` reports the route that runs.
 
 Results: ids are int64 (the reference packed them into f32 for its relay;
 nothing here needs that), distances ``1 - clamp(sim, -1, 1)``.
@@ -31,14 +34,19 @@ from ..config import SearchConfig
 from ..store.device_store import DeviceStore
 from .distance import distances_from_sims, normalize_rows
 from .quantize import cast_rows_to, cast_rows_to_host
-from .topk import global_topk, rescore_feasible, rescore_topk, serial_topk
+from .topk import (
+    global_topk,
+    rescore_f32_certified,
+    rescore_feasible,
+    rescore_topk,
+    serial_topk,
+)
 from .topk_kernels import kernel_scoring_exact_for, matmul_blockmax
 
 #: Routes of the reference that the port does not have yet (ROADMAP.md).
 _NOT_PORTED = {
     "scan": "the chunked-scan comparison route",
     "blockmax": "the chunked-scan comparison route",
-    "f32cert": "the f32 certified route (kernel K4, gather_rows)",
 }
 #: f32 score-buffer budget of the dense route per query tile, in bytes.
 _SIMS_BUDGET = 2 << 30
@@ -139,7 +147,14 @@ class SearchEngine:
         """The resolved route on store-dtype queries: ``(sims [Q, k] f32,
         ids [Q, k] int64)`` on the device."""
         store = self.store
-        if self._resolve_kernel(k_eff) == "rescore":
+        route = self._resolve_kernel(k_eff)
+        if route == "f32cert":
+            return rescore_f32_certified(
+                store.data, queries_cast, k_eff, store.num_rows,
+                q_tile=max(8, min(queries_cast.shape[0], 512)),
+                dense_macro_rows=_SIMS_BUDGET // (256 * 4),
+            )
+        if route == "rescore":
             sub, block = self._rescore_geometry(k_eff)
             return rescore_topk(
                 store.data, queries_cast, k_eff, store.num_rows,
@@ -323,6 +338,21 @@ class SearchEngine:
         return (rows >= 1 << 19 and traffic < 8 * rows
                 and kernel_scoring_exact_for(self.store.dtype))
 
+    def _f32_cert_wins(self, k_eff: int) -> bool:
+        """Whether ``"auto"`` takes the certified f32 route: the
+        reference's rule (``ops/engine.py:431-465``). ``f32_certified="off"``
+        or a store that is not f32 never does; nor does ``k_eff > 128``
+        (the fixed 256-unit candidate budget); ``"on"`` does. Under
+        ``"auto"`` the reference takes it only on a TPU, whose f32 dots the
+        route was built around; this backend is not one, and K1/K2 already
+        score f32 stores exactly on the rescore route."""
+        mode = getattr(self.config, "f32_certified", "auto")
+        if mode == "off" or self.store.dtype != torch.float32:
+            return False
+        if k_eff > 128:
+            return False
+        return mode == "on"
+
     def _resolve_kernel(self, k_eff: int) -> str:
         kernel = self.config.kernel
         if kernel in _NOT_PORTED:
@@ -331,7 +361,11 @@ class SearchEngine:
                 "ported; see ROADMAP.md"
             )
         if kernel == "auto":
+            if self._f32_cert_wins(k_eff):
+                return "f32cert"
             kernel = "rescore" if self._rescore_wins(k_eff) else "global"
+        if kernel == "f32cert":
+            return kernel  # the route raises on a store that is not f32
         if kernel == "rescore":
             sub, block = self._rescore_geometry(k_eff)
             feasible = rescore_feasible(self.store.padded_rows, k_eff, sub,

@@ -2,9 +2,10 @@
 
 Counterpart of ``better_search_rag_rust_tpu/ops/topk.py``: the serial NumPy
 oracle, the running merge, the dense route (:func:`global_topk`, fused
-scoring through K3) and the sims-free rescore route (:func:`rescore_topk`,
-K1 + K2). Everything between the kernels is plain torch on the store's
-device.
+scoring through K3), the sims-free rescore route (:func:`rescore_topk`,
+K1 + K2) and the certified f32 route (:func:`rescore_f32_certified`, K1 +
+K4 + K6, falling back to the dense route). Everything between the kernels
+is plain torch on the store's device.
 
 Ordering contract (the oracle's): candidates sort by descending similarity,
 ties broken by the LOWEST row id. ``torch.topk`` promises no order among
@@ -19,7 +20,7 @@ is no global base offset.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +30,9 @@ from .topk_kernels import (
     INT32_MAX,
     PAD_SIM,
     TILE_ROWS,
+    block_scores,
     gather_rescore,
+    gather_rows,
     m2_sort_key,
     matmul_blockmax,
     matmul_blockmax2_only,
@@ -327,3 +330,131 @@ def _argmax_fast(q_block, shard, key_t, vals, uids, k: int, sub: int,
     c_vals = torch.cat([vals, torch.where(ok, d_sims, PAD_SIM)], dim=1)
     c_ids = torch.cat([a_ids, torch.where(ok, d_rows, INT32_MAX)], dim=1)
     return _finalize(c_vals, c_ids, k)
+
+
+# ---------------------------------------------------------------------------
+# Certified f32 route (K1 + K4 + K6, dense fallback on K3)
+# ---------------------------------------------------------------------------
+
+#: Error bound of the selection pass for NORMALIZED operands, the
+#: reference's constant (``ops/topk.py:906-912``): there the pass scored in
+#: one bf16 product (|s^ - s| <= 2^-8 * 1.25). The port's K1 scores f32
+#: exactly, so the certificate keeps this margin as slack it does not need;
+#: it is kept so both packages certify the same tiles' worth of margin.
+F32_CERT_EPS0 = float(2.0 ** -8 * 1.25)
+
+#: Rows per selection unit of the certified route (the reference's ``sub``).
+CERT_UNIT = 8
+
+#: Query tiles of :func:`rescore_f32_certified` since the last
+#: :func:`reset_cert_counts`: ``certified`` kept the fast answer, ``dense``
+#: failed the certificate and was recomputed on the dense route.
+cert_counts: Dict[str, int] = {"certified": 0, "dense": 0}
+
+
+def reset_cert_counts() -> None:
+    for name in cert_counts:
+        cert_counts[name] = 0
+
+
+def rescore_f32_certified(
+    shard: torch.Tensor,
+    queries_cast: torch.Tensor,
+    k: int,
+    num_rows: int,
+    q_tile: int = 512,
+    ks: int = 256,
+    kg: int = 512,
+    dense_macro_rows: int = 4 * 1024 * 1024,
+) -> Pair:
+    """Certified two-stage exact top-k for f32 stores — the reference's
+    ``rescore_f32_certified`` (``ops/topk.py:915-1131``):
+
+    1. Selection: K1 over the shard at 8-row units (no scores written)
+       gives unit maxima and, at the emit width (:data:`TILE_ROWS`, so a
+       group is 16 units), group maxima. The top ``kg`` groups, then the
+       top ``ks`` units of their pool; ``gexcl``/``uexcl`` are the best
+       EXCLUDED group and unit maxima.
+    2. K4 copies the selected units' rows (unit ids ascending: the
+       oracle's tie order) into one ``[T, ks*8, D]`` buffer, and K6 scores
+       them with the oracle's own arithmetic (K6 stages and sums as K2, and K2,
+       K1 and K3 share one FMA chain), so candidate scores are the
+       oracle's bits. Rows past ``num_rows`` score ``PAD_SIM``, id
+       ``INT32_MAX``; one exact (value desc, id asc) selection.
+    3. The certificate: every row outside the candidates scores at most
+       ``max(uexcl, gexcl)``, so a query whose k-th fast score exceeds
+       ``thresh = max(uexcl, gexcl) + eps1`` (``eps1 = F32_CERT_EPS0 + D *
+       2^-24``) has its exact top-k. A query tile is certified when all of
+       its queries are. Flags stay on the device and are read ONCE per
+       call; the failing tiles are recomputed together on the dense route
+       (:func:`global_topk`, K3), the bits of the reference's dense branch.
+       Exactness never depends on the bound being tight.
+
+    :data:`cert_counts` counts certified and dense tiles. One tile's K4
+    buffer lives at a time (``q_tile * ks * 8 * D * 4`` bytes). Returns
+    ``(vals [Q, k] f32, ids [Q, k] int64)``."""
+    rows, d = shard.shape
+    if shard.dtype != torch.float32:
+        raise ValueError(f"certified path is f32-only, got {shard.dtype}")
+    ks = min(ks, rows // CERT_UNIT)
+    if k > ks:
+        raise ValueError(f"need k <= ks ({k} > {ks})")
+    valid = min(rows, num_rows)
+    eps1 = F32_CERT_EPS0 + d * 2.0 ** -24
+    q_tile = max(8, min(q_tile, queries_cast.shape[0]))
+    tiles = list(_query_tiles(queries_cast, q_tile))
+    vals, ids, flags = zip(*(_cert_tile(q_block, shard, k, valid, ks, kg,
+                                        eps1) for q_block in tiles))
+    vals, ids = list(vals), list(ids)
+    certified = torch.stack(flags).cpu().tolist()  # the one host read
+    failing = [i for i, ok in enumerate(certified) if not ok]
+    cert_counts["certified"] += len(tiles) - len(failing)
+    cert_counts["dense"] += len(failing)
+    if failing:
+        dv, di = global_topk(
+            shard, torch.cat([tiles[i] for i in failing]), k, num_rows,
+            macro_rows=dense_macro_rows)
+        at = 0
+        for i in failing:
+            n = tiles[i].shape[0]
+            vals[i], ids[i] = dv[at:at + n], di[at:at + n]
+            at += n
+    return torch.cat(vals), torch.cat(ids)
+
+
+def _cert_tile(q_block, shard, k: int, valid: int, ks: int, kg: int,
+               eps1: float):
+    """One query tile of :func:`rescore_f32_certified`: ``(fast vals, fast
+    ids, certified)`` with ``certified`` a 0-d bool tensor on the device."""
+    sub = CERT_UNIT
+    t = q_block.shape[0]
+    rows = shard.shape[0]
+    gw = TILE_ROWS // sub
+    bm_sub, bm = matmul_blockmax2_only(
+        q_block, shard, valid, sub=sub, block=TILE_ROWS, emit_block=True,
+        emit_argmax=False, emit_width=TILE_ROWS)
+    ng = rows // TILE_ROWS
+    kg_t = min(kg, ng - 1)
+    gvals, gids = topk_exact(bm.T, kg_t + 1)
+    gexcl = gvals[:, kg_t]                       # best EXCLUDED group
+    gids = torch.sort(gids[:, :kg_t], dim=1).values
+    pool = torch.gather(bm_sub.T.reshape(t, ng, gw), 1,
+                        gids[:, :, None].expand(t, kg_t, gw)
+                        ).reshape(t, kg_t * gw)
+    ks_t = min(ks, pool.shape[1] - 1)
+    if ks_t < k:
+        raise ValueError(
+            f"certified pool too small: ks_t={ks_t} < k={k} (pool "
+            f"{pool.shape[1]}) — store too small for this path")
+    vals, pos = topk_exact(pool, ks_t + 1)
+    uexcl = vals[:, ks_t]                        # best EXCLUDED pool unit
+    g_of = torch.gather(gids, 1, pos[:, :ks_t] // gw)
+    uids = torch.sort(g_of * gw + pos[:, :ks_t] % gw, dim=1).values
+    sims = block_scores(q_block, gather_rows(shard, uids.to(torch.int32),
+                                             unit=sub))
+    rid = _unit_rows(uids, sub)
+    ok = rid < valid
+    fast_vals, fast_ids = _finalize(torch.where(ok, sims, PAD_SIM),
+                                    torch.where(ok, rid, INT32_MAX), k)
+    thresh = torch.maximum(uexcl, gexcl) + eps1
+    return fast_vals, fast_ids, (fast_vals[:, k - 1] > thresh).all()

@@ -1,7 +1,7 @@
 """Scoring kernels of the exact search path: wrappers and plain versions.
 
 Counterpart of ``better_search_rag_rust_tpu/ops/topk_pallas.py``. Each of
-the three Pallas kernels on the search path has a hand-written CUDA kernel
+the Pallas kernels on the search routes has a hand-written CUDA kernel
 (``csrc/topk_kernels.cu``) and, in this module, a wrapper and a plain
 PyTorch version of the same function:
 
@@ -10,6 +10,8 @@ K1  :func:`matmul_blockmax2_only` sub-unit maxima (+ packed second-max /
                                   argmax key, + coarse maxima), no scores
 K2  :func:`gather_rescore`        rescore each query's own selected units
 K3  :func:`matmul_blockmax`       masked scores + per-block maxima
+K4  :func:`gather_rows`           copy each query's selected units' rows
+K6  :func:`block_scores`          score each query's own gathered rows
 === ============================= ======================================
 
 A wrapper takes the plain version only because its tensors lie on the CPU
@@ -17,13 +19,16 @@ A wrapper takes the plain version only because its tensors lie on the CPU
 launches the kernel or raises — there is no fallback. Each kernel launch
 adds one to :data:`launch_counts`.
 
-Where the three CUDA kernels agree bit for bit (one f32 FMA chain per score,
+Where the CUDA kernels agree bit for bit (one f32 FMA chain per score,
 see the source note), the plain versions score with one f32 matrix product
 (cuBLAS on the card, without TF32), which sums in another order: on the card
 a plain version agrees with its kernel to a tolerance, not bit for bit. The
 plain K2 scores the whole shard with the same product as plain K1 and K3
 and gathers, so on the CPU the three plain versions are bitwise consistent
-with each other too.
+with each other too. Plain K6 is one batched product, whose order on the CPU
+need not be the matrix product's: there it agrees with plain K3 to a
+tolerance. K4 moves bytes, so kernel and plain version agree bit for bit on
+every dtype.
 
 int8 stores (the lattice of :mod:`.quantize`): the kernels take the exact
 int32 dot (``__dp4a``) times :data:`.quantize.INT8_INV_SCALE2`. The plain
@@ -66,6 +71,9 @@ launch_counts: Dict[str, int] = {
     "matmul_blockmax2_only_int8": 0,
     "gather_rescore_int8": 0,
     "matmul_blockmax_int8": 0,
+    "gather_rows": 0,
+    "block_scores": 0,
+    "block_scores_int8": 0,
 }
 
 
@@ -171,47 +179,79 @@ def matmul_blockmax_plain(queries, shard, valid_rows, *, block=BLOCK):
     return sims, bm_t
 
 
+def gather_rows_plain(shard, ids, *, unit=8):
+    """Plain K4: ``shard.view(R/unit, unit, D)[ids]`` as ``[T, KS*unit,
+    D]``; a unit id outside ``[0, R/unit)`` gives 0xFF bytes, as the
+    kernel writes."""
+    r, d = shard.shape
+    t, ks = ids.shape
+    ok = (ids >= 0) & (ids < r // unit)
+    out = shard.view(r // unit, unit, d)[torch.where(ok, ids, 0).long()]
+    out.view(torch.uint8)[~ok] = 0xFF
+    return out.reshape(t, ks * unit, d)
+
+
+def block_scores_plain(queries, gathered):
+    """Plain K6: ``[T, C]`` f32 scores of each query against its own rows,
+    one batched f32 product (TF32 off); int8: the exact integer dot in f32,
+    then one multiply by ``INT8_INV_SCALE2``."""
+    sims = torch.bmm(gathered.to(torch.float32),
+                     queries.to(torch.float32)[:, :, None])[:, :, 0]
+    if gathered.dtype == torch.int8:
+        sims.mul_(INT8_INV_SCALE2)
+    return sims
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
 
 
-def _check_operands(queries: torch.Tensor, shard: torch.Tensor) -> None:
-    if queries.dim() != 2 or shard.dim() != 2:
-        raise ValueError(
-            f"need queries [T, D] and shard [R, D], got {tuple(queries.shape)}"
-            f" and {tuple(shard.shape)}"
-        )
-    if queries.shape[1] != shard.shape[1]:
-        raise ValueError(f"dim mismatch {queries.shape[1]} vs {shard.shape[1]}")
-    if queries.dtype != shard.dtype or queries.dtype not in _DTYPE_CODES:
+def _check_pair(queries: torch.Tensor, rows: torch.Tensor) -> None:
+    """Queries ``[T, D]`` and the rows they score (``[..., D]``): one
+    scoring dtype, one device, contiguous."""
+    if queries.dim() != 2 or queries.shape[1] != rows.shape[-1]:
+        raise ValueError(f"need queries [T, {rows.shape[-1]}], got "
+                         f"{tuple(queries.shape)}")
+    if queries.dtype != rows.dtype or queries.dtype not in _DTYPE_CODES:
         raise TypeError(
-            f"queries and shard must share a dtype in float32/bfloat16/int8, "
-            f"got {queries.dtype} and {shard.dtype}"
+            f"queries and rows must share a dtype in float32/bfloat16/int8, "
+            f"got {queries.dtype} and {rows.dtype}"
         )
-    if shard.dtype == torch.int8 and shard.shape[1] > INT8_MAX_DIM:
-        raise ValueError(f"int8 dim {shard.shape[1]} > {INT8_MAX_DIM}: the "
+    if rows.dtype == torch.int8 and rows.shape[-1] > INT8_MAX_DIM:
+        raise ValueError(f"int8 dim {rows.shape[-1]} > {INT8_MAX_DIM}: the "
                          "dot would leave f32's exact integer range")
-    if queries.device != shard.device:
-        raise ValueError(f"device mismatch {queries.device} vs {shard.device}")
-    if queries.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {queries.device}")
-    if not (queries.is_contiguous() and shard.is_contiguous()):
-        raise ValueError("queries and shard must be contiguous")
-    r = shard.shape[0]
-    if r == 0 or r % TILE_ROWS:
-        raise ValueError(f"shard rows {r} must be a positive multiple of "
-                         f"{TILE_ROWS}")
+    _check_device(queries, rows)
     if queries.shape[0] > 65535:
         raise ValueError(f"query tile {queries.shape[0]} > 65535")
 
 
-def _launch(name: str, fn_name: str, shard: torch.Tensor, *args) -> None:
+def _check_device(a: torch.Tensor, b: torch.Tensor) -> None:
+    if a.device != b.device:
+        raise ValueError(f"device mismatch {a.device} vs {b.device}")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("operands must be contiguous")
+
+
+def _check_operands(queries: torch.Tensor, shard: torch.Tensor) -> None:
+    if shard.dim() != 2:
+        raise ValueError(f"need shard [R, D], got {tuple(shard.shape)}")
+    _check_pair(queries, shard)
+    r = shard.shape[0]
+    if r == 0 or r % TILE_ROWS:
+        raise ValueError(f"shard rows {r} must be a positive multiple of "
+                         f"{TILE_ROWS}")
+
+
+def _launch(name: str, fn_name: str, shard: torch.Tensor, *args,
+            int8_body: bool = True) -> None:
     """Call a C entry point on the shard's device and current stream; raise
     on its returned CUDA error; count the launch (int8 bodies apart)."""
     from ._build import library
 
-    if shard.dtype == torch.int8:
+    if int8_body and shard.dtype == torch.int8:
         name += "_int8"
     lib = library()
     with torch.cuda.device(shard.device):
@@ -329,3 +369,58 @@ def matmul_blockmax(queries, shard, valid_rows, *, block=BLOCK):
                 _DTYPE_CODES[shard.dtype], t, r, d, valid, block,
                 sims.data_ptr(), bm_t.data_ptr())
     return sims, bm_t
+
+
+def gather_rows(shard, ids, *, unit=8):
+    """K4. ``rows [T, KS*unit, D]`` in the shard's dtype: each query's
+    ``KS`` selected ``unit``-row store blocks (``ids [T, KS]`` int32 unit
+    ids into ``shard [R, D]``), bit for bit the store rows whatever the
+    dtype. An id outside ``[0, R/unit)`` gives rows of 0xFF bytes (NaN on
+    float stores), never a read past the store.
+
+    Replaces ``topk_pallas.gather_rows`` (:747); its ``T % 8``, ``KS %
+    cpg`` and sublane rules are the TPU's and are not carried over."""
+    if shard.dim() != 2 or ids.dim() != 2 or ids.dtype != torch.int32:
+        raise ValueError(f"need shard [R, D] and int32 ids [T, KS], got "
+                         f"{tuple(shard.shape)} and {ids.dtype} "
+                         f"{tuple(ids.shape)}")
+    _check_device(shard, ids)
+    r, d = shard.shape
+    t, ks = ids.shape
+    if unit <= 0 or r % unit:
+        raise ValueError(f"rows {r} must be a multiple of unit {unit}")
+    if t > 65535:
+        raise ValueError(f"query tile {t} > 65535")
+    if shard.device.type == "cpu":
+        return gather_rows_plain(shard, ids, unit=unit)
+    out = torch.empty((t, ks * unit, d), dtype=shard.dtype,
+                      device=shard.device)
+    if out.numel():
+        _launch("gather_rows", "bsr_gather_rows", shard, shard.data_ptr(),
+                ids.data_ptr(), t, ks, r // unit,
+                unit * d * shard.element_size(), out.data_ptr(),
+                int8_body=False)
+    return out
+
+
+def block_scores(queries, gathered):
+    """K6. ``[T, C]`` f32 scores of each query of ``queries [T, D]`` against
+    ITS OWN ``C`` rows of ``gathered [T, C, D]`` (e.g. from
+    :func:`gather_rows`), bit for bit the scores K1, K2 and K3 give the
+    same (query, row) pairs: the kernel stages and sums exactly as K2.
+
+    Replaces ``topk_pallas.block_scores`` (:846); no ``T % 8`` rule and no
+    candidate tile (``_pick_score_ctile``): both are the TPU's."""
+    if gathered.dim() != 3 or gathered.shape[0] != queries.shape[0]:
+        raise ValueError(f"need gathered [T, C, D] with T = "
+                         f"{queries.shape[0]}, got {tuple(gathered.shape)}")
+    _check_pair(queries, gathered)
+    t, c, d = gathered.shape
+    if queries.device.type == "cpu":
+        return block_scores_plain(queries, gathered)
+    out = torch.empty((t, c), dtype=torch.float32, device=queries.device)
+    if t and c:
+        _launch("block_scores", "bsr_block_scores", gathered,
+                queries.data_ptr(), gathered.data_ptr(),
+                _DTYPE_CODES[gathered.dtype], t, c, d, out.data_ptr())
+    return out

@@ -67,7 +67,27 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    phase 8's nomic store with two TCP connections; 16 files edited, 8
    deleted and 8 added, CLI ``update`` (nomic on K8), ``reload``: 4096
    rows, every edited and added file at rank 1, no deleted file answered;
-   a second start restores from the snapshot and answers identically.
+   a second start restores from the snapshot and answers identically;
+16. the certified f32 route (``SearchConfig(f32_certified="on")``) on a 1M x
+   768 f32 store (``search_1m_f32``), 1024 queries, k=100: route
+   ``f32cert``, ids equal to ``oracle_topk``'s bit for bit, MRR, recall@k
+   and oracle overlap 1.0, the certified share of query tiles; a store of
+   one 64-row block repeated, on which the certificate fails and the dense
+   branch (K3) answers, equal to the oracle; K4 ``gather_rows`` against its
+   plain version bit for bit on f32, bf16 and int8 rows (and its 0xFF fill
+   for out-of-range ids); K6 ``block_scores`` over K4's rows bit for bit
+   K3's and K2's scores of the same pairs, against its plain version within
+   1e-5 (bit for bit on int8); K1 at the route's 8-row units; search and
+   search_device q/s of ``f32cert`` beside ``rescore`` on the same store;
+   launch counts of K1, K4, K6 and K3 over the phase.
+
+Every kernel's time is printed beside its plain version's, one PyTorch call
+computing the same function where there is one (``library``: the product
+alone for K1/K3, ``scaled_dot_product_attention`` on rotated q/k/v for
+K8/K9, indexing for K4, ``bmm`` for K6), and its bound: the larger of the
+bytes it must move over 3.35 TB/s and its operations over the named peak
+(H100 SXM data sheet: 67 TFLOP/s fp32 SIMT for f32 stores, whose exact FMA
+chain cannot use tensor cores; 989 bf16 and 1,979 int8 tensor).
 
 Prints one line per phase, then the card line, the kernels JSON line and,
 last, ``{"ok": true, "device": ...}``. Any failed check raises: the exit
@@ -114,6 +134,10 @@ KERNELS = {
                             "better_search_rag_rust_tpu/ops/topk_pallas.py:656"),
     "matmul_blockmax_int8": (CSRC + "topk_kernels.cu",
                              "better_search_rag_rust_tpu/ops/topk_pallas.py:120"),
+    "gather_rows": (CSRC + "topk_kernels.cu",
+                    "better_search_rag_rust_tpu/ops/topk_pallas.py:747"),
+    "block_scores": (CSRC + "topk_kernels.cu",
+                     "better_search_rag_rust_tpu/ops/topk_pallas.py:846"),
 }
 #: the encoder's shape: batch, sequence, heads, head width
 B_ENC, S_ENC, H_ENC, HD_ENC = 256, 512, 12, 64
@@ -124,6 +148,12 @@ TREE_FILES = 4096
 B_TRAIN, B_GRAD = 64, 8
 BWD_REL, BWD_COS, GRAD_COS = 1e-2, 0.999, 0.99
 TIMED_STEPS = 8
+#: published H100 SXM rates (NVIDIA's data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"fp32 SIMT": 67e12, "bf16 tensor": 989e12,
+            "int8 tensor": 1979e12}
+PEAK_FOR = {torch.float32: "fp32 SIMT", torch.bfloat16: "bf16 tensor",
+            torch.int8: "int8 tensor"}
 
 
 def card_line() -> str:
@@ -149,6 +179,38 @@ def cuda_ms(fn, iters: int = 3) -> float:
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max())
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def timing(ms, plain_ms, lib_ms, moved_bytes, ops, peak):
+    """A kernel's times beside its bound: the larger of ``moved_bytes``
+    (each input read once, each output written once) over the memory rate
+    and ``ops`` over the ``peak``'s rate."""
+    t_bytes = 1e3 * moved_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / PEAK_OPS[peak]
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "peak": peak}
+
+
+def timing_line(name, rec) -> str:
+    lib = rec["library_ms"]
+    return (f"{name}: kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f}"
+            f" ms, library {'none' if lib is None else f'{lib:.3f} ms'}, "
+            f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}; "
+            f"{rec['peak']})")
+
+
+def product_ms(q, rows):
+    """The library yardstick of K1/K3 (one PyTorch call the port never
+    makes): the score product alone."""
+    if q.dtype == torch.int8:
+        return cuda_ms(lambda: torch._int_mm(q, rows.T))
+    return cuda_ms(lambda: torch.matmul(q, rows.T))
 
 
 def phase(msg: str) -> None:
@@ -186,7 +248,11 @@ def check_kernels(store, store_100k, gen):
           f"max|bm-plain|={max_abs(bm, p_bm):.3g} argmax equal on "
           f"{int(clear.sum())}/{clear.numel()} resolved units: {arg_ok}")
     assert errs["matmul_blockmax2_only"] <= TOL and arg_ok
-    times["matmul_blockmax2_only"] = (cuda_ms(k1), cuda_ms(k1_plain))
+    r, d = data.shape
+    peak = PEAK_FOR[data.dtype]
+    times["matmul_blockmax2_only"] = timing(
+        cuda_ms(k1), cuda_ms(k1_plain), product_ms(q, data),
+        nbytes(q, data, bms, key, bm), 2 * T * r * d, peak)
     del top2, gap, clear, p_bms, p_key, p_bm
 
     n_units = data.shape[0] // SUB
@@ -201,7 +267,10 @@ def check_kernels(store, store_100k, gen):
         errs["gather_rescore"] = max(errs["gather_rescore"], err)
         ms = cuda_ms(lambda: tk.gather_rescore(q, data, ids, unit=SUB))
         pms = cuda_ms(lambda: tk.gather_rescore_plain(q, data, ids, unit=SUB))
-        times[f"gather_rescore_ks{ks}"] = (ms, pms)
+        moved = nbytes(q, ids, out) + (torch.unique(ids).numel() * SUB * d
+                                       * data.element_size())
+        times[f"gather_rescore_ks{ks}"] = timing(
+            ms, pms, None, moved, 2 * T * ks * SUB * d, peak)
         phase(f"phase 2 K2 KS={ks} unit={SUB}: max|out-plain|={err:.3g}")
         assert err <= TOL
     times["gather_rescore"] = times["gather_rescore_ks100"]
@@ -217,11 +286,14 @@ def check_kernels(store, store_100k, gen):
           f"max|sims-plain|={max_abs(sims, p_sims):.3g} "
           f"max|bm-plain|={max_abs(bm_t, p_bm_t):.3g}")
     assert errs["matmul_blockmax"] <= TOL
-    times["matmul_blockmax"] = (
+    times["matmul_blockmax"] = timing(
         cuda_ms(lambda: tk.matmul_blockmax(q100, store_100k.data,
                                            store_100k.num_rows)),
         cuda_ms(lambda: tk.matmul_blockmax_plain(q100, store_100k.data,
-                                                 store_100k.num_rows)))
+                                                 store_100k.num_rows)),
+        product_ms(q100, store_100k.data),
+        nbytes(q100, store_100k.data, sims, bm_t),
+        2 * 256 * store_100k.data.shape[0] * d, peak)
     del sims, bm_t, p_sims, p_bm_t
 
     # phase 3: K2 at each unit's argmax row == K1's unit max == K3's score,
@@ -306,9 +378,32 @@ def check_attention(gen):
           f"on valid rows={err:.4g} (bound {ATT_TOL}), cosine={cos_sim:.7f} "
           f"(bound {ATT_COS}), fully padded row finite: {padded_finite}")
     assert err < ATT_TOL and cos_sim > ATT_COS and padded_finite
-    times = (cuda_ms(kern), cuda_ms(plain))
-    del qkv, out, ref, a, r
+    qr, kr, vr, mask = _rotated_qkv(qkv, c2, s2, bias, h)
+    times = timing(
+        cuda_ms(kern), cuda_ms(plain),
+        cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qr, kr, vr, attn_mask=mask, scale=scale)),
+        nbytes(qkv, c2, s2, bias, out), 4 * b * h * s * s * hd,
+        "bf16 tensor")
+    del qkv, out, ref, a, r, qr, kr, vr
     return err, times
+
+
+def _rotated_qkv(qkv, c2, s2, bias, h):
+    """Rotated q, k and v ``[B, H, S, hd]`` in qkv's dtype, and the key
+    bias as an additive mask: the operands of the library yardstick of
+    K8/K9 (rotary excluded from its time)."""
+    b, s, width = qkv.shape
+    hd = width // (3 * h)
+    x = qkv.view(b, s, 3, h, hd).permute(2, 0, 3, 1, 4)
+
+    def rot(t):
+        tf = t.float()
+        return (tf * c2 + torch.roll(tf, hd // 2, dims=-1) * s2).to(
+            qkv.dtype).contiguous()
+
+    mask = bias[:, None, None, :].to(qkv.dtype)
+    return rot(x[0]), rot(x[1]), x[2].contiguous(), mask
 
 
 def _device_profile(fn):
@@ -508,8 +603,19 @@ def check_attention_bwd(gen):
     for _n, diff, top, cos_sim in parts:
         assert diff <= BWD_REL * top and cos_sim >= BWD_COS
     del out, again, ref
-    times = (cuda_ms(kern), cuda_ms(plain))
-    del qkv, g
+    qr, kr, vr, mask = _rotated_qkv(qkv, c2, s2, bias, h)
+    for t in (qr, kr, vr):
+        t.requires_grad_()
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        qr, kr, vr, attn_mask=mask, scale=scale)
+    g_heads = g.view(b, s, h, hd).permute(0, 2, 1, 3).contiguous()
+    times = timing(
+        cuda_ms(kern), cuda_ms(plain),
+        cuda_ms(lambda: torch.autograd.grad(sdpa, (qr, kr, vr), g_heads,
+                                               retain_graph=True)),
+        nbytes(qkv, c2, s2, bias, g) + nbytes(qkv), 10 * b * h * s * s * hd,
+        "bf16 tensor")
+    del qkv, g, qr, kr, vr, sdpa, g_heads
     torch.cuda.empty_cache()
     return err, times
 
@@ -673,7 +779,10 @@ def check_int8_kernels(store, gen):
           f"max|bm-plain|={max_abs(bm, p_bm)} packed (m2, argmax) keys "
           f"equal: {keys_equal}")
     assert errs["matmul_blockmax2_only_int8"] == 0 and keys_equal
-    times["matmul_blockmax2_only_int8"] = (cuda_ms(k1), cuda_ms(k1_plain))
+    r, d = data.shape
+    times["matmul_blockmax2_only_int8"] = timing(
+        cuda_ms(k1), cuda_ms(k1_plain), product_ms(q, data),
+        nbytes(q, data, bms, key, bm), 2 * T * r * d, "int8 tensor")
     del p_bms, p_key, p_bm
 
     n_units = data.shape[0] // SUB
@@ -682,12 +791,15 @@ def check_int8_kernels(store, gen):
         ids = torch.sort(torch.randint(0, n_units, (T, ks), generator=gen,
                                        device="cuda"), dim=1).values
         ids = ids.to(torch.int32).contiguous()
-        err = max_abs(tk.gather_rescore(q, data, ids, unit=SUB),
-                      tk.gather_rescore_plain(q, data, ids, unit=SUB))
+        out = tk.gather_rescore(q, data, ids, unit=SUB)
+        err = max_abs(out, tk.gather_rescore_plain(q, data, ids, unit=SUB))
         errs["gather_rescore_int8"] = max(errs["gather_rescore_int8"], err)
-        times[f"gather_rescore_int8_ks{ks}"] = (
+        times[f"gather_rescore_int8_ks{ks}"] = timing(
             cuda_ms(lambda: tk.gather_rescore(q, data, ids, unit=SUB)),
-            cuda_ms(lambda: tk.gather_rescore_plain(q, data, ids, unit=SUB)))
+            cuda_ms(lambda: tk.gather_rescore_plain(q, data, ids, unit=SUB)),
+            None,
+            nbytes(q, ids, out) + torch.unique(ids).numel() * SUB * d,
+            2 * T * ks * SUB * d, "int8 tensor")
         phase(f"phase 12 K2 int8 KS={ks} unit={SUB}: max|out-plain|={err}")
         assert err == 0
     times["gather_rescore_int8"] = times["gather_rescore_int8_ks100"]
@@ -702,9 +814,11 @@ def check_int8_kernels(store, gen):
           f"max|sims-plain|={max_abs(sims, p_sims)} "
           f"max|bm-plain|={max_abs(bm_t, p_bm_t)}")
     assert errs["matmul_blockmax_int8"] == 0
-    times["matmul_blockmax_int8"] = (
+    times["matmul_blockmax_int8"] = timing(
         cuda_ms(lambda: tk.matmul_blockmax(q256, data, n)),
-        cuda_ms(lambda: tk.matmul_blockmax_plain(q256, data, n)))
+        cuda_ms(lambda: tk.matmul_blockmax_plain(q256, data, n)),
+        product_ms(q256, data), nbytes(q256, data, sims, bm_t),
+        2 * 256 * r * d, "int8 tensor")
     del sims, bm_t, p_sims, p_bm_t
 
     units = torch.sort(torch.randint(0, n // SUB, (T, 256), generator=gen,
@@ -720,8 +834,8 @@ def check_int8_kernels(store, gen):
     phase(f"phase 12 int8 identity on {units.numel()} (query, unit argmax) "
           f"pairs: K1 == K2 == K3 bitwise: {same}")
     assert same
-    for name, (ms, pms) in times.items():
-        phase(f"phase 12 {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    for name, rec in times.items():
+        phase("phase 12 " + timing_line(name, rec))
     return errs, times
 
 
@@ -1007,6 +1121,185 @@ def drive_cli_serve(tmp, src, seed, card, rows):
     return k8
 
 
+def check_gather_and_block_scores(store, gen, card):
+    """Phase 16, K4 and K6 at the certified route's shapes (a 512-query
+    tile, 256 selected 8-row units each, 1M x 768): K4 against its plain
+    version on f32, bf16 and int8 rows and its out-of-range fill; K6 over
+    K4's rows against K3, K2 and its plain version; their times."""
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+    from better_search_rag_rust_tpu_torch.ops.quantize import quantize_unit
+
+    data, n = store.data, store.num_rows
+    unit, ks = 8, 256
+    n_units = data.shape[0] // unit
+    q = data[torch.randint(0, n, (T,), generator=gen, device="cuda")]
+    # valid units only: K3 masks padding rows, K6 scores what it is given
+    ids = torch.sort(torch.randint(0, n // unit, (T, ks), generator=gen,
+                                   device="cuda"), dim=1).values
+    ids = ids.to(torch.int32).contiguous()
+    errs, times = {}, {}
+
+    diffs, k6_err = {}, {}  # K4 on each dtype, and K6 over its rows
+    for name, cast in (("f32", lambda x: x),
+                       ("bf16", lambda x: x.to(torch.bfloat16)),
+                       ("int8", quantize_unit)):
+        rows_of, q_of = cast(data), cast(q)
+        out = tk.gather_rows(rows_of, ids, unit=unit)
+        ref = tk.gather_rows_plain(rows_of, ids, unit=unit)
+        torch.cuda.synchronize()
+        same = torch.equal(out.view(torch.uint8), ref.view(torch.uint8))
+        diffs[name] = max_abs(out.float(), ref.float()) if same else math.inf
+        k6_err[name] = max_abs(tk.block_scores(q_of, out),
+                               tk.block_scores_plain(q_of, out))
+        del rows_of, out, ref
+    bad = ids[:4, :4].clone()
+    bad[0, 1], bad[1, 2], bad[2, 3] = -1, n_units, 2**31 - 1
+    filled = tk.gather_rows(data, bad, unit=unit).view(4, 4, unit, -1)
+    fill_ok = (bool((filled[[0, 1, 2], [1, 2, 3]].view(torch.uint8) == 0xFF)
+                    .all())
+               and torch.equal(filled[3, 0], data[int(bad[3, 0]) * unit:
+                                                  (int(bad[3, 0]) + 1) * unit]))
+    errs["gather_rows"] = max(diffs.values())
+    phase(f"phase 16 K4 gather_rows [{T} x {ks} units x {unit} rows x "
+          f"{data.shape[1]}] vs plain: max|diff| {diffs}; ids outside "
+          f"[0, {n_units}) give 0xFF rows: {fill_ok}")
+    assert errs["gather_rows"] == 0 and fill_ok
+
+    rows = tk.gather_rows(data, ids, unit=unit)
+    k6 = tk.block_scores(q, rows)
+    sims, _ = tk.matmul_blockmax(q, data, n)
+    pos = (ids.long()[:, :, None] * unit
+           + torch.arange(unit, device="cuda")).reshape(T, -1)
+    k3_same = torch.equal(k6, torch.gather(sims, 1, pos))
+    del sims
+    k2_same = torch.equal(k6, tk.gather_rescore(q, data, ids, unit=unit))
+    errs["block_scores"] = k6_err["f32"]
+    phase(f"phase 16 K6 block_scores [{T} x {ks * unit} x {data.shape[1]}] "
+          f"over K4's rows: bitwise K3's sims at the same pairs: {k3_same};"
+          f" bitwise K2's scores of the same units: {k2_same}; max|K6 - "
+          f"plain| {k6_err} (bound {TOL}; 0 on int8)")
+    assert k3_same and k2_same and k6_err["int8"] == 0
+    assert max(k6_err.values()) <= TOL
+
+    view = data.view(-1, unit, data.shape[1])
+    ids_long = ids.long()
+    uniq = torch.unique(ids).numel() * unit * data.shape[1] * 4
+    times["gather_rows"] = timing(
+        cuda_ms(lambda: tk.gather_rows(data, ids, unit=unit)),
+        cuda_ms(lambda: tk.gather_rows_plain(data, ids, unit=unit)),
+        cuda_ms(lambda: view[ids_long]),
+        nbytes(ids, rows) + uniq, 0, "fp32 SIMT")
+    times["block_scores"] = timing(
+        cuda_ms(lambda: tk.block_scores(q, rows)),
+        cuda_ms(lambda: tk.block_scores_plain(q, rows)),
+        cuda_ms(lambda: torch.bmm(rows, q[:, :, None])),
+        nbytes(q, rows, k6), 2 * T * ks * unit * data.shape[1], "fp32 SIMT")
+    del rows, k6
+
+    def k1():
+        return tk.matmul_blockmax2_only(q, data, n, sub=unit, block=128,
+                                        emit_block=True, emit_width=128)
+
+    bms, bm = k1()
+    p_bms, p_bm = tk.matmul_blockmax2_only_plain(
+        q, data, n, sub=unit, block=128, emit_block=True, emit_width=128)
+    k1_err = max(max_abs(bms, p_bms), max_abs(bm, p_bm))
+    del p_bms, p_bm
+    k1_f32 = timing(
+        cuda_ms(k1),
+        cuda_ms(lambda: tk.matmul_blockmax2_only_plain(
+            q, data, n, sub=unit, block=128, emit_block=True,
+            emit_width=128)),
+        product_ms(q, data), nbytes(q, data, bms, bm),
+        2 * T * data.shape[0] * data.shape[1], "fp32 SIMT")
+    phase(f"phase 16 K1 f32 at the route's geometry (sub {unit}, emit 128): "
+          f"max|out-plain|={k1_err:.3g} (bound {TOL})")
+    assert k1_err <= TOL
+    for name, rec in (("gather_rows", times["gather_rows"]),
+                      ("block_scores", times["block_scores"]),
+                      ("matmul_blockmax2_only f32 sub 8", k1_f32)):
+        phase(f"phase 16 [{card}] " + timing_line(name, rec))
+    return errs, times
+
+
+def drive_f32cert(seed, gen, card):
+    """Phase 16: the certified f32 route on ``search_1m_f32`` and on a
+    store where its certificate fails; K4/K6 checks and times; q/s beside
+    the rescore route on the same store. Returns (errs, times, launches)."""
+    from better_search_rag_rust_tpu_torch.config import (
+        PipelineConfig,
+        SearchConfig,
+    )
+    from better_search_rag_rust_tpu_torch.ops import topk as port_topk
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+    from better_search_rag_rust_tpu_torch.ops.engine import SearchEngine
+    from better_search_rag_rust_tpu_torch.pipeline import Pipeline
+    from better_search_rag_rust_tpu_torch.store import DeviceStore
+
+    store = DeviceStore.synthetic(1_000_000, 768, "float32", seed + 2,
+                                  device="cuda")
+    cfg = PipelineConfig(search=SearchConfig(
+        top_k=K, store_dtype="float32", f32_certified="on"),
+        skip_process=True)
+    dup = DeviceStore(store.data[:64].repeat(store.padded_rows // 64, 1),
+                      store.num_rows, store.dim)
+    launches = {}
+    for name, st in (("1M x 768 f32", store),
+                     ("1M x 768 f32, one 64-row block repeated", dup)):
+        pipe = Pipeline(cfg, device="cuda")
+        engine = pipe.engine(st)
+        rows = torch.randint(0, st.num_rows, (1024,), generator=gen,
+                             device="cuda")
+        queries = st.data[rows].cpu().numpy()
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        port_topk.reset_cert_counts()
+        ids, dists = engine.search(queries, K)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in tk.launch_counts.items() if v}
+        certs = dict(port_topk.cert_counts)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        o_ids, o_d = engine.oracle_topk(queries, K)
+        same = np.array_equal(ids, o_ids) and np.array_equal(dists, o_d)
+        report = pipe.evaluate(num_queries=1024, k=K)
+        phase(f"phase 16 {name}, f32_certified='on', 1024 queries, k={K}: "
+              f"route={engine.kernel_name(K)}; ids and distances == "
+              f"oracle_topk bitwise: {same}; evaluate mrr={report['mrr']} "
+              f"recall@{K}={report['recall_at_k']} oracle_overlap="
+              f"{report['oracle_overlap']}; certified tiles "
+              f"{certs['certified']}/{sum(certs.values())} (dense "
+              f"{certs['dense']}); launches {counts}")
+        assert engine.kernel_name(K) == "f32cert" and same
+        assert report["oracle_overlap"] == 1.0
+        for k in ("matmul_blockmax2_only", "gather_rows", "block_scores"):
+            assert counts.get(k, 0) > 0, counts
+        if st is dup:
+            assert certs["dense"] > 0 and counts["matmul_blockmax"] > 0
+            b = rows.cpu().numpy() % 64
+            assert np.array_equal(ids, b[:, None] + 64 * np.arange(K))
+        else:  # on the repeated block a copy with a lower id ranks first
+            assert certs["certified"] > 0
+            assert report["mrr"] == report["recall_at_k"] == 1.0
+            cert_engine = engine
+        del pipe, engine
+    del dup
+    torch.cuda.empty_cache()
+
+    rescore = SearchEngine(store, SearchConfig(top_k=K))
+    assert rescore.kernel_name(K) == "rescore"
+    qps = {"f32cert": measure_qps(cert_engine, store, gen, iters=3),
+           "rescore": measure_qps(rescore, store, gen, iters=3)}
+    phase(f"phase 16 [{card}] 1M x 768 f32, 1024 queries, k={K}: "
+          + "; ".join(f"{r}: search {h:.1f} q/s, search_device {d:.1f} q/s"
+                      for r, (h, d) in qps.items()))
+    del cert_engine, rescore
+    errs, times = check_gather_and_block_scores(store, gen, card)
+    del store
+    torch.cuda.empty_cache()
+    return errs, times, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1069,18 +1362,16 @@ def main() -> int:
     host_qps, dev_qps = measure_qps(engine, store, gen)
     phase(f"phase 5 [{card}] 1M x 768 bf16, 1024 queries, k={K}: "
           f"search {host_qps:.1f} q/s, search_device {dev_qps:.1f} q/s")
-    for name, (ms, pms) in times.items():
-        phase(f"phase 5 [{card}] {name}: kernel {ms:.3f} ms, plain "
-              f"{pms:.3f} ms")
+    for name, rec in times.items():
+        phase(f"phase 5 [{card}] " + timing_line(name, rec))
 
     del engine, store, store_100k
     torch.cuda.empty_cache()
 
     errs["fused_attention_qkv"], times["fused_attention_qkv"] = \
         check_attention(gen)
-    ms, pms = times["fused_attention_qkv"]
-    phase(f"phase 6 [{card}] fused_attention_qkv: kernel {ms:.3f} ms, plain "
-          f"{pms:.3f} ms")
+    phase(f"phase 6 [{card}] " + timing_line(
+        "fused_attention_qkv", times["fused_attention_qkv"]))
     check_encoder(args.seed, card)
     tmp = tempfile.mkdtemp(prefix="bsr_smoke_")
     try:
@@ -1091,9 +1382,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         errs["fused_attention_qkv_bwd"], times["fused_attention_qkv_bwd"] = \
             check_attention_bwd(gen)
-        ms, pms = times["fused_attention_qkv_bwd"]
-        phase(f"phase 9 [{card}] fused_attention_qkv_bwd: kernel {ms:.3f} ms,"
-              f" plain {pms:.3f} ms")
+        phase(f"phase 9 [{card}] " + timing_line(
+            "fused_attention_qkv_bwd", times["fused_attention_qkv_bwd"]))
         launches["fused_attention_qkv_bwd"] = check_training(args.seed, card)
         drive_finetune_cli(tmp, src, card)
         torch.cuda.empty_cache()
@@ -1135,12 +1425,24 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    cert_errs, cert_times, cert_launches = drive_f32cert(args.seed, gen, card)
+    errs.update(cert_errs)
+    times.update(cert_times)
+    for name in ("gather_rows", "block_scores"):
+        launches[name] = cert_launches[name]
+    phase(f"phase 16 kernel launches over the certified route: "
+          f"{cert_launches}")
+
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],
-         "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
+         "max_abs_err": errs[name], "ms": times[name]["ms"],
+         "plain_ms": times[name]["plain_ms"],
+         "bound_ms": times[name]["bound_ms"],
+         "bound_by": times[name]["bound_by"],
+         "library_ms": times[name]["library_ms"],
+         "lib_ms": times[name]["library_ms"]}
         for name, (source, replaces) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -216,6 +216,94 @@ def test_engine_int8_exact_against_oracle(cuda, kernel, argmax, dim):
     assert tk.launch_counts[first] == 0
 
 
+# -- K4 gather_rows, K6 block_scores and the certified f32 route ---------------
+
+
+@pytest.mark.parametrize("dtype,dim,unit", [
+    (torch.float32, 768, 8), (torch.bfloat16, 768, 16), (torch.int8, 768, 32),
+    (torch.float32, 99, 1), (torch.int8, 99, 3),   # runs off 16-byte alignment
+])
+def test_k4_matches_plain_bitwise(cuda, dtype, dim, unit):
+    """Bound: none — K4 moves bytes. An id outside [0, R/unit) gives 0xFF
+    bytes and reads nothing past the store."""
+    rows = 6144  # a multiple of every unit here
+    if dtype == torch.int8:
+        q, mat = _int8_operands(cuda, dim, rows=rows)
+    else:
+        q, mat = _operands(cuda, dtype, rows=rows, dim=dim)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    n_units = mat.shape[0] // unit
+    ids = torch.randint(0, n_units, (40, 24), generator=g, device=cuda)
+    ids[:, 1] = ids[:, 0]
+    ids[5, 2], ids[6, 3], ids[7, 4] = -1, n_units, 2**31 - 1
+    ids = ids.to(torch.int32).contiguous()
+    before = tk.launch_counts["gather_rows"]
+    out = tk.gather_rows(mat, ids, unit=unit)
+    ref = tk.gather_rows_plain(mat, ids, unit=unit)
+    torch.cuda.synchronize()
+    assert tk.launch_counts["gather_rows"] == before + 1
+    assert torch.equal(out.view(torch.uint8), ref.view(torch.uint8))
+    bad = out.view(40, 24, unit, dim)[[5, 6, 7], [2, 3, 4]]
+    assert bool((bad.view(torch.uint8) == 0xFF).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dim", [768, 100])
+def test_k6_equals_k3_and_k2(cuda, dtype, dim):
+    """K6 over K4's rows gives K3's and K2's scores of the same pairs bit
+    for bit (one scoring body); against its plain version within TOL on
+    float rows and bit for bit on int8."""
+    if dtype == torch.int8:
+        q, mat = _int8_operands(cuda, dim, rows=4096)
+    else:
+        q, mat = _operands(cuda, dtype, rows=4096, dim=dim)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(4)
+    ids = torch.sort(torch.randint(0, 4096 // 8, (q.shape[0], 64),
+                                   generator=g, device=cuda), dim=1).values
+    ids = ids.to(torch.int32).contiguous()
+    rows = tk.gather_rows(mat, ids, unit=8)
+    out = tk.block_scores(q, rows)
+    sims, _ = tk.matmul_blockmax(q, mat, 4096)
+    pos = (ids.long()[:, :, None] * 8
+           + torch.arange(8, device=cuda)).reshape(q.shape[0], -1)
+    assert torch.equal(out, torch.gather(sims, 1, pos))
+    assert torch.equal(out, tk.gather_rescore(q, mat, ids, unit=8))
+    ref = tk.block_scores_plain(q, rows)
+    if dtype == torch.int8:
+        assert torch.equal(out, ref)
+    else:
+        assert (out - ref).abs().max() <= TOL
+
+
+def test_f32cert_route_exact_on_both_branches(cuda):
+    """The certified route at 65,536 x 768 f32 equals the oracle bit for
+    bit: on random rows the certificate holds, on a store of one repeated
+    64-row block it fails and the dense branch answers."""
+    from better_search_rag_rust_tpu_torch.ops import topk as port_topk
+
+    rng = np.random.default_rng(0)
+    mats = {
+        "certified": rng.standard_normal((65536, 768)).astype(np.float32),
+        "dense": np.tile(rng.standard_normal((64, 768)).astype(np.float32),
+                         (1024, 1)),
+    }
+    for branch, mat in mats.items():
+        eng = SearchEngine(DeviceStore.from_host(mat, "float32", device=cuda),
+                           SearchConfig(f32_certified="on"))
+        queries = mat[rng.integers(0, 65536, 512)]
+        tk.reset_launch_counts()
+        port_topk.reset_cert_counts()
+        ids, dists = eng.search(queries, 100)
+        assert port_topk.cert_counts[branch] == 1, port_topk.cert_counts
+        for name in ("matmul_blockmax2_only", "gather_rows", "block_scores"):
+            assert tk.launch_counts[name] > 0, tk.launch_counts
+        o_ids, o_d = eng.oracle_topk(queries, 100)
+        np.testing.assert_array_equal(ids, o_ids)
+        np.testing.assert_array_equal(dists, o_d)
+
+
 def test_batcher_reads_the_card_memory(cuda):
     from better_search_rag_rust_tpu_torch.batcher import _device_bytes_limit
 

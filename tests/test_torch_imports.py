@@ -1,55 +1,81 @@
-"""The PyTorch package imports without jax.
+"""The PyTorch package imports without jax and without the JAX package.
 
 Checked in a fresh interpreter: the suite's conftest imports jax
-for every test, so ``sys.modules`` here says nothing about the port.
+for every test, so ``sys.modules`` here says nothing about the port. A
+``sys.meta_path`` finder refuses ``better_search_rag_rust_tpu`` and its
+submodules, so an import of the JAX package fails loudly even where that
+module would not have pulled in jax.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
+
+_BLOCKED_RUN = """
+import importlib, pkgutil, sys
+
+class BlockJaxPackage:
+    def find_spec(self, name, path=None, target=None):
+        if name == "better_search_rag_rust_tpu" or name.startswith(
+                "better_search_rag_rust_tpu."):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, BlockJaxPackage())
+import better_search_rag_rust_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")
+         if not m.name.endswith("__main__")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # its top-level imports only; main() is not run
+from better_search_rag_rust_tpu_torch import native
+from better_search_rag_rust_tpu_torch.models.tokenizer import HashingTokenizer
+tok = HashingTokenizer(vocab_size=1000, max_tokens=16)
+ids, mask = tok.encode_batch(["class A { int x; }"])
+assert ids.shape == (1, 16) and mask.sum() > 2
+from pathlib import Path
+lib = native.library_path().resolve()
+assert lib.parent == (Path.cwd() / "build" / "native").resolve(), lib
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(
+    ("jax.", "jaxlib", "flax", "triton", "better_search_rag_rust_tpu.")))
+assert not bad, bad
+assert "torch" in sys.modules and len(names) > 40, names
+print("ok")
+"""
 
 
 def test_port_imports_without_jax():
-    code = (
-        "import sys\n"
-        "import better_search_rag_rust_tpu_torch\n"
-        "import better_search_rag_rust_tpu_torch.ops.engine\n"
-        "import better_search_rag_rust_tpu_torch.ops.topk_kernels\n"
-        "import better_search_rag_rust_tpu_torch.pipeline\n"
-        "import better_search_rag_rust_tpu_torch.cli\n"
-        "import better_search_rag_rust_tpu_torch.store\n"
-        "import better_search_rag_rust_tpu_torch.bench\n"
-        "import better_search_rag_rust_tpu_torch.corpus\n"
-        "import better_search_rag_rust_tpu_torch.models\n"
-        "import better_search_rag_rust_tpu_torch.models.encoder\n"
-        "import better_search_rag_rust_tpu_torch.models.hash_encoder\n"
-        "import better_search_rag_rust_tpu_torch.models.nomic\n"
-        "import better_search_rag_rust_tpu_torch.models.tokenizer\n"
-        "import better_search_rag_rust_tpu_torch.models.train\n"
-        "import better_search_rag_rust_tpu_torch.models.train_data\n"
-        "import better_search_rag_rust_tpu_torch.models.checkpoint\n"
-        "import better_search_rag_rust_tpu_torch.bench.finetune\n"
-        "import better_search_rag_rust_tpu_torch.utils.device\n"
-        "import better_search_rag_rust_tpu_torch.ops.attention_kernels\n"
-        "import better_search_rag_rust_tpu_torch.ops._build\n"
-        "import better_search_rag_rust_tpu_torch.store.vectorstore\n"
-        "import better_search_rag_rust_tpu_torch.store.device_cache\n"
-        "import better_search_rag_rust_tpu_torch.batcher\n"
-        "import better_search_rag_rust_tpu_torch.bench.serve\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or"
-        " m.startswith(('jax.', 'jaxlib', 'flax', 'triton')))\n"
-        "assert not bad, bad\n"
-        "assert 'torch' in sys.modules\n"
-        "print('ok')\n"
-    )
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("name", [
+    "CorpusConfig", "EncoderConfig", "StoreConfig", "MeshConfig",
+    "SearchConfig", "PipelineConfig",
+])
+def test_config_dataclasses_match_jax(name):
+    """The port's config dataclasses have the JAX package's fields, order,
+    annotations and defaults, so a config built by one drives the other."""
+    from better_search_rag_rust_tpu import config as jcfg
+    from better_search_rag_rust_tpu_torch import config as pcfg
+
+    jcls, pcls = getattr(jcfg, name), getattr(pcfg, name)
+
+    def spec(cls):
+        return [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
+
+    assert spec(pcls) == spec(jcls)
+    assert pcfg.asdict(pcls()) == jcfg.asdict(jcls())
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

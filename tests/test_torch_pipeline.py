@@ -82,11 +82,12 @@ def test_partial_merge_refused(store_dir, tmp_path):
 
 
 def test_unported_phases_raise(store_dir):
-    """Serving and update are ported (tests/test_torch_serve.py); the
-    f32cert and scan routes and --profile-dir are later slices and raise."""
+    """Serving, update and the f32cert route are ported
+    (tests/test_torch_serve.py, tests/test_torch_f32cert.py); the scan
+    routes and --profile-dir are not, and raise."""
     from better_search_rag_rust_tpu_torch import cli
 
-    for kernel in ("f32cert", "scan", "blockmax"):
+    for kernel in ("scan", "blockmax"):
         p = Pipeline(_cfg(store_dir, kernel=kernel), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             p.engine().search(np.ones((1, DIM), np.float32), 5)
