@@ -9,11 +9,13 @@ persisted store; ``update`` reconciles the store with the edited tree;
 ``serve`` is the JSONL server over stdin/stdout or TCP (``--port``),
 optionally through the micro-batcher (``--serve-window-ms``); ``finetune``
 trains the encoder contrastively on pairs from the corpus (one device;
-``--tp`` above 1 is the multi-GPU slice). ``--snapshot`` keeps a
-device-store snapshot for fast restarts. ``--device`` names the torch
-device; the default is the CUDA card, and without one the command fails
-(``--device cpu`` runs on the CPU). ``bench`` and ``--profile-dir`` belong
-to later slices of the port (ROADMAP.md).
+``--tp`` above 1 is the multi-GPU slice); ``bench --suite NAME`` runs one
+measurement suite of :mod:`.bench.suite` and prints its result
+(``--json``: one JSON line). ``--snapshot`` keeps a device-store snapshot
+for fast restarts. ``--profile-dir DIR`` on any subcommand writes a trace
+of the whole command into ``DIR`` (:func:`.utils.profiling.device_trace`).
+``--device`` names the torch device; the default is the CUDA card, and
+without one the command fails (``--device cpu`` runs on the CPU).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+from contextlib import nullcontext
 from typing import Optional, Sequence
 
 from .cli_args import _add_common, _config_from_args, _print_result
@@ -257,11 +260,32 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "ported")
     ft.add_argument("--save-dir", default=None,
                     help="checkpoint dir for the tuned params")
+    bp = sub.add_parser("bench", help="performance benchmark suite")
+    bp.add_argument("--suite", default="search_1m",
+                    help="benchmark config name (see bench/suite.py)")
+    bp.add_argument("--json", action="store_true", dest="as_json")
+    bp.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="write a device trace of the run into DIR")
+    bp.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
     args = parser.parse_args(argv)
     if args.profile_dir:
-        raise NotImplementedError(
-            "--profile-dir is not ported to the PyTorch package yet "
-            "(ROADMAP.md)")
+        from .utils.profiling import device_trace
+
+        trace = device_trace(args.profile_dir)
+    else:
+        trace = nullcontext()
+    with trace:
+        return _run_command(args)
+
+
+def _run_command(args) -> int:
+    if args.command == "bench":
+        from .bench.suite import run_suite
+
+        result = run_suite(args.suite, device=args.device)
+        print(json.dumps(result) if args.as_json else result)
+        return 0
     if args.command == "finetune":
         return _finetune(args)
     if args.command == "serve":

@@ -91,8 +91,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                            "corpus files instead of the self-retrieval check")
 
     p.add_argument("--profile-dir", default=None, metavar="DIR",
-                   help="capture a device trace of the run (not ported: "
-                        "raises)")
+                   help="write a device trace of the run into DIR (Chrome "
+                        "trace JSON, torch.profiler)")
     p.add_argument("--speedup-baseline", action="store_true",
                    help="also measure a sequential NumPy scan and print "
                         "speedup in the benchmark report (reference: "

@@ -39,11 +39,13 @@ SOURCES = {
         "bsr_matmul_blockmax2": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
         "bsr_gather_rescore": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
         "bsr_matmul_blockmax": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+        "bsr_matmul_blockmax_only": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
         "bsr_gather_rows": (_I, [_P, _P, _I, _I, _I, ctypes.c_longlong, _P, _P]),
         "bsr_block_scores": (_I, [_P, _P, _I, _I, _I, _I, _P, _P]),
         "bsr_error_string": (ctypes.c_char_p, [_I]),
     }),
     "attention": (CSRC / "attention_kernels.cu", {
+        "bsr_fused_attention": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P]),
         "bsr_fused_attention_qkv": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P]),
         "bsr_fused_attention_qkv_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P]),
         "bsr_error_string": (ctypes.c_char_p, [_I]),

@@ -2,9 +2,11 @@
 
 Counterpart of ``better_search_rag_rust_tpu/ops/attention_pallas.py``. The
 two Pallas kernels on the encoder's paths, K8 ``fused_attention_qkv`` (:177,
-the forward) and K9 ``_fused_qkv_bwd`` (:290, its recompute backward), have
-hand-written CUDA kernels (``csrc/attention_kernels.cu``) and, here, a
-wrapper and a plain PyTorch version each. A wrapper takes its plain version
+the forward) and K9 ``_fused_qkv_bwd`` (:290, its recompute backward), and
+the head-major K7 ``fused_attention`` (:95, measured by
+:mod:`..bench.proto_attn`) have hand-written CUDA kernels
+(``csrc/attention_kernels.cu``) and, here, a wrapper and a plain PyTorch
+version each. A wrapper takes its plain version
 only because its tensors lie on the CPU (that is how the CPU tests run the
 encoder and the trainer); for CUDA tensors it launches the kernel or raises
 — there is no fallback. Each kernel launch adds one to :data:`launch_counts`.
@@ -29,7 +31,8 @@ from typing import Dict, Tuple
 import torch
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
-launch_counts: Dict[str, int] = {"fused_attention_qkv": 0,
+launch_counts: Dict[str, int] = {"fused_attention": 0,
+                                 "fused_attention_qkv": 0,
                                  "fused_attention_qkv_bwd": 0}
 
 #: Head widths the CUDA kernels are instantiated for (their register tiles).
@@ -53,32 +56,40 @@ def rotary_roll_tables(cos: torch.Tensor, sin: torch.Tensor
     return torch.cat([cos, cos], dim=-1), torch.cat([-sin, sin], dim=-1)
 
 
-def fused_attention_qkv_plain(qkv: torch.Tensor, cos2: torch.Tensor,
-                              s2: torch.Tensor, bias: torch.Tensor,
-                              heads: int, scale: float) -> torch.Tensor:
-    """Plain K8: the same function as :func:`fused_attention_qkv`, through
-    ``[B, H, S, S]`` f32 logits. Rotary in f32 rounded once to the input
-    dtype; f32 logits of the rounded q and k; ``e = exp(l - max)``, the
-    denominator summing the f32 ``e`` while AV takes ``e`` rounded to the
-    input dtype; normalization after AV."""
-    b, s, width = qkv.shape
-    hd = width // (3 * heads)
-    dt = qkv.dtype
-    x = qkv.view(b, s, 3, heads, hd).permute(2, 0, 3, 1, 4)  # [3, B, H, S, hd]
+def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          cos2: torch.Tensor, s2: torch.Tensor,
+                          bias: torch.Tensor, scale: float) -> torch.Tensor:
+    """Plain K7: the same function as :func:`fused_attention` on head-major
+    ``[B, H, S, hd]`` q, k, v, through ``[B, H, S, S]`` f32 logits. Rotary
+    in f32 rounded once to the input dtype; f32 logits of the rounded q and
+    k; ``e = exp(l - max)``, the denominator summing the f32 ``e`` while AV
+    takes ``e`` rounded to the input dtype; normalization after AV."""
+    hd = q.shape[-1]
+    dt = q.dtype
 
     def rot(t):
         tf = t.to(torch.float32)
         return (tf * cos2 + torch.roll(tf, hd // 2, dims=-1) * s2).to(dt)
 
-    q = rot(x[0]).to(torch.float32)
-    k = rot(x[1]).to(torch.float32)
-    v = x[2].to(torch.float32)
-    logits = torch.matmul(q, k.transpose(-1, -2)) * scale + bias[:, None, None, :]
+    qr = rot(q).to(torch.float32)
+    kr = rot(k).to(torch.float32)
+    logits = torch.matmul(qr, kr.transpose(-1, -2)) * scale + bias[:, None, None, :]
     m = logits.amax(dim=-1, keepdim=True)
     e = torch.exp(logits - m)
     denom = e.sum(dim=-1, keepdim=True)
-    ctx = torch.matmul(e.to(dt).to(torch.float32), v)     # [B, H, S, hd] f32
-    out = (ctx / denom).to(dt)
+    ctx = torch.matmul(e.to(dt).to(torch.float32), v.to(torch.float32))
+    return (ctx / denom).to(dt)
+
+
+def fused_attention_qkv_plain(qkv: torch.Tensor, cos2: torch.Tensor,
+                              s2: torch.Tensor, bias: torch.Tensor,
+                              heads: int, scale: float) -> torch.Tensor:
+    """Plain K8: the same function as :func:`fused_attention_qkv` — plain K7
+    on the heads of the Wqkv layout, the context back in ``[B, S, H*hd]``."""
+    b, s, width = qkv.shape
+    hd = width // (3 * heads)
+    x = qkv.view(b, s, 3, heads, hd).permute(2, 0, 3, 1, 4)  # [3, B, H, S, hd]
+    out = fused_attention_plain(x[0], x[1], x[2], cos2, s2, bias, scale)
     return out.permute(0, 2, 1, 3).reshape(b, s, heads * hd)
 
 
@@ -92,6 +103,13 @@ def _check(qkv, cos2, s2, bias, heads: int) -> int:
         raise ValueError(f"sequence length {s} must be a multiple of 8")
     if hd % 2:
         raise ValueError(f"head dim {hd} must be even (rotate-halves)")
+    _check_tables(cos2, s2, bias, b, s, hd, qkv)
+    return hd
+
+
+def _check_tables(cos2, s2, bias, b: int, s: int, hd: int, *tensors) -> None:
+    """Rotary tables ``[S, hd]`` and key bias ``[B, S]``, all f32, on the
+    device of ``tensors``."""
     if tuple(cos2.shape) != (s, hd) or tuple(s2.shape) != (s, hd):
         raise ValueError(f"rotary tables must be [{s}, {hd}], got "
                          f"{tuple(cos2.shape)} and {tuple(s2.shape)}")
@@ -99,22 +117,21 @@ def _check(qkv, cos2, s2, bias, heads: int) -> int:
         raise ValueError(f"bias must be [{b}, {s}], got {tuple(bias.shape)}")
     if not (cos2.dtype == s2.dtype == bias.dtype == torch.float32):
         raise TypeError("cos2, s2 and bias must be float32")
-    devices = {t.device for t in (qkv, cos2, s2, bias)}
+    devices = {t.device for t in (*tensors, cos2, s2, bias)}
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {sorted(map(str, devices))}")
-    if qkv.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {qkv.device}")
-    return hd
+    if tensors[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {tensors[0].device}")
 
 
-def _check_kernel(name: str, hd: int, heads: int, *tensors) -> None:
-    """What the CUDA kernels take beyond :func:`_check`: bf16 qkv (and g),
-    their head widths, S up to :data:`KERNEL_MAX_SEQ`, contiguous operands
-    and a grid that fits."""
+def _check_kernel(name: str, hd: int, heads: int, s: int, *tensors) -> None:
+    """What the CUDA kernels take beyond the shape checks: bf16 q/k/v (or
+    qkv, and g), their head widths, S up to :data:`KERNEL_MAX_SEQ`,
+    contiguous operands and a grid that fits."""
     qkv = tensors[0]
-    b, s, _ = qkv.shape
+    b = qkv.shape[0]
     if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"the {name} kernel takes bfloat16 qkv, got "
+        raise TypeError(f"the {name} kernel takes bfloat16 q/k/v, got "
                         f"{qkv.dtype}")
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the {name} kernel takes head dims "
@@ -136,7 +153,7 @@ def _fused_attention_qkv_fwd(qkv: torch.Tensor, cos2: torch.Tensor,
     hd = _check(qkv, cos2, s2, bias, heads)
     if qkv.device.type == "cpu":
         return fused_attention_qkv_plain(qkv, cos2, s2, bias, heads, scale)
-    _check_kernel("K8", hd, heads, qkv, cos2, s2, bias)
+    _check_kernel("K8", hd, heads, qkv.shape[1], qkv, cos2, s2, bias)
     b, s, _ = qkv.shape
     out = torch.empty((b, s, heads * hd), dtype=qkv.dtype, device=qkv.device)
     if b == 0:
@@ -151,6 +168,50 @@ def _fused_attention_qkv_fwd(qkv: torch.Tensor, cos2: torch.Tensor,
             b, s, heads, hd, float(scale), out.data_ptr(), stream)
     lib.check("fused_attention_qkv", err)
     launch_counts["fused_attention_qkv"] += 1
+    return out
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cos2: torch.Tensor, s2: torch.Tensor, bias: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """K7. Head-major rotary + softmax attention, forward only: ``q, k, v
+    [B, H, S, hd]`` (pre-rotary), rotary tables ``cos2, s2 [S, hd]`` f32,
+    additive key-padding ``bias [B, S]`` f32 -> context ``[B, H, S, hd]`` in
+    q's dtype, rounded where K8 rounds (per head it is K8's function).
+
+    Replaces ``attention_pallas.fused_attention`` (:95), which has no
+    backward. On the card: bf16 operands, hd in :data:`KERNEL_HEAD_DIMS`,
+    S a multiple of 8 up to :data:`KERNEL_MAX_SEQ`, every operand
+    contiguous."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be one [B, H, S, hd] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k, v must share a dtype, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    b, h, s, hd = q.shape
+    if s % 8:
+        raise ValueError(f"sequence length {s} must be a multiple of 8")
+    if hd % 2:
+        raise ValueError(f"head dim {hd} must be even (rotate-halves)")
+    _check_tables(cos2, s2, bias, b, s, hd, q, k, v)
+    if q.device.type == "cpu":
+        return fused_attention_plain(q, k, v, cos2, s2, bias, scale)
+    _check_kernel("K7", hd, h, s, q, k, v, cos2, s2, bias)
+    out = torch.empty_like(q)
+    if not out.numel():
+        return out
+    from ._build import library
+
+    lib = library("attention")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.lib.bsr_fused_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), cos2.data_ptr(),
+            s2.data_ptr(), bias.data_ptr(), b, s, h, hd, float(scale),
+            out.data_ptr(), stream)
+    lib.check("fused_attention", err)
+    launch_counts["fused_attention"] += 1
     return out
 
 
@@ -219,7 +280,7 @@ def fused_attention_qkv_bwd(qkv: torch.Tensor, cos2: torch.Tensor,
     if qkv.device.type == "cpu":
         return fused_attention_qkv_bwd_plain(qkv, cos2, s2, bias, g, heads,
                                              scale)
-    _check_kernel("K9", hd, heads, qkv, cos2, s2, bias, g)
+    _check_kernel("K9", hd, heads, s, qkv, cos2, s2, bias, g)
     dqkv = torch.empty_like(qkv)
     # per-row softmax max, sum and sum(dp * p), pass 1 to pass 2
     stats = torch.empty((3, b, heads, s), dtype=torch.float32,

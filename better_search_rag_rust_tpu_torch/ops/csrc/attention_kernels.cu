@@ -4,6 +4,8 @@
 //      (better_search_rag_rust_tpu/ops/attention_pallas.py:177, body :140)
 //   K9 bsr_fused_attention_qkv_bwd <- _fused_qkv_bwd
 //      (better_search_rag_rust_tpu/ops/attention_pallas.py:290, body :214)
+//   K7 bsr_fused_attention         <- fused_attention
+//      (better_search_rag_rust_tpu/ops/attention_pallas.py:95, body :63)
 //
 // K8 — WHAT IT COMPUTES. For each batch row b and head h, straight off the
 // Wqkv projection output qkv [B, S, 3*H*hd] bf16 (q, k and v of head h at
@@ -347,6 +349,151 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
+// K7 — K8 on head-major operands. q, k and v are three [B, H, S, hd] bf16
+// tensors (rows of a head hd apart) and the context is [B, H, S, hd]; per
+// (b, h) the function, the tiles, the loaders and every rounding are K8's,
+// so K7 on the transposed Wqkv output equals K8 bit for bit, and what bounds
+// it is what bounds K8. Forward only: the TPU kernel has no backward. The body is K8's written out again rather
+// than shared: K8's code stays byte for byte as measured (a body shared
+// through pointer parameters lost __restrict__ and slowed K2 by 9 %).
+template <int HD>
+__global__ void __launch_bounds__(NT, 2)
+    k7_fused_attention(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const float* __restrict__ cos2,
+                       const float* __restrict__ s2,
+                       const float* __restrict__ bias, int S, int H,
+                       float scale, __nv_bfloat16* __restrict__ out) {
+  constexpr int LD = HD + 4;
+  constexpr int DPT = HD / 16;  // context dims per thread
+  extern __shared__ __align__(16) float smem[];
+  const int SP = logits_pitch(S);
+  float* Qs = smem;              // [TQ][LD] rotated q
+  float* KVs = Qs + TQ * LD;     // [KT][LD] rotated k, then v
+  float* Ls = KVs + KT * LD;     // [TQ][SP] logits, then bf16-rounded e
+  float* Dn = Ls + TQ * SP;      // [TQ] softmax denominators
+
+  const int nqt = (S + TQ - 1) / TQ;
+  const int qt = blockIdx.x % nqt;
+  const int bh = blockIdx.x / nqt;  // b * H + h
+  const int b = bh / H;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const size_t head = (size_t)bh * S * HD;
+  const float* brow = bias + (size_t)b * S;
+  const int q0 = qt * TQ;
+
+  load_rotated<HD>(q + head, HD, 0, cos2, s2, q0, TQ, S, Qs);
+
+  // Pass 1: logits of the query tile against every key, into Ls.
+  for (int k0 = 0; k0 < S; k0 += KT) {
+    __syncthreads();  // the previous K tile is consumed (Qs is ready)
+    load_rotated<HD>(k + head, HD, 0, cos2, s2, k0, KT, S, KVs);
+    __syncthreads();
+    float acc[2][4] = {};
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      float4 qv[2], kv[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(KVs + (tx + 16 * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(qv[i].x, kv[j].x, acc[i][j]);
+          acc[i][j] = fmaf(qv[i].y, kv[j].y, acc[i][j]);
+          acc[i][j] = fmaf(qv[i].z, kv[j].z, acc[i][j]);
+          acc[i][j] = fmaf(qv[i].w, kv[j].w, acc[i][j]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int t = k0 + tx + 16 * j;
+      if (t < S) {
+        const float bt = brow[t];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          Ls[(ty + 16 * i) * SP + t] =
+              __fadd_rn(__fmul_rn(acc[i][j], scale), bt);
+      }
+    }
+  }
+  __syncthreads();
+
+  // Row pass: exact max, f32 sum of exp(l - m), each e rounded to bf16.
+  {
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    for (int rr = 0; rr < TQ / 8; ++rr) {
+      const int r = warp * (TQ / 8) + rr;
+      float* L = Ls + r * SP;
+      float m = -INFINITY;
+      for (int t = lane; t < S; t += 32) m = fmaxf(m, L[t]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      float sum = 0.f;
+      for (int t = lane; t < S; t += 32) {
+        const float e = expf(L[t] - m);
+        sum += e;
+        L[t] = bf16_round(e);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) Dn[r] = sum;
+    }
+  }
+
+  // Pass 2: ctx = bf16(e) . v over V tiles.
+  float ctx[2][DPT] = {};
+  for (int k0 = 0; k0 < S; k0 += KT) {
+    __syncthreads();  // row pass done / the previous V tile is consumed
+    load_plain<HD>(v + head, HD, 0, k0, KT, S, KVs);
+    __syncthreads();
+    const int kv = min(KT, S - k0);  // a multiple of 8 (S % 8 == 0)
+    for (int t = 0; t < kv; t += 4) {
+      float4 p[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        p[i] = *reinterpret_cast<const float4*>(Ls + (ty + 16 * i) * SP +
+                                                k0 + t);
+      const float pv[2][4] = {{p[0].x, p[0].y, p[0].z, p[0].w},
+                              {p[1].x, p[1].y, p[1].z, p[1].w}};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float vv[DPT];
+        lds<DPT>(KVs + (t + u) * LD + tx * DPT, vv);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int dd = 0; dd < DPT; ++dd)
+            ctx[i][dd] = fmaf(pv[i][u], vv[dd], ctx[i][dd]);
+      }
+    }
+  }
+
+  // Epilogue: normalize after AV, one rounding to bf16.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = ty + 16 * i;
+    const int s = q0 + r;
+    if (s < S) {
+      const float dn = Dn[r];
+      __nv_bfloat16* o = out + head + (size_t)s * HD + tx * DPT;
+#pragma unroll
+      for (int dd = 0; dd < DPT; ++dd)
+        o[dd] = __float2bfloat16_rn(ctx[i][dd] / dn);
+    }
+  }
+}
+
 // Raise a kernel's dynamic shared-memory limit to `bytes` once; `configured`
 // starts at the 48 KB default. Returns a cudaError_t (0 on success).
 template <typename Kernel>
@@ -375,6 +522,22 @@ int launch_k8(const void* qkv, const float* cos2, const float* s2,
   return (int)cudaGetLastError();
 }
 
+template <int HD>
+int launch_k7(const void* q, const void* k, const void* v, const float* cos2,
+              const float* s2, const float* bias, int B, int S, int H,
+              float scale, void* out, cudaStream_t stream) {
+  static size_t configured = 48 * 1024;
+  const size_t bytes = smem_bytes<HD>(S);
+  const int e = allow_smem(k7_fused_attention<HD>, bytes, configured);
+  if (e) return e;
+  const int nqt = (S + TQ - 1) / TQ;
+  const dim3 grid((unsigned)B * (unsigned)H * (unsigned)nqt);
+  k7_fused_attention<HD><<<grid, NT, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), cos2, s2, bias, S, H, scale,
+      static_cast<__nv_bfloat16*>(out));
+  return (int)cudaGetLastError();
+}
 
 // ---------------------------------------------------------------------------
 // K9: the recompute backward
@@ -842,6 +1005,24 @@ int bsr_fused_attention_qkv(const void* qkv, const float* cos2, const float* s2,
     case 64: return launch_k8<64>(qkv, cos2, s2, bias, B, S, H, scale, out, st);
     case 128:
       return launch_k8<128>(qkv, cos2, s2, bias, B, S, H, scale, out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K7. q, k, v and out [B, H, S, hd] bf16; cos2, s2, bias and the geometry
+// limits as for K8.
+int bsr_fused_attention(const void* q, const void* k, const void* v,
+                        const float* cos2, const float* s2, const float* bias,
+                        int B, int S, int H, int hd, float scale, void* out,
+                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S <= 0 || S % 8 || S > MAX_S) return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return launch_k7<16>(q, k, v, cos2, s2, bias, B, S, H, scale, out, st);
+    case 32: return launch_k7<32>(q, k, v, cos2, s2, bias, B, S, H, scale, out, st);
+    case 64: return launch_k7<64>(q, k, v, cos2, s2, bias, B, S, H, scale, out, st);
+    case 128:
+      return launch_k7<128>(q, k, v, cos2, s2, bias, B, S, H, scale, out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

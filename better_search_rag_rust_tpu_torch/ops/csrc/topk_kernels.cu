@@ -1,16 +1,20 @@
 // Exact top-k scoring kernels for Hopper (sm_90a), plain C interface.
 //
-// Five kernels carry the exact search routes; each replaces one Pallas kernel
-// of better_search_rag_rust_tpu/ops/topk_pallas.py:
+// Five kernels carry the exact search routes and a sixth (K5) the block-max
+// measurements; each replaces one Pallas kernel of
+// better_search_rag_rust_tpu/ops/topk_pallas.py:
 //
-//   K1 bsr_matmul_blockmax2   <- matmul_blockmax2_only (:527, body :367)
-//   K2 bsr_gather_rescore     <- gather_rescore        (:656, body :631)
-//   K3 bsr_matmul_blockmax    <- matmul_blockmax       (:120, body :103)
-//   K4 bsr_gather_rows        <- gather_rows           (:747, body :736)
-//   K6 bsr_block_scores       <- block_scores          (:846, body :828)
+//   K1 bsr_matmul_blockmax2     <- matmul_blockmax2_only (:527, body :367)
+//   K2 bsr_gather_rescore       <- gather_rescore        (:656, body :631)
+//   K3 bsr_matmul_blockmax      <- matmul_blockmax       (:120, body :103)
+//   K4 bsr_gather_rows          <- gather_rows           (:747, body :736)
+//   K5 bsr_matmul_blockmax_only <- matmul_blockmax_only  (:222, body :178)
+//   K6 bsr_block_scores         <- block_scores          (:846, body :828)
 //
 // K4 moves bytes only. K6 stages and sums exactly as K2 does (same chunks,
-// same routines), so what is said of K2 below holds for K6.
+// same routines), so what is said of K2 below holds for K6. K5 is K3 without
+// its score store: the same score tile and the same block reduction, so its
+// block maxima are K3's bit for bit on every dtype.
 //
 // ONE ARITHMETIC RULE. Every score any of the three kernels produces is the
 // f32 chain
@@ -346,6 +350,33 @@ k3_blockmax(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int R,
   }
 }
 
+// K5: K3's per-block maxima bm_t [R/block, T] alone; the score tile never
+// leaves shared memory. Replaces matmul_blockmax_only (topk_pallas.py:222,
+// body :178), whose Mosaic row tile (pick_bm_row_tile) has no counterpart:
+// the tile is K3's TR x TQ. Bound on the card: the 2*T*R*D operations of the
+// product (the store is read once per 128-query tile, the output is R/block x
+// T floats), on the SIMT pipes like K1/K3. A kernel of its own rather than a
+// flag on K3, so every pointer stays __restrict__ (a shared body cost K2 9 %).
+template <typename T>
+__global__ void __launch_bounds__(NT, 2)
+k5_blockmax_only(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
+                 int D, int valid_rows, int block, float* __restrict__ bm_t) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int row0 = blockIdx.x * TR, q0 = blockIdx.y * TQ;
+  any_score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
+  const float* st = smem;
+  const int groups = TR / block;
+  for (int p = threadIdx.x; p < groups * TQ; p += NT) {
+    const int g = p / TQ, c = p % TQ;
+    if (q0 + c >= Tn) continue;
+    const float* col = st + (size_t)g * block * LDO + c;
+    float m = col[0];
+    for (int r = 1; r < block; ++r) m = fmaxf(m, col[r * LDO]);
+    bm_t[(size_t)(row0 / block + g) * Tn + q0 + c] = m;
+  }
+}
+
 // K2: query t's KS selected unit-row blocks (ids [T, KS]) rescored with the
 // same chain. Block (x, t) covers candidate slots [x*GR, x*GR + GR) of
 // query t; an id outside [0, R/unit) scores NaN instead of reading out of
@@ -548,6 +579,17 @@ int launch_k3(const void* q, const void* shard, int Tn, int R, int D, int valid_
 }
 
 template <typename T>
+int launch_k5(const void* q, const void* shard, int Tn, int R, int D, int valid_rows,
+              int block, float* bm_t, cudaStream_t st) {
+  if (int err = raise_smem(k5_blockmax_only<T>, SCORE_SMEM)) return err;
+  dim3 grid(R / TR, (Tn + TQ - 1) / TQ);
+  k5_blockmax_only<T><<<grid, NT, SCORE_SMEM, st>>>(static_cast<const T*>(q),
+                                                    static_cast<const T*>(shard), Tn,
+                                                    D, valid_rows, block, bm_t);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_k2(const void* q, const void* shard, const int32_t* ids, int Tn, int R,
               int D, int KS, int unit, float* out, cudaStream_t st) {
   dim3 grid((KS * unit + GR - 1) / GR, Tn);
@@ -624,6 +666,20 @@ int bsr_matmul_blockmax(const void* q, const void* shard, int dtype, int Tn, int
     return launch_k3<float>(q, shard, Tn, R, D, valid_rows, block, sims, bm_t, st);
   if (dtype == DTYPE_INT8)
     return launch_k3<int8_t>(q, shard, Tn, R, D, valid_rows, block, sims, bm_t, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5: K3's geometry (R % 128 == 0, block dividing 128); bm_t [R/block, Tn].
+int bsr_matmul_blockmax_only(const void* q, const void* shard, int dtype, int Tn,
+                             int R, int D, int valid_rows, int block, float* bm_t,
+                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_BF16)
+    return launch_k5<__nv_bfloat16>(q, shard, Tn, R, D, valid_rows, block, bm_t, st);
+  if (dtype == DTYPE_F32)
+    return launch_k5<float>(q, shard, Tn, R, D, valid_rows, block, bm_t, st);
+  if (dtype == DTYPE_INT8)
+    return launch_k5<int8_t>(q, shard, Tn, R, D, valid_rows, block, bm_t, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -272,6 +272,9 @@ class SearchEngine:
         else:
             qc = self._cast_queries(torch.from_numpy(queries).to(self.device))
         n = self.store.num_rows
+        if not qc.shape[0]:
+            return (np.empty((0, k_eff), np.int64),
+                    np.empty((0, k_eff), np.float32))
         if self.device.type != "cuda":
             sims, _ = matmul_blockmax(qc, self.store.data, n)
             return serial_topk(self.effective_store(), queries, k_eff,

@@ -126,6 +126,13 @@ def _unit_rows(uids: torch.Tensor, unit: int) -> torch.Tensor:
     return (uids[:, :, None] * unit + offs).reshape(t, u * unit)
 
 
+def _empty_result(queries: torch.Tensor, k: int) -> Pair:
+    """The ``[0, k]`` answer to an empty query batch, in every route's
+    dtypes (f32 scores, int64 ids)."""
+    return (torch.empty((0, k), dtype=torch.float32, device=queries.device),
+            torch.empty((0, k), dtype=torch.int64, device=queries.device))
+
+
 def _query_tiles(queries: torch.Tensor, q_tile: int):
     for t0 in range(0, queries.shape[0], q_tile):
         yield queries[t0:t0 + q_tile]
@@ -171,7 +178,9 @@ def global_topk(
     buffer at ``q_tile * macro_rows * 4`` bytes) with a running merge.
     ``shard`` rows must be a multiple of :data:`TILE_ROWS`; rows at or past
     ``num_rows`` are padding. Returns ``(vals [Q, k] f32, ids [Q, k]
-    int64)``."""
+    int64)``; an empty batch gives ``[0, k]``."""
+    if not queries_cast.shape[0]:
+        return _empty_result(queries_cast, k)
     rows = shard.shape[0]
     q_tile = max(1, min(q_tile, queries_cast.shape[0]))
     macro = max(TILE_ROWS, macro_rows - macro_rows % TILE_ROWS)
@@ -259,6 +268,8 @@ def rescore_topk(
             f"rescore geometry infeasible: rows {rows}, k {k}, sub {sub}, "
             f"block {block}; route dense"
         )
+    if not queries_cast.shape[0]:
+        return _empty_result(queries_cast, k)
     ng, gw = rescore_groups(rows, k, sub, block, sup_w)
     kg = min(k, ng)
     pool = kg * gw
@@ -399,6 +410,8 @@ def rescore_f32_certified(
     ks = min(ks, rows // CERT_UNIT)
     if k > ks:
         raise ValueError(f"need k <= ks ({k} > {ks})")
+    if not queries_cast.shape[0]:
+        return _empty_result(queries_cast, k)
     valid = min(rows, num_rows)
     eps1 = F32_CERT_EPS0 + d * 2.0 ** -24
     q_tile = max(8, min(q_tile, queries_cast.shape[0]))

@@ -11,6 +11,7 @@ K1  :func:`matmul_blockmax2_only` sub-unit maxima (+ packed second-max /
 K2  :func:`gather_rescore`        rescore each query's own selected units
 K3  :func:`matmul_blockmax`       masked scores + per-block maxima
 K4  :func:`gather_rows`           copy each query's selected units' rows
+K5  :func:`matmul_blockmax_only`  K3's per-block maxima alone, no scores
 K6  :func:`block_scores`          score each query's own gathered rows
 === ============================= ======================================
 
@@ -68,6 +69,7 @@ launch_counts: Dict[str, int] = {
     "matmul_blockmax2_only": 0,
     "gather_rescore": 0,
     "matmul_blockmax": 0,
+    "matmul_blockmax_only": 0,
     "matmul_blockmax2_only_int8": 0,
     "gather_rescore_int8": 0,
     "matmul_blockmax_int8": 0,
@@ -177,6 +179,27 @@ def matmul_blockmax_plain(queries, shard, valid_rows, *, block=BLOCK):
     sims = _plain_masked(queries, shard, int(valid_rows))
     bm_t = sims.view(t, r // block, block).amax(dim=2).T.contiguous()
     return sims, bm_t
+
+
+#: Scores per row chunk of plain K5 (1 GiB of f32): a 10M-row store at 512
+#: queries would otherwise hold a 20 GB score matrix.
+_PLAIN_BM_ONLY_SCORES = 1 << 28
+
+
+def matmul_blockmax_only_plain(queries, shard, valid_rows, *, block=BLOCK):
+    """Plain K5: plain K3's ``bm_t [R/block, T]``, scored in row chunks of
+    at most :data:`_PLAIN_BM_ONLY_SCORES` scores (one chunk, so bitwise plain
+    K3's, whenever the whole score matrix fits in it)."""
+    t = max(1, queries.shape[0])
+    r = shard.shape[0]
+    step = max(block, _PLAIN_BM_ONLY_SCORES // t // block * block)
+    parts = []
+    for r0 in range(0, r, step):
+        chunk = shard[r0:r0 + step]
+        _, bm_t = matmul_blockmax_plain(queries, chunk, int(valid_rows) - r0,
+                                        block=block)
+        parts.append(bm_t)
+    return torch.cat(parts)
 
 
 def gather_rows_plain(shard, ids, *, unit=8):
@@ -369,6 +392,33 @@ def matmul_blockmax(queries, shard, valid_rows, *, block=BLOCK):
                 _DTYPE_CODES[shard.dtype], t, r, d, valid, block,
                 sims.data_ptr(), bm_t.data_ptr())
     return sims, bm_t
+
+
+def matmul_blockmax_only(queries, shard, valid_rows, *, block=BLOCK):
+    """K5. ``bm_t [R/block, T]`` f32: the per-``block`` maxima of the scores
+    of ``queries [T, D]`` against ``shard [R, D]``, rows at or past
+    ``valid_rows`` scoring ``PAD_SIM``, without writing the scores — bit for
+    bit :func:`matmul_blockmax`'s ``bm_t`` on every dtype.
+
+    Replaces ``topk_pallas.matmul_blockmax_only`` (:222); its Mosaic row
+    tile (``pick_bm_row_tile``) is the TPU's. ``block`` must divide
+    :data:`TILE_ROWS`, and ``R`` be a multiple of it."""
+    _check_operands(queries, shard)
+    t, d = queries.shape
+    r = shard.shape[0]
+    if block <= 0 or TILE_ROWS % block:
+        raise ValueError(f"K5 block {block} must divide {TILE_ROWS}")
+    valid = max(0, min(int(valid_rows), r))
+    if queries.device.type == "cpu":
+        return matmul_blockmax_only_plain(queries, shard, valid, block=block)
+    bm_t = torch.empty((r // block, t), dtype=torch.float32,
+                       device=queries.device)
+    if t:
+        _launch("matmul_blockmax_only", "bsr_matmul_blockmax_only", shard,
+                queries.data_ptr(), shard.data_ptr(),
+                _DTYPE_CODES[shard.dtype], t, r, d, valid, block,
+                bm_t.data_ptr(), int8_body=False)
+    return bm_t
 
 
 def gather_rows(shard, ids, *, unit=8):

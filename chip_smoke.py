@@ -43,9 +43,9 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    ``--seed``): at B=8 x 512 tokens the K8 + K9 parameter gradients against
    the plain f32-logit attention's, per-parameter cosine > 0.99; then the
    ``finetune`` measurement (bench/finetune.py) at B=64 x 512: 3 warm-up
-   and 8 timed steps, files/s, steps/s, peak memory, a finite loss and
-   exactly 24 K9 launches per step (2 towers x 12 layers); a torch.profiler
-   split of one step into K8, K9, GEMMs and the rest;
+   steps and 3 timed windows of 8, files/s, steps/s, peak memory, a finite
+   loss and exactly 24 K9 launches per step (2 towers x 12 layers); a
+   torch.profiler split of one step into K8, K9, GEMMs and the rest;
 11. ``cli.main(["finetune", ...])`` on phase 8's tree (4 steps of 64 pairs,
    ``--save-dir``): the checkpoint reloads bit for bit equal to the
    trainer's parameters;
@@ -79,12 +79,32 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    K3's and K2's scores of the same pairs, against its plain version within
    1e-5 (bit for bit on int8); K1 at the route's 8-row units; search and
    search_device q/s of ``f32cert`` beside ``rescore`` on the same store;
-   launch counts of K1, K4, K6 and K3 over the phase.
+   launch counts of K1, K4, K6 and K3 over the phase;
+17. K5 ``matmul_blockmax_only`` (block maxima without the score matrix) on
+   1M x 768 bf16, f32 and int8 stores at T 512 (1,000,000 valid rows of
+   1,000,448, so the PAD_SIM mask bites): bit for bit K3's ``bm_t`` on all
+   three, against its plain version within 1e-5 (0 on int8); on a
+   10,027,008 x 256 bf16 store (10M valid rows) against its plain version
+   and, on its first 1,048,576 rows, bit for bit K3's; then ``python -m
+   better_search_rag_rust_tpu_torch.bench.proto_calib`` (the K5
+   measurements of the TPU record) as a subprocess, rc 0;
+18. K7 ``fused_attention`` (head-major) at B 256, H 12, S 512, hd 64 with a
+   padded key bias: against its plain version as K8 in phase 6, and on the
+   transposed Wqkv output bit for bit K8's (tolerance 0); then ``python -m
+   better_search_rag_rust_tpu_torch.bench.proto_attn`` (chain, K8, K7 with
+   its transposes) as a subprocess, rc 0;
+19. the measurement path: ``BENCH_SUITE=search_100k python3 bench_torch.py``
+   (its line: recall@10 and oracle overlap 1.0, ``mfu_peak_tflops`` set) and
+   CLI ``bench --suite search_100k --json --profile-dir`` (the trace names
+   K3's kernel) as subprocesses; ``run_suite`` of ``pipeline``, ``encode``
+   and ``jabref`` in this process (K3 and K8 launched); an empty query batch
+   on the ``global``, ``rescore`` and ``f32cert`` routes through every
+   engine entry point. A suite result with an ``error`` fails the run.
 
 Every kernel's time is printed beside its plain version's, one PyTorch call
 computing the same function where there is one (``library``: the product
-alone for K1/K3, ``scaled_dot_product_attention`` on rotated q/k/v for
-K8/K9, indexing for K4, ``bmm`` for K6), and its bound: the larger of the
+alone for K1/K3/K5, ``scaled_dot_product_attention`` on rotated q/k/v for
+K7/K8/K9, indexing for K4, ``bmm`` for K6), and its bound: the larger of the
 bytes it must move over 3.35 TB/s and its operations over the named peak
 (H100 SXM data sheet: 67 TFLOP/s fp32 SIMT for f32 stores, whose exact FMA
 chain cannot use tensor cores; 989 bf16 and 1,979 int8 tensor).
@@ -138,6 +158,10 @@ KERNELS = {
                     "better_search_rag_rust_tpu/ops/topk_pallas.py:747"),
     "block_scores": (CSRC + "topk_kernels.cu",
                      "better_search_rag_rust_tpu/ops/topk_pallas.py:846"),
+    "matmul_blockmax_only": (CSRC + "topk_kernels.cu",
+                             "better_search_rag_rust_tpu/ops/topk_pallas.py:222"),
+    "fused_attention": (CSRC + "attention_kernels.cu",
+                        "better_search_rag_rust_tpu/ops/attention_pallas.py:95"),
 }
 #: the encoder's shape: batch, sequence, heads, head width
 B_ENC, S_ENC, H_ENC, HD_ENC = 256, 512, 12, 64
@@ -478,18 +502,6 @@ def check_encoder(seed, card):
     del fused, plain
 
 
-def write_tree(root, files, seed):
-    """The JAX package's pipeline-suite corpus: 400 random ``tokN`` words
-    per Java file."""
-    os.makedirs(root)
-    rng = np.random.default_rng(seed)
-    words = rng.integers(0, 5000, size=(files, 400))
-    for i in range(files):
-        body = " ".join(f"tok{w}" for w in words[i])
-        with open(os.path.join(root, f"F{i}.java"), "w") as f:
-            f.write(f"class F{i} {{ {body} }}")
-
-
 def drive_build_mode(tmp, src, seed, card):
     """Phase 8: Pipeline.run() in build mode (nomic, then hash) on the tree
     ``src``, evaluate and text queries; returns the K8 launches of the
@@ -678,7 +690,7 @@ def check_training(seed, card):
     k9 = res["launches"]["fused_attention_qkv_bwd"]
     k8 = res["launches"]["fused_attention_qkv"]
     phase(f"phase 10 [{card}] finetune {B_TRAIN} pairs x {S_ENC} tokens, "
-          f"{TIMED_STEPS} timed steps after 3 warm-up: {res['value']:.2f} "
+          f"3 x {TIMED_STEPS} timed steps after 3 warm-up: {res['value']:.2f} "
           f"files/s, {res['steps_per_sec']:.4f} steps/s ({res['step_ms']:.1f} "
           f"ms/step), peak memory {res['peak_memory_bytes'] / 2**30:.2f} GiB, "
           f"final loss {res['final_loss']:.6f}, attention "
@@ -1300,6 +1312,253 @@ def drive_f32cert(seed, gen, card):
     return errs, times, launches
 
 
+def _run_module(label, args, env=None, timeout=900):
+    """``python3 <args>`` from the repository root as a subprocess; its
+    output lines are printed under ``label``; returns its stdout. A non-zero
+    exit fails the run."""
+    import sys
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, *args], cwd=repo, capture_output=True, text=True,
+        timeout=timeout,
+        env=dict(os.environ, PYTHONPATH=repo, **(env or {})))
+    for line in proc.stdout.splitlines():
+        if not line.startswith(("{", "launches ")):
+            phase(f"{label} | {line}")
+    assert proc.returncode == 0, (proc.returncode, proc.stderr[-3000:])
+    return proc.stdout
+
+
+def _launches(stdout) -> dict:
+    """The ``launches {...}`` line a measurement module prints last."""
+    (line,) = [ln for ln in stdout.splitlines() if ln.startswith("launches ")]
+    return json.loads(line[len("launches "):])
+
+
+def _result_line(stdout) -> dict:
+    """The last JSON object line of a command's output (log lines share
+    stdout with it)."""
+    return json.loads([ln for ln in stdout.splitlines()
+                       if ln.startswith("{")][-1])
+
+
+def check_blockmax_only(seed, gen, card):
+    """Phase 17: K5 against K3 and its plain version on 1M x 768 (three
+    dtypes) and 10M x 256 stores; then the proto_calib measurements as a
+    subprocess. Returns (err, timing, launches of the measurement run)."""
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+    from better_search_rag_rust_tpu_torch.store import DeviceStore
+
+    errs, times = {}, {}
+    for dtype in ("bfloat16", "float32", "int8"):
+        store = DeviceStore.synthetic(1_000_000, 768, dtype, seed + 5,
+                                      device="cuda")
+        data, n = store.data, store.num_rows
+        q = data[torch.randint(0, n, (T,), generator=gen, device="cuda")]
+        bm = tk.matmul_blockmax_only(q, data, n)
+        _, k3_bm = tk.matmul_blockmax(q, data, n)
+        plain = tk.matmul_blockmax_only_plain(q, data, n)
+        torch.cuda.synchronize()
+        same_k3 = torch.equal(bm, k3_bm)
+        err = max_abs(bm, plain)
+        padded = bool((bm[-((data.shape[0] - n) // BLOCK):] == tk.PAD_SIM)
+                      .all())
+        bound = 0.0 if dtype == "int8" else TOL
+        phase(f"phase 17 K5 {dtype} [{T} x {data.shape[0]} x 768, "
+              f"{n} valid]: bit for bit K3's bm_t: {same_k3}; max|K5 - "
+              f"plain|={err:.3g} (bound {bound}); padded blocks PAD_SIM: "
+              f"{padded}")
+        assert same_k3 and err <= bound and padded
+        errs[dtype] = err
+        times[dtype] = timing(
+            cuda_ms(lambda: tk.matmul_blockmax_only(q, data, n)),
+            cuda_ms(lambda: tk.matmul_blockmax_only_plain(q, data, n)),
+            product_ms(q, data), nbytes(q, data, bm),
+            2 * T * data.shape[0] * 768, PEAK_FOR[data.dtype])
+        del store, data, q, bm, k3_bm, plain
+        torch.cuda.empty_cache()
+
+    store = DeviceStore.synthetic(10_027_008, 256, "bfloat16", seed + 6,
+                                  device="cuda")
+    data = store.data
+    valid = 10_000_000
+    q = data[torch.randint(0, valid, (T,), generator=gen, device="cuda")]
+    bm = tk.matmul_blockmax_only(q, data, valid)
+    err = max_abs(bm, tk.matmul_blockmax_only_plain(q, data, valid))
+    head = 1_048_576
+    _, k3_bm = tk.matmul_blockmax(q, data[:head], head)
+    same_k3 = torch.equal(bm[:head // BLOCK], k3_bm)
+    phase(f"phase 17 K5 bf16 [{T} x {data.shape[0]} x 256, {valid} valid]: "
+          f"max|K5 - plain|={err:.3g} (bound {TOL}); bit for bit K3's bm_t "
+          f"on the first {head} rows: {same_k3}")
+    assert err <= TOL and same_k3
+    errs["10m"] = err
+    times["10m x 256"] = timing(
+        cuda_ms(lambda: tk.matmul_blockmax_only(q, data, valid)),
+        cuda_ms(lambda: tk.matmul_blockmax_only_plain(q, data, valid)),
+        None, nbytes(q, data, bm), 2 * T * data.shape[0] * 256,
+        "bf16 tensor")
+    del store, data, q, bm, k3_bm
+    torch.cuda.empty_cache()
+    for name, rec in times.items():
+        phase(f"phase 17 [{card}] " + timing_line(
+            f"matmul_blockmax_only {name}", rec))
+    out = _run_module("phase 17 proto_calib", [
+        "-m", "better_search_rag_rust_tpu_torch.bench.proto_calib",
+        "--seed", str(seed)])
+    launches = _launches(out)["matmul_blockmax_only"]
+    phase(f"phase 17 proto_calib: rc 0, K5 launches {launches}")
+    assert launches > 0
+    return max(errs.values()), times["bfloat16"], launches
+
+
+def check_attention_head_major(gen, card):
+    """Phase 18: K7 against its plain version and K8 at the encoder's
+    shape; then the proto_attn A/B as a subprocess. Returns (err, timing,
+    launches of the measurement run)."""
+    from better_search_rag_rust_tpu_torch.models.nomic import rotary_tables
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    b, s, h, hd = B_ENC, S_ENC, H_ENC, HD_ENC
+    qkv = torch.randn((b, s, 3 * h * hd), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+    lens[-1] = 0                                   # one fully padded row
+    valid = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    bias = torch.where(valid, 0.0, -1e9).to(torch.float32).contiguous()
+    cos, sin = (torch.from_numpy(t).cuda() for t in rotary_tables(s, hd, 1000.0))
+    c2, s2 = ak.rotary_roll_tables(cos, sin)
+    scale = 1.0 / math.sqrt(hd)
+    q, k, v = (t.contiguous() for t in
+               qkv.view(b, s, 3, h, hd).permute(2, 0, 3, 1, 4))
+
+    def kern():
+        return ak.fused_attention(q, k, v, c2, s2, bias, scale)
+
+    def plain():
+        return ak.fused_attention_plain(q, k, v, c2, s2, bias, scale)
+
+    out, ref = kern(), plain()
+    k8 = ak.fused_attention_qkv(qkv, c2, s2, bias, h, scale)
+    torch.cuda.synchronize()
+    rows = valid[:, None, :].expand(b, h, s)
+    a, r = out.float()[rows], ref.float()[rows]
+    err = max_abs(a, r)
+    cos_sim = float((a * r).sum() / (a.norm() * r.norm()))
+    finite = bool(torch.isfinite(out.float()).all())
+    same_k8 = torch.equal(out.permute(0, 2, 1, 3).reshape(b, s, h * hd), k8)
+    phase(f"phase 18 K7 [{b} x {h} heads x {s} x {hd}] bf16, padded keys: "
+          f"max|out-plain| on valid rows={err:.4g} (bound {ATT_TOL}), "
+          f"cosine={cos_sim:.7f} (bound {ATT_COS}), all finite: {finite}; "
+          f"on the transposed Wqkv output bit for bit K8's (tolerance 0): "
+          f"{same_k8}")
+    assert err < ATT_TOL and cos_sim > ATT_COS and finite and same_k8
+    qr, kr, vr, mask = _rotated_qkv(qkv, c2, s2, bias, h)
+    times = timing(
+        cuda_ms(kern), cuda_ms(plain),
+        cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qr, kr, vr, attn_mask=mask, scale=scale)),
+        nbytes(q, k, v, c2, s2, bias, out), 4 * b * h * s * s * hd,
+        "bf16 tensor")
+    phase(f"phase 18 [{card}] " + timing_line("fused_attention", times))
+    del qkv, q, k, v, out, ref, k8, a, r, qr, kr, vr
+    torch.cuda.empty_cache()
+    out = _run_module("phase 18 proto_attn", [
+        "-m", "better_search_rag_rust_tpu_torch.bench.proto_attn"])
+    launches = _launches(out)
+    phase(f"phase 18 proto_attn: rc 0, launches {launches}")
+    assert launches["fused_attention"] > 0
+    return err, times, launches["fused_attention"]
+
+
+def _check_suite(res, name):
+    assert "error" not in res, (name, res.get("error"))
+    assert math.isfinite(res["value"]) and res["value"] > 0, res
+
+
+def drive_measurement_path(tmp, card):
+    """Phase 19: bench_torch.py and CLI bench (with a trace) as
+    subprocesses, the pipeline, encode and jabref suites in this process;
+    returns their K3 and K8 launches."""
+    from better_search_rag_rust_tpu_torch.bench.suite import run_suite
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+
+    out = _run_module("phase 19 bench_torch.py", ["bench_torch.py"],
+                      env={"BENCH_SUITE": "search_100k"})
+    line = json.loads(out.strip().splitlines()[-1])  # its last line
+    phase(f"phase 19 [{card}] bench_torch.py search_100k: {line}")
+    _check_suite(line, "search_100k")
+    assert line["recall_at_10"] == 1.0 and line["oracle_overlap"] == 1.0
+    assert line["mfu_peak_tflops"] and line["platform"] == "gpu"
+
+    trace_dir = os.path.join(tmp, "trace")
+    out = _run_module("phase 19 cli bench", [
+        "-m", "better_search_rag_rust_tpu_torch", "bench", "--suite",
+        "search_100k", "--json", "--profile-dir", trace_dir])
+    _check_suite(_result_line(out), "cli bench")
+    traces = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        names_k3 = "k3_blockmax" in f.read()
+    phase(f"phase 19 cli bench --profile-dir: {traces} written; names K3's "
+          f"kernel (k3_blockmax): {names_k3}")
+    assert len(traces) == 1 and names_k3
+
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    ak.reset_launch_counts()
+    for name in ("pipeline", "encode", "jabref"):
+        t0 = time.perf_counter()
+        res = run_suite(name, device="cuda")
+        phase(f"phase 19 [{card}] run_suite({name!r}) in "
+              f"{time.perf_counter() - t0:.1f}s: " + json.dumps(res))
+        _check_suite(res, name)
+        if name == "jabref":
+            assert res["recall_at_10"] == res["oracle_overlap"] == 1.0
+        if name == "encode":
+            assert res["finite"] and res["mfu_peak_tflops"]
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = {"matmul_blockmax": tk.launch_counts["matmul_blockmax"],
+                "fused_attention_qkv": ak.launch_counts["fused_attention_qkv"]}
+    phase(f"phase 19 kernel launches over the in-process suites: {launches}")
+    assert all(v > 0 for v in launches.values()), launches
+    return launches
+
+
+def check_empty_batch(seed):
+    """Phase 19: an empty query batch on every route and engine entry point
+    (the JAX package answers [0, k])."""
+    from better_search_rag_rust_tpu_torch.ops.engine import SearchEngine
+    from better_search_rag_rust_tpu_torch.store import DeviceStore
+
+    from better_search_rag_rust_tpu_torch.config import SearchConfig
+
+    empty = np.zeros((0, 64), np.float32)
+    seen = {}
+    for kernel, dtype in (("global", "bfloat16"), ("rescore", "bfloat16"),
+                          ("rescore", "int8"), ("f32cert", "float32")):
+        store = DeviceStore.synthetic(4096, 64, dtype, seed, device="cuda")
+        engine = SearchEngine(store, SearchConfig(top_k=10, kernel=kernel,
+                                                  store_dtype=dtype))
+        some = store.data[:5].float().cpu().numpy()
+        want = engine.search(some, 10)
+        shapes = [engine.search(empty, 10)[0].shape,
+                  engine.search_device(engine.prepare_device_queries(empty),
+                                       10)[1].shape,
+                  engine.oracle_topk(empty, 10)[0].shape]
+        stream = list(engine.search_stream([some, empty, some], 10, depth=2))
+        torch.cuda.synchronize()
+        same = all(np.array_equal(g[0], want[0]) for g in (stream[0], stream[2]))
+        seen[f"{kernel}/{dtype}"] = shapes + [stream[1][0].shape]
+        assert engine.kernel_name(10) == kernel
+        assert all(tuple(sh) == (0, 10) for sh in seen[f"{kernel}/{dtype}"])
+        assert same
+    phase(f"phase 19 empty batch (search, search_device, oracle_topk, "
+          f"search_stream) per route: {seen}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1311,6 +1570,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
+    from better_search_rag_rust_tpu_torch.bench.suite import write_java_tree
     from better_search_rag_rust_tpu_torch.config import (
         PipelineConfig,
         SearchConfig,
@@ -1376,7 +1636,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="bsr_smoke_")
     try:
         src = os.path.join(tmp, "src")
-        write_tree(src, TREE_FILES, args.seed)
+        write_java_tree(src, TREE_FILES, args.seed)
         launches["fused_attention_qkv"] = drive_build_mode(tmp, src,
                                                            args.seed, card)
         torch.cuda.empty_cache()
@@ -1432,6 +1692,18 @@ def main() -> int:
         launches[name] = cert_launches[name]
     phase(f"phase 16 kernel launches over the certified route: "
           f"{cert_launches}")
+
+    (errs["matmul_blockmax_only"], times["matmul_blockmax_only"],
+     launches["matmul_blockmax_only"]) = check_blockmax_only(args.seed, gen,
+                                                             card)
+    (errs["fused_attention"], times["fused_attention"],
+     launches["fused_attention"]) = check_attention_head_major(gen, card)
+    tmp = tempfile.mkdtemp(prefix="bsr_smoke_")
+    try:
+        drive_measurement_path(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_empty_batch(args.seed)
 
     print(card)
     print(json.dumps({"kernels": [

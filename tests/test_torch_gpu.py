@@ -480,3 +480,75 @@ def test_trainer_steps_on_the_card(cuda):
     mask = np.ones_like(ids)
     losses = [tr.train_step(ids, mask, ids, mask) for _ in range(4)]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+# -- K5 matmul_blockmax_only, K7 fused_attention, the empty batch ---------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
+@pytest.mark.parametrize("block", [128, 32])
+@pytest.mark.parametrize("t,valid", [(40, 4096), (300, 4001)])
+def test_k5_is_k3_bm_and_matches_plain(cuda, dtype, block, t, valid):
+    """K5's block maxima are K3's bit for bit (one score chain); against
+    the plain version within 1e-5 (0 on int8, an exact integer dot)."""
+    if dtype == torch.int8:
+        q, mat = _int8_operands(cuda, 256, t=t)
+    else:
+        q, mat = _operands(cuda, dtype, t=t)
+    before = tk.launch_counts["matmul_blockmax_only"]
+    bm = tk.matmul_blockmax_only(q, mat, valid, block=block)
+    assert tk.launch_counts["matmul_blockmax_only"] == before + 1
+    _, k3_bm = tk.matmul_blockmax(q, mat, valid, block=block)
+    plain = tk.matmul_blockmax_only_plain(q, mat, valid, block=block)
+    torch.cuda.synchronize()
+    assert bm.shape == (mat.shape[0] // block, t)
+    assert torch.equal(bm, k3_bm)
+    assert (bm - plain).abs().max() <= (0 if dtype == torch.int8 else TOL)
+
+
+@pytest.mark.parametrize("b,s,h,hd", [(4, 72, 3, 16), (8, 512, 12, 64),
+                                      (2, 136, 4, 128)])
+def test_k7_matches_plain_and_k8(cuda, b, s, h, hd):
+    """K7 against its plain version within K8's bound, and on the
+    transposed Wqkv layout bit for bit K8's output."""
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    qkv, c2, s2, bias, valid, scale = _attention_operands(cuda, b, s, h, hd)
+    q, k, v = (x.contiguous() for x in
+               qkv.view(b, s, 3, h, hd).permute(2, 0, 3, 1, 4))
+    before = ak.launch_counts["fused_attention"]
+    out = ak.fused_attention(q, k, v, c2, s2, bias, scale)
+    ref = ak.fused_attention_plain(q, k, v, c2, s2, bias, scale)
+    k8 = ak.fused_attention_qkv(qkv, c2, s2, bias, h, scale)
+    torch.cuda.synchronize()
+    assert ak.launch_counts["fused_attention"] == before + 1
+    assert torch.isfinite(out.float()).all()
+    rows = valid[:, None, :].expand(b, h, s)
+    a, r = out.float()[rows], ref.float()[rows]
+    assert (a - r).abs().max() < 0.02
+    assert float((a * r).sum() / (a.norm() * r.norm())) > 0.999
+    assert torch.equal(out.permute(0, 2, 1, 3).reshape(b, s, h * hd), k8)
+
+
+@pytest.mark.parametrize("kernel,dtype", [
+    ("global", "bfloat16"), ("rescore", "bfloat16"), ("rescore", "int8"),
+    ("f32cert", "float32"),
+])
+def test_empty_batch_on_every_route(cuda, kernel, dtype):
+    """Q = 0 gives [0, k] results on every route and entry point."""
+    store = DeviceStore.synthetic(4096, 64, dtype, 0, device=cuda)
+    eng = SearchEngine(store, SearchConfig(top_k=10, kernel=kernel,
+                                           store_dtype=dtype))
+    assert eng.kernel_name(10) == kernel
+    empty = np.zeros((0, 64), np.float32)
+    some = store.data[:5].float().cpu().numpy()
+    ids, dists = eng.search(empty, 10)
+    assert ids.shape == dists.shape == (0, 10)
+    vals, dev_ids = eng.search_device(eng.prepare_device_queries(empty), 10)
+    assert vals.shape == dev_ids.shape == (0, 10)
+    assert eng.oracle_topk(empty, 10)[0].shape == (0, 10)
+    want = eng.search(some, 10)
+    got = list(eng.search_stream([some, empty, some], 10, depth=2))
+    assert got[1][0].shape == (0, 10)
+    for g in (got[0], got[2]):
+        np.testing.assert_array_equal(g[0], want[0])

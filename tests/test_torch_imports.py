@@ -34,6 +34,10 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # its top-level imports only; main() is not run
+import bench_torch  # likewise
+for mod in ("utils.profiling", "bench.suite", "bench.jabref",
+            "bench.proto_calib", "bench.proto_attn"):
+    assert port.__name__ + "." + mod in names, mod
 from better_search_rag_rust_tpu_torch import native
 from better_search_rag_rust_tpu_torch.models.tokenizer import HashingTokenizer
 tok = HashingTokenizer(vocab_size=1000, max_tokens=16)

@@ -81,19 +81,22 @@ def test_partial_merge_refused(store_dir, tmp_path):
     assert Pipeline(cfg, device="cpu").engine().store.num_rows == 50
 
 
-def test_unported_phases_raise(store_dir):
-    """Serving, update and the f32cert route are ported
-    (tests/test_torch_serve.py, tests/test_torch_f32cert.py); the scan
-    routes and --profile-dir are not, and raise."""
+def test_unported_phases_raise(store_dir, tmp_path, capsys):
+    """Serving, update, the f32cert route and --profile-dir are ported
+    (tests/test_torch_serve.py, tests/test_torch_f32cert.py,
+    tests/test_torch_bench.py); the scan routes are not, and raise.
+    ``--profile-dir`` on ``search`` writes its trace."""
     from better_search_rag_rust_tpu_torch import cli
 
     for kernel in ("scan", "blockmax"):
         p = Pipeline(_cfg(store_dir, kernel=kernel), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             p.engine().search(np.ones((1, DIM), np.float32), 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["search", "--store-dir", str(store_dir), "--device", "cpu",
-                  "--profile-dir", str(store_dir)])
+    trace_dir = tmp_path / "trace"
+    assert cli.main(["search", "--store-dir", str(store_dir), "--device",
+                     "cpu", "--profile-dir", str(trace_dir)]) == 0
+    assert "MRR=1.0000" in capsys.readouterr().out
+    assert len(list(trace_dir.glob("trace_*.json"))) == 1
 
 
 def test_default_device_is_the_card(store_dir, monkeypatch):
