@@ -42,6 +42,8 @@ SOURCES = {
         "bsr_matmul_blockmax_only": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
         "bsr_gather_rows": (_I, [_P, _P, _I, _I, _I, ctypes.c_longlong, _P, _P]),
         "bsr_block_scores": (_I, [_P, _P, _I, _I, _I, _I, _P, _P]),
+        "bsr_matmul_blockmax2x": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                       _P, _P, _P, _P, _P, _P, _P]),
         "bsr_error_string": (ctypes.c_char_p, [_I]),
     }),
     "attention": (CSRC / "attention_kernels.cu", {

@@ -1,8 +1,8 @@
 // Exact top-k scoring kernels for Hopper (sm_90a), plain C interface.
 //
-// Five kernels carry the exact search routes and a sixth (K5) the block-max
-// measurements; each replaces one Pallas kernel of
-// better_search_rag_rust_tpu/ops/topk_pallas.py:
+// Five kernels carry the exact search routes, and K5 and K10 the block-max
+// measurements; each replaces Pallas kernels of
+// better_search_rag_rust_tpu/ops/topk_pallas.py (K10: of scripts/proto_*.py):
 //
 //   K1 bsr_matmul_blockmax2     <- matmul_blockmax2_only (:527, body :367)
 //   K2 bsr_gather_rescore       <- gather_rescore        (:656, body :631)
@@ -10,6 +10,9 @@
 //   K4 bsr_gather_rows          <- gather_rows           (:747, body :736)
 //   K5 bsr_matmul_blockmax_only <- matmul_blockmax_only  (:222, body :178)
 //   K6 bsr_block_scores         <- block_scores          (:846, body :828)
+//   K10 bsr_matmul_blockmax2x   <- the block-max prototypes of scripts/proto_*.py
+//                                  (bm2_v3, bm2_b, bm2t_pass, bm2x, the emit_var
+//                                  raw key, bm2t_i8; see k10_blockmax2x)
 //
 // K4 moves bytes only. K6 stages and sums exactly as K2 does (same chunks,
 // same routines), so what is said of K2 below holds for K6. K5 is K3 without
@@ -62,6 +65,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 
@@ -209,7 +213,11 @@ __device__ __forceinline__ float int8_score(int acc) {
 }
 
 // score_tile for int8 operands: the same tile, masking and output layout,
-// D staged 4 * DKP features at a time as packs.
+// D staged 4 * DKP features at a time as packs. RAW keeps the exact int32
+// dots instead (masked rows PAD_ACC), for K10's integer key.
+constexpr int32_t PAD_ACC = -(1 << 24);  // below any dot at D <= 1040
+
+template <bool RAW = false>
 __device__ __forceinline__ void score_tile_i8(const int8_t* __restrict__ q,
                                               const int8_t* __restrict__ shard,
                                               int Tn, int D, int valid_rows,
@@ -240,13 +248,18 @@ __device__ __forceinline__ void score_tile_i8(const int8_t* __restrict__ q,
   }
 
   float* st = smem;
+  int* ist = reinterpret_cast<int*>(smem);
 #pragma unroll
   for (int i = 0; i < MR; ++i) {
     const int r = ty * MR + i;
     const bool ok = row0 + r < valid_rows;
 #pragma unroll
-    for (int j = 0; j < MQ; ++j)
-      st[r * LDO + tx * MQ + j] = ok ? int8_score(acc[i][j]) : PAD_SIM;
+    for (int j = 0; j < MQ; ++j) {
+      if constexpr (RAW)
+        ist[r * LDO + tx * MQ + j] = ok ? acc[i][j] : PAD_ACC;
+      else
+        st[r * LDO + tx * MQ + j] = ok ? int8_score(acc[i][j]) : PAD_SIM;
+    }
   }
   __syncthreads();
 }
@@ -277,7 +290,8 @@ constexpr size_t SCORE_SMEM = sizeof(float) * (size_t)TR * LDO;  // >= staging
 constexpr int MAX_UNITS = TR / 8;                                // sub >= 8
 
 // K1: sub-unit maxima, optional packed (second max, argmax) key, optional
-// coarse maxima at emit width ew; scores never leave shared memory.
+// coarse maxima at emit width ew <= TR (wider ones: K10's row-tile walk,
+// see launch_k1); scores never leave shared memory.
 // Outputs are transposed like the TPU kernel's: [R/sub, T], [R/ew, T].
 template <typename T>
 __global__ void __launch_bounds__(NT, 2)
@@ -375,6 +389,117 @@ k5_blockmax_only(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
     for (int r = 1; r < block; ++r) m = fmaxf(m, col[r * LDO]);
     bm_t[(size_t)(row0 / block + g) * Tn + q0 + c] = m;
   }
+}
+
+// K10: the block-max prototypes of the TPU measurement record
+// (scripts/proto_bm3.py bm2_v3, proto_bm2.py bm2_b, proto_bmt.py bm2t_pass,
+// proto_argmax.py bm2x, proto_emit_var.py's k1only fn, proto_int8.py
+// bm2t_i8), and K1 at emit widths above TR: K1's score tile, unit maxima
+// always, every other output optional —
+//   sims    [R, T]   masked scores (the transpose of K3's [T, R]);
+//   bms     [R/sub, T], or [T, R/sub] with t_major (as arg, m2, key, raw_key);
+//   arg     int32, the lowest row attaining the unit max (K1's key & 0x7F);
+//   m2      f32, the max with that row replaced by PAD_SIM (K1's m2);
+//   key     int32, (m2, arg) packed as K1 packs them (pack_key);
+//   raw_key int32, int8 only: max over the unit of acc * 128 + (127 - row),
+//           acc the exact dot (PAD_ACC on masked rows) — kept as integers in
+//           the tile (score_tile_i8<true>), never recovered from floats;
+//   bm      [R/ew, T] coarse maxima; `tiles` > 1 row tiles per block when
+//           ew > TR, a running max per query in a register.
+// int8 tiles hold the exact dots first: the raw key is taken from them, then
+// each becomes __fmul_rn(float(acc), inv_scale2) in place — K1's int8_score
+// when inv_scale2 is INT8_INV_SCALE2 — so every later pass reads f32 scores
+// as K1's does, and shared outputs equal K1's bit for bit.
+// Bound on the card: the 2*T*R*D operations on the SIMT pipes, as K1; with
+// sims, also its R*T*4 bytes. A kernel of its own, so K1's body is untouched.
+template <typename T>
+__global__ void __launch_bounds__(NT, 2)
+k10_blockmax2x(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int R,
+               int D, int valid_rows, int sub, int ew, int tiles, int t_major,
+               float inv_scale2, float* __restrict__ sims, float* __restrict__ bms,
+               int32_t* __restrict__ arg, float* __restrict__ m2,
+               int32_t* __restrict__ key, int32_t* __restrict__ raw_key,
+               float* __restrict__ bm) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const float* st = smem;
+  float* um = smem + TR * LDO;  // [MAX_UNITS][TQ] unit maxima
+  const int q0 = blockIdx.y * TQ, units = TR / sub, n_units = R / sub;
+  // offset of (global unit gu, query column c) in a unit output
+  auto at = [&](int gu, int c) -> size_t {
+    return t_major ? (size_t)(q0 + c) * n_units + gu : (size_t)gu * Tn + q0 + c;
+  };
+  float cmax = __uint_as_float(0xff800000u);  // -inf; tiles > 1 only
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int row0 = (blockIdx.x * tiles + tile) * TR;
+    if constexpr (std::is_same<T, int8_t>::value) {
+      score_tile_i8<true>(q, shard, Tn, D, valid_rows, row0, q0, smem);
+      int* ist = reinterpret_cast<int*>(smem);
+      if (raw_key != nullptr) {
+        for (int p = threadIdx.x; p < units * TQ; p += NT) {
+          const int u = p / TQ, c = p % TQ, base = u * sub * LDO + c;
+          if (q0 + c >= Tn) continue;
+          int k = ist[base] * 128 + 127;
+          for (int r = 1; r < sub; ++r) k = max(k, ist[base + r * LDO] * 128 + (127 - r));
+          raw_key[at(row0 / sub + u, c)] = k;
+        }
+        __syncthreads();
+      }
+      for (int e = threadIdx.x; e < TR * TQ; e += NT) {
+        const int i = (e / TQ) * LDO + e % TQ, a = ist[i];
+        smem[i] = a == PAD_ACC ? PAD_SIM : __fmul_rn(__int2float_rn(a), inv_scale2);
+      }
+      __syncthreads();
+    } else {
+      score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
+    }
+    if (sims != nullptr) {
+      // consecutive threads -> consecutive queries of one row: coalesced
+      for (int e = threadIdx.x; e < TR * TQ; e += NT) {
+        const int r = e / TQ, c = e % TQ;
+        if (q0 + c < Tn) sims[(size_t)(row0 + r) * Tn + q0 + c] = st[r * LDO + c];
+      }
+    }
+    for (int p = threadIdx.x; p < units * TQ; p += NT) {
+      const int u = p / TQ, c = p % TQ;
+      const float* col = st + (size_t)u * sub * LDO + c;
+      float m1 = col[0];
+      int a = 0;
+      for (int r = 1; r < sub; ++r) {
+        const float v = col[r * LDO];
+        if (v > m1) { m1 = v; a = r; }  // strict: lowest attaining row
+      }
+      um[u * TQ + c] = m1;
+      if (q0 + c >= Tn) continue;
+      const size_t o = at(row0 / sub + u, c);
+      bms[o] = m1;
+      if (arg != nullptr) arg[o] = a;
+      if (m2 != nullptr || key != nullptr) {
+        float s2 = __uint_as_float(0xff800000u);  // -inf
+        for (int r = 0; r < sub; ++r) s2 = fmaxf(s2, r == a ? PAD_SIM : col[r * LDO]);
+        if (m2 != nullptr) m2[o] = s2;
+        if (key != nullptr) key[o] = pack_key(s2, a);
+      }
+    }
+    if (bm != nullptr) {
+      __syncthreads();
+      if (tiles == 1) {
+        const int groups = TR / ew, per = ew / sub;
+        for (int p = threadIdx.x; p < groups * TQ; p += NT) {
+          const int g = p / TQ, c = p % TQ;
+          if (q0 + c >= Tn) continue;
+          float m = um[(g * per) * TQ + c];
+          for (int u = 1; u < per; ++u) m = fmaxf(m, um[(g * per + u) * TQ + c]);
+          bm[(size_t)(row0 / ew + g) * Tn + q0 + c] = m;
+        }
+      } else if (threadIdx.x < TQ) {
+        for (int u = 0; u < units; ++u) cmax = fmaxf(cmax, um[u * TQ + threadIdx.x]);
+      }
+    }
+    if (tiles > 1) __syncthreads();  // the next tile's staging overwrites st
+  }
+  if (bm != nullptr && tiles > 1 && threadIdx.x < TQ && q0 + threadIdx.x < Tn)
+    bm[(size_t)blockIdx.x * Tn + q0 + threadIdx.x] = cmax;
 }
 
 // K2: query t's KS selected unit-row blocks (ids [T, KS]) rescored with the
@@ -556,8 +681,32 @@ constexpr int DTYPE_BF16 = 1;
 constexpr int DTYPE_INT8 = 2;
 
 template <typename T>
+int launch_k10(const void* q, const void* shard, int Tn, int R, int D, int valid_rows,
+               int sub, int ew, int t_major, float inv_scale2, float* sims, float* bms,
+               int32_t* arg, float* m2, int32_t* key, int32_t* raw_key, float* bm,
+               cudaStream_t st) {
+  const size_t smem = SCORE_SMEM + sizeof(float) * MAX_UNITS * TQ;
+  if (int err = raise_smem(k10_blockmax2x<T>, smem)) return err;
+  const int tiles = (bm != nullptr && ew > TR) ? ew / TR : 1;
+  dim3 grid(R / (TR * tiles), (Tn + TQ - 1) / TQ);
+  k10_blockmax2x<T><<<grid, NT, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(shard), Tn, R, D, valid_rows, sub,
+      ew, tiles, t_major, inv_scale2, sims, bms, arg, m2, key, raw_key, bm);
+  return (int)cudaGetLastError();
+}
+
+// K1; coarse maxima wider than one row tile (ew > TR) come from K10's
+// row-tile walk, which gives the same unit maxima and key bit for bit.
+template <typename T>
 int launch_k1(const void* q, const void* shard, int Tn, int R, int D, int valid_rows,
               int sub, int ew, float* bm_sub, int32_t* key, float* bm, cudaStream_t st) {
+  if (bm != nullptr && ew > TR) {
+    float inv_scale2;
+    const uint32_t bits = INT8_INV_SCALE2_BITS;
+    memcpy(&inv_scale2, &bits, sizeof bits);
+    return launch_k10<T>(q, shard, Tn, R, D, valid_rows, sub, ew, 0, inv_scale2,
+                         nullptr, bm_sub, nullptr, nullptr, key, nullptr, bm, st);
+  }
   const size_t smem = SCORE_SMEM + sizeof(float) * MAX_UNITS * TQ;
   if (int err = raise_smem(k1_blockmax2<T>, smem)) return err;
   dim3 grid(R / TR, (Tn + TQ - 1) / TQ);
@@ -622,9 +771,10 @@ int launch_k6(const void* q, const void* gathered, int Tn, int C, int D, float* 
 extern "C" {
 
 // Geometry the wrappers must respect (checked in Python too): R % 128 == 0;
-// K1: sub in {8, 16, 32, 64, 128}, ew a multiple of sub dividing 128; K3:
-// block dividing 128. key / bm may be null to skip those outputs. dtype:
-// 0 float32, 1 bfloat16, 2 int8 (the lattice; D <= 1040).
+// K1: sub in {8, 16, 32, 64, 128}, ew a multiple of sub dividing 128 or a
+// multiple of 128 dividing R; K3: block dividing 128. key / bm may be null
+// to skip those outputs. dtype: 0 float32, 1 bfloat16, 2 int8 (the lattice;
+// D <= 1040).
 
 int bsr_matmul_blockmax2(const void* q, const void* shard, int dtype, int Tn, int R,
                          int D, int valid_rows, int sub, int ew, float* bm_sub,
@@ -639,6 +789,24 @@ int bsr_matmul_blockmax2(const void* q, const void* shard, int dtype, int Tn, in
   if (dtype == DTYPE_INT8)
     return launch_k1<int8_t>(q, shard, Tn, R, D, valid_rows, sub, ew, bm_sub, key, bm,
                              st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K10: K1's geometry; bms is required, every other output may be null;
+// bf16 and int8 only (the prototypes' dtypes), raw_key on int8 only;
+// inv_scale2 scales int8 dots (INT8_INV_SCALE2 for the lattice).
+int bsr_matmul_blockmax2x(const void* q, const void* shard, int dtype, int Tn, int R,
+                          int D, int valid_rows, int sub, int ew, int t_major,
+                          float inv_scale2, float* sims, float* bms, int32_t* arg,
+                          float* m2, int32_t* raw_key, float* bm, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_BF16)
+    return launch_k10<__nv_bfloat16>(q, shard, Tn, R, D, valid_rows, sub, ew, t_major,
+                                     inv_scale2, sims, bms, arg, m2, nullptr, nullptr,
+                                     bm, st);
+  if (dtype == DTYPE_INT8)
+    return launch_k10<int8_t>(q, shard, Tn, R, D, valid_rows, sub, ew, t_major,
+                              inv_scale2, sims, bms, arg, m2, nullptr, raw_key, bm, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,7 +13,16 @@ K3  :func:`matmul_blockmax`       masked scores + per-block maxima
 K4  :func:`gather_rows`           copy each query's selected units' rows
 K5  :func:`matmul_blockmax_only`  K3's per-block maxima alone, no scores
 K6  :func:`block_scores`          score each query's own gathered rows
+K10 :func:`matmul_blockmax2x`     K1's pass on bf16/int8: unit maxima
+                                  (also ``[T, R/sub]``) and, each optional,
+                                  the scores ``[R, T]``, unpacked argmax and
+                                  second max, the raw int8 key, coarse
+                                  maxima; a runtime int8 scale
 === ============================= ======================================
+
+K10 replaces the block-max prototypes of the TPU measurement record
+(``scripts/proto_*.py``); :mod:`..bench.proto_blockmax` calls it, K1, K3
+and K5 under each prototype's name.
 
 A wrapper takes the plain version only because its tensors lie on the CPU
 (that is how the CPU tests run the whole route); for CUDA tensors it
@@ -43,6 +52,7 @@ follows, so plain and kernel agree bit for bit on int8.
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -62,6 +72,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _K1_SUBS = (8, 16, 32, 64, 128)
 #: Widest int8 dim whose dot stays exact in f32 (D * 127^2 <= 2^24).
 INT8_MAX_DIM = 1040
+#: Integer pad of K10's raw int8 key: below any int8 dot at D <= 1040, and
+#: ``* 128`` still in int32 range (the reference's ``_PAD_ACC``).
+_PAD_ACC = -(1 << 24)
+#: K10's outputs in return order, and those laid out per unit.
+_K10_OUTPUTS = ("sims", "bms", "arg", "m2", "raw_key", "bm")
+_K10_UNIT_OUTPUTS = ("bms", "arg", "m2", "raw_key")
+#: K10's operand dtypes: the prototypes' (bf16, and int8 raw or lattice).
+_K10_DTYPES = (torch.bfloat16, torch.int8)
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`;
 #: the int8 bodies count under ``<wrapper>_int8``.
@@ -76,6 +94,7 @@ launch_counts: Dict[str, int] = {
     "gather_rows": 0,
     "block_scores": 0,
     "block_scores_int8": 0,
+    "matmul_blockmax2x": 0,
 }
 
 
@@ -124,41 +143,72 @@ def pack_m2_argmax_key(m2: torch.Tensor, arg: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _plain_scores(queries: torch.Tensor, shard: torch.Tensor) -> torch.Tensor:
+def _plain_scores(queries: torch.Tensor, shard: torch.Tensor,
+                  inv_scale2: float = INT8_INV_SCALE2) -> torch.Tensor:
     """``[T, R]`` f32 scores as one f32 matrix product (bf16 operands widen
     exactly; TF32 must be off, as it is by default); int8 operands: the
-    exact integer dot in f32, then one multiply by ``INT8_INV_SCALE2``."""
+    exact integer dot in f32, then one multiply by ``inv_scale2``."""
     sims = queries.to(torch.float32) @ shard.to(torch.float32).T
     if shard.dtype == torch.int8:
-        sims.mul_(INT8_INV_SCALE2)
+        sims.mul_(inv_scale2)
     return sims
 
 
-def _plain_masked(queries, shard, valid_rows: int) -> torch.Tensor:
-    sims = _plain_scores(queries, shard)
+def _plain_masked(queries, shard, valid_rows: int,
+                  inv_scale2: float = INT8_INV_SCALE2) -> torch.Tensor:
+    sims = _plain_scores(queries, shard, inv_scale2)
     sims[:, max(0, valid_rows):] = PAD_SIM
     return sims
+
+
+#: Scores per row chunk of the plain K1/K5/K10 (1 GiB of f32): a 10M-row
+#: store at 512 queries would otherwise hold a 20 GB score matrix.
+_PLAIN_SCORES = 1 << 28
+
+
+def _row_chunks(t: int, r: int, align: int):
+    """``(r0, r1)`` row ranges, multiples of ``align``, of at most
+    :data:`_PLAIN_SCORES` scores at ``t`` queries each — one range, so
+    bitwise the unchunked plain version, whenever the whole score matrix
+    fits in it."""
+    step = max(align, _PLAIN_SCORES // max(1, t) // align * align)
+    return [(r0, min(r, r0 + step)) for r0 in range(0, r, step)]
+
+
+def _plain_units(st3: torch.Tensor, with_arg: bool):
+    """Unit maxima of transposed scores ``st3 [R/sub, sub, T]`` and, with
+    ``with_arg``, each unit's lowest attaining row and its max with that row
+    replaced by ``PAD_SIM`` (K1's and K10's unit semantics)."""
+    bms = st3.amax(dim=1)
+    if not with_arg:
+        return bms, None, None
+    sub = st3.shape[1]
+    iota = torch.arange(sub, device=st3.device).view(1, sub, 1)
+    eq = st3 == bms[:, None, :]
+    arg = torch.where(eq, iota, sub).amin(dim=1)
+    m2 = torch.where(iota == arg[:, None, :], PAD_SIM, st3).amax(dim=1)
+    return bms, arg.to(torch.int32), m2
 
 
 def matmul_blockmax2_only_plain(queries, shard, valid_rows, *, sub=16,
                                 block=BLOCK, emit_block=False,
                                 emit_argmax=False, emit_width=0):
-    """Plain K1: the same outputs as :func:`matmul_blockmax2_only`."""
+    """Plain K1: the same outputs as :func:`matmul_blockmax2_only`, scored
+    in row chunks (:func:`_row_chunks`)."""
     t = queries.shape[0]
-    r = shard.shape[0]
-    st = _plain_masked(queries, shard, int(valid_rows)).T.reshape(
-        r // sub, sub, t)
-    bms = st.amax(dim=1)
-    outs = [bms]
-    if emit_argmax:
-        iota = torch.arange(sub, device=st.device).view(1, sub, 1)
-        eq = st == bms[:, None, :]
-        arg = torch.where(eq, iota, sub).amin(dim=1)
-        m2 = torch.where(iota == arg[:, None, :], PAD_SIM, st).amax(dim=1)
-        outs.append(pack_m2_argmax_key(m2, arg))
-    if emit_block:
-        ew = emit_width or block
-        outs.append(bms.reshape(r // ew, ew // sub, t).amax(dim=1))
+    ew = emit_width or block
+    parts = []
+    for r0, r1 in _row_chunks(t, shard.shape[0], math.lcm(sub, block, ew)):
+        st3 = _plain_masked(queries, shard[r0:r1], int(valid_rows) - r0).T \
+            .reshape((r1 - r0) // sub, sub, t)
+        bms, arg, m2 = _plain_units(st3, emit_argmax)
+        outs = [bms]
+        if emit_argmax:
+            outs.append(pack_m2_argmax_key(m2, arg))
+        if emit_block:
+            outs.append(bms.reshape((r1 - r0) // ew, ew // sub, t).amax(dim=1))
+        parts.append(outs)
+    outs = [torch.cat(col) for col in zip(*parts)]
     return tuple(outs) if (emit_block or emit_argmax) else outs[0]
 
 
@@ -181,25 +231,58 @@ def matmul_blockmax_plain(queries, shard, valid_rows, *, block=BLOCK):
     return sims, bm_t
 
 
-#: Scores per row chunk of plain K5 (1 GiB of f32): a 10M-row store at 512
-#: queries would otherwise hold a 20 GB score matrix.
-_PLAIN_BM_ONLY_SCORES = 1 << 28
-
-
 def matmul_blockmax_only_plain(queries, shard, valid_rows, *, block=BLOCK):
-    """Plain K5: plain K3's ``bm_t [R/block, T]``, scored in row chunks of
-    at most :data:`_PLAIN_BM_ONLY_SCORES` scores (one chunk, so bitwise plain
-    K3's, whenever the whole score matrix fits in it)."""
-    t = max(1, queries.shape[0])
-    r = shard.shape[0]
-    step = max(block, _PLAIN_BM_ONLY_SCORES // t // block * block)
+    """Plain K5: plain K3's ``bm_t [R/block, T]``, scored in row chunks
+    (:func:`_row_chunks`)."""
     parts = []
-    for r0 in range(0, r, step):
-        chunk = shard[r0:r0 + step]
-        _, bm_t = matmul_blockmax_plain(queries, chunk, int(valid_rows) - r0,
-                                        block=block)
+    for r0, r1 in _row_chunks(queries.shape[0], shard.shape[0], block):
+        _, bm_t = matmul_blockmax_plain(queries, shard[r0:r1],
+                                        int(valid_rows) - r0, block=block)
         parts.append(bm_t)
     return torch.cat(parts)
+
+
+def matmul_blockmax2x_plain(queries, shard, valid_rows, *, sub=16,
+                            emit_sims=False, t_major=False,
+                            emit_arg=False, emit_m2=False,
+                            emit_raw_key=False, emit_width=0,
+                            inv_scale2=INT8_INV_SCALE2):
+    """Plain K10: the same outputs as :func:`matmul_blockmax2x`, scored as
+    plain K1 scores (:func:`_plain_masked`, :func:`_plain_units`), so on
+    the CPU the two agree bit for bit on every shared output."""
+    t = queries.shape[0]
+    r = shard.shape[0]
+    ew = emit_width
+    parts = []
+    for r0, r1 in _row_chunks(t, r, math.lcm(sub, ew or sub)):
+        rows = shard[r0:r1]
+        valid = int(valid_rows) - r0
+        sims = _plain_masked(queries, rows, valid, inv_scale2)
+        st3 = sims.T.reshape((r1 - r0) // sub, sub, t)
+        bms, arg, m2 = _plain_units(st3, emit_arg or emit_m2)
+        outs = {"sims": sims.T if emit_sims else None, "bms": bms,
+                "arg": arg, "m2": m2, "raw_key": None,
+                "bm": (bms.reshape((r1 - r0) // ew, ew // sub, t).amax(dim=1)
+                       if ew else None)}
+        if emit_raw_key:
+            acc = (queries.to(torch.float32) @ rows.to(torch.float32).T) \
+                .to(torch.int64)
+            acc[:, max(0, valid):] = _PAD_ACC
+            rev = 127 - torch.arange(sub, device=acc.device).view(1, sub, 1)
+            key = acc.T.reshape((r1 - r0) // sub, sub, t) * 128 + rev
+            outs["raw_key"] = key.amax(dim=1).to(torch.int32)
+        parts.append(outs)
+    wanted = {"sims": emit_sims, "bms": True, "arg": emit_arg,
+              "m2": emit_m2, "raw_key": emit_raw_key, "bm": bool(ew)}
+    result = []
+    for name in _K10_OUTPUTS:
+        if not wanted[name]:
+            continue
+        out = torch.cat([p[name] for p in parts])
+        if t_major and name in _K10_UNIT_OUTPUTS:
+            out = out.T.contiguous()
+        result.append(out.contiguous())
+    return tuple(result)
 
 
 def gather_rows_plain(shard, ids, *, unit=8):
@@ -268,6 +351,17 @@ def _check_operands(queries: torch.Tensor, shard: torch.Tensor) -> None:
                          f"{TILE_ROWS}")
 
 
+def _check_emit_width(kernel: str, ew: int, sub: int, block: int) -> None:
+    """Coarse maxima at ``ew`` rows: a multiple of ``sub`` dividing
+    ``block``, and dividing :data:`TILE_ROWS` or a multiple of it."""
+    if ew <= 0 or ew % sub or block % ew or (TILE_ROWS % ew and ew % TILE_ROWS):
+        raise ValueError(
+            f"{kernel} emit width {ew} must be a multiple of sub {sub} "
+            f"dividing block {block}, and divide {TILE_ROWS} or be a "
+            f"multiple of it"
+        )
+
+
 def _launch(name: str, fn_name: str, shard: torch.Tensor, *args,
             int8_body: bool = True) -> None:
     """Call a C entry point on the shard's device and current stream; raise
@@ -301,8 +395,10 @@ def matmul_blockmax2_only(queries, shard, valid_rows, *, sub=16, block=BLOCK,
 
     Replaces ``topk_pallas.matmul_blockmax2_only`` (:527). Geometry: ``sub``
     in (8, 16, 32, 64, 128) dividing ``block``; ``ew`` a multiple of
-    ``sub`` dividing ``block`` and :data:`TILE_ROWS`; ``R`` a multiple of
-    ``block`` and of :data:`TILE_ROWS`."""
+    ``sub`` dividing ``block`` — the reference's rule without its Mosaic
+    sublane clause — and dividing :data:`TILE_ROWS` or a multiple of it
+    (every power-of-two width is); ``R`` a multiple of ``block`` and of
+    :data:`TILE_ROWS`."""
     _check_operands(queries, shard)
     t, d = queries.shape
     r = shard.shape[0]
@@ -312,11 +408,8 @@ def matmul_blockmax2_only(queries, shard, valid_rows, *, sub=16, block=BLOCK,
             f"K1 geometry: sub {sub} must be one of {_K1_SUBS} dividing block"
             f" {block}, and rows {r} a multiple of block"
         )
-    if emit_block and (ew % sub or block % ew or TILE_ROWS % ew):
-        raise ValueError(
-            f"K1 emit width {ew} must be a multiple of sub {sub} dividing "
-            f"block {block} and {TILE_ROWS}"
-        )
+    if emit_block:
+        _check_emit_width("K1", ew, sub, block)
     valid = max(0, min(int(valid_rows), r))
     if queries.device.type == "cpu":
         return matmul_blockmax2_only_plain(
@@ -335,6 +428,80 @@ def matmul_blockmax2_only(queries, shard, valid_rows, *, sub=16, block=BLOCK,
                 bm_sub.data_ptr(), _ptr(key), _ptr(bm))
     outs = tuple(o for o in (bm_sub, key, bm) if o is not None)
     return outs if len(outs) > 1 else bm_sub
+
+
+def matmul_blockmax2x(queries, shard, valid_rows, *, sub=16, emit_sims=False,
+                      t_major=False, emit_arg=False,
+                      emit_m2=False, emit_raw_key=False, emit_width=0,
+                      inv_scale2=INT8_INV_SCALE2):
+    """K10. K1's pass over bf16 or int8 ``queries [T, D]`` against ``shard
+    [R, D]`` (rows at or past ``valid_rows`` score ``PAD_SIM``): the unit
+    maxima and the requested optional outputs, as a tuple in this order:
+
+    * ``sims [R, T]`` f32 (``emit_sims``): the masked scores, the
+      transpose of K3's;
+    * ``bms [R/sub, T]`` f32, always: unit maxima;
+    * ``arg`` int32 (``emit_arg``): each unit's lowest attaining row,
+      unit-local (K1's ``key & 0x7F``);
+    * ``m2`` f32 (``emit_m2``): the unit's max with that row replaced by
+      ``PAD_SIM`` (the second max K1 packs);
+    * ``raw_key`` int32 (``emit_raw_key``, int8 only): the unit's max of
+      ``acc * 128 + (127 - row)``, ``acc`` the exact integer dot and
+      ``_PAD_ACC`` on masked rows;
+    * ``bm [R/ew, T]`` f32 (``emit_width = ew > 0``): coarse maxima.
+
+    ``t_major`` lays the unit outputs out ``[T, R/sub]``. int8 scores are
+    the integer dot times ``inv_scale2`` (the lattice's
+    :data:`.quantize.INT8_INV_SCALE2` by default). Every shared output is
+    bit for bit K1's, and ``sims`` K3's scores transposed.
+
+    Replaces the block-max prototypes ``bm2_v3`` (``scripts/proto_bm3.py``
+    :176), ``bm2_b`` (``proto_bm2.py`` :111), ``bm2t_pass``
+    (``proto_bmt.py`` :65), ``bm2x`` (``proto_argmax.py`` :72, modes 1 and
+    2), the ``k1only`` passes of ``proto_emit_var.py`` (:167, :208) and
+    ``bm2t_i8`` (``proto_int8.py`` :78). Geometry as K1's, ``ew`` checked
+    against itself as ``block``."""
+    _check_operands(queries, shard)
+    t, d = queries.shape
+    r = shard.shape[0]
+    if sub not in _K1_SUBS:
+        raise ValueError(f"K10 sub {sub} must be one of {_K1_SUBS}")
+    if emit_width:
+        _check_emit_width("K10", emit_width, sub, emit_width)
+        if r % emit_width:
+            raise ValueError(f"rows {r} must be a multiple of emit width "
+                             f"{emit_width}")
+    if shard.dtype not in _K10_DTYPES:
+        raise TypeError(f"K10 takes bf16 or int8 operands, got {shard.dtype}")
+    if emit_raw_key and shard.dtype != torch.int8:
+        raise TypeError("K10 raw_key is the int8 dot's key: needs int8 "
+                        f"operands, got {shard.dtype}")
+    valid = max(0, min(int(valid_rows), r))
+    kw = dict(sub=sub, emit_sims=emit_sims, t_major=t_major,
+              emit_arg=emit_arg, emit_m2=emit_m2, emit_raw_key=emit_raw_key,
+              emit_width=emit_width, inv_scale2=inv_scale2)
+    if queries.device.type == "cpu":
+        return matmul_blockmax2x_plain(queries, shard, valid, **kw)
+    dev = queries.device
+    units = (t, r // sub) if t_major else (r // sub, t)
+
+    def out(want, shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev) if want else None
+
+    outs = {"sims": out(emit_sims, (r, t)),
+            "bms": torch.empty(units, dtype=torch.float32, device=dev),
+            "arg": out(emit_arg, units, torch.int32),
+            "m2": out(emit_m2, units),
+            "raw_key": out(emit_raw_key, units, torch.int32),
+            "bm": out(bool(emit_width), (r // max(1, emit_width), t))}
+    if t:
+        _launch("matmul_blockmax2x", "bsr_matmul_blockmax2x", shard,
+                queries.data_ptr(), shard.data_ptr(),
+                _DTYPE_CODES[shard.dtype], t, r, d, valid, sub, emit_width,
+                int(t_major), float(inv_scale2),
+                *(_ptr(outs[name]) for name in _K10_OUTPUTS), int8_body=False)
+    return tuple(outs[name] for name in _K10_OUTPUTS
+                 if outs[name] is not None)
 
 
 def gather_rescore(queries, shard, ids, *, unit=BLOCK):

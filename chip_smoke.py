@@ -99,7 +99,20 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    K3's kernel) as subprocesses; ``run_suite`` of ``pipeline``, ``encode``
    and ``jabref`` in this process (K3 and K8 launched); an empty query batch
    on the ``global``, ``rescore`` and ``f32cert`` routes through every
-   engine entry point. A suite result with an ``error`` fails the run.
+   engine entry point. A suite result with an ``error`` fails the run;
+20. the block-max prototypes P1-P16 of ``scripts/proto_*.py`` through
+   ``bench/proto_blockmax.py``'s functions at each script's own shapes
+   (stores of 16,384 to 10,158,080 rows from ``--seed``; raw int8 in
+   [-127, 127] for ``proto_int8``): each against its plain version within
+   1e-5 (0 on int8, integer outputs equal), K10 ``matmul_blockmax2x``
+   among them; kernel against kernel bit for bit — K10's unit and coarse
+   maxima K1's, its scores K3's transposed, its ``arg`` K1's ``key &
+   0x7F`` and ``(arg, m2)`` K1's packed key, its raw int8 key K1's argmax;
+   K1 at (sub 128, block 1024, emit width 256) on the 10,158,080 x 256
+   int8 store equal to its plain version; K10's time at ``bm2_v3``'s shape;
+   then ``python -m better_search_rag_rust_tpu_torch.bench.proto_blockmax``
+   (every timed case of the ten scripts) as a subprocess, each kernel
+   launched.
 
 Every kernel's time is printed beside its plain version's, one PyTorch call
 computing the same function where there is one (``library``: the product
@@ -162,6 +175,9 @@ KERNELS = {
                              "better_search_rag_rust_tpu/ops/topk_pallas.py:222"),
     "fused_attention": (CSRC + "attention_kernels.cu",
                         "better_search_rag_rust_tpu/ops/attention_pallas.py:95"),
+    # the block-max prototypes P3, P6, P7, P11, P12/P13 (k1only) and P14;
+    # timed at bm2_v3's shape
+    "matmul_blockmax2x": (CSRC + "topk_kernels.cu", "scripts/proto_bm3.py:176"),
 }
 #: the encoder's shape: batch, sequence, heads, head width
 B_ENC, S_ENC, H_ENC, HD_ENC = 256, 512, 12, 64
@@ -1559,6 +1575,115 @@ def check_empty_batch(seed):
           f"search_stream) per route: {seen}")
 
 
+def _kernel_pairs(tk, q, data, valid, got):
+    """Phase 20's kernel-against-kernel checks, by case: {check: passed}."""
+    k1 = tk.matmul_blockmax2_only
+
+    def k3_sims():
+        return tk.matmul_blockmax(q, data, valid)[0].T
+
+    return {
+        "V3 sims->HBM + two-level": lambda: {
+            "sims == K3's, transposed": torch.equal(got[0], k3_sims()),
+            "bms, bm == K1's": all(map(torch.equal, got[1:], k1(
+                q, data, valid, sub=16, block=128, emit_block=True)))},
+        "bm2t_pass 1Mx768": lambda: {
+            "sims == K3's, transposed": torch.equal(got[0], k3_sims()),
+            "bm8, bm128 == K1's": all(map(torch.equal, got[1:], k1(
+                q, data, valid, sub=8, block=128, emit_block=True)))},
+        "B lane-reduce single-out S=16": lambda: {
+            "bms [T, R/16] == K1's transposed": torch.equal(
+                got[0], k1(q, data, valid, sub=16).T)},
+        "+argmax": lambda: _argmax_pair(tk, got, k1(
+            q, data, valid, sub=16, block=128, emit_block=True,
+            emit_argmax=True)),
+        "+argmax+max2": lambda: _argmax_pair(tk, got, k1(
+            q, data, valid, sub=16, block=128, emit_block=True,
+            emit_argmax=True)),
+        "k1only": lambda: _raw_key_pair(got, k1(
+            q, data, valid, sub=128, block=1024, emit_block=True,
+            emit_argmax=True, emit_width=256)),
+    }
+
+
+def _argmax_pair(tk, got, k1_out):
+    """P11 modes 1 (bms, arg, bm) and 2 (bms, arg, m2, bm) against K1."""
+    bms, arg, *m2, bm = got
+    k_bms, key, k_bm = k1_out
+    pairs = {"bms, bm == K1's": torch.equal(bms, k_bms) and torch.equal(bm, k_bm),
+             "arg == K1's key & 0x7F": torch.equal(arg, key & 0x7F)}
+    if m2:
+        pairs["pack(m2, arg) == K1's key"] = torch.equal(
+            tk.pack_m2_argmax_key(m2[0], arg), key)
+    return pairs
+
+
+def _raw_key_pair(got, k1_out):
+    raw_key, bms, bmi = got
+    k_bms, key, k_bmi = k1_out
+    return {"bms, bmi == K1's": torch.equal(bms, k_bms) and torch.equal(bmi, k_bmi),
+            "raw key's row == K1's argmax": torch.equal(127 - (raw_key & 0x7F),
+                                                        key & 0x7F)}
+
+
+def check_proto_blockmax(seed, card):
+    """Phase 20: P1-P16 at their scripts' shapes against their plain
+    versions and each other; K10's time; the proto_blockmax measurement as
+    a subprocess. Returns (K10's max error, its timing, the measurement
+    run's launches)."""
+    from better_search_rag_rust_tpu_torch.bench import proto_blockmax as pb
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+
+    stores, k10_err, k10_time = {}, 0.0, None
+    for script, label, name, t, call in pb.CASES:
+        if name not in stores:
+            stores.clear()
+            torch.cuda.empty_cache()
+            stores[name] = pb.make_store(name, 1, seed + 7,
+                                         torch.device("cuda"))
+        data, valid = stores[name]
+        q = pb.make_queries(name, data, valid, t, seed + 8)
+        before = tk.launch_counts["matmul_blockmax2x"]
+        got = pb.as_tuple(call(q, data, valid, False))
+        on_k10 = tk.launch_counts["matmul_blockmax2x"] > before
+        err, differ = pb.compare(got, pb.as_tuple(call(q, data, valid, True)))
+        torch.cuda.synchronize()
+        int8 = data.dtype == torch.int8
+        bound = 0.0 if int8 else TOL
+        pairs = _kernel_pairs(tk, q, data, valid, got).get(label, dict)()
+        torch.cuda.synchronize()
+        phase(f"phase 20 {script} {label} [{t} x {data.shape[0]} x "
+              f"{data.shape[1]} {str(data.dtype)[6:]}, {valid} valid]"
+              f"{' on K10' if on_k10 else ''}: max|kernel - plain|={err:.3g} "
+              f"(bound {bound}), integer outputs differing {differ:.3g}"
+              + "".join(f"; {k}: {v}" for k, v in pairs.items()))
+        assert err <= bound and differ <= (0.0 if int8 else 1e-3), label
+        assert all(pairs.values()), (label, pairs)
+        if on_k10:
+            k10_err = max(k10_err, err)
+        if label == "V3 sims->HBM + two-level":
+            k10_time = timing(
+                cuda_ms(lambda: call(q, data, valid, False)),
+                cuda_ms(lambda: call(q, data, valid, True)),
+                product_ms(q, data), nbytes(q, data, *got),
+                2 * t * data.shape[0] * data.shape[1], PEAK_FOR[data.dtype])
+            phase(f"phase 20 [{card}] " + timing_line(
+                "matmul_blockmax2x (bm2_v3: sims + bms + bm)", k10_time))
+        del got
+    stores.clear()
+    torch.cuda.empty_cache()
+    out = _run_module("phase 20 proto_blockmax", [
+        "-m", "better_search_rag_rust_tpu_torch.bench.proto_blockmax",
+        "--seed", str(seed)])
+    launches = _launches(out)
+    phase(f"phase 20 proto_blockmax: rc 0, launches {launches}")
+    for name in ("matmul_blockmax2x", "matmul_blockmax2_only",
+                 "matmul_blockmax2_only_int8", "matmul_blockmax",
+                 "matmul_blockmax_only"):
+        assert launches.get(name, 0) > 0, (name, launches)
+    return k10_err, k10_time, launches["matmul_blockmax2x"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1704,6 +1829,8 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     check_empty_batch(args.seed)
+    (errs["matmul_blockmax2x"], times["matmul_blockmax2x"],
+     launches["matmul_blockmax2x"]) = check_proto_blockmax(args.seed, card)
 
     print(card)
     print(json.dumps({"kernels": [

@@ -89,7 +89,7 @@ def test_plain_k5_is_plain_k3_bm(dtype, monkeypatch):
     _, bm_t = port.matmul_blockmax(q, s, 1900)
     assert torch.equal(port.matmul_blockmax_only(q, s, 1900), bm_t)
     # scored in 512-row chunks: each chunk masks its own tail of the store
-    monkeypatch.setattr(port, "_PLAIN_BM_ONLY_SCORES", 512 * T)
+    monkeypatch.setattr(port, "_PLAIN_SCORES", 512 * T)
     chunked = port.matmul_blockmax_only_plain(q, s, 1900)
     if dtype == "int8":
         assert torch.equal(chunked, bm_t)

@@ -552,3 +552,97 @@ def test_empty_batch_on_every_route(cuda, kernel, dtype):
     assert got[1][0].shape == (0, 10)
     for g in (got[0], got[2]):
         np.testing.assert_array_equal(g[0], want[0])
+
+
+# -- K1 at emit widths above 128 rows, K10 matmul_blockmax2x -----------------
+
+
+def _k10_operands(cuda, dtype, t=40, dim=256):
+    if dtype == torch.int8:
+        return _int8_operands(cuda, dim, t=t)
+    return _operands(cuda, dtype, t=t, dim=dim)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
+@pytest.mark.parametrize("sub,block,ew", [(128, 1024, 256), (64, 1024, 512),
+                                          (16, 2048, 2048)])
+@pytest.mark.parametrize("argmax", [True, False])
+def test_k1_wide_emit_matches_plain(cuda, dtype, sub, block, ew, argmax):
+    """K1 at coarse widths above its 128-row tile: unit outputs equal the
+    ew-128 launch's bit for bit, coarse maxima the max of its 128-row ones;
+    against the plain version within 1e-5 (0 on int8)."""
+    q, mat = _k10_operands(cuda, dtype)
+    kw = dict(sub=sub, block=block, emit_block=True, emit_argmax=argmax)
+    wide = tk.matmul_blockmax2_only(q, mat, 4001, emit_width=ew, **kw)
+    narrow = tk.matmul_blockmax2_only(q, mat, 4001, emit_width=128, **kw)
+    plain = tk.matmul_blockmax2_only_plain(q, mat, 4001, emit_width=ew, **kw)
+    torch.cuda.synchronize()
+    assert wide[-1].shape == (mat.shape[0] // ew, q.shape[0])
+    for a, b in zip(wide[:-1], narrow[:-1]):
+        assert torch.equal(a, b)
+    assert torch.equal(wide[-1], narrow[-1].view(-1, ew // 128, q.shape[0])
+                       .amax(dim=1))
+    assert (wide[0] - plain[0]).abs().max() <= (0 if dtype == torch.int8
+                                                 else TOL)
+    assert (wide[-1] - plain[-1]).abs().max() <= (0 if dtype == torch.int8
+                                                   else TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("sub,ew", [(8, 128), (16, 64), (64, 256),
+                                    (128, 1024)])
+def test_k10_is_k1_bitwise(cuda, dtype, sub, ew):
+    """One score tile: K10's unit and coarse maxima are K1's, its (arg, m2)
+    pack into K1's key, its t-major maxima are the transpose."""
+    q, mat = _k10_operands(cuda, dtype)
+    bms, key, bm = tk.matmul_blockmax2_only(
+        q, mat, 4001, sub=sub, block=ew, emit_block=True, emit_argmax=True,
+        emit_width=ew)
+    before = tk.launch_counts["matmul_blockmax2x"]
+    k_bms, arg, m2, k_bm = tk.matmul_blockmax2x(
+        q, mat, 4001, sub=sub, emit_arg=True, emit_m2=True, emit_width=ew)
+    (t_bms,) = tk.matmul_blockmax2x(q, mat, 4001, sub=sub, t_major=True)
+    torch.cuda.synchronize()
+    assert tk.launch_counts["matmul_blockmax2x"] == before + 2
+    assert torch.equal(k_bms, bms) and torch.equal(k_bm, bm)
+    assert torch.equal(arg, key & 0x7F)
+    assert torch.equal(tk.pack_m2_argmax_key(m2, arg), key)
+    assert torch.equal(t_bms, bms.T)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("t", [40, 300])
+def test_k10_sims_are_k3_and_match_plain(cuda, dtype, t):
+    q, mat = _k10_operands(cuda, dtype, t=t, dim=100 if dtype != torch.int8
+                           else 102)
+    sims, bms, bm = tk.matmul_blockmax2x(q, mat, 4001, sub=8, emit_sims=True,
+                                         emit_width=128)
+    k3_sims, _ = tk.matmul_blockmax(q, mat, 4001)
+    p_sims, p_bms, p_bm = tk.matmul_blockmax2x_plain(
+        q, mat, 4001, sub=8, emit_sims=True, emit_width=128)
+    torch.cuda.synchronize()
+    assert torch.equal(sims, k3_sims.T)
+    bound = 0 if dtype == torch.int8 else TOL
+    for a, b in ((sims, p_sims), (bms, p_bms), (bm, p_bm)):
+        assert a.shape == b.shape and (a - b).abs().max() <= bound
+
+
+@pytest.mark.parametrize("sub", [64, 128])
+@pytest.mark.parametrize("ew", [0, 256])
+def test_k10_int8_raw_key_and_scale_match_plain(cuda, sub, ew):
+    """The raw integer key and a runtime scale, bit for bit the plain
+    version's (exact integer dots); raw int8 rows in [-127, 127]."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    mat = torch.randint(-127, 128, (4096, 256), generator=g, device=cuda,
+                        dtype=torch.int8)
+    q = torch.randint(-127, 128, (40, 256), generator=g, device=cuda,
+                      dtype=torch.int8)
+    scale = float(np.float32(1.0) / np.float32(490000.0))
+    kw = dict(sub=sub, emit_raw_key=True, emit_arg=True, emit_width=ew,
+              inv_scale2=scale)
+    got = tk.matmul_blockmax2x(q, mat, 4001, **kw)
+    want = tk.matmul_blockmax2x_plain(q, mat, 4001, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)

@@ -2,9 +2,10 @@
 
 Checked in a fresh interpreter: the suite's conftest imports jax
 for every test, so ``sys.modules`` here says nothing about the port. A
-``sys.meta_path`` finder refuses ``better_search_rag_rust_tpu`` and its
-submodules, so an import of the JAX package fails loudly even where that
-module would not have pulled in jax.
+``sys.meta_path`` finder refuses ``better_search_rag_rust_tpu``,
+``scripts`` (whose prototypes import JAX) and their submodules, so an
+import of either fails loudly even where that module would not have pulled
+in jax.
 """
 
 import dataclasses
@@ -22,8 +23,8 @@ import importlib, pkgutil, sys
 
 class BlockJaxPackage:
     def find_spec(self, name, path=None, target=None):
-        if name == "better_search_rag_rust_tpu" or name.startswith(
-                "better_search_rag_rust_tpu."):
+        if name in ("better_search_rag_rust_tpu", "scripts") or \
+                name.startswith(("better_search_rag_rust_tpu.", "scripts.")):
             raise ImportError(f"the port imported {name}")
         return None
 
@@ -36,7 +37,7 @@ for name in names:
 import chip_smoke  # its top-level imports only; main() is not run
 import bench_torch  # likewise
 for mod in ("utils.profiling", "bench.suite", "bench.jabref",
-            "bench.proto_calib", "bench.proto_attn"):
+            "bench.proto_calib", "bench.proto_attn", "bench.proto_blockmax"):
     assert port.__name__ + "." + mod in names, mod
 from better_search_rag_rust_tpu_torch import native
 from better_search_rag_rust_tpu_torch.models.tokenizer import HashingTokenizer
