@@ -406,15 +406,19 @@ def as_tuple(out):
 
 def compare(got, want) -> tuple:
     """(max |diff| over float outputs, share of integer outputs that
-    differ); shapes and dtypes must agree."""
+    differ); shapes and dtypes must agree. NaN on both sides counts as
+    equal, NaN on one side as an infinite difference."""
     err, differ, n_int = 0.0, 0, 0
     for a, b in zip(as_tuple(got), as_tuple(want), strict=True):
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"output {tuple(a.shape)} {a.dtype} against "
                                  f"plain {tuple(b.shape)} {b.dtype}")
         if a.dtype.is_floating_point:
-            if a.numel():
-                err = max(err, float((a - b).abs().max()))
+            nan = a.isnan()
+            if not torch.equal(nan, b.isnan()):
+                err = math.inf
+            elif not bool(nan.all()):
+                err = max(err, float((a - b).abs()[~nan].max()))
         else:
             differ += int((a != b).sum())
             n_int += a.numel()

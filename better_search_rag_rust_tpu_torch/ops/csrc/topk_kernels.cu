@@ -1,8 +1,9 @@
 // Exact top-k scoring kernels for Hopper (sm_90a), plain C interface.
 //
-// Five kernels carry the exact search routes, and K5 and K10 the block-max
-// measurements; each replaces Pallas kernels of
-// better_search_rag_rust_tpu/ops/topk_pallas.py (K10: of scripts/proto_*.py):
+// Five kernels carry the exact search routes, K5 and K10 the block-max
+// measurements and K11 and K12 the gather measurements; each replaces Pallas
+// kernels of better_search_rag_rust_tpu/ops/topk_pallas.py (K10-K12: of
+// scripts/proto_*.py):
 //
 //   K1 bsr_matmul_blockmax2     <- matmul_blockmax2_only (:527, body :367)
 //   K2 bsr_gather_rescore       <- gather_rescore        (:656, body :631)
@@ -13,11 +14,16 @@
 //   K10 bsr_matmul_blockmax2x   <- the block-max prototypes of scripts/proto_*.py
 //                                  (bm2_v3, bm2_b, bm2t_pass, bm2x, the emit_var
 //                                  raw key, bm2t_i8; see k10_blockmax2x)
+//   K11 bsr_gather_copy         <- scripts/proto_dma2.py make_v01 with _v0_kernel
+//                                  (:72, body :52): the copy-only gather
+//   K12 bsr_gather_rescore_mm   <- scripts/proto_dma3.py make_fused (:80, body
+//                                  :57): K2's scores plus a resident product
 //
-// K4 moves bytes only. K6 stages and sums exactly as K2 does (same chunks,
-// same routines), so what is said of K2 below holds for K6. K5 is K3 without
-// its score store: the same score tile and the same block reduction, so its
-// block maxima are K3's bit for bit on every dtype.
+// K4 and K11 move bytes only. K6 and K12's gather stage and sum exactly as K2
+// does (same chunks, same routines), so what is said of K2 below holds for
+// them. K5 is K3 without its score store: the same score tile and the same
+// block reduction (store_block_max, also K12's; K3's loop is the same code
+// written out), so its block maxima are K3's bit for bit on every dtype.
 //
 // ONE ARITHMETIC RULE. Every score any of the three kernels produces is the
 // f32 chain
@@ -337,6 +343,26 @@ k1_blockmax2(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
   }
 }
 
+// The per-block maxima of a score tile st (rows [row0, row0 + TR), queries
+// [q0, q0 + TQ)): block group g of query column c goes to
+// out[(row0 / block + g) * g_stride + (q0 + c) * q_stride]; queries at or past
+// Tn are skipped. The block reduction of K5 and K12, and K3's loop written
+// out (calling this cost K3 1.5 % on the card), so their maxima agree bit
+// for bit.
+__device__ __forceinline__ void store_block_max(const float* st, int block, int Tn,
+                                                int row0, int q0, float* __restrict__ out,
+                                                size_t g_stride, size_t q_stride) {
+  const int groups = TR / block;
+  for (int p = threadIdx.x; p < groups * TQ; p += NT) {
+    const int g = p / TQ, c = p % TQ;
+    if (q0 + c >= Tn) continue;
+    const float* col = st + (size_t)g * block * LDO + c;
+    float m = col[0];
+    for (int r = 1; r < block; ++r) m = fmaxf(m, col[r * LDO]);
+    out[(size_t)(row0 / block + g) * g_stride + (size_t)(q0 + c) * q_stride] = m;
+  }
+}
+
 // K3: masked scores sims [T, R] plus per-block maxima bm_t [R/block, T].
 template <typename T>
 __global__ void __launch_bounds__(NT, 2)
@@ -379,16 +405,7 @@ k5_blockmax_only(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
   float* smem = reinterpret_cast<float*>(smem4);
   const int row0 = blockIdx.x * TR, q0 = blockIdx.y * TQ;
   any_score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
-  const float* st = smem;
-  const int groups = TR / block;
-  for (int p = threadIdx.x; p < groups * TQ; p += NT) {
-    const int g = p / TQ, c = p % TQ;
-    if (q0 + c >= Tn) continue;
-    const float* col = st + (size_t)g * block * LDO + c;
-    float m = col[0];
-    for (int r = 1; r < block; ++r) m = fmaxf(m, col[r * LDO]);
-    bm_t[(size_t)(row0 / block + g) * Tn + q0 + c] = m;
-  }
+  store_block_max(smem, block, Tn, row0, q0, bm_t, Tn, 1);
 }
 
 // K10: the block-max prototypes of the TPU measurement record
@@ -669,6 +686,139 @@ k4_gather_rows(const uint8_t* __restrict__ shard, const int32_t* __restrict__ id
   for (size_t i = head + threadIdx.x; i < chunk; i += CT) dst[i] = ok ? src[i] : 0xFF;
 }
 
+// K11: the copy-only gather of P19's V0 (scripts/proto_dma2.py make_v01 with
+// _v0_kernel, :72 and :52): out[t, j * 128 + c] = f32(store[ids[t, j] * unit, c])
+// for c < 128. The TPU kernel DMAs each selected unit x D block whole into
+// VMEM and keeps 128 values of its row 0, so its time is the cost of moving
+// the candidates. Here block (j, t) moves unit ids[t, j] (unit_bytes
+// contiguous bytes) whole from HBM into shared memory with cp.async, 16 bytes
+// a thread (.cg: through L2, not L1), CP_CHUNK bytes at a time, and writes
+// the 128 values of row 0 from the first chunk. Each copy is an asm volatile
+// with a "memory" clobber, so the compiler keeps every one of them although
+// only row 0 is read back (chip_smoke.py also fails if K11 runs below its
+// bytes bound). Several 32 KB CTAs per SM keep ~200 KB of loads in flight
+// there. An id outside [0, n_units) writes NaN and reads nothing. Bound: the
+// bytes of the distinct units selected (read once) and of the output.
+constexpr int CP_THREADS = 256;
+constexpr int CP_CHUNK = 32 * 1024;
+constexpr int V0_COLS = 128;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__global__ void __launch_bounds__(CP_THREADS)
+k11_gather_copy(const uint8_t* __restrict__ shard, const int32_t* __restrict__ ids, int KS,
+                int n_units, int unit_bytes, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  uint8_t* buf = reinterpret_cast<uint8_t*>(smem4);
+  const int j = blockIdx.x, t = blockIdx.y;
+  const int uid = ids[(size_t)t * KS + j];
+  float* dst = out + ((size_t)t * KS + j) * V0_COLS;
+  if (uid < 0 || uid >= n_units) {
+    if (threadIdx.x < V0_COLS) dst[threadIdx.x] = __uint_as_float(0x7fffffffu);
+    return;
+  }
+  const uint8_t* src = shard + (size_t)uid * unit_bytes;
+  for (int off = 0; off < unit_bytes; off += CP_CHUNK) {
+    const int n = min(CP_CHUNK, unit_bytes - off);
+    for (int i = threadIdx.x * 16; i < n; i += CP_THREADS * 16) cp_async16(buf + i, src + off + i);
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    if (off == 0 && threadIdx.x < V0_COLS)
+      dst[threadIdx.x] = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(buf)[threadIdx.x]);
+    __syncthreads();  // the next chunk overwrites buf
+  }
+}
+
+// K12: P21, the gather-rescore with a resident product (scripts/proto_dma3.py
+// make_fused, :80; body :57), in one launch. Two kinds of work share the
+// grid, so the gather's loads and the product's arithmetic run side by side
+// on the SMs:
+//  * gather items: query t's candidate slots [s0, s0 + NT) of C = KS * unit
+//    (ids [T, KS] into unit-row blocks), staged GDK features at a time,
+//    widened and summed by fma_chunk<1, 1> as K2 does, so the scores equal
+//    K2's bit for bit (the one-chain rule of the header); NaN for an id
+//    outside [0, R/unit). K2's staging is written out again here rather than
+//    shared, so K2's kernel stays as it is (a body shared with K6 once cost
+//    K2 9 %);
+//  * product items: `copies` copies of K5's score tiles of mmq [tq, D]
+//    against mms [mm_rows, D], each copy's 128-row block maxima stored to
+//    mmo [tq, mm_rows / 128] by store_block_max: K5's bm_t transposed, bit for
+//    bit. Every copy writes the same values to the same places. Identical
+//    floats stored by several CTAs are benign, and storing every copy's
+//    maxima, under no condition of its own, keeps the compiler from dropping
+//    any copy's arithmetic.
+// The TPU kernel recomputes the product in each of its (T/8)·(KS/cpg) grid
+// steps; the wrapper passes that count as `copies` (0: no product, mmo is not
+// written). CTA b runs product item b (if b < n_product) and gather items
+// [b·G/n, (b+1)·G/n) of G, n = gridDim.x, so the gather is spread evenly over
+// the launch. Bound on the card: the 2·copies·tq·mm_rows·D operations of the
+// copies (on the SIMT pipes, as K5) while copies > 0, else the gathered bytes
+// (read once), as K2.
+constexpr int MLD = NT + 4;
+constexpr size_t K12_GATHER_SMEM = sizeof(float) * (GDK * MLD + GDK);
+static_assert(K12_GATHER_SMEM <= SCORE_SMEM, "one buffer serves both kinds of item");
+
+template <typename T>
+__device__ __forceinline__ void k12_gather_item(const T* __restrict__ q,
+                                                const T* __restrict__ shard,
+                                                const int32_t* __restrict__ ids, int R,
+                                                int D, int KS, int unit, int item,
+                                                float* __restrict__ out, float* smem) {
+  float* rs = smem;              // [GDK][MLD]
+  float* qs = smem + GDK * MLD;  // [GDK]
+  const int C = KS * unit, per_q = (C + NT - 1) / NT, n_units = R / unit;
+  const int t = item / per_q, s0 = (item % per_q) * NT, tid = threadIdx.x;
+  const int32_t* my_ids = ids + (size_t)t * KS;
+  float acc[1][1] = {{0.0f}};
+  for (int d0 = 0; d0 < D; d0 += GDK) {
+    for (int e = tid; e < NT * GDK; e += NT) {
+      const int r = e / GDK, dd = e % GDK, gd = d0 + dd, s = s0 + r;
+      float v = 0.0f;
+      if (s < C && gd < D) {
+        const int uid = my_ids[s / unit];
+        if (uid >= 0 && uid < n_units)
+          v = widen(shard[((size_t)uid * unit + s % unit) * D + gd]);
+      }
+      rs[dd * MLD + r] = v;
+    }
+    if (tid < GDK) qs[tid] = d0 + tid < D ? widen(q[(size_t)t * D + d0 + tid]) : 0.0f;
+    __syncthreads();
+    fma_chunk<1, 1>(acc, rs + tid, MLD, qs, 1, GDK);
+    __syncthreads();
+  }
+  const int s = s0 + tid;
+  if (s < C) {
+    const int uid = my_ids[s / unit];
+    out[(size_t)t * C + s] = (uid >= 0 && uid < n_units) ? acc[0][0] : __uint_as_float(0x7fffffffu);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT, 2)
+k12_gather_rescore_mm(const T* __restrict__ q, const T* __restrict__ shard,
+                      const int32_t* __restrict__ ids, int R, int D, int KS, int unit,
+                      int n_gather, const T* __restrict__ mmq, const T* __restrict__ mms,
+                      int tq, int mm_rows, int n_product, float* __restrict__ out,
+                      float* __restrict__ mmo) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const long long b = blockIdx.x, nb = gridDim.x;
+  if (b < n_product) {
+    const int row_tiles = mm_rows / TR;
+    const int tile = (int)(b % ((long long)row_tiles * ((tq + TQ - 1) / TQ)));  // of copy b / tiles
+    const int row0 = (tile % row_tiles) * TR, q0 = (tile / row_tiles) * TQ;
+    score_tile<T>(mmq, mms, tq, D, mm_rows, row0, q0, smem);
+    store_block_max(smem, TR, tq, row0, q0, mmo, 1, row_tiles);
+    __syncthreads();  // the gather items restage smem
+  }
+  const int lo = (int)(b * n_gather / nb), hi = (int)((b + 1) * n_gather / nb);
+  for (int item = lo; item < hi; ++item)
+    k12_gather_item<T>(q, shard, ids, R, D, KS, unit, item, out, smem);
+}
+
 template <typename K>
 int raise_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
@@ -763,6 +913,25 @@ int launch_k6(const void* q, const void* gathered, int Tn, int C, int D, float* 
   else
     k6_block_scores<T><<<grid, GR, 0, st>>>(static_cast<const T*>(q),
                                             static_cast<const T*>(gathered), C, D, out);
+  return (int)cudaGetLastError();
+}
+
+int launch_k12(const void* q, const void* shard, const int32_t* ids, int Tn, int R, int D,
+               int KS, int unit, const void* mmq, const void* mms, int tq, int mm_rows,
+               int copies, float* out, float* mmo, cudaStream_t st) {
+  using T = __nv_bfloat16;
+  const long long n_gather = (long long)Tn * ((KS * unit + NT - 1) / NT);
+  const long long n_product =
+      copies > 0 ? (long long)copies * (mm_rows / TR) * ((tq + TQ - 1) / TQ) : 0;
+  const long long nb = n_gather > n_product ? n_gather : n_product;
+  if (nb == 0) return 0;
+  if (nb > 0x7fffffffLL || mm_rows % TR) return (int)cudaErrorInvalidValue;
+  const size_t smem = n_product ? SCORE_SMEM : K12_GATHER_SMEM;
+  if (int err = raise_smem(k12_gather_rescore_mm<T>, smem)) return err;
+  k12_gather_rescore_mm<T><<<(unsigned)nb, NT, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(shard), ids, R, D, KS, unit,
+      (int)n_gather, static_cast<const T*>(mmq), static_cast<const T*>(mms), tq, mm_rows,
+      (int)n_product, out, mmo);
   return (int)cudaGetLastError();
 }
 
@@ -870,6 +1039,30 @@ int bsr_block_scores(const void* q, const void* gathered, int dtype, int Tn, int
   if (dtype == DTYPE_F32) return launch_k6<float>(q, gathered, Tn, C, D, out, st);
   if (dtype == DTYPE_INT8) return launch_k6<int8_t>(q, gathered, Tn, C, D, out, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// K11: ids [Tn, KS] unit ids into a bf16 store of n_units units of
+// unit_bytes each (a multiple of 16; rows of at least 128 values);
+// out [Tn, KS * 128] f32.
+int bsr_gather_copy(const void* shard, const int32_t* ids, int Tn, int KS, int n_units,
+                    int unit_bytes, float* out, void* stream) {
+  if (unit_bytes <= 0 || unit_bytes % 16) return (int)cudaErrorInvalidValue;
+  dim3 grid(KS, Tn);
+  k11_gather_copy<<<grid, CP_THREADS, unit_bytes < CP_CHUNK ? unit_bytes : CP_CHUNK,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(shard), ids, KS, n_units, unit_bytes, out);
+  return (int)cudaGetLastError();
+}
+
+// K12: K2's geometry on bf16 operands, plus mmq [tq, D] and mms [mm_rows, D]
+// (mm_rows % 128 == 0) and `copies` copies of their product; out [Tn, KS *
+// unit], mmo [tq, mm_rows / 128] (not written when copies == 0).
+int bsr_gather_rescore_mm(const void* q, const void* shard, const int32_t* ids, int Tn,
+                          int R, int D, int KS, int unit, const void* mmq, const void* mms,
+                          int tq, int mm_rows, int copies, float* out, float* mmo,
+                          void* stream) {
+  return launch_k12(q, shard, ids, Tn, R, D, KS, unit, mmq, mms, tq, mm_rows, copies, out,
+                    mmo, static_cast<cudaStream_t>(stream));
 }
 
 const char* bsr_error_string(int err) {

@@ -18,11 +18,17 @@ K10 :func:`matmul_blockmax2x`     K1's pass on bf16/int8: unit maxima
                                   the scores ``[R, T]``, unpacked argmax and
                                   second max, the raw int8 key, coarse
                                   maxima; a runtime int8 scale
+K11 :func:`gather_copy`           move each selected unit whole, keep 128
+                                  values of its row 0 (bf16)
+K12 :func:`gather_rescore_mm`     K2's scores plus ``copies`` copies of a
+                                  resident product's block maxima (bf16)
 === ============================= ======================================
 
 K10 replaces the block-max prototypes of the TPU measurement record
 (``scripts/proto_*.py``); :mod:`..bench.proto_blockmax` calls it, K1, K3
-and K5 under each prototype's name.
+and K5 under each prototype's name. K11 and K12 replace the gather
+prototypes' V0 and resident-product kernels; :mod:`..bench.proto_dma`
+calls them and K2.
 
 A wrapper takes the plain version only because its tensors lie on the CPU
 (that is how the CPU tests run the whole route); for CUDA tensors it
@@ -80,6 +86,9 @@ _K10_OUTPUTS = ("sims", "bms", "arg", "m2", "raw_key", "bm")
 _K10_UNIT_OUTPUTS = ("bms", "arg", "m2", "raw_key")
 #: K10's operand dtypes: the prototypes' (bf16, and int8 raw or lattice).
 _K10_DTYPES = (torch.bfloat16, torch.int8)
+#: Values of each selected unit's row 0 that K11 keeps (the TPU V0's
+#: ``[0, :128]``).
+V0_COLS = 128
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`;
 #: the int8 bodies count under ``<wrapper>_int8``.
@@ -95,6 +104,8 @@ launch_counts: Dict[str, int] = {
     "block_scores": 0,
     "block_scores_int8": 0,
     "matmul_blockmax2x": 0,
+    "gather_copy": 0,
+    "gather_rescore_mm": 0,
 }
 
 
@@ -214,12 +225,21 @@ def matmul_blockmax2_only_plain(queries, shard, valid_rows, *, sub=16,
 
 def gather_rescore_plain(queries, shard, ids, *, unit=BLOCK):
     """Plain K2: the same output as :func:`gather_rescore`, by scoring the
-    whole shard and gathering the selected units' columns."""
+    shard in row chunks (:func:`_row_chunks`, so a 10M-row store never
+    holds a ``[T, R]`` matrix) and gathering each selected unit's columns
+    from the chunk that holds it; an id outside ``[0, R/unit)`` scores NaN,
+    as in the kernel."""
     t, ks = ids.shape
-    r = shard.shape[0]
-    s3 = _plain_scores(queries, shard).view(t, r // unit, unit)
-    idx = ids.to(torch.int64)[:, :, None].expand(t, ks, unit)
-    return torch.gather(s3, 1, idx).reshape(t, ks * unit)
+    out = torch.full((t, ks, unit), float("nan"), device=queries.device)
+    ids64 = ids.to(torch.int64)
+    for r0, r1 in _row_chunks(t, shard.shape[0], unit):
+        nu = (r1 - r0) // unit
+        s3 = _plain_scores(queries, shard[r0:r1]).view(t, nu, unit)
+        local = ids64 - r0 // unit
+        inside = (local >= 0) & (local < nu)
+        idx = local.clamp(0, nu - 1)[:, :, None].expand(t, ks, unit)
+        out[inside] = torch.gather(s3, 1, idx)[inside]
+    return out.reshape(t, ks * unit)
 
 
 def matmul_blockmax_plain(queries, shard, valid_rows, *, block=BLOCK):
@@ -295,6 +315,33 @@ def gather_rows_plain(shard, ids, *, unit=8):
     out = shard.view(r // unit, unit, d)[torch.where(ok, ids, 0).long()]
     out.view(torch.uint8)[~ok] = 0xFF
     return out.reshape(t, ks * unit, d)
+
+
+def gather_copy_plain(shard, ids, *, unit=BLOCK):
+    """Plain K11: ``[T, KS*128]`` f32, the first :data:`V0_COLS` values of
+    each selected unit's row 0 — bit for bit the store's values."""
+    t, ks = ids.shape
+    rows = shard[ids.long() * unit, :V0_COLS]
+    return rows.float().reshape(t, ks * V0_COLS)
+
+
+def gather_rescore_mm_plain(queries, shard, ids, mmq, mms, *, unit=BLOCK,
+                            copies=1):
+    """Plain K12: ``(mmo [tq, N/128], scores [T, KS*unit])``: plain K2's
+    scores and plain K5's block maxima of ``mmq`` against ``mms``,
+    transposed, computed once (every copy has the same values); ``mmo`` is
+    NaN when ``copies`` is 0."""
+    scores = gather_rescore_plain(queries, shard, ids, unit=unit)
+    n = mms.shape[0]
+    if not copies:
+        return _no_product(mmq, n), scores
+    mmo = matmul_blockmax_only_plain(mmq, mms, n).T.contiguous()
+    return mmo, scores
+
+
+def _no_product(mmq, n):
+    return torch.full((mmq.shape[0], n // BLOCK), float("nan"),
+                      device=mmq.device)
 
 
 def block_scores_plain(queries, gathered):
@@ -618,6 +665,100 @@ def gather_rows(shard, ids, *, unit=8):
                 unit * d * shard.element_size(), out.data_ptr(),
                 int8_body=False)
     return out
+
+
+def _check_ids(ids, t, device):
+    """int32 unit ids ``[T, KS]``, ``T`` = ``t`` unless ``t`` is None."""
+    if (ids.dim() != 2 or ids.dtype != torch.int32
+            or (t is not None and ids.shape[0] != t)):
+        raise ValueError(f"ids must be int32 [{t or 'T'}, KS], got "
+                         f"{ids.dtype} {tuple(ids.shape)}")
+    if ids.device != device or not ids.is_contiguous():
+        raise ValueError("ids must be contiguous, on the store's device")
+
+
+def gather_copy(shard, ids, *, unit=BLOCK):
+    """K11. ``[T, KS*128]`` f32: for each query's ``KS`` selected
+    ``unit``-row blocks (``ids [T, KS]`` int32 unit ids into a bf16 ``shard
+    [R, D]``), the first :data:`V0_COLS` values of the block's row 0, bit
+    for bit the store's. The kernel moves every selected block whole into
+    shared memory, so its time is the cost of moving the candidates.
+
+    Replaces the V0 kernel of ``scripts/proto_dma2.py`` (``make_v01`` with
+    ``_v0_kernel``, :72). Needs ``D >= 128`` and blocks of a multiple of 16
+    bytes (``unit * D`` a multiple of 8); every id must lie in ``[0,
+    R/unit)``: the kernel writes NaN for an id outside it rather than read
+    out of bounds."""
+    if shard.dim() != 2 or shard.dtype != torch.bfloat16:
+        raise TypeError(f"K11 takes a bf16 shard [R, D], got {shard.dtype} "
+                        f"{tuple(shard.shape)}")
+    _check_ids(ids, None, shard.device)
+    _check_device(shard, ids)
+    r, d = shard.shape
+    t, ks = ids.shape
+    unit_bytes = unit * d * shard.element_size()
+    if unit <= 0 or r % unit or d < V0_COLS or unit_bytes % 16:
+        raise ValueError(f"K11: rows {r} must be a multiple of unit {unit}, "
+                         f"dim {d} at least {V0_COLS} and a unit's bytes a "
+                         f"multiple of 16")
+    if t > 65535:
+        raise ValueError(f"query tile {t} > 65535")
+    if shard.device.type == "cpu":
+        return gather_copy_plain(shard, ids, unit=unit)
+    out = torch.empty((t, ks * V0_COLS), dtype=torch.float32,
+                      device=shard.device)
+    if out.numel():
+        _launch("gather_copy", "bsr_gather_copy", shard, shard.data_ptr(),
+                ids.data_ptr(), t, ks, r // unit, unit_bytes, out.data_ptr(),
+                int8_body=False)
+    return out
+
+
+def gather_rescore_mm(queries, shard, ids, mmq, mms, *, unit=BLOCK,
+                      copies=1):
+    """K12. ``(mmo [tq, N/128], scores [T, KS*unit])`` in one launch: the
+    scores of :func:`gather_rescore` (bit for bit K2's), and ``copies``
+    copies of the product of ``mmq [tq, D]`` against ``mms [N, D]``, whose
+    128-row block maxima go to ``mmo`` (bit for bit
+    :func:`matmul_blockmax_only`'s ``bm_t`` transposed). Every copy computes
+    and stores the same values: the copies are work that runs beside the
+    gather. With ``copies`` 0 there is no product and ``mmo`` is NaN.
+
+    Replaces ``make_fused`` of ``scripts/proto_dma3.py`` (:80), whose grid
+    steps each recompute the product (``copies`` = its step count). bf16
+    operands (the prototype's); ``N`` a positive multiple of 128."""
+    _check_operands(queries, shard)
+    t, d = queries.shape
+    r = shard.shape[0]
+    _check_ids(ids, t, queries.device)
+    if shard.dtype != torch.bfloat16:
+        raise TypeError(f"K12 takes bf16 operands, got {shard.dtype}")
+    if unit <= 0 or r % unit:
+        raise ValueError(f"rows {r} must be a multiple of unit {unit}")
+    if mms.dim() != 2 or mms.shape[0] == 0 or mms.shape[0] % BLOCK:
+        raise ValueError(f"mms must be [N, {d}] with N a positive multiple of "
+                         f"{BLOCK}, got {tuple(mms.shape)}")
+    _check_pair(mmq, mms)
+    _check_device(queries, mmq)
+    if mmq.dtype != shard.dtype or mmq.shape[1] != d:
+        raise ValueError(f"mmq must be {shard.dtype} [tq, {d}], got "
+                         f"{mmq.dtype} {tuple(mmq.shape)}")
+    if copies < 0:
+        raise ValueError(f"copies {copies} must be >= 0")
+    ks, n = ids.shape[1], mms.shape[0]
+    if queries.device.type == "cpu":
+        return gather_rescore_mm_plain(queries, shard, ids, mmq, mms,
+                                       unit=unit, copies=copies)
+    dev = queries.device
+    out = torch.empty((t, ks * unit), dtype=torch.float32, device=dev)
+    mmo = (torch.empty((mmq.shape[0], n // BLOCK), dtype=torch.float32,
+                       device=dev) if copies else _no_product(mmq, n))
+    if (t and ks) or (copies and mmq.shape[0]):
+        _launch("gather_rescore_mm", "bsr_gather_rescore_mm", shard,
+                queries.data_ptr(), shard.data_ptr(), ids.data_ptr(), t, r, d,
+                ks, unit, mmq.data_ptr(), mms.data_ptr(), mmq.shape[0], n,
+                copies, out.data_ptr(), mmo.data_ptr(), int8_body=False)
+    return mmo, out
 
 
 def block_scores(queries, gathered):

@@ -112,13 +112,29 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    int8 store equal to its plain version; K10's time at ``bm2_v3``'s shape;
    then ``python -m better_search_rag_rust_tpu_torch.bench.proto_blockmax``
    (every timed case of the ten scripts) as a subprocess, each kernel
-   launched.
+   launched;
+21. the DMA gather prototypes P18-P21 of ``scripts/proto_dma_rescore.py``,
+   ``proto_dma2.py`` and ``proto_dma3.py`` through ``bench/proto_dma.py``'s
+   functions at the scripts' shapes, on phase 20's 10,027,008 x 256 and
+   1,048,576 x 768 bf16 stores (P19 on a view of the first 10,026,880 rows):
+   each against its plain version (1e-5 on scores; K11 ``gather_copy`` bit
+   for bit), K11 at or above its bytes bound and bit for bit K4's row 0,
+   K12 ``gather_rescore_mm`` at ``mm_n`` 0, 512 and 1280 with its scores bit
+   for bit K2's and its ``mmo`` K5's block maxima transposed, P18 and P20
+   bit for bit K3's dense scores on the first 131,072 (65,536) rows, the
+   index gather + K6 bit for bit K2; K12's time beside the gather alone
+   (K12 at ``mm_n`` 0), the product alone (K5 once per copy; K12 without
+   the gather) and their sum; then ``python -m
+   better_search_rag_rust_tpu_torch.bench.proto_dma`` and ``...proto_calib``
+   (its ``make_v3`` lines) as subprocesses, each kernel launched.
 
 Every kernel's time is printed beside its plain version's, one PyTorch call
 computing the same function where there is one (``library``: the product
 alone for K1/K3/K5, ``scaled_dot_product_attention`` on rotated q/k/v for
-K7/K8/K9, indexing for K4, ``bmm`` for K6), and its bound: the larger of the
-bytes it must move over 3.35 TB/s and its operations over the named peak
+K7/K8/K9, indexing for K4, ``bmm`` for K6; none for K2, K11 and K12), and
+its bound: the larger of the bytes it must move (a gather: the distinct
+units it selects) over 3.35 TB/s and its operations (K12: every copy of
+its product) over the named peak
 (H100 SXM data sheet: 67 TFLOP/s fp32 SIMT for f32 stores, whose exact FMA
 chain cannot use tensor cores; 989 bf16 and 1,979 int8 tensor).
 
@@ -178,6 +194,9 @@ KERNELS = {
     # the block-max prototypes P3, P6, P7, P11, P12/P13 (k1only) and P14;
     # timed at bm2_v3's shape
     "matmul_blockmax2x": (CSRC + "topk_kernels.cu", "scripts/proto_bm3.py:176"),
+    # P19's copy-only V0 and P21's gather beside a resident product
+    "gather_copy": (CSRC + "topk_kernels.cu", "scripts/proto_dma2.py:72"),
+    "gather_rescore_mm": (CSRC + "topk_kernels.cu", "scripts/proto_dma3.py:80"),
 }
 #: the encoder's shape: batch, sequence, heads, head width
 B_ENC, S_ENC, H_ENC, HD_ENC = 256, 512, 12, 64
@@ -1630,17 +1649,20 @@ def check_proto_blockmax(seed, card):
     """Phase 20: P1-P16 at their scripts' shapes against their plain
     versions and each other; K10's time; the proto_blockmax measurement as
     a subprocess. Returns (K10's max error, its timing, the measurement
-    run's launches)."""
+    run's launches, its 10,027,008 x 256 and 1,048,576 x 768 bf16 stores
+    for phase 21)."""
     from better_search_rag_rust_tpu_torch.bench import proto_blockmax as pb
     from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
 
-    stores, k10_err, k10_time = {}, 0.0, None
+    stores, kept, k10_err, k10_time = {}, {}, 0.0, None
     for script, label, name, t, call in pb.CASES:
         if name not in stores:
             stores.clear()
             torch.cuda.empty_cache()
             stores[name] = pb.make_store(name, 1, seed + 7,
                                          torch.device("cuda"))
+            if name in ("10m", "1m"):
+                kept[name] = stores[name][0]
         data, valid = stores[name]
         q = pb.make_queries(name, data, valid, t, seed + 8)
         before = tk.launch_counts["matmul_blockmax2x"]
@@ -1681,7 +1703,71 @@ def check_proto_blockmax(seed, card):
                  "matmul_blockmax2_only_int8", "matmul_blockmax",
                  "matmul_blockmax_only"):
         assert launches.get(name, 0) > 0, (name, launches)
-    return k10_err, k10_time, launches["matmul_blockmax2x"]
+    return k10_err, k10_time, launches["matmul_blockmax2x"], kept
+
+
+def _dma_timing(res):
+    return {"ms": res["ms"], "plain_ms": res["plain_ms"], "library_ms": None,
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            "peak": "bf16 tensor"}
+
+
+def check_proto_dma(stores, seed, card):
+    """Phase 21: P18-P21 at their scripts' shapes on phase 20's stores,
+    against their plain versions and K2, K3, K4, K5 and K6; the proto_dma
+    and proto_calib measurements as subprocesses. Returns ({kernel: max
+    error}, {kernel: timing}, {kernel: launches over the phase's drive})."""
+    from better_search_rag_rust_tpu_torch.bench import proto_dma as pd
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 9)
+    args = argparse.Namespace(seed=seed + 9, rows_divisor=1)
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    results, lines = pd.run_all(stores.pop("10m"), stores.pop("1m"), args,
+                                gen, dev)
+    torch.cuda.synchronize()
+    launches = {name: tk.launch_counts[name] for name in
+                ("gather_copy", "gather_rescore_mm", "gather_rescore")}
+    torch.cuda.empty_cache()
+    for res in results:
+        phase("phase 21 " + pd.result_line(res))
+    for line in lines:
+        phase("phase 21 " + line)
+    v0 = next(r for r in results if r["case"].startswith("V0"))
+    phase(f"phase 21 K11 gather_copy {v0['ms']:.3f} ms at or above its bytes "
+          f"bound {v0['bound_ms']:.3f} ms: {v0['at_or_above_bound']}; bit "
+          f"for bit K4's row 0: {v0['equals_k4_row0']}")
+    phase(f"phase 21 kernel launches over the prototypes: {launches}")
+    failed = [r["case"] for r in results if not r["ok"]]
+    assert not failed, failed
+    assert all(launches.values()), launches
+    fused = [r for r in results if r["script"] == "proto_dma3"]
+    errs = {"gather_copy": v0["max_abs_err"],
+            "gather_rescore_mm": max(r["max_abs_err"] for r in fused)}
+    times = {"gather_copy": _dma_timing(v0),
+             "gather_rescore_mm": _dma_timing(next(
+                 r for r in fused if "mm_n=1280" in r["case"]))}
+    for name, rec in times.items():
+        phase(f"phase 21 [{card}] " + timing_line(name, rec))
+    out = _run_module("phase 21 proto_dma", [
+        "-m", "better_search_rag_rust_tpu_torch.bench.proto_dma",
+        "--seed", str(seed)])
+    sub = _launches(out)
+    phase(f"phase 21 proto_dma: rc 0, launches {sub}")
+    for name in ("gather_copy", "gather_rescore_mm", "gather_rescore",
+                 "gather_rows", "block_scores", "matmul_blockmax",
+                 "matmul_blockmax_only"):
+        assert sub.get(name, 0) > 0, (name, sub)
+    out = _run_module("phase 21 proto_calib", [
+        "-m", "better_search_rag_rust_tpu_torch.bench.proto_calib",
+        "--seed", str(seed)])
+    calib = _launches(out)
+    phase(f"phase 21 proto_calib: rc 0, launches {calib}")
+    assert calib.get("gather_rescore", 0) > 0, calib
+    return errs, times, launches
 
 
 def main() -> int:
@@ -1830,7 +1916,14 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     check_empty_batch(args.seed)
     (errs["matmul_blockmax2x"], times["matmul_blockmax2x"],
-     launches["matmul_blockmax2x"]) = check_proto_blockmax(args.seed, card)
+     launches["matmul_blockmax2x"], stores) = check_proto_blockmax(args.seed,
+                                                                   card)
+    dma_errs, dma_times, dma_launches = check_proto_dma(stores, args.seed,
+                                                        card)
+    errs.update(dma_errs)
+    times.update(dma_times)
+    for name in ("gather_copy", "gather_rescore_mm"):
+        launches[name] = dma_launches[name]
 
     print(card)
     print(json.dumps({"kernels": [

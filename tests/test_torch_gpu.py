@@ -646,3 +646,97 @@ def test_k10_int8_raw_key_and_scale_match_plain(cuda, sub, ew):
     torch.cuda.synchronize()
     for a, b in zip(got, want, strict=True):
         assert torch.equal(a, b)
+
+
+# -- K11 gather_copy and K12 gather_rescore_mm (the DMA gather prototypes) -----
+
+
+def _unit_ids(cuda, n_units, t, ks, seed):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    ids = torch.randint(0, n_units, (t, ks), generator=g, device=cuda)
+    return torch.sort(ids, dim=1).values.to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("dim,unit", [(256, 128), (768, 16), (136, 16),
+                                      (128, 1)])
+def test_k11_matches_plain_bitwise(cuda, dim, unit):
+    """Bound: none — K11 moves bytes (a 64 KB unit in two 32 KB chunks at
+    256 x 128). An id outside [0, R/unit) gives NaN and reads nothing."""
+    _, mat = _operands(cuda, torch.bfloat16, rows=4096, dim=dim)
+    n_units = 4096 // unit
+    ids = _unit_ids(cuda, n_units, 40, 12, dim + unit)
+    before = tk.launch_counts["gather_copy"]
+    out = tk.gather_copy(mat, ids, unit=unit)
+    torch.cuda.synchronize()
+    assert tk.launch_counts["gather_copy"] == before + 1
+    assert out.shape == (40, 12 * tk.V0_COLS) and out.dtype == torch.float32
+    assert torch.equal(out, tk.gather_copy_plain(mat, ids, unit=unit))
+    rows = tk.gather_rows(mat, ids, unit=unit).view(40, 12, unit, dim)
+    assert torch.equal(out.view(40, 12, -1), rows[:, :, 0, :128].float())
+    bad = ids.clone()
+    bad[3, 2], bad[5, 7] = -1, n_units
+    got = tk.gather_copy(mat, bad, unit=unit).view(40, 12, -1)
+    assert bool(got[3, 2].isnan().all()) and bool(got[5, 7].isnan().all())
+    keep = torch.ones((40, 12), dtype=torch.bool, device=cuda)
+    keep[3, 2] = keep[5, 7] = False
+    assert torch.equal(got[keep], out.view(40, 12, -1)[keep])
+
+
+def test_k11_k12_refuse_what_they_do_not_take(cuda):
+    q, mat = _operands(cuda, torch.float32, rows=4096, dim=256)
+    ids = _unit_ids(cuda, 32, 40, 4, 0)
+    with pytest.raises(TypeError, match="bf16"):
+        tk.gather_copy(mat, ids, unit=128)
+    with pytest.raises(TypeError, match="bf16"):
+        tk.gather_rescore_mm(q, mat, ids, q, mat[:128], unit=128)
+    q, mat = q.bfloat16(), mat.bfloat16()
+    with pytest.raises(ValueError, match="at least 128"):
+        tk.gather_copy(mat[:, :64].contiguous(), ids, unit=128)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tk.gather_rescore_mm(q, mat, ids, q, mat[:100], unit=128)
+
+
+@pytest.mark.parametrize("copies,n", [(0, 128), (1, 128), (3, 256),
+                                      (7, 512)])
+@pytest.mark.parametrize("unit,ks", [(16, 8), (128, 3)])
+def test_k12_is_k2_and_k5_and_matches_plain(cuda, copies, n, unit, ks):
+    """K12's scores are K2's bit for bit (one FMA chain), its ``mmo`` K5's
+    block maxima transposed bit for bit (one score tile, one reduction);
+    against its plain version within 1e-5. ``tq`` 300 spans three query
+    tiles; ``copies`` 0 leaves ``mmo`` NaN."""
+    q, mat = _operands(cuda, torch.bfloat16, rows=4096, dim=256)
+    mmq, mms = _operands(cuda, torch.bfloat16, rows=n, dim=256, t=300,
+                         seed=5)
+    ids = _unit_ids(cuda, 4096 // unit, 40, ks, unit)
+    ids[1, 0] = -1
+    before = tk.launch_counts["gather_rescore_mm"]
+    mmo, scores = tk.gather_rescore_mm(q, mat, ids, mmq, mms, unit=unit,
+                                       copies=copies)
+    torch.cuda.synchronize()
+    assert tk.launch_counts["gather_rescore_mm"] == before + 1
+    assert scores.shape == (40, ks * unit) and mmo.shape == (300, n // 128)
+    k2 = tk.gather_rescore(q, mat, ids, unit=unit)
+    assert torch.equal(scores.isnan(), k2.isnan())
+    assert torch.equal(scores.nan_to_num(), k2.nan_to_num())
+    p_mmo, p_scores = tk.gather_rescore_mm_plain(q, mat, ids, mmq, mms,
+                                                 unit=unit, copies=copies)
+    ok = ~scores.isnan()
+    assert (scores[ok] - p_scores[ok]).abs().max() <= TOL
+    if copies:
+        assert torch.equal(mmo, tk.matmul_blockmax_only(mmq, mms, n).T)
+        assert (mmo - p_mmo).abs().max() <= TOL
+    else:
+        assert bool(mmo.isnan().all())
+
+
+def test_k12_product_alone(cuda):
+    """No ids (KS 0): the launch runs the product's copies alone."""
+    q, mat = _operands(cuda, torch.bfloat16, rows=4096, dim=256)
+    mms = mat[:256].contiguous()
+    ids = torch.empty((40, 0), dtype=torch.int32, device=cuda)
+    mmo, scores = tk.gather_rescore_mm(q, mat, ids, q, mms, unit=16,
+                                       copies=5)
+    torch.cuda.synchronize()
+    assert scores.shape == (40, 0)
+    assert torch.equal(mmo, tk.matmul_blockmax_only(q, mms, 256).T)
