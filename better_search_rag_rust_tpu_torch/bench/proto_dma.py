@@ -201,16 +201,17 @@ def sorted_ids(rng: np.random.Generator, n_units: int, t: int, ks: int,
     return torch.from_numpy(ids).to(device)
 
 
-def gather_bound(ids, unit_bytes, *tensors, ops=0) -> tuple:
+def gather_bound(ids, unit_bytes, *tensors, ops=0, dtype=torch.bfloat16
+                 ) -> tuple:
     """(ms, "bytes" | "operations"): the least time for work that reads the
     distinct units ``ids`` selects (``unit_bytes`` each) and ``ids`` once,
     reads or writes each of ``tensors`` once, and does ``ops`` operations:
-    bytes over :data:`HBM_BYTES_PER_S`, operations over the bf16 tensor
-    peak."""
+    bytes over :data:`HBM_BYTES_PER_S`, operations over the operand
+    ``dtype``'s peak (the bf16 tensor peak by default)."""
     moved = (int(torch.unique(ids).numel()) * unit_bytes
              + sum(x.numel() * x.element_size() for x in (ids, *tensors)))
     t_bytes = 1e3 * moved / HBM_BYTES_PER_S
-    t_ops = 1e3 * ops / PEAK_OPS[torch.bfloat16]
+    t_ops = 1e3 * ops / PEAK_OPS[dtype]
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 

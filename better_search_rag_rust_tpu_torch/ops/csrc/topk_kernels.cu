@@ -1,8 +1,8 @@
 // Exact top-k scoring kernels for Hopper (sm_90a), plain C interface.
 //
 // Five kernels carry the exact search routes, K5 and K10 the block-max
-// measurements and K11 and K12 the gather measurements; each replaces Pallas
-// kernels of better_search_rag_rust_tpu/ops/topk_pallas.py (K10-K12: of
+// measurements and K11-K13 the gather measurements; each replaces Pallas
+// kernels of better_search_rag_rust_tpu/ops/topk_pallas.py (K10-K13: of
 // scripts/proto_*.py):
 //
 //   K1 bsr_matmul_blockmax2     <- matmul_blockmax2_only (:527, body :367)
@@ -18,9 +18,11 @@
 //                                  (:72, body :52): the copy-only gather
 //   K12 bsr_gather_rescore_mm   <- scripts/proto_dma3.py make_fused (:80, body
 //                                  :57): K2's scores plus a resident product
+//   K13 bsr_gather_cross        <- scripts/proto_fused.py fused_scores (:139,
+//                                  body :119): each 8-query group's full cross
 //
-// K4 and K11 move bytes only. K6 and K12's gather stage and sum exactly as K2
-// does (same chunks, same routines), so what is said of K2 below holds for
+// K4 and K11 move bytes only. K6, K12's gather and K13 stage and sum exactly as
+// K2 does (same chunks, same routines), so what is said of K2 below holds for
 // them. K5 is K3 without its score store: the same score tile and the same
 // block reduction (store_block_max, also K12's; K3's loop is the same code
 // written out), so its block maxima are K3's bit for bit on every dtype.
@@ -819,6 +821,71 @@ k12_gather_rescore_mm(const T* __restrict__ q, const T* __restrict__ shard,
     k12_gather_item<T>(q, shard, ids, R, D, KS, unit, item, out, smem);
 }
 
+// K13: P17's fused cross scores (scripts/proto_fused.py fused_scores, :139;
+// body :119). Queries come in groups of XQ = 8; step j of group i takes the
+// G slots j*G .. j*G+G-1 of each of the group's 8 queries (ids [T, k],
+// unit-row sub-block ids), C = 8*G*unit candidate rows in the TPU kernel's
+// order c = (g*8 + r)*unit + s (slot g, query r of the group, row s of the
+// unit), and scores ALL 8 queries against every one of them:
+//   out[j, 8i + a, c] = dot(q[8i + a], store row ids[8i + r, j*G + g]*unit + s)
+// in the G layout [k/G, T, C] directly. Keeping a == r gives K2's scores at
+// this unit (extract_diag in bench/proto_fused.py). Block (x, j, i) covers
+// candidates [x*GR, x*GR + GR) of step j of group i: one candidate row per
+// thread, staged GDK features at a time as K2 stages, against the group's 8
+// queries staged beside it, summed by fma_chunk<1, 8>, whose chain for each
+// (row, query) pair is K2's (same operand order, d in order): the diagonal is
+// K2's bit for bit. Each candidate row is read once per group, not once per
+// query as K2 at 8x ids would read it: that traffic is what the prototype
+// measures. An id outside [0, R/unit) scores NaN for all 8 queries. bf16
+// operands only (the prototype's). Bound on the card: the bytes of the
+// distinct sub-blocks selected (read once) and of the output, far above the
+// time of the 2*8*T*k*unit*D FLOPs at the bf16 tensor peak.
+constexpr int XQ = 8;
+
+__global__ void __launch_bounds__(GR)
+k13_gather_cross(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ shard,
+                 const int32_t* __restrict__ ids, int Tn, int R, int D, int k, int unit,
+                 int G, float* __restrict__ out) {
+  __shared__ float rs[GDK * GLD];
+  __shared__ float qs[GDK * XQ];
+  __shared__ int row_of[GR];  // candidate row's store row, -1 when its id is out of range
+  const int x = blockIdx.x, j = blockIdx.y, i = blockIdx.z, tid = threadIdx.x;
+  const int C = XQ * G * unit, n_units = R / unit, c0 = x * GR;
+  {
+    const int c = c0 + tid;
+    int row = -1;
+    if (c < C) {
+      const int g = c / (XQ * unit), r = (c / unit) % XQ;
+      const int uid = ids[(size_t)(i * XQ + r) * k + j * G + g];
+      if (uid >= 0 && uid < n_units) row = uid * unit + c % unit;
+    }
+    row_of[tid] = row;
+  }
+  __syncthreads();
+  float acc[1][XQ];
+#pragma unroll
+  for (int a = 0; a < XQ; ++a) acc[0][a] = 0.0f;
+  for (int d0 = 0; d0 < D; d0 += GDK) {
+    for (int e = tid; e < GR * GDK; e += GR) {
+      const int r = e / GDK, dd = e % GDK, gd = d0 + dd, row = row_of[r];
+      rs[dd * GLD + r] = (row >= 0 && gd < D) ? widen(shard[(size_t)row * D + gd]) : 0.0f;
+    }
+    for (int e = tid; e < XQ * GDK; e += GR) {
+      const int a = e / GDK, dd = e % GDK, gd = d0 + dd;
+      qs[dd * XQ + a] = gd < D ? widen(q[(size_t)(i * XQ + a) * D + gd]) : 0.0f;
+    }
+    __syncthreads();
+    fma_chunk<1, XQ>(acc, rs + tid, GLD, qs, XQ, GDK);
+    __syncthreads();
+  }
+  const int c = c0 + tid;
+  if (c >= C) return;
+  const bool ok = row_of[tid] >= 0;
+#pragma unroll
+  for (int a = 0; a < XQ; ++a)
+    out[((size_t)j * Tn + i * XQ + a) * C + c] = ok ? acc[0][a] : __uint_as_float(0x7fffffffu);
+}
+
 template <typename K>
 int raise_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
@@ -1063,6 +1130,18 @@ int bsr_gather_rescore_mm(const void* q, const void* shard, const int32_t* ids, 
                           void* stream) {
   return launch_k12(q, shard, ids, Tn, R, D, KS, unit, mmq, mms, tq, mm_rows, copies, out,
                     mmo, static_cast<cudaStream_t>(stream));
+}
+
+// K13: bf16 queries [Tn, D] (Tn % 8 == 0) and store [R, D] (R % unit == 0),
+// ids [Tn, k] unit ids with k % G == 0; out [k / G, Tn, 8 * G * unit] f32.
+int bsr_gather_cross(const void* q, const void* shard, const int32_t* ids, int Tn, int R,
+                     int D, int k, int unit, int G, float* out, void* stream) {
+  if (Tn % XQ || G <= 0 || k % G || unit <= 0) return (int)cudaErrorInvalidValue;
+  dim3 grid((XQ * G * unit + GR - 1) / GR, k / G, Tn / XQ);
+  k13_gather_cross<<<grid, GR, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(shard), ids, Tn,
+      R, D, k, unit, G, out);
+  return (int)cudaGetLastError();
 }
 
 const char* bsr_error_string(int err) {

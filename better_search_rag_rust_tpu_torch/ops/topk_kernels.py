@@ -22,13 +22,17 @@ K11 :func:`gather_copy`           move each selected unit whole, keep 128
                                   values of its row 0 (bf16)
 K12 :func:`gather_rescore_mm`     K2's scores plus ``copies`` copies of a
                                   resident product's block maxima (bf16)
+K13 :func:`gather_cross`          each 8-query group against all of its
+                                  queries' selected units, the full cross
+                                  (bf16)
 === ============================= ======================================
 
 K10 replaces the block-max prototypes of the TPU measurement record
 (``scripts/proto_*.py``); :mod:`..bench.proto_blockmax` calls it, K1, K3
 and K5 under each prototype's name. K11 and K12 replace the gather
 prototypes' V0 and resident-product kernels; :mod:`..bench.proto_dma`
-calls them and K2.
+calls them and K2. K13 replaces the fused two-level prototype's cross
+scores; :mod:`..bench.proto_fused` calls it.
 
 A wrapper takes the plain version only because its tensors lie on the CPU
 (that is how the CPU tests run the whole route); for CUDA tensors it
@@ -89,6 +93,8 @@ _K10_DTYPES = (torch.bfloat16, torch.int8)
 #: Values of each selected unit's row 0 that K11 keeps (the TPU V0's
 #: ``[0, :128]``).
 V0_COLS = 128
+#: Queries per group of K13 (the TPU kernel's ``nq``).
+CROSS_GROUP = 8
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`;
 #: the int8 bodies count under ``<wrapper>_int8``.
@@ -106,6 +112,7 @@ launch_counts: Dict[str, int] = {
     "matmul_blockmax2x": 0,
     "gather_copy": 0,
     "gather_rescore_mm": 0,
+    "gather_cross": 0,
 }
 
 
@@ -342,6 +349,32 @@ def gather_rescore_mm_plain(queries, shard, ids, mmq, mms, *, unit=BLOCK,
 def _no_product(mmq, n):
     return torch.full((mmq.shape[0], n // BLOCK), float("nan"),
                       device=mmq.device)
+
+
+def gather_cross_plain(queries, shard, ids, *, unit, G):
+    """Plain K13: the same ``[k/G, T, 8*G*unit]`` output as
+    :func:`gather_cross`, one step ``j`` at a time: an index gather of the
+    step's candidate rows for every group, then one batched f32 product
+    (all steps at once would hold every gathered row in f32: 6.7 GB at 10M x
+    256, unit 128). An id outside ``[0, R/unit)`` scores NaN."""
+    t, k = ids.shape
+    r, d = shard.shape
+    nq, n_units = CROSS_GROUP, r // unit
+    c = nq * G * unit
+    out = torch.empty((k // G, t, c), dtype=torch.float32, device=shard.device)
+    ng = t // nq
+    qg = queries.to(torch.float32).view(ng, nq, d)
+    offs = torch.arange(unit, device=shard.device)
+    for j in range(k // G):
+        # [T/8, G, 8]: candidate order (g * 8 + r) * unit + s, as the kernel's
+        uid = ids[:, j * G:(j + 1) * G].long().view(ng, nq, G).transpose(1, 2)
+        ok = (uid >= 0) & (uid < n_units)
+        rows = (uid.clamp(0, n_units - 1)[..., None] * unit + offs)
+        cand = shard[rows.reshape(ng, c)].to(torch.float32)
+        s = torch.bmm(qg, cand.transpose(1, 2))
+        bad = (~ok)[..., None].expand(ng, G, nq, unit).reshape(ng, 1, c)
+        out[j] = s.masked_fill_(bad, float("nan")).reshape(t, c)
+    return out
 
 
 def block_scores_plain(queries, gathered):
@@ -781,4 +814,49 @@ def block_scores(queries, gathered):
         _launch("block_scores", "bsr_block_scores", gathered,
                 queries.data_ptr(), gathered.data_ptr(),
                 _DTYPE_CODES[gathered.dtype], t, c, d, out.data_ptr())
+    return out
+
+
+def gather_cross(queries, shard, ids, *, unit, G):
+    """K13. ``[k/G, T, 8*G*unit]`` f32: for each group of 8 consecutive
+    queries and each step ``j < k/G``, the scores of all 8 queries against
+    the ``8*G*unit`` rows their ``G`` selected units of the step hold
+    (``ids [T, k]`` int32 unit ids into ``shard [R, D]``), in the TPU
+    kernel's order::
+
+        out[j, 8i + a, (g*8 + r)*unit + s]
+            = q[8i + a] . shard[ids[8i + r, j*G + g] * unit + s]
+
+    Keeping ``a == r`` gives :func:`gather_rescore`'s scores at ``unit``, bit
+    for bit on the card (one FMA chain); each candidate row is read once per
+    group. An id outside ``[0, R/unit)`` scores NaN.
+
+    Replaces ``fused_scores`` of ``scripts/proto_fused.py`` (:139). bf16
+    operands (the prototype's); ``T % 8`` and ``k % G`` must be 0, where the
+    script's grid (T/8, k/G) silently drops a tail."""
+    _check_operands(queries, shard)
+    t, d = queries.shape
+    r = shard.shape[0]
+    if shard.dtype != torch.bfloat16:
+        raise TypeError(f"K13 takes bf16 operands, got {shard.dtype}")
+    _check_ids(ids, t, queries.device)
+    k = ids.shape[1]
+    if t % CROSS_GROUP:
+        raise ValueError(f"T {t} must be a multiple of {CROSS_GROUP}: the "
+                         "script's grid (T/8, k/G) would drop the ragged tail")
+    if G <= 0 or k % G:
+        raise ValueError(f"k {k} must be a multiple of G {G}: the script's "
+                         "grid (T/8, k/G) would drop the ragged tail")
+    if unit <= 0 or r % unit:
+        raise ValueError(f"rows {r} must be a multiple of unit {unit}")
+    if k // G > 65535:
+        raise ValueError(f"k/G {k // G} > 65535 steps")
+    if queries.device.type == "cpu":
+        return gather_cross_plain(queries, shard, ids, unit=unit, G=G)
+    out = torch.empty((k // G, t, CROSS_GROUP * G * unit), dtype=torch.float32,
+                      device=queries.device)
+    if out.numel():
+        _launch("gather_cross", "bsr_gather_cross", shard, queries.data_ptr(),
+                shard.data_ptr(), ids.data_ptr(), t, r, d, k, unit, G,
+                out.data_ptr(), int8_body=False)
     return out

@@ -126,12 +126,33 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    (K12 at ``mm_n`` 0), the product alone (K5 once per copy; K12 without
    the gather) and their sum; then ``python -m
    better_search_rag_rust_tpu_torch.bench.proto_dma`` and ``...proto_calib``
-   (its ``make_v3`` lines) as subprocesses, each kernel launched.
+   (its ``make_v3`` lines) as subprocesses, each kernel launched;
+22. the fused two-level prototype P17 of ``scripts/proto_fused.py`` through
+   ``bench/proto_fused.py``'s functions on phase 20's 1,001,472 x 768
+   (1,000,448 valid) and 10,027,008 x 256 bf16 stores at the script's shapes
+   (T 512, k 100, S 16/32 and 32/128, G 1/2/4): K13 ``gather_cross`` against
+   its plain version within 1e-5 and its diagonal bit for bit K2 at unit S,
+   the end-to-end values bit for bit K3's on the first 8,192 rows and the
+   exact-index match 1.0 against the oracle on the first 131,072 rows; then
+   ``python -m better_search_rag_rust_tpu_torch.bench.proto_fused`` as a
+   subprocess, whose 1m S=16 G=2 case gives K13's times;
+23. the certified f32 prototypes P22 and P23 of
+   ``scripts/proto_f32_rescore.py`` and ``proto_f32_rescore2.py`` through
+   ``bench/proto_f32.py``'s functions on one 1,015,808 x 768 f32 store built
+   as the scripts build theirs: Q1's three arms bit for bit on the kernels'
+   chain (the ``torch.matmul`` arms printed, not gated), Q2's K1 error
+   within EPS1, the EPS2 check, every certified query of ``build_fast``,
+   ``p2_192/256/320`` and ``p3_192/320`` equal to the oracle (K3) on 64
+   queries; then ``python -m
+   better_search_rag_rust_tpu_torch.bench.proto_f32`` as a subprocess, each
+   kernel launched, which also holds K4 (P22) bit for bit its plain version
+   and K2 f32 (P23) at KS 192 and 320 within 1e-5 of its plain version and
+   bit for bit K6 on K4's rows.
 
 Every kernel's time is printed beside its plain version's, one PyTorch call
 computing the same function where there is one (``library``: the product
 alone for K1/K3/K5, ``scaled_dot_product_attention`` on rotated q/k/v for
-K7/K8/K9, indexing for K4, ``bmm`` for K6; none for K2, K11 and K12), and
+K7/K8/K9, indexing for K4, ``bmm`` for K6; none for K2, K11, K12 and K13), and
 its bound: the larger of the bytes it must move (a gather: the distinct
 units it selects) over 3.35 TB/s and its operations (K12: every copy of
 its product) over the named peak
@@ -197,6 +218,8 @@ KERNELS = {
     # P19's copy-only V0 and P21's gather beside a resident product
     "gather_copy": (CSRC + "topk_kernels.cu", "scripts/proto_dma2.py:72"),
     "gather_rescore_mm": (CSRC + "topk_kernels.cu", "scripts/proto_dma3.py:80"),
+    # P17's fused cross scores; timed at 1m S=16 G=2 by bench/proto_fused.py
+    "gather_cross": (CSRC + "topk_kernels.cu", "scripts/proto_fused.py:139"),
 }
 #: the encoder's shape: batch, sequence, heads, head width
 B_ENC, S_ENC, H_ENC, HD_ENC = 256, 512, 12, 64
@@ -1649,8 +1672,9 @@ def check_proto_blockmax(seed, card):
     """Phase 20: P1-P16 at their scripts' shapes against their plain
     versions and each other; K10's time; the proto_blockmax measurement as
     a subprocess. Returns (K10's max error, its timing, the measurement
-    run's launches, its 10,027,008 x 256 and 1,048,576 x 768 bf16 stores
-    for phase 21)."""
+    run's launches, {name: (data, valid)} of its 10,027,008 x 256,
+    1,048,576 x 768 and 1,001,472 x 768 bf16 stores, for phases 21 and
+    22)."""
     from better_search_rag_rust_tpu_torch.bench import proto_blockmax as pb
     from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
 
@@ -1661,8 +1685,8 @@ def check_proto_blockmax(seed, card):
             torch.cuda.empty_cache()
             stores[name] = pb.make_store(name, 1, seed + 7,
                                          torch.device("cuda"))
-            if name in ("10m", "1m"):
-                kept[name] = stores[name][0]
+            if name in ("10m", "1m", "fused1m"):
+                kept[name] = stores[name]
         data, valid = stores[name]
         q = pb.make_queries(name, data, valid, t, seed + 8)
         before = tk.launch_counts["matmul_blockmax2x"]
@@ -1726,7 +1750,7 @@ def check_proto_dma(stores, seed, card):
     args = argparse.Namespace(seed=seed + 9, rows_divisor=1)
     torch.cuda.synchronize()
     tk.reset_launch_counts()
-    results, lines = pd.run_all(stores.pop("10m"), stores.pop("1m"), args,
+    results, lines = pd.run_all(stores["10m"][0], stores.pop("1m")[0], args,
                                 gen, dev)
     torch.cuda.synchronize()
     launches = {name: tk.launch_counts[name] for name in
@@ -1768,6 +1792,123 @@ def check_proto_dma(stores, seed, card):
     phase(f"phase 21 proto_calib: rc 0, launches {calib}")
     assert calib.get("gather_rescore", 0) > 0, calib
     return errs, times, launches
+
+
+def check_proto_fused(stores, seed, card):
+    """Phase 22: P17 on phase 20's 1,001,472 x 768 (1,000,448 valid) and
+    10,027,008 x 256 bf16 stores at the script's shapes (T 512, k 100, S
+    16/32 and 32/128, G 1/2/4): K13 against its plain version, its diagonal
+    bit for bit K2 at unit S, the end-to-end values bit for bit K3's on the
+    first 8,192 rows and the exact-index match 1.0 on the 131,072-row
+    prefix; then the proto_fused measurement as a subprocess. Returns (K13's
+    max error, its timing at 1m S=16 G=2 from the measurement, its launches
+    over the phase's drive)."""
+    from better_search_rag_rust_tpu_torch.bench import proto_blockmax as pb
+    from better_search_rag_rust_tpu_torch.bench import proto_fused as pf
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 10)
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    k13_err = 0.0
+    for name, (store_name, s_list) in pf.CONFIGS.items():
+        data, valid = stores.pop(store_name)
+        q = torch.randn((pf.T, data.shape[1]), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        qf32 = q.float()
+        for S in s_list:
+            bms, bm = pb.proto_fused_bm2(q, data, valid, S=S)
+            ids = pf.select_subblocks(bms, bm, pf.K, S=S)
+            del bms, bm
+            k2 = tk.gather_rescore(q, data, ids, unit=S)
+            for G in pf.GS:
+                out = pf.fused_scores(qf32, data, ids, S=S, G=G)
+                err = max_abs(out, pf.fused_scores(qf32, data, ids, S=S, G=G,
+                                                   plain=True))
+                same = torch.equal(pf.extract_diag(out, S=S, G=G), k2)
+                torch.cuda.synchronize()
+                del out
+                phase(f"phase 22 K13 gather_cross {name} [{pf.T} x k {pf.K} "
+                      f"x S {S} of {data.shape[0]} x {data.shape[1]}] G={G}: "
+                      f"max|kernel - plain|={err:.3g} (bound {TOL}); "
+                      f"diagonal bit for bit K2 at unit {S}: {same}")
+                assert err <= TOL and same, (name, S, G, err)
+                k13_err = max(k13_err, err)
+            del k2
+            tv, ti = pf.e2e(qf32, data, valid, S=S)
+            check = pf.bitwise_check(tv, ti, q, data, dev)
+            match = pf.prefix_match(qf32, q, data, pf.K, S)
+            phase(f"phase 22 {name} S={S} end to end ({valid} valid): values "
+                  f"bit for bit K3's on the first {pf.BITWISE_ROWS} rows: "
+                  f"{check['ok']} ({check['pairs']} pairs); exact-index "
+                  f"match vs the oracle on the first {pf.ORACLE_ROWS} rows: "
+                  f"{match}")
+            assert check["ok"] and match == 1.0, (name, S, check, match)
+        del data, q, qf32
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = tk.launch_counts["gather_cross"]
+    phase(f"phase 22 kernel launches over the prototype: gather_cross "
+          f"{launches}, matmul_blockmax2_only "
+          f"{tk.launch_counts['matmul_blockmax2_only']}")
+    assert launches > 0
+    out = _run_module("phase 22 proto_fused", [
+        "-m", "better_search_rag_rust_tpu_torch.bench.proto_fused",
+        "--seed", str(seed)])
+    sub = _launches(out)
+    phase(f"phase 22 proto_fused: rc 0, launches {sub}")
+    for name in ("gather_cross", "matmul_blockmax2_only", "gather_rescore",
+                 "matmul_blockmax"):
+        assert sub.get(name, 0) > 0, (name, sub)
+    res = next(r for r in _result_line(out)["results"]
+               if r["case"] == "fused_scores 1m S=16 G=2 (K13)")
+    timing = _dma_timing(res)
+    phase(f"phase 22 [{card}] " + timing_line(
+        "gather_cross (1m S=16 G=2, from the measurement)", timing))
+    return k13_err, timing, launches
+
+
+def check_proto_f32(seed, card):
+    """Phase 23: P22 and P23 on one 1,015,808 x 768 f32 store built as the
+    scripts build theirs: Q1's chain arm bit for bit, Q2 within EPS1, the
+    EPS2 check, every certified query of ``build_fast``, ``p2_192/256/320``
+    and ``p3_192/320`` equal to the oracle; then the proto_f32 measurement
+    as a subprocess, which also holds K4 (P22) bit for bit its plain
+    version and K2 f32 (P23) within 1e-5 of its plain version and bit for
+    bit K6 on K4's rows."""
+    from better_search_rag_rust_tpu_torch.bench import proto_f32 as pf
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+
+    dev = torch.device("cuda")
+    shard, queries = pf.make_store(pf.SCRIPTS, seed + 11, dev)
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    lines = []
+    checks = pf.run_checks(shard, queries, pf.SCRIPTS, dev, lines)
+    torch.cuda.synchronize()
+    for line in lines:
+        phase("phase 23 " + line)
+    failed = [name for name, c in checks.items() if not c["ok"]]
+    assert not failed, (failed, checks)
+    launches = {name: tk.launch_counts[name] for name in (
+        "matmul_blockmax2_only", "gather_rows", "block_scores",
+        "gather_rescore", "matmul_blockmax")}
+    phase(f"phase 23 kernel launches over the prototypes: {launches}")
+    assert all(launches.values()), launches
+    del shard, queries
+    torch.cuda.empty_cache()
+    out = _run_module("phase 23 proto_f32", [
+        "-m", "better_search_rag_rust_tpu_torch.bench.proto_f32",
+        "--seed", str(seed)])
+    sub = _launches(out)
+    phase(f"phase 23 proto_f32: rc 0, launches {sub}")
+    for name in launches:
+        assert sub.get(name, 0) > 0, (name, sub)
+    kernels = _result_line(out)["kernels"]
+    assert all(k["ok"] for k in kernels) and all(
+        k["equals_k6"] for k in kernels if "equals_k6" in k), kernels
 
 
 def main() -> int:
@@ -1924,6 +2065,9 @@ def main() -> int:
     times.update(dma_times)
     for name in ("gather_copy", "gather_rescore_mm"):
         launches[name] = dma_launches[name]
+    (errs["gather_cross"], times["gather_cross"],
+     launches["gather_cross"]) = check_proto_fused(stores, args.seed, card)
+    check_proto_f32(args.seed, card)
 
     print(card)
     print(json.dumps({"kernels": [

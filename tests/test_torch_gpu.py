@@ -740,3 +740,51 @@ def test_k12_product_alone(cuda):
     torch.cuda.synchronize()
     assert scores.shape == (40, 0)
     assert torch.equal(mmo, tk.matmul_blockmax_only(q, mms, 256).T)
+
+
+@pytest.mark.parametrize("unit,G", [(16, 1), (16, 4), (32, 2), (128, 1)])
+@pytest.mark.parametrize("dim", [256, 100])  # 100: a ragged D chunk
+def test_k13_matches_plain_and_its_diagonal_is_k2(cuda, unit, G, dim):
+    """K13's full cross of each 8-query group against its plain version
+    within TOL; its diagonal (each query's own sub-blocks) is K2's scores
+    at the same unit bit for bit (one FMA chain). An id outside [0,
+    R/unit) scores NaN for all 8 queries of its group."""
+    from better_search_rag_rust_tpu_torch.bench.proto_fused import extract_diag
+
+    q, mat = _operands(cuda, torch.bfloat16, rows=4096, dim=dim)
+    ids = _unit_ids(cuda, 4096 // unit, 40, 8, unit + G)
+    before = tk.launch_counts["gather_cross"]
+    out = tk.gather_cross(q, mat, ids, unit=unit, G=G)
+    torch.cuda.synchronize()
+    assert tk.launch_counts["gather_cross"] == before + 1
+    assert out.shape == (8 // G, 40, 8 * G * unit)
+    assert (out - tk.gather_cross_plain(q, mat, ids, unit=unit, G=G)
+            ).abs().max() <= TOL
+    assert torch.equal(extract_diag(out, S=unit, G=G),
+                       tk.gather_rescore(q, mat, ids, unit=unit))
+    bad = ids.clone()
+    bad[9, 1] = -1  # group 1, query 1 of it, slot 1
+    got = tk.gather_cross(q, mat, bad, unit=unit, G=G)
+    j, g = 1 // G, 1 % G
+    cols = slice((g * 8 + 1) * unit, (g * 8 + 2) * unit)
+    assert bool(got[j, 8:16, cols].isnan().all())
+    got[j, 8:16, cols] = out[j, 8:16, cols]
+    assert torch.equal(got, out)
+
+
+def test_k13_refuses_what_it_does_not_take(cuda):
+    """T % 8 and k % G (the script's grid would drop the tail), f32
+    operands (the prototype is bf16); k 0 launches nothing."""
+    q, mat = _operands(cuda, torch.bfloat16, rows=4096, dim=256)
+    ids = _unit_ids(cuda, 256, 40, 6, 0)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tk.gather_cross(q[:36].contiguous(), mat, ids[:36].contiguous(),
+                        unit=16, G=1)
+    with pytest.raises(ValueError, match="multiple of G"):
+        tk.gather_cross(q, mat, ids, unit=16, G=4)
+    with pytest.raises(TypeError, match="bf16"):
+        tk.gather_cross(q.float(), mat.float(), ids, unit=16, G=1)
+    before = tk.launch_counts["gather_cross"]
+    out = tk.gather_cross(q, mat, ids[:, :0].contiguous(), unit=16, G=2)
+    assert out.shape == (0, 40, 256)
+    assert tk.launch_counts["gather_cross"] == before

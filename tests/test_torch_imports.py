@@ -38,7 +38,7 @@ import chip_smoke  # its top-level imports only; main() is not run
 import bench_torch  # likewise
 for mod in ("utils.profiling", "bench.suite", "bench.jabref",
             "bench.proto_calib", "bench.proto_attn", "bench.proto_blockmax",
-            "bench.proto_dma"):
+            "bench.proto_dma", "bench.proto_fused", "bench.proto_f32"):
     assert port.__name__ + "." + mod in names, mod
 from better_search_rag_rust_tpu_torch import native
 from better_search_rag_rust_tpu_torch.models.tokenizer import HashingTokenizer
