@@ -238,9 +238,9 @@ def measure(script, label, call, plain_call, device, *, bound, gathered,
 def _dense_check(out, q, data, ids, unit, device) -> dict:
     """The scripts' exactness check: the scores of the first 8 queries on
     the units inside the first ``EXACT_ROWS[unit]`` rows against K3's dense
-    scores there — bit for bit on the card (one FMA chain per score), within
-    :data:`TOL` on the CPU, where the plain products take their own
-    orders."""
+    scores there — bit for bit on the card (one mma.sync k16 order per bf16
+    score), within :data:`TOL` on the CPU, where the plain products take
+    their own orders."""
     head = min(EXACT_ROWS[unit], data.shape[0])
     dense, _ = tk.matmul_blockmax(q[:8].contiguous(), data[:head], head)
     ks = ids.shape[1]

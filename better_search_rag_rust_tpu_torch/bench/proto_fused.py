@@ -161,8 +161,8 @@ def e2e(queries_f32, data, valid_rows, *, k=K, S=16, plain=False):
 def bitwise_check(tv, ti, q, data, device) -> dict:
     """The script's check: each returned value of the first 8 queries whose
     row lies in the first :data:`BITWISE_ROWS` rows against K3's score of
-    that pair — bit for bit on the card (one FMA chain), within :data:`TOL`
-    on the CPU."""
+    that pair — bit for bit on the card (one mma.sync k16 order per bf16
+    score), within :data:`TOL` on the CPU."""
     head = min(BITWISE_ROWS, data.shape[0])
     direct, _ = tk.matmul_blockmax(q[:8].contiguous(), data[:head], head)
     rows = ti[:8].long()

@@ -27,27 +27,44 @@
 // block reduction (store_block_max, also K12's; K3's loop is the same code
 // written out), so its block maxima are K3's bit for bit on every dtype.
 //
-// ONE ARITHMETIC RULE. Every score any of the three kernels produces is the
-// f32 chain
+// ONE ARITHMETIC RULE PER DTYPE. Every kernel scores a (query, row) pair of a
+// given store dtype by the same rule, so the pair scores bit for bit the same
+// in K1, K2 and K3 (and K5, K6, K10, K12, K13). The rescore route's argmax
+// fast path (ops/topk.py) sorts K1 maxima and K2 rescored scores together and
+// is exact only because of this identity; the port's oracle scores through K3.
+// The JAX reference gets the same identity from one MXU dot per score
+// (topk_pallas.py:47-66, _sims_dot). There is no split-K anywhere.
+//
+// BF16 STORES: the tensor cores. Every score starts at +0.0 and advances over
+// D in 16-feature steps d0 = 0, 16, 32, ... in increasing order: one
+//     mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
+// per step from a +0.0 accumulator, then score = __fadd_rn(score, that sum)
+// (mma_k16() below, the only code that advances a bf16 score), store rows in
+// A, queries in B, feature d0 + j in k slot j; a ragged last step is
+// zero-padded in both operands, and no step lies wholly past D. Each element
+// of an mma result depends only on its own row of A and its own column of B
+// (and the +0.0 it starts from), so how a kernel tiles rows, queries or D,
+// and what sits in the other rows and columns of the instruction, cannot
+// change a pair's bits: K1/K3/K5/K10/K12's product stage bf16 slabs and load
+// fragments with ldmatrix (score_tile<__nv_bfloat16>), K2/K6/K12's gather/K13
+// build them from their widened staging (mma_staged(), exact: the values
+// were bf16), the same k slots either way. The sum of 16 products inside the
+// instruction is not a chain of rounded FMAs and may truncate; the adds round
+// to nearest. The score's error against the exact product of the same bf16
+// operands is at most D * 2^-23 * sum_d |row_d q_d| (twice f32's round-off of
+// D terms; ops/topk_kernels.py:score_bound, which chip_smoke.py and the gpu
+// tests hold every kernel to).
+//
+// FLOAT32 STORES: the SIMT FMA chain, exact f32 arithmetic,
 //     acc = 0.0f;  for d = 0 .. D-1:  acc = __fmaf_rn(row[d], q[d], acc)
-// with bf16 operands widened by __bfloat162float (exact). fma_chunk() below
-// is the only code that advances an accumulator, and all three kernels call
-// it over consecutive D chunks, so each accumulator sees d in order no
-// matter how a kernel tiles rows, queries or D. Zero padding of a ragged D
-// chunk appends exact +0 terms, which leave the chain's bits unchanged (an
-// accumulator that starts at +0.0 never becomes -0.0). Hence the same
-// (query, row) pair scores bit for bit the same in K1, K2 and K3. The
-// rescore route's argmax fast path (ops/topk.py) sorts K1 maxima and K2
-// rescored scores together and is exact only because of this identity; the
-// port's oracle scores through K3. There is no split-K and no tensor-core
-// path here. A later change that moves any one kernel to tensor cores
-// (wgmma) or to another summation order must move the other two with it, or
-// turn the argmax fast path off.
+// fma_chunk() below is the only code that advances an f32 accumulator, and
+// every kernel calls it over consecutive D chunks, so each accumulator sees d
+// in order. Zero padding of a ragged D chunk appends exact +0 terms, which
+// leave the chain's bits unchanged (an accumulator that starts at +0.0 never
+// becomes -0.0). TF32 would not be exact, so f32 stays off the tensor cores
+// (the TPU's Mosaic f32 product was not exact either).
 //
-// Because the chain is exact f32 arithmetic, float32 stores are sound on
-// these kernels as well as bf16 ones (the TPU's Mosaic f32 product was not).
-//
-// INT8 STORES (the lattice of ops/quantize.py) take the other rule: one
+// INT8 STORES (the lattice of ops/quantize.py) take the third rule: one
 // int32 accumulator per score, advanced only by dp4a_chunk() (__dp4a over
 // 4-byte packs of features; a ragged tail is zero-padded, adding exact
 // zeros), then ONE int8_score(): __fmul_rn(float(acc), INT8_INV_SCALE2).
@@ -83,9 +100,9 @@ constexpr float PAD_SIM = -3.0f;
 // f32(1) / f32(127 * 127), bitwise ops/quantize.py's INT8_INV_SCALE2.
 constexpr uint32_t INT8_INV_SCALE2_BITS = 0x38820610u;
 
-// Score tile of K1/K3: TR store rows x TQ queries per block, NT threads, each
-// thread a MR x MQ micro-tile of accumulators; D staged through shared memory
-// DK features at a time, transposed and widened to f32.
+// Score tile of K1/K3: TR store rows x TQ queries per block, NT threads.
+// f32 and int8: each thread a MR x MQ micro-tile of accumulators; D staged
+// through shared memory DK features at a time, transposed (f32 widened).
 constexpr int TR = 128;
 constexpr int TQ = 128;
 constexpr int DK = 16;
@@ -94,6 +111,23 @@ constexpr int MR = 8;
 constexpr int MQ = 8;
 constexpr int LDS = TR + 4;       // padded leading dim of the staged tiles
 constexpr int LDO = TQ + 1;       // padded leading dim of the score tile
+// bf16: WM x WN warps, each a (TR / WM) x (TQ / WN) tile of MT x NQ8 mma
+// fragments (64 f32 accumulators a thread); D staged SK features at a time,
+// row-major bf16, in an NSTAGE ring of cp.async slabs whose rows are padded
+// to SLD (144 bytes: the 8 rows of an ldmatrix fall in 8 disjoint bank
+// quarters, so it is free of bank conflicts). On the card (bench/ab_topk.py,
+// PERF.md) SK 64 x 2 stages beat SK 32 x 3, which spills at the 128-register
+// cap, and 2 CTAs per SM beat 1 with 255 registers; 4 x 2 and 2 x 4 warps
+// time alike.
+constexpr int WM = 4;
+constexpr int WN = 2;
+constexpr int MT = TR / WM / 16;
+constexpr int NQ8 = TQ / WN / 8;
+constexpr int SK = 64;
+constexpr int SLD = SK + 8;
+constexpr int NSTAGE = 2;
+constexpr int SLAB = TR * SLD;    // bf16 elements of one operand's slab
+static_assert(WM * WN * 32 == NT, "one warp per warp tile");
 
 // K2: one query x GR gathered rows per block, one row per thread.
 constexpr int GR = 128;
@@ -110,9 +144,10 @@ template <> __device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 
   return __bfloat162float(x);
 }
 
-// THE dot routine (see the header): advance every accumulator acc[i][j] by
-// the features d = 0 .. dk-1 of a staged chunk, in order, one FMA each.
-// r[d * r_ld + i] is row i's feature d, q[d * q_ld + j] query j's.
+// THE f32 dot routine (see the header): advance every accumulator acc[i][j]
+// by the features d = 0 .. dk-1 of a staged chunk, in order, one FMA each.
+// r[d * r_ld + i] is row i's feature d, q[d * q_ld + j] query j's. f32
+// operands only: bf16 ones go through mma_k16.
 template <int M, int N>
 __device__ __forceinline__ void fma_chunk(float (&acc)[M][N],
                                           const float* __restrict__ r, int r_ld,
@@ -132,10 +167,124 @@ __device__ __forceinline__ void fma_chunk(float (&acc)[M][N],
   }
 }
 
+// ---- bf16 on the tensor cores (see the header) ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+// 16 bytes from gmem, or 16 zero bytes when !full (gmem is then not read).
+__device__ __forceinline__ void cp_async16_or_zero(void* smem, const void* gmem, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8i .. 8i+7 give the row addresses of matrix i,
+// whose row lane/4, elements 2*(lane%4) and +1, land in r[i] (lower column
+// in the lower half).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// THE bf16 dot step (see the header): c += A (16 rows x 16 features) * B (16
+// features x 8 queries), f32 scores: one mma.sync from a +0.0 accumulator,
+// then one rounded add per score. Fragments as the PTX ISA lays out m16n8k16,
+// with g = lane / 4 and t = lane % 4:
+//   a[0] (row g, k 2t..2t+1)   a[1] (row g+8, k 2t..)   a[2] (row g, k 2t+8..)
+//   a[3] (row g+8, k 2t+8..);  b[0] (k 2t..2t+1, query g)  b[1] (k 2t+8.., g);
+//   c[0..1] (row g, queries 2t, 2t+1)  c[2..3] (row g+8, queries 2t, 2t+1).
+// Accumulating in the instruction (c as its C operand) aligns each product
+// to the running score and drops its low bits: against float64 that had 3x
+// the largest error and 6x the mean error of this form on raw normal queries
+// (bench/ab_topk.py), and K13 left the plain version's 1e-5 on the
+// prototype's data (chip_smoke.py phase 22), for 20 % of K1's time.
+__device__ __forceinline__ void mma_k16(float (&c)[4], const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+  float p[4];
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(p[0]), "=f"(p[1]), "=f"(p[2]), "=f"(p[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], p[e]);
+}
+
+// Two staged f32 values (bf16 widened, so exact) as one bf16x2 operand.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The gather kernels' bf16 product: advance a warp's M16 m16 tiles — staged
+// rows rb .. rb + 16*M16 - 1 of the transposed f32 staging rs[k * r_ld + r]
+// that K2 fills — against B's columns j < nq, query j's staged feature k at
+// qs[k * q_ld + j] (columns nq .. 7 zero), by the k16 steps of a chunk of dk
+// staged features whose first is feature d0, skipping steps at or past D as
+// score_tile<__nv_bfloat16> does. Staged feature d0 + kk + j sits in k slot j
+// of step d0 + kk, as in score_tile's ldmatrix fragments.
+template <int M16>
+__device__ __forceinline__ void mma_staged(float (&acc)[M16][4], const float* rs, int r_ld,
+                                           int rb, const float* qs, int q_ld, int nq,
+                                           int d0, int dk, int D) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int kk = 0; kk < dk && d0 + kk < D; kk += 16) {
+    const int k0 = kk + 2 * t;
+    uint32_t b[2] = {0u, 0u};
+    if (g < nq) {
+      b[0] = pack_bf16x2(qs[k0 * q_ld + g], qs[(k0 + 1) * q_ld + g]);
+      b[1] = pack_bf16x2(qs[(k0 + 8) * q_ld + g], qs[(k0 + 9) * q_ld + g]);
+    }
+#pragma unroll
+    for (int m = 0; m < M16; ++m) {
+      const float* r = rs + rb + m * 16 + g;
+      const uint32_t a[4] = {pack_bf16x2(r[k0 * r_ld], r[(k0 + 1) * r_ld]),
+                             pack_bf16x2(r[k0 * r_ld + 8], r[(k0 + 1) * r_ld + 8]),
+                             pack_bf16x2(r[(k0 + 8) * r_ld], r[(k0 + 9) * r_ld]),
+                             pack_bf16x2(r[(k0 + 8) * r_ld + 8], r[(k0 + 9) * r_ld + 8])};
+      mma_k16(acc[m], a, b);
+    }
+  }
+}
+
+// Query column j < nq of a warp's mma_staged tiles to out[j * o_ld + r], r the
+// staged row.
+template <int M16>
+__device__ __forceinline__ void store_staged(const float (&acc)[M16][4], int rb, int nq,
+                                             float* out, int o_ld) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < M16; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 2 * t + (e & 1);
+      if (j < nq) out[j * o_ld + rb + m * 16 + g + 8 * (e >> 1)] = acc[m][e];
+    }
+}
+
 // Scores of store rows [row0, row0 + TR) against queries [q0, q0 + TQ) into
 // the shared score tile st[r * LDO + c]; rows at or past valid_rows are
 // masked to PAD_SIM. Queries past Tn score against zeros and are never
-// written out by the callers. Requires R % TR == 0.
+// written out by the callers. Requires R % TR == 0. This body is the f32
+// one (the FMA chain); bf16 has the specialisation below, int8
+// score_tile_i8.
 template <typename T>
 __device__ __forceinline__ void score_tile(const T* __restrict__ q,
                                            const T* __restrict__ shard,
@@ -174,6 +323,125 @@ __device__ __forceinline__ void score_tile(const T* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < MQ; ++j) st[r * LDO + tx * MQ + j] = ok ? acc[i][j] : PAD_SIM;
   }
+  __syncthreads();
+}
+
+// The bf16 score tile, on the tensor cores; the same contract as above.
+// Bound: the 2*TR*TQ*D operations of the product at the bf16 tensor rate
+// against the operand bytes, 2*(TR + TQ)*D per tile: the product wins by far
+// (K1 at 512 queries of 1M x 768: 0.80 ms of operations, 0.24 of reading the
+// store once), so the tile keeps the tensor cores fed and the store streamed
+// once. Operands stay bf16: each thread copies 16-byte pieces of the next
+// slabs (SK features of the TR rows and TQ queries) with cp.async, NSTAGE - 1
+// slabs ahead of the one the warps multiply, so one barrier pair covers SK
+// features (the SIMT tile took two per 16) and the loads hide under the
+// mma.sync steps. Fragments come from ldmatrix; each warp multiplies a 32 x 64
+// tile, 16 mma.sync per k16 step. The ring (72 KB) becomes the f32 score
+// tile after the k loop, and K1/K3/K5/K10/K12 keep 2 CTAs per SM
+// (__launch_bounds__(NT, 2): at most 128 registers a thread, 64 of them
+// scores). A ragged D, or a row base that is not 16-byte aligned, stages
+// element by element into the same slabs with the same zero padding: the
+// same fragments, the same bits.
+template <>
+__device__ __forceinline__ void score_tile<__nv_bfloat16>(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ shard, int Tn,
+    int D, int valid_rows, int row0, int q0, float* smem) {
+  using bf16 = __nv_bfloat16;
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // NSTAGE x {rows [TR][SLD], queries [TQ][SLD]}
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr = (warp / WN) * (TR / WM), wq = (warp % WN) * (TQ / WN);
+  const bool vec = (D & 7) == 0 &&
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(shard)) & 15) == 0;
+  const int slabs = (D + SK - 1) / SK;
+
+  auto stage = [&](int s) {
+    bf16* rs = ring + (s % NSTAGE) * 2 * SLAB;
+    bf16* qs = rs + SLAB;
+    const int d0 = s * SK;
+    if (vec) {
+      constexpr int CH = SK / 8;  // 16-byte pieces per slab row
+      for (int e = tid; e < TR * CH; e += NT) {
+        const int r = e / CH, gd = d0 + 8 * (e % CH), gq = q0 + r;
+        const bool in = gd < D, q_in = in && gq < Tn;  // D % 8 == 0: whole pieces
+        cp_async16_or_zero(rs + r * SLD + gd - d0, shard + (size_t)(row0 + r) * D + (in ? gd : 0),
+                           in);
+        cp_async16_or_zero(qs + r * SLD + gd - d0, q + (q_in ? (size_t)gq * D + gd : 0), q_in);
+      }
+    } else {
+      const bf16 zero = __float2bfloat16(0.0f);
+      for (int e = tid; e < TR * SK; e += NT) {
+        const int r = e / SK, dd = e % SK, gd = d0 + dd, gq = q0 + r;
+        rs[r * SLD + dd] = gd < D ? shard[(size_t)(row0 + r) * D + gd] : zero;
+        qs[r * SLD + dd] = (gd < D && gq < Tn) ? q[(size_t)gq * D + gd] : zero;
+      }
+    }
+  };
+
+  float acc[MT][NQ8][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NQ8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  // ldmatrix row addresses of this lane: A rows wr + (lane & 15), features
+  // +8 for lanes 16-31; B (two n8 tiles per x4) queries (lane & 7) + 8 *
+  // (lane >> 4), features +8 for lanes 8-15 and 24-31.
+  const int a_off = (wr + (lane & 15)) * SLD + ((lane >> 4) << 3);
+  const int b_off = (wq + (lane & 7) + ((lane >> 4) << 3)) * SLD + (((lane >> 3) & 1) << 3);
+#pragma unroll
+  for (int s = 0; s < NSTAGE - 1; ++s) {
+    if (s < slabs) stage(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < slabs; ++s) {
+    if (s + NSTAGE - 1 < slabs) stage(s + NSTAGE - 1);  // the slot slab s-1 left
+    cp_async_commit();
+    cp_async_wait<NSTAGE - 1>();  // this thread's pieces of slab s have landed
+    __syncthreads();              // ... and every thread's
+    const bf16* rs = ring + (s % NSTAGE) * 2 * SLAB;
+    const bf16* qs = rs + SLAB;
+#pragma unroll
+    for (int kk = 0; kk < SK; kk += 16) {
+      if (s * SK + kk >= D) break;  // no step wholly past D
+      uint32_t b[NQ8][2];
+#pragma unroll
+      for (int p = 0; p < NQ8 / 2; ++p) {
+        uint32_t r4[4];
+        ldmatrix_x4(r4, qs + b_off + p * 16 * SLD + kk);
+        b[2 * p][0] = r4[0];
+        b[2 * p][1] = r4[1];
+        b[2 * p + 1][0] = r4[2];
+        b[2 * p + 1][1] = r4[3];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        uint32_t a[4];
+        ldmatrix_x4(a, rs + a_off + i * 16 * SLD + kk);
+#pragma unroll
+        for (int j = 0; j < NQ8; ++j) mma_k16(acc[i][j], a, b[j]);
+      }
+    }
+    __syncthreads();  // slab s's slot is refilled next iteration
+  }
+  cp_async_wait<0>();  // only empty groups are left; the ring becomes st
+
+  float* st = smem;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wr + i * 16 + g + 8 * h;
+      const bool ok = row0 + r < valid_rows;
+#pragma unroll
+      for (int j = 0; j < NQ8; ++j) {
+        const int c = wq + j * 8 + 2 * t;
+        st[r * LDO + c] = ok ? acc[i][j][2 * h] : PAD_SIM;
+        st[r * LDO + c + 1] = ok ? acc[i][j][2 * h + 1] : PAD_SIM;
+      }
+    }
   __syncthreads();
 }
 
@@ -294,8 +562,27 @@ __device__ __forceinline__ int32_t pack_key(float m2, int arg) {
   return (int32_t)(key ^ 0x80000000u);
 }
 
-constexpr size_t SCORE_SMEM = sizeof(float) * (size_t)TR * LDO;  // >= staging
+// The score tile st [TR][LDO] f32, or the staging it replaces, whichever is
+// larger (the bf16 ring); K1 and K10 keep their unit maxima past st, where
+// only a ring that is done with can lie.
+constexpr size_t ST_BYTES = sizeof(float) * (size_t)TR * LDO;
+constexpr size_t RING_BYTES = sizeof(__nv_bfloat16) * (size_t)NSTAGE * 2 * SLAB;
+constexpr size_t SCORE_SMEM = ST_BYTES > RING_BYTES ? ST_BYTES : RING_BYTES;
 constexpr int MAX_UNITS = TR / 8;                                // sub >= 8
+
+// Block b of the 1-D grid of K1/K3/K5/K10 takes query tile b % qt of row
+// tile (group) b / qt, qt = ceil(Tn / TQ): the query tiles that share a row
+// tile run side by side, so the store streams from device memory once (the
+// row tiles ride in L2 between them). blockIdx.y could not hold the row tiles:
+// its limit is 65,535 and a 10M-row store has 78,375 of them.
+__device__ __forceinline__ int query_tiles(int Tn) { return (Tn + TQ - 1) / TQ; }
+
+// The 1-D grid of K1/K3/K5/K10: `groups` row tiles (K10: row tile groups)
+// times the query tiles, or 0 when that exceeds a 1-D grid.
+inline unsigned tile_grid(long long groups, int Tn) {
+  const long long nb = groups * ((Tn + TQ - 1) / TQ);
+  return nb > 0x7fffffffLL ? 0u : (unsigned)nb;
+}
 
 // K1: sub-unit maxima, optional packed (second max, argmax) key, optional
 // coarse maxima at emit width ew <= TR (wider ones: K10's row-tile walk,
@@ -308,7 +595,8 @@ k1_blockmax2(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
              int32_t* __restrict__ key, float* __restrict__ bm) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int row0 = blockIdx.x * TR, q0 = blockIdx.y * TQ;
+  const int qt = query_tiles(Tn);
+  const int row0 = (blockIdx.x / qt) * TR, q0 = (blockIdx.x % qt) * TQ;
   any_score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
   const float* st = smem;
   float* um = smem + TR * LDO;  // [MAX_UNITS][TQ] unit maxima
@@ -373,7 +661,8 @@ k3_blockmax(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int R,
             float* __restrict__ bm_t) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int row0 = blockIdx.x * TR, q0 = blockIdx.y * TQ;
+  const int qt = query_tiles(Tn);
+  const int row0 = (blockIdx.x / qt) * TR, q0 = (blockIdx.x % qt) * TQ;
   any_score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
   const float* st = smem;
   // consecutive threads -> consecutive rows of one query: coalesced stores
@@ -396,8 +685,9 @@ k3_blockmax(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int R,
 // leaves shared memory. Replaces matmul_blockmax_only (topk_pallas.py:222,
 // body :178), whose Mosaic row tile (pick_bm_row_tile) has no counterpart:
 // the tile is K3's TR x TQ. Bound on the card: the 2*T*R*D operations of the
-// product (the store is read once per 128-query tile, the output is R/block x
-// T floats), on the SIMT pipes like K1/K3. A kernel of its own rather than a
+// product (the store is read once, the output is R/block x T floats), on the
+// tensor cores for bf16 (K1/K3's score tile), the SIMT pipes for f32 and
+// dp4a for int8. A kernel of its own rather than a
 // flag on K3, so every pointer stays __restrict__ (a shared body cost K2 9 %).
 template <typename T>
 __global__ void __launch_bounds__(NT, 2)
@@ -405,7 +695,8 @@ k5_blockmax_only(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
                  int D, int valid_rows, int block, float* __restrict__ bm_t) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int row0 = blockIdx.x * TR, q0 = blockIdx.y * TQ;
+  const int qt = query_tiles(Tn);
+  const int row0 = (blockIdx.x / qt) * TR, q0 = (blockIdx.x % qt) * TQ;
   any_score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
   store_block_max(smem, block, Tn, row0, q0, bm_t, Tn, 1);
 }
@@ -429,8 +720,9 @@ k5_blockmax_only(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
 // each becomes __fmul_rn(float(acc), inv_scale2) in place — K1's int8_score
 // when inv_scale2 is INT8_INV_SCALE2 — so every later pass reads f32 scores
 // as K1's does, and shared outputs equal K1's bit for bit.
-// Bound on the card: the 2*T*R*D operations on the SIMT pipes, as K1; with
-// sims, also its R*T*4 bytes. A kernel of its own, so K1's body is untouched.
+// Bound on the card: the 2*T*R*D operations (bf16 on the tensor cores, K1's
+// score tile); with sims, also its R*T*4 bytes. A kernel of its own, so K1's
+// body is untouched.
 template <typename T>
 __global__ void __launch_bounds__(NT, 2)
 k10_blockmax2x(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int R,
@@ -443,14 +735,15 @@ k10_blockmax2x(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int
   float* smem = reinterpret_cast<float*>(smem4);
   const float* st = smem;
   float* um = smem + TR * LDO;  // [MAX_UNITS][TQ] unit maxima
-  const int q0 = blockIdx.y * TQ, units = TR / sub, n_units = R / sub;
+  const int qt = query_tiles(Tn), rg = blockIdx.x / qt;  // rg: this block's row tile group
+  const int q0 = (blockIdx.x % qt) * TQ, units = TR / sub, n_units = R / sub;
   // offset of (global unit gu, query column c) in a unit output
   auto at = [&](int gu, int c) -> size_t {
     return t_major ? (size_t)(q0 + c) * n_units + gu : (size_t)gu * Tn + q0 + c;
   };
   float cmax = __uint_as_float(0xff800000u);  // -inf; tiles > 1 only
   for (int tile = 0; tile < tiles; ++tile) {
-    const int row0 = (blockIdx.x * tiles + tile) * TR;
+    const int row0 = (rg * tiles + tile) * TR;
     if constexpr (std::is_same<T, int8_t>::value) {
       score_tile_i8<true>(q, shard, Tn, D, valid_rows, row0, q0, smem);
       int* ist = reinterpret_cast<int*>(smem);
@@ -518,24 +811,31 @@ k10_blockmax2x(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int
     if (tiles > 1) __syncthreads();  // the next tile's staging overwrites st
   }
   if (bm != nullptr && tiles > 1 && threadIdx.x < TQ && q0 + threadIdx.x < Tn)
-    bm[(size_t)blockIdx.x * Tn + q0 + threadIdx.x] = cmax;
+    bm[(size_t)rg * Tn + q0 + threadIdx.x] = cmax;
 }
 
-// K2: query t's KS selected unit-row blocks (ids [T, KS]) rescored with the
-// same chain. Block (x, t) covers candidate slots [x*GR, x*GR + GR) of
+// K2: query t's KS selected unit-row blocks (ids [T, KS]) rescored by the
+// dtype's rule. Block (x, t) covers candidate slots [x*GR, x*GR + GR) of
 // query t; an id outside [0, R/unit) scores NaN instead of reading out of
-// bounds.
+// bounds. The gather stages GDK features of each slot's row, widened and
+// transposed, one slot per thread. f32: fma_chunk over the staged chunk.
+// bf16: each warp multiplies its 32 slots (two m16 tiles) with the query in
+// B's column 0 and zeros in columns 1-7 (mma_staged), and column 0 of the
+// result is the score; 7/8 of each mma is wasted, against a kernel whose
+// time is the gather (bound: the selected units' bytes).
 template <typename T>
 __global__ void __launch_bounds__(GR)
 k2_gather_rescore(const T* __restrict__ q, const T* __restrict__ shard,
                   const int32_t* __restrict__ ids, int R, int D, int KS,
                   int unit, float* __restrict__ out) {
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   __shared__ float rs[GDK * GLD];
   __shared__ float qs[GDK];
   const int t = blockIdx.y, s0 = blockIdx.x * GR, tid = threadIdx.x;
   const int C = KS * unit, n_units = R / unit;
   const int32_t* my_ids = ids + (size_t)t * KS;
   float acc[1][1] = {{0.0f}};
+  float macc[2][4] = {};  // bf16: this warp's slots (tid & ~31) + 0 .. 31
   for (int d0 = 0; d0 < D; d0 += GDK) {
     for (int e = tid; e < GR * GDK; e += GR) {
       const int r = e / GDK, dd = e % GDK, gd = d0 + dd, s = s0 + r;
@@ -549,8 +849,16 @@ k2_gather_rescore(const T* __restrict__ q, const T* __restrict__ shard,
     }
     if (tid < GDK) qs[tid] = d0 + tid < D ? widen(q[(size_t)t * D + d0 + tid]) : 0.0f;
     __syncthreads();
-    fma_chunk<1, 1>(acc, rs + tid, GLD, qs, 1, GDK);
+    if constexpr (BF16)
+      mma_staged<2>(macc, rs, GLD, tid & ~31, qs, 1, 1, d0, GDK, D);
+    else
+      fma_chunk<1, 1>(acc, rs + tid, GLD, qs, 1, GDK);
     __syncthreads();
+  }
+  if constexpr (BF16) {
+    store_staged<2>(macc, tid & ~31, 1, rs, GR);
+    __syncthreads();
+    acc[0][0] = rs[tid];
   }
   const int s = s0 + tid;
   if (s < C) {
@@ -602,19 +910,22 @@ k2_gather_rescore_i8(const int8_t* __restrict__ q, const int8_t* __restrict__ sh
 // K6: query t against its own C pre-gathered rows (gathered [T, C, D]).
 // Replaces block_scores (topk_pallas.py:846, body :828), whose keep-row-r
 // Mosaic dots existed to pin the scoring pass's arithmetic. Here the blocks,
-// the GDK-feature staging and fma_chunk are K2's, row s of query t being
-// gathered[t, s] instead of a store row, so K6 == K2 == K3 bit for bit.
+// the GDK-feature staging and the product (fma_chunk on f32, mma_staged on
+// bf16) are K2's, row s of query t being gathered[t, s] instead of a store
+// row, so K6 == K2 == K3 bit for bit.
 // Bound on the card: the gathered bytes (read once), far above the time of
 // the 2*T*C*D FLOPs.
 template <typename T>
 __global__ void __launch_bounds__(GR)
 k6_block_scores(const T* __restrict__ q, const T* __restrict__ gathered, int C, int D,
                 float* __restrict__ out) {
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   __shared__ float rs[GDK * GLD];
   __shared__ float qs[GDK];
   const int t = blockIdx.y, s0 = blockIdx.x * GR, tid = threadIdx.x;
   const T* rows = gathered + (size_t)t * C * D;
   float acc[1][1] = {{0.0f}};
+  float macc[2][4] = {};
   for (int d0 = 0; d0 < D; d0 += GDK) {
     for (int e = tid; e < GR * GDK; e += GR) {
       const int r = e / GDK, dd = e % GDK, gd = d0 + dd, s = s0 + r;
@@ -622,8 +933,16 @@ k6_block_scores(const T* __restrict__ q, const T* __restrict__ gathered, int C, 
     }
     if (tid < GDK) qs[tid] = d0 + tid < D ? widen(q[(size_t)t * D + d0 + tid]) : 0.0f;
     __syncthreads();
-    fma_chunk<1, 1>(acc, rs + tid, GLD, qs, 1, GDK);
+    if constexpr (BF16)
+      mma_staged<2>(macc, rs, GLD, tid & ~31, qs, 1, 1, d0, GDK, D);
+    else
+      fma_chunk<1, 1>(acc, rs + tid, GLD, qs, 1, GDK);
     __syncthreads();
+  }
+  if constexpr (BF16) {
+    store_staged<2>(macc, tid & ~31, 1, rs, GR);
+    __syncthreads();
+    acc[0][0] = rs[tid];
   }
   const int s = s0 + tid;
   if (s < C) out[(size_t)t * C + s] = acc[0][0];
@@ -705,11 +1024,6 @@ constexpr int CP_THREADS = 256;
 constexpr int CP_CHUNK = 32 * 1024;
 constexpr int V0_COLS = 128;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
 __global__ void __launch_bounds__(CP_THREADS)
 k11_gather_copy(const uint8_t* __restrict__ shard, const int32_t* __restrict__ ids, int KS,
                 int n_units, int unit_bytes, float* __restrict__ out) {
@@ -740,11 +1054,11 @@ k11_gather_copy(const uint8_t* __restrict__ shard, const int32_t* __restrict__ i
 // on the SMs:
 //  * gather items: query t's candidate slots [s0, s0 + NT) of C = KS * unit
 //    (ids [T, KS] into unit-row blocks), staged GDK features at a time,
-//    widened and summed by fma_chunk<1, 1> as K2 does, so the scores equal
-//    K2's bit for bit (the one-chain rule of the header); NaN for an id
-//    outside [0, R/unit). K2's staging is written out again here rather than
-//    shared, so K2's kernel stays as it is (a body shared with K6 once cost
-//    K2 9 %);
+//    widened and multiplied by mma_staged as K2 does, 8 warps of 32 slots, so
+//    the scores equal K2's bit for bit (the bf16 rule of the header); NaN for
+//    an id outside [0, R/unit). K2's staging is written out again here rather
+//    than shared, so K2's kernel stays as it is (a body shared with K6 once
+//    cost K2 9 %);
 //  * product items: `copies` copies of K5's score tiles of mmq [tq, D]
 //    against mms [mm_rows, D], each copy's 128-row block maxima stored to
 //    mmo [tq, mm_rows / 128] by store_block_max: K5's bm_t transposed, bit for
@@ -757,8 +1071,8 @@ k11_gather_copy(const uint8_t* __restrict__ shard, const int32_t* __restrict__ i
 // written). CTA b runs product item b (if b < n_product) and gather items
 // [b·G/n, (b+1)·G/n) of G, n = gridDim.x, so the gather is spread evenly over
 // the launch. Bound on the card: the 2·copies·tq·mm_rows·D operations of the
-// copies (on the SIMT pipes, as K5) while copies > 0, else the gathered bytes
-// (read once), as K2.
+// copies (on the tensor cores: K5's bf16 score tile) while copies > 0, else
+// the gathered bytes (read once), as K2.
 constexpr int MLD = NT + 4;
 constexpr size_t K12_GATHER_SMEM = sizeof(float) * (GDK * MLD + GDK);
 static_assert(K12_GATHER_SMEM <= SCORE_SMEM, "one buffer serves both kinds of item");
@@ -774,7 +1088,7 @@ __device__ __forceinline__ void k12_gather_item(const T* __restrict__ q,
   const int C = KS * unit, per_q = (C + NT - 1) / NT, n_units = R / unit;
   const int t = item / per_q, s0 = (item % per_q) * NT, tid = threadIdx.x;
   const int32_t* my_ids = ids + (size_t)t * KS;
-  float acc[1][1] = {{0.0f}};
+  float macc[2][4] = {};  // this warp's slots (tid & ~31) + 0 .. 31
   for (int d0 = 0; d0 < D; d0 += GDK) {
     for (int e = tid; e < NT * GDK; e += NT) {
       const int r = e / GDK, dd = e % GDK, gd = d0 + dd, s = s0 + r;
@@ -788,13 +1102,17 @@ __device__ __forceinline__ void k12_gather_item(const T* __restrict__ q,
     }
     if (tid < GDK) qs[tid] = d0 + tid < D ? widen(q[(size_t)t * D + d0 + tid]) : 0.0f;
     __syncthreads();
-    fma_chunk<1, 1>(acc, rs + tid, MLD, qs, 1, GDK);
+    mma_staged<2>(macc, rs, MLD, tid & ~31, qs, 1, 1, d0, GDK, D);
     __syncthreads();
   }
+  store_staged<2>(macc, tid & ~31, 1, rs, NT);
+  __syncthreads();
+  const float score = rs[tid];
+  __syncthreads();  // the next item restages rs
   const int s = s0 + tid;
   if (s < C) {
     const int uid = my_ids[s / unit];
-    out[(size_t)t * C + s] = (uid >= 0 && uid < n_units) ? acc[0][0] : __uint_as_float(0x7fffffffu);
+    out[(size_t)t * C + s] = (uid >= 0 && uid < n_units) ? score : __uint_as_float(0x7fffffffu);
   }
 }
 
@@ -832,9 +1150,11 @@ k12_gather_rescore_mm(const T* __restrict__ q, const T* __restrict__ shard,
 // this unit (extract_diag in bench/proto_fused.py). Block (x, j, i) covers
 // candidates [x*GR, x*GR + GR) of step j of group i: one candidate row per
 // thread, staged GDK features at a time as K2 stages, against the group's 8
-// queries staged beside it, summed by fma_chunk<1, 8>, whose chain for each
-// (row, query) pair is K2's (same operand order, d in order): the diagonal is
-// K2's bit for bit. Each candidate row is read once per group, not once per
+// queries staged beside it as B's 8 columns, multiplied by mma_staged, which
+// gives each (row, query) pair K2's bits (the same rows in A, the same k
+// steps; K2 has the query in column 0 and zeros beside it, and no element of
+// an mma result depends on another column): the diagonal is K2's bit for
+// bit. Each candidate row is read once per group, not once per
 // query as K2 at 8x ids would read it: that traffic is what the prototype
 // measures. An id outside [0, R/unit) scores NaN for all 8 queries. bf16
 // operands only (the prototype's). Bound on the card: the bytes of the
@@ -862,9 +1182,7 @@ k13_gather_cross(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     row_of[tid] = row;
   }
   __syncthreads();
-  float acc[1][XQ];
-#pragma unroll
-  for (int a = 0; a < XQ; ++a) acc[0][a] = 0.0f;
+  float macc[2][4] = {};  // this warp's rows (tid & ~31) + 0 .. 31 x the 8 queries
   for (int d0 = 0; d0 < D; d0 += GDK) {
     for (int e = tid; e < GR * GDK; e += GR) {
       const int r = e / GDK, dd = e % GDK, gd = d0 + dd, row = row_of[r];
@@ -875,15 +1193,17 @@ k13_gather_cross(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       qs[dd * XQ + a] = gd < D ? widen(q[(size_t)(i * XQ + a) * D + gd]) : 0.0f;
     }
     __syncthreads();
-    fma_chunk<1, XQ>(acc, rs + tid, GLD, qs, XQ, GDK);
+    mma_staged<2>(macc, rs, GLD, tid & ~31, qs, XQ, XQ, d0, GDK, D);
     __syncthreads();
   }
+  store_staged<2>(macc, tid & ~31, XQ, rs, GR);  // rs[a * GR + r]
+  __syncthreads();
   const int c = c0 + tid;
   if (c >= C) return;
   const bool ok = row_of[tid] >= 0;
 #pragma unroll
   for (int a = 0; a < XQ; ++a)
-    out[((size_t)j * Tn + i * XQ + a) * C + c] = ok ? acc[0][a] : __uint_as_float(0x7fffffffu);
+    out[((size_t)j * Tn + i * XQ + a) * C + c] = ok ? rs[a * GR + tid] : __uint_as_float(0x7fffffffu);
 }
 
 template <typename K>
@@ -905,7 +1225,8 @@ int launch_k10(const void* q, const void* shard, int Tn, int R, int D, int valid
   const size_t smem = SCORE_SMEM + sizeof(float) * MAX_UNITS * TQ;
   if (int err = raise_smem(k10_blockmax2x<T>, smem)) return err;
   const int tiles = (bm != nullptr && ew > TR) ? ew / TR : 1;
-  dim3 grid(R / (TR * tiles), (Tn + TQ - 1) / TQ);
+  const unsigned grid = tile_grid(R / (TR * tiles), Tn);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
   k10_blockmax2x<T><<<grid, NT, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(shard), Tn, R, D, valid_rows, sub,
       ew, tiles, t_major, inv_scale2, sims, bms, arg, m2, key, raw_key, bm);
@@ -926,7 +1247,8 @@ int launch_k1(const void* q, const void* shard, int Tn, int R, int D, int valid_
   }
   const size_t smem = SCORE_SMEM + sizeof(float) * MAX_UNITS * TQ;
   if (int err = raise_smem(k1_blockmax2<T>, smem)) return err;
-  dim3 grid(R / TR, (Tn + TQ - 1) / TQ);
+  const unsigned grid = tile_grid(R / TR, Tn);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
   k1_blockmax2<T><<<grid, NT, smem, st>>>(static_cast<const T*>(q),
                                           static_cast<const T*>(shard), Tn, D,
                                           valid_rows, sub, ew, bm_sub, key, bm);
@@ -937,7 +1259,8 @@ template <typename T>
 int launch_k3(const void* q, const void* shard, int Tn, int R, int D, int valid_rows,
               int block, float* sims, float* bm_t, cudaStream_t st) {
   if (int err = raise_smem(k3_blockmax<T>, SCORE_SMEM)) return err;
-  dim3 grid(R / TR, (Tn + TQ - 1) / TQ);
+  const unsigned grid = tile_grid(R / TR, Tn);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
   k3_blockmax<T><<<grid, NT, SCORE_SMEM, st>>>(static_cast<const T*>(q),
                                                static_cast<const T*>(shard), Tn, R,
                                                D, valid_rows, block, sims, bm_t);
@@ -948,7 +1271,8 @@ template <typename T>
 int launch_k5(const void* q, const void* shard, int Tn, int R, int D, int valid_rows,
               int block, float* bm_t, cudaStream_t st) {
   if (int err = raise_smem(k5_blockmax_only<T>, SCORE_SMEM)) return err;
-  dim3 grid(R / TR, (Tn + TQ - 1) / TQ);
+  const unsigned grid = tile_grid(R / TR, Tn);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
   k5_blockmax_only<T><<<grid, NT, SCORE_SMEM, st>>>(static_cast<const T*>(q),
                                                     static_cast<const T*>(shard), Tn,
                                                     D, valid_rows, block, bm_t);

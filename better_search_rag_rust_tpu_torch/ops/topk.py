@@ -256,7 +256,10 @@ def rescore_topk(
        and one (value desc, id asc) selection over both finishes. A query
        tile with a query over capacity takes the full gather instead. The
        mix of K1 and K2 scores in one selection is exact because the two
-       kernels score a pair bit for bit alike (see the CUDA source note).
+       kernels score a pair bit for bit alike, and alike the oracle's K3:
+       one rule per dtype (see the CUDA source note) — on bf16 one
+       tensor-core ``mma.sync`` per 16 features, added to the score in one
+       k order, on f32 one FMA chain, on int8 an exact integer dot.
 
     ``shard`` rows must be a multiple of ``block``; see
     :func:`rescore_feasible` for the geometry. Returns ``(vals [Q, k] f32,

@@ -39,16 +39,23 @@ A wrapper takes the plain version only because its tensors lie on the CPU
 launches the kernel or raises — there is no fallback. Each kernel launch
 adds one to :data:`launch_counts`.
 
-Where the CUDA kernels agree bit for bit (one f32 FMA chain per score,
-see the source note), the plain versions score with one f32 matrix product
-(cuBLAS on the card, without TF32), which sums in another order: on the card
-a plain version agrees with its kernel to a tolerance, not bit for bit. The
-plain K2 scores the whole shard with the same product as plain K1 and K3
-and gathers, so on the CPU the three plain versions are bitwise consistent
-with each other too. Plain K6 is one batched product, whose order on the CPU
-need not be the matrix product's: there it agrees with plain K3 to a
-tolerance. K4 moves bytes, so kernel and plain version agree bit for bit on
-every dtype.
+The CUDA kernels agree with each other bit for bit, one arithmetic rule per
+dtype (see the source note): bf16 scores run on the tensor cores, one
+``mma.sync`` m16n8k16 per 16 features from a +0.0 accumulator, rows in A
+and queries in B, its sum added to the score with one rounded f32 add, in
+increasing feature order, in every kernel (the TPU reference's one MXU dot
+per score); f32 scores are one exact f32 FMA chain on the SIMT
+pipes (TF32 would not be exact); int8 scores an exact integer dot. The
+plain versions score with one f32 matrix product (cuBLAS on the card,
+without TF32), which sums in another order: on the card a plain version
+agrees with its kernel to a tolerance, not bit for bit. Every bf16 kernel
+score, and every plain one, lies within :func:`score_bound` of the float64
+product of the same operands. The plain K2 scores the whole shard with the
+same product as plain K1 and K3 and gathers, so on the CPU the three plain
+versions are bitwise consistent with each other too. Plain K6 is one
+batched product, whose order on the CPU need not be the matrix product's:
+there it agrees with plain K3 to a tolerance. K4 moves bytes, so kernel and
+plain version agree bit for bit on every dtype.
 
 int8 stores (the lattice of :mod:`.quantize`): the kernels take the exact
 int32 dot (``__dp4a``) times :data:`.quantize.INT8_INV_SCALE2`. The plain
@@ -123,10 +130,39 @@ def reset_launch_counts() -> None:
 
 def kernel_scoring_exact_for(dtype) -> bool:
     """Whether the kernels score this store dtype with the oracle's own
-    arithmetic: true for float32 and bfloat16, whose scores are one exact
-    f32 FMA chain in every kernel (the TPU's Mosaic f32 product was not),
-    and for the int8 lattice, whose scores are an exact integer dot."""
+    arithmetic, so that a selection over the kernels' scores is exact
+    against the oracle (which scores through K3): true for bfloat16, whose
+    scores are the same tensor-core instructions and rounded adds in one
+    k16 order in every kernel (as the TPU's one MXU dot per score), for
+    float32, one exact f32 FMA
+    chain in every kernel (the TPU's Mosaic f32 product was not exact), and
+    for the int8 lattice, whose scores are an exact integer dot."""
     return dtype in _DTYPE_CODES
+
+
+#: Round-off per term of a bf16 kernel score: twice f32's unit round-off,
+#: because the tensor cores' sum of each k16 step may truncate instead of
+#: rounding to nearest.
+SCORE_EPS = 2.0 ** -23
+
+
+def score_bound(queries: torch.Tensor, rows: torch.Tensor):
+    """``(exact, bound)``, float64: the exact scores of the operands as
+    given (bf16 widens exactly) and the most a kernel's bf16 score may
+    differ from them, ``D * 2^-23 * sum_d |q_d r_d|`` — the f32 round-off
+    of a D-term sum (``D * 2^-24`` of the absolute terms), doubled for a
+    sum that truncates (:data:`SCORE_EPS`). ``rows [R, D]`` gives ``[T,
+    R]``; ``rows [T, C, D]`` (each query's own rows, e.g. gathered) gives
+    ``[T, C]``. The plain versions' f32 products stay within it too (their
+    sums round to nearest)."""
+    q = queries.to(torch.float64)
+    r = rows.to(torch.float64)
+    if r.dim() == 2:
+        exact, mag = q @ r.T, q.abs() @ r.abs().T
+    else:
+        exact = torch.einsum("td,tcd->tc", q, r)
+        mag = torch.einsum("td,tcd->tc", q.abs(), r.abs())
+    return exact, q.shape[-1] * SCORE_EPS * mag
 
 
 # ---------------------------------------------------------------------------
@@ -828,8 +864,9 @@ def gather_cross(queries, shard, ids, *, unit, G):
             = q[8i + a] . shard[ids[8i + r, j*G + g] * unit + s]
 
     Keeping ``a == r`` gives :func:`gather_rescore`'s scores at ``unit``, bit
-    for bit on the card (one FMA chain); each candidate row is read once per
-    group. An id outside ``[0, R/unit)`` scores NaN.
+    for bit on the card (the group's 8 queries are the 8 columns of each
+    ``mma.sync`` whose column 0 K2 fills); each candidate row is read once
+    per group. An id outside ``[0, R/unit)`` scores NaN.
 
     Replaces ``fused_scores`` of ``scripts/proto_fused.py`` (:139). bf16
     operands (the prototype's); ``T % 8`` and ``k % G`` must be 0, where the

@@ -8,19 +8,22 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
 
 1. device: card name and power limit; kernel build times;
 2. each search kernel (K1 matmul_blockmax2_only, K2 gather_rescore, K3
-   matmul_blockmax) against its plain PyTorch version at the search path's
-   shapes (a 1M x 768 store, nomic-embed-text-v1.5's width, queried 512 at
-   a time, top-100), max |diff| <= 1e-5 (the plain versions sum in cuBLAS's
-   order, not the kernels');
-3. the search kernels against each other, bit for bit (one FMA chain per
-   score);
+   matmul_blockmax; bf16 on the tensor cores) against its plain PyTorch
+   version at the search path's shapes (a 1M x 768 store,
+   nomic-embed-text-v1.5's width, queried 512 at a time, top-100), max
+   |diff| <= 1e-5 (the plain versions sum in cuBLAS's f32 order, not the
+   kernels' mma.sync k16 steps);
+3. the search kernels against each other, bit for bit (one mma.sync
+   instruction and one k16 order per bf16 score);
 4. the search path — Pipeline.engine + evaluate (1024 queries, k=100: MRR,
    recall@k and oracle overlap must be 1.0) + three search_stream batches —
    on a 1M x 768 bf16 store (route rescore: K1 + K2), a 100k x 768 bf16
    store (route global: K3) and a 1M x 768 f32 store (route rescore), with
    every kernel's launch count over that run;
 5. timings: queries/sec of search and search_device on the 1M bf16 store,
-   and each search kernel's time beside its plain version's;
+   a torch.profiler split of one 512-query tile of search_device (K1, K2,
+   glue, device idle), and each search kernel's time beside its plain
+   version's;
 6. K8 fused_attention_qkv against its plain version at the encoder's shape
    (B=256, S=512, H=12, hd=64, bf16; per-row key padding, one row fully
    padded): max |diff| < 0.02 and cosine > 0.999 on valid query rows, the
@@ -147,7 +150,17 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    better_search_rag_rust_tpu_torch.bench.proto_f32`` as a subprocess, each
    kernel launched, which also holds K4 (P22) bit for bit its plain version
    and K2 f32 (P23) at KS 192 and 320 within 1e-5 of its plain version and
-   bit for bit K6 on K4's rows.
+   bit for bit K6 on K4's rows;
+24. the card exactness sweep of ``scripts/chip_exactness.py`` on bf16: its
+   five stores (``random_20k_768``, ``dups_64k_256``, ``all_dup_16k_128``,
+   ``tall_300k_64``, ``dups_600k_768``, built from ``--seed`` as the script
+   builds them), 1024 queries each, k = 10 and 100, through the ``global``
+   route and ``rescore`` with the argmax fast path on and off wherever
+   ``rescore_feasible`` allows: ids and distances bit for bit
+   ``oracle_topk``; every returned score within ``D * 2^-23 * sum |q_d r_d|``
+   of the float64 product of the same bf16 operands
+   (``ops/topk_kernels.py:score_bound``); K1 = K2 = K3 bit for bit on each
+   store's (query, unit argmax) pairs. Prints its pass counts.
 
 Every kernel's time is printed beside its plain version's, one PyTorch call
 computing the same function where there is one (``library``: the product
@@ -928,6 +941,37 @@ def measure_qps(engine, store, gen, iters: int = 5):
         engine.search_device(qdev, K)
     torch.cuda.synchronize()
     return host_qps, 1024 * iters / (time.perf_counter() - t0)
+
+
+def search_split(engine, store, gen, card):
+    """Phase 5: where the device time of one 512-query tile of
+    ``search_device`` goes (torch.profiler): K1, K2, the rest of the
+    route's kernels (glue) and the device's idle share of the wall clock."""
+    rows = torch.randint(0, store.num_rows, (T,), generator=gen,
+                         device="cuda")
+    qdev = store.data[rows].float()
+    engine.search_device(qdev, K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.search_device(qdev, K)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    _split, total, top = _device_profile(
+        lambda: engine.search_device(qdev, K))
+    if total <= 0:
+        phase(f"phase 5 [{card}] one {T}-query tile of search_device: "
+              f"{wall:.3f} ms wall; the profiler saw no device time: split "
+              f"not measured")
+        return
+    k1 = sum(ms for ms, key in top if "k1_blockmax2" in key)
+    k2 = sum(ms for ms, key in top if "k2_gather_rescore" in key)
+    glue = total - k1 - k2
+    phase(f"phase 5 [{card}] one {T}-query tile of search_device: {wall:.3f}"
+          f" ms wall, device {total:.3f} ms: K1 {k1:.3f} ({100 * k1 / total:.1f}"
+          f" %), K2 {k2:.3f} ({100 * k2 / total:.1f} %), glue {glue:.3f} "
+          f"({100 * glue / total:.1f} %); device idle "
+          f"{100 * max(0.0, 1 - total / wall):.1f} % of the wall clock; "
+          f"longest kernels {[(round(ms, 3), key[:40]) for ms, key in top[:6]]}")
 
 
 def serve_split(store, tmp, card):
@@ -1911,6 +1955,114 @@ def check_proto_f32(seed, card):
         k["equals_k6"] for k in kernels if "equals_k6" in k), kernels
 
 
+#: Phase 24: queries per store, the k values, and (route, rescore_argmax).
+SWEEP_Q, SWEEP_KS = 1024, (10, 100)
+SWEEP_ROUTES = (("global", "auto"), ("rescore", "on"), ("rescore", "off"))
+
+
+def _sweep_stores(seed):
+    """The five stores of ``scripts/chip_exactness.py`` (``build_cases``),
+    built as the script builds them, from ``seed`` (the script's 0 by
+    default): random rows, duplicate clusters, zero rows, one 64-row block
+    repeated, a tall low-dim store, and the large store whose clusters
+    drive the argmax fast path's danger gather."""
+    rng = np.random.default_rng(seed)
+    yield "random_20k_768", rng.standard_normal((20000, 768)).astype(np.float32)
+    m = rng.standard_normal((65536, 256)).astype(np.float32)
+    m[30000:30050] = m[17]
+    m[4096] = 0.0
+    yield "dups_64k_256", m
+    yield "all_dup_16k_128", np.tile(
+        rng.standard_normal((64, 128)).astype(np.float32), (256, 1))
+    yield "tall_300k_64", rng.standard_normal((300000, 64)).astype(np.float32)
+    m = rng.standard_normal((600000, 768)).astype(np.float32)
+    m[200000:200003] = m[123]
+    m[450000] = m[123]
+    m[37] = 0.0
+    yield "dups_600k_768", m
+
+
+def check_exactness_sweep(seed, card):
+    """Phase 24: the bf16 exactness sweep (module docstring, item 24)."""
+    import hashlib
+
+    from better_search_rag_rust_tpu_torch.config import SearchConfig
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+    from better_search_rag_rust_tpu_torch.ops.distance import normalize_rows
+    from better_search_rag_rust_tpu_torch.ops.engine import SearchEngine
+    from better_search_rag_rust_tpu_torch.ops.quantize import cast_rows_to
+    from better_search_rag_rust_tpu_torch.store import DeviceStore
+
+    totals = {"configs": 0, "not_feasible": 0, "bounded_pairs": 0,
+              "identity_pairs": 0}
+    worst = 0.0  # the largest |score - exact| / bound over every store
+    t0 = time.perf_counter()
+    for name, mat in _sweep_stores(seed):
+        store = DeviceStore.from_host(mat, "bfloat16", device="cuda")
+        n, data = store.num_rows, store.data
+        qseed = int.from_bytes(hashlib.blake2b(
+            name.encode(), digest_size=4).digest(), "little")
+        queries = mat[np.random.default_rng(qseed).integers(0, n, SWEEP_Q)]
+        q_dev = torch.from_numpy(queries).cuda()
+        qc = cast_rows_to(normalize_rows(q_dev), store.dtype).contiguous()
+        oracle = SearchEngine(store, SearchConfig(kernel="global"))
+        configs = pairs = 0
+        store_worst = 0.0
+        for k in SWEEP_KS:
+            o_ids, o_d = oracle.oracle_topk(queries, k)
+            for route, argmax in SWEEP_ROUTES:
+                eng = SearchEngine(store, SearchConfig(
+                    kernel=route, rescore_argmax=argmax))
+                if eng.kernel_name(k) != route:
+                    totals["not_feasible"] += 1
+                    continue
+                tag = f"{name} {route} argmax={argmax} k={k}"
+                ids, dists = eng.search(queries, k)
+                bad = np.argwhere((ids != o_ids) | (dists != o_d))
+                assert not bad.size, (tag, bad[:3].tolist())
+                sims, d_ids = eng.search_device(q_dev, k)
+                assert np.array_equal(d_ids.cpu().numpy(), ids), tag
+                exact, bound = tk.score_bound(qc, data[d_ids])
+                err = (sims.double() - exact).abs()
+                assert bool((err <= bound).all()), (
+                    tag, float((err - bound).max()))
+                ratio = float((err / bound.clamp_min(1e-300)).max())
+                store_worst = max(store_worst, ratio)
+                configs += 1
+                pairs += ids.size
+        # K2 at each unit's argmax row == K1's unit max == K3's score, as
+        # in phase 3, on 256 random valid units per query
+        bms, key = tk.matmul_blockmax2_only(qc, data, n, sub=SUB, block=BLOCK,
+                                            emit_argmax=True)
+        units = torch.sort(torch.randint(0, n // SUB, (SWEEP_Q, 256),
+                                         device="cuda"), dim=1).values
+        resc = tk.gather_rescore(qc, data, units.to(torch.int32).contiguous(),
+                                 unit=SUB).view(SWEEP_Q, 256, SUB)
+        arg = torch.gather((key & 0x7F).T.to(torch.int64), 1, units)
+        k2_at_arg = torch.gather(resc, 2, arg[:, :, None])[:, :, 0]
+        k1_max = torch.gather(bms.T, 1, units)
+        sims, _ = tk.matmul_blockmax(qc, data, n)
+        k3_at_arg = torch.gather(sims, 1, units * SUB + arg)
+        same = torch.equal(k2_at_arg, k1_max) and torch.equal(k3_at_arg, k1_max)
+        assert same, f"{name}: K1 == K2 == K3 fails on the unit argmax pairs"
+        totals["configs"] += configs
+        totals["bounded_pairs"] += pairs
+        totals["identity_pairs"] += units.numel()
+        worst = max(worst, store_worst)
+        phase(f"phase 24 {name} ({n} x {mat.shape[1]} bf16): {configs} "
+              f"route configs equal to oracle_topk bit for bit, {pairs} "
+              f"returned pairs within the float64 bound (worst |err|/bound "
+              f"{store_worst:.3g}), K1 == K2 == K3 on {units.numel()} unit "
+              f"argmax pairs")
+        del store, data, sims, resc, bms, key, q_dev, qc, oracle, eng
+        torch.cuda.empty_cache()
+    phase(f"phase 24 [{card}] exactness sweep: {totals}, worst |err|/bound "
+          f"{worst:.3g}, {time.perf_counter() - t0:.1f}s")
+    # every store takes the global route and, at 20k+ rows, rescore
+    assert totals["configs"] >= 5 * len(SWEEP_KS)
+    return totals
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1974,6 +2126,7 @@ def main() -> int:
     host_qps, dev_qps = measure_qps(engine, store, gen)
     phase(f"phase 5 [{card}] 1M x 768 bf16, 1024 queries, k={K}: "
           f"search {host_qps:.1f} q/s, search_device {dev_qps:.1f} q/s")
+    search_split(engine, store, gen, card)
     for name, rec in times.items():
         phase(f"phase 5 [{card}] " + timing_line(name, rec))
 
@@ -2068,6 +2221,9 @@ def main() -> int:
     (errs["gather_cross"], times["gather_cross"],
      launches["gather_cross"]) = check_proto_fused(stores, args.seed, card)
     check_proto_f32(args.seed, card)
+    del stores
+    torch.cuda.empty_cache()
+    check_exactness_sweep(args.seed, card)
 
     print(card)
     print(json.dumps({"kernels": [

@@ -701,7 +701,7 @@ def test_k11_k12_refuse_what_they_do_not_take(cuda):
                                       (7, 512)])
 @pytest.mark.parametrize("unit,ks", [(16, 8), (128, 3)])
 def test_k12_is_k2_and_k5_and_matches_plain(cuda, copies, n, unit, ks):
-    """K12's scores are K2's bit for bit (one FMA chain), its ``mmo`` K5's
+    """K12's scores are K2's bit for bit (one arithmetic rule), its ``mmo`` K5's
     block maxima transposed bit for bit (one score tile, one reduction);
     against its plain version within 1e-5. ``tq`` 300 spans three query
     tiles; ``copies`` 0 leaves ``mmo`` NaN."""
@@ -747,7 +747,7 @@ def test_k12_product_alone(cuda):
 def test_k13_matches_plain_and_its_diagonal_is_k2(cuda, unit, G, dim):
     """K13's full cross of each 8-query group against its plain version
     within TOL; its diagonal (each query's own sub-blocks) is K2's scores
-    at the same unit bit for bit (one FMA chain). An id outside [0,
+    at the same unit bit for bit (one mma order). An id outside [0,
     R/unit) scores NaN for all 8 queries of its group."""
     from better_search_rag_rust_tpu_torch.bench.proto_fused import extract_diag
 
@@ -788,3 +788,54 @@ def test_k13_refuses_what_it_does_not_take(cuda):
     out = tk.gather_cross(q, mat, ids[:, :0].contiguous(), unit=16, G=2)
     assert out.shape == (0, 40, 256)
     assert tk.launch_counts["gather_cross"] == before
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+@pytest.mark.parametrize("dim", [768, 100, 64])  # 100: a ragged k16 step
+def test_bf16_scores_within_f64_bound(cuda, kernel, dim):
+    """Every bf16 score on the tensor cores within ``D * 2^-23 * sum |q_d
+    r_d|`` of the float64 product of the same bf16 operands
+    (``tk.score_bound``): the check that a wrong fragment layout cannot
+    pass, where K1 = K2 = K3 would if all three shared it."""
+    q, mat = _operands(cuda, torch.bfloat16, dim=dim, t=40)
+    t, rows = q.shape[0], mat.shape[0]
+    if kernel == "K3":
+        sims, _ = tk.matmul_blockmax(q, mat, rows)
+        exact, bound = tk.score_bound(q, mat)
+    elif kernel == "K1":
+        sims = tk.matmul_blockmax2_only(q, mat, rows, sub=16)
+        exact, bound = tk.score_bound(q, mat)
+        exact = exact.T.reshape(-1, 16, t).amax(dim=1)
+        bound = bound.T.reshape(-1, 16, t).amax(dim=1)
+    else:
+        ids = _unit_ids(cuda, rows // 16, t, 12, dim)
+        sims = tk.gather_rescore(q, mat, ids, unit=16)
+        cols = (ids.long()[:, :, None] * 16
+                + torch.arange(16, device=cuda)).reshape(t, -1)
+        exact, bound = tk.score_bound(q, mat[cols])
+    torch.cuda.synchronize()
+    excess = (sims.double() - exact).abs() - bound
+    assert float(excess.max()) <= 0.0, float(excess.max())
+
+
+@pytest.mark.parametrize("argmax", ["on", "off"])
+def test_rescore_duplicate_clusters_exact(cuda, argmax):
+    """A store with duplicate clusters (one spanning two 64-row units, one
+    across far units, a zero row) through the rescore route, argmax fast
+    path on and off: ids and distances bit for bit ``oracle_topk`` (K3)."""
+    rng = np.random.default_rng(11)
+    mat = rng.standard_normal((40000, 768)).astype(np.float32)
+    mat[1000:1040] = mat[17]
+    mat[[30000, 30001, 39000]] = mat[500]
+    mat[77] = 0.0
+    store = DeviceStore.from_host(mat, "bfloat16", device=cuda)
+    eng = SearchEngine(store, SearchConfig(kernel="rescore",
+                                           rescore_argmax=argmax))
+    queries = mat[rng.integers(0, 40000, 256)]
+    queries[:3] = mat[[17, 500, 1020]]
+    for k in (10, 100):
+        assert eng.kernel_name(k) == "rescore"
+        ids, dists = eng.search(queries, k)
+        o_ids, o_d = eng.oracle_topk(queries, k)
+        np.testing.assert_array_equal(ids, o_ids)
+        np.testing.assert_array_equal(dists, o_d)
