@@ -5,9 +5,19 @@
 Each argument is a copy of ``ops/csrc/topk_kernels.cu`` — the parent
 commit's (unpack it with ``git archive`` into a git-ignored directory), the
 tree's, or a copy with one edit (a tile constant, a launch bound, the grid
-order) — built with the package's nvcc flags (:data:`.._build.NVCC_FLAGS`)
-into ``build/ab/`` (all builds started together) and bound with the
-package's C signatures, so every build must keep the entry points of the
+order) — or the name of a variant that this module writes from the tree's
+source into ``build/ab/`` (:data:`VARIANTS`: ``@mma_sync``, the int8 tile on
+``mma.sync`` m16n8k32 (``i8_tile_mma_sync.cuh`` spliced in place of the
+shipped block); ``@noepi``, K1 and K10 without their int8 unit pass, which
+with the tree's build gives the epilogue's share of K1 int8; ``@scalar_st``,
+the int8 score tile written with K3's odd leading dimension, one 4-byte
+store at a time; ``@nosplit``, every int8 pass one lane per column;
+``@stages4``, a 4-slab ring, one block per SM; ``@noqload`` and
+``@nosload``, the int8 tile loading only the store's or only the queries'
+half of each slab — wrong scores, half the operand traffic: what the
+tile's time owes to its loads). Every build uses the package's nvcc
+flags (:data:`.._build.NVCC_FLAGS`), all started together, and is bound with
+the package's C signatures, so every build must keep the entry points of the
 tree. The search kernels are then timed at the search path's shapes with
 CUDA events (:data:`ITERS` launches after a warm-up), every build in turn,
 then in reverse order, so that a drift of the card shows as a spread
@@ -16,7 +26,12 @@ between the two passes rather than as a difference between builds:
 * K1 ``matmul_blockmax2_only`` at 512 x 1,000,448 x 768, sub 64, argmax and
   block maxima (``search_1m``'s pass), on bf16, f32 and the int8 lattice;
 * K3 ``matmul_blockmax`` at 256 x 100,352 x 768 (``search_100k``'s tile),
-  bf16 and int8; K5 at K1's shape, bf16;
+  bf16, f32 and int8; K5 at K1's shape, bf16 and f32;
+* the int8 lattice at 1M x 768: K3 at 256 x 1,000,448 (the oracle's tile),
+  K5 at K1's shape, K10 ``matmul_blockmax2x`` with the raw key (P12/P13's
+  ``k1only``) at K1's shape, sub 128; and at 10,158,080 x 256 (P12/P13's
+  store): K1 at sub 128, block 1024, emit width 256 (K10's row-tile walk),
+  K3 at 256 queries, K5 and K10's raw key;
 * K2 ``gather_rescore`` at 512 queries x KS 100 units of 64 rows of the 1M
   store (the full gather), bf16, f32 and int8; bf16 at KS 4 (the argmax
   fast path's danger gather) and at 104 units of 16 rows (P20's V16);
@@ -26,15 +41,18 @@ between the two passes rather than as a difference between builds:
 
 Stores are normalized random rows from ``--seed``; ids are random and
 sorted per query, as the prototypes draw them. Each line prints one kernel
-with every build's two times. Then, for each build, the error of K3's bf16
+with every build's two times. Then each int8 case's outputs of every build
+against the first build's, bit for bit (an int8 score is an exact integer
+dot, so every tile must agree); for each build, the error of K3's bf16
 scores (256 x 100,352 x 768) against the float64 product of the same
 operands, on unit queries (the search path's) and on raw normal queries
 (the prototypes' data, whose scores run to ~5): max and mean, and the max
 difference from the plain version's f32 product, whose own error is
 printed beside it — what decides an arithmetic change, where the times
 decide a geometry. The last lines are the ptxas report of each build's
-bf16 bodies (registers, spills) and the card's name and power limit. Needs
-a CUDA card; ``chip_smoke.py`` holds each kernel to its plain version.
+bf16 and int8 score-tile bodies (registers, spills) and the card's name and
+power limit. Needs a CUDA card; ``chip_smoke.py`` holds each kernel to its
+plain version.
 """
 
 from __future__ import annotations
@@ -53,13 +71,69 @@ OUT = _build.BUILD_DIR.parent / "ab"
 ITERS = 5
 R1, N1, D1 = 1_000_448, 1_000_000, 768
 R3 = 100_352
+R10, N10, D10 = 10_158_080, 10_000_000, 256
 T = 512
 CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+TREE_SOURCE = _build.SOURCES["topk"][0]
+BLOCK_BEGIN = "// ==== int8 score tile: begin"
+BLOCK_END = "// ==== int8 score tile: end ====\n"
+
+
+def _splice(src: str, block: str) -> str:
+    """``src`` with its int8 score-tile block replaced by ``block``."""
+    a = src.index(BLOCK_BEGIN)
+    b = src.index(BLOCK_END) + len(BLOCK_END)
+    return src[:a] + block + src[b:]
+
+
+def _edit(src: str, old: str, new: str) -> str:
+    if src.count(old) != 1:
+        raise ValueError(f"variant edit does not apply once: {old!r}")
+    return src.replace(old, new)
+
+
+#: The int8 tile's two TMA loads of a slab (the store's, the queries').
+_TMA_LOADS = """\
+          mbar_expect_tx(&full[stage], I8_STAGE_BYTES);
+          tma_load_2d(rs, &maps.shard, s * I8_SLAB, row0, &full[stage]);
+          tma_load_2d(qs, &maps.q, s * I8_SLAB, q0, &full[stage]);"""
+
+#: Variant name -> its source from the tree's source text (module
+#: docstring).
+VARIANTS = {
+    "mma_sync": lambda src: _splice(
+        src, (Path(__file__).parent / "i8_tile_mma_sync.cuh").read_text()),
+    "noepi": lambda src: _edit(
+        src, "  const int n = ((TR / sub) * TQ) << LG;\n", "  const int n = 0;\n"),
+    "scalar_st": lambda src: _edit(src, "  static constexpr int ld = LDO_I8;",
+                                   "  static constexpr int ld = LDO;"),
+    "nosplit": lambda src: _edit(
+        src, "  return columns * 2 <= NTH;", "  return false;"),
+    "stages4": lambda src: _edit(src, "constexpr int I8_STAGES = 3;",
+                                 "constexpr int I8_STAGES = 4;"),
+    "noqload": lambda src: _edit(src, _TMA_LOADS, """\
+          mbar_expect_tx(&full[stage], TR * I8_SLAB);
+          tma_load_2d(rs, &maps.shard, s * I8_SLAB, row0, &full[stage]);"""),
+    "nosload": lambda src: _edit(src, _TMA_LOADS, """\
+          mbar_expect_tx(&full[stage], TQ * I8_SLAB);
+          tma_load_2d(qs, &maps.q, s * I8_SLAB, q0, &full[stage]);"""),
+}
+
+
+def source_path(arg: str) -> Path:
+    """A source argument as a file: ``@name`` writes variant ``name`` of the
+    tree's source into :data:`OUT`."""
+    if not arg.startswith("@"):
+        return Path(arg)
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = OUT / f"{arg[1:]}.cu"
+    path.write_text(VARIANTS[arg[1:]](TREE_SOURCE.read_text()))
+    return path
 
 
 def build(paths):
-    """``{name: (ctypes library, ptxas lines of the bf16 bodies)}``, one
-    nvcc per source, all started together."""
+    """``{name: (ctypes library, ptxas lines of the score-tile bodies)}``,
+    one nvcc per source, all started together."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, path in enumerate(paths):
@@ -76,10 +150,10 @@ def build(paths):
         lines = err.splitlines()
         # after each entry: "Function properties", the spill line, "Used N
         # registers"
-        report = [f"{ln.split(chr(39))[1].split('I13__nv')[0][-20:]}: "
+        report = [f"{ln.split(chr(39))[1][:40]}: "
                   + "; ".join(x.split(":", 1)[-1].strip()[:60] for x in lines[i + 2:i + 4])
                   for i, ln in enumerate(lines)
-                  if "Compiling entry" in ln and "bfloat16" in ln]
+                  if "Compiling entry" in ln and ("bfloat16" in ln or "IaE" in ln)]
         lib = ctypes.CDLL(str(lib_path))
         for fn, (restype, argtypes) in _build.SOURCES["topk"][1].items():
             getattr(lib, fn).restype = restype
@@ -93,14 +167,24 @@ def _unit(rows, dim, gen, dev):
     return m / m.norm(dim=1, keepdim=True)
 
 
+def _lattice(rows, dim, gen, dev, chunk=1 << 20):
+    """Lattice rows (``round(127 x)`` of unit rows), made a chunk at a time."""
+    out = torch.empty((rows, dim), dtype=torch.int8, device=dev)
+    for r0 in range(0, rows, chunk):
+        n = min(chunk, rows - r0)
+        out[r0:r0 + n] = (_unit(n, dim, gen, dev) * 127).round().to(torch.int8)
+    return out
+
+
 def _ids(gen, dev, n_units, ks):
     ids = torch.randint(0, n_units, (T, ks), generator=gen, device=dev)
     return torch.sort(ids, dim=1).values.to(torch.int32).contiguous()
 
 
 def cases(seed):
-    """``{label: (fn(lib) -> err, launches)}`` at the module docstring's
-    shapes."""
+    """``{label: (fn(lib) -> err, launches, outputs)}`` at the module
+    docstring's shapes; ``outputs`` are the tensors a launch writes (int8
+    cases only: checked across builds)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -108,72 +192,133 @@ def cases(seed):
     qf = mf[torch.randint(0, N1, (T,), generator=gen, device=dev)].contiguous()
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     out = {}
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    def k1(q, m, r, valid, sub, block, ew, iters, argmax=True):
+        bms, bm = empty(r // sub, q.shape[0]), empty(r // ew, q.shape[0])
+        key = empty(r // sub, q.shape[0], dtype=torch.int32) if argmax else None
+        return (lambda lib: lib.bsr_matmul_blockmax2(
+            q.data_ptr(), m.data_ptr(), CODES[m.dtype], q.shape[0], r, m.shape[1], valid,
+            sub, ew, bms.data_ptr(), None if key is None else key.data_ptr(),
+            bm.data_ptr(), stream()), iters, (bms, key, bm) if argmax else (bms, bm))
+
+    def k3(q, m, valid, iters):
+        r = m.shape[0]
+        sims, bm = empty(q.shape[0], r), empty(r // 128, q.shape[0])
+        return (lambda lib: lib.bsr_matmul_blockmax(
+            q.data_ptr(), m.data_ptr(), CODES[m.dtype], q.shape[0], r, m.shape[1], valid,
+            128, sims.data_ptr(), bm.data_ptr(), stream()), iters, (sims, bm))
+
+    def k5(q, m, valid, iters):
+        r = m.shape[0]
+        bm = empty(r // 128, q.shape[0])
+        return (lambda lib: lib.bsr_matmul_blockmax_only(
+            q.data_ptr(), m.data_ptr(), CODES[m.dtype], q.shape[0], r, m.shape[1], valid,
+            128, bm.data_ptr(), stream()), iters, (bm,))
+
+    def k10_raw_key(q, m, valid, sub, iters):
+        r = m.shape[0]
+        bms = empty(r // sub, q.shape[0])
+        raw = empty(r // sub, q.shape[0], dtype=torch.int32)
+        scale = 1.0 / (127.0 * 127.0)
+        return (lambda lib: lib.bsr_matmul_blockmax2x(
+            q.data_ptr(), m.data_ptr(), 2, q.shape[0], r, m.shape[1], valid, sub, 0, 0,
+            scale, None, bms.data_ptr(), None, None, raw.data_ptr(), None, stream()),
+            iters, (bms, raw))
+
     for dt in (torch.bfloat16, torch.float32, torch.int8):
         if dt == torch.int8:
             q, m = (qf * 127).round().to(dt), (mf * 127).round().to(dt)
         else:
             q, m = qf.to(dt), mf.to(dt)
         code, tag = CODES[dt], str(dt)[6:]
-        bms = torch.empty((R1 // 64, T), device=dev)
-        key = torch.empty((R1 // 64, T), dtype=torch.int32, device=dev)
-        bm = torch.empty((R1 // 128, T), device=dev)
-        out[f"K1 {tag}"] = (lambda lib, q=q, m=m, code=code, bms=bms, key=key, bm=bm:
-                            lib.bsr_matmul_blockmax2(
-            q.data_ptr(), m.data_ptr(), code, T, R1, D1, N1, 64, 128, bms.data_ptr(),
-            key.data_ptr(), bm.data_ptr(), stream()), 3)
+        out[f"K1 {tag}"] = k1(q, m, R1, N1, 64, 128, 128, 3)
         ids = _ids(gen, dev, R1 // 64, 100)
-        sc = torch.empty((T, 100 * 64), device=dev)
+        sc = empty(T, 100 * 64)
         out[f"K2 {tag} KS 100"] = (lambda lib, q=q, m=m, code=code, ids=ids, sc=sc:
                                    lib.bsr_gather_rescore(
             q.data_ptr(), m.data_ptr(), ids.data_ptr(), code, T, R1, D1, 100, 64,
-            sc.data_ptr(), stream()), ITERS)
-        if dt != torch.float32:
-            q3, m3 = q[:256].contiguous(), m[:R3].contiguous()
-            sims = torch.empty((256, R3), device=dev)
-            bm3 = torch.empty((R3 // 128, 256), device=dev)
-            out[f"K3 {tag}"] = (lambda lib, q3=q3, m3=m3, code=code, sims=sims, bm3=bm3:
-                                lib.bsr_matmul_blockmax(
-                q3.data_ptr(), m3.data_ptr(), code, 256, R3, D1, 100_000, 128,
-                sims.data_ptr(), bm3.data_ptr(), stream()), 2 * ITERS)
+            sc.data_ptr(), stream()), ITERS, (sc,))
+        q3, m3 = q[:256].contiguous(), m[:R3].contiguous()
+        out[f"K3 {tag}"] = k3(q3, m3, 100_000, 2 * ITERS)
+        if dt == torch.int8:
+            out["K3 int8 1M"] = k3(q3, m, N1, 2)
+            out["K5 int8"] = k5(q, m, N1, 3)
+            out["K10 int8 raw key, sub 128"] = k10_raw_key(q, m, N1, 128, 3)
+            continue
+        out[f"K5 {tag}"] = k5(q, m, N1, 3)
         if dt != torch.bfloat16:
             continue
         qb, mb = q, m
-        bm5 = torch.empty((R1 // 128, T), device=dev)
-        out["K5 bf16"] = (lambda lib: lib.bsr_matmul_blockmax_only(
-            qb.data_ptr(), mb.data_ptr(), 1, T, R1, D1, N1, 128, bm5.data_ptr(), stream()), 3)
         ids4 = ids[:, :4].contiguous()
-        sc4 = torch.empty((T, 4 * 64), device=dev)
+        sc4 = empty(T, 4 * 64)
         out["K2 bf16 KS 4"] = (lambda lib: lib.bsr_gather_rescore(
             qb.data_ptr(), mb.data_ptr(), ids4.data_ptr(), 1, T, R1, D1, 4, 64,
-            sc4.data_ptr(), stream()), 2 * ITERS)
+            sc4.data_ptr(), stream()), 2 * ITERS, (sc4,))
         ids16 = _ids(gen, dev, R1 // 16, 104)
-        sc16 = torch.empty((T, 104 * 16), device=dev)
+        sc16 = empty(T, 104 * 16)
         out["K2 bf16 unit 16 KS 104"] = (lambda lib: lib.bsr_gather_rescore(
             qb.data_ptr(), mb.data_ptr(), ids16.data_ptr(), 1, T, R1, D1, 104, 16,
-            sc16.data_ptr(), stream()), ITERS)
+            sc16.data_ptr(), stream()), ITERS, (sc16,))
         ids8 = _ids(gen, dev, R1 // 8, 256).long()
         gathered = mb[(ids8[:, :, None] * 8 + torch.arange(8, device=dev))
                       .reshape(T, -1)].contiguous()
-        sc6 = torch.empty((T, 2048), device=dev)
+        sc6 = empty(T, 2048)
         out["K6 bf16 C 2048"] = (lambda lib: lib.bsr_block_scores(
             qb.data_ptr(), gathered.data_ptr(), 1, T, 2048, D1, sc6.data_ptr(), stream()),
-            ITERS)
-        mmo0 = torch.empty((T, 1), device=dev)
+            ITERS, (sc6,))
+        mmo0 = empty(T, 1)
         out["K12 V16, no product"] = (lambda lib: lib.bsr_gather_rescore_mm(
             qb.data_ptr(), mb.data_ptr(), ids16.data_ptr(), T, R1, D1, 104, 16,
             qb.data_ptr(), mb.data_ptr(), T, 128, 0, sc16.data_ptr(), mmo0.data_ptr(),
-            stream()), ITERS)
-        mmo = torch.empty((T, 10), device=dev)
+            stream()), ITERS, (sc16,))
+        mmo = empty(T, 10)
         out["K12 V16, 8 copies of 512 x 1280"] = (lambda lib: lib.bsr_gather_rescore_mm(
             qb.data_ptr(), mb.data_ptr(), ids16.data_ptr(), T, R1, D1, 104, 16,
             qb.data_ptr(), mb.data_ptr(), T, 1280, 8, sc16.data_ptr(), mmo.data_ptr(),
-            stream()), ITERS)
+            stream()), ITERS, (sc16, mmo))
         idsx = _ids(gen, dev, R1 // 16, 100)
-        scx = torch.empty((50, T, 256), device=dev)
+        scx = empty(50, T, 256)
         out["K13 S 16 G 2"] = (lambda lib: lib.bsr_gather_cross(
             qb.data_ptr(), mb.data_ptr(), idsx.data_ptr(), T, R1, D1, 100, 16, 2,
-            scx.data_ptr(), stream()), ITERS)
+            scx.data_ptr(), stream()), ITERS, (scx,))
+    del mf
+    # the 10M x 256 int8 lattice store of P12/P13
+    m10 = _lattice(R10, D10, gen, dev)
+    q10 = m10[torch.randint(0, N10, (T,), generator=gen, device=dev)].contiguous()
+    out["K1 int8 10M x 256, sub 128, ew 256"] = k1(q10, m10, R10, N10, 128, 1024, 256, 2)
+    out["K3 int8 10M x 256"] = k3(q10[:256].contiguous(), m10, N10, 1)
+    out["K5 int8 10M x 256"] = k5(q10, m10, N10, 2)
+    out["K10 int8 raw key 10M x 256, sub 128"] = k10_raw_key(q10, m10, N10, 128, 2)
     return out
+
+
+def same_int8_outputs(libs, work):
+    """One line per int8 case: whether every build's outputs equal the first
+    build's bit for bit."""
+    lines = []
+    names = list(libs)
+    for label, (fn, _iters, outs) in work.items():
+        if "int8" not in label:
+            continue
+        if fn(libs[names[0]][0]):
+            raise RuntimeError("a kernel launch failed")
+        ref = [o.clone() for o in outs if o is not None]
+        same = {}
+        for name in names[1:]:
+            for o in outs:
+                if o is not None:
+                    o.fill_(0)
+            if fn(libs[name][0]):
+                raise RuntimeError("a kernel launch failed")
+            same[name] = all(torch.equal(a, b) for a, b in
+                             zip(ref, (o for o in outs if o is not None)))
+        torch.cuda.synchronize()
+        lines.append(f"{label}: outputs bit for bit {names[0]}'s: " + "; ".join(
+            f"{name} {ok}" for name, ok in same.items()))
+    return lines
 
 
 def score_errors(libs, seed):
@@ -220,25 +365,47 @@ def device_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def epilogue_share(times):
+    """``K1 int8``'s share spent in its unit pass, from the tree's build and
+    ``@noepi`` (best of each build's two passes), or None."""
+    by = times.get("K1 int8", {})
+    full = [v for name, v in by.items() if name.endswith(":topk_kernels.cu")]
+    noepi = [v for name, v in by.items() if name.endswith(":noepi.cu")]
+    if not (full and noepi):
+        return None
+    t_full, t_no = min(full[0]), min(noepi[0])
+    return t_full, t_no, (t_full - t_no) / t_full
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("sources", nargs="+", help="copies of topk_kernels.cu")
+    ap.add_argument("sources", nargs="+",
+                    help="copies of topk_kernels.cu, or @variant names")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default="",
+                    help="time only the cases whose label contains this")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ab_topk: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = build(args.sources)
-    work = cases(args.seed)
+    libs = build([source_path(s) for s in args.sources])
+    work = {label: case for label, case in cases(args.seed).items()
+            if args.only in label}
     times = {label: {name: [] for name in libs} for label in work}
     for name in list(libs) + list(libs)[::-1]:
         lib = libs[name][0]
-        for label, (fn, iters) in work.items():
+        for label, (fn, iters, _outs) in work.items():
             times[label][name].append(device_ms(lambda: fn(lib), iters))
     for label, by_build in times.items():
         print(f"{label}: " + "; ".join(
             f"{name} {' / '.join(f'{ms:.4f}' for ms in v)} ms"
             for name, v in by_build.items()), flush=True)
+    share = epilogue_share(times)
+    if share is not None:
+        print(f"K1 int8 epilogue (unit pass) share: {share[2]:.3f} "
+              f"({share[0]:.4f} ms with it, {share[1]:.4f} without)", flush=True)
+    for line in same_int8_outputs(libs, work):
+        print(line, flush=True)
     for line in score_errors(libs, args.seed):
         print(line, flush=True)
     for name, (_lib, report) in libs.items():

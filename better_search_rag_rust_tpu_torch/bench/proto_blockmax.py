@@ -59,8 +59,11 @@ EMIT_VAR_R, EMIT_VAR_VALID, EMIT_VAR_D, EMIT_VAR_Q = 10_158_080, 10_000_000, 256
 EMIT_VAR_SUB, EMIT_VAR_BLOCK, EMIT_VAR_EW = 128, 1024, 256
 
 TOL = 1e-5
-#: The library product is timed only where its output fits in this.
-LIBRARY_MAX_BYTES = 8 << 30
+#: The library product is timed only where its output fits in this: beside
+#: the largest store (10,158,080 x 256) and the kernel's outputs on an 80 GB
+#: card; the 10M rows' products (21 GB at 512 int32 or 1024 bf16 columns)
+#: fit.
+LIBRARY_MAX_BYTES = 40 << 30
 
 
 def _k1(plain, *args, **kw):
@@ -427,14 +430,20 @@ def compare(got, want) -> tuple:
 
 def library_ms(q, data, device, iters):
     """The product alone (``torch.matmul``; ``torch._int_mm`` on int8) or
-    None where its output would exceed :data:`LIBRARY_MAX_BYTES`."""
+    None where its output would exceed :data:`LIBRARY_MAX_BYTES` or the
+    card's free memory."""
     out_bytes = q.shape[0] * data.shape[0] * (2 if q.dtype == torch.bfloat16
                                               else 4)
     if out_bytes > LIBRARY_MAX_BYTES:
         return None
-    if q.dtype == torch.int8:
-        return _time_ms(lambda: torch._int_mm(q, data.T), iters, device)
-    return _time_ms(lambda: torch.matmul(q, data.T), iters, device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    try:
+        if q.dtype == torch.int8:
+            return _time_ms(lambda: torch._int_mm(q, data.T), iters, device)
+        return _time_ms(lambda: torch.matmul(q, data.T), iters, device)
+    except torch.cuda.OutOfMemoryError:
+        return None
 
 
 def measure(script, label, q, data, valid, call, device, iters=2) -> dict:

@@ -65,13 +65,19 @@
 // (the TPU's Mosaic f32 product was not exact either).
 //
 // INT8 STORES (the lattice of ops/quantize.py) take the third rule: one
-// int32 accumulator per score, advanced only by dp4a_chunk() (__dp4a over
-// 4-byte packs of features; a ragged tail is zero-padded, adding exact
-// zeros), then ONE int8_score(): __fmul_rn(float(acc), INT8_INV_SCALE2).
-// Integer sums are exact in any order (|acc| <= D * 127^2, far inside
-// int32), and float(acc) is exact below 2^24 (D <= 1040), so every kernel,
-// every tiling and the plain versions give the same bits — the argmax fast
-// path's identity (K1 max == K2 rescore == K3 score) holds by construction.
+// exact int32 dot per score, then ONE int8_score(): __fmul_rn(float(acc),
+// INT8_INV_SCALE2). Integer sums are exact in any order and any grouping
+// (|acc| <= D * 127^2, far inside int32; a ragged tail is zero-padded,
+// adding exact zeros), and float(acc) is exact below 2^24 (D <= 1040 on the
+// lattice; raw int8 holding -128 needs sum_d |q_d r_d| <= 2^24, which D
+// <= 1024 guarantees), so every kernel, every tiling, every instruction and the
+// plain versions give the same bits — the argmax fast path's identity (K1
+// max == K2 rescore == K3 score) holds by construction, and no order rule is
+// needed. Two instructions form the dot: K1/K3/K5/K10's score tile runs on
+// the s8 tensor cores (score_tile_i8: wgmma m64n128k32 fed by TMA, the s32
+// sum kept in the instruction across all of D), K2 and K6, whose time is
+// their gather, on __dp4a over 4-byte packs (dp4a_chunk()); so K1 = K2 = K3
+// checks two instructions against each other.
 // K1's emission runs on these scaled f32 scores exactly as on the float
 // path. The reference packs (acc, row) into integer keys instead
 // (topk_pallas.py:320, _int8_bm2_emit); both name the same argmax and m2
@@ -80,13 +86,13 @@
 // |acc| <~ 127^2 (scores near [-1, 1]), where adjacent integers stay ~500
 // f32 ulps apart after the multiply. This replaces the int8 bodies of K1
 // (topk_pallas.py:390-434) and the int8 arm of _sims_dot (:56-61) that K2
-// and K3 score through. SIMT dp4a, no tensor cores (mma.sync s8 is later
-// work).
+// and K3 score through.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (0 on success); the Python wrappers raise on
 // anything else.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,9 +106,10 @@ constexpr float PAD_SIM = -3.0f;
 // f32(1) / f32(127 * 127), bitwise ops/quantize.py's INT8_INV_SCALE2.
 constexpr uint32_t INT8_INV_SCALE2_BITS = 0x38820610u;
 
-// Score tile of K1/K3: TR store rows x TQ queries per block, NT threads.
-// f32 and int8: each thread a MR x MQ micro-tile of accumulators; D staged
-// through shared memory DK features at a time, transposed (f32 widened).
+// Score tile of K1/K3: TR store rows x TQ queries per block, NT threads
+// (int8: NT_I8, see score_tile_i8). f32: each thread a MR x MQ micro-tile
+// of accumulators; D staged through shared memory DK features at a time,
+// transposed.
 constexpr int TR = 128;
 constexpr int TQ = 128;
 constexpr int DK = 16;
@@ -111,6 +118,11 @@ constexpr int MR = 8;
 constexpr int MQ = 8;
 constexpr int LDS = TR + 4;       // padded leading dim of the staged tiles
 constexpr int LDO = TQ + 1;       // padded leading dim of the score tile
+// The int8 tile's, where the epilogue reads st only along rows (K1, K5,
+// K10): LDO_I8 = 8 (mod 32) makes each warp's 8-byte stores of its
+// accumulator pairs free of bank conflicts (the odd LDO is 4-way
+// conflicted for that layout, and K3's transposed read needs it odd).
+constexpr int LDO_I8 = TQ + 8;
 // bf16: WM x WN warps, each a (TR / WM) x (TQ / WN) tile of MT x NQ8 mma
 // fragments (64 f32 accumulators a thread); D staged SK features at a time,
 // row-major bf16, in an NSTAGE ring of cp.async slabs whose rows are padded
@@ -134,8 +146,7 @@ constexpr int GR = 128;
 constexpr int GDK = 32;
 constexpr int GLD = GR + 4;
 static_assert(TR == TQ, "score_tile stages rows and queries in one loop");
-// int8: 4-byte feature packs staged per step (64 features) in K1/K3 and K2.
-constexpr int DKP = 16;
+// int8 in K2/K6: 4-byte feature packs staged per step (64 features).
 constexpr int GDKP = 16;
 
 template <typename T> __device__ __forceinline__ float widen(T x);
@@ -483,72 +494,334 @@ __device__ __forceinline__ void dp4a_chunk(int (&acc)[M][N], const int* __restri
   }
 }
 
-// THE int8 score: one rounded multiply of the exact dot.
-__device__ __forceinline__ float int8_score(int acc) {
-  return __fmul_rn(__int2float_rn(acc), __uint_as_float(INT8_INV_SCALE2_BITS));
+// THE int8 score: one rounded multiply of the exact dot, by the lattice's
+// INT8_INV_SCALE2 (or by the scale K10 is given).
+__device__ __forceinline__ float int8_score(int acc, float scale) {
+  return __fmul_rn(__int2float_rn(acc), scale);
 }
 
-// score_tile for int8 operands: the same tile, masking and output layout,
-// D staged 4 * DKP features at a time as packs. RAW keeps the exact int32
-// dots instead (masked rows PAD_ACC), for K10's integer key.
+__device__ __forceinline__ float int8_score(int acc) {
+  return int8_score(acc, __uint_as_float(INT8_INV_SCALE2_BITS));
+}
+
+// K10's raw int8 key pads masked rows with this integer.
 constexpr int32_t PAD_ACC = -(1 << 24);  // below any dot at D <= 1040
 
-template <bool RAW = false>
-__device__ __forceinline__ void score_tile_i8(const int8_t* __restrict__ q,
-                                              const int8_t* __restrict__ shard,
-                                              int Tn, int D, int valid_rows,
-                                              int row0, int q0, float* smem) {
-  int* rs = reinterpret_cast<int*>(smem);  // [DKP][LDS]
-  int* qs = rs + DKP * LDS;                // [DKP][LDS]
-  const bool s_al = packs_aligned(shard, D), q_al = packs_aligned(q, D);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  int acc[MR][MQ];
-#pragma unroll
-  for (int i = 0; i < MR; ++i)
-#pragma unroll
-    for (int j = 0; j < MQ; ++j) acc[i][j] = 0;
+// ---- int8 on the tensor cores: wgmma fed by TMA ----
 
-  for (int d0 = 0; d0 < D; d0 += 4 * DKP) {
-    for (int e = tid; e < TR * DKP; e += NT) {
-      const int r = e / DKP, p = e % DKP, gd = d0 + 4 * p;
-      rs[p * LDS + r] = gd < D ? load_pack(shard + (size_t)(row0 + r) * D, gd, D, s_al) : 0;
-      const int gq = q0 + r;
-      qs[p * LDS + r] =
-          (gd < D && gq < Tn) ? load_pack(q + (size_t)gq * D, gd, D, q_al) : 0;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_inval(uint64_t* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Arrive and add `bytes` to the transactions the phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 2-D tensor map (x: the inner coordinate, y: the row) into
+// shared memory; its bytes complete a transaction of `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int x, int y,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The wgmma descriptor of a K-major operand whose rows are 128 bytes in the
+// 128-byte swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_128B): 8-row atoms of 1024
+// bytes (the stride byte offset), layout type 1; p is the first row's k
+// byte, within a 1024-byte-aligned atom.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (s32, 64 store rows x 128 queries over one warpgroup) += A (64 rows x 32
+// features) * B (32 features x 128 queries), both K-major in shared memory.
+// Register d[4j + e] of lane l in warp w of the warpgroup holds row 16w +
+// l/4 + 8(e/2), query 8j + 2(l%4) + e%2.
+__device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      " %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41,"
+      " %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous wgmma that owns them.
+__device__ __forceinline__ void fence_regs(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// What a TMA box of the int8 tile carries: the tensor maps of the queries
+// [Tn, D] and the store [R, D] (box 128 rows x 128 bytes, 128-byte swizzle,
+// zero fill past either edge), or tma == 0 where TMA cannot read them (D %
+// 16 != 0 or a base that is not 16-byte aligned).
+struct I8Maps {
+  CUtensorMap q, shard;
+  int tma;
+};
+
+// ==== int8 score tile: begin (bench/ab_topk.py swaps this block) ====
+
+// score_tile for int8 operands: the same contract (st [TR][LD] f32 =
+// int8_score(acc, scale), rows at or past valid_rows PAD_SIM; RAW keeps the
+// exact int32 dots instead, masked rows PAD_ACC, for K10's integer key), on
+// the s8 tensor cores; LD is LDO or LDO_I8 (each thread's accumulator pairs
+// then go out as 8-byte stores). NT_I8 threads: two consumer warpgroups,
+// warpgroup w owning rows 64w .. 64w + 63 against all TQ queries (64 s32
+// accumulators a thread), and one producer warp that keeps a ring of
+// I8_STAGES slabs full: D in slabs of I8_SLAB = 128 features, each the store
+// rows' and the queries' 128 bytes a row, written by TMA (two boxes, the
+// 128-byte swizzle wgmma's descriptors read) into 1024-byte-aligned shared
+// memory, guarded
+// by mbarriers (full: the box bytes landed; empty: all 256 consumers are
+// done with the slot). Per slab each warpgroup issues four wgmma
+// m64n128k32, skipping those wholly past D; the s32 sum stays in the
+// instruction across all of D, exact in any order, so it needs no per-step
+// rule. TMA zero-fills past D and past Tn; where TMA cannot read the
+// operands, the producer warp stages the same swizzled slabs itself with
+// the same zero padding, and the same wgmma multiply them. Bound: the
+// 2*TR*TQ*D operations at the int8 tensor rate (K1 at 512 queries of 1M x
+// 768: 0.40 ms) against the operand bytes (0.24 ms of reading the store
+// once): the ring keeps the tensor cores fed while the store streams. After
+// the k loop the ring (96 KB) becomes st; with K1's unit maxima a block
+// takes ~97 KB, so 2 CTAs share an SM (__launch_bounds__(NT_I8, 2)): one
+// block's epilogue (the st pass in f32, as every dtype's) runs under the
+// other's product. On the card (bench/ab_topk.py, PERF.md) 4 stages at one
+// block per SM ran 1.6x slower, and halving the loads moved K1 by under 5 %:
+// a block's own start (the first slab's latency) and epilogue, not the
+// operand traffic, keep the tensor cores at about half their rate.
+constexpr int I8_CONSUMERS = 256;
+constexpr int NT_I8 = I8_CONSUMERS + 32;
+constexpr int I8_SLAB = 128;
+constexpr int I8_STAGES = 3;
+constexpr int I8_STAGE_BYTES = (TR + TQ) * I8_SLAB;
+constexpr size_t I8_RING_BYTES = (size_t)I8_STAGES * I8_STAGE_BYTES;
+constexpr size_t I8_ST_BYTES = sizeof(float) * (size_t)TR * LDO_I8;
+// The tile's shared memory, and what precedes it: the mbarriers (64
+// bytes) and the slack that aligns the ring to 1024 bytes.
+constexpr size_t I8_TILE_BYTES = I8_RING_BYTES > I8_ST_BYTES ? I8_RING_BYTES : I8_ST_BYTES;
+constexpr size_t I8_SMEM_PAD = 1024 + 64;
+static_assert(TR == 2 * 64 && TQ == 128, "two m64 warpgroups, n128");
+
+// The ring's start in a block's dynamic shared memory: 1024-byte aligned,
+// with 64 bytes of mbarriers before it.
+__device__ __forceinline__ float* i8_tile_base(float4* raw) {
+  const uint32_t a = smem_addr(raw);
+  return reinterpret_cast<float*>(reinterpret_cast<char*>(raw) +
+                                  (((a + 64 + 1023) & ~1023u) - a));
+}
+
+// Rows [r0, r0 + 128) x features [d0, d0 + 128) of an int8 matrix [n, D] into
+// a slab as a 128-byte-swizzled TMA box lays it out (row r's 16-byte chunk c
+// at r * 128 + 16 * (c ^ (r & 7))), zeros at or past n and D; one warp.
+__device__ __forceinline__ void stage_slab_i8(uint8_t* slab, const int8_t* __restrict__ m, int n,
+                                              int D, int r0, int d0, int lane) {
+  for (int e = lane; e < 128 * 8; e += 32) {
+    const int r = e >> 3, c = e & 7, gr = r0 + r, gd = d0 + 16 * c;
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (gr < n) {
+#pragma unroll
+      for (int b = 0; b < 16; ++b)
+        if (gd + b < D) w[b >> 2] |= (uint32_t)(uint8_t)m[(size_t)gr * D + gd + b] << (8 * (b & 3));
     }
-    __syncthreads();
-    dp4a_chunk<MR, MQ>(acc, rs + ty * MR, LDS, qs + tx * MQ, LDS, DKP);
-    __syncthreads();
+    *reinterpret_cast<uint4*>(slab + r * I8_SLAB + 16 * (c ^ (r & 7))) =
+        make_uint4(w[0], w[1], w[2], w[3]);
   }
+}
 
-  float* st = smem;
-  int* ist = reinterpret_cast<int*>(smem);
+template <bool RAW, int LD>
+__device__ __forceinline__ void score_tile_i8(const int8_t* __restrict__ q,
+                                              const int8_t* __restrict__ shard, int Tn, int D,
+                                              int valid_rows, int row0, int q0, float* smem,
+                                              const I8Maps& maps, float scale) {
+  // I8_STAGES x {rows [TR][128], queries [TQ][128]}
+  uint8_t* ring = reinterpret_cast<uint8_t*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring) - 2 * I8_STAGES;
+  uint64_t* empty = full + I8_STAGES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int slabs = (D + I8_SLAB - 1) / I8_SLAB;
+  if (tid == 0) {
+    for (int s = 0; s < I8_STAGES; ++s) {
+      mbar_init(&full[s], maps.tma ? 1 : 32);  // TMA: one arrival + the bytes
+      mbar_init(&empty[s], I8_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int acc[64];
 #pragma unroll
-  for (int i = 0; i < MR; ++i) {
-    const int r = ty * MR + i;
-    const bool ok = row0 + r < valid_rows;
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+  if (warp == I8_CONSUMERS / 32) {  // the producer
+    for (int s = 0; s < slabs; ++s) {
+      const int stage = s % I8_STAGES;
+      uint8_t* rs = ring + stage * I8_STAGE_BYTES;
+      uint8_t* qs = rs + TR * I8_SLAB;
+      if (s >= I8_STAGES) mbar_wait(&empty[stage], (s / I8_STAGES - 1) & 1);
+      if (maps.tma) {
+        if (lane == 0) {
+          mbar_expect_tx(&full[stage], I8_STAGE_BYTES);
+          tma_load_2d(rs, &maps.shard, s * I8_SLAB, row0, &full[stage]);
+          tma_load_2d(qs, &maps.q, s * I8_SLAB, q0, &full[stage]);
+        }
+      } else {
+        stage_slab_i8(rs, shard, row0 + TR, D, row0, s * I8_SLAB, lane);
+        stage_slab_i8(qs, q, Tn, D, q0, s * I8_SLAB, lane);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+        mbar_arrive(&full[stage]);
+      }
+    }
+  } else {
+    const int wg = warp >> 2;
+    for (int s = 0; s < slabs; ++s) {
+      const int stage = s % I8_STAGES;
+      const uint8_t* rs = ring + stage * I8_STAGE_BYTES + wg * 64 * I8_SLAB;
+      const uint8_t* qs = ring + stage * I8_STAGE_BYTES + TR * I8_SLAB;
+      mbar_wait(&full[stage], (s / I8_STAGES) & 1);
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < MQ; ++j) {
-      if constexpr (RAW)
-        ist[r * LDO + tx * MQ + j] = ok ? acc[i][j] : PAD_ACC;
-      else
-        st[r * LDO + tx * MQ + j] = ok ? int8_score(acc[i][j]) : PAD_SIM;
+      for (int k = 0; k < I8_SLAB / 32; ++k)
+        if (s * I8_SLAB + 32 * k < D)  // no step wholly past D
+          wgmma_s8_m64n128k32(acc, sw128_desc(rs + 32 * k), sw128_desc(qs + 32 * k));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      mbar_arrive(&empty[stage]);  // this thread's wgmmas are done with the slot
+    }
+  }
+  __syncthreads();  // every wgmma has read its slabs: the ring becomes st
+  if (tid == 0)
+    for (int s = 0; s < 2 * I8_STAGES; ++s) mbar_inval(&full[s]);
+  if (warp < I8_CONSUMERS / 32) {
+    const int g = lane >> 2, t = lane & 3;
+    int* ist = reinterpret_cast<int*>(smem);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (warp >> 2) * 64 + (warp & 3) * 16 + g + 8 * h;
+      const bool ok = row0 + r < valid_rows;
+#pragma unroll
+      for (int j = 0; j < TQ / 8; ++j) {
+        const int c = 8 * j + 2 * t, a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
+        if constexpr (RAW) {
+          const int2 v = ok ? make_int2(a0, a1) : make_int2(PAD_ACC, PAD_ACC);
+          if constexpr (LD % 2 == 0) {
+            *reinterpret_cast<int2*>(ist + r * LD + c) = v;
+          } else {
+            ist[r * LD + c] = v.x;
+            ist[r * LD + c + 1] = v.y;
+          }
+        } else {
+          const float2 v = ok ? make_float2(int8_score(a0, scale), int8_score(a1, scale))
+                              : make_float2(PAD_SIM, PAD_SIM);
+          if constexpr (LD % 2 == 0) {
+            *reinterpret_cast<float2*>(smem + r * LD + c) = v;
+          } else {
+            smem[r * LD + c] = v.x;
+            smem[r * LD + c + 1] = v.y;
+          }
+        }
+      }
     }
   }
   __syncthreads();
 }
 
+// ==== int8 score tile: end ====
+
+// Per score-tile dtype: the block size, the leading dimension of st in K1,
+// K5 and K10, and what the int8 tile's TMA needs (nothing for the others).
+struct NoMaps {};
 template <typename T>
+struct Tile {
+  static constexpr int threads = NT;
+  static constexpr int ld = LDO;
+  using Maps = NoMaps;
+};
+template <>
+struct Tile<int8_t> {
+  static constexpr int threads = NT_I8;
+  static constexpr int ld = LDO_I8;
+  using Maps = I8Maps;
+};
+
+// The kernel's shared score tile in its dynamic shared memory.
+template <typename T>
+__device__ __forceinline__ float* tile_base(float4* raw) {
+  if constexpr (std::is_same<T, int8_t>::value)
+    return i8_tile_base(raw);
+  else
+    return reinterpret_cast<float*>(raw);
+}
+
+// The score tile of dtype T into st [TR][LD] (LD: LDO, or LDO_I8 on int8).
+template <typename T, int LD>
 __device__ __forceinline__ void any_score_tile(const T* __restrict__ q,
                                                const T* __restrict__ shard, int Tn,
                                                int D, int valid_rows, int row0, int q0,
-                                               float* smem) {
-  if constexpr (std::is_same<T, int8_t>::value)
-    score_tile_i8(q, shard, Tn, D, valid_rows, row0, q0, smem);
-  else
+                                               float* smem, const typename Tile<T>::Maps& maps) {
+  if constexpr (std::is_same<T, int8_t>::value) {
+    score_tile_i8<false, LD>(q, shard, Tn, D, valid_rows, row0, q0, smem, maps,
+                             __uint_as_float(INT8_INV_SCALE2_BITS));
+  } else {
+    static_assert(LD == LDO, "the bf16 and f32 tiles write st [TR][LDO]");
     score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
+  }
 }
 
 // m2_sort_key + pack_m2_argmax_key (topk_pallas.py:267-304): m2's
@@ -560,6 +833,101 @@ __device__ __forceinline__ int32_t pack_key(float m2, int arg) {
   const uint32_t mono = z < 0.0f ? ~b : (b | 0x80000000u);
   const uint32_t key = ((mono + 0x7Fu) & 0xFFFFFF80u) | (uint32_t)arg;
   return (int32_t)(key ^ 0x80000000u);
+}
+
+// The int8 tiles' passes over st give each column's rows to 2^LG adjacent
+// lanes, lane k taking rows k, k + 2^LG, ...: LG = ROW_SPLIT_LG (4 lanes,
+// whose reads at LD = LDO_I8 fall in 32 distinct banks) where the pass has
+// at most half a block of columns (K1's unit pass at sub 128: 128 columns
+// for 288 threads), else 0 (one lane a column: more lanes would only add
+// shuffles). LG is a template argument, so each split's loops compile to
+// fixed strides. The lanes' results combine exactly (max is exact; the
+// argmax combine below), so every output is the one-lane scan's bit for bit.
+constexpr int ROW_SPLIT_LG = 2;
+
+template <int NTH>
+__device__ __forceinline__ bool split_rows(int columns) {
+  return columns * 2 <= NTH;
+}
+
+// The max over rows r < rows of value(col, r) for every column c < TQ of
+// `groups` row groups, handed to emit(g, c, max) once per (g, c): K5's block
+// maxima and K10's raw key on int8 tiles. Every thread runs the same
+// iterations, so the shuffles see whole warps.
+template <int NTH, int LG, typename V, typename Value, typename Emit>
+__device__ __forceinline__ void max_pass_lg(int groups, int rows, Value&& value, Emit&& emit) {
+  constexpr int split = 1 << LG;
+  const int n = (groups * TQ) << LG;
+  for (int p0 = 0; p0 < n; p0 += NTH) {
+    const int p = p0 + threadIdx.x, k = p & (split - 1), c = (p >> LG) % TQ;
+    const bool live = p < n;
+    const int g = live ? (p >> LG) / TQ : 0;
+    V m = value(g, c, k);
+    for (int r = k + split; r < rows; r += split) m = max(m, value(g, c, r));
+#pragma unroll
+    for (int off = 1; off < split; off <<= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (live && k == 0) emit(g, c, m);
+  }
+}
+
+template <int NTH, typename V, typename Value, typename Emit>
+__device__ __forceinline__ void max_pass(int groups, int rows, Value&& value, Emit&& emit) {
+  if (split_rows<NTH>(groups * TQ))
+    max_pass_lg<NTH, ROW_SPLIT_LG, V>(groups, rows, value, emit);
+  else
+    max_pass_lg<NTH, 0, V>(groups, rows, value, emit);
+}
+
+// The unit pass of K1 and K10 on an int8 tile: for each unit u < TR / sub
+// and query column c, the unit max m1, its lowest attaining row a and m2, the
+// max with that row replaced by PAD_SIM — kept on the way (a new max hands
+// the old one to m2) and combined across the lanes (the higher max wins, the
+// lower row on a tie; m2 becomes the max of the winner's m2 and the loser's
+// max); emit(u, c, m1, a, m2) runs once per (u, c).
+template <int NTH, int LD, int LG, typename Emit>
+__device__ __forceinline__ void unit_pass_i8_lg(const float* st, int sub, Emit&& emit) {
+  constexpr int split = 1 << LG;
+  const int n = ((TR / sub) * TQ) << LG;
+  for (int p0 = 0; p0 < n; p0 += NTH) {
+    const int p = p0 + threadIdx.x, k = p & (split - 1), c = (p >> LG) % TQ;
+    const bool live = p < n;
+    const int u = live ? (p >> LG) / TQ : 0;
+    const float* col = st + (size_t)u * sub * LD + c;
+    float m1 = col[k * LD], m2 = PAD_SIM;
+    int a = k;
+    for (int r = k + split; r < sub; r += split) {
+      const float v = col[r * LD];
+      if (v > m1) {  // strict: lowest attaining row
+        m2 = fmaxf(m2, m1);
+        m1 = v;
+        a = r;
+      } else {
+        m2 = fmaxf(m2, v);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < split; off <<= 1) {
+      const float o1 = __shfl_xor_sync(0xffffffffu, m1, off);
+      const float o2 = __shfl_xor_sync(0xffffffffu, m2, off);
+      const int oa = __shfl_xor_sync(0xffffffffu, a, off);
+      if (o1 > m1 || (o1 == m1 && oa < a)) {
+        m2 = fmaxf(o2, m1);
+        m1 = o1;
+        a = oa;
+      } else {
+        m2 = fmaxf(m2, o1);
+      }
+    }
+    if (live && k == 0) emit(u, c, m1, a, m2);
+  }
+}
+
+template <int NTH, int LD, typename Emit>
+__device__ __forceinline__ void unit_pass_i8(const float* st, int sub, Emit&& emit) {
+  if (split_rows<NTH>((TR / sub) * TQ))
+    unit_pass_i8_lg<NTH, LD, ROW_SPLIT_LG>(st, sub, emit);
+  else
+    unit_pass_i8_lg<NTH, LD, 0>(st, sub, emit);
 }
 
 // The score tile st [TR][LDO] f32, or the staging it replaces, whichever is
@@ -589,42 +957,54 @@ inline unsigned tile_grid(long long groups, int Tn) {
 // see launch_k1); scores never leave shared memory.
 // Outputs are transposed like the TPU kernel's: [R/sub, T], [R/ew, T].
 template <typename T>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(Tile<T>::threads, 2)
 k1_blockmax2(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
              int D, int valid_rows, int sub, int ew, float* __restrict__ bm_sub,
-             int32_t* __restrict__ key, float* __restrict__ bm) {
+             int32_t* __restrict__ key, float* __restrict__ bm,
+             const __grid_constant__ typename Tile<T>::Maps maps) {
+  constexpr int NTH = Tile<T>::threads, LD = Tile<T>::ld;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  float* smem = tile_base<T>(smem4);
   const int qt = query_tiles(Tn);
   const int row0 = (blockIdx.x / qt) * TR, q0 = (blockIdx.x % qt) * TQ;
-  any_score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
+  any_score_tile<T, LD>(q, shard, Tn, D, valid_rows, row0, q0, smem, maps);
   const float* st = smem;
-  float* um = smem + TR * LDO;  // [MAX_UNITS][TQ] unit maxima
+  float* um = smem + TR * LD;  // [MAX_UNITS][TQ] unit maxima
   const int units = TR / sub;
-  for (int p = threadIdx.x; p < units * TQ; p += NT) {
-    const int u = p / TQ, c = p % TQ;
-    const float* col = st + (size_t)u * sub * LDO + c;
-    float m1 = col[0];
-    int arg = 0;
-    for (int r = 1; r < sub; ++r) {
-      const float v = col[r * LDO];
-      if (v > m1) { m1 = v; arg = r; }  // strict: lowest attaining row
-    }
-    um[u * TQ + c] = m1;
-    if (q0 + c >= Tn) continue;
-    const size_t o = (size_t)(row0 / sub + u) * Tn + q0 + c;
-    bm_sub[o] = m1;
-    if (key != nullptr) {
-      // second max: the max with the argmax ROW replaced by PAD_SIM
-      float m2 = __uint_as_float(0xff800000u);  // -inf
-      for (int r = 0; r < sub; ++r) m2 = fmaxf(m2, r == arg ? PAD_SIM : col[r * LDO]);
-      key[o] = pack_key(m2, arg);
+  if constexpr (std::is_same<T, int8_t>::value) {
+    unit_pass_i8<NTH, LD>(st, sub, [&](int u, int c, float m1, int a, float s2) {
+      um[u * TQ + c] = m1;
+      if (q0 + c >= Tn) return;
+      const size_t o = (size_t)(row0 / sub + u) * Tn + q0 + c;
+      bm_sub[o] = m1;
+      if (key != nullptr) key[o] = pack_key(s2, a);
+    });
+  } else {
+    for (int p = threadIdx.x; p < units * TQ; p += NTH) {
+      const int u = p / TQ, c = p % TQ;
+      const float* col = st + (size_t)u * sub * LD + c;
+      float m1 = col[0];
+      int arg = 0;
+      for (int r = 1; r < sub; ++r) {
+        const float v = col[r * LD];
+        if (v > m1) { m1 = v; arg = r; }  // strict: lowest attaining row
+      }
+      um[u * TQ + c] = m1;
+      if (q0 + c >= Tn) continue;
+      const size_t o = (size_t)(row0 / sub + u) * Tn + q0 + c;
+      bm_sub[o] = m1;
+      if (key != nullptr) {
+        // second max: the max with the argmax ROW replaced by PAD_SIM
+        float m2 = __uint_as_float(0xff800000u);  // -inf
+        for (int r = 0; r < sub; ++r) m2 = fmaxf(m2, r == arg ? PAD_SIM : col[r * LD]);
+        key[o] = pack_key(m2, arg);
+      }
     }
   }
   if (bm == nullptr) return;
   __syncthreads();
   const int groups = TR / ew, per = ew / sub;
-  for (int p = threadIdx.x; p < groups * TQ; p += NT) {
+  for (int p = threadIdx.x; p < groups * TQ; p += NTH) {
     const int g = p / TQ, c = p % TQ;
     if (q0 + c >= Tn) continue;
     float m = um[(g * per) * TQ + c];
@@ -633,45 +1013,59 @@ k1_blockmax2(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
   }
 }
 
-// The per-block maxima of a score tile st (rows [row0, row0 + TR), queries
-// [q0, q0 + TQ)): block group g of query column c goes to
+// The per-block maxima of a score tile st [TR][LD] (rows [row0, row0 + TR),
+// queries [q0, q0 + TQ)): block group g of query column c goes to
 // out[(row0 / block + g) * g_stride + (q0 + c) * q_stride]; queries at or past
 // Tn are skipped. The block reduction of K5 and K12, and K3's loop written
 // out (calling this cost K3 1.5 % on the card), so their maxima agree bit
-// for bit.
+// for bit. NTH: the block's threads; SPLIT_ROWS (int8 tiles) may split each
+// column's rows over lanes (max_pass).
+template <int NTH = NT, int LD = LDO, bool SPLIT_ROWS = false>
 __device__ __forceinline__ void store_block_max(const float* st, int block, int Tn,
                                                 int row0, int q0, float* __restrict__ out,
                                                 size_t g_stride, size_t q_stride) {
   const int groups = TR / block;
-  for (int p = threadIdx.x; p < groups * TQ; p += NT) {
-    const int g = p / TQ, c = p % TQ;
-    if (q0 + c >= Tn) continue;
-    const float* col = st + (size_t)g * block * LDO + c;
-    float m = col[0];
-    for (int r = 1; r < block; ++r) m = fmaxf(m, col[r * LDO]);
-    out[(size_t)(row0 / block + g) * g_stride + (size_t)(q0 + c) * q_stride] = m;
+  if constexpr (SPLIT_ROWS) {
+    max_pass<NTH, float>(
+        groups, block,
+        [&](int g, int c, int r) { return st[((size_t)g * block + r) * LD + c]; },
+        [&](int g, int c, float m) {
+          if (q0 + c < Tn)
+            out[(size_t)(row0 / block + g) * g_stride + (size_t)(q0 + c) * q_stride] = m;
+        });
+  } else {
+    for (int p = threadIdx.x; p < groups * TQ; p += NTH) {
+      const int g = p / TQ, c = p % TQ;
+      if (q0 + c >= Tn) continue;
+      const float* col = st + (size_t)g * block * LD + c;
+      float m = col[0];
+      for (int r = 1; r < block; ++r) m = fmaxf(m, col[r * LD]);
+      out[(size_t)(row0 / block + g) * g_stride + (size_t)(q0 + c) * q_stride] = m;
+    }
   }
 }
 
-// K3: masked scores sims [T, R] plus per-block maxima bm_t [R/block, T].
+// K3: masked scores sims [T, R] plus per-block maxima bm_t [R/block, T]. Its
+// st keeps the odd LDO on every dtype: the transposed read below needs it.
 template <typename T>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(Tile<T>::threads, 2)
 k3_blockmax(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int R,
             int D, int valid_rows, int block, float* __restrict__ sims,
-            float* __restrict__ bm_t) {
+            float* __restrict__ bm_t, const __grid_constant__ typename Tile<T>::Maps maps) {
+  constexpr int NTH = Tile<T>::threads;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  float* smem = tile_base<T>(smem4);
   const int qt = query_tiles(Tn);
   const int row0 = (blockIdx.x / qt) * TR, q0 = (blockIdx.x % qt) * TQ;
-  any_score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
+  any_score_tile<T, LDO>(q, shard, Tn, D, valid_rows, row0, q0, smem, maps);
   const float* st = smem;
   // consecutive threads -> consecutive rows of one query: coalesced stores
-  for (int e = threadIdx.x; e < TR * TQ; e += NT) {
+  for (int e = threadIdx.x; e < TR * TQ; e += NTH) {
     const int c = e / TR, r = e % TR;
     if (q0 + c < Tn) sims[(size_t)(q0 + c) * R + row0 + r] = st[r * LDO + c];
   }
   const int groups = TR / block;
-  for (int p = threadIdx.x; p < groups * TQ; p += NT) {
+  for (int p = threadIdx.x; p < groups * TQ; p += NTH) {
     const int g = p / TQ, c = p % TQ;
     if (q0 + c >= Tn) continue;
     const float* col = st + (size_t)g * block * LDO + c;
@@ -686,19 +1080,22 @@ k3_blockmax(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int R,
 // body :178), whose Mosaic row tile (pick_bm_row_tile) has no counterpart:
 // the tile is K3's TR x TQ. Bound on the card: the 2*T*R*D operations of the
 // product (the store is read once, the output is R/block x T floats), on the
-// tensor cores for bf16 (K1/K3's score tile), the SIMT pipes for f32 and
-// dp4a for int8. A kernel of its own rather than a
+// tensor cores for bf16 and int8 (K1/K3's score tile), the SIMT pipes for
+// f32. A kernel of its own rather than a
 // flag on K3, so every pointer stays __restrict__ (a shared body cost K2 9 %).
 template <typename T>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(Tile<T>::threads, 2)
 k5_blockmax_only(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
-                 int D, int valid_rows, int block, float* __restrict__ bm_t) {
+                 int D, int valid_rows, int block, float* __restrict__ bm_t,
+                 const __grid_constant__ typename Tile<T>::Maps maps) {
+  constexpr int LD = Tile<T>::ld;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  float* smem = tile_base<T>(smem4);
   const int qt = query_tiles(Tn);
   const int row0 = (blockIdx.x / qt) * TR, q0 = (blockIdx.x % qt) * TQ;
-  any_score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
-  store_block_max(smem, block, Tn, row0, q0, bm_t, Tn, 1);
+  any_score_tile<T, LD>(q, shard, Tn, D, valid_rows, row0, q0, smem, maps);
+  store_block_max<Tile<T>::threads, LD, std::is_same<T, int8_t>::value>(
+      smem, block, Tn, row0, q0, bm_t, Tn, 1);
 }
 
 // K10: the block-max prototypes of the TPU measurement record
@@ -716,25 +1113,27 @@ k5_blockmax_only(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
 //           the tile (score_tile_i8<true>), never recovered from floats;
 //   bm      [R/ew, T] coarse maxima; `tiles` > 1 row tiles per block when
 //           ew > TR, a running max per query in a register.
-// int8 tiles hold the exact dots first: the raw key is taken from them, then
-// each becomes __fmul_rn(float(acc), inv_scale2) in place — K1's int8_score
-// when inv_scale2 is INT8_INV_SCALE2 — so every later pass reads f32 scores
-// as K1's does, and shared outputs equal K1's bit for bit.
-// Bound on the card: the 2*T*R*D operations (bf16 on the tensor cores, K1's
-// score tile); with sims, also its R*T*4 bytes. A kernel of its own, so K1's
-// body is untouched.
+// int8 scores are __fmul_rn(float(acc), inv_scale2) — K1's int8_score when
+// inv_scale2 is INT8_INV_SCALE2 — so every pass reads f32 scores as K1's
+// does, and shared outputs equal K1's bit for bit; with raw_key the tile
+// holds the exact dots first, the key is taken from them, then each becomes
+// its score in place. int8's passes split rows over lanes as K1's.
+// Bound on the card: the 2*T*R*D operations (bf16 and int8 on the tensor
+// cores, K1's score tile); with sims, also its R*T*4 bytes. A kernel of its
+// own, so K1's body is untouched.
 template <typename T>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(Tile<T>::threads, 2)
 k10_blockmax2x(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int R,
                int D, int valid_rows, int sub, int ew, int tiles, int t_major,
                float inv_scale2, float* __restrict__ sims, float* __restrict__ bms,
                int32_t* __restrict__ arg, float* __restrict__ m2,
                int32_t* __restrict__ key, int32_t* __restrict__ raw_key,
-               float* __restrict__ bm) {
+               float* __restrict__ bm, const __grid_constant__ typename Tile<T>::Maps maps) {
+  constexpr int NTH = Tile<T>::threads, LD = Tile<T>::ld;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  float* smem = tile_base<T>(smem4);
   const float* st = smem;
-  float* um = smem + TR * LDO;  // [MAX_UNITS][TQ] unit maxima
+  float* um = smem + TR * LD;  // [MAX_UNITS][TQ] unit maxima
   const int qt = query_tiles(Tn), rg = blockIdx.x / qt;  // rg: this block's row tile group
   const int q0 = (blockIdx.x % qt) * TQ, units = TR / sub, n_units = R / sub;
   // offset of (global unit gu, query column c) in a unit output
@@ -745,59 +1144,73 @@ k10_blockmax2x(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int
   for (int tile = 0; tile < tiles; ++tile) {
     const int row0 = (rg * tiles + tile) * TR;
     if constexpr (std::is_same<T, int8_t>::value) {
-      score_tile_i8<true>(q, shard, Tn, D, valid_rows, row0, q0, smem);
-      int* ist = reinterpret_cast<int*>(smem);
-      if (raw_key != nullptr) {
-        for (int p = threadIdx.x; p < units * TQ; p += NT) {
-          const int u = p / TQ, c = p % TQ, base = u * sub * LDO + c;
-          if (q0 + c >= Tn) continue;
-          int k = ist[base] * 128 + 127;
-          for (int r = 1; r < sub; ++r) k = max(k, ist[base + r * LDO] * 128 + (127 - r));
-          raw_key[at(row0 / sub + u, c)] = k;
+      if (raw_key == nullptr) {
+        score_tile_i8<false, LD>(q, shard, Tn, D, valid_rows, row0, q0, smem, maps, inv_scale2);
+      } else {
+        score_tile_i8<true, LD>(q, shard, Tn, D, valid_rows, row0, q0, smem, maps, inv_scale2);
+        const int* ist = reinterpret_cast<const int*>(smem);
+        max_pass<NTH, int>(
+            units, sub,
+            [&](int u, int c, int r) { return ist[(u * sub + r) * LD + c] * 128 + (127 - r); },
+            [&](int u, int c, int k) {
+              if (q0 + c < Tn) raw_key[at(row0 / sub + u, c)] = k;
+            });
+        __syncthreads();
+        for (int e = threadIdx.x; e < TR * TQ; e += NTH) {
+          const int i = (e / TQ) * LD + e % TQ, a = ist[i];
+          smem[i] = a == PAD_ACC ? PAD_SIM : int8_score(a, inv_scale2);
         }
         __syncthreads();
       }
-      for (int e = threadIdx.x; e < TR * TQ; e += NT) {
-        const int i = (e / TQ) * LDO + e % TQ, a = ist[i];
-        smem[i] = a == PAD_ACC ? PAD_SIM : __fmul_rn(__int2float_rn(a), inv_scale2);
-      }
-      __syncthreads();
     } else {
       score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
     }
     if (sims != nullptr) {
       // consecutive threads -> consecutive queries of one row: coalesced
-      for (int e = threadIdx.x; e < TR * TQ; e += NT) {
+      for (int e = threadIdx.x; e < TR * TQ; e += NTH) {
         const int r = e / TQ, c = e % TQ;
-        if (q0 + c < Tn) sims[(size_t)(row0 + r) * Tn + q0 + c] = st[r * LDO + c];
+        if (q0 + c < Tn) sims[(size_t)(row0 + r) * Tn + q0 + c] = st[r * LD + c];
       }
     }
-    for (int p = threadIdx.x; p < units * TQ; p += NT) {
-      const int u = p / TQ, c = p % TQ;
-      const float* col = st + (size_t)u * sub * LDO + c;
-      float m1 = col[0];
-      int a = 0;
-      for (int r = 1; r < sub; ++r) {
-        const float v = col[r * LDO];
-        if (v > m1) { m1 = v; a = r; }  // strict: lowest attaining row
-      }
+    auto emit = [&](int u, int c, float m1, int a, float s2) {
       um[u * TQ + c] = m1;
-      if (q0 + c >= Tn) continue;
+      if (q0 + c >= Tn) return;
       const size_t o = at(row0 / sub + u, c);
       bms[o] = m1;
       if (arg != nullptr) arg[o] = a;
-      if (m2 != nullptr || key != nullptr) {
-        float s2 = __uint_as_float(0xff800000u);  // -inf
-        for (int r = 0; r < sub; ++r) s2 = fmaxf(s2, r == a ? PAD_SIM : col[r * LDO]);
-        if (m2 != nullptr) m2[o] = s2;
-        if (key != nullptr) key[o] = pack_key(s2, a);
+      if (m2 != nullptr) m2[o] = s2;
+      if (key != nullptr) key[o] = pack_key(s2, a);
+    };
+    if constexpr (std::is_same<T, int8_t>::value) {
+      unit_pass_i8<NTH, LD>(st, sub, emit);
+    } else {
+      for (int p = threadIdx.x; p < units * TQ; p += NTH) {
+        const int u = p / TQ, c = p % TQ;
+        const float* col = st + (size_t)u * sub * LD + c;
+        float m1 = col[0];
+        int a = 0;
+        for (int r = 1; r < sub; ++r) {
+          const float v = col[r * LD];
+          if (v > m1) { m1 = v; a = r; }  // strict: lowest attaining row
+        }
+        um[u * TQ + c] = m1;
+        if (q0 + c >= Tn) continue;
+        const size_t o = at(row0 / sub + u, c);
+        bms[o] = m1;
+        if (arg != nullptr) arg[o] = a;
+        if (m2 != nullptr || key != nullptr) {
+          float s2 = __uint_as_float(0xff800000u);  // -inf
+          for (int r = 0; r < sub; ++r) s2 = fmaxf(s2, r == a ? PAD_SIM : col[r * LD]);
+          if (m2 != nullptr) m2[o] = s2;
+          if (key != nullptr) key[o] = pack_key(s2, a);
+        }
       }
     }
     if (bm != nullptr) {
       __syncthreads();
       if (tiles == 1) {
         const int groups = TR / ew, per = ew / sub;
-        for (int p = threadIdx.x; p < groups * TQ; p += NT) {
+        for (int p = threadIdx.x; p < groups * TQ; p += NTH) {
           const int g = p / TQ, c = p % TQ;
           if (q0 + c >= Tn) continue;
           float m = um[(g * per) * TQ + c];
@@ -1217,19 +1630,89 @@ constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
 constexpr int DTYPE_INT8 = 2;
 
+// Dynamic shared memory of a K1/K3/K5/K10 block: the score tile (or the
+// ring it replaces) plus `extra` bytes past st (K1/K10's unit maxima); the
+// int8 tile's ring is larger, 1024-byte aligned, and has its mbarriers.
+template <typename T>
+size_t tile_smem(size_t extra) {
+  if constexpr (std::is_same<T, int8_t>::value) {
+    const size_t past_st = I8_ST_BYTES + extra;
+    return I8_SMEM_PAD + (I8_TILE_BYTES > past_st ? I8_TILE_BYTES : past_st);
+  }
+  return SCORE_SMEM + extra;
+}
+
+// The driver's cuTensorMapEncodeTiled, through the runtime's entry-point
+// lookup (nothing links libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled lookup_encode_tiled() {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+  const cudaError_t err =
+      cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+  return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+             ? reinterpret_cast<EncodeTiled>(p)
+             : nullptr;
+}
+
+// The int8 tile's tensor map of a row-major int8 matrix [rows, D]: boxes of
+// 128 rows x I8_SLAB bytes in the 128-byte swizzle, zeros past either edge.
+int encode_i8(CUtensorMap* map, const void* base, int rows, int D) {
+  static const EncodeTiled encode = lookup_encode_tiled();  // once, thread-safe
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)D};
+  const cuuint32_t box[2] = {(cuuint32_t)I8_SLAB, (cuuint32_t)TR};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// What the score tile of dtype T needs beside its pointers: for int8, the
+// two tensor maps where TMA can read the operands (D % 16 == 0, both bases
+// 16-byte aligned), else tma = 0 and the producer warp stages the slabs.
+// Returns a CUDA error if a map cannot be encoded.
+template <typename T>
+int tile_maps(typename Tile<T>::Maps* maps, const void* q, const void* shard, int Tn, int R,
+              int D) {
+  if constexpr (std::is_same<T, int8_t>::value) {
+    memset(maps, 0, sizeof *maps);
+    maps->tma = D % 16 == 0 &&
+                ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(shard)) & 15) == 0;
+    if (!maps->tma) return 0;
+    if (int err = encode_i8(&maps->q, q, Tn, D)) return err;
+    return encode_i8(&maps->shard, shard, R, D);
+  }
+  return 0;
+}
+
 template <typename T>
 int launch_k10(const void* q, const void* shard, int Tn, int R, int D, int valid_rows,
                int sub, int ew, int t_major, float inv_scale2, float* sims, float* bms,
                int32_t* arg, float* m2, int32_t* key, int32_t* raw_key, float* bm,
                cudaStream_t st) {
-  const size_t smem = SCORE_SMEM + sizeof(float) * MAX_UNITS * TQ;
+  const size_t smem = tile_smem<T>(sizeof(float) * MAX_UNITS * TQ);
   if (int err = raise_smem(k10_blockmax2x<T>, smem)) return err;
   const int tiles = (bm != nullptr && ew > TR) ? ew / TR : 1;
   const unsigned grid = tile_grid(R / (TR * tiles), Tn);
   if (grid == 0) return (int)cudaErrorInvalidValue;
-  k10_blockmax2x<T><<<grid, NT, smem, st>>>(
+  typename Tile<T>::Maps maps;
+  if (int err = tile_maps<T>(&maps, q, shard, Tn, R, D)) return err;
+  k10_blockmax2x<T><<<grid, Tile<T>::threads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(shard), Tn, R, D, valid_rows, sub,
-      ew, tiles, t_major, inv_scale2, sims, bms, arg, m2, key, raw_key, bm);
+      ew, tiles, t_major, inv_scale2, sims, bms, arg, m2, key, raw_key, bm, maps);
   return (int)cudaGetLastError();
 }
 
@@ -1245,37 +1728,45 @@ int launch_k1(const void* q, const void* shard, int Tn, int R, int D, int valid_
     return launch_k10<T>(q, shard, Tn, R, D, valid_rows, sub, ew, 0, inv_scale2,
                          nullptr, bm_sub, nullptr, nullptr, key, nullptr, bm, st);
   }
-  const size_t smem = SCORE_SMEM + sizeof(float) * MAX_UNITS * TQ;
+  const size_t smem = tile_smem<T>(sizeof(float) * MAX_UNITS * TQ);
   if (int err = raise_smem(k1_blockmax2<T>, smem)) return err;
   const unsigned grid = tile_grid(R / TR, Tn);
   if (grid == 0) return (int)cudaErrorInvalidValue;
-  k1_blockmax2<T><<<grid, NT, smem, st>>>(static_cast<const T*>(q),
-                                          static_cast<const T*>(shard), Tn, D,
-                                          valid_rows, sub, ew, bm_sub, key, bm);
+  typename Tile<T>::Maps maps;
+  if (int err = tile_maps<T>(&maps, q, shard, Tn, R, D)) return err;
+  k1_blockmax2<T><<<grid, Tile<T>::threads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(shard), Tn, D, valid_rows, sub, ew,
+      bm_sub, key, bm, maps);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_k3(const void* q, const void* shard, int Tn, int R, int D, int valid_rows,
               int block, float* sims, float* bm_t, cudaStream_t st) {
-  if (int err = raise_smem(k3_blockmax<T>, SCORE_SMEM)) return err;
+  const size_t smem = tile_smem<T>(0);
+  if (int err = raise_smem(k3_blockmax<T>, smem)) return err;
   const unsigned grid = tile_grid(R / TR, Tn);
   if (grid == 0) return (int)cudaErrorInvalidValue;
-  k3_blockmax<T><<<grid, NT, SCORE_SMEM, st>>>(static_cast<const T*>(q),
-                                               static_cast<const T*>(shard), Tn, R,
-                                               D, valid_rows, block, sims, bm_t);
+  typename Tile<T>::Maps maps;
+  if (int err = tile_maps<T>(&maps, q, shard, Tn, R, D)) return err;
+  k3_blockmax<T><<<grid, Tile<T>::threads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(shard), Tn, R, D, valid_rows, block, sims,
+      bm_t, maps);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_k5(const void* q, const void* shard, int Tn, int R, int D, int valid_rows,
               int block, float* bm_t, cudaStream_t st) {
-  if (int err = raise_smem(k5_blockmax_only<T>, SCORE_SMEM)) return err;
+  const size_t smem = tile_smem<T>(0);
+  if (int err = raise_smem(k5_blockmax_only<T>, smem)) return err;
   const unsigned grid = tile_grid(R / TR, Tn);
   if (grid == 0) return (int)cudaErrorInvalidValue;
-  k5_blockmax_only<T><<<grid, NT, SCORE_SMEM, st>>>(static_cast<const T*>(q),
-                                                    static_cast<const T*>(shard), Tn,
-                                                    D, valid_rows, block, bm_t);
+  typename Tile<T>::Maps maps;
+  if (int err = tile_maps<T>(&maps, q, shard, Tn, R, D)) return err;
+  k5_blockmax_only<T><<<grid, Tile<T>::threads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(shard), Tn, D, valid_rows, block, bm_t,
+      maps);
   return (int)cudaGetLastError();
 }
 

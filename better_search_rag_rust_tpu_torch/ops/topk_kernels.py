@@ -45,7 +45,9 @@ dtype (see the source note): bf16 scores run on the tensor cores, one
 and queries in B, its sum added to the score with one rounded f32 add, in
 increasing feature order, in every kernel (the TPU reference's one MXU dot
 per score); f32 scores are one exact f32 FMA chain on the SIMT
-pipes (TF32 would not be exact); int8 scores an exact integer dot. The
+pipes (TF32 would not be exact); int8 scores an exact integer dot (K1, K3,
+K5 and K10 on the s8 tensor cores, ``wgmma`` fed by TMA; K2 and K6 on
+``__dp4a``: an integer sum is exact in any order). The
 plain versions score with one f32 matrix product (cuBLAS on the card,
 without TF32), which sums in another order: on the card a plain version
 agrees with its kernel to a tolerance, not bit for bit. Every bf16 kernel
@@ -58,7 +60,8 @@ there it agrees with plain K3 to a tolerance. K4 moves bytes, so kernel and
 plain version agree bit for bit on every dtype.
 
 int8 stores (the lattice of :mod:`.quantize`): the kernels take the exact
-int32 dot (``__dp4a``) times :data:`.quantize.INT8_INV_SCALE2`. The plain
+int32 dot (tensor cores or ``__dp4a``) times
+:data:`.quantize.INT8_INV_SCALE2`. The plain
 versions form the same dot as an f32 matrix product of the lattice
 integers — ``torch.matmul`` has no int32 CUDA kernel — and that is exact:
 every product and partial sum is an integer of magnitude at most

@@ -56,7 +56,13 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    and 100) and K3 (256 queries) against their plain versions on a 1M x 768
    int8 lattice store: max |diff| 0 and equal packed keys (an int8 score is
    an exact integer dot times one constant), the argmax identity bit for
-   bit, kernel and plain times;
+   bit — K1 and K3 on the s8 tensor cores (wgmma fed by TMA), K2 on dp4a,
+   so two instructions are held to each other — kernel and plain times;
+   then K1 (emit width 128 and 256), K3, K5 and K10 (scores, arg, raw key)
+   on int8 operands at the tile's edge cases (D 99 and 100, which the
+   producer warp stages itself; 256 and 768 on TMA; D 1040 with rows mostly
+   -128; 768-d rows one byte off alignment), 200 queries x 2048 rows with
+   the last 37 masked, bit for bit their plain versions;
 13. the engine on ``search_1m_int8`` and ``search_10m_int8`` (1M and 10M x
    768 int8, 1024 queries, k=100) as in phase 4: route rescore, MRR, recall
    and oracle overlap 1.0, int8 launch counts over that run, q/s of search
@@ -151,16 +157,18 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    kernel launched, which also holds K4 (P22) bit for bit its plain version
    and K2 f32 (P23) at KS 192 and 320 within 1e-5 of its plain version and
    bit for bit K6 on K4's rows;
-24. the card exactness sweep of ``scripts/chip_exactness.py`` on bf16: its
-   five stores (``random_20k_768``, ``dups_64k_256``, ``all_dup_16k_128``,
-   ``tall_300k_64``, ``dups_600k_768``, built from ``--seed`` as the script
-   builds them), 1024 queries each, k = 10 and 100, through the ``global``
-   route and ``rescore`` with the argmax fast path on and off wherever
+24. the card exactness sweep of ``scripts/chip_exactness.py`` on bf16 and
+   on the int8 lattice: its five stores (``random_20k_768``,
+   ``dups_64k_256``, ``all_dup_16k_128``, ``tall_300k_64``,
+   ``dups_600k_768``, built from ``--seed`` as the script builds them),
+   1024 queries each, k = 10 and 100, through the ``global`` route and
+   ``rescore`` with the argmax fast path on and off wherever
    ``rescore_feasible`` allows: ids and distances bit for bit
-   ``oracle_topk``; every returned score within ``D * 2^-23 * sum |q_d r_d|``
-   of the float64 product of the same bf16 operands
-   (``ops/topk_kernels.py:score_bound``); K1 = K2 = K3 bit for bit on each
-   store's (query, unit argmax) pairs. Prints its pass counts.
+   ``oracle_topk``; every returned bf16 score within ``D * 2^-23 * sum
+   |q_d r_d|`` of the float64 product of the same bf16 operands
+   (``ops/topk_kernels.py:score_bound``), every returned int8 score bit for
+   bit the exact integer dot times ``INT8_INV_SCALE2``; K1 = K2 = K3 bit for
+   bit on each store's (query, unit argmax) pairs. Prints its pass counts.
 
 Every kernel's time is printed beside its plain version's, one PyTorch call
 computing the same function where there is one (``library``: the product
@@ -922,6 +930,85 @@ def check_int8_kernels(store, gen):
     return errs, times
 
 
+#: Phase 12's edge cases of the int8 score tile: D, and how the operands
+#: are made (the lattice; raw rows mostly -128; rows one byte off 16-byte
+#: alignment). D 99 and 100 and the offset view take the thread-staged
+#: slabs, the others TMA.
+TILE_I8_CASES = ((99, "lattice"), (100, "lattice"), (256, "lattice"),
+                 (768, "lattice"), (1040, "neg128"), (768, "offset"))
+
+
+def _tile_i8_operands(dim, kind, seed, rows=2048, t=200):
+    rng = np.random.default_rng(seed + dim)
+    if kind == "neg128":
+        def heavy(n):
+            m = rng.integers(-128, 128, size=(n, dim), dtype=np.int64)
+            m[rng.random((n, dim)) < 0.7] = -128
+            return m.astype(np.int8)
+        mat = heavy(rows)
+        q = np.concatenate([mat[[3, 100, 7]], np.full((1, dim), -128, np.int8),
+                            heavy(t - 4)])
+        # the dots stay exact in f32, so plain and kernel can agree bitwise
+        mag = np.abs(q.astype(np.int64)) @ np.abs(mat.astype(np.int64)).T
+        assert mag.max() < 2 ** 24, mag.max()
+    else:
+        from better_search_rag_rust_tpu_torch.ops.quantize import (
+            quantize_unit_host,
+        )
+
+        m = rng.standard_normal((rows, dim)).astype(np.float32)
+        m /= np.linalg.norm(m, axis=1, keepdims=True)
+        mat = quantize_unit_host(m)
+        q = np.concatenate([mat[[3, 100, 7]], quantize_unit_host(
+            -m[rng.integers(0, rows, t - 3)])])
+    q, mat = torch.from_numpy(q).cuda(), torch.from_numpy(mat).cuda()
+    if kind == "offset":
+        def shifted(x):
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+            view = buf[1:].view(x.shape)
+            view.copy_(x)
+            return view
+        q, mat = shifted(q), shifted(mat)
+        assert q.data_ptr() % 16 and mat.data_ptr() % 16
+    return q, mat
+
+
+def check_int8_tile_edges(seed):
+    """Phase 12: K1 (emit width 128 and, on K10's walk, 256), K3, K5 and
+    K10 (scores, arg and the raw key) on int8 operands at the tile's edge
+    cases, bit for bit their plain versions: 200 queries (a ragged query
+    tile), 2048 rows of which the last 37 are masked."""
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+
+    names = ("matmul_blockmax2_only_int8", "matmul_blockmax_int8",
+             "matmul_blockmax_only", "matmul_blockmax2x")
+    for dim, kind in TILE_I8_CASES:
+        q, mat = _tile_i8_operands(dim, kind, seed)
+        valid = mat.shape[0] - 37
+        before = {n: tk.launch_counts[n] for n in names}
+        pairs = []
+        for kw in (dict(sub=16, block=128),
+                   dict(sub=128, block=1024, emit_width=256)):
+            kw.update(emit_block=True, emit_argmax=True)
+            pairs.append((tk.matmul_blockmax2_only(q, mat, valid, **kw),
+                          tk.matmul_blockmax2_only_plain(q, mat, valid, **kw)))
+        pairs.append((tk.matmul_blockmax(q, mat, valid),
+                      tk.matmul_blockmax_plain(q, mat, valid)))
+        pairs.append((tk.matmul_blockmax_only(q, mat, valid, block=32),
+                      tk.matmul_blockmax_only_plain(q, mat, valid, block=32)))
+        kw = dict(sub=64, emit_sims=True, emit_arg=True, emit_raw_key=True)
+        pairs.append((tk.matmul_blockmax2x(q, mat, valid, **kw),
+                      tk.matmul_blockmax2x_plain(q, mat, valid, **kw)))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for got, want in pairs
+                   for a, b in zip(got if isinstance(got, tuple) else (got,),
+                                   want if isinstance(want, tuple) else (want,)))
+        launched = {n: tk.launch_counts[n] - before[n] for n in names}
+        phase(f"phase 12 int8 tile, D {dim} {kind}: K1 ew 128 / ew 256, K3, "
+              f"K5, K10 bit for bit plain: {same}; launches {launched}")
+        assert same and all(launched.values()), launched
+
+
 def measure_qps(engine, store, gen, iters: int = 5):
     """``search`` (host queries in, host ids out) and ``search_device``
     queries/sec at 1024 queries, k = K."""
@@ -1499,7 +1586,7 @@ def check_blockmax_only(seed, gen, card):
     times["10m x 256"] = timing(
         cuda_ms(lambda: tk.matmul_blockmax_only(q, data, valid)),
         cuda_ms(lambda: tk.matmul_blockmax_only_plain(q, data, valid)),
-        None, nbytes(q, data, bm), 2 * T * data.shape[0] * 256,
+        product_ms(q, data), nbytes(q, data, bm), 2 * T * data.shape[0] * 256,
         "bf16 tensor")
     del store, data, q, bm, k3_bm
     torch.cuda.empty_cache()
@@ -1982,15 +2069,19 @@ def _sweep_stores(seed):
     yield "dups_600k_768", m
 
 
-def check_exactness_sweep(seed, card):
-    """Phase 24: the bf16 exactness sweep (module docstring, item 24)."""
+def check_exactness_sweep(seed, card, dtype):
+    """Phase 24: the exactness sweep on ``dtype`` stores (module docstring,
+    item 24)."""
     import hashlib
 
     from better_search_rag_rust_tpu_torch.config import SearchConfig
     from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
     from better_search_rag_rust_tpu_torch.ops.distance import normalize_rows
     from better_search_rag_rust_tpu_torch.ops.engine import SearchEngine
-    from better_search_rag_rust_tpu_torch.ops.quantize import cast_rows_to
+    from better_search_rag_rust_tpu_torch.ops.quantize import (
+        INT8_INV_SCALE2,
+        cast_rows_to,
+    )
     from better_search_rag_rust_tpu_torch.store import DeviceStore
 
     totals = {"configs": 0, "not_feasible": 0, "bounded_pairs": 0,
@@ -1998,7 +2089,7 @@ def check_exactness_sweep(seed, card):
     worst = 0.0  # the largest |score - exact| / bound over every store
     t0 = time.perf_counter()
     for name, mat in _sweep_stores(seed):
-        store = DeviceStore.from_host(mat, "bfloat16", device="cuda")
+        store = DeviceStore.from_host(mat, dtype, device="cuda")
         n, data = store.num_rows, store.data
         qseed = int.from_bytes(hashlib.blake2b(
             name.encode(), digest_size=4).digest(), "little")
@@ -2023,11 +2114,15 @@ def check_exactness_sweep(seed, card):
                 sims, d_ids = eng.search_device(q_dev, k)
                 assert np.array_equal(d_ids.cpu().numpy(), ids), tag
                 exact, bound = tk.score_bound(qc, data[d_ids])
-                err = (sims.double() - exact).abs()
-                assert bool((err <= bound).all()), (
-                    tag, float((err - bound).max()))
-                ratio = float((err / bound.clamp_min(1e-300)).max())
-                store_worst = max(store_worst, ratio)
+                if store.dtype == torch.int8:
+                    # the exact dot (below 2^24) in f32, one rounded multiply
+                    assert torch.equal(sims, exact.float() * INT8_INV_SCALE2), tag
+                else:
+                    err = (sims.double() - exact).abs()
+                    assert bool((err <= bound).all()), (
+                        tag, float((err - bound).max()))
+                    ratio = float((err / bound.clamp_min(1e-300)).max())
+                    store_worst = max(store_worst, ratio)
                 configs += 1
                 pairs += ids.size
         # K2 at each unit's argmax row == K1's unit max == K3's score, as
@@ -2049,15 +2144,17 @@ def check_exactness_sweep(seed, card):
         totals["bounded_pairs"] += pairs
         totals["identity_pairs"] += units.numel()
         worst = max(worst, store_worst)
-        phase(f"phase 24 {name} ({n} x {mat.shape[1]} bf16): {configs} "
+        scores = ("bit for bit the exact dot's" if store.dtype == torch.int8
+                  else f"within the float64 bound (worst |err|/bound "
+                       f"{store_worst:.3g})")
+        phase(f"phase 24 {name} ({n} x {mat.shape[1]} {dtype}): {configs} "
               f"route configs equal to oracle_topk bit for bit, {pairs} "
-              f"returned pairs within the float64 bound (worst |err|/bound "
-              f"{store_worst:.3g}), K1 == K2 == K3 on {units.numel()} unit "
-              f"argmax pairs")
+              f"returned pairs {scores}, K1 == K2 == K3 on {units.numel()} "
+              f"unit argmax pairs")
         del store, data, sims, resc, bms, key, q_dev, qc, oracle, eng
         torch.cuda.empty_cache()
-    phase(f"phase 24 [{card}] exactness sweep: {totals}, worst |err|/bound "
-          f"{worst:.3g}, {time.perf_counter() - t0:.1f}s")
+    phase(f"phase 24 [{card}] {dtype} exactness sweep: {totals}, worst "
+          f"|err|/bound {worst:.3g}, {time.perf_counter() - t0:.1f}s")
     # every store takes the global route and, at 20k+ rows, rescore
     assert totals["configs"] >= 5 * len(SWEEP_KS)
     return totals
@@ -2158,6 +2255,7 @@ def main() -> int:
         i8_errs, i8_times = check_int8_kernels(store_i8, gen)
         errs.update(i8_errs)
         times.update(i8_times)
+        check_int8_tile_edges(args.seed)
 
         store_i8_10m = DeviceStore.synthetic(10_000_000, 768, "int8",
                                              args.seed + 4, device="cuda")
@@ -2223,7 +2321,8 @@ def main() -> int:
     check_proto_f32(args.seed, card)
     del stores
     torch.cuda.empty_cache()
-    check_exactness_sweep(args.seed, card)
+    for dtype in ("bfloat16", "int8"):
+        check_exactness_sweep(args.seed, card, dtype)
 
     print(card)
     print(json.dumps({"kernels": [

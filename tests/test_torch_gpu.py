@@ -216,6 +216,94 @@ def test_engine_int8_exact_against_oracle(cuda, kernel, argmax, dim):
     assert tk.launch_counts[first] == 0
 
 
+# -- the int8 score tile on the s8 tensor cores (wgmma fed by TMA) ------------
+
+
+def _tile_i8_operands(cuda, case, rows=2048, t=200):
+    """int8 operands of one case: the lattice at D 99, 100 (the thread-staged
+    slabs), 256 and 768 (TMA); raw rows of which 70 % are -128 at D 1040
+    (``sum_d |q_d r_d| < 2^24`` asserted: the dots stay exact in f32); or
+    768-d views whose rows start one byte past 16-byte alignment."""
+    rng = np.random.default_rng(len(case) + rows)
+    dim = int(case.split("_")[0][1:])
+    if case.endswith("neg128"):
+        def heavy(n):
+            m = rng.integers(-128, 128, size=(n, dim), dtype=np.int64)
+            m[rng.random((n, dim)) < 0.7] = -128
+            return m.astype(np.int8)
+        mat = heavy(rows)
+        q = np.concatenate([mat[[3, 100, 7]], np.full((1, dim), -128, np.int8),
+                            heavy(t - 4)])
+        mag = np.abs(q.astype(np.int64)) @ np.abs(mat.astype(np.int64)).T
+        assert mag.max() < 2 ** 24
+    else:
+        from better_search_rag_rust_tpu_torch.ops.quantize import quantize_unit_host
+
+        m = rng.standard_normal((rows, dim)).astype(np.float32)
+        m /= np.linalg.norm(m, axis=1, keepdims=True)
+        mat = quantize_unit_host(m)
+        q = np.concatenate([mat[[3, 100, 7]], quantize_unit_host(
+            -m[rng.integers(0, rows, t - 3)])])
+    q, mat = torch.from_numpy(q).to(cuda), torch.from_numpy(mat).to(cuda)
+    if case.endswith("offset"):
+        def shifted(x):
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+            view = buf[1:].view(x.shape)
+            view.copy_(x)
+            return view
+        q, mat = shifted(q), shifted(mat)
+        assert q.data_ptr() % 16 and mat.data_ptr() % 16 and mat.is_contiguous()
+    return q, mat
+
+
+@pytest.mark.parametrize("case", ["d99", "d100", "d256", "d768", "d1040_neg128",
+                                  "d768_offset"])
+def test_int8_tile_kernels_match_plain_bitwise(cuda, case):
+    """K1 (ew 128 and, on K10's walk, ew 256), K3, K5 and K10 (scores and
+    the raw key) on int8 operands, bit for bit their plain versions: 200
+    queries (a ragged query tile), 2048 rows with the last 37 masked; every
+    launch counted."""
+    q, mat = _tile_i8_operands(cuda, case)
+    valid = mat.shape[0] - 37
+    names = ("matmul_blockmax2_only_int8", "matmul_blockmax_int8",
+             "matmul_blockmax_only", "matmul_blockmax2x")
+    before = {n: tk.launch_counts[n] for n in names}
+    pairs = []
+    for kw in (dict(sub=16, block=128), dict(sub=128, block=1024, emit_width=256)):
+        kw.update(emit_block=True, emit_argmax=True)
+        pairs.append((tk.matmul_blockmax2_only(q, mat, valid, **kw),
+                      tk.matmul_blockmax2_only_plain(q, mat, valid, **kw)))
+    pairs.append((tk.matmul_blockmax(q, mat, valid),
+                  tk.matmul_blockmax_plain(q, mat, valid)))
+    pairs.append((tk.matmul_blockmax_only(q, mat, valid, block=32),
+                  tk.matmul_blockmax_only_plain(q, mat, valid, block=32)))
+    kw = dict(sub=64, emit_sims=True, emit_arg=True, emit_raw_key=True)
+    pairs.append((tk.matmul_blockmax2x(q, mat, valid, **kw),
+                  tk.matmul_blockmax2x_plain(q, mat, valid, **kw)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    after = {n: tk.launch_counts[n] - before[n] for n in names}
+    assert after == {"matmul_blockmax2_only_int8": 2, "matmul_blockmax_int8": 1,
+                     "matmul_blockmax_only": 1, "matmul_blockmax2x": 1}, after
+
+
+@pytest.mark.parametrize("block", [1, 2, 8])
+def test_k5_int8_small_blocks_are_k3_bm(cuda, block):
+    """K5's int8 block maxima at blocks of 1-8 rows (one or a few rows per
+    lane of its max pass) bit for bit K3's ``bm_t`` and the plain version's."""
+    q, mat = _tile_i8_operands(cuda, "d256")
+    bm = tk.matmul_blockmax_only(q, mat, 2000, block=block)
+    _, k3_bm = tk.matmul_blockmax(q, mat, 2000, block=block)
+    plain = tk.matmul_blockmax_only_plain(q, mat, 2000, block=block)
+    torch.cuda.synchronize()
+    assert torch.equal(bm, k3_bm) and torch.equal(bm, plain)
+
+
 # -- K4 gather_rows, K6 block_scores and the certified f32 route ---------------
 
 
