@@ -1,0 +1,275 @@
+"""A/B of builds of the attention kernels' source on the card, in one process.
+
+    python -m better_search_rag_rust_tpu_torch.bench.ab_attn OLD.cu NEW.cu [...]
+
+Each argument is a copy of ``ops/csrc/attention_kernels.cu`` — the parent
+commit's (unpack it with ``git archive`` into a git-ignored directory), the
+tree's, or a copy with one edit — or the name of a variant that this module
+writes from the tree's source into ``build/ab_attn/`` (:data:`VARIANTS`;
+``@a+b`` applies both edits): ``@stream``, K and V streamed through rings
+of two tiles that 8 warps step through together, two blocks per SM, each
+K tile rotated as it lands in each pass (what the resident, once-rotated
+K and V and 16 free-running warps buy); ``@fastexp``, ``__expf``
+(ex2.approx) in place of the accurate ``expf`` (its gain, and the float64
+lines that decided against it); ``@acc``, QK^T's k16 steps accumulated inside the ``mma``
+instead of each from +0.0 with one rounded add (what the rounded add
+costs, and the error it saves); ``@nopass1``, pass 1 skipped and e taken
+against 0 (wrong answers: what the exact max costs).
+Every build uses the package's nvcc flags (:data:`.._build.NVCC_FLAGS`),
+all started together, and is bound with the package's C signatures, so
+every build must keep the entry points of the tree.
+
+Timed with CUDA events (:data:`ITERS` launches after a warm-up), every
+build in turn and then in reverse order, so that a drift of the card shows
+as a spread between the two passes rather than as a difference between
+builds: K8 ``fused_attention_qkv`` and K7 ``fused_attention`` at the
+encoder's shape (B 256, S 512, H 12, hd 64; random key lengths, one batch
+row fully padded), K9 ``fused_attention_qkv_bwd`` at the finetune shape
+(B 64). Then, per build: K8's error against a float64 evaluation of the
+same function with the same rounding points (rotary in f32 rounded to
+bf16, f32 logits, the exact max, the denominator over the unrounded e, PV on bf16(e),
+the division after PV): max and mean over valid query rows and the count
+of cells off the float64 value rounded to bf16 (finer than the max and
+mean, which the output's own rounding dominates), beside the plain
+version's; whether K7 on the transposed operands equals K8 bit
+for bit and two K8 launches agree bit for bit; the ptxas report of the K8
+bodies (registers, spills); the card's name and power limit. Needs a CUDA
+card; ``chip_smoke.py`` holds each kernel to its plain version.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from ..ops import _build
+from ..ops import attention_kernels as ak
+from . import ab_topk
+from .ab_topk import _edit, device_ms
+
+OUT = _build.BUILD_DIR.parent / "ab_attn"
+ITERS = 5
+B, S, H, HD = 256, 512, 12, 64
+B_BWD = 64
+TREE_SOURCE = _build.SOURCES["attention"][0]
+
+
+#: QK^T's mma steps as the tree takes them (each step after the first from
+#: +0.0, added with one rounded add), and accumulated in the instruction.
+_QK_MMA_ADD = """\
+      if (ks == 0) {  // 0 + c = c: the first step lands in the zeroed acc
+        mma_bf16(acc[2 * p], qa[0], b[0], b[1]);
+        mma_bf16(acc[2 * p + 1], qa[0], b[2], b[3]);
+      } else {
+        float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(c0, qa[ks], b[0], b[1]);
+        mma_bf16(c1, qa[ks], b[2], b[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[2 * p][e] = __fadd_rn(acc[2 * p][e], c0[e]);
+          acc[2 * p + 1][e] = __fadd_rn(acc[2 * p + 1][e], c1[e]);
+        }
+      }"""
+_QK_MMA = """\
+      mma_bf16(acc[2 * p], qa[ks], b[0], b[1]);
+      mma_bf16(acc[2 * p + 1], qa[ks], b[2], b[3]);"""
+_RESIDENT = "  return HD < 128 && attn_smem_bytes<HD>(S, true) <= SMEM_OPTIN;"
+
+#: Variant name -> its source from the tree's source text (module
+#: docstring).
+VARIANTS = {
+    "stream": lambda src: _edit(src, _RESIDENT, "  return false;"),
+    "fastexp": lambda src: src.replace("= expf(__fsub_rn(logit_of",
+                                       "= __expf(__fsub_rn(logit_of"),
+    "acc": lambda src: _edit(src, _QK_MMA_ADD, _QK_MMA),
+    "nopass1": lambda src: _edit(_edit(
+        src, "float m[2] = {-INFINITY, -INFINITY};", "float m[2] = {0.f, 0.f};"),
+        "    if constexpr (RES) {\n      if (active) {",
+        "    if constexpr (RES) {\n      if (false) {"),
+}
+
+
+def source_path(arg: str) -> Path:
+    """A source argument as a file: ``@a+b`` writes the tree's source with
+    variants ``a`` and ``b`` applied into :data:`OUT`."""
+    if not arg.startswith("@"):
+        return Path(arg)
+    OUT.mkdir(parents=True, exist_ok=True)
+    src = TREE_SOURCE.read_text()
+    for name in arg[1:].split("+"):
+        src = VARIANTS[name](src)
+    path = OUT / f"{arg[1:].replace('+', '_')}.cu"
+    path.write_text(src)
+    return path
+
+
+def build(paths):
+    """``{name: (ctypes library, ptxas lines of the K8 bodies)}``, one nvcc
+    per source, all started together."""
+    return ab_topk.build(paths, library="attention", out=OUT,
+                         entry=lambda line: "k8_fused" in line)
+
+
+def operands(b, seed):
+    """qkv [b, S, 3 H HD] bf16, the rotary tables, the key bias (random
+    lengths, the last row fully padded), the valid-key mask and the
+    scale."""
+    from ..models.nomic import rotary_tables
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    qkv = torch.randn((b, S, 3 * H * HD), generator=gen, device=dev)
+    lens = torch.randint(1, S + 1, (b,), generator=gen, device=dev)
+    lens[-1] = 0
+    valid = torch.arange(S, device=dev)[None, :] < lens[:, None]
+    bias = torch.where(valid, 0.0, -1e9).to(torch.float32).contiguous()
+    cos, sin = (torch.from_numpy(t).to(dev) for t in rotary_tables(S, HD, 1000.0))
+    c2, s2 = ak.rotary_roll_tables(cos, sin)
+    return (qkv.to(torch.bfloat16), c2.contiguous(), s2.contiguous(), bias,
+            valid, 1.0 / math.sqrt(HD))
+
+
+def reference64(qkv, c2, s2, bias, heads, scale, chunk=16):
+    """K8's function in float64 with its rounding points: the rotary in f32
+    rounded to qkv's dtype, the dot in float64 and the logit in f32
+    (``dot * scale + bias``, each step rounded, so a fully padded row's
+    logits tie as the kernel's do), the exact max, e = exp(l - m), the
+    denominator over the unrounded e, PV on e rounded to qkv's dtype, the
+    division after PV. Returns the context [B, S, H*hd] in float64."""
+    b, s, width = qkv.shape
+    hd = width // (3 * heads)
+    dt = qkv.dtype
+    x = qkv.view(b, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+
+    def rot(t):
+        tf = t.to(torch.float32)
+        return (tf * c2 + torch.roll(tf, hd // 2, dims=-1) * s2).to(dt)
+
+    out = torch.empty((b, s, heads * hd), dtype=torch.float64, device=qkv.device)
+    for b0 in range(0, b, chunk):
+        sl = slice(b0, b0 + chunk)
+        qr, kr = rot(x[0, sl]).double(), rot(x[1, sl]).double()
+        v = x[2, sl].double()
+        dots = (qr @ kr.transpose(-1, -2)).to(torch.float32)
+        logits = (dots * scale + bias[sl, None, None, :]).double()
+        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        ctx = (e.to(dt).double() @ v) / e.sum(dim=-1, keepdim=True)
+        out[sl] = ctx.permute(0, 2, 1, 3).reshape(-1, s, heads * hd)
+    return out
+
+
+def cases(seed):
+    """``{label: (fn(lib) -> err, iters)}`` at the module docstring's
+    shapes, and K8's operands for the error lines."""
+    qkv, c2, s2, bias, valid, scale = operands(B, seed)
+    q, k, v = (t.contiguous() for t in
+               qkv.view(B, S, 3, H, HD).permute(2, 0, 3, 1, 4))
+    out8 = torch.empty((B, S, H * HD), dtype=torch.bfloat16, device="cuda")
+    out7 = torch.empty_like(q)
+    gq, gc2, gs2, gbias, _, _ = operands(B_BWD, seed + 1)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 2)
+    g = torch.randn((B_BWD, S, H * HD), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    dqkv = torch.empty_like(gq)
+    stats = torch.empty((3, B_BWD, H, S), dtype=torch.float32, device="cuda")
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    work = {
+        f"K8 [{B} x {S} x {H} x {HD}]": (lambda lib: lib.bsr_fused_attention_qkv(
+            qkv.data_ptr(), c2.data_ptr(), s2.data_ptr(), bias.data_ptr(), B, S,
+            H, HD, scale, out8.data_ptr(), stream()), ITERS),
+        f"K7 [{B} x {H} x {S} x {HD}]": (lambda lib: lib.bsr_fused_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), c2.data_ptr(),
+            s2.data_ptr(), bias.data_ptr(), B, S, H, HD, scale,
+            out7.data_ptr(), stream()), ITERS),
+        f"K9 [{B_BWD} x {S} x {H} x {HD}]": (
+            lambda lib: lib.bsr_fused_attention_qkv_bwd(
+                gq.data_ptr(), gc2.data_ptr(), gs2.data_ptr(), gbias.data_ptr(),
+                g.data_ptr(), B_BWD, S, H, HD, scale, stats.data_ptr(),
+                dqkv.data_ptr(), stream()), ITERS),
+    }
+    return work, (qkv, c2, s2, bias, valid, scale, q, k, v)
+
+
+def error_lines(libs, operands_):
+    """Per build: K8's error against :func:`reference64` (max and mean on
+    valid query rows) beside the plain version's, K7 = K8 and run-to-run
+    equality, bit for bit."""
+    qkv, c2, s2, bias, valid, scale, q, k, v = operands_
+    ref = reference64(qkv, c2, s2, bias, H, scale)[valid]
+    ref_bf16 = ref.to(torch.bfloat16)
+    plain = ak.fused_attention_qkv_plain(qkv, c2, s2, bias, H, scale)
+
+    def stats(out):
+        got = out[valid]
+        err = (got.double() - ref).abs()
+        off = int((got != ref_bf16).sum())
+        return (f"max {float(err.max()):.4g}, mean {float(err.mean()):.6g}, "
+                f"{off} of {got.numel()} cells off the float64 value rounded "
+                f"to bf16")
+
+    stream = torch.cuda.current_stream().cuda_stream
+    lines = [f"plain K8 vs float64: {stats(plain)}"]
+    for name, (lib, _report) in libs.items():
+        outs = []
+        for _ in range(2):
+            o = torch.empty((B, S, H * HD), dtype=torch.bfloat16, device="cuda")
+            if lib.bsr_fused_attention_qkv(qkv.data_ptr(), c2.data_ptr(),
+                                           s2.data_ptr(), bias.data_ptr(), B, S,
+                                           H, HD, scale, o.data_ptr(), stream):
+                raise RuntimeError("a kernel launch failed")
+            outs.append(o)
+        o7 = torch.empty_like(q)
+        if lib.bsr_fused_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   c2.data_ptr(), s2.data_ptr(), bias.data_ptr(),
+                                   B, S, H, HD, scale, o7.data_ptr(), stream):
+            raise RuntimeError("a kernel launch failed")
+        torch.cuda.synchronize()
+        k7 = torch.equal(o7.permute(0, 2, 1, 3).reshape(B, S, H * HD), outs[0])
+        lines.append(
+            f"K8 vs float64, {name}: {stats(outs[0])}; max|k - plain| "
+            f"{float((outs[0].float() - plain.float())[valid].abs().max()):.4g};"
+            f" two launches bitwise {torch.equal(outs[0], outs[1])}; K7 = K8 "
+            f"bitwise {k7}")
+    return lines
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("sources", nargs="+",
+                    help="copies of attention_kernels.cu, or @variant names")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_attn: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = build([source_path(s) for s in args.sources])
+    work, ops = cases(args.seed)
+    times = {label: {name: [] for name in libs} for label in work}
+    for name in list(libs) + list(libs)[::-1]:
+        lib = libs[name][0]
+        for label, (fn, iters) in work.items():
+            times[label][name].append(device_ms(lambda: fn(lib), iters))
+    for label, by_build in times.items():
+        print(f"{label}: " + "; ".join(
+            f"{name} {' / '.join(f'{ms:.4f}' for ms in v)} ms"
+            for name, v in by_build.items()), flush=True)
+    for line in error_lines(libs, ops):
+        print(line, flush=True)
+    for name, (_lib, report) in libs.items():
+        print(f"ptxas {name}: " + " | ".join(report))
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(f"card: {card}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -131,14 +131,20 @@ def source_path(arg: str) -> Path:
     return path
 
 
-def build(paths):
-    """``{name: (ctypes library, ptxas lines of the score-tile bodies)}``,
-    one nvcc per source, all started together."""
-    OUT.mkdir(parents=True, exist_ok=True)
+def _score_tile_entry(line: str) -> bool:
+    return "bfloat16" in line or "IaE" in line
+
+
+def build(paths, library="topk", out=OUT, entry=_score_tile_entry):
+    """``{name: (ctypes library, ptxas lines of the entries for which
+    ``entry`` holds: the score-tile bodies)}``, one nvcc per source, all
+    started together into ``out``, bound with the C signatures of the
+    package's library ``library``."""
+    out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, path in enumerate(paths):
         name = f"{i}:{Path(path).name}"
-        lib_path = OUT / f"ab{i}_{Path(path).stem}.so"
+        lib_path = out / f"ab{i}_{Path(path).stem}.so"
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), lib_path)
@@ -153,9 +159,9 @@ def build(paths):
         report = [f"{ln.split(chr(39))[1][:40]}: "
                   + "; ".join(x.split(":", 1)[-1].strip()[:60] for x in lines[i + 2:i + 4])
                   for i, ln in enumerate(lines)
-                  if "Compiling entry" in ln and ("bfloat16" in ln or "IaE" in ln)]
+                  if "Compiling entry" in ln and entry(ln)]
         lib = ctypes.CDLL(str(lib_path))
-        for fn, (restype, argtypes) in _build.SOURCES["topk"][1].items():
+        for fn, (restype, argtypes) in _build.SOURCES[library][1].items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
         libs[name] = (lib, report)

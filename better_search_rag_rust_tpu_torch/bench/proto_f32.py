@@ -105,6 +105,13 @@ class Geometry:
     EPS1: float = float(np.float32(2.0 ** -8 * 1.25 + 768 * 2.0 ** -24))
     EPS2: float = float(np.float32(2e-4))
 
+    def __post_init__(self):
+        # P22's certificate is sound only when KG >= KS: at KG 30 < KS 192
+        # it certified wrong ids on the CPU.
+        if self.KG < self.KS:
+            raise ValueError(f"KG {self.KG} < KS {self.KS}: P22's certificate "
+                             "is sound only when KG >= KS")
+
 
 SCRIPTS = Geometry()
 

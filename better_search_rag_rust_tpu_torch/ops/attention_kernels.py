@@ -37,8 +37,8 @@ launch_counts: Dict[str, int] = {"fused_attention": 0,
 
 #: Head widths the CUDA kernels are instantiated for (their register tiles).
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-#: Longest sequence whose [32, S] f32 logits tile fits in shared memory
-#: (``MAX_S`` in the CUDA source), forward and backward.
+#: Longest sequence the kernels take (``MAX_S`` in the CUDA source): the
+#: backward's [32, S] f32 logits tile fits in shared memory up to it.
 KERNEL_MAX_SEQ = 1024
 
 
@@ -145,6 +145,14 @@ def _check_kernel(name: str, hd: int, heads: int, s: int, *tensors) -> None:
         raise ValueError(f"grid of {b} x {heads} heads x {s} rows too large")
 
 
+def _aligned16(*tensors) -> tuple:
+    """The forward kernels stage q, k and v 16 bytes per ``cp.async`` and
+    read the rotary tables 8 bytes at a time: an operand off a 16-byte
+    boundary (a view may be; a fresh tensor is not) is copied to one that
+    is on it, the rest are passed as they are."""
+    return tuple(t.clone() if t.data_ptr() % 16 else t for t in tensors)
+
+
 def _fused_attention_qkv_fwd(qkv: torch.Tensor, cos2: torch.Tensor,
                              s2: torch.Tensor, bias: torch.Tensor, heads: int,
                              scale: float) -> torch.Tensor:
@@ -154,6 +162,7 @@ def _fused_attention_qkv_fwd(qkv: torch.Tensor, cos2: torch.Tensor,
     if qkv.device.type == "cpu":
         return fused_attention_qkv_plain(qkv, cos2, s2, bias, heads, scale)
     _check_kernel("K8", hd, heads, qkv.shape[1], qkv, cos2, s2, bias)
+    qkv, cos2, s2, bias = _aligned16(qkv, cos2, s2, bias)
     b, s, _ = qkv.shape
     out = torch.empty((b, s, heads * hd), dtype=qkv.dtype, device=qkv.device)
     if b == 0:
@@ -198,6 +207,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, cos2, s2, bias, scale)
     _check_kernel("K7", hd, h, s, q, k, v, cos2, s2, bias)
+    q, k, v, cos2, s2, bias = _aligned16(q, k, v, cos2, s2, bias)
     out = torch.empty_like(q)
     if not out.numel():
         return out

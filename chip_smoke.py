@@ -27,7 +27,10 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
 6. K8 fused_attention_qkv against its plain version at the encoder's shape
    (B=256, S=512, H=12, hd=64, bf16; per-row key padding, one row fully
    padded): max |diff| < 0.02 and cosine > 0.999 on valid query rows, the
-   padded row finite; kernel and plain times;
+   padded row finite; the kernel's and the plain version's error against
+   a float64 evaluation of the same function (``bench/ab_attn.py``'s
+   ``reference64``: max, mean and the count of cells off its bf16 value,
+   on valid rows); kernel and plain times;
 7. the NomicBERT encoder at full width (12 layers, 768 hidden, random
    weights from ``--seed``) on 256 x 512 tokens: the K8 forward against the
    plain f32-logit attention forward, per-row cosine >= 0.999; files/s of
@@ -98,8 +101,8 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    better_search_rag_rust_tpu_torch.bench.proto_calib`` (the K5
    measurements of the TPU record) as a subprocess, rc 0;
 18. K7 ``fused_attention`` (head-major) at B 256, H 12, S 512, hd 64 with a
-   padded key bias: against its plain version as K8 in phase 6, and on the
-   transposed Wqkv output bit for bit K8's (tolerance 0); then ``python -m
+   padded key bias: against its plain version and float64 as K8 in phase 6,
+   and on the transposed Wqkv output bit for bit K8's (tolerance 0); then ``python -m
    better_search_rag_rust_tpu_torch.bench.proto_attn`` (chain, K8, K7 with
    its transposes) as a subprocess, rc 0;
 19. the measurement path: ``BENCH_SUITE=search_100k python3 bench_torch.py``
@@ -449,8 +452,25 @@ def drive_main_path(name, store, cfg, gen, route, label="phase 4"):
     return engine
 
 
+def f64_error_line(label, out, plain, ref64, valid):
+    """The kernel's and the plain version's error against the float64
+    evaluation ``ref64`` [B, S, H*hd] on valid query rows."""
+    ref = ref64[valid]
+    ref_bf16 = ref.to(torch.bfloat16)
+
+    def stats(x):
+        got = x[valid]
+        err = (got.double() - ref).abs()
+        return (f"max {float(err.max()):.4g}, mean {float(err.mean()):.6g}, "
+                f"{int((got != ref_bf16).sum())} of {got.numel()} cells off "
+                f"its bf16 value")
+
+    return f"{label} vs float64: kernel {stats(out)}; plain {stats(plain)}"
+
+
 def check_attention(gen):
     """Phase 6: K8 against its plain version at the encoder's shape."""
+    from better_search_rag_rust_tpu_torch.bench.ab_attn import reference64
     from better_search_rag_rust_tpu_torch.models.nomic import rotary_tables
     from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
 
@@ -481,6 +501,8 @@ def check_attention(gen):
           f"on valid rows={err:.4g} (bound {ATT_TOL}), cosine={cos_sim:.7f} "
           f"(bound {ATT_COS}), fully padded row finite: {padded_finite}")
     assert err < ATT_TOL and cos_sim > ATT_COS and padded_finite
+    phase("phase 6 " + f64_error_line(
+        "K8", out, ref, reference64(qkv, c2, s2, bias, h, scale), valid))
     qr, kr, vr, mask = _rotated_qkv(qkv, c2, s2, bias, h)
     times = timing(
         cuda_ms(kern), cuda_ms(plain),
@@ -1606,6 +1628,7 @@ def check_attention_head_major(gen, card):
     """Phase 18: K7 against its plain version and K8 at the encoder's
     shape; then the proto_attn A/B as a subprocess. Returns (err, timing,
     launches of the measurement run)."""
+    from better_search_rag_rust_tpu_torch.bench.ab_attn import reference64
     from better_search_rag_rust_tpu_torch.models.nomic import rotary_tables
     from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
 
@@ -1643,6 +1666,13 @@ def check_attention_head_major(gen, card):
           f"on the transposed Wqkv output bit for bit K8's (tolerance 0): "
           f"{same_k8}")
     assert err < ATT_TOL and cos_sim > ATT_COS and finite and same_k8
+
+    def seq_major(x):
+        return x.permute(0, 2, 1, 3).reshape(b, s, h * hd)
+
+    phase("phase 18 " + f64_error_line(
+        "K7", seq_major(out), seq_major(ref),
+        reference64(qkv, c2, s2, bias, h, scale), valid))
     qr, kr, vr, mask = _rotated_qkv(qkv, c2, s2, bias, h)
     times = timing(
         cuda_ms(kern), cuda_ms(plain),

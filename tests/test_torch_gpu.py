@@ -927,3 +927,113 @@ def test_rescore_duplicate_clusters_exact(cuda, argmax):
         o_ids, o_d = eng.oracle_topk(queries, k)
         np.testing.assert_array_equal(ids, o_ids)
         np.testing.assert_array_equal(dists, o_d)
+
+
+# -- K8 / K7 on the tensor cores -----------------------------------------------
+
+
+def _head_major(qkv, h):
+    b, s, width = qkv.shape
+    return tuple(x.contiguous() for x in
+                 qkv.view(b, s, 3, h, width // (3 * h)).permute(2, 0, 3, 1, 4))
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_k7_k8_bitwise_across_launches_and_layouts(cuda, hd):
+    """Two launches of K8, and of K7, agree bit for bit (no atomics); K7 on
+    the transposed Wqkv output equals K8 bit for bit at every head width."""
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    b, s, h = 3, 200, 2
+    qkv, c2, s2, bias, _, scale = _attention_operands(cuda, b, s, h, hd, seed=1)
+    q, k, v = _head_major(qkv, h)
+    k8 = [ak.fused_attention_qkv(qkv, c2, s2, bias, h, scale) for _ in range(2)]
+    k7 = [ak.fused_attention(q, k, v, c2, s2, bias, scale) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(k8[0], k8[1]) and torch.equal(k7[0], k7[1])
+    assert torch.equal(k7[0].permute(0, 2, 1, 3).reshape(b, s, h * hd), k8[0])
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+def test_k8_fully_padded_row_at_s_mod_16_is_8(cuda, hd):
+    """S 136 leaves half of the last k16 step past S: those keys must get
+    e = 0, not the bias. A fully padded batch row then averages its S real
+    V rows uniformly, as the plain version does (bound 0.02, the JAX
+    package's)."""
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    b, s, h = 2, 136, 2
+    qkv, c2, s2, bias, valid, scale = _attention_operands(cuda, b, s, h, hd)
+    assert not bool(valid[-1].any())               # the fully padded row
+    out = ak.fused_attention_qkv(qkv, c2, s2, bias, h, scale)
+    ref = ak.fused_attention_qkv_plain(qkv, c2, s2, bias, h, scale)
+    torch.cuda.synchronize()
+    mean_v = qkv[-1].float().view(s, 3, h, hd)[:, 2].mean(dim=0).reshape(-1)
+    assert (out[-1].float() - ref[-1].float()).abs().max() < 0.02
+    assert (out[-1].float() - mean_v[None, :]).abs().max() < 0.02
+
+
+def test_k8_k7_with_qkv_scaled_by_8(cuda):
+    """qkv x 8 (exact in bf16): logits 64x wider stress the exponential and
+    the max. Bound: the JAX package's 0.02 scaled by the same 8 (the context
+    is a weighted mean of v, so its bf16 steps grow with v) and cosine >
+    0.999 on valid rows; K7 = K8 bit for bit."""
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    b, s, h, hd = 4, 200, 3, 64
+    qkv, c2, s2, bias, valid, scale = _attention_operands(cuda, b, s, h, hd, seed=3)
+    qkv = qkv * 8
+    out = ak.fused_attention_qkv(qkv, c2, s2, bias, h, scale)
+    ref = ak.fused_attention_qkv_plain(qkv, c2, s2, bias, h, scale)
+    k7 = ak.fused_attention(*_head_major(qkv, h), c2, s2, bias, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    a, r = out.float()[valid], ref.float()[valid]
+    assert (a - r).abs().max() < 0.02 * 8
+    assert float((a * r).sum() / (a.norm() * r.norm())) > 0.999
+    assert torch.equal(k7.permute(0, 2, 1, 3).reshape(b, s, h * hd), out)
+
+
+@pytest.mark.parametrize("hd,s", [
+    (64, 784), (64, 792),      # K and V resident / both streamed
+    (128, 704), (128, 712),    # both streamed, one key tile apart
+    (128, 1024),               # the longest sequence at the widest head
+])
+def test_k8_k7_at_the_shared_memory_edges(cuda, hd, s):
+    """Each side of the shared-memory boundary between the resident and the
+    streamed staging, the streamed one at hd 128, and S 1024 at hd 128: K8
+    within the bound of its plain version, K7 bit for bit K8."""
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    b, h = 2, 2
+    qkv, c2, s2, bias, valid, scale = _attention_operands(cuda, b, s, h, hd)
+    out = ak.fused_attention_qkv(qkv, c2, s2, bias, h, scale)
+    ref = ak.fused_attention_qkv_plain(qkv, c2, s2, bias, h, scale)
+    k7 = ak.fused_attention(*_head_major(qkv, h), c2, s2, bias, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    a, r = out.float()[valid], ref.float()[valid]
+    assert (a - r).abs().max() < 0.02
+    assert float((a * r).sum() / (a.norm() * r.norm())) > 0.999
+    assert torch.equal(k7.permute(0, 2, 1, 3).reshape(b, s, h * hd), out)
+
+
+def test_k8_k7_unaligned_operands_are_copied(cuda):
+    """cp.async copies 16 bytes at a time: a view off a 16-byte boundary is
+    copied to an aligned one, not read misaligned nor refused; the result
+    is the aligned operands' bit for bit."""
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    b, s, h, hd = 2, 64, 2, 64
+    qkv, c2, s2, bias, _, scale = _attention_operands(cuda, b, s, h, hd)
+    shifted = torch.empty(qkv.numel() + 8, dtype=qkv.dtype, device=cuda)
+    off = shifted[1:1 + qkv.numel()].view(qkv.shape)
+    off.copy_(qkv)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    assert torch.equal(ak.fused_attention_qkv(off, c2, s2, bias, h, scale),
+                       ak.fused_attention_qkv(qkv, c2, s2, bias, h, scale))
+    q, k, v = _head_major(qkv, h)
+    q_off = shifted[1:1 + q.numel()].view(q.shape)
+    q_off.copy_(q)
+    assert torch.equal(ak.fused_attention(q_off, k, v, c2, s2, bias, scale),
+                       ak.fused_attention(q, k, v, c2, s2, bias, scale))

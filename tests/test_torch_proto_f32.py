@@ -239,3 +239,14 @@ def test_measurement_runs_on_the_cpu(capsys):
     assert sum(ln.startswith(("P22 ", "P23 ")) and ln.endswith(": ok")
                for ln in lines) == 3
     assert any(ln.startswith("p3_320: ") and "q/s" in ln for ln in lines)
+
+
+@pytest.mark.parametrize("kg,ks", [(30, 192), (15, 16)])
+def test_geometry_refuses_fewer_groups_than_units(kg, ks):
+    """P22's certificate is sound only when KG >= KS; a geometry below that
+    raises instead of certifying wrong ids."""
+    with pytest.raises(ValueError, match="KG >= KS"):
+        pf.Geometry(KG=kg, KS=ks)
+    with pytest.raises(ValueError, match="KG >= KS"):
+        dataclasses.replace(GEOM, KG=GEOM.KS - 1)
+    assert dataclasses.replace(GEOM, KG=GEOM.KS).KG == GEOM.KS
