@@ -13,8 +13,19 @@ K and V and 16 free-running warps buy); ``@fastexp``, ``__expf``
 (ex2.approx) in place of the accurate ``expf`` (its gain, and the float64
 lines that decided against it); ``@acc``, QK^T's k16 steps accumulated inside the ``mma``
 instead of each from +0.0 with one rounded add (what the rounded add
-costs, and the error it saves); ``@nopass1``, pass 1 skipped and e taken
-against 0 (wrong answers: what the exact max costs).
+costs, and the error it saves; K9 calls the same ``qk_tile``, so both of
+its passes move with it); ``@nopass1``, pass 1 skipped and e taken
+against 0 (wrong answers: what the exact max costs); ``@bwdacc``, K9's
+dp, dv, dk and dq accumulated inside the ``mma`` instead of a rounded add
+per k16 step (``K9_STEP_ADDS``: its cost, and the error it saves);
+``@dump``, a debug build (``K9_DUMP``) whose K9 writes both passes' p, dp
+and ds behind its statistics, compared bit for bit (:func:`k9_dump_compare`;
+not timed);
+``@norotq``, K9's key pass without the rotary of its q tiles (wrong
+answers: what rotating each q tile as it lands costs); ``@kq64``, K9's key
+pass on 64-query tiles at two blocks per SM (what the 32-query tiles and
+a third block buy). ``@stream``,
+``@fastexp`` and ``@nopass1`` leave K9 as it is.
 Every build uses the package's nvcc flags (:data:`.._build.NVCC_FLAGS`),
 all started together, and is bound with the package's C signatures, so
 every build must keep the entry points of the tree.
@@ -25,14 +36,17 @@ as a spread between the two passes rather than as a difference between
 builds: K8 ``fused_attention_qkv`` and K7 ``fused_attention`` at the
 encoder's shape (B 256, S 512, H 12, hd 64; random key lengths, one batch
 row fully padded), K9 ``fused_attention_qkv_bwd`` at the finetune shape
-(B 64). Then, per build: K8's error against a float64 evaluation of the
+(B 64), with K9's device time split over its three kernels (torch.profiler:
+the rotary of K, the query pass, the key pass). Then, per build: K8's and K9's error against a float64 evaluation of the
 same function with the same rounding points (rotary in f32 rounded to
 bf16, f32 logits, the exact max, the denominator over the unrounded e, PV on bf16(e),
 the division after PV): max and mean over valid query rows and the count
 of cells off the float64 value rounded to bf16 (finer than the max and
 mean, which the output's own rounding dominates), beside the plain
-version's; whether K7 on the transposed operands equals K8 bit
-for bit and two K8 launches agree bit for bit; the ptxas report of the K8
+version's (K9: :func:`reference64_bwd`, every cell of dqkv); whether K7
+on the transposed operands equals K8 bit for bit and two launches of K8,
+and of K9, agree bit for bit; for a ``@dump`` build, whether K9's two
+passes saw the same p, dp and ds; the ptxas report of the K8 and K9
 bodies (registers, spills); the card's name and power limit. Needs a CUDA
 card; ``chip_smoke.py`` holds each kernel to its plain version.
 """
@@ -91,6 +105,15 @@ VARIANTS = {
         src, "float m[2] = {-INFINITY, -INFINITY};", "float m[2] = {0.f, 0.f};"),
         "    if constexpr (RES) {\n      if (active) {",
         "    if constexpr (RES) {\n      if (false) {"),
+    "bwdacc": lambda src: _edit(src, "constexpr bool K9_STEP_ADDS = true;",
+                                "constexpr bool K9_STEP_ADDS = false;"),
+    "dump": lambda src: _edit(src, "#include <cuda_bf16.h>",
+                              "#define K9_DUMP 1\n#include <cuda_bf16.h>"),
+    "norotq": lambda src: _edit(
+        src, "    rotate_rows<HD, NT_>(qb, q0, KQ, S, cos2, s2);\n", ""),
+    "kq64": lambda src: _edit(_edit(
+        src, "constexpr int KQ = 32;", "constexpr int KQ = 64;"),
+        "constexpr int KEY_BLOCKS = 3;", "constexpr int KEY_BLOCKS = 2;"),
 }
 
 
@@ -109,10 +132,11 @@ def source_path(arg: str) -> Path:
 
 
 def build(paths):
-    """``{name: (ctypes library, ptxas lines of the K8 bodies)}``, one nvcc
-    per source, all started together."""
+    """``{name: (ctypes library, ptxas lines of the K8 and K9 bodies)}``,
+    one nvcc per source, all started together."""
     return ab_topk.build(paths, library="attention", out=OUT,
-                         entry=lambda line: "k8_fused" in line)
+                         entry=lambda line: "k8_fused" in line
+                         or "k9_bwd" in line)
 
 
 def operands(b, seed):
@@ -164,6 +188,83 @@ def reference64(qkv, c2, s2, bias, heads, scale, chunk=16):
     return out
 
 
+def reference64_bwd(qkv, c2, s2, bias, g, heads, scale, chunk=4):
+    """K9's function in float64 with the JAX kernel's rounding points
+    (``attention_pallas.py:214-281``): the rotary in f32 rounded to qkv's
+    dtype, the logit in f32 (the dot in float64 rounded to f32, then ``*
+    scale + bias``), then in float64 p = e / sum(e), dv = round(p)^T g, dp
+    = g v^T, row = sum(dp p), ds = round(p (dp - row) scale), dq_r = ds k_r,
+    dk_r = ds^T q_r and the rotary adjoint, with round() to qkv's dtype.
+    Returns dqkv [B, S, 3*H*hd] in float64, unrounded."""
+    b, s, width = qkv.shape
+    hd = width // (3 * heads)
+    dt = qkv.dtype
+    x = qkv.view(b, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    gh = g.to(dt).view(b, s, heads, hd).permute(0, 2, 1, 3)
+    c64, s64 = c2.double(), s2.double()
+
+    def rot(t):
+        tf = t.to(torch.float32)
+        return (tf * c2 + torch.roll(tf, hd // 2, dims=-1) * s2).to(dt)
+
+    def adjoint(t):
+        return t * c64 + torch.roll(t * s64, hd // 2, dims=-1)
+
+    out = torch.empty((b, s, 3, heads, hd), dtype=torch.float64,
+                      device=qkv.device)
+    for b0 in range(0, b, chunk):
+        sl = slice(b0, b0 + chunk)
+        qr, kr = rot(x[0, sl]).double(), rot(x[1, sl]).double()
+        v, gg = x[2, sl].double(), gh[sl].double()
+        dots = (qr @ kr.transpose(-1, -2)).to(torch.float32)
+        logits = (dots * scale + bias[sl, None, None, :]).double()
+        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        p = e / e.sum(dim=-1, keepdim=True)
+        dv = p.to(dt).double().transpose(-1, -2) @ gg
+        dp = gg @ v.transpose(-1, -2)
+        row = (dp * p).sum(dim=-1, keepdim=True)
+        ds = (p * (dp - row) * scale).to(dt).double()
+        grads = (adjoint(ds @ kr), adjoint(ds.transpose(-1, -2) @ qr), dv)
+        out[sl] = torch.stack(grads, dim=1).permute(0, 3, 1, 2, 4)
+    return out.reshape(b, s, width)
+
+
+def bwd_error(out, ref):
+    """``out`` (bf16 dqkv) against the float64 ``ref`` over every cell: max
+    and mean |error| and the cells off the float64 value rounded to bf16."""
+    err = (out.double() - ref).abs()
+    off = int((out != ref.to(torch.bfloat16)).sum())
+    return (f"max {float(err.max()):.4g}, mean {float(err.mean()):.6g}, "
+            f"{off} of {out.numel()} cells off the float64 value rounded to "
+            f"bf16")
+
+
+def k9_dump_compare(lib, qkv, c2, s2, bias, g, heads, scale):
+    """Run a ``@dump`` build's K9 (``lib``) once and hold its two passes'
+    p, dp and ds against each other bit for bit: ``{"p": bool, "dp": bool,
+    "ds": bool, "cells": n, "written": bool}`` (``written``: both passes
+    wrote every (query, key) cell of every head)."""
+    b, s, width = qkv.shape
+    hd = width // (3 * heads)
+    bhs = b * heads * s
+    scratch = torch.full((3 * bhs + 6 * b * heads * s * s,), float("nan"),
+                         dtype=torch.float32, device=qkv.device)
+    dqkv = torch.empty_like(qkv)
+    if lib.bsr_fused_attention_qkv_bwd(
+            qkv.data_ptr(), c2.data_ptr(), s2.data_ptr(), bias.data_ptr(),
+            g.data_ptr(), b, s, heads, hd, scale, scratch.data_ptr(),
+            dqkv.data_ptr(), torch.cuda.current_stream().cuda_stream):
+        raise RuntimeError("a kernel launch failed")
+    torch.cuda.synchronize()
+    dump = scratch[3 * bhs:].view(2, b * heads, 3, s, s)
+    bits = dump.view(torch.int32)
+    res = {name: bool(torch.equal(bits[0, :, c], bits[1, :, c]))
+           for c, name in enumerate(("p", "dp", "ds"))}
+    res["cells"] = b * heads * s * s
+    res["written"] = not bool(torch.isnan(dump).any())
+    return res
+
+
 def cases(seed):
     """``{label: (fn(lib) -> err, iters)}`` at the module docstring's
     shapes, and K8's operands for the error lines."""
@@ -194,14 +295,15 @@ def cases(seed):
                 g.data_ptr(), B_BWD, S, H, HD, scale, stats.data_ptr(),
                 dqkv.data_ptr(), stream()), ITERS),
     }
-    return work, (qkv, c2, s2, bias, valid, scale, q, k, v)
+    return work, (qkv, c2, s2, bias, valid, scale, q, k, v,
+                  (gq, gc2, gs2, gbias, g))
 
 
 def error_lines(libs, operands_):
     """Per build: K8's error against :func:`reference64` (max and mean on
     valid query rows) beside the plain version's, K7 = K8 and run-to-run
     equality, bit for bit."""
-    qkv, c2, s2, bias, valid, scale, q, k, v = operands_
+    qkv, c2, s2, bias, valid, scale, q, k, v, bwd = operands_
     ref = reference64(qkv, c2, s2, bias, H, scale)[valid]
     ref_bf16 = ref.to(torch.bfloat16)
     plain = ak.fused_attention_qkv_plain(qkv, c2, s2, bias, H, scale)
@@ -237,7 +339,68 @@ def error_lines(libs, operands_):
             f"{float((outs[0].float() - plain.float())[valid].abs().max()):.4g};"
             f" two launches bitwise {torch.equal(outs[0], outs[1])}; K7 = K8 "
             f"bitwise {k7}")
+    del plain, ref, ref_bf16
+    torch.cuda.empty_cache()
+    lines += k9_error_lines(libs, bwd, scale)
     return lines
+
+
+def k9_error_lines(libs, bwd, scale):
+    """Per build: K9 at B_BWD against :func:`reference64_bwd` beside the
+    plain version, two launches bit for bit."""
+    gq, gc2, gs2, gbias, g = bwd
+    ref = reference64_bwd(gq, gc2, gs2, gbias, g, H, scale)
+    plain = ak.fused_attention_qkv_bwd_plain(gq, gc2, gs2, gbias, g, H, scale)
+    lines = [f"plain K9 vs float64: {bwd_error(plain, ref)}"]
+    del plain
+    torch.cuda.empty_cache()
+    stream = torch.cuda.current_stream().cuda_stream
+    stats = torch.empty((3, B_BWD, H, S), dtype=torch.float32, device="cuda")
+    for name, (lib, _report) in libs.items():
+        outs = []
+        for _ in range(2):
+            o = torch.empty_like(gq)
+            if lib.bsr_fused_attention_qkv_bwd(
+                    gq.data_ptr(), gc2.data_ptr(), gs2.data_ptr(),
+                    gbias.data_ptr(), g.data_ptr(), B_BWD, S, H, HD, scale,
+                    stats.data_ptr(), o.data_ptr(), stream):
+                raise RuntimeError("a kernel launch failed")
+            outs.append(o)
+        torch.cuda.synchronize()
+        lines.append(f"K9 vs float64, {name}: {bwd_error(outs[0], ref)}; "
+                     f"two launches bitwise {torch.equal(outs[0], outs[1])}")
+    return lines
+
+
+def k9_dump_line(name, lib, bwd, scale):
+    """A ``@dump`` build's line: its two passes' p, dp and ds bit for bit
+    (:func:`k9_dump_compare`) on the first two batch rows of K9's operands.
+    Such a build writes behind the statistics, so it is never launched with
+    the ordinary scratch: it is neither timed nor held to float64."""
+    gq, gc2, gs2, gbias, g = bwd
+    res = k9_dump_compare(lib, gq[:2], gc2, gs2, gbias[:2], g[:2], H, scale)
+    return (f"K9 passes bitwise, {name}, over {res['cells']} cells: p "
+            f"{res['p']}, dp {res['dp']}, ds {res['ds']}, every cell written "
+            f"{res['written']}")
+
+
+def k9_split(fn, iters=3):
+    """Device ms per launch of K9's three kernels under ``fn`` (one K9
+    launch), by torch.profiler: ``{"rotate": ms, "query": ms, "key": ms}``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    names = {"k9_rotate_k": "rotate", "k9_bwd_query": "query",
+             "k9_bwd_key": "key"}
+    split = dict.fromkeys(names.values(), 0.0)
+    for ev in prof.key_averages():
+        for kernel, part in names.items():
+            if kernel in ev.key:
+                split[part] += ev.device_time_total / 1000 / iters
+    return split
 
 
 def main(argv=None) -> int:
@@ -250,18 +413,27 @@ def main(argv=None) -> int:
         raise SystemExit("ab_attn: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     libs = build([source_path(s) for s in args.sources])
+    timed = {name: v for name, v in libs.items() if "dump" not in name}
     work, ops = cases(args.seed)
-    times = {label: {name: [] for name in libs} for label in work}
-    for name in list(libs) + list(libs)[::-1]:
-        lib = libs[name][0]
+    times = {label: {name: [] for name in timed} for label in work}
+    for name in list(timed) + list(timed)[::-1]:
+        lib = timed[name][0]
         for label, (fn, iters) in work.items():
             times[label][name].append(device_ms(lambda: fn(lib), iters))
     for label, by_build in times.items():
         print(f"{label}: " + "; ".join(
             f"{name} {' / '.join(f'{ms:.4f}' for ms in v)} ms"
             for name, v in by_build.items()), flush=True)
-    for line in error_lines(libs, ops):
+    k9 = next(label for label in work if label.startswith("K9"))
+    for name, (lib, _report) in timed.items():
+        split = k9_split(lambda: work[k9][0](lib))
+        print(f"{k9} split, {name}: " + ", ".join(
+            f"{part} {ms:.4f} ms" for part, ms in split.items()), flush=True)
+    for line in error_lines(timed, ops):
         print(line, flush=True)
+    for name, (lib, _report) in libs.items():
+        if "dump" in name:
+            print(k9_dump_line(name, lib, ops[-1], ops[5]), flush=True)
     for name, (_lib, report) in libs.items():
         print(f"ptxas {name}: " + " | ".join(report))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

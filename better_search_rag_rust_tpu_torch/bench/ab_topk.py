@@ -59,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -135,6 +136,15 @@ def _score_tile_entry(line: str) -> bool:
     return "bfloat16" in line or "IaE" in line
 
 
+def _entry_name(line: str) -> str:
+    """A ptxas "Compiling entry" line's mangled kernel name, its anonymous
+    namespace prefix (``_ZN<n>_GLOBAL__N__<file hash>``) dropped so that
+    the kernel's name and template arguments fit in 40 characters."""
+    name = line.split(chr(39))[1]
+    name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "", name)
+    return name[:40]
+
+
 def build(paths, library="topk", out=OUT, entry=_score_tile_entry):
     """``{name: (ctypes library, ptxas lines of the entries for which
     ``entry`` holds: the score-tile bodies)}``, one nvcc per source, all
@@ -156,7 +166,7 @@ def build(paths, library="topk", out=OUT, entry=_score_tile_entry):
         lines = err.splitlines()
         # after each entry: "Function properties", the spill line, "Used N
         # registers"
-        report = [f"{ln.split(chr(39))[1][:40]}: "
+        report = [f"{_entry_name(ln)}: "
                   + "; ".join(x.split(":", 1)[-1].strip()[:60] for x in lines[i + 2:i + 4])
                   for i, ln in enumerate(lines)
                   if "Compiling entry" in ln and entry(ln)]

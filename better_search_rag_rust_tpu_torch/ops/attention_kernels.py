@@ -37,8 +37,8 @@ launch_counts: Dict[str, int] = {"fused_attention": 0,
 
 #: Head widths the CUDA kernels are instantiated for (their register tiles).
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-#: Longest sequence the kernels take (``MAX_S`` in the CUDA source): the
-#: backward's [32, S] f32 logits tile fits in shared memory up to it.
+#: Longest sequence the kernels take (``MAX_S`` in the CUDA source): a warp
+#: of the backward's query pass holds at most two 64-key tiles of logits.
 KERNEL_MAX_SEQ = 1024
 
 
@@ -141,12 +141,12 @@ def _check_kernel(name: str, hd: int, heads: int, s: int, *tensors) -> None:
                          f"{KERNEL_MAX_SEQ}, got {s}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("qkv, cos2, s2, bias (and g) must be contiguous")
-    if b * heads * (-(-s // 32)) >= 2**31:
+    if b * heads * (-(-s // 16)) >= 2**31:
         raise ValueError(f"grid of {b} x {heads} heads x {s} rows too large")
 
 
 def _aligned16(*tensors) -> tuple:
-    """The forward kernels stage q, k and v 16 bytes per ``cp.async`` and
+    """The kernels stage q, k, v (and g) 16 bytes per ``cp.async`` and
     read the rotary tables 8 bytes at a time: an operand off a 16-byte
     boundary (a view may be; a fresh tensor is not) is copied to one that
     is on it, the rest are passed as they are."""
@@ -291,6 +291,7 @@ def fused_attention_qkv_bwd(qkv: torch.Tensor, cos2: torch.Tensor,
         return fused_attention_qkv_bwd_plain(qkv, cos2, s2, bias, g, heads,
                                              scale)
     _check_kernel("K9", hd, heads, s, qkv, cos2, s2, bias, g)
+    qkv, cos2, s2, bias, g = _aligned16(qkv, cos2, s2, bias, g)
     dqkv = torch.empty_like(qkv)
     # per-row softmax max, sum and sum(dp * p), pass 1 to pass 2
     stats = torch.empty((3, b, heads, s), dtype=torch.float32,

@@ -78,27 +78,88 @@
 // x*cos2 + roll(x*s2, hd/2) and one rounding to bf16. dqkv has qkv's
 // [q heads | k heads | v heads] layout.
 //
-// K9 — WHAT BOUNDS IT. Five products of S*S*hd per head against K8's two;
-// the design below recomputes three of them (eight in all), all SIMT FP32:
-// compute-bound, ~2.5x the forward's FLOPs per call at the same shape.
+// K9 — WHAT BOUNDS IT. Five products of S*S*hd per head (QK^T, dp, dv, dq,
+// dk: 10*S*S*hd FLOP): at the finetune shape (B 64, S 512, H 12, hd 64) 129
+// GFLOP, 0.130 ms at the bf16 tensor rate, against ~0.03 ms for its bytes
+// (qkv and g in, dqkv out): operations-bound. The design below computes
+// seven products, not five: with no atomics and no residual beyond K8's
+// inputs, a pass over a key block cannot know the softmax statistics of a
+// query row without a pass over all of that row's keys, so QK^T and dp run
+// in both kernels — three products in the query pass (QK^T, dp, dq) and four
+// in the key pass (S^T, dP^T, dv, dk) — with an exponential per logit in
+// each.
 //
-// K9 — DESIGN. Two kernels, FlashAttention-2 style, deterministic, no
-// atomics. (a) k9_bwd_query: a block per (b, h, 32 query rows) holds the
-// tile's [32, S] f32 logits in shared memory, takes the exact row
-// max m and l = sum(e), turns the tile into p, forms row = sum(dp * p) over
-// a pass of V tiles, then a second pass over V and K tiles recomputes dp,
-// writes ds over p in place and accumulates dq_r in registers. The tile
-// holds every key, so dq is complete there. m, l and row go to a
-// [3, B, H, S] f32 scratch. dp is recomputed rather than stored: a second
-// [32, S] tile would not fit at S = 1024. (b) k9_bwd_key: a block per
-// (b, h, 32 keys) keeps k_r and v of its keys in shared memory and walks
-// every 32-row query tile: it recomputes the logits and p from the stored
-// m and l, dp, ds, then accumulates dv and dk_r in registers.
-// p in (b) must equal p in (a) bit for bit, or bf16(p) and ds would drift
-// between dq and dk/dv: both passes take each logit as one fmaf chain over
-// d from 0 up, the same __fmul_rn / __fadd_rn epilogue, expf (not __expf) of
-// an exact subtraction and an IEEE __fdiv_rn by the stored f32 sum; dp is
-// one fmaf chain likewise, and row is read, not recomputed.
+// K9 — DESIGN. Three kernels, deterministic (no atomics), every product on
+// mma.sync m16n8k16 (bf16 in, f32 out) in K8's fragment layout.
+// (0) k9_rotate_k: k_r, each key's rotary once per head, into dqkv's own k
+// lanes (no scratch beyond the statistics): the query pass reads it there,
+// and each key-pass block stages its own rows of it before it overwrites
+// them with dk. Rotating K in every query block instead reads the rotary
+// tables again for every 16 query rows. q_r cannot take the same road: the
+// only lanes free for it would be dq's or dv's, written while other blocks
+// still read it, so the key pass rotates each q tile as it lands.
+// (a) k9_bwd_query: a block per (b, h, 16 query rows); its 8 warps split the
+// keys, warp w taking the 64-key tiles w and w + 8. Every warp holds the
+// rotated q (load_q_frags) and g of the 16 rows as A fragments, read from
+// global memory. A warp stages its V tile with cp.async into a slot of its
+// own (pitch hd + 8), takes dp = g v^T (dot_tile, V by ldmatrix), stages its
+// K_r tile into the same slot and takes the logits by K8's own qk_tile, so
+// they are K8's bit for bit. The f32 logits of its tiles (at most two: S <=
+// 1024) stay in registers, their dp in the thread's own shared-memory slots;
+// the exact row max, the sum of the f32 e and row = sum(dp * p) are reduced
+// over the quad and then over the 8 warps through shared memory, in a fixed
+// order. ds = bf16(p * (dp - row) *
+// scale) is repacked from the C fragments into the A fragments of ds . K_r
+// (tile_pv's repack; K_r by ldmatrix.trans from the slot, restaged where a
+// warp had two tiles), and the 8 partial dq are summed in warp order through
+// shared memory before the rotary adjoint and one rounding. m, l and row go
+// to the [3, B, H, S] f32 scratch. Three products: the logits and dp are
+// kept, not recomputed.
+// (b) k9_bwd_key: a block per (b, h, KB keys), KW warps of 16 keys each: the
+// keys are the M rows. K_r and V of the block's keys stay in shared memory;
+// q, g and the statistics of KQ-query tiles stream through a two-tile
+// cp.async ring, each q tile rotated as it lands. Per tile a warp takes S^T
+// = K_r Q_r^T by qk_tile (its A fragments by ldmatrix from K_r), p from the
+// stored m and l, dP^T = V g^T by dot_tile and ds, then dV += bf16(P)^T g
+// and dK += dS^T Q_r, both A operands repacked C -> A and g, Q_r by
+// ldmatrix.trans. dV accumulates in registers, dK (and a tile's p, while
+// dP^T runs) in the thread's own shared-memory slots; dK's rotary adjoint
+// pairs lane d with its partner d + hd/2, which the same thread holds. Four
+// products.
+// Rounding: QK^T is qk_tile's (each k16 step from +0.0, one rounded add);
+// dp, dv, dk and dq follow K9_STEP_ADDS, chosen by bench/ab_attn.py's float64
+// line (the variant @bwdacc flips it).
+//
+// K9 — WHERE TROUBLE LIES.
+// 1. p and ds must agree bit for bit between the two kernels, or bf16(p)
+//    and ds would drift between dq and dk/dv. The query pass takes Q K^T and
+//    g V^T, the key pass K Q^T and V g^T: the same routines on the same bf16
+//    operands, and a k16 step of m16n8k16 sums the same 16 exact products at
+//    the same k positions whichever operand is A. The card shows that the two
+//    orientations give the same f32 (a build with K9_DUMP, which writes both
+//    kernels' p, dp and ds behind the statistics: tests/test_torch_gpu.py).
+//    Then the same logit_of epilogue, expf (not __expf) of an exact
+//    __fsub_rn, the __fdiv_rn by the stored f32 sum; row is read, not
+//    recomputed.
+// 2. Padding. Keys at or past S get the logit -inf in the query pass (e = 0)
+//    and p = 0 in the key pass, against zero K, V, q and g rows — never the
+//    -1e9 bias: a fully padded batch row has every real logit at ~ -1e9, so
+//    p = 1/S there. With S % 16 == 8 half of the last k16 step is empty.
+//    Query rows at or past S run on zero q and g and are not stored.
+// 3. Registers. The key pass's dV and dK are hd/2 f32 each per thread, beside
+//    a tile's p and dp. 32-query tiles (KQ; @kq64 shows 64) halve p and dp;
+//    dK and p wait in shared memory (the __fdiv_rn of p has a slow-path call
+//    whose caller-saved registers spill otherwise), so that three blocks
+//    share an SM. The query pass keeps a tile's logits in registers (one
+//    tile below S 512: two blocks per SM; two above: one) and its dp in
+//    shared memory. No instantiation below hd 128 spills; bench/ab_attn.py
+//    prints the ptxas report of every one.
+// 4. bench/ab_attn.py's variants edit this source by exact text. K9 calls
+//    qk_tile, so @acc moves both kernels' QK^T together; @bwdacc flips
+//    K9_STEP_ADDS; @dump defines K9_DUMP; @fastexp, @stream and @nopass1
+//    leave K9 as it is.
+// 5. Determinism: every reduction (k16 steps, tiles, the quad, the warps)
+//    runs in a fixed order.
 //
 // The rotary, the logit epilogues and the softmax-gradient algebra use
 // __fmul_rn / __fadd_rn / __fsub_rn so the compiler does not contract them
@@ -116,111 +177,10 @@
 
 namespace {
 
-constexpr int TQ = 32;        // query rows per block
-constexpr int KT = 64;        // keys per K / V tile
-constexpr int NT = 256;       // threads per block, 16 (tx) x 16 (ty)
-constexpr int MAX_S = 1024;   // longest sequence whose logits tile fits
+constexpr int MAX_S = 1024;   // longest sequence: two key tiles per K9 warp
 
-static_assert(TQ == 32 && KT == 64 && NT == 256,
-              "the micro-tiles below assume 16 x 16 threads, 2 rows x 4 keys");
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Shared-memory pitch (floats) of the [TQ, S] logits tile: a multiple of 4
-// (float4 reads) that is 16 mod 32, so the two rows a warp writes land in
-// disjoint banks.
-__host__ __device__ __forceinline__ int logits_pitch(int S) {
-  return ((S + 31) / 32) * 32 + 16;
-}
-
-// N consecutive floats from shared memory, 16 or 8 bytes at a time.
-template <int N>
-__device__ __forceinline__ void lds(const float* p, float (&v)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int k = 0; k < N; k += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p + k);
-      v[k] = t.x; v[k + 1] = t.y; v[k + 2] = t.z; v[k + 3] = t.w;
-    }
-  } else if constexpr (N % 2 == 0) {
-#pragma unroll
-    for (int k = 0; k < N; k += 2) {
-      const float2 t = *reinterpret_cast<const float2*>(p + k);
-      v[k] = t.x; v[k + 1] = t.y;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < N; ++k) v[k] = p[k];
-  }
-}
-
-// Rows [s0, s0 + rows) of one head's q or k (lane offset `col` in the qkv
-// row) into dst[r][d] (pitch HD + 4) as f32: rotary in f32 from the bf16
-// input, one rounding to bf16, widened back. One work item covers lanes
-// j, j+1 and their partners j + HD/2, j + HD/2 + 1. Rows at or past S are 0.
-template <int HD>
-__device__ void load_rotated(const __nv_bfloat16* __restrict__ base,
-                             int row_stride, int col,
-                             const float* __restrict__ cos2,
-                             const float* __restrict__ s2, int s0, int rows,
-                             int S, float* __restrict__ dst) {
-  constexpr int H2 = HD / 2;
-  constexpr int PAIRS = H2 / 2;
-  constexpr int LD = HD + 4;
-  for (int idx = threadIdx.x; idx < rows * PAIRS; idx += NT) {
-    const int r = idx / PAIRS;
-    const int j = (idx % PAIRS) * 2;
-    const int s = s0 + r;
-    float o0 = 0.f, o1 = 0.f, o2 = 0.f, o3 = 0.f;
-    if (s < S) {
-      const __nv_bfloat16* x = base + (size_t)s * row_stride + col;
-      const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(x + j);
-      const __nv_bfloat162 hi =
-          *reinterpret_cast<const __nv_bfloat162*>(x + j + H2);
-      const float x0 = __low2float(lo), x1 = __high2float(lo);
-      const float y0 = __low2float(hi), y1 = __high2float(hi);
-      const float* c = cos2 + (size_t)s * HD;
-      const float* sn = s2 + (size_t)s * HD;
-      // roll(x, HD/2) brings lane j + HD/2 to lane j and lane j to j + HD/2.
-      o0 = bf16_round(__fadd_rn(__fmul_rn(x0, c[j]), __fmul_rn(y0, sn[j])));
-      o1 = bf16_round(
-          __fadd_rn(__fmul_rn(x1, c[j + 1]), __fmul_rn(y1, sn[j + 1])));
-      o2 = bf16_round(
-          __fadd_rn(__fmul_rn(y0, c[j + H2]), __fmul_rn(x0, sn[j + H2])));
-      o3 = bf16_round(__fadd_rn(__fmul_rn(y1, c[j + H2 + 1]),
-                                __fmul_rn(x1, sn[j + H2 + 1])));
-    }
-    float* d = dst + r * LD;
-    d[j] = o0;
-    d[j + 1] = o1;
-    d[j + H2] = o2;
-    d[j + H2 + 1] = o3;
-  }
-}
-
-// Rows [s0, s0 + rows) of one head's v into dst[r][d] as f32 (exact).
-template <int HD>
-__device__ void load_plain(const __nv_bfloat16* __restrict__ base,
-                           int row_stride, int col, int s0, int rows, int S,
-                           float* __restrict__ dst) {
-  constexpr int PAIRS = HD / 2;
-  constexpr int LD = HD + 4;
-  for (int idx = threadIdx.x; idx < rows * PAIRS; idx += NT) {
-    const int r = idx / PAIRS;
-    const int j = (idx % PAIRS) * 2;
-    const int s = s0 + r;
-    float a = 0.f, b = 0.f;
-    if (s < S) {
-      const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
-          base + (size_t)s * row_stride + col + j);
-      a = __low2float(v);
-      b = __high2float(v);
-    }
-    dst[r * LD + j] = a;
-    dst[r * LD + j + 1] = b;
-  }
+__device__ __forceinline__ float logit_of(float acc, float scale, float bias) {
+  return __fadd_rn(__fmul_rn(acc, scale), bias);
 }
 
 // Raise a kernel's dynamic shared-memory limit to `bytes` once; `configured`
@@ -233,452 +193,6 @@ int allow_smem(Kernel kernel, size_t bytes, size_t& configured) {
   if (e != cudaSuccess) return (int)e;
   configured = bytes;
   return 0;
-}
-
-// ---------------------------------------------------------------------------
-// K9: the recompute backward
-// ---------------------------------------------------------------------------
-
-constexpr int TK = 32;        // keys per k9_bwd_key block
-constexpr int PP = TK + 16;   // pitch of its [TQ, TK] p / ds tiles: the two
-                              // rows a warp writes land in disjoint banks
-
-__device__ __forceinline__ float logit_of(float acc, float scale, float bias) {
-  return __fadd_rn(__fmul_rn(acc, scale), bias);
-}
-
-__device__ __forceinline__ float ds_of(float p, float dp, float row,
-                                       float scale) {
-  return bf16_round(__fmul_rn(__fmul_rn(p, __fsub_rn(dp, row)), scale));
-}
-
-// dst[r][d] (pitch HD + 4) holds rows [s0, s0 + rows) of dx_rot in f32; write
-// bf16(dx_rot * cos2 + roll(dx_rot * s2, HD/2)) to lanes col.. of those rows
-// of dqkv (the rotary's adjoint, at each row's own position).
-template <int HD>
-__device__ void store_rotary_adjoint(const float* __restrict__ src,
-                                     const float* __restrict__ cos2,
-                                     const float* __restrict__ s2, int s0,
-                                     int rows, int S,
-                                     __nv_bfloat16* __restrict__ out,
-                                     int row_stride, int col) {
-  constexpr int LD = HD + 4;
-  for (int idx = threadIdx.x; idx < rows * HD; idx += NT) {
-    const int r = idx / HD;
-    const int j = idx % HD;
-    const int s = s0 + r;
-    if (s < S) {
-      const int jp = (j + HD / 2) % HD;
-      const float v = __fadd_rn(__fmul_rn(src[r * LD + j], cos2[s * HD + j]),
-                                __fmul_rn(src[r * LD + jp], s2[s * HD + jp]));
-      out[(size_t)s * row_stride + col + j] = __float2bfloat16_rn(v);
-    }
-  }
-}
-
-template <int HD>
-__host__ __device__ __forceinline__ size_t k9a_smem_bytes(int S) {
-  constexpr int LD = HD + 4;
-  return sizeof(float) * ((size_t)2 * TQ * LD + (size_t)KT * LD +
-                          (size_t)TQ * logits_pitch(S) + 3 * TQ);
-}
-
-template <int HD>
-__host__ __device__ __forceinline__ size_t k9b_smem_bytes() {
-  constexpr int LD = HD + 4;
-  return sizeof(float) * ((size_t)2 * TK * LD + (size_t)2 * TQ * LD +
-                          (size_t)2 * TQ * PP + 3 * TQ);
-}
-
-// 2 x 4 micro-tile of a [TQ] x [KT] product: rows ty, ty + 16 of A against
-// rows tx + 16j of Bm, each entry one fmaf chain over d from 0 up.
-template <int HD>
-__device__ __forceinline__ void dot_tile(const float* __restrict__ A,
-                                         const float* __restrict__ Bm, int ty,
-                                         int tx, float (&acc)[2][4]) {
-  constexpr int LD = HD + 4;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 a[2], bv[4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(Bm + (tx + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(a[i].x, bv[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, bv[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, bv[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, bv[j].w, acc[i][j]);
-      }
-  }
-}
-
-// Pass (a): a block per (b, h, TQ query rows). Writes dq and the row
-// statistics m, l, row to stats [3][B*H*S].
-template <int HD>
-__global__ void __launch_bounds__(NT, 2)
-    k9_bwd_query(const __nv_bfloat16* __restrict__ qkv,
-                 const float* __restrict__ cos2, const float* __restrict__ s2,
-                 const float* __restrict__ bias,
-                 const __nv_bfloat16* __restrict__ g, int S, int H,
-                 float scale, float* __restrict__ stats,
-                 __nv_bfloat16* __restrict__ dqkv) {
-  constexpr int LD = HD + 4;
-  constexpr int DPT = HD / 16;
-  extern __shared__ __align__(16) float smem[];
-  const int SP = logits_pitch(S);
-  float* Qs = smem;              // [TQ][LD] rotated q
-  float* Gs = Qs + TQ * LD;      // [TQ][LD] g, then dq_rot
-  float* KVs = Gs + TQ * LD;     // [KT][LD] rotated k or v
-  float* Ls = KVs + KT * LD;     // [TQ][SP] logits, then p, then ds
-  float* Mr = Ls + TQ * SP;      // [TQ] row max
-  float* Lr = Mr + TQ;           // [TQ] sum of e
-  float* Dr = Lr + TQ;           // [TQ] row = sum(dp * p)
-
-  const int nqt = (S + TQ - 1) / TQ;
-  const int qt = blockIdx.x % nqt;
-  const int h = (blockIdx.x / nqt) % H;
-  const int b = blockIdx.x / (nqt * H);
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int row_stride = 3 * H * HD;
-  const int g_stride = H * HD;
-  const __nv_bfloat16* base = qkv + (size_t)b * S * row_stride;
-  const __nv_bfloat16* gbase = g + (size_t)b * S * g_stride;
-  const float* brow = bias + (size_t)b * S;
-  const int q0 = qt * TQ;
-
-  load_rotated<HD>(base, row_stride, (0 * H + h) * HD, cos2, s2, q0, TQ, S,
-                   Qs);
-  load_plain<HD>(gbase, g_stride, h * HD, q0, TQ, S, Gs);
-
-  // Logits of the tile against every key, into Ls (K8's pass 1).
-  for (int k0 = 0; k0 < S; k0 += KT) {
-    __syncthreads();
-    load_rotated<HD>(base, row_stride, (1 * H + h) * HD, cos2, s2, k0, KT, S,
-                     KVs);
-    __syncthreads();
-    float acc[2][4];
-    dot_tile<HD>(Qs, KVs, ty, tx, acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = k0 + tx + 16 * j;
-      if (t < S) {
-        const float bt = brow[t];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          Ls[(ty + 16 * i) * SP + t] = logit_of(acc[i][j], scale, bt);
-      }
-    }
-  }
-  __syncthreads();
-
-  // Row pass, one warp per TQ/8 rows: exact max, l = f32 sum of e, and
-  // p = e / l in place. The butterfly leaves m and l equal on every lane.
-  {
-    const int warp = tid >> 5;
-    const int lane = tid & 31;
-    for (int rr = 0; rr < TQ / 8; ++rr) {
-      const int r = warp * (TQ / 8) + rr;
-      float* L = Ls + r * SP;
-      float m = -INFINITY;
-      for (int t = lane; t < S; t += 32) m = fmaxf(m, L[t]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      float sum = 0.f;
-      for (int t = lane; t < S; t += 32) {
-        const float e = expf(__fsub_rn(L[t], m));
-        sum += e;
-        L[t] = e;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      for (int t = lane; t < S; t += 32) L[t] = __fdiv_rn(L[t], sum);
-      if (lane == 0) {
-        Mr[r] = m;
-        Lr[r] = sum;
-      }
-    }
-  }
-
-  // row = sum over keys of dp * p, dp = g . v; each thread sums its keys,
-  // then the 16 threads of a row (one half-warp) reduce.
-  float racc[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < S; k0 += KT) {
-    __syncthreads();  // the row pass is done / the previous V tile consumed
-    load_plain<HD>(base, row_stride, (2 * H + h) * HD, k0, KT, S, KVs);
-    __syncthreads();
-    float dp[2][4];
-    dot_tile<HD>(Gs, KVs, ty, tx, dp);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = k0 + tx + 16 * j;
-      if (t < S) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          racc[i] = __fadd_rn(racc[i],
-                              __fmul_rn(dp[i][j], Ls[(ty + 16 * i) * SP + t]));
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      racc[i] += __shfl_xor_sync(0xffffffffu, racc[i], off);
-    if (tx == 0) Dr[ty + 16 * i] = racc[i];
-  }
-
-  // ds over p in place, tile by tile, then dq_rot += ds . k_rot.
-  float dq[2][DPT] = {};
-  for (int k0 = 0; k0 < S; k0 += KT) {
-    __syncthreads();  // Dr is written / the previous K tile is consumed
-    load_plain<HD>(base, row_stride, (2 * H + h) * HD, k0, KT, S, KVs);
-    __syncthreads();
-    float dp[2][4];
-    dot_tile<HD>(Gs, KVs, ty, tx, dp);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = k0 + tx + 16 * j;
-      if (t < S) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = ty + 16 * i;
-          Ls[r * SP + t] = ds_of(Ls[r * SP + t], dp[i][j], Dr[r], scale);
-        }
-      }
-    }
-    __syncthreads();  // ds of the tile written, V consumed
-    load_rotated<HD>(base, row_stride, (1 * H + h) * HD, cos2, s2, k0, KT, S,
-                     KVs);
-    __syncthreads();
-    const int kv = min(KT, S - k0);  // a multiple of 8 (S % 8 == 0)
-    for (int t = 0; t < kv; t += 4) {
-      float4 w[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        w[i] = *reinterpret_cast<const float4*>(Ls + (ty + 16 * i) * SP +
-                                                k0 + t);
-      const float wv[2][4] = {{w[0].x, w[0].y, w[0].z, w[0].w},
-                              {w[1].x, w[1].y, w[1].z, w[1].w}};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float k[DPT];
-        lds<DPT>(KVs + (t + u) * LD + tx * DPT, k);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int dd = 0; dd < DPT; ++dd)
-            dq[i][dd] = fmaf(wv[i][u], k[dd], dq[i][dd]);
-      }
-    }
-  }
-
-  // Epilogue: dq through the rotary adjoint; the row statistics.
-  __syncthreads();  // g is no longer read: Gs takes dq_rot
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int dd = 0; dd < DPT; ++dd)
-      Gs[(ty + 16 * i) * LD + tx * DPT + dd] = dq[i][dd];
-  __syncthreads();
-  store_rotary_adjoint<HD>(Gs, cos2, s2, q0, TQ, S,
-                           dqkv + (size_t)b * S * row_stride, row_stride,
-                           (0 * H + h) * HD);
-  if (tid < TQ && q0 + tid < S) {
-    const size_t bhs = (size_t)(gridDim.x / nqt) * S;
-    const size_t at = ((size_t)b * H + h) * S + q0 + tid;
-    stats[at] = Mr[tid];
-    stats[bhs + at] = Lr[tid];
-    stats[2 * bhs + at] = Dr[tid];
-  }
-}
-
-// Pass (b): a block per (b, h, TK keys). Walks every query tile, recomputes
-// p from the stored m and l, and writes dk and dv. At HD = 128 its dk and dv
-// accumulators need more than the 128 registers two blocks per SM allow.
-template <int HD>
-__global__ void __launch_bounds__(NT, HD >= 128 ? 1 : 2)
-    k9_bwd_key(const __nv_bfloat16* __restrict__ qkv,
-               const float* __restrict__ cos2, const float* __restrict__ s2,
-               const float* __restrict__ bias,
-               const __nv_bfloat16* __restrict__ g, int S, int H, float scale,
-               const float* __restrict__ stats,
-               __nv_bfloat16* __restrict__ dqkv) {
-  constexpr int LD = HD + 4;
-  constexpr int DPT = HD / 16;
-  static_assert(TK == TQ, "dk_rot reuses the [TQ][LD] q tile");
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;              // [TK][LD] rotated k of the block's keys
-  float* Vs = Ks + TK * LD;      // [TK][LD] v
-  float* Qs = Vs + TK * LD;      // [TQ][LD] rotated q of a query tile
-  float* Gs = Qs + TQ * LD;      // [TQ][LD] g of a query tile
-  float* Ps = Gs + TQ * LD;      // [TQ][PP] bf16(p)
-  float* Ds = Ps + TQ * PP;      // [TQ][PP] ds
-  float* Mq = Ds + TQ * PP;      // [TQ] m, l, row of the query tile
-  float* Lq = Mq + TQ;
-  float* Rq = Lq + TQ;
-
-  const int nkt = (S + TK - 1) / TK;
-  const int kt = blockIdx.x % nkt;
-  const int h = (blockIdx.x / nkt) % H;
-  const int b = blockIdx.x / (nkt * H);
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int row_stride = 3 * H * HD;
-  const int g_stride = H * HD;
-  const __nv_bfloat16* base = qkv + (size_t)b * S * row_stride;
-  const __nv_bfloat16* gbase = g + (size_t)b * S * g_stride;
-  const size_t bhs = (size_t)(gridDim.x / nkt) * S;
-  const float* st = stats + ((size_t)b * H + h) * S;
-  const int k0 = kt * TK;
-
-  load_rotated<HD>(base, row_stride, (1 * H + h) * HD, cos2, s2, k0, TK, S,
-                   Ks);
-  load_plain<HD>(base, row_stride, (2 * H + h) * HD, k0, TK, S, Vs);
-  float bk[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int t = k0 + tx + 16 * j;
-    bk[j] = t < S ? bias[(size_t)b * S + t] : 0.f;
-  }
-
-  float dk[2][DPT] = {}, dv[2][DPT] = {};
-  for (int q0 = 0; q0 < S; q0 += TQ) {
-    __syncthreads();  // the previous query tile is consumed
-    load_rotated<HD>(base, row_stride, (0 * H + h) * HD, cos2, s2, q0, TQ, S,
-                     Qs);
-    load_plain<HD>(gbase, g_stride, h * HD, q0, TQ, S, Gs);
-    if (tid < TQ) {
-      const bool in = q0 + tid < S;
-      Mq[tid] = in ? st[q0 + tid] : 0.f;
-      Lq[tid] = in ? st[bhs + q0 + tid] : 1.f;
-      Rq[tid] = in ? st[2 * bhs + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // logits and dp for rows ty, ty + 16 and keys tx, tx + 16: one fmaf
-    // chain per entry over d from 0 up, as in pass (a).
-    float sacc[2][2] = {}, pacc[2][2] = {};
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 q[2], gq[2], k[2], v[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        q[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * LD + d);
-        gq[i] = *reinterpret_cast<const float4*>(Gs + (ty + 16 * i) * LD + d);
-        k[i] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * i) * LD + d);
-        v[i] = *reinterpret_cast<const float4*>(Vs + (tx + 16 * i) * LD + d);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          sacc[i][j] = fmaf(q[i].x, k[j].x, sacc[i][j]);
-          sacc[i][j] = fmaf(q[i].y, k[j].y, sacc[i][j]);
-          sacc[i][j] = fmaf(q[i].z, k[j].z, sacc[i][j]);
-          sacc[i][j] = fmaf(q[i].w, k[j].w, sacc[i][j]);
-          pacc[i][j] = fmaf(gq[i].x, v[j].x, pacc[i][j]);
-          pacc[i][j] = fmaf(gq[i].y, v[j].y, pacc[i][j]);
-          pacc[i][j] = fmaf(gq[i].z, v[j].z, pacc[i][j]);
-          pacc[i][j] = fmaf(gq[i].w, v[j].w, pacc[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int r = ty + 16 * i;
-        const int t = tx + 16 * j;
-        float p = 0.f, ds = 0.f;
-        if (q0 + r < S && k0 + t < S) {
-          const float l = logit_of(sacc[i][j], scale, bk[j]);
-          p = __fdiv_rn(expf(__fsub_rn(l, Mq[r])), Lq[r]);
-          ds = ds_of(p, pacc[i][j], Rq[r], scale);
-        }
-        Ps[r * PP + t] = bf16_round(p);
-        Ds[r * PP + t] = ds;
-      }
-    __syncthreads();
-
-    // dv += bf16(p)^T g and dk_rot += ds^T q_rot for keys ty, ty + 16 and
-    // dims tx*DPT ..
-    for (int r = 0; r < TQ; ++r) {
-      float gv[DPT], qv[DPT];
-      lds<DPT>(Gs + r * LD + tx * DPT, gv);
-      lds<DPT>(Qs + r * LD + tx * DPT, qv);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float pb = Ps[r * PP + ty + 16 * i];
-        const float dsv = Ds[r * PP + ty + 16 * i];
-#pragma unroll
-        for (int dd = 0; dd < DPT; ++dd) {
-          dv[i][dd] = fmaf(pb, gv[dd], dv[i][dd]);
-          dk[i][dd] = fmaf(dsv, qv[dd], dk[i][dd]);
-        }
-      }
-    }
-  }
-
-  // Epilogue: dv straight out, dk through the rotary adjoint.
-  __nv_bfloat16* out = dqkv + (size_t)b * S * row_stride;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int s = k0 + ty + 16 * i;
-    if (s < S) {
-#pragma unroll
-      for (int dd = 0; dd < DPT; ++dd)
-        out[(size_t)s * row_stride + (2 * H + h) * HD + tx * DPT + dd] =
-            __float2bfloat16_rn(dv[i][dd]);
-    }
-  }
-  __syncthreads();  // the last query tile is consumed: Qs takes dk_rot
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int dd = 0; dd < DPT; ++dd)
-      Qs[(ty + 16 * i) * LD + tx * DPT + dd] = dk[i][dd];
-  __syncthreads();
-  store_rotary_adjoint<HD>(Qs, cos2, s2, k0, TK, S, out, row_stride,
-                           (1 * H + h) * HD);
-}
-
-template <int HD>
-int launch_k9(const void* qkv, const float* cos2, const float* s2,
-              const float* bias, const void* g, int B, int S, int H,
-              float scale, float* stats, void* dqkv, cudaStream_t stream) {
-  static size_t conf_a = 48 * 1024, conf_b = 48 * 1024;
-  const size_t bytes_a = k9a_smem_bytes<HD>(S);
-  const size_t bytes_b = k9b_smem_bytes<HD>();
-  int e = allow_smem(k9_bwd_query<HD>, bytes_a, conf_a);
-  if (e) return e;
-  e = allow_smem(k9_bwd_key<HD>, bytes_b, conf_b);
-  if (e) return e;
-  const auto* q = static_cast<const __nv_bfloat16*>(qkv);
-  const auto* gg = static_cast<const __nv_bfloat16*>(g);
-  auto* out = static_cast<__nv_bfloat16*>(dqkv);
-  const dim3 grid_a((unsigned)B * (unsigned)H * (unsigned)((S + TQ - 1) / TQ));
-  k9_bwd_query<HD><<<grid_a, NT, bytes_a, stream>>>(q, cos2, s2, bias, gg, S,
-                                                    H, scale, stats, out);
-  e = (int)cudaGetLastError();
-  if (e) return e;
-  const dim3 grid_b((unsigned)B * (unsigned)H * (unsigned)((S + TK - 1) / TK));
-  k9_bwd_key<HD><<<grid_b, NT, bytes_b, stream>>>(q, cos2, s2, bias, gg, S, H,
-                                                  scale, stats, out);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -764,14 +278,16 @@ __host__ __device__ __forceinline__ size_t attn_smem_bytes(int S, bool res) {
 
 // Rows [s0, s0 + rows) of one head's x (rows ld_in elements apart) into
 // dst[r][d] (pitch HD + 8) as bf16, one cp.async per 16 bytes; rows at or
-// past S are zero-filled.
-template <int HD, int NT_>
-__device__ __forceinline__ void stage_rows(const __nv_bfloat16* __restrict__ x,
-                                           int ld_in, int s0, int rows, int S,
-                                           __nv_bfloat16* dst) {
+// past S are zero-filled. Threads tid, tid + nt, .. of those that share the
+// copy take its 16-byte chunks.
+template <int HD>
+__device__ __forceinline__ void stage_rows_by(const __nv_bfloat16* __restrict__ x,
+                                              int ld_in, int s0, int rows, int S,
+                                              __nv_bfloat16* dst, int tid,
+                                              int nt) {
   constexpr int LD = HD + 8;
   constexpr int CH = HD / 8;
-  for (int i = threadIdx.x; i < rows * CH; i += NT_) {
+  for (int i = tid; i < rows * CH; i += nt) {
     const int r = i / CH;
     const int c = (i % CH) * 8;
     const int s = s0 + r;
@@ -781,18 +297,28 @@ __device__ __forceinline__ void stage_rows(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// The rotary of staged rows [0, rows) (positions s0 ..) in place, with
-// load_rotated's arithmetic: f32 from the bf16 input, one rounding to bf16.
-// Rows at or past S stay as staged (zero).
+// stage_rows_by over the NT_ threads of a block.
 template <int HD, int NT_>
-__device__ __forceinline__ void rotate_rows(__nv_bfloat16* x, int s0, int rows,
-                                            int S,
-                                            const float* __restrict__ cos2,
-                                            const float* __restrict__ s2) {
+__device__ __forceinline__ void stage_rows(const __nv_bfloat16* __restrict__ x,
+                                           int ld_in, int s0, int rows, int S,
+                                           __nv_bfloat16* dst) {
+  stage_rows_by<HD>(x, ld_in, s0, rows, S, dst, threadIdx.x, NT_);
+}
+
+// The rotary of staged rows [0, rows) (positions s0 ..) in place, with
+// load_q_frags's arithmetic: f32 from the bf16 input, one rounding to bf16.
+// Rows at or past S stay as staged (zero). Threads tid, tid + nt, .. share
+// the work.
+template <int HD>
+__device__ __forceinline__ void rotate_rows_by(__nv_bfloat16* x, int s0,
+                                               int rows, int S,
+                                               const float* __restrict__ cos2,
+                                               const float* __restrict__ s2,
+                                               int tid, int nt) {
   constexpr int LD = HD + 8;
   constexpr int H2 = HD / 2;
   constexpr int PAIRS = H2 / 2;
-  for (int i = threadIdx.x; i < rows * PAIRS; i += NT_) {
+  for (int i = tid; i < rows * PAIRS; i += nt) {
     const int r = i / PAIRS;
     const int j = (i % PAIRS) * 2;
     const int s = s0 + r;
@@ -814,6 +340,15 @@ __device__ __forceinline__ void rotate_rows(__nv_bfloat16* x, int s0, int rows,
         __fadd_rn(__fmul_rn(xh.x, ch.x), __fmul_rn(xl.x, sh.x)),
         __fadd_rn(__fmul_rn(xh.y, ch.y), __fmul_rn(xl.y, sh.y)));
   }
+}
+
+// rotate_rows_by over the NT_ threads of a block.
+template <int HD, int NT_>
+__device__ __forceinline__ void rotate_rows(__nv_bfloat16* x, int s0, int rows,
+                                            int S,
+                                            const float* __restrict__ cos2,
+                                            const float* __restrict__ s2) {
+  rotate_rows_by<HD>(x, s0, rows, S, cos2, s2, threadIdx.x, NT_);
 }
 
 // A fragments of rotated q for query rows r0 .. r0 + 15, straight from
@@ -863,11 +398,12 @@ __device__ __forceinline__ void load_q_frags(const __nv_bfloat16* __restrict__ q
 // but leaves two fifths more outputs off the float64 value
 // (bench/ab_attn.py, @acc). Pass 1 and pass 2 run the same chain, so they see the same logits
 // bit for bit. Unless FULL, 16-key pairs at or past `keys` are skipped
-// (staged rows up to `keys` rounded up to 16 are read).
-template <int HD, bool FULL>
+// (staged rows up to `keys` rounded up to 16 are read). NK: the tile's keys
+// (K8 and K9's query pass AKN, K9's key pass KQ queries).
+template <int HD, bool FULL, int NK = AKN>
 __device__ __forceinline__ void qk_tile(const uint32_t (&qa)[HD / 16][4],
                                         const __nv_bfloat16* kb, int keys,
-                                        float (&acc)[AKN / 8][4]) {
+                                        float (&acc)[NK / 8][4]) {
   constexpr int LD = HD + 8;
   const int lane = threadIdx.x & 31;
   // matrices: keys 0-7 | 8-15 of the pair (lane bit 4), d 0-7 | 8-15 of the
@@ -875,10 +411,10 @@ __device__ __forceinline__ void qk_tile(const uint32_t (&qa)[HD / 16][4],
   const __nv_bfloat16* base =
       kb + ((lane & 7) + ((lane >> 4) << 3)) * LD + (((lane >> 3) & 1) << 3);
 #pragma unroll
-  for (int j = 0; j < AKN / 8; ++j)
+  for (int j = 0; j < NK / 8; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
-  for (int p = 0; p < AKN / 16; ++p) {
+  for (int p = 0; p < NK / 16; ++p) {
     if (!FULL && 16 * p >= keys) break;
 #pragma unroll
     for (int ks = 0; ks < HD / 16; ++ks) {
@@ -1249,6 +785,732 @@ int launch_k7(const void* q, const void* k, const void* v, const float* cos2,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// K9: the recompute backward on the tensor cores (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int QW = 8;  // warps of a query-pass block; warp w: key tiles w, w + QW
+constexpr int KW = 4;  // warps of a key-pass block, 16 keys each
+constexpr int KB = 16 * KW;  // keys of a key-pass block
+constexpr int KQ = 32;       // queries of a key-pass tile
+constexpr int KEY_BLOCKS = 3;  // key-pass blocks per SM (registers)
+static_assert(2 * QW * AKN >= MAX_S, "a query-pass warp holds two key tiles");
+
+// dp, dv, dk and dq: each k16 step from +0.0 and added with one rounded add,
+// as qk_tile takes QK^T (true), or accumulated inside the mma (false).
+constexpr bool K9_STEP_ADDS = true;
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float ds_of(float p, float dp, float row,
+                                       float scale) {
+  return bf16_round(__fmul_rn(__fmul_rn(p, __fsub_rn(dp, row)), scale));
+}
+
+// c += A B under K9_STEP_ADDS.
+__device__ __forceinline__ void mma_k9(float (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  if constexpr (K9_STEP_ADDS) {
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_bf16(s, a, b0, b1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], s[e]);
+  } else {
+    mma_bf16(c, a, b0, b1);
+  }
+}
+
+// A fragments of rows r0 .. r0 + 15 of x (rows ld_in elements apart) straight
+// from global memory, load_q_frags's layout without the rotary: thread (g, t)
+// holds rows g and g + 8 at lanes 8u + 2t, + 1. Rows at or past S are zero.
+template <int HD>
+__device__ __forceinline__ void load_a_frags(const __nv_bfloat16* __restrict__ x,
+                                             int ld_in, int r0, int S,
+                                             uint32_t (&a)[HD / 16][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int s = r0 + g + 8 * hr;
+#pragma unroll
+    for (int u = 0; u < HD / 8; ++u)
+      a[u >> 1][(u & 1) * 2 + hr] =
+          s < S ? *reinterpret_cast<const uint32_t*>(x + (size_t)s * ld_in +
+                                                     8 * u + 2 * t)
+                : 0u;
+  }
+}
+
+// A fragments of the staged rows 0 .. 15 of ta (pitch HD + 8) by ldmatrix:
+// matrices rows 0-7 | 8-15 (lane bit 3), k 0-7 | 8-15 of the step (lane bit
+// 4), which is m16n8k16's a[0] .. a[3].
+template <int HD>
+__device__ __forceinline__ void ldsm_a_frags(const __nv_bfloat16* ta,
+                                             uint32_t (&a)[HD / 16][4]) {
+  constexpr int LD = HD + 8;
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* base =
+      ta + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + ((lane >> 4) << 3);
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) ldsm_x4(a[ks], base + 16 * ks);
+}
+
+// The dots of the warp's 16 A rows with the NK rows of the staged tile tb
+// (pitch HD + 8), as qk_tile lays them out (acc[j]: rows g, g + 8; tile rows
+// 8j + 2t, + 1) but under K9_STEP_ADDS: dp = g v^T in the query pass, dP^T
+// = v g^T in the key pass. Unless FULL, 16-row pairs at or past n are
+// skipped.
+template <int HD, bool FULL, int NK>
+__device__ __forceinline__ void dot_tile(const uint32_t (&a)[HD / 16][4],
+                                         const __nv_bfloat16* tb, int n,
+                                         float (&acc)[NK / 8][4]) {
+  constexpr int LD = HD + 8;
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* base =
+      tb + ((lane & 7) + ((lane >> 4) << 3)) * LD + (((lane >> 3) & 1) << 3);
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+  for (int p = 0; p < NK / 16; ++p) {
+    if (!FULL && 16 * p >= n) break;
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      uint32_t b[4];
+      ldsm_x4(b, base + 16 * p * LD + 16 * ks);
+      mma_k9(acc[2 * p], a[ks], b[0], b[1]);
+      mma_k9(acc[2 * p + 1], a[ks], b[2], b[3]);
+    }
+  }
+}
+
+// bf16 pairs of a [16, NK] f32 tile held as C fragments: pa[j][0] row g,
+// pa[j][1] row g + 8 (tile_pv's repack; n8 tiles 2kk, 2kk + 1 make k16 step
+// kk of the next product).
+template <int NK>
+__device__ __forceinline__ void pack_tile(const float (&c)[NK / 8][4],
+                                          uint32_t (&pa)[NK / 8][2]) {
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j) {
+    pa[j][0] = pack_bf16x2(c[j][0], c[j][1]);
+    pa[j][1] = pack_bf16x2(c[j][2], c[j][3]);
+  }
+}
+
+// o += A . tb, A the repacked [16, NK] tile pa, tb's B fragments by
+// ldmatrix.trans (tile_pv's map), under K9_STEP_ADDS: ds . K_r in the query
+// pass, bf16(P)^T . g and dS^T . Q_r in the key pass. Unless FULL, k16 steps
+// at or past n are skipped.
+template <int HD, bool FULL, int NK>
+__device__ __forceinline__ void pv_acc(const uint32_t (&pa)[NK / 8][2],
+                                       const __nv_bfloat16* tb, int n,
+                                       float (&o)[HD / 8][4]) {
+  constexpr int LD = HD + 8;
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* base =
+      tb + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + ((lane >> 4) << 3);
+#pragma unroll
+  for (int kk = 0; kk < NK / 16; ++kk) {
+    if (!FULL && 16 * kk >= n) break;
+    const uint32_t a[4] = {pa[2 * kk][0], pa[2 * kk][1], pa[2 * kk + 1][0],
+                           pa[2 * kk + 1][1]};
+#pragma unroll
+    for (int dq = 0; dq < HD / 16; ++dq) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, base + 16 * kk * LD + 16 * dq);
+      mma_k9(o[2 * dq], a, b[0], b[1]);
+      mma_k9(o[2 * dq + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// pv_acc with the accumulator in the thread's lane-contiguous shared-memory
+// slots os (element (j, e) of o at os[(j * 4 + e) * 32]) instead of
+// registers: each pair of n8 output tiles is loaded, takes its k16 steps in
+// increasing order and is stored back, so every output element sees the
+// same adds in the same order as pv_acc's. (pv_acc walked in this order too
+// makes the key pass spill at hd 64, so the two loops stay apart.)
+template <int HD, bool FULL, int NK>
+__device__ __forceinline__ void pv_acc_smem(const uint32_t (&pa)[NK / 8][2],
+                                            const __nv_bfloat16* tb, int n,
+                                            float* os) {
+  constexpr int LD = HD + 8;
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* base =
+      tb + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + ((lane >> 4) << 3);
+#pragma unroll
+  for (int dq = 0; dq < HD / 16; ++dq) {
+    float o0[4], o1[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      o0[e] = os[(2 * dq * 4 + e) * 32];
+      o1[e] = os[((2 * dq + 1) * 4 + e) * 32];
+    }
+#pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk) {
+      if (!FULL && 16 * kk >= n) break;
+      const uint32_t a[4] = {pa[2 * kk][0], pa[2 * kk][1], pa[2 * kk + 1][0],
+                             pa[2 * kk + 1][1]};
+      uint32_t b[4];
+      ldsm_x4_trans(b, base + 16 * kk * LD + 16 * dq);
+      mma_k9(o0, a, b[0], b[1]);
+      mma_k9(o1, a, b[2], b[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      os[(2 * dq * 4 + e) * 32] = o0[e];
+      os[((2 * dq + 1) * 4 + e) * 32] = o1[e];
+    }
+  }
+}
+
+#ifdef K9_DUMP
+// Debug builds (bench/ab_attn.py @dump): p, dp and ds of (query q, key k)
+// as each kernel saw them, at dump[((pass * BH + bh) * 3 + c) * S * S +
+// q * S + k] behind the statistics (c = 0 p, 1 dp, 2 ds).
+__device__ __forceinline__ void k9_dump(float* dump, int pass, size_t bh,
+                                        size_t BH, int S, int q, int k,
+                                        float p, float dp, float ds) {
+  const size_t at = ((pass * BH + bh) * 3) * S * S + (size_t)q * S + k;
+  dump[at] = p;
+  dump[at + (size_t)S * S] = dp;
+  dump[at + 2 * (size_t)S * S] = ds;
+}
+#endif
+
+// Query pass, one key tile of a warp (sweep 1): V into the warp's slot, dp
+// with g's A fragments ga, stored to the thread's shared-memory slots dps
+// (stride 32) at once so that it does not hold registers; K_r (rotated by
+// k9_rotate_k) into the slot, the logits with q_r's qa (keys at or past S:
+// -inf) and the running maxima mx[0] (row g), mx[1] (row g + 8). Leaves K_r
+// in the slot.
+template <int HD, bool FULL>
+__device__ __forceinline__ void q_tile_logits(
+    const uint32_t (&qa)[HD / 16][4], const uint32_t (&ga)[HD / 16][4],
+    const __nv_bfloat16* __restrict__ kp,
+    const __nv_bfloat16* __restrict__ vp, int ld_in,
+    const float* __restrict__ brow, int S, float scale, int k0, int keys,
+    __nv_bfloat16* slot, float (&lg)[AKN / 8][4], float* dps,
+    float (&mx)[2]) {
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  float dp[AKN / 8][4];
+  stage_rows_by<HD>(vp, ld_in, k0, AKN, S, slot, lane, 32);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+  dot_tile<HD, FULL, AKN>(ga, slot, keys, dp);
+#pragma unroll
+  for (int j = 0; j < AKN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dps[(j * 4 + e) * 32] = dp[j][e];
+  __syncwarp();  // every lane's reads of V are done
+  stage_rows_by<HD>(kp, ld_in, k0, AKN, S, slot, lane, 32);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+  qk_tile<HD, FULL>(qa, slot, keys, lg);
+#pragma unroll
+  for (int j = 0; j < AKN / 8; ++j) {
+    const int key = k0 + 8 * j + 2 * t;  // an n8 tile is wholly < S or >= S
+    if (FULL || key < S) {
+      const float2 bt = *reinterpret_cast<const float2*>(brow + key);
+      lg[j][0] = logit_of(lg[j][0], scale, bt.x);
+      lg[j][1] = logit_of(lg[j][1], scale, bt.y);
+      lg[j][2] = logit_of(lg[j][2], scale, bt.x);
+      lg[j][3] = logit_of(lg[j][3], scale, bt.y);
+    } else {
+      lg[j][0] = lg[j][1] = lg[j][2] = lg[j][3] = -INFINITY;
+    }
+    mx[0] = fmaxf(mx[0], fmaxf(lg[j][0], lg[j][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(lg[j][2], lg[j][3]));
+  }
+}
+
+// Shared memory of a query-pass block: a [AKN][HD + 8] bf16 slot per warp
+// (its V tile, then its rotated K tile, at last its partial dq in f32), the
+// per-warp row partials of the max, the sum and row, and each thread's dp
+// (TPW tiles of AKN / 8 x 4 f32, lane-contiguous), kept out of registers
+// across the block's reductions.
+template <int HD, int TPW>
+__host__ __device__ __forceinline__ size_t k9q_smem_bytes() {
+  return (size_t)QW * AKN * (HD + 8) * 2 + (size_t)3 * QW * 16 * 4 +
+         (size_t)QW * TPW * AKN * 16 * 4;
+}
+
+// Quad, then warps 0 .. QW-1 in order, through red[QW][16]: the block's
+// value of rows g (v[0]) and g + 8 (v[1]) in every thread. MAX: fmaxf, else
+// a rounded sum.
+template <bool MAX>
+__device__ __forceinline__ void block_rows(float (&v)[2], float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float o = __shfl_xor_sync(0xffffffffu, v[k], off);
+      v[k] = MAX ? fmaxf(v[k], o) : __fadd_rn(v[k], o);
+    }
+  if ((lane & 3) == 0) {
+    red[warp * 16 + (lane >> 2)] = v[0];
+    red[warp * 16 + (lane >> 2) + 8] = v[1];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    float s = MAX ? -INFINITY : 0.f;
+#pragma unroll
+    for (int w = 0; w < QW; ++w) {
+      const float o = red[w * 16 + (lane >> 2) + 8 * k];
+      s = MAX ? fmaxf(s, o) : __fadd_rn(s, o);
+    }
+    v[k] = s;
+  }
+}
+
+// Pass (a): a block per (b, h, 16 query rows). TPW key tiles per warp (1
+// where S <= QW * AKN, else 2). Writes dq and the row statistics m, l, row
+// to stats [3][B*H*S].
+template <int HD, int TPW>
+__global__ void __launch_bounds__(QW * 32, (HD <= 64 && TPW == 1) ? 2 : 1)
+    k9_bwd_query(const __nv_bfloat16* __restrict__ qkv,
+                 const float* __restrict__ cos2, const float* __restrict__ s2,
+                 const float* __restrict__ bias,
+                 const __nv_bfloat16* __restrict__ g, int S, int H,
+                 float scale, float* __restrict__ stats,
+                 __nv_bfloat16* __restrict__ dqkv) {
+  constexpr int LD = HD + 8;
+  extern __shared__ __align__(16) unsigned char k9_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  auto* slots = reinterpret_cast<__nv_bfloat16*>(k9_smem);
+  __nv_bfloat16* slot = slots + warp * AKN * LD;
+  float* red = reinterpret_cast<float*>(slots + QW * AKN * LD);  // [3][QW][16]
+  // the thread's dp: element (i, j, e) at dps[((i * AKN / 8 + j) * 4 + e) * 32]
+  float* dps = red + 3 * QW * 16 + warp * TPW * AKN * 16 + lane;
+  const int nq = (S + 15) / 16;
+  const int h = (blockIdx.x / nq) % H;
+  const int b = blockIdx.x / (nq * H);
+  const int r0 = (blockIdx.x % nq) * 16;
+  const int nkt = (S + AKN - 1) / AKN;
+  const int row_stride = 3 * H * HD, g_stride = H * HD;
+  const __nv_bfloat16* base = qkv + (size_t)b * S * row_stride;
+  // k_r, rotated by k9_rotate_k into dqkv's k lanes
+  const __nv_bfloat16* kp = dqkv + (size_t)b * S * row_stride + (1 * H + h) * HD;
+  const __nv_bfloat16* vp = base + (2 * H + h) * HD;
+  const float* brow = bias + (size_t)b * S;
+  uint32_t qa[HD / 16][4], ga[HD / 16][4];
+  load_q_frags<HD>(base + (0 * H + h) * HD, row_stride, r0, S, cos2, s2, qa);
+  load_a_frags<HD>(g + (size_t)b * S * g_stride + h * HD, g_stride, r0, S, ga);
+
+  // Sweep 1: the logits of the warp's tiles, kept in registers, and dp.
+  float lg[TPW][AKN / 8][4];
+  float m[2];  // row maxima (not K8's initializer text: @nopass1 edits that)
+  m[0] = m[1] = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < TPW; ++i) {
+    const int kt = warp + QW * i;
+    if (kt >= nkt) {  // no tile: e = 0 (and its dp is never read)
+#pragma unroll
+      for (int j = 0; j < AKN / 8; ++j)
+        lg[i][j][0] = lg[i][j][1] = lg[i][j][2] = lg[i][j][3] = -INFINITY;
+      continue;
+    }
+    const int k0 = kt * AKN, keys = min(AKN, S - k0);
+    float* dpi = dps + i * AKN * 16;
+    if (keys == AKN)
+      q_tile_logits<HD, true>(qa, ga, kp, vp, row_stride, brow, S, scale, k0,
+                              keys, slot, lg[i], dpi, m);
+    else
+      q_tile_logits<HD, false>(qa, ga, kp, vp, row_stride, brow, S, scale, k0,
+                               keys, slot, lg[i], dpi, m);
+  }
+
+  // The exact row max, e and l = the f32 sum of e, p = e / l and row =
+  // sum(dp * p): each over the thread's values, the quad, the warps.
+  block_rows<true>(m, red);
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < TPW; ++i)
+#pragma unroll
+    for (int j = 0; j < AKN / 8; ++j) {
+      float* x = lg[i][j];
+      x[0] = expf(__fsub_rn(x[0], m[0]));
+      x[1] = expf(__fsub_rn(x[1], m[0]));
+      x[2] = expf(__fsub_rn(x[2], m[1]));
+      x[3] = expf(__fsub_rn(x[3], m[1]));
+      l[0] = __fadd_rn(__fadd_rn(l[0], x[0]), x[1]);
+      l[1] = __fadd_rn(__fadd_rn(l[1], x[2]), x[3]);
+    }
+  block_rows<false>(l, red + QW * 16);
+  float row[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < TPW; ++i) {
+    if (warp + QW * i >= nkt) continue;  // p = 0 there
+#pragma unroll
+    for (int j = 0; j < AKN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        lg[i][j][e] = __fdiv_rn(lg[i][j][e], l[e >> 1]);
+        row[e >> 1] = __fadd_rn(
+            row[e >> 1],
+            __fmul_rn(dps[((i * AKN / 8 + j) * 4 + e) * 32], lg[i][j][e]));
+      }
+  }
+  block_rows<false>(row, red + 2 * QW * 16);
+
+  // Sweep 2: ds, repacked, times K_r; the slot still holds the warp's last
+  // tile, an earlier one is staged again.
+  float dq[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+  bool in_slot = true;
+#pragma unroll
+  for (int i = TPW - 1; i >= 0; --i) {
+    const int kt = warp + QW * i;
+    if (kt >= nkt) continue;
+    const int k0 = kt * AKN, keys = min(AKN, S - k0);
+    if (!in_slot) {
+      __syncwarp();  // the slot's reads are done
+      stage_rows_by<HD>(kp, row_stride, k0, AKN, S, slot, lane, 32);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncwarp();
+    }
+    in_slot = false;
+    // ds over p in place
+#pragma unroll
+    for (int j = 0; j < AKN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float dp = dps[((i * AKN / 8 + j) * 4 + e) * 32];
+        const float ds = ds_of(lg[i][j][e], dp, row[e >> 1], scale);
+#ifdef K9_DUMP
+        const int q = r0 + gq + 8 * (e >> 1), k = k0 + 8 * j + 2 * t + (e & 1);
+        if (q < S && k < S)
+          k9_dump(stats + 3 * (size_t)(gridDim.x / nq) * S, 0,
+                  blockIdx.x / nq, gridDim.x / nq, S, q, k, lg[i][j][e], dp,
+                  ds);
+#endif
+        lg[i][j][e] = ds;
+      }
+    uint32_t pa[AKN / 8][2];
+    pack_tile<AKN>(lg[i], pa);
+    if (keys == AKN)
+      pv_acc<HD, true, AKN>(pa, slot, keys, dq);
+    else
+      pv_acc<HD, false, AKN>(pa, slot, keys, dq);
+  }
+
+  // The 8 partial dq in warp order, the rotary adjoint, one rounding.
+  __syncwarp();
+  float* part = reinterpret_cast<float*>(slot);  // [16][HD] f32
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    *reinterpret_cast<float2*>(part + gq * HD + 8 * j + 2 * t) =
+        make_float2(dq[j][0], dq[j][1]);
+    *reinterpret_cast<float2*>(part + (gq + 8) * HD + 8 * j + 2 * t) =
+        make_float2(dq[j][2], dq[j][3]);
+  }
+  __syncthreads();
+  __nv_bfloat16* out = dqkv + (size_t)b * S * row_stride + (0 * H + h) * HD;
+  for (int idx = threadIdx.x; idx < 16 * HD; idx += QW * 32) {
+    const int r = idx / HD, d = idx % HD, s = r0 + r;
+    if (s >= S) continue;
+    const int dpart = (d + HD / 2) % HD;
+    float x = 0.f, y = 0.f;
+#pragma unroll
+    for (int w = 0; w < QW; ++w) {
+      const float* pw = reinterpret_cast<const float*>(slots + w * AKN * LD);
+      x = __fadd_rn(x, pw[r * HD + d]);
+      y = __fadd_rn(y, pw[r * HD + dpart]);
+    }
+    out[(size_t)s * row_stride + d] = __float2bfloat16_rn(
+        __fadd_rn(__fmul_rn(x, cos2[(size_t)s * HD + d]),
+                  __fmul_rn(y, s2[(size_t)s * HD + dpart])));
+  }
+  if (threadIdx.x < 16 && r0 + (int)threadIdx.x < S) {
+    // red holds every warp's partials of row threadIdx.x: reduce as above
+    const int r = threadIdx.x;
+    float mm = -INFINITY, ll = 0.f, rr = 0.f;
+#pragma unroll
+    for (int w = 0; w < QW; ++w) {
+      mm = fmaxf(mm, red[w * 16 + r]);
+      ll = __fadd_rn(ll, red[QW * 16 + w * 16 + r]);
+      rr = __fadd_rn(rr, red[2 * QW * 16 + w * 16 + r]);
+    }
+    const size_t bhs = (size_t)(gridDim.x / nq) * S;
+    const size_t at = ((size_t)b * H + h) * S + r0 + r;
+    stats[at] = mm;
+    stats[bhs + at] = ll;
+    stats[2 * bhs + at] = rr;
+  }
+}
+
+// Key pass, one KQ-query tile of a warp (its 16 keys kr, kr + 8): S^T and
+// p from the stored statistics, dv += bf16(P)^T g; then dP^T and ds, dk +=
+// dS^T Q_r. dv's product runs before dP^T; p waits for ds, and dk
+// accumulates, in the thread's lane-contiguous shared-memory slots ps and
+// dks (stride 32) rather than in registers, so that the key pass does not
+// spill. qb / gb: the staged rotated q and g of the tile; st: its m, l, row.
+template <int HD, bool FULL>
+__device__ __forceinline__ void k_tile(const __nv_bfloat16* ks,
+                                       const __nv_bfloat16* vs,
+                                       const __nv_bfloat16* qb,
+                                       const __nv_bfloat16* gb,
+                                       const float* st, int q0, int qn, int kr,
+                                       const float (&bk)[2], int S,
+                                       float scale, float (&dv)[HD / 8][4],
+                                       float* dks, float* ps, float* dump,
+                                       size_t bh, size_t BH) {
+  const int t = threadIdx.x & 3;
+  uint32_t fa[HD / 16][4];
+  uint32_t pa[KQ / 8][2];
+  float p[KQ / 8][4], dpt[KQ / 8][4];
+  ldsm_a_frags<HD>(ks, fa);
+  qk_tile<HD, FULL, KQ>(fa, qb, qn, p);
+#pragma unroll
+  for (int j = 0; j < KQ / 8; ++j) {
+    const int c = 8 * j + 2 * t;  // an n8 tile of queries is wholly < S or >= S
+    const float2 m = *reinterpret_cast<const float2*>(st + c);
+    const float2 l = *reinterpret_cast<const float2*>(st + KQ + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = q0 + c < S && kr + 8 * (e >> 1) < S;
+      const float lg = logit_of(p[j][e], scale, bk[e >> 1]);
+      p[j][e] = ok ? __fdiv_rn(expf(__fsub_rn(lg, (e & 1) ? m.y : m.x)),
+                               (e & 1) ? l.y : l.x)
+                   : 0.f;
+      ps[(j * 4 + e) * 32] = p[j][e];
+    }
+  }
+  pack_tile<KQ>(p, pa);
+  pv_acc<HD, FULL, KQ>(pa, gb, qn, dv);
+  ldsm_a_frags<HD>(vs, fa);
+  dot_tile<HD, FULL, KQ>(fa, gb, qn, dpt);
+#pragma unroll
+  for (int j = 0; j < KQ / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    const float2 r = *reinterpret_cast<const float2*>(st + 2 * KQ + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = q0 + c < S && kr + 8 * (e >> 1) < S;
+      const float pe = ps[(j * 4 + e) * 32];
+      const float ds =
+          ok ? ds_of(pe, dpt[j][e], (e & 1) ? r.y : r.x, scale) : 0.f;
+#ifdef K9_DUMP
+      if (ok)
+        k9_dump(dump, 1, bh, BH, S, q0 + c + (e & 1), kr + 8 * (e >> 1), pe,
+                dpt[j][e], ds);
+#endif
+      dpt[j][e] = ds;
+    }
+  }
+  pack_tile<KQ>(dpt, pa);
+  pv_acc_smem<HD, FULL, KQ>(pa, qb, qn, dks);
+}
+
+// Shared memory of a key-pass block: K_r and V of its KB keys, a ring of
+// two (rotated q, g) tiles of KQ queries, the ring's statistics [2][3][KQ]
+// f32, and each thread's p of a tile (KQ / 8 x 4 f32) and dk accumulator
+// (HD / 8 x 4 f32), lane-contiguous.
+template <int HD>
+__host__ __device__ __forceinline__ size_t k9k_smem_bytes() {
+  return (size_t)(2 * KB + 4 * KQ) * (HD + 8) * 2 + (size_t)2 * 3 * KQ * 4 +
+         (size_t)KW * (KQ + HD) * 16 * 4;
+}
+
+// Pass (b): a block per (b, h, KB keys). Walks every query tile, recomputes
+// p from the stored m and l, and writes dk (over the block's own rows of
+// k_r, staged before) and dv.
+template <int HD>
+__global__ void __launch_bounds__(KW * 32, KEY_BLOCKS)
+    k9_bwd_key(const __nv_bfloat16* __restrict__ qkv,
+               const float* __restrict__ cos2, const float* __restrict__ s2,
+               const float* __restrict__ bias,
+               const __nv_bfloat16* __restrict__ g, int S, int H, float scale,
+               float* __restrict__ stats, __nv_bfloat16* __restrict__ dqkv) {
+  constexpr int LD = HD + 8;
+  constexpr int NT_ = KW * 32;
+  extern __shared__ __align__(16) unsigned char k9_smem[];
+  auto* Ks = reinterpret_cast<__nv_bfloat16*>(k9_smem);  // [KB][LD]
+  __nv_bfloat16* Vs = Ks + KB * LD;       // [KB][LD]
+  __nv_bfloat16* Qs = Vs + KB * LD;       // [2][KQ][LD]
+  __nv_bfloat16* Gs = Qs + 2 * KQ * LD;   // [2][KQ][LD]
+  auto* St = reinterpret_cast<float*>(Gs + 2 * KQ * LD);  // [2][3][KQ]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* ps = St + 2 * 3 * KQ + warp * KQ * 16 + lane;  // the thread's p
+  float* dks = St + 2 * 3 * KQ + KW * KQ * 16 + warp * HD * 16 + lane;  // dk
+  const int nkb = (S + KB - 1) / KB, nqt = (S + KQ - 1) / KQ;
+  const int h = (blockIdx.x / nkb) % H;
+  const int b = blockIdx.x / (nkb * H);
+  const int k0 = (blockIdx.x % nkb) * KB;
+  const int row_stride = 3 * H * HD, g_stride = H * HD;
+  const __nv_bfloat16* base = qkv + (size_t)b * S * row_stride;
+  const __nv_bfloat16* qp = base + (0 * H + h) * HD;
+  const __nv_bfloat16* gp = g + (size_t)b * S * g_stride + h * HD;
+  const size_t BH = gridDim.x / nkb, bhs = BH * S;
+  const float* st = stats + ((size_t)b * H + h) * S;
+  float* dump = stats + 3 * bhs;
+
+  // the tile of queries from q0 into ring slot sl: q and g rows, m, l, row
+  auto stage_q = [&](int q0, int sl) {
+    stage_rows<HD, NT_>(qp, row_stride, q0, KQ, S, Qs + sl * KQ * LD);
+    stage_rows<HD, NT_>(gp, g_stride, q0, KQ, S, Gs + sl * KQ * LD);
+    for (int i = threadIdx.x; i < 3 * KQ / 4; i += NT_) {
+      const int c = i / (KQ / 4), q = q0 + 4 * (i % (KQ / 4));
+      const bool in = q < S;  // a 4-query chunk is wholly < S or >= S
+      cp_async16_or_zero(St + (sl * 3 + c) * KQ + 4 * (i % (KQ / 4)),
+                         st + c * bhs + (in ? q : 0), in);
+    }
+  };
+  __nv_bfloat16* out = dqkv + (size_t)b * S * row_stride;
+  stage_rows<HD, NT_>(out + (1 * H + h) * HD, row_stride, k0, KB, S, Ks);
+  stage_rows<HD, NT_>(base + (2 * H + h) * HD, row_stride, k0, KB, S, Vs);
+  cp_async_commit();
+  stage_q(0, 0);
+  cp_async_commit();
+  const int kr = k0 + 16 * warp + (lane >> 2);  // the thread's keys kr, kr + 8
+  const float bk[2] = {kr < S ? bias[(size_t)b * S + kr] : 0.f,
+                       kr + 8 < S ? bias[(size_t)b * S + kr + 8] : 0.f};
+
+  float dv[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dv[j][e] = 0.f;
+      dks[(j * 4 + e) * 32] = 0.f;
+    }
+  for (int qt = 0; qt < nqt; ++qt) {
+    const int q0 = qt * KQ, qn = min(KQ, S - q0), sl = qt & 1;
+    if (qt + 1 < nqt) stage_q(q0 + KQ, sl ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile qt (and K_r, V) have landed
+    __nv_bfloat16* qb = Qs + sl * KQ * LD;
+    rotate_rows<HD, NT_>(qb, q0, KQ, S, cos2, s2);
+    __syncthreads();
+    const __nv_bfloat16* ks = Ks + 16 * warp * LD;
+    const __nv_bfloat16* vs = Vs + 16 * warp * LD;
+    if (qn == KQ)
+      k_tile<HD, true>(ks, vs, qb, Gs + sl * KQ * LD, St + sl * 3 * KQ, q0,
+                       qn, kr, bk, S, scale, dv, dks, ps, dump,
+                       blockIdx.x / nkb, BH);
+    else
+      k_tile<HD, false>(ks, vs, qb, Gs + sl * KQ * LD, St + sl * 3 * KQ, q0,
+                        qn, kr, bk, S, scale, dv, dks, ps, dump,
+                        blockIdx.x / nkb, BH);
+    __syncthreads();  // slot sl is consumed
+  }
+
+  // dv straight out, dk through the rotary adjoint (lane d's partner d +
+  // HD/2 is n8 tile j + HD/16 of the same thread).
+  const int t = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int s = kr + 8 * hr;
+    if (s >= S) continue;
+    const float* c = cos2 + (size_t)s * HD;
+    const float* sn = s2 + (size_t)s * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int d = 8 * j + 2 * t;
+      const int jp = (j + HD / 16) % (HD / 8), dpart = 8 * jp + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)s * row_stride +
+                                         (2 * H + h) * HD + d) =
+          __floats2bfloat162_rn(dv[j][2 * hr], dv[j][2 * hr + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)s * row_stride +
+                                         (1 * H + h) * HD + d) =
+          __floats2bfloat162_rn(
+              __fadd_rn(__fmul_rn(dks[(j * 4 + 2 * hr) * 32], c[d]),
+                        __fmul_rn(dks[(jp * 4 + 2 * hr) * 32], sn[dpart])),
+              __fadd_rn(__fmul_rn(dks[(j * 4 + 2 * hr + 1) * 32], c[d + 1]),
+                        __fmul_rn(dks[(jp * 4 + 2 * hr + 1) * 32],
+                                  sn[dpart + 1])));
+    }
+  }
+}
+
+// Pass (0): k_r, the rotary of every key of every head in f32 rounded to
+// bf16 (rotate_rows's arithmetic), into dqkv's k lanes: the query pass reads
+// it there, and each key-pass block overwrites its own rows with dk after
+// staging them. One thread per lane pair (j, j + 1) and partners j + HD/2.
+template <int HD>
+__global__ void __launch_bounds__(256)
+    k9_rotate_k(const __nv_bfloat16* __restrict__ qkv,
+                const float* __restrict__ cos2, const float* __restrict__ s2,
+                int S, int H, size_t items, __nv_bfloat16* __restrict__ dqkv) {
+  constexpr int H2 = HD / 2;
+  constexpr int PAIRS = H2 / 2;
+  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (i >= items) return;
+  const int j = (int)(i % PAIRS) * 2;
+  const size_t bsh = i / PAIRS;  // (b * S + s) * H + h
+  const int h = (int)(bsh % H);
+  const int s = (int)((bsh / H) % S);
+  const size_t at = (bsh / H) * 3 * H * HD + (size_t)(H + h) * HD + j;
+  const float2 xl = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(qkv + at));
+  const float2 xh = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(qkv + at + H2));
+  const float* c = cos2 + (size_t)s * HD;
+  const float* sn = s2 + (size_t)s * HD;
+  const float2 cl = *reinterpret_cast<const float2*>(c + j);
+  const float2 ch = *reinterpret_cast<const float2*>(c + j + H2);
+  const float2 sl = *reinterpret_cast<const float2*>(sn + j);
+  const float2 sh = *reinterpret_cast<const float2*>(sn + j + H2);
+  *reinterpret_cast<__nv_bfloat162*>(dqkv + at) = __floats2bfloat162_rn(
+      __fadd_rn(__fmul_rn(xl.x, cl.x), __fmul_rn(xh.x, sl.x)),
+      __fadd_rn(__fmul_rn(xl.y, cl.y), __fmul_rn(xh.y, sl.y)));
+  *reinterpret_cast<__nv_bfloat162*>(dqkv + at + H2) = __floats2bfloat162_rn(
+      __fadd_rn(__fmul_rn(xh.x, ch.x), __fmul_rn(xl.x, sh.x)),
+      __fadd_rn(__fmul_rn(xh.y, ch.y), __fmul_rn(xl.y, sh.y)));
+}
+
+template <int HD, int TPW>
+int launch_k9_as(const void* qkv, const float* cos2, const float* s2,
+                 const float* bias, const void* g, int B, int S, int H,
+                 float scale, float* stats, void* dqkv, cudaStream_t stream) {
+  static size_t conf_q = 48 * 1024, conf_k = 48 * 1024;
+  const size_t bytes_q = k9q_smem_bytes<HD, TPW>();
+  const size_t bytes_k = k9k_smem_bytes<HD>();
+  int e = allow_smem(k9_bwd_query<HD, TPW>, bytes_q, conf_q);
+  if (e) return e;
+  e = allow_smem(k9_bwd_key<HD>, bytes_k, conf_k);
+  if (e) return e;
+  const auto* q = static_cast<const __nv_bfloat16*>(qkv);
+  const auto* gg = static_cast<const __nv_bfloat16*>(g);
+  auto* out = static_cast<__nv_bfloat16*>(dqkv);
+  const unsigned bh = (unsigned)B * (unsigned)H;
+  const size_t items = (size_t)bh * S * (HD / 4);
+  k9_rotate_k<HD><<<(unsigned)((items + 255) / 256), 256, 0, stream>>>(
+      q, cos2, s2, S, H, items, out);
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  k9_bwd_query<HD, TPW><<<bh * (unsigned)((S + 15) / 16), QW * 32, bytes_q,
+                          stream>>>(q, cos2, s2, bias, gg, S, H, scale, stats,
+                                    out);
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  k9_bwd_key<HD><<<bh * (unsigned)((S + KB - 1) / KB), KW * 32, bytes_k,
+                   stream>>>(q, cos2, s2, bias, gg, S, H, scale, stats, out);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_k9(const void* qkv, const float* cos2, const float* s2,
+              const float* bias, const void* g, int B, int S, int H,
+              float scale, float* stats, void* dqkv, cudaStream_t stream) {
+  if (S <= QW * AKN)
+    return launch_k9_as<HD, 1>(qkv, cos2, s2, bias, g, B, S, H, scale, stats,
+                               dqkv, stream);
+  return launch_k9_as<HD, 2>(qkv, cos2, s2, bias, g, B, S, H, scale, stats,
+                             dqkv, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1256,7 +1518,7 @@ extern "C" {
 // Geometry the wrapper must respect (checked in Python too): hd in
 // {16, 32, 64, 128}; S % 8 == 0 and 0 < S <= MAX_S;
 // qkv [B, S, 3*H*hd] bf16, cos2 / s2 [S, hd] f32, bias [B, S] f32, out
-// [B, S, H*hd] bf16, all contiguous; B * H * ceil(S / 32) < 2^31.
+// [B, S, H*hd] bf16, all contiguous; B * H * ceil(S / 16) < 2^31.
 
 int bsr_fused_attention_qkv(const void* qkv, const float* cos2, const float* s2,
                             const float* bias, int B, int S, int H, int hd,
@@ -1294,6 +1556,8 @@ int bsr_fused_attention(const void* q, const void* k, const void* v,
 // K9. qkv, cos2, s2, bias as for K8; g [B, S, H*hd] bf16; stats a
 // [3, B, H, S] f32 scratch (m, l, row from pass (a) to pass (b)); dqkv
 // [B, S, 3*H*hd] bf16, every element written. Same geometry limits as K8.
+// A build with K9_DUMP also writes both kernels' p, dp and ds behind the
+// statistics (6 * B*H*S*S more floats, which the caller allocates).
 int bsr_fused_attention_qkv_bwd(const void* qkv, const float* cos2,
                                 const float* s2, const float* bias,
                                 const void* g, int B, int S, int H, int hd,

@@ -43,8 +43,9 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
 9. K9 fused_attention_qkv_bwd against its plain version at the training
    shape (B=64, S=512, H=12, hd=64, bf16; per-row key padding, one row
    fully padded): cosine >= 0.999 and max |diff| <= 1e-2 x max |plain| for
-   each of dq, dk and dv, all finite, two launches bitwise equal; kernel
-   and plain times;
+   each of dq, dk and dv, all finite, two launches bitwise equal; the
+   kernel's and the plain version's error against a float64 evaluation
+   (``bench/ab_attn.py``'s ``reference64_bwd``); kernel and plain times;
 10. the contrastive trainer at full width (12 x 768, random weights from
    ``--seed``): at B=8 x 512 tokens the K8 + K9 parameter gradients against
    the plain f32-logit attention's, per-parameter cosine > 0.99; then the
@@ -550,7 +551,8 @@ def _device_profile(fn):
     rows.sort(reverse=True)
     split = {
         "K8": sum(ms for ms, key in rows if "k8_fused_attention_qkv" in key),
-        "K9": sum(ms for ms, key in rows if "k9_bwd_" in key),
+        "K9": sum(ms for ms, key in rows
+                  if "k9_bwd_" in key or "k9_rotate_k" in key),
         "GEMMs": sum(ms for ms, key in rows
                      if not key.startswith(("k8_", "k9_")) and any(
                          w in key.lower()
@@ -673,7 +675,12 @@ def drive_build_mode(tmp, src, seed, card):
 
 
 def check_attention_bwd(gen):
-    """Phase 9: K9 against its plain version at the training shape."""
+    """Phase 9: K9 against its plain version at the training shape, and
+    both against the float64 evaluation of the same function."""
+    from better_search_rag_rust_tpu_torch.bench.ab_attn import (
+        bwd_error,
+        reference64_bwd,
+    )
     from better_search_rag_rust_tpu_torch.models.nomic import rotary_tables
     from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
 
@@ -715,7 +722,10 @@ def check_attention_bwd(gen):
     assert finite and same
     for _n, diff, top, cos_sim in parts:
         assert diff <= BWD_REL * top and cos_sim >= BWD_COS
-    del out, again, ref
+    ref64 = reference64_bwd(qkv, c2, s2, bias, g, h, scale)
+    phase(f"phase 9 K9 vs float64 (every cell of dqkv): kernel "
+          f"{bwd_error(out, ref64)}; plain {bwd_error(ref, ref64)}")
+    del out, again, ref, ref64
     qr, kr, vr, mask = _rotated_qkv(qkv, c2, s2, bias, h)
     for t in (qr, kr, vr):
         t.requires_grad_()

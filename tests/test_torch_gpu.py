@@ -513,6 +513,123 @@ def test_k9_matches_plain(cuda, b, s, h, hd):
         assert (a - r).abs().max() <= 1e-2 * r.abs().max()
 
 
+def _k9_case(cuda, b, s, h, hd, seed=0, mul=1):
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    qkv, c2, s2, bias, valid, scale = _attention_operands(cuda, b, s, h, hd,
+                                                          seed=seed)
+    qkv = qkv * mul
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed + 7)
+    g = torch.randn((b, s, h * hd), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    out = ak.fused_attention_qkv_bwd(qkv, c2, s2, bias, g, h, scale)
+    again = ak.fused_attention_qkv_bwd(qkv, c2, s2, bias, g, h, scale)
+    ref = ak.fused_attention_qkv_bwd_plain(qkv, c2, s2, bias, g, h, scale)
+    torch.cuda.synchronize()
+    return out, again, ref, valid
+
+
+def _k9_within_bound(out, ref):
+    """Phase 9's bound for each of dq, dk and dv: max |diff| <= 1e-2 max
+    |plain| and cosine >= 0.999."""
+    for a, r in zip(out.double().chunk(3, -1), ref.double().chunk(3, -1)):
+        assert float((a * r).sum() / (a.norm() * r.norm())) >= 0.999
+        assert (a - r).abs().max() <= 1e-2 * r.abs().max()
+
+
+@pytest.fixture(scope="module")
+def k9_dump_lib():
+    """A debug build of the attention source (``bench/ab_attn.py``'s
+    ``@dump``: K9_DUMP) whose K9 writes both passes' p, dp and ds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from better_search_rag_rust_tpu_torch.bench import ab_attn
+
+    return next(iter(ab_attn.build([ab_attn.source_path("@dump")]).values()))[0]
+
+
+@pytest.mark.parametrize("s,hd", [
+    (136, 64), (512, 64), (520, 64), (72, 128), (1024, 128), (200, 16),
+    (136, 32),
+])
+def test_k9_p_and_ds_bitwise_across_passes(cuda, k9_dump_lib, s, hd):
+    """The query pass takes Q K^T and g V^T, the key pass K Q^T and V g^T:
+    m16n8k16 must give each (query, key) cell the same f32 both ways, so
+    that p, dp and ds agree bit for bit between the passes (else bf16(p)
+    and ds drift between dq and dk/dv). Every cell of every head, with a
+    fully padded batch row, on both sides of the query pass's one-tile /
+    two-tile edge (S 512 / 520) and at S % 16 == 8."""
+    from better_search_rag_rust_tpu_torch.bench import ab_attn
+
+    b, h = 2, 2
+    qkv, c2, s2, bias, _, scale = _attention_operands(cuda, b, s, h, hd, seed=3)
+    g = torch.randn((b, s, h * hd), device=cuda).to(torch.bfloat16)
+    res = ab_attn.k9_dump_compare(k9_dump_lib, qkv, c2, s2, bias, g, h, scale)
+    assert res["written"] and res["cells"] == b * h * s * s
+    assert res["p"] and res["dp"] and res["ds"], res
+
+
+@pytest.mark.parametrize("s,hd", [
+    (72, 64), (136, 64), (72, 128), (136, 128),   # S % 16 == 8
+    (512, 64), (520, 64), (512, 128), (520, 128),  # one / two tiles a warp
+    (1024, 64), (1024, 128),                       # the longest sequence
+])
+def test_k9_at_the_layout_edges(cuda, s, hd):
+    """Both sides of the query pass's edge (a warp holds one key tile's
+    logits and dp up to S 512, two above, restaging the first), half-empty
+    k16 steps (S % 16 == 8) and S 1024, with a fully padded batch row:
+    within phase 9's bound of the plain version, the fully padded row too,
+    every value finite and two launches bit for bit."""
+    out, again, ref, valid = _k9_case(cuda, 2, s, 2, hd)
+    assert not bool(valid[-1].any())
+    assert torch.equal(out, again)
+    assert torch.isfinite(out.float()).all()
+    _k9_within_bound(out, ref)
+    _k9_within_bound(out[-1], ref[-1])
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_k9_bitwise_across_launches(cuda, hd):
+    """No atomics and fixed reduction orders: two launches agree bit for
+    bit at every head width."""
+    out, again, ref, _ = _k9_case(cuda, 3, 200, 2, hd, seed=1)
+    assert torch.equal(out, again)
+    _k9_within_bound(out, ref)
+
+
+def test_k9_with_qkv_scaled_by_8(cuda):
+    """qkv x 8 (exact in bf16): logits 64x wider, p near one-hot. The bound
+    is relative to max |plain| (phase 9's), so it scales with the
+    gradients as test_k8_k7_with_qkv_scaled_by_8 scales its absolute bound
+    by 8."""
+    out, again, ref, _ = _k9_case(cuda, 4, 200, 3, 64, seed=3, mul=8)
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, again)
+    _k9_within_bound(out, ref)
+
+
+def test_k9_unaligned_operands_are_copied(cuda):
+    """K9 stages qkv and g 16 bytes per cp.async: views off a 16-byte
+    boundary are copied to aligned ones, and the result is the aligned
+    operands' bit for bit."""
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    b, s, h, hd = 2, 64, 2, 64
+    qkv, c2, s2, bias, _, scale = _attention_operands(cuda, b, s, h, hd)
+    g = torch.randn((b, s, h * hd), device=cuda).to(torch.bfloat16)
+    shifted = torch.empty(qkv.numel() + 8, dtype=qkv.dtype, device=cuda)
+    q_off = shifted[1:1 + qkv.numel()].view(qkv.shape)
+    q_off.copy_(qkv)
+    g_shift = torch.empty(g.numel() + 8, dtype=g.dtype, device=cuda)
+    g_off = g_shift[3:3 + g.numel()].view(g.shape)
+    g_off.copy_(g)
+    assert q_off.data_ptr() % 16 and g_off.data_ptr() % 16
+    assert torch.equal(
+        ak.fused_attention_qkv_bwd(q_off, c2, s2, bias, g_off, h, scale),
+        ak.fused_attention_qkv_bwd(qkv, c2, s2, bias, g, h, scale))
+
+
 def test_k9_refuses_what_it_does_not_take(cuda):
     from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
 
