@@ -15,7 +15,19 @@ store at a time; ``@nosplit``, every int8 pass one lane per column;
 ``@stages4``, a 4-slab ring, one block per SM; ``@noqload`` and
 ``@nosload``, the int8 tile loading only the store's or only the queries'
 half of each slab — wrong scores, half the operand traffic: what the
-tile's time owes to its loads). Every build uses the package's nvcc
+tile's time owes to its loads; the f32 tile's levers: ``@f32_nt256``,
+256 threads of 8 x 8 accumulators (16 FMAs per 16-byte shared load, 128
+registers a thread) instead of 128 threads of 8 x 16 (21 FMAs a load);
+``@f32_nt256_one_block``, the same at one block per SM and up to 255
+registers; ``@f32_stages3``, a 3-slab ring; ``@f32_slab_branch``, every
+slab through the ragged slab's body (a branch before each fragment, which
+keeps the compiler from hoisting the next fragment's loads);
+``@f32_sk48``, slabs of 48 features (16 barriers at D 768, not 24);
+``@f32_noqload``, the query fragments taken from the rows' registers
+instead of shared memory (wrong scores, 8 of 24 loads: what the tile owes
+to its shared loads); ``@f32_qg2`` and ``@f32_qg8``, the queries'
+fragments loaded 2 or 8 at a time beside the rows' instead of 4). Every
+build uses the package's nvcc
 flags (:data:`.._build.NVCC_FLAGS`), all started together, and is bound with
 the package's C signatures, so every build must keep the entry points of the
 tree. The search kernels are then timed at the search path's shapes with
@@ -24,7 +36,9 @@ then in reverse order, so that a drift of the card shows as a spread
 between the two passes rather than as a difference between builds:
 
 * K1 ``matmul_blockmax2_only`` at 512 x 1,000,448 x 768, sub 64, argmax and
-  block maxima (``search_1m``'s pass), on bf16, f32 and the int8 lattice;
+  block maxima (``search_1m``'s pass, and ``search_1m_f32``'s under
+  ``rescore``), on bf16, f32 and the int8 lattice; f32 also at sub 8 with
+  block maxima at emit width 128 (the ``f32cert`` route's pass);
 * K3 ``matmul_blockmax`` at 256 x 100,352 x 768 (``search_100k``'s tile),
   bf16, f32 and int8; K5 at K1's shape, bf16 and f32;
 * the int8 lattice at 1M x 768: K3 at 256 x 1,000,448 (the oracle's tile),
@@ -41,17 +55,22 @@ between the two passes rather than as a difference between builds:
 
 Stores are normalized random rows from ``--seed``; ids are random and
 sorted per query, as the prototypes draw them. Each line prints one kernel
-with every build's two times. Then each int8 case's outputs of every build
-against the first build's, bit for bit (an int8 score is an exact integer
-dot, so every tile must agree); for each build, the error of K3's bf16
+with every build's two times. Then each int8 and f32 case's outputs of
+every build against the first build's, bit for bit (an int8 score is an
+exact integer dot, an f32 score one FMA chain in a fixed order, so every
+tile must agree); for each build, the error of K3's bf16
 scores (256 x 100,352 x 768) against the float64 product of the same
 operands, on unit queries (the search path's) and on raw normal queries
 (the prototypes' data, whose scores run to ~5): max and mean, and the max
 difference from the plain version's f32 product, whose own error is
 printed beside it — what decides an arithmetic change, where the times
-decide a geometry. The last lines are the ptxas report of each build's
-bf16 and int8 score-tile bodies (registers, spills) and the card's name and
-power limit. Needs a CUDA card; ``chip_smoke.py`` holds each kernel to its
+decide a geometry. With ``--routes``, the engine itself on every build in
+turn (its library swapped in under :func:`.._build.library`): ``search_device``
+queries/sec of the two f32 routes, ``rescore`` and ``f32cert``, on
+``search_1m_f32``'s store (1M x 768 f32, 1024 queries, k 100), and whether
+every build returns the first build's ids and scores bit for bit. The last
+lines are the ptxas report of each build's bf16, f32 and int8 kernel bodies
+(registers, spills) and the card's name and power limit. Needs a CUDA card; ``chip_smoke.py`` holds each kernel to its
 plain version.
 """
 
@@ -99,6 +118,24 @@ _TMA_LOADS = """\
           tma_load_2d(rs, &maps.shard, s * I8_SLAB, row0, &full[stage]);
           tma_load_2d(qs, &maps.q, s * I8_SLAB, q0, &full[stage]);"""
 
+def _f32_nt256(src: str) -> str:
+    """The f32 tile at 256 threads of 8 x 8 accumulators (two warps side by
+    side along the queries)."""
+    src = _edit(src, "constexpr int F32_NT = 128;", "constexpr int F32_NT = 256;")
+    return _edit(src, "constexpr int F32_WQ = 1;", "constexpr int F32_WQ = 2;")
+
+
+
+#: The f32 tile's query fragment load, and a stand-in that takes the
+#: fragment from the rows' registers (wrong scores, a third of the loads).
+_F32_QLOAD = """\
+        const float4 v =
+            *reinterpret_cast<const float4*>(qs + F32_LQ * (F32_QG * h + j) * F32_SLD + 4 * g);"""
+_F32_QREG = """\
+        const float4 v = make_float4(rv[(F32_QG * h + j) % MR][0], rv[(F32_QG * h + j) % MR][1],
+                                     rv[(F32_QG * h + j) % MR][2], rv[j][3]);"""
+
+
 #: Variant name -> its source from the tree's source text (module
 #: docstring).
 VARIANTS = {
@@ -118,6 +155,21 @@ VARIANTS = {
     "nosload": lambda src: _edit(src, _TMA_LOADS, """\
           mbar_expect_tx(&full[stage], TQ * I8_SLAB);
           tma_load_2d(qs, &maps.q, s * I8_SLAB, q0, &full[stage]);"""),
+    "f32_nt256": lambda src: _f32_nt256(src),
+    "f32_nt256_one_block": lambda src: _edit(
+        _f32_nt256(src), "constexpr int F32_MIN_BLOCKS = 2;",
+        "constexpr int F32_MIN_BLOCKS = 1;"),
+    "f32_stages3": lambda src: _edit(src, "constexpr int F32_STAGES = 2;",
+                                     "constexpr int F32_STAGES = 3;"),
+    "f32_slab_branch": lambda src: _edit(src, "    if ((s + 1) * F32_SK <= dpad)\n",
+                                         "    if (false)\n"),
+    "f32_sk48": lambda src: _edit(src, "constexpr int F32_SK = 32;",
+                                  "constexpr int F32_SK = 48;"),
+    "f32_noqload": lambda src: _edit(src, _F32_QLOAD, _F32_QREG),
+    "f32_qg2": lambda src: _edit(src, "constexpr int F32_QG = 4;",
+                                 "constexpr int F32_QG = 2;"),
+    "f32_qg8": lambda src: _edit(src, "constexpr int F32_QG = 4;",
+                                 "constexpr int F32_QG = 8;"),
 }
 
 
@@ -133,7 +185,8 @@ def source_path(arg: str) -> Path:
 
 
 def _score_tile_entry(line: str) -> bool:
-    return "bfloat16" in line or "IaE" in line
+    """bf16, int8 (``IaE``) and f32 (``IfE``) kernel bodies."""
+    return "bfloat16" in line or "IaE" in line or "IfE" in line
 
 
 def _entry_name(line: str) -> str:
@@ -251,6 +304,9 @@ def cases(seed):
             q, m = qf.to(dt), mf.to(dt)
         code, tag = CODES[dt], str(dt)[6:]
         out[f"K1 {tag}"] = k1(q, m, R1, N1, 64, 128, 128, 3)
+        if dt == torch.float32:
+            out["K1 float32 sub 8, ew 128"] = k1(q, m, R1, N1, 8, 128, 128, 3,
+                                                 argmax=False)
         ids = _ids(gen, dev, R1 // 64, 100)
         sc = empty(T, 100 * 64)
         out[f"K2 {tag} KS 100"] = (lambda lib, q=q, m=m, code=code, ids=ids, sc=sc:
@@ -311,13 +367,13 @@ def cases(seed):
     return out
 
 
-def same_int8_outputs(libs, work):
-    """One line per int8 case: whether every build's outputs equal the first
-    build's bit for bit."""
+def same_outputs(libs, work):
+    """One line per int8 and f32 case: whether every build's outputs equal
+    the first build's bit for bit."""
     lines = []
     names = list(libs)
     for label, (fn, _iters, outs) in work.items():
-        if "int8" not in label:
+        if "int8" not in label and "float32" not in label:
             continue
         if fn(libs[names[0]][0]):
             raise RuntimeError("a kernel launch failed")
@@ -368,6 +424,55 @@ def score_errors(libs, seed):
     return lines
 
 
+def route_rates(libs, seed, iters=3):
+    """One line per f32 route: ``search_device`` queries/sec of each build
+    (two passes, in turns) on ``search_1m_f32``'s store, and whether every
+    build's ids and scores equal the first build's bit for bit."""
+    import time
+
+    from ..config import SearchConfig
+    from ..ops.engine import SearchEngine
+    from ..store import DeviceStore
+
+    store = DeviceStore.synthetic(N1, D1, "float32", seed + 2, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 3)
+    qdev = store.data[torch.randint(0, N1, (1024,), generator=gen, device="cuda")]
+    engines = {"rescore": SearchEngine(store, SearchConfig(top_k=100)),
+               "f32cert": SearchEngine(store, SearchConfig(
+                   top_k=100, f32_certified="on"))}
+    for route, eng in engines.items():
+        assert eng.kernel_name(100) == route, (route, eng.kernel_name(100))
+    names = list(libs)
+    rates = {route: {name: [] for name in names} for route in engines}
+    first, same = {}, {route: True for route in engines}
+    saved = _build._LIBRARIES.get("topk")
+    try:
+        for name in names + names[::-1]:
+            lib = libs[name][0]
+            _build._LIBRARIES["topk"] = _build.KernelLibrary(lib, Path(lib._name), 0.0, "")
+            for route, eng in engines.items():
+                out = eng.search_device(qdev, 100)
+                torch.cuda.synchronize()
+                ref = first.setdefault(route, out)
+                same[route] &= all(torch.equal(a, b) for a, b in zip(out, ref))
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    eng.search_device(qdev, 100)
+                torch.cuda.synchronize()
+                rates[route][name].append(1024 * iters / (time.perf_counter() - t0))
+    finally:
+        if saved is None:
+            _build._LIBRARIES.pop("topk", None)
+        else:
+            _build._LIBRARIES["topk"] = saved
+    return [f"route f32 {route} search_device q/s (1M x 768, 1024 queries, k 100): "
+            + "; ".join(f"{name} {' / '.join(f'{r:.1f}' for r in v)}"
+                        for name, v in by.items())
+            + f"; ids and scores bit for bit {names[0]}'s: {same[route]}"
+            for route, by in rates.items()]
+
+
 def device_ms(fn, iters):
     if fn():
         raise RuntimeError("a kernel launch failed")
@@ -400,6 +505,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
                     help="time only the cases whose label contains this")
+    ap.add_argument("--routes", action="store_true",
+                    help="also time the f32 routes end to end on each build")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ab_topk: no CUDA device")
@@ -420,10 +527,15 @@ def main(argv=None) -> int:
     if share is not None:
         print(f"K1 int8 epilogue (unit pass) share: {share[2]:.3f} "
               f"({share[0]:.4f} ms with it, {share[1]:.4f} without)", flush=True)
-    for line in same_int8_outputs(libs, work):
+    for line in same_outputs(libs, work):
         print(line, flush=True)
     for line in score_errors(libs, args.seed):
         print(line, flush=True)
+    if args.routes:
+        del work
+        torch.cuda.empty_cache()
+        for line in route_rates(libs, args.seed):
+            print(line, flush=True)
     for name, (_lib, report) in libs.items():
         print(f"ptxas {name}: " + " | ".join(report))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -56,13 +56,22 @@
 // tests hold every kernel to).
 //
 // FLOAT32 STORES: the SIMT FMA chain, exact f32 arithmetic,
-//     acc = 0.0f;  for d = 0 .. D-1:  acc = __fmaf_rn(row[d], q[d], acc)
-// fma_chunk() below is the only code that advances an f32 accumulator, and
-// every kernel calls it over consecutive D chunks, so each accumulator sees d
-// in order. Zero padding of a ragged D chunk appends exact +0 terms, which
-// leave the chain's bits unchanged (an accumulator that starts at +0.0 never
-// becomes -0.0). TF32 would not be exact, so f32 stays off the tensor cores
-// (the TPU's Mosaic f32 product was not exact either).
+//     acc = +0.0f;  for d = 0 .. D-1:  acc = __fmaf_rn(row[d], q[d], acc)
+// one rounded FMA per feature, in increasing order: no split-K, no
+// reassociation, nothing left to the compiler's contraction of a * b + c.
+// fma_features() below is the only code that advances an f32 accumulator:
+// the score tile of K1/K3/K5/K10 (score_tile<float>) calls it on 4 features
+// at a time (one 16-byte shared load per operand), K2 and K6 (fma_chunk) on
+// one; every kernel calls it over consecutive D chunks, so each accumulator
+// sees d in order. ops/topk_kernels.py:fma_chain_scores computes this chain
+// exactly (float64, round to odd), and the gpu tests and chip_smoke.py hold
+// K1, K3 and K5 to it bit for bit. A ragged D is zero-padded: the score tile
+// runs the chain to the next multiple of F32_PAD = 16 features, K2 and K6 to
+// the next multiple of GDK = 32. A +0 term leaves every accumulator as it is
+// but -0.0, which it turns into +0.0; starting from +0.0 an accumulator holds
+// -0.0 only where a negative sum underflows, and -0.0 compares equal to +0.0,
+// so no selection sees it. TF32 would not be exact, so f32 stays off the
+// tensor cores (the TPU's Mosaic f32 product was not exact either).
 //
 // INT8 STORES (the lattice of ops/quantize.py) take the third rule: one
 // exact int32 dot per score, then ONE int8_score(): __fmul_rn(float(acc),
@@ -107,17 +116,48 @@ constexpr float PAD_SIM = -3.0f;
 constexpr uint32_t INT8_INV_SCALE2_BITS = 0x38820610u;
 
 // Score tile of K1/K3: TR store rows x TQ queries per block, NT threads
-// (int8: NT_I8, see score_tile_i8). f32: each thread a MR x MQ micro-tile
-// of accumulators; D staged through shared memory DK features at a time,
-// transposed.
+// (int8: NT_I8, see score_tile_i8).
 constexpr int TR = 128;
 constexpr int TQ = 128;
-constexpr int DK = 16;
 constexpr int NT = 256;
-constexpr int MR = 8;
-constexpr int MQ = 8;
-constexpr int LDS = TR + 4;       // padded leading dim of the staged tiles
 constexpr int LDO = TQ + 1;       // padded leading dim of the score tile
+// f32 (score_tile<float>): F32_NT threads, each an MR x MQ micro-tile of
+// accumulators, rows rb + F32_RSTEP * i and queries qb + F32_LQ * j (i < MR,
+// j < MQ): the F32_NT / 32 warps stand F32_WQ side by side along the
+// queries, each a F32_ROWS_W x F32_QUERIES_W tile, its lanes 32 / F32_LQ
+// along the rows by F32_LQ along the queries. D goes through shared memory
+// in slabs of F32_SK features, row-major as the operands lie in device
+// memory, rows padded to F32_SLD floats, in a ring of F32_STAGES slabs filled
+// by cp.async (16-byte copies; 4-byte ones where D % 4 != 0 or a base is not
+// 16-byte aligned). A thread reads each of its rows' and queries' next 4
+// features as one 16-byte shared load and takes them in order
+// (fma_features), the queries F32_QG at a time: MR + MQ loads for 4 * MR *
+// MQ FMAs. F32_SLD = 4 (mod 8): a warp's load of one row or query index
+// touches 32 / F32_LQ (rows) or F32_LQ (queries) adjacent padded rows at one
+// feature, whose 16-byte pieces fall on distinct groups of 4 banks, and the
+// lanes that share a row broadcast: one shared-memory wavefront per load.
+// The chain runs over D rounded up to F32_PAD features, so a ragged D takes
+// the same +0 terms as in every earlier build of the tile (see the header).
+constexpr int F32_NT = 128;
+constexpr int F32_WQ = 1;
+constexpr int F32_LQ = 8;
+constexpr int F32_RSTEP = 32 / F32_LQ;
+constexpr int F32_ROWS_W = TR / (F32_NT / 32 / F32_WQ);
+constexpr int F32_QUERIES_W = TQ / F32_WQ;
+constexpr int MR = F32_ROWS_W / F32_RSTEP;
+constexpr int MQ = F32_QUERIES_W / F32_LQ;
+constexpr int F32_SK = 32;
+constexpr int F32_SLD = F32_SK + 4;
+constexpr int F32_STAGES = 2;
+constexpr int F32_QG = 4;
+constexpr int F32_PAD = 16;
+constexpr int F32_MIN_BLOCKS = 2;  // launch bound: 2 x 128 threads, up to 255 registers each
+constexpr int F32_SLAB = TR * F32_SLD;  // floats of one operand's slab
+static_assert(MR * F32_RSTEP == F32_ROWS_W && MQ * F32_LQ == F32_QUERIES_W,
+              "the micro-tiles cover each warp's tile");
+static_assert(F32_SLD % 8 == 4 && F32_SK % 4 == 0 && F32_PAD % 4 == 0 &&
+                  MQ % F32_QG == 0 && F32_STAGES >= 2,
+              "f32 slab geometry");
 // The int8 tile's, where the epilogue reads st only along rows (K1, K5,
 // K10): LDO_I8 = 8 (mod 32) makes each warp's 8-byte stores of its
 // accumulator pairs free of bank conflicts (the odd LDO is 4-way
@@ -156,9 +196,23 @@ template <> __device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 
 }
 
 // THE f32 dot routine (see the header): advance every accumulator acc[i][j]
-// by the features d = 0 .. dk-1 of a staged chunk, in order, one FMA each.
-// r[d * r_ld + i] is row i's feature d, q[d * q_ld + j] query j's. f32
-// operands only: bf16 ones go through mma_k16.
+// by K consecutive features, row i's in r[i][0 .. K-1] and query j's in
+// q[j][0 .. K-1], in order, one FMA each. Every f32 score goes through it:
+// the score tile (K = 4, one 16-byte fragment) and fma_chunk (K = 1).
+template <int M, int N, int K>
+__device__ __forceinline__ void fma_features(float (&acc)[M][N], const float (&r)[M][K],
+                                             const float (&q)[N][K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[i][j] = __fmaf_rn(r[i][k], q[j][k], acc[i][j]);
+}
+
+// The gathers' f32 product (K2, K6): advance acc by the features d = 0 ..
+// dk-1 of a transposed staged chunk, in order: r[d * r_ld + i] is row i's
+// feature d, q[d * q_ld + j] query j's. bf16 operands go through mma_k16.
 template <int M, int N>
 __device__ __forceinline__ void fma_chunk(float (&acc)[M][N],
                                           const float* __restrict__ r, int r_ld,
@@ -166,15 +220,12 @@ __device__ __forceinline__ void fma_chunk(float (&acc)[M][N],
                                           int dk) {
 #pragma unroll 4
   for (int d = 0; d < dk; ++d) {
-    float rv[M], qv[N];
+    float rv[M][1], qv[N][1];
 #pragma unroll
-    for (int i = 0; i < M; ++i) rv[i] = r[d * r_ld + i];
+    for (int i = 0; i < M; ++i) rv[i][0] = r[d * r_ld + i];
 #pragma unroll
-    for (int j = 0; j < N; ++j) qv[j] = q[d * q_ld + j];
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-#pragma unroll
-      for (int j = 0; j < N; ++j) acc[i][j] = __fmaf_rn(rv[i], qv[j], acc[i][j]);
+    for (int j = 0; j < N; ++j) qv[j][0] = q[d * q_ld + j];
+    fma_features<M, N, 1>(acc, rv, qv);
   }
 }
 
@@ -194,6 +245,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async16_or_zero(void* smem, const void* gmem, bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
                "l"(gmem), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes from gmem, or 4 zero bytes when !full (gmem is then not read).
+__device__ __forceinline__ void cp_async4_or_zero(void* smem, const void* gmem, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(full ? 4 : 0)
                : "memory");
 }
 
@@ -293,46 +351,145 @@ __device__ __forceinline__ void store_staged(const float (&acc)[M16][4], int rb,
 // Scores of store rows [row0, row0 + TR) against queries [q0, q0 + TQ) into
 // the shared score tile st[r * LDO + c]; rows at or past valid_rows are
 // masked to PAD_SIM. Queries past Tn score against zeros and are never
-// written out by the callers. Requires R % TR == 0. This body is the f32
-// one (the FMA chain); bf16 has the specialisation below, int8
-// score_tile_i8.
+// written out by the callers. Requires R % TR == 0. f32 and bf16 have the
+// specialisations below, int8 score_tile_i8.
 template <typename T>
 __device__ __forceinline__ void score_tile(const T* __restrict__ q,
                                            const T* __restrict__ shard,
                                            int Tn, int D, int valid_rows,
-                                           int row0, int q0, float* smem) {
-  float* rs = smem;             // [DK][LDS]
-  float* qs = smem + DK * LDS;  // [DK][LDS]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;      // query micro-tile: queries tx*MQ ..
-  const int ty = tid / 16;      // row micro-tile:   rows    ty*MR ..
-  float acc[MR][MQ];
-#pragma unroll
-  for (int i = 0; i < MR; ++i)
-#pragma unroll
-    for (int j = 0; j < MQ; ++j) acc[i][j] = 0.0f;
+                                           int row0, int q0, float* smem);
 
-  for (int d0 = 0; d0 < D; d0 += DK) {
-    // Consecutive threads read consecutive features of one row: each warp
-    // covers two rows' DK-feature runs.
-    for (int e = tid; e < TR * DK; e += NT) {
-      const int r = e / DK, dd = e % DK, gd = d0 + dd;
-      rs[dd * LDS + r] = gd < D ? widen(shard[(size_t)(row0 + r) * D + gd]) : 0.0f;
-      const int gq = q0 + r;
-      qs[dd * LDS + r] = (gd < D && gq < Tn) ? widen(q[(size_t)gq * D + gd]) : 0.0f;
+// threadIdx.x, read where it is called: what the f32 tile derives from it
+// (its copies' addresses) is then computed in the tile, not hoisted out of
+// K10's loop over row tiles, where it spilled at 255 registers.
+__device__ __forceinline__ int thread_index() {
+  int tid;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
+  return tid;
+}
+
+// The f32 tile's product over one staged slab (score_tile<float>): the first
+// `groups` (<= G) 4-feature fragments of rows rs + F32_RSTEP * i and queries
+// qs + F32_LQ * j, each taken in order by fma_features.
+template <int G>
+__device__ __forceinline__ void fma_slab(float (&acc)[MQ / F32_QG][MR][F32_QG],
+                                         const float* rs, const float* qs, int groups = G) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (g == groups) break;
+    float rv[MR][4];
+#pragma unroll
+    for (int i = 0; i < MR; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(rs + F32_RSTEP * i * F32_SLD + 4 * g);
+      rv[i][0] = v.x, rv[i][1] = v.y, rv[i][2] = v.z, rv[i][3] = v.w;
     }
-    __syncthreads();
-    fma_chunk<MR, MQ>(acc, rs + ty * MR, LDS, qs + tx * MQ, LDS, DK);
-    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < MQ / F32_QG; ++h) {
+      float qv[F32_QG][4];
+#pragma unroll
+      for (int j = 0; j < F32_QG; ++j) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(qs + F32_LQ * (F32_QG * h + j) * F32_SLD + 4 * g);
+        qv[j][0] = v.x, qv[j][1] = v.y, qv[j][2] = v.z, qv[j][3] = v.w;
+      }
+      fma_features<MR, F32_QG, 4>(acc[h], rv, qv);
+    }
   }
+}
 
-  float* st = smem;  // reuse the staging space: [TR][LDO]
+// The f32 score tile, on the SIMT FMA pipes (the exact chain; see the header
+// and the constants' note). Bound: the 2*TR*TQ*D operations at the f32 rate
+// (K1 at 512 queries of 1M x 768: 11.7 ms) against reading the store once
+// (0.9 ms), so the tile keeps the FMA pipes fed: the slabs of the next
+// F32_STAGES - 1 steps are in flight while the warps multiply this one, one
+// barrier per slab (it also frees the slot the next copies fill), and each
+// 16-byte fragment load feeds 4 * MR * MQ / (MR + MQ) FMAs: 21 at 8 x 16
+// (128 accumulators a thread), 16 at 8 x 8. Hopper issues four warp FMAs
+// a cycle an SM against 128 bytes of shared memory, and on the card 8 x 16
+// at two blocks of 128 threads beat 8 x 8 at two of 256, which spills at
+// 128 registers, and at one (bench/ab_topk.py, PERF.md). The ring
+// (F32_STAGES x 36 KB) becomes st once drained.
+template <>
+__device__ __forceinline__ void score_tile<float>(const float* __restrict__ q,
+                                                  const float* __restrict__ shard, int Tn,
+                                                  int D, int valid_rows, int row0, int q0,
+                                                  float* smem) {
+  // F32_STAGES x {rows [TR][F32_SLD], queries [TQ][F32_SLD]}
+  const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
+  const int rb = (warp / F32_WQ) * F32_ROWS_W + lane / F32_LQ;
+  const int qb = (warp % F32_WQ) * F32_QUERIES_W + lane % F32_LQ;
+  const bool vec = (D & 3) == 0 &&
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(shard)) & 15) == 0;
+  const int slabs = (D + F32_SK - 1) / F32_SK;
+  const int dpad = (D + F32_PAD - 1) / F32_PAD * F32_PAD;  // the chain's length
+
+  // Slab s into its slot, zeros past D and past Tn; a copy that reads
+  // nothing keeps a source address inside its tensor.
+  auto stage = [&](int s) {
+    float* rs = smem + (s % F32_STAGES) * 2 * F32_SLAB;
+    float* qs = rs + F32_SLAB;
+    const int d0 = s * F32_SK;
+    if (vec) {
+      constexpr int CH = F32_SK / 4;  // 16-byte pieces a slab row
+      for (int e = tid; e < TR * CH; e += F32_NT) {
+        const int r = e / CH, dd = 4 * (e % CH), gd = d0 + dd, gq = q0 + r;
+        const bool in = gd < D, q_in = in && gq < Tn;  // D % 4 == 0: whole pieces
+        cp_async16_or_zero(rs + r * F32_SLD + dd,
+                           shard + (size_t)(row0 + r) * D + (in ? gd : 0), in);
+        cp_async16_or_zero(qs + r * F32_SLD + dd, q + (q_in ? (size_t)gq * D + gd : 0), q_in);
+      }
+    } else {
+      for (int e = tid; e < TR * F32_SK; e += F32_NT) {
+        const int r = e / F32_SK, dd = e % F32_SK, gd = d0 + dd, gq = q0 + r;
+        const bool in = gd < D, q_in = in && gq < Tn;
+        cp_async4_or_zero(rs + r * F32_SLD + dd,
+                          shard + (size_t)(row0 + r) * D + (in ? gd : 0), in);
+        cp_async4_or_zero(qs + r * F32_SLD + dd, q + (q_in ? (size_t)gq * D + gd : 0), q_in);
+      }
+    }
+  };
+
+  // acc[h][i][j]: row rb + F32_RSTEP * i, query qb + F32_LQ * (F32_QG * h + j)
+  float acc[MQ / F32_QG][MR][F32_QG];
+#pragma unroll
+  for (int h = 0; h < MQ / F32_QG; ++h)
+#pragma unroll
+    for (int i = 0; i < MR; ++i)
+#pragma unroll
+      for (int j = 0; j < F32_QG; ++j) acc[h][i][j] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < F32_STAGES - 1; ++s) {
+    if (s < slabs) stage(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < slabs; ++s) {
+    cp_async_wait<F32_STAGES - 2>();  // this thread's copies of slab s have landed
+    __syncthreads();  // ... and every thread's; every warp is done with slab s - 1
+    if (s + F32_STAGES - 1 < slabs) stage(s + F32_STAGES - 1);  // into slab s - 1's slot
+    cp_async_commit();
+    const float* rs = smem + (s % F32_STAGES) * 2 * F32_SLAB + rb * F32_SLD;
+    const float* qs = smem + (s % F32_STAGES) * 2 * F32_SLAB + F32_SLAB + qb * F32_SLD;
+    // A whole slab of the chain runs without a branch, so the compiler may
+    // hoist each fragment's loads above the FMAs of the one before.
+    if ((s + 1) * F32_SK <= dpad)
+      fma_slab<F32_SK / 4>(acc, rs, qs);
+    else
+      fma_slab<F32_SK / 4>(acc, rs, qs, (dpad - s * F32_SK) / 4);
+  }
+  cp_async_wait<0>();  // only empty groups are left
+  __syncthreads();     // every warp is done with the ring: it becomes st
+
+  float* st = smem;
 #pragma unroll
   for (int i = 0; i < MR; ++i) {
-    const int r = ty * MR + i;
+    const int r = rb + F32_RSTEP * i;
     const bool ok = row0 + r < valid_rows;
 #pragma unroll
-    for (int j = 0; j < MQ; ++j) st[r * LDO + tx * MQ + j] = ok ? acc[i][j] : PAD_SIM;
+    for (int h = 0; h < MQ / F32_QG; ++h)
+#pragma unroll
+      for (int j = 0; j < F32_QG; ++j)
+        st[r * LDO + qb + F32_LQ * (F32_QG * h + j)] = ok ? acc[h][i][j] : PAD_SIM;
   }
   __syncthreads();
 }
@@ -784,18 +941,28 @@ __device__ __forceinline__ void score_tile_i8(const int8_t* __restrict__ q,
 
 // ==== int8 score tile: end ====
 
-// Per score-tile dtype: the block size, the leading dimension of st in K1,
-// K5 and K10, and what the int8 tile's TMA needs (nothing for the others).
+// Per score-tile dtype: the block size, the blocks an SM should hold (the
+// launch bound), the leading dimension of st in K1, K5 and K10, and what
+// the int8 tile's TMA needs (nothing for the others).
 struct NoMaps {};
 template <typename T>
 struct Tile {
   static constexpr int threads = NT;
+  static constexpr int min_blocks = 2;
+  static constexpr int ld = LDO;
+  using Maps = NoMaps;
+};
+template <>
+struct Tile<float> {
+  static constexpr int threads = F32_NT;
+  static constexpr int min_blocks = F32_MIN_BLOCKS;
   static constexpr int ld = LDO;
   using Maps = NoMaps;
 };
 template <>
 struct Tile<int8_t> {
   static constexpr int threads = NT_I8;
+  static constexpr int min_blocks = 2;
   static constexpr int ld = LDO_I8;
   using Maps = I8Maps;
 };
@@ -932,10 +1099,12 @@ __device__ __forceinline__ void unit_pass_i8(const float* st, int sub, Emit&& em
 
 // The score tile st [TR][LDO] f32, or the staging it replaces, whichever is
 // larger (the bf16 ring); K1 and K10 keep their unit maxima past st, where
-// only a ring that is done with can lie.
+// only a ring that is done with can lie. The f32 ring is sized apart
+// (tile_smem).
 constexpr size_t ST_BYTES = sizeof(float) * (size_t)TR * LDO;
 constexpr size_t RING_BYTES = sizeof(__nv_bfloat16) * (size_t)NSTAGE * 2 * SLAB;
 constexpr size_t SCORE_SMEM = ST_BYTES > RING_BYTES ? ST_BYTES : RING_BYTES;
+constexpr size_t F32_RING_BYTES = sizeof(float) * (size_t)F32_STAGES * 2 * F32_SLAB;
 constexpr int MAX_UNITS = TR / 8;                                // sub >= 8
 
 // Block b of the 1-D grid of K1/K3/K5/K10 takes query tile b % qt of row
@@ -957,7 +1126,7 @@ inline unsigned tile_grid(long long groups, int Tn) {
 // see launch_k1); scores never leave shared memory.
 // Outputs are transposed like the TPU kernel's: [R/sub, T], [R/ew, T].
 template <typename T>
-__global__ void __launch_bounds__(Tile<T>::threads, 2)
+__global__ void __launch_bounds__(Tile<T>::threads, Tile<T>::min_blocks)
 k1_blockmax2(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
              int D, int valid_rows, int sub, int ew, float* __restrict__ bm_sub,
              int32_t* __restrict__ key, float* __restrict__ bm,
@@ -1048,7 +1217,7 @@ __device__ __forceinline__ void store_block_max(const float* st, int block, int 
 // K3: masked scores sims [T, R] plus per-block maxima bm_t [R/block, T]. Its
 // st keeps the odd LDO on every dtype: the transposed read below needs it.
 template <typename T>
-__global__ void __launch_bounds__(Tile<T>::threads, 2)
+__global__ void __launch_bounds__(Tile<T>::threads, Tile<T>::min_blocks)
 k3_blockmax(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int R,
             int D, int valid_rows, int block, float* __restrict__ sims,
             float* __restrict__ bm_t, const __grid_constant__ typename Tile<T>::Maps maps) {
@@ -1084,7 +1253,7 @@ k3_blockmax(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int R,
 // f32. A kernel of its own rather than a
 // flag on K3, so every pointer stays __restrict__ (a shared body cost K2 9 %).
 template <typename T>
-__global__ void __launch_bounds__(Tile<T>::threads, 2)
+__global__ void __launch_bounds__(Tile<T>::threads, Tile<T>::min_blocks)
 k5_blockmax_only(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
                  int D, int valid_rows, int block, float* __restrict__ bm_t,
                  const __grid_constant__ typename Tile<T>::Maps maps) {
@@ -1122,7 +1291,7 @@ k5_blockmax_only(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
 // cores, K1's score tile); with sims, also its R*T*4 bytes. A kernel of its
 // own, so K1's body is untouched.
 template <typename T>
-__global__ void __launch_bounds__(Tile<T>::threads, 2)
+__global__ void __launch_bounds__(Tile<T>::threads, Tile<T>::min_blocks)
 k10_blockmax2x(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int R,
                int D, int valid_rows, int sub, int ew, int tiles, int t_major,
                float inv_scale2, float* __restrict__ sims, float* __restrict__ bms,
@@ -1632,12 +1801,18 @@ constexpr int DTYPE_INT8 = 2;
 
 // Dynamic shared memory of a K1/K3/K5/K10 block: the score tile (or the
 // ring it replaces) plus `extra` bytes past st (K1/K10's unit maxima); the
-// int8 tile's ring is larger, 1024-byte aligned, and has its mbarriers.
+// f32 ring may be larger than both (it is drained before st and the unit
+// maxima are written); the int8 tile's ring is larger, 1024-byte aligned,
+// and has its mbarriers.
 template <typename T>
 size_t tile_smem(size_t extra) {
   if constexpr (std::is_same<T, int8_t>::value) {
     const size_t past_st = I8_ST_BYTES + extra;
     return I8_SMEM_PAD + (I8_TILE_BYTES > past_st ? I8_TILE_BYTES : past_st);
+  }
+  if constexpr (std::is_same<T, float>::value) {
+    const size_t past_st = ST_BYTES + extra;
+    return F32_RING_BYTES > past_st ? F32_RING_BYTES : past_st;
   }
   return SCORE_SMEM + extra;
 }

@@ -168,6 +168,48 @@ def score_bound(queries: torch.Tensor, rows: torch.Tensor):
     return exact, q.shape[-1] * SCORE_EPS * mag
 
 
+def fma_rn_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``__fmaf_rn(a, b, c)``, exactly, on float64 tensors that hold f32
+    values (broadcast): ``a * b`` is exact in float64 (48 bits); TwoSum
+    gives ``s + e == c + a * b`` exactly; ``s + e`` rounded to odd in
+    float64 (53 >= 24 + 2 bits) and then to nearest f32 is the correctly
+    rounded f32 sum, ties to even, subnormals and signed zeros included.
+    Returns float64 tensors holding the f32 results."""
+    p = a * b
+    s = c + p
+    v = s - c
+    e = (c - (s - v)) + (p - v)
+    bits = s.view(torch.int64)
+    inexact = e != 0
+    # s + e lies between s and zero where e and s differ in sign: truncate s
+    # one ulp toward zero, then make the last bit odd
+    bits = (bits - (inexact & ((e < 0) != (s < 0))).to(torch.int64)) \
+        | inexact.to(torch.int64)
+    return bits.view(torch.float64).to(torch.float32).to(torch.float64)
+
+
+def fma_chain_scores(queries: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The f32 kernels' scores exactly: ``acc = +0.0``, then ``acc =
+    __fmaf_rn(r_d, q_d, acc)`` for ``d = 0 .. D-1`` in order (the source
+    note's f32 rule), in float64 on the operands' device, vectorised over
+    the pairs and looped over D (:func:`fma_rn_f32` per step). ``rows [R,
+    D]`` gives ``[T, R]``; ``rows [T, C, D]`` (each query's own rows) gives
+    ``[T, C]``; float32 out. A kernel that pads a ragged D with zeros may
+    return +0.0 where this returns -0.0 (the two compare equal)."""
+    q = queries.to(torch.float64)
+    r = rows.to(torch.float64)
+    if r.dim() == 2:
+        acc = torch.zeros((q.shape[0], r.shape[0]), dtype=torch.float64,
+                          device=q.device)
+        for d in range(q.shape[1]):
+            acc = fma_rn_f32(r[None, :, d], q[:, d, None], acc)
+    else:
+        acc = torch.zeros(r.shape[:2], dtype=torch.float64, device=q.device)
+        for d in range(q.shape[1]):
+            acc = fma_rn_f32(r[:, :, d], q[:, d, None], acc)
+    return acc.to(torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # Sort keys
 # ---------------------------------------------------------------------------

@@ -14,12 +14,19 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    |diff| <= 1e-5 (the plain versions sum in cuBLAS's f32 order, not the
    kernels' mma.sync k16 steps);
 3. the search kernels against each other, bit for bit (one mma.sync
-   instruction and one k16 order per bf16 score);
+   instruction and one k16 order per bf16 score); the same identity on
+   phase 4's 1M x 768 f32 store at the rescore pass's geometry (K1 sub 64
+   with argmax; one exact FMA chain per f32 score), K1's maxima and keys on
+   its first 16,384 rows bit for bit ``fma_chain_scores`` (the chain
+   computed exactly in float64), and K1 f32's time there beside its bound
+   and ``torch.matmul``; K3 f32 at the dense route's tile (256 x 100,352 x
+   768) against its plain version, and its time;
 4. the search path — Pipeline.engine + evaluate (1024 queries, k=100: MRR,
    recall@k and oracle overlap must be 1.0) + three search_stream batches —
    on a 1M x 768 bf16 store (route rescore: K1 + K2), a 100k x 768 bf16
-   store (route global: K3) and a 1M x 768 f32 store (route rescore), with
-   every kernel's launch count over that run;
+   store (route global: K3) and a 1M x 768 f32 store (route rescore; its
+   ids and distances bit for bit ``oracle_topk``'s), with every kernel's
+   launch count over that run;
 5. timings: queries/sec of search and search_device on the 1M bf16 store,
    a torch.profiler split of one 512-query tile of search_device (K1, K2,
    glue, device idle), and each search kernel's time beside its plain
@@ -90,13 +97,15 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    plain version bit for bit on f32, bf16 and int8 rows (and its 0xFF fill
    for out-of-range ids); K6 ``block_scores`` over K4's rows bit for bit
    K3's and K2's scores of the same pairs, against its plain version within
-   1e-5 (bit for bit on int8); K1 at the route's 8-row units; search and
+   1e-5 (bit for bit on int8); K1 at the route's 8-row units, its maxima
+   on the first 16,384 rows bit for bit ``fma_chain_scores``; search and
    search_device q/s of ``f32cert`` beside ``rescore`` on the same store;
    launch counts of K1, K4, K6 and K3 over the phase;
 17. K5 ``matmul_blockmax_only`` (block maxima without the score matrix) on
    1M x 768 bf16, f32 and int8 stores at T 512 (1,000,000 valid rows of
    1,000,448, so the PAD_SIM mask bites): bit for bit K3's ``bm_t`` on all
-   three, against its plain version within 1e-5 (0 on int8); on a
+   three, against its plain version within 1e-5 (0 on int8), f32's on the
+   first 16,384 rows bit for bit ``fma_chain_scores``; on a
    10,027,008 x 256 bf16 store (10M valid rows) against its plain version
    and, on its first 1,048,576 rows, bit for bit K3's; then ``python -m
    better_search_rag_rust_tpu_torch.bench.proto_calib`` (the K5
@@ -161,18 +170,20 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    kernel launched, which also holds K4 (P22) bit for bit its plain version
    and K2 f32 (P23) at KS 192 and 320 within 1e-5 of its plain version and
    bit for bit K6 on K4's rows;
-24. the card exactness sweep of ``scripts/chip_exactness.py`` on bf16 and
-   on the int8 lattice: its five stores (``random_20k_768``,
+24. the card exactness sweep of ``scripts/chip_exactness.py`` on bf16, on
+   the int8 lattice and on f32: its five stores (``random_20k_768``,
    ``dups_64k_256``, ``all_dup_16k_128``, ``tall_300k_64``,
    ``dups_600k_768``, built from ``--seed`` as the script builds them),
    1024 queries each, k = 10 and 100, through the ``global`` route and
    ``rescore`` with the argmax fast path on and off wherever
-   ``rescore_feasible`` allows: ids and distances bit for bit
-   ``oracle_topk``; every returned bf16 score within ``D * 2^-23 * sum
-   |q_d r_d|`` of the float64 product of the same bf16 operands
-   (``ops/topk_kernels.py:score_bound``), every returned int8 score bit for
-   bit the exact integer dot times ``INT8_INV_SCALE2``; K1 = K2 = K3 bit for
-   bit on each store's (query, unit argmax) pairs. Prints its pass counts.
+   ``rescore_feasible`` allows, and on f32 ``f32cert``: ids and distances
+   bit for bit ``oracle_topk``; every returned bf16 score within ``D *
+   2^-23 * sum |q_d r_d|`` of the float64 product of the same bf16
+   operands (``ops/topk_kernels.py:score_bound``), every returned int8
+   score bit for bit the exact integer dot times ``INT8_INV_SCALE2``, every
+   returned f32 score bit for bit ``fma_chain_scores``; K1 = K2 = K3 bit
+   for bit on each store's (query, unit argmax) pairs. Prints its pass
+   counts.
 
 Every kernel's time is printed beside its plain version's, one PyTorch call
 computing the same function where there is one (``library``: the product
@@ -208,6 +219,9 @@ K = 100
 T = 512
 SUB, BLOCK = 64, 128
 TOL = 1e-5
+#: store rows whose f32 kernel outputs are held to the exact chain
+#: (fma_chain_scores runs D steps in float64 over T x CHAIN_ROWS pairs)
+CHAIN_ROWS = 16_384
 CSRC = "better_search_rag_rust_tpu_torch/ops/csrc/"
 #: kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -403,27 +417,94 @@ def check_kernels(store, store_100k, gen):
         2 * 256 * store_100k.data.shape[0] * d, peak)
     del sims, bm_t, p_sims, p_bm_t
 
-    # phase 3: K2 at each unit's argmax row == K1's unit max == K3's score,
-    # on valid units (K1/K3 mask padding rows to PAD_SIM, K2 does not mask)
-    units = torch.sort(torch.randint(0, n // SUB, (T, 256), generator=gen,
+    # phase 3: K2 at each unit's argmax row == K1's unit max == K3's score
+    same, pairs = unit_identity(tk, q, data, n, bms, key, gen)
+    phase(f"phase 3 identity on {pairs} (query, unit argmax) pairs: "
+          f"K1 == K2 == K3 bitwise: {same}")
+    assert same
+    return errs, times
+
+
+def unit_identity(tk, q, data, n, bms, key, gen=None):
+    """K2 at each unit's argmax row == K1's unit max == K3's score, bit for
+    bit, on 256 random valid units per query (K1/K3 mask padding rows to
+    PAD_SIM, K2 does not mask); returns (same, pairs)."""
+    t = q.shape[0]
+    units = torch.sort(torch.randint(0, n // SUB, (t, 256), generator=gen,
                                      device="cuda"), dim=1).values
     resc = tk.gather_rescore(q, data, units.to(torch.int32).contiguous(),
-                             unit=SUB).view(T, 256, SUB)
+                             unit=SUB).view(t, 256, SUB)
     arg = torch.gather((key & 0x7F).T.to(torch.int64), 1, units)
     k2_at_arg = torch.gather(resc, 2, arg[:, :, None])[:, :, 0]
     k1_max = torch.gather(bms.T, 1, units)
     sims, _ = tk.matmul_blockmax(q, data, n)
     k3_at_arg = torch.gather(sims, 1, units * SUB + arg)
     same = torch.equal(k2_at_arg, k1_max) and torch.equal(k3_at_arg, k1_max)
-    phase(f"phase 3 identity on {units.numel()} (query, unit argmax) pairs: "
-          f"K1 == K2 == K3 bitwise: {same}")
-    assert same
-    return errs, times
+    return same, units.numel()
 
 
-def drive_main_path(name, store, cfg, gen, route, label="phase 4"):
+def chain_units(tk, q, data, sub):
+    """K1's unit outputs (maxima, the packed key) that the exact FMA chain
+    gives on the first CHAIN_ROWS rows of an f32 store (all valid)."""
+    chain = tk.fma_chain_scores(q, data[:CHAIN_ROWS])
+    bms, arg, m2 = tk._plain_units(chain.T.reshape(-1, sub, q.shape[0]), True)
+    return chain, bms, tk.pack_m2_argmax_key(m2, arg)
+
+
+def check_f32_rescore_pass(store, gen, card):
+    """Phase 3 on phase 4's 1M x 768 f32 store: K1 at the rescore pass's
+    geometry against the unit identity and the exact chain; its time."""
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+
+    data, n = store.data, store.num_rows
+    q = data[torch.randint(0, n, (T,), generator=gen, device="cuda")]
+
+    def k1():
+        return tk.matmul_blockmax2_only(q, data, n, sub=SUB, block=BLOCK,
+                                        emit_block=True, emit_argmax=True)
+
+    bms, key, bm = k1()
+    same, pairs = unit_identity(tk, q, data, n, bms, key, gen)
+    _, c_bms, c_key = chain_units(tk, q, data, SUB)
+    u = CHAIN_ROWS // SUB
+    chain_ok = (torch.equal(bms[:u], c_bms) and torch.equal(key[:u], c_key)
+                and torch.equal(bm[:CHAIN_ROWS // BLOCK],
+                                c_bms.view(-1, BLOCK // SUB, T).amax(dim=1)))
+    phase(f"phase 3 f32 identity on {pairs} (query, unit argmax) pairs of "
+          f"[{T} x {data.shape[0]} x {data.shape[1]}] f32, K1 sub {SUB} "
+          f"argmax: K1 == K2 == K3 bitwise: {same}; K1's maxima, keys and "
+          f"block maxima on the first {CHAIN_ROWS} rows bit for bit "
+          f"fma_chain_scores: {chain_ok}")
+    assert same and chain_ok
+    rec = timing(cuda_ms(k1), cuda_ms(lambda: tk.matmul_blockmax2_only_plain(
+        q, data, n, sub=SUB, block=BLOCK, emit_block=True, emit_argmax=True)),
+        product_ms(q, data), nbytes(q, data, bms, key, bm),
+        2 * T * data.shape[0] * data.shape[1], "fp32 SIMT")
+    phase(f"phase 3 [{card}] " + timing_line(
+        f"matmul_blockmax2_only f32 sub {SUB} argmax", rec))
+    # K3 f32 at the dense route's tile (search_100k's geometry, on the
+    # store's first 100,352 rows)
+    rows, valid = data[:100_352], 100_000
+    q3 = q[:256].contiguous()
+    sims, bm_t = tk.matmul_blockmax(q3, rows, valid)
+    p_sims, p_bm = tk.matmul_blockmax_plain(q3, rows, valid)
+    err = max(max_abs(sims, p_sims), max_abs(bm_t, p_bm))
+    assert err <= TOL, err
+    del p_sims, p_bm
+    rec = timing(cuda_ms(lambda: tk.matmul_blockmax(q3, rows, valid)),
+                 cuda_ms(lambda: tk.matmul_blockmax_plain(q3, rows, valid)),
+                 product_ms(q3, rows), nbytes(q3, rows, sims, bm_t),
+                 2 * 256 * rows.shape[0] * rows.shape[1], "fp32 SIMT")
+    phase(f"phase 3 [{card}] K3 f32 [256 x {rows.shape[0]} x {rows.shape[1]}]"
+          f": max|out-plain|={err:.3g} (bound {TOL}); " + timing_line(
+              "matmul_blockmax f32", rec))
+
+
+def drive_main_path(name, store, cfg, gen, route, label="phase 4",
+                    bitwise=False):
     """Phase 4 (or 13) on one store: engine, evaluate, three streamed
-    batches."""
+    batches; with ``bitwise``, the first batch's ids and distances equal
+    ``oracle_topk``'s bit for bit."""
     from better_search_rag_rust_tpu_torch.pipeline import Pipeline
 
     pipe = Pipeline(cfg, device="cuda")
@@ -441,11 +522,18 @@ def drive_main_path(name, store, cfg, gen, route, label="phase 4"):
     streamed = list(engine.search_stream(batches, k=K, depth=2))
     self_hits = [float(np.mean(ids[:, 0] == t))
                  for (ids, _), t in zip(streamed, truth)]
-    again, _ = engine.search(batches[0], K)
+    again, dists = engine.search(batches[0], K)
+    oracle = ""
+    if bitwise:
+        o_ids, o_d = engine.oracle_topk(batches[0], K)
+        same = np.array_equal(again, o_ids) and np.array_equal(dists, o_d)
+        oracle = f"; ids and distances == oracle_topk bitwise: {same}"
+        assert same
     phase(f"{label} {name}: route={engine.kernel_name(K)} "
           f"mrr={report['mrr']} recall@{K}={report['recall_at_k']} "
           f"oracle_overlap={report['oracle_overlap']} evaluate "
-          f"{eval_s:.2f}s; 3 streamed batches self-hit@1={self_hits}")
+          f"{eval_s:.2f}s; 3 streamed batches self-hit@1={self_hits}"
+          + oracle)
     assert report["mrr"] == report["recall_at_k"] == 1.0
     assert report["oracle_overlap"] == 1.0
     assert self_hits == [1.0, 1.0, 1.0]
@@ -1062,10 +1150,17 @@ def measure_qps(engine, store, gen, iters: int = 5):
     return host_qps, 1024 * iters / (time.perf_counter() - t0)
 
 
-def search_split(engine, store, gen, card):
-    """Phase 5: where the device time of one 512-query tile of
-    ``search_device`` goes (torch.profiler): K1, K2, the rest of the
-    route's kernels (glue) and the device's idle share of the wall clock."""
+#: the search kernels a route's split names, by their CUDA function names
+SPLIT_KERNELS = {"K1": "k1_blockmax2", "K2": "k2_gather_rescore",
+                 "K3": "k3_blockmax", "K4": "k4_gather_rows",
+                 "K6": "k6_block_scores"}
+
+
+def search_split(engine, store, gen, card, label="phase 5"):
+    """Phase 5 (16 on the f32 routes): where the device time of one
+    512-query tile of ``search_device`` goes (torch.profiler): each search
+    kernel the route ran, the rest of its kernels (glue) and the device's
+    idle share of the wall clock."""
     rows = torch.randint(0, store.num_rows, (T,), generator=gen,
                          device="cuda")
     qdev = store.data[rows].float()
@@ -1078,16 +1173,18 @@ def search_split(engine, store, gen, card):
     _split, total, top = _device_profile(
         lambda: engine.search_device(qdev, K))
     if total <= 0:
-        phase(f"phase 5 [{card}] one {T}-query tile of search_device: "
+        phase(f"{label} [{card}] one {T}-query tile of search_device: "
               f"{wall:.3f} ms wall; the profiler saw no device time: split "
               f"not measured")
         return
-    k1 = sum(ms for ms, key in top if "k1_blockmax2" in key)
-    k2 = sum(ms for ms, key in top if "k2_gather_rescore" in key)
-    glue = total - k1 - k2
-    phase(f"phase 5 [{card}] one {T}-query tile of search_device: {wall:.3f}"
-          f" ms wall, device {total:.3f} ms: K1 {k1:.3f} ({100 * k1 / total:.1f}"
-          f" %), K2 {k2:.3f} ({100 * k2 / total:.1f} %), glue {glue:.3f} "
+    named = {k: sum(ms for ms, key in top if fn in key)
+             for k, fn in SPLIT_KERNELS.items()}
+    named = {k: v for k, v in named.items() if v > 0}
+    glue = total - sum(named.values())
+    parts = "".join(f"{k} {v:.3f} ({100 * v / total:.1f} %), "
+                    for k, v in named.items())
+    phase(f"{label} [{card}] one {T}-query tile of search_device: {wall:.3f}"
+          f" ms wall, device {total:.3f} ms: {parts}glue {glue:.3f} "
           f"({100 * glue / total:.1f} %); device idle "
           f"{100 * max(0.0, 1 - total / wall):.1f} % of the wall clock; "
           f"longest kernels {[(round(ms, 3), key[:40]) for ms, key in top[:6]]}")
@@ -1438,6 +1535,10 @@ def check_gather_and_block_scores(store, gen, card):
         q, data, n, sub=unit, block=128, emit_block=True, emit_width=128)
     k1_err = max(max_abs(bms, p_bms), max_abs(bm, p_bm))
     del p_bms, p_bm
+    _, c_bms, _ = chain_units(tk, q, data, unit)
+    chain_ok = (torch.equal(bms[:CHAIN_ROWS // unit], c_bms)
+                and torch.equal(bm[:CHAIN_ROWS // 128],
+                                c_bms.view(-1, 128 // unit, T).amax(dim=1)))
     k1_f32 = timing(
         cuda_ms(k1),
         cuda_ms(lambda: tk.matmul_blockmax2_only_plain(
@@ -1446,8 +1547,9 @@ def check_gather_and_block_scores(store, gen, card):
         product_ms(q, data), nbytes(q, data, bms, bm),
         2 * T * data.shape[0] * data.shape[1], "fp32 SIMT")
     phase(f"phase 16 K1 f32 at the route's geometry (sub {unit}, emit 128): "
-          f"max|out-plain|={k1_err:.3g} (bound {TOL})")
-    assert k1_err <= TOL
+          f"max|out-plain|={k1_err:.3g} (bound {TOL}); maxima on the first "
+          f"{CHAIN_ROWS} rows bit for bit fma_chain_scores: {chain_ok}")
+    assert k1_err <= TOL and chain_ok
     for name, rec in (("gather_rows", times["gather_rows"]),
                       ("block_scores", times["block_scores"]),
                       ("matmul_blockmax2_only f32 sub 8", k1_f32)):
@@ -1526,6 +1628,8 @@ def drive_f32cert(seed, gen, card):
     phase(f"phase 16 [{card}] 1M x 768 f32, 1024 queries, k={K}: "
           + "; ".join(f"{r}: search {h:.1f} q/s, search_device {d:.1f} q/s"
                       for r, (h, d) in qps.items()))
+    for route, eng in (("f32cert", cert_engine), ("rescore", rescore)):
+        search_split(eng, store, gen, card, f"phase 16 {route} on 1M x 768 f32")
     del cert_engine, rescore
     errs, times = check_gather_and_block_scores(store, gen, card)
     del store
@@ -1586,10 +1690,19 @@ def check_blockmax_only(seed, gen, card):
         padded = bool((bm[-((data.shape[0] - n) // BLOCK):] == tk.PAD_SIM)
                       .all())
         bound = 0.0 if dtype == "int8" else TOL
+        chain = ""
+        if dtype == "float32":
+            c = tk.fma_chain_scores(q, data[:CHAIN_ROWS])
+            chain_ok = torch.equal(bm[:CHAIN_ROWS // BLOCK],
+                                   c.view(T, -1, BLOCK).amax(dim=2).T)
+            chain = (f"; bm_t on the first {CHAIN_ROWS} rows bit for bit "
+                     f"fma_chain_scores: {chain_ok}")
+            assert chain_ok
+            del c
         phase(f"phase 17 K5 {dtype} [{T} x {data.shape[0]} x 768, "
               f"{n} valid]: bit for bit K3's bm_t: {same_k3}; max|K5 - "
               f"plain|={err:.3g} (bound {bound}); padded blocks PAD_SIM: "
-              f"{padded}")
+              f"{padded}" + chain)
         assert same_k3 and err <= bound and padded
         errs[dtype] = err
         times[dtype] = timing(
@@ -2082,9 +2195,11 @@ def check_proto_f32(seed, card):
         k["equals_k6"] for k in kernels if "equals_k6" in k), kernels
 
 
-#: Phase 24: queries per store, the k values, and (route, rescore_argmax).
+#: Phase 24: queries per store, the k values, and (route, rescore_argmax);
+#: f32 stores also take the certified route.
 SWEEP_Q, SWEEP_KS = 1024, (10, 100)
 SWEEP_ROUTES = (("global", "auto"), ("rescore", "on"), ("rescore", "off"))
+SWEEP_F32_ROUTES = SWEEP_ROUTES + (("f32cert", "auto"),)
 
 
 def _sweep_stores(seed):
@@ -2139,9 +2254,10 @@ def check_exactness_sweep(seed, card, dtype):
         oracle = SearchEngine(store, SearchConfig(kernel="global"))
         configs = pairs = 0
         store_worst = 0.0
+        f32 = store.dtype == torch.float32
         for k in SWEEP_KS:
             o_ids, o_d = oracle.oracle_topk(queries, k)
-            for route, argmax in SWEEP_ROUTES:
+            for route, argmax in SWEEP_F32_ROUTES if f32 else SWEEP_ROUTES:
                 eng = SearchEngine(store, SearchConfig(
                     kernel=route, rescore_argmax=argmax))
                 if eng.kernel_name(k) != route:
@@ -2158,6 +2274,8 @@ def check_exactness_sweep(seed, card, dtype):
                     # the exact dot (below 2^24) in f32, one rounded multiply
                     assert torch.equal(sims, exact.float() * INT8_INV_SCALE2), tag
                 else:
+                    if f32:  # one exact FMA chain per score, whatever the route
+                        assert torch.equal(sims, tk.fma_chain_scores(qc, data[d_ids])), tag
                     err = (sims.double() - exact).abs()
                     assert bool((err <= bound).all()), (
                         tag, float((err - bound).max()))
@@ -2169,34 +2287,26 @@ def check_exactness_sweep(seed, card, dtype):
         # in phase 3, on 256 random valid units per query
         bms, key = tk.matmul_blockmax2_only(qc, data, n, sub=SUB, block=BLOCK,
                                             emit_argmax=True)
-        units = torch.sort(torch.randint(0, n // SUB, (SWEEP_Q, 256),
-                                         device="cuda"), dim=1).values
-        resc = tk.gather_rescore(qc, data, units.to(torch.int32).contiguous(),
-                                 unit=SUB).view(SWEEP_Q, 256, SUB)
-        arg = torch.gather((key & 0x7F).T.to(torch.int64), 1, units)
-        k2_at_arg = torch.gather(resc, 2, arg[:, :, None])[:, :, 0]
-        k1_max = torch.gather(bms.T, 1, units)
-        sims, _ = tk.matmul_blockmax(qc, data, n)
-        k3_at_arg = torch.gather(sims, 1, units * SUB + arg)
-        same = torch.equal(k2_at_arg, k1_max) and torch.equal(k3_at_arg, k1_max)
+        same, identity_pairs = unit_identity(tk, qc, data, n, bms, key)
         assert same, f"{name}: K1 == K2 == K3 fails on the unit argmax pairs"
         totals["configs"] += configs
         totals["bounded_pairs"] += pairs
-        totals["identity_pairs"] += units.numel()
+        totals["identity_pairs"] += identity_pairs
         worst = max(worst, store_worst)
         scores = ("bit for bit the exact dot's" if store.dtype == torch.int8
-                  else f"within the float64 bound (worst |err|/bound "
-                       f"{store_worst:.3g})")
+                  else f"{'bit for bit fma_chain_scores, ' if f32 else ''}within "
+                       f"the float64 bound (worst |err|/bound {store_worst:.3g})")
         phase(f"phase 24 {name} ({n} x {mat.shape[1]} {dtype}): {configs} "
               f"route configs equal to oracle_topk bit for bit, {pairs} "
-              f"returned pairs {scores}, K1 == K2 == K3 on {units.numel()} "
+              f"returned pairs {scores}, K1 == K2 == K3 on {identity_pairs} "
               f"unit argmax pairs")
-        del store, data, sims, resc, bms, key, q_dev, qc, oracle, eng
+        del store, data, sims, bms, key, q_dev, qc, oracle, eng
         torch.cuda.empty_cache()
     phase(f"phase 24 [{card}] {dtype} exactness sweep: {totals}, worst "
           f"|err|/bound {worst:.3g}, {time.perf_counter() - t0:.1f}s")
-    # every store takes the global route and, at 20k+ rows, rescore
-    assert totals["configs"] >= 5 * len(SWEEP_KS)
+    # every store takes the global route (and f32cert) and, at 20k+ rows,
+    # rescore
+    assert totals["configs"] >= (10 if dtype == "float32" else 5) * len(SWEEP_KS)
     return totals
 
 
@@ -2252,12 +2362,14 @@ def main() -> int:
     drive_main_path("100k x 768 bf16", store_100k, cfg, gen, "global")
     store_f32 = DeviceStore.synthetic(1_000_000, 768, "float32",
                                       args.seed + 2, device="cuda")
-    drive_main_path("1M x 768 f32", store_f32, cfg, gen, "rescore")
+    drive_main_path("1M x 768 f32", store_f32, cfg, gen, "rescore",
+                    bitwise=True)
     torch.cuda.synchronize()
     launches = {name: tk.launch_counts[name] for name in
                 ("matmul_blockmax2_only", "gather_rescore", "matmul_blockmax")}
     phase(f"phase 4 kernel launches over the main path: {launches}")
     assert all(v > 0 for v in launches.values()), launches
+    check_f32_rescore_pass(store_f32, gen, card)
     del store_f32
 
     host_qps, dev_qps = measure_qps(engine, store, gen)
@@ -2361,7 +2473,7 @@ def main() -> int:
     check_proto_f32(args.seed, card)
     del stores
     torch.cuda.empty_cache()
-    for dtype in ("bfloat16", "int8"):
+    for dtype in ("bfloat16", "int8", "float32"):
         check_exactness_sweep(args.seed, card, dtype)
 
     print(card)

@@ -86,8 +86,9 @@ def test_k3_matches_plain(cuda, dtype, block):
     assert (bm - p_bm).abs().max() <= TOL
 
 
-def test_k1_identity_with_k3(cuda):
-    q, mat = _operands(cuda, torch.bfloat16)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k1_identity_with_k3(cuda, dtype):
+    q, mat = _operands(cuda, dtype)
     bms, key = tk.matmul_blockmax2_only(q, mat, 4096, sub=64, block=128,
                                         emit_argmax=True)
     sims, _ = tk.matmul_blockmax(q, mat, 4096)
@@ -98,6 +99,73 @@ def test_k1_identity_with_k3(cuda):
     m2 = torch.where(torch.arange(64, device=cuda) == arg[:, :, None],
                      tk.PAD_SIM, s3).amax(dim=2)
     assert torch.equal(key.T, tk.pack_m2_argmax_key(m2, arg))
+
+
+# -- the f32 tile against the exact chain ---------------------------------------
+
+
+def _chain_outputs(chain, valid, t, sub=8, block=64, ew=128):
+    """What K1 (sub ``sub``, argmax, coarse maxima at ``ew``), K3 and K5
+    (block ``block``) must return, from the exact chain's scores."""
+    chain = chain.clone()
+    chain[:, valid:] = tk.PAD_SIM
+    bms, arg, m2 = tk._plain_units(chain.T.reshape(-1, sub, t), True)
+    bm = bms.reshape(-1, ew // sub, t).amax(dim=1)
+    bm_t = chain.view(t, -1, block).amax(dim=2).T.contiguous()
+    return chain, (bms, tk.pack_m2_argmax_key(m2, arg), bm), bm_t
+
+
+def _hold_f32_tile_to_chain(q, mat, valid, sub=8, ew=128):
+    """K1, K3 and K5 on f32 operands equal the exact FMA chain bit for bit,
+    one launch each."""
+    t = q.shape[0]
+    want_sims, want_k1, want_bm_t = _chain_outputs(
+        tk.fma_chain_scores(q, mat), valid, t, sub=sub, ew=ew)
+    before = dict(tk.launch_counts)
+    sims, bm_t = tk.matmul_blockmax(q, mat, valid, block=64)
+    k5 = tk.matmul_blockmax_only(q, mat, valid, block=64)
+    k1 = tk.matmul_blockmax2_only(q, mat, valid, sub=sub, block=max(ew, 128),
+                                  emit_block=True, emit_argmax=True,
+                                  emit_width=ew)
+    torch.cuda.synchronize()
+    assert torch.equal(sims, want_sims)
+    assert torch.equal(bm_t, want_bm_t) and torch.equal(k5, want_bm_t)
+    for got, want in zip(k1, want_k1):
+        assert torch.equal(got, want)
+    for name in ("matmul_blockmax", "matmul_blockmax_only",
+                 "matmul_blockmax2_only"):
+        assert tk.launch_counts[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("dim", [768, 100, 99, 2])
+@pytest.mark.parametrize("t", [1, 40, 129, 300])
+def test_f32_tile_is_the_fma_chain(cuda, dim, t):
+    """K1 (emit width 128, and 256 through K10's row-tile walk), K3 and K5
+    f32 bit for bit :func:`fma_chain_scores`: D on the 16-byte path (768,
+    100) and the 4-byte one (99, 2), one query, a ragged query tile and
+    two, valid rows inside the last row tile; raw normal queries and a
+    store row among them."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(dim * 1000 + t)
+    mat = torch.randn((1024, dim), generator=g, device=cuda)
+    q = torch.randn((t, dim), generator=g, device=cuda)
+    q[0] = mat[17]
+    _hold_f32_tile_to_chain(q, mat, 1000)
+    # K1 at emit width 256: K10's row-tile walk over the same tile
+    _hold_f32_tile_to_chain(q, mat, 1000, sub=16, ew=256)
+
+
+@pytest.mark.parametrize("dim", [768, 100])
+def test_f32_tile_unaligned_view_is_the_fma_chain(cuda, dim):
+    """Operands that are storage-offset views one float past a 16-byte
+    boundary take the 4-byte copies and still give the chain's bits; K1 at
+    emit width 256 (K10's row-tile walk) too."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(dim)
+    mat = torch.randn(1024 * dim + 1, generator=g, device=cuda)[1:].view(1024, dim)
+    q = torch.randn(130 * dim + 1, generator=g, device=cuda)[1:].view(130, dim)
+    assert mat.data_ptr() % 16 and q.data_ptr() % 16 and mat.is_contiguous()
+    _hold_f32_tile_to_chain(q, mat, 1000, sub=16, ew=256)
 
 
 def test_wrapper_raises_on_refused_launch(cuda):
