@@ -169,7 +169,7 @@ def _finetune(args) -> int:
     if args.tp > 1:
         raise NotImplementedError(
             f"--tp {args.tp}: tensor parallelism is the multi-GPU slice of "
-            "the port (ROADMAP.md, Queue 1 item 11); the port trains on one "
+            "the port (ROADMAP.md, Queue 1 item 2); the port trains on one "
             "device")
     cfg = _config_from_args(args, skip_process=True)
     enc_cfg = cfg.encoder
