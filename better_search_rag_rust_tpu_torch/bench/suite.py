@@ -466,9 +466,10 @@ def run_battery_suite(device: Optional[torch.device | str] = None) -> dict:
     ``search_1m``'s plus one sub-result per suite under ``battery``, in the
     reference's plan order. ``BSR_BATTERY_BUDGET_S`` (default 1500) bounds
     the run: a suite that would start after the budget is spent is listed
-    under ``battery_skipped``. A suite that raises is recorded as
-    ``{"error": ...}`` (its traceback goes to stderr) and the rest still
-    run; every entry carries its own ``wall_s``."""
+    under ``battery_skipped``. A suite that raises, or returns something
+    other than a dict, is recorded as ``{"error": ...}`` (its traceback
+    goes to stderr) and the rest still run; every entry carries its own
+    ``wall_s``."""
     device = resolve_device(device)
     budget_s = float(os.environ.get("BSR_BATTERY_BUDGET_S", "1500"))
     t_start = time.perf_counter()
@@ -505,6 +506,9 @@ def run_battery_suite(device: Optional[torch.device | str] = None) -> dict:
         t_suite = time.perf_counter()
         try:
             result = fn()
+            if not isinstance(result, dict):
+                raise TypeError(f"suite {name} returned a "
+                                f"{type(result).__name__}, not a dict")
         except Exception as exc:  # noqa: BLE001 — one suite must not hide the rest
             traceback.print_exc(file=sys.stderr)
             result = {"error": f"{type(exc).__name__}: {exc}"[:300]}
