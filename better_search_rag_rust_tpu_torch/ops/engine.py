@@ -75,6 +75,7 @@ class SearchEngine:
                  config: Optional[SearchConfig] = None):
         self.store = store
         self.config = config or SearchConfig()
+        self._finite: Optional[bool] = None  # see _store_finite
 
     @property
     def device(self) -> torch.device:
@@ -308,12 +309,35 @@ class SearchEngine:
         (``ops/engine.py:490-513``) — off with ``rescore_argmax="off"``,
         and under ``"auto"`` off for low-dim int8 stores (``dim * 2 <
         1024``, e.g. ``search_10m_int8_mat256``), which take the full
-        gather geometry. Exactness never depends on the choice."""
+        gather geometry — and off, whatever the mode, for a store that
+        holds a NaN or an infinity (:meth:`_store_finite`): the card's K1
+        keeps a unit's maximum and key finite past a NaN row, so the fast
+        path could not see that row, which the full gather ranks. Such a
+        store answers as under ``"off"``. Exactness never depends on the
+        choice."""
         mode = self.config.rescore_argmax
         if mode == "off":
             return False
-        return not (mode == "auto" and self.store.dtype == torch.int8
-                    and self.store.dim * 2 < 1024)
+        if (mode == "auto" and self.store.dtype == torch.int8
+                and self.store.dim * 2 < 1024):
+            return False
+        return self._store_finite()
+
+    def _store_finite(self) -> bool:
+        """Whether every value of the store is finite (int8 always is):
+        one pass over the store in row chunks, on its device, read to the
+        host once and kept for the engine's life (stores are not written
+        in place)."""
+        if self._finite is None:
+            data = self.store.data
+            if data.dtype == torch.int8:
+                self._finite = True
+            else:
+                step = max(1, (1 << 26) // max(1, data.shape[1]))
+                flags = [torch.isfinite(data[r:r + step]).all()
+                         for r in range(0, data.shape[0], step)]
+                self._finite = bool(torch.stack(flags).all())
+        return self._finite
 
     def _rescore_geometry(self, k_eff: int) -> Tuple[int, int]:
         """``(sub, block)`` of the rescore route: the reference's choice

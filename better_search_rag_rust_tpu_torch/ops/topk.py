@@ -319,17 +319,19 @@ def _full_gather(q_block, shard, uids, k: int, sub: int, valid: int) -> Pair:
 
 def _argmax_fast(q_block, shard, key_t, vals, uids, k: int, sub: int,
                  gd: int, valid: int) -> Optional[Pair]:
-    """The argmax fast path of :func:`rescore_topk`, or None when a query
-    of the tile has more danger units than the capacity ``gd`` (the caller
-    then takes the full gather). The packed key is conservative (>= the
-    exact second-max key), so the danger test can only over-count."""
+    """The argmax fast path of :func:`rescore_topk`, or None when the
+    caller must take the full gather instead: a query of the tile has more
+    danger units than the capacity ``gd``, or a selected unit maximum or a
+    danger score is not finite (a NaN or infinite query, or a NaN row: the
+    fast path's masks and its argmax rows assume ordered, finite scores,
+    and the full gather is what ``rescore_argmax="off"`` answers). Both
+    tests are read to the host together, once per query tile. The packed
+    key is conservative (>= the exact second-max key), so the danger test
+    can only over-count."""
     key_sel = torch.gather(key_t.T, 1, uids)                  # [T, k]
     arg_sel = (key_sel & 0x7F).to(torch.int64)
     w_key = m2_sort_key(vals[:, k - 1:k])
     danger = (key_sel >= w_key).sum(dim=1)
-    if bool((danger > gd).any()):  # one host read per query tile
-        return None
-    a_ids = torch.where(vals > PAD_SIM, uids * sub + arg_sel, INT32_MAX)
     # top-gd units by key: a count within capacity covers every danger unit
     _, dpos = torch.topk(key_sel, gd, dim=1)
     d_uids = torch.gather(uids, 1, dpos)
@@ -337,6 +339,11 @@ def _argmax_fast(q_block, shard, key_t, vals, uids, k: int, sub: int,
     d_uids, perm = torch.sort(d_uids, dim=1)
     d_args = torch.gather(d_args, 1, perm)
     d_sims = gather_rescore(q_block, shard, d_uids.to(torch.int32), unit=sub)
+    full = ((danger > gd).any() | ~torch.isfinite(vals).all()
+            | ~torch.isfinite(d_sims).all())
+    if bool(full):  # one host read per query tile
+        return None
+    a_ids = torch.where(vals > PAD_SIM, uids * sub + arg_sel, INT32_MAX)
     d_rows = _unit_rows(d_uids, sub)
     is_arg = (torch.arange(sub, device=uids.device)
               == d_args[:, :, None]).reshape(d_rows.shape)
