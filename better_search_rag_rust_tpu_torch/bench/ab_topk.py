@@ -26,7 +26,15 @@ keeps the compiler from hoisting the next fragment's loads);
 ``@f32_noqload``, the query fragments taken from the rows' registers
 instead of shared memory (wrong scores, 8 of 24 loads: what the tile owes
 to its shared loads); ``@f32_qg2`` and ``@f32_qg8``, the queries'
-fragments loaded 2 or 8 at a time beside the rows' instead of 4). Every
+fragments loaded 2 or 8 at a time beside the rows' instead of 4; the
+gather mainloop's (K2, K6): ``@g_stages4``, a 4-slab ring at 3 blocks an SM
+instead of 6 slabs at 2; ``@g_no_l2``, the 16-byte copies without their
+256-byte L2 prefetch; ``@g_tile64`` and ``@g_tile32``, 64 or 32 candidate
+rows (and threads) a block, at 4 or 7 blocks an SM; ``@g_sb256``, slabs of
+256 bytes a row, 3 of them at 2 blocks an SM; ``@g_t32_sb512``, 32 rows a
+block in slabs of 512 bytes (one warp's copy is one row's 512 bytes);
+``@g_pf4``, each row's 4 slabs past the coming ones prefetched into L2 by
+one bulk prefetch every 4 slabs). Every
 build uses the package's nvcc
 flags (:data:`.._build.NVCC_FLAGS`), all started together, and is bound with
 the package's C signatures, so every build must keep the entry points of the
@@ -47,18 +55,23 @@ between the two passes rather than as a difference between builds:
   store): K1 at sub 128, block 1024, emit width 256 (K10's row-tile walk),
   K3 at 256 queries, K5 and K10's raw key;
 * K2 ``gather_rescore`` at 512 queries x KS 100 units of 64 rows of the 1M
-  store (the full gather), bf16, f32 and int8; bf16 at KS 4 (the argmax
-  fast path's danger gather) and at 104 units of 16 rows (P20's V16);
-* K6 ``block_scores`` on 512 x 2,048 gathered bf16 rows; K12
+  store (the full gather) and at KS 4 (the argmax fast path's danger
+  gather), bf16, f32 and int8; bf16 at 104 units of 16 rows (P20's V16);
+  f32 at KS 192 units of 8 rows (P23's);
+* K6 ``block_scores`` on 512 x 2,048 gathered rows, bf16 and f32 (the
+  ``f32cert`` route's: 256 units of 8 rows), with ``torch.bmm`` of the same
+  f32 rows timed as one more case (the same call in every build's turn); K12
   ``gather_rescore_mm`` at V16 without a product and with 8 copies of a
   512 x 1,280 product; K13 ``gather_cross`` at P17's 1m S 16 G 2.
 
 Stores are normalized random rows from ``--seed``; ids are random and
 sorted per query, as the prototypes draw them. Each line prints one kernel
-with every build's two times. Then each int8 and f32 case's outputs of
-every build against the first build's, bit for bit (an int8 score is an
-exact integer dot, an f32 score one FMA chain in a fixed order, so every
-tile must agree); for each build, the error of K3's bf16
+with every build's two times (``--only`` keeps the cases whose label holds
+one of its values; it may be given more than once). Then each case's
+outputs of every build against the first build's, bit for bit (an int8
+score is an exact integer dot, an f32 score one FMA chain in a fixed order
+and a bf16 score one ``mma.sync`` per k16 step in a fixed order, so every
+build that keeps the rules must agree); for each build, the error of K3's bf16
 scores (256 x 100,352 x 768) against the float64 product of the same
 operands, on unit queries (the search path's) and on raw normal queries
 (the prototypes' data, whose scores run to ~5): max and mean, and the max
@@ -126,6 +139,44 @@ def _f32_nt256(src: str) -> str:
 
 
 
+def _g_ring(src: str, stages: int, blocks: int) -> str:
+    """The gather mainloop (K2, K6) with a ring of ``stages`` slabs at
+    ``blocks`` blocks an SM."""
+    src = _edit(src, "constexpr int G_STAGES = 6;", f"constexpr int G_STAGES = {stages};")
+    return _edit(src, "constexpr int G_MIN_BLOCKS = 2;",
+                 f"constexpr int G_MIN_BLOCKS = {blocks};")
+
+
+def _g_tile(src: str, rows: int) -> str:
+    """The gather mainloop with ``rows`` candidate rows (and threads) a
+    block."""
+    return _edit(src, "constexpr int G_TILE = 128;", f"constexpr int G_TILE = {rows};")
+
+
+def _g_sb(src: str, nbytes: int) -> str:
+    """The gather mainloop with slabs of ``nbytes`` bytes a row."""
+    return _edit(src, "constexpr int G_SB = 128;", f"constexpr int G_SB = {nbytes};")
+
+
+def _g_bulk_prefetch(src: str, slabs: int) -> str:
+    """The gather mainloop with, every ``slabs`` slabs, one bulk L2 prefetch
+    a row of its next ``slabs`` slabs past those (16-byte path)."""
+    return _edit(src, "    } else if (width == 4) {\n", f"""\
+      if (s % {slabs} == 0 && src[tid] != nullptr && b0 + {slabs} * G_SB < row_bytes) {{
+        const int n = min({slabs} * G_SB, row_bytes - b0 - {slabs} * G_SB);
+        asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\\n"
+                     ::"l"(src[tid] + b0 + {slabs} * G_SB), "r"(n) : "memory");
+      }}
+    }} else if (width == 4) {{
+""")
+
+
+#: The gather mainloop's 16-byte copy, which asks L2 for the aligned 256
+#: bytes around each piece, and the plain copy.
+_G_COPY16_L2 = "cp_async16_l2_or_zero(st + r * G_PITCH + b, in ? p + b0 + b : q_row, in);"
+_G_COPY16 = "cp_async16_or_zero(st + r * G_PITCH + b, in ? p + b0 + b : q_row, in);"
+
+
 #: The f32 tile's query fragment load, and a stand-in that takes the
 #: fragment from the rows' registers (wrong scores, a third of the loads).
 _F32_QLOAD = """\
@@ -170,6 +221,13 @@ VARIANTS = {
                                  "constexpr int F32_QG = 2;"),
     "f32_qg8": lambda src: _edit(src, "constexpr int F32_QG = 4;",
                                  "constexpr int F32_QG = 8;"),
+    "g_stages4": lambda src: _g_ring(src, 4, 3),
+    "g_no_l2": lambda src: _edit(src, _G_COPY16_L2, _G_COPY16),
+    "g_tile64": lambda src: _g_ring(_g_tile(src, 64), 6, 4),
+    "g_tile32": lambda src: _g_ring(_g_tile(src, 32), 6, 7),
+    "g_sb256": lambda src: _g_ring(_g_sb(src, 256), 3, 2),
+    "g_t32_sb512": lambda src: _g_ring(_g_sb(_g_tile(src, 32), 512), 6, 2),
+    "g_pf4": lambda src: _g_bulk_prefetch(src, 4),
 }
 
 
@@ -308,11 +366,14 @@ def cases(seed):
             out["K1 float32 sub 8, ew 128"] = k1(q, m, R1, N1, 8, 128, 128, 3,
                                                  argmax=False)
         ids = _ids(gen, dev, R1 // 64, 100)
-        sc = empty(T, 100 * 64)
-        out[f"K2 {tag} KS 100"] = (lambda lib, q=q, m=m, code=code, ids=ids, sc=sc:
-                                   lib.bsr_gather_rescore(
-            q.data_ptr(), m.data_ptr(), ids.data_ptr(), code, T, R1, D1, 100, 64,
-            sc.data_ptr(), stream()), ITERS, (sc,))
+        for ks in (100, 4):
+            k2_ids = ids[:, :ks].contiguous()
+            sc = empty(T, ks * 64)
+            out[f"K2 {tag} KS {ks}"] = (
+                lambda lib, q=q, m=m, code=code, ids=k2_ids, ks=ks, sc=sc:
+                lib.bsr_gather_rescore(q.data_ptr(), m.data_ptr(), ids.data_ptr(), code, T,
+                                       R1, D1, ks, 64, sc.data_ptr(), stream()),
+                ITERS if ks == 100 else 2 * ITERS, (sc,))
         q3, m3 = q[:256].contiguous(), m[:R3].contiguous()
         out[f"K3 {tag}"] = k3(q3, m3, 100_000, 2 * ITERS)
         if dt == torch.int8:
@@ -321,26 +382,35 @@ def cases(seed):
             out["K10 int8 raw key, sub 128"] = k10_raw_key(q, m, N1, 128, 3)
             continue
         out[f"K5 {tag}"] = k5(q, m, N1, 3)
+        # K6 over 256 gathered 8-row units a query (the f32cert route's)
+        ids8 = _ids(gen, dev, R1 // 8, 256).long()
+        gathered = m[(ids8[:, :, None] * 8 + torch.arange(8, device=dev))
+                     .reshape(T, -1)].contiguous()
+        sc6 = empty(T, 2048)
+        out[f"K6 {tag} C 2048"] = (
+            lambda lib, q=q, g=gathered, code=code, sc=sc6: lib.bsr_block_scores(
+                q.data_ptr(), g.data_ptr(), code, T, 2048, D1, sc.data_ptr(), stream()),
+            ITERS, (sc6,))
+        if dt == torch.float32:
+            bmm = empty(T, 2048, 1)
+            out["K6 float32 C 2048: torch.bmm (library)"] = (
+                lambda lib, g=gathered, qc=q[:, :, None], o=bmm:
+                torch.bmm(g, qc, out=o) is None, ITERS, (bmm,))
+            ids_p23 = _ids(gen, dev, R1 // 8, 192)
+            sc23 = empty(T, 192 * 8)
+            out["K2 float32 KS 192 unit 8 (P23)"] = (
+                lambda lib, q=q, m=m, ids=ids_p23, sc=sc23: lib.bsr_gather_rescore(
+                    q.data_ptr(), m.data_ptr(), ids.data_ptr(), 0, T, R1, D1, 192, 8,
+                    sc.data_ptr(), stream()), ITERS, (sc23,))
+        del gathered
         if dt != torch.bfloat16:
             continue
         qb, mb = q, m
-        ids4 = ids[:, :4].contiguous()
-        sc4 = empty(T, 4 * 64)
-        out["K2 bf16 KS 4"] = (lambda lib: lib.bsr_gather_rescore(
-            qb.data_ptr(), mb.data_ptr(), ids4.data_ptr(), 1, T, R1, D1, 4, 64,
-            sc4.data_ptr(), stream()), 2 * ITERS, (sc4,))
         ids16 = _ids(gen, dev, R1 // 16, 104)
         sc16 = empty(T, 104 * 16)
         out["K2 bf16 unit 16 KS 104"] = (lambda lib: lib.bsr_gather_rescore(
             qb.data_ptr(), mb.data_ptr(), ids16.data_ptr(), 1, T, R1, D1, 104, 16,
             sc16.data_ptr(), stream()), ITERS, (sc16,))
-        ids8 = _ids(gen, dev, R1 // 8, 256).long()
-        gathered = mb[(ids8[:, :, None] * 8 + torch.arange(8, device=dev))
-                      .reshape(T, -1)].contiguous()
-        sc6 = empty(T, 2048)
-        out["K6 bf16 C 2048"] = (lambda lib: lib.bsr_block_scores(
-            qb.data_ptr(), gathered.data_ptr(), 1, T, 2048, D1, sc6.data_ptr(), stream()),
-            ITERS, (sc6,))
         mmo0 = empty(T, 1)
         out["K12 V16, no product"] = (lambda lib: lib.bsr_gather_rescore_mm(
             qb.data_ptr(), mb.data_ptr(), ids16.data_ptr(), T, R1, D1, 104, 16,
@@ -368,13 +438,11 @@ def cases(seed):
 
 
 def same_outputs(libs, work):
-    """One line per int8 and f32 case: whether every build's outputs equal
-    the first build's bit for bit."""
+    """One line per case: whether every build's outputs equal the first
+    build's bit for bit."""
     lines = []
     names = list(libs)
     for label, (fn, _iters, outs) in work.items():
-        if "int8" not in label and "float32" not in label:
-            continue
         if fn(libs[names[0]][0]):
             raise RuntimeError("a kernel launch failed")
         ref = [o.clone() for o in outs if o is not None]
@@ -503,8 +571,9 @@ def main(argv=None) -> int:
     ap.add_argument("sources", nargs="+",
                     help="copies of topk_kernels.cu, or @variant names")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", default="",
-                    help="time only the cases whose label contains this")
+    ap.add_argument("--only", action="append", default=[],
+                    help="time only the cases whose label contains this "
+                         "(repeatable: any of them)")
     ap.add_argument("--routes", action="store_true",
                     help="also time the f32 routes end to end on each build")
     args = ap.parse_args(argv)
@@ -513,7 +582,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     libs = build([source_path(s) for s in args.sources])
     work = {label: case for label, case in cases(args.seed).items()
-            if args.only in label}
+            if not args.only or any(o in label for o in args.only)}
     times = {label: {name: [] for name in libs} for label in work}
     for name in list(libs) + list(libs)[::-1]:
         lib = libs[name][0]

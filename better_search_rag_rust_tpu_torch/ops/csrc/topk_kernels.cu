@@ -21,9 +21,11 @@
 //   K13 bsr_gather_cross        <- scripts/proto_fused.py fused_scores (:139,
 //                                  body :119): each 8-query group's full cross
 //
-// K4 and K11 move bytes only. K6, K12's gather and K13 stage and sum exactly as
-// K2 does (same chunks, same routines), so what is said of K2 below holds for
-// them. K5 is K3 without its score store: the same score tile and the same
+// K4 and K11 move bytes only. K6 is K2's mainloop (gather_scores) over
+// pre-gathered rows, so what is said of K2 below holds for it; K12's gather
+// and K13 stage widened chunks and multiply them by mma_staged, in the same
+// k16 steps, so their bf16 scores are K2's. K5 is K3 without its score store:
+// the same score tile and the same
 // block reduction (store_block_max, also K12's; K3's loop is the same code
 // written out), so its block maxima are K3's bit for bit on every dtype.
 //
@@ -46,9 +48,10 @@
 // (and the +0.0 it starts from), so how a kernel tiles rows, queries or D,
 // and what sits in the other rows and columns of the instruction, cannot
 // change a pair's bits: K1/K3/K5/K10/K12's product stage bf16 slabs and load
-// fragments with ldmatrix (score_tile<__nv_bfloat16>), K2/K6/K12's gather/K13
-// build them from their widened staging (mma_staged(), exact: the values
-// were bf16), the same k slots either way. The sum of 16 products inside the
+// fragments with ldmatrix (score_tile<__nv_bfloat16>), and K2/K6 from their
+// own bf16 row slabs the same way (gather_scores), K12's gather/K13 build them
+// from their widened staging (mma_staged(), exact: the values were bf16),
+// the same k slots either way. The sum of 16 products inside the
 // instruction is not a chain of rounded FMAs and may truncate; the adds round
 // to nearest. The score's error against the exact product of the same bf16
 // operands is at most D * 2^-23 * sum_d |row_d q_d| (twice f32's round-off of
@@ -61,13 +64,13 @@
 // reassociation, nothing left to the compiler's contraction of a * b + c.
 // fma_features() below is the only code that advances an f32 accumulator:
 // the score tile of K1/K3/K5/K10 (score_tile<float>) calls it on 4 features
-// at a time (one 16-byte shared load per operand), K2 and K6 (fma_chunk) on
-// one; every kernel calls it over consecutive D chunks, so each accumulator
-// sees d in order. ops/topk_kernels.py:fma_chain_scores computes this chain
+// at a time (one 16-byte shared load per operand), and so do K2 and K6
+// (gather_scores), one row a thread; every kernel calls it over consecutive
+// D chunks, so each accumulator sees d in order. ops/topk_kernels.py:fma_chain_scores computes this chain
 // exactly (float64, round to odd), and the gpu tests and chip_smoke.py hold
 // K1, K3 and K5 to it bit for bit. A ragged D is zero-padded: the score tile
 // runs the chain to the next multiple of F32_PAD = 16 features, K2 and K6 to
-// the next multiple of GDK = 32. A +0 term leaves every accumulator as it is
+// the next multiple of the G_SB / 4 = 32 features of their slab. A +0 term leaves every accumulator as it is
 // but -0.0, which it turns into +0.0; starting from +0.0 an accumulator holds
 // -0.0 only where a negative sum underflows, and -0.0 compares equal to +0.0,
 // so no selection sees it. TF32 would not be exact, so f32 stays off the
@@ -85,7 +88,7 @@
 // needed. Two instructions form the dot: K1/K3/K5/K10's score tile runs on
 // the s8 tensor cores (score_tile_i8: wgmma m64n128k32 fed by TMA, the s32
 // sum kept in the instruction across all of D), K2 and K6, whose time is
-// their gather, on __dp4a over 4-byte packs (dp4a_chunk()); so K1 = K2 = K3
+// their gather, on __dp4a over 4-byte packs (gather_scores); so K1 = K2 = K3
 // checks two instructions against each other.
 // K1's emission runs on these scaled f32 scores exactly as on the float
 // path. The reference packs (acc, row) into integer keys instead
@@ -181,13 +184,26 @@ constexpr int NSTAGE = 2;
 constexpr int SLAB = TR * SLD;    // bf16 elements of one operand's slab
 static_assert(WM * WN * 32 == NT, "one warp per warp tile");
 
-// K2: one query x GR gathered rows per block, one row per thread.
+// K2/K6 (gather_scores): one query x G_TILE candidate rows per block of
+// G_TILE threads; D through a ring of G_STAGES slabs of G_SB bytes of each of
+// the rows and of the query (G_ROWS slab rows, each padded to G_PITCH
+// bytes); G_MIN_BLOCKS blocks an SM. K12's gather and K13 (GR rows a block)
+// stage GDK features at a time, widened and transposed (GLD).
+constexpr int G_TILE = 128;
+constexpr int G_SB = 128;
+constexpr int G_PITCH = G_SB + 16;
+constexpr int G_ROWS = G_TILE + 1;
+constexpr int G_STAGES = 6;
+constexpr int G_MIN_BLOCKS = 2;
+constexpr int G_STAGE_BYTES = G_ROWS * G_PITCH;
+constexpr int G_WARP_ROWS = 32;  // bf16: each warp's two m16 tiles
+static_assert(G_SB % 16 == 0 && G_PITCH % 128 == 16 && G_STAGES >= 2 &&
+                  G_TILE % G_WARP_ROWS == 0,
+              "gather slab geometry");
 constexpr int GR = 128;
 constexpr int GDK = 32;
 constexpr int GLD = GR + 4;
 static_assert(TR == TQ, "score_tile stages rows and queries in one loop");
-// int8 in K2/K6: 4-byte feature packs staged per step (64 features).
-constexpr int GDKP = 16;
 
 template <typename T> __device__ __forceinline__ float widen(T x);
 template <> __device__ __forceinline__ float widen<float>(float x) { return x; }
@@ -197,8 +213,9 @@ template <> __device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 
 
 // THE f32 dot routine (see the header): advance every accumulator acc[i][j]
 // by K consecutive features, row i's in r[i][0 .. K-1] and query j's in
-// q[j][0 .. K-1], in order, one FMA each. Every f32 score goes through it:
-// the score tile (K = 4, one 16-byte fragment) and fma_chunk (K = 1).
+// q[j][0 .. K-1], in order, one FMA each. Every f32 score goes through it,
+// 4 features (one 16-byte shared load of each operand) at a time: the score
+// tile's micro-tiles and the gathers' (K2, K6) one row a thread.
 template <int M, int N, int K>
 __device__ __forceinline__ void fma_features(float (&acc)[M][N], const float (&r)[M][K],
                                              const float (&q)[N][K]) {
@@ -208,25 +225,6 @@ __device__ __forceinline__ void fma_features(float (&acc)[M][N], const float (&r
     for (int i = 0; i < M; ++i)
 #pragma unroll
       for (int j = 0; j < N; ++j) acc[i][j] = __fmaf_rn(r[i][k], q[j][k], acc[i][j]);
-}
-
-// The gathers' f32 product (K2, K6): advance acc by the features d = 0 ..
-// dk-1 of a transposed staged chunk, in order: r[d * r_ld + i] is row i's
-// feature d, q[d * q_ld + j] query j's. bf16 operands go through mma_k16.
-template <int M, int N>
-__device__ __forceinline__ void fma_chunk(float (&acc)[M][N],
-                                          const float* __restrict__ r, int r_ld,
-                                          const float* __restrict__ q, int q_ld,
-                                          int dk) {
-#pragma unroll 4
-  for (int d = 0; d < dk; ++d) {
-    float rv[M][1], qv[N][1];
-#pragma unroll
-    for (int i = 0; i < M; ++i) rv[i][0] = r[d * r_ld + i];
-#pragma unroll
-    for (int j = 0; j < N; ++j) qv[j][0] = q[d * q_ld + j];
-    fma_features<M, N, 1>(acc, rv, qv);
-  }
 }
 
 // ---- bf16 on the tensor cores (see the header) ----
@@ -244,6 +242,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 // 16 bytes from gmem, or 16 zero bytes when !full (gmem is then not read).
 __device__ __forceinline__ void cp_async16_or_zero(void* smem, const void* gmem, bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// cp_async16_or_zero that also asks L2 to fetch the aligned 256 bytes
+// around the piece (the gathers' next slab of the same row).
+__device__ __forceinline__ void cp_async16_l2_or_zero(void* smem, const void* gmem, bool full) {
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
                "l"(gmem), "r"(full ? 16 : 0)
                : "memory");
 }
@@ -304,7 +310,7 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 
 // The gather kernels' bf16 product: advance a warp's M16 m16 tiles — staged
 // rows rb .. rb + 16*M16 - 1 of the transposed f32 staging rs[k * r_ld + r]
-// that K2 fills — against B's columns j < nq, query j's staged feature k at
+// that K12's gather and K13 fill — against B's columns j < nq, query j's staged feature k at
 // qs[k * q_ld + j] (columns nq .. 7 zero), by the k16 steps of a chunk of dk
 // staged features whose first is feature d0, skipping steps at or past D as
 // score_tile<__nv_bfloat16> does. Staged feature d0 + kk + j sits in k slot j
@@ -614,42 +620,6 @@ __device__ __forceinline__ void score_tile<__nv_bfloat16>(
 }
 
 // ---- int8 lattice (see the header) ----
-
-// Whether a row base pointer and D allow one aligned 4-byte load per pack.
-__device__ __forceinline__ bool packs_aligned(const int8_t* base, int D) {
-  return (D & 3) == 0 && (reinterpret_cast<uintptr_t>(base) & 3) == 0;
-}
-
-// Features gd .. gd+3 of one int8 row as a dp4a operand (byte b of the
-// word = feature gd+b); features at or past D read as 0.
-__device__ __forceinline__ int load_pack(const int8_t* __restrict__ row, int gd,
-                                         int D, bool aligned) {
-  if (aligned) return *reinterpret_cast<const int*>(row + gd);  // gd + 4 <= D
-  uint32_t p = 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b)
-    if (gd + b < D) p |= (uint32_t)(uint8_t)row[gd + b] << (8 * b);
-  return (int)p;
-}
-
-// THE int8 dot routine: advance every int32 accumulator by dk staged packs.
-template <int M, int N>
-__device__ __forceinline__ void dp4a_chunk(int (&acc)[M][N], const int* __restrict__ r,
-                                           int r_ld, const int* __restrict__ q,
-                                           int q_ld, int dk) {
-#pragma unroll 4
-  for (int p = 0; p < dk; ++p) {
-    int rv[M], qv[N];
-#pragma unroll
-    for (int i = 0; i < M; ++i) rv[i] = r[p * r_ld + i];
-#pragma unroll
-    for (int j = 0; j < N; ++j) qv[j] = q[p * q_ld + j];
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-#pragma unroll
-      for (int j = 0; j < N; ++j) acc[i][j] = __dp4a(rv[i], qv[j], acc[i][j]);
-  }
-}
 
 // THE int8 score: one rounded multiply of the exact dot, by the lattice's
 // INT8_INV_SCALE2 (or by the scale K10 is given).
@@ -1396,165 +1366,203 @@ k10_blockmax2x(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int
     bm[(size_t)rg * Tn + q0 + threadIdx.x] = cmax;
 }
 
-// K2: query t's KS selected unit-row blocks (ids [T, KS]) rescored by the
-// dtype's rule. Block (x, t) covers candidate slots [x*GR, x*GR + GR) of
-// query t; an id outside [0, R/unit) scores NaN instead of reading out of
-// bounds. The gather stages GDK features of each slot's row, widened and
-// transposed, one slot per thread. f32: fma_chunk over the staged chunk.
-// bf16: each warp multiplies its 32 slots (two m16 tiles) with the query in
-// B's column 0 and zeros in columns 1-7 (mma_staged), and column 0 of the
-// result is the score; 7/8 of each mma is wasted, against a kernel whose
-// time is the gather (bound: the selected units' bytes).
-template <typename T>
-__global__ void __launch_bounds__(GR)
-k2_gather_rescore(const T* __restrict__ q, const T* __restrict__ shard,
-                  const int32_t* __restrict__ ids, int R, int D, int KS,
-                  int unit, float* __restrict__ out) {
-  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  __shared__ float rs[GDK * GLD];
-  __shared__ float qs[GDK];
-  const int t = blockIdx.y, s0 = blockIdx.x * GR, tid = threadIdx.x;
-  const int C = KS * unit, n_units = R / unit;
-  const int32_t* my_ids = ids + (size_t)t * KS;
-  float acc[1][1] = {{0.0f}};
-  float macc[2][4] = {};  // bf16: this warp's slots (tid & ~31) + 0 .. 31
-  for (int d0 = 0; d0 < D; d0 += GDK) {
-    for (int e = tid; e < GR * GDK; e += GR) {
-      const int r = e / GDK, dd = e % GDK, gd = d0 + dd, s = s0 + r;
-      float v = 0.0f;
-      if (s < C && gd < D) {
-        const int uid = my_ids[s / unit];
-        if (uid >= 0 && uid < n_units)
-          v = widen(shard[((size_t)uid * unit + s % unit) * D + gd]);
+// ---- K2 and K6: one gather-and-score mainloop ----
+//
+// A block scores query t = blockIdx.y against G_TILE of its C candidate
+// rows, s0 = blockIdx.x * G_TILE .. s0 + G_TILE - 1. K2 and K6 differ only
+// in where candidate row s lies (row_of): K6 reads gathered[t, s]; K2 reads
+// store row ids[t, s / unit] * unit + s % unit, and an id outside [0, R /
+// unit) gives no row (nothing is read; its score is NaN). Bound: the
+// candidate rows' bytes, read once, far above the time of their 2 * D
+// operations a row. So the loop keeps loads in flight: D goes through
+// shared memory in slabs of G_SB bytes of every candidate row and of the
+// query, row-major as the rows lie in device memory (each padded to G_PITCH
+// bytes), in a ring of G_STAGES slabs filled by cp.async.cg, consecutive
+// threads on consecutive 16-byte pieces of one row, each piece asking L2 for
+// the aligned 256 bytes around it (the row's next slab: DRAM then serves
+// 256-byte runs, not 128). The next G_STAGES - 1 slabs are in flight while
+// the block scores this one, behind one barrier a slab, and G_MIN_BLOCKS
+// blocks share an SM. Where a row's bytes (D * itemsize) are not a multiple
+// of 16 or a base is not 16-byte aligned, 4-byte cp.async pieces fill the
+// same slabs (where both are multiples of 4), else the threads copy bytes
+// themselves. Past D, past C and for a row that does not exist the slab
+// holds zeros. Each dtype then takes the slab by its rule (see the header):
+//  * f32: thread r owns row r's score and advances it over the slab's
+//    features in order, 4 at a time (one 16-byte shared load of the row and
+//    one of the query, fma_features); the chain runs over D rounded up to
+//    the G_SB / 4 = 32 features of a slab, as every earlier K2/K6 ran it;
+//  * bf16: warp w multiplies rows 32w .. 32w + 31 as two m16 tiles in
+//    score_tile<__nv_bfloat16>'s k order: A fragments by ldmatrix straight
+//    from the slab, the query in every column of B (so every column of the
+//    result is the score), mma_k16 from +0.0 per k16 step, no step wholly
+//    past D;
+//  * int8: thread r owns row r's int32 dot and advances it by __dp4a over
+//    the slab's 4-byte packs (exact in any order), then one int8_score.
+// G_PITCH = 16 (mod 128): the 16-byte pieces of 8 consecutive slab rows at
+// one offset fall in 8 distinct groups of 4 banks, so the copies' shared
+// writes (8 pieces of one row a quarter warp), the f32/int8 row loads (8 rows
+// a quarter warp; the query's load is one broadcast) and each ldmatrix (8
+// rows a matrix) are free of bank conflicts. On the card the 256-byte
+// prefetch takes ~7 % off every case; 64 or 32 rows a block, a 4-slab ring
+// at 3 blocks an SM, wider slabs at fewer rows or blocks, and bulk L2
+// prefetches of each row's slabs further ahead time alike or lose
+// (bench/ab_topk.py's @g_* variants; PERF.md).
+constexpr size_t G_SMEM = (size_t)G_STAGES * G_STAGE_BYTES + sizeof(void*) * G_ROWS;
+
+template <typename T, typename RowOf>
+__device__ __forceinline__ void gather_scores(const T* __restrict__ q,
+                                              const T* __restrict__ base, int C, int D,
+                                              RowOf row_of, float* __restrict__ out) {
+  constexpr int F = G_SB / (int)sizeof(T);  // features of one slab row
+  extern __shared__ float4 smem4[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(smem4);  // G_STAGES x [G_ROWS][G_PITCH]
+  // src[r]: candidate row s0 + r (nullptr: none); src[G_TILE]: the query
+  const uint8_t** src = reinterpret_cast<const uint8_t**>(ring + G_STAGES * G_STAGE_BYTES);
+  const int t = blockIdx.y, s0 = blockIdx.x * G_TILE, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int row_bytes = D * (int)sizeof(T), slabs = (row_bytes + G_SB - 1) / G_SB;
+  const uint8_t* q_row = reinterpret_cast<const uint8_t*>(q + (size_t)t * D);
+  src[tid] = s0 + tid < C ? reinterpret_cast<const uint8_t*>(row_of(s0 + tid)) : nullptr;
+  if (tid == 0) src[G_TILE] = q_row;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(base);
+  const int width = (row_bytes % 16 == 0 && (bases & 15) == 0) ? 16
+                    : (row_bytes % 4 == 0 && (bases & 3) == 0) ? 4 : 1;
+  __syncthreads();
+
+  // Slab s into its slot; a copy that reads nothing keeps a source address
+  // inside the query's row.
+  auto stage = [&](int s) {
+    uint8_t* st = ring + (s % G_STAGES) * G_STAGE_BYTES;
+    const int b0 = s * G_SB;
+    if (width == 16) {
+      for (int e = tid; e < G_ROWS * (G_SB / 16); e += G_TILE) {
+        const int r = e / (G_SB / 16), b = 16 * (e % (G_SB / 16));
+        const uint8_t* p = src[r];
+        const bool in = p != nullptr && b0 + b < row_bytes;  // whole pieces
+        cp_async16_l2_or_zero(st + r * G_PITCH + b, in ? p + b0 + b : q_row, in);
       }
-      rs[dd * GLD + r] = v;
+    } else if (width == 4) {
+      for (int e = tid; e < G_ROWS * (G_SB / 4); e += G_TILE) {
+        const int r = e / (G_SB / 4), b = 4 * (e % (G_SB / 4));
+        const uint8_t* p = src[r];
+        const bool in = p != nullptr && b0 + b < row_bytes;
+        cp_async4_or_zero(st + r * G_PITCH + b, in ? p + b0 + b : q_row, in);
+      }
+    } else {
+      for (int e = tid; e < G_ROWS * G_SB; e += G_TILE) {
+        const int r = e / G_SB, b = e % G_SB;
+        const uint8_t* p = src[r];
+        st[r * G_PITCH + b] = (p != nullptr && b0 + b < row_bytes) ? p[b0 + b] : 0;
+      }
     }
-    if (tid < GDK) qs[tid] = d0 + tid < D ? widen(q[(size_t)t * D + d0 + tid]) : 0.0f;
-    __syncthreads();
-    if constexpr (BF16)
-      mma_staged<2>(macc, rs, GLD, tid & ~31, qs, 1, 1, d0, GDK, D);
+  };
+
+  float facc[1][1] = {{0.0f}};  // f32: row tid's chain
+  int iacc = 0;                 // int8: row tid's dot
+  float macc[2][4] = {};        // bf16: this warp's rows, two m16 tiles
+  // ldmatrix row addresses of this lane (score_tile's A map): rows
+  // G_WARP_ROWS * warp + (lane & 15), features +8 for lanes 16-31
+  const int a_off = (G_WARP_ROWS * warp + (lane & 15)) * G_PITCH + ((lane >> 4) << 4);
+#pragma unroll
+  for (int s = 0; s < G_STAGES - 1; ++s) {
+    if (s < slabs) stage(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < slabs; ++s) {
+    cp_async_wait<G_STAGES - 2>();  // this thread's copies of slab s have landed
+    __syncthreads();  // ... and every thread's; every warp is done with slab s - 1
+    if (s + G_STAGES - 1 < slabs) stage(s + G_STAGES - 1);  // into slab s - 1's slot
+    cp_async_commit();
+    const uint8_t* st = ring + (s % G_STAGES) * G_STAGE_BYTES;
+    const uint8_t* qs = st + G_TILE * G_PITCH;
+    if constexpr (std::is_same<T, float>::value) {
+      const float4* rs = reinterpret_cast<const float4*>(st + tid * G_PITCH);
+#pragma unroll
+      for (int g = 0; g < G_SB / 16; ++g) {
+        const float4 a = rs[g], b = reinterpret_cast<const float4*>(qs)[g];
+        const float rv[1][4] = {{a.x, a.y, a.z, a.w}}, qv[1][4] = {{b.x, b.y, b.z, b.w}};
+        fma_features<1, 1, 4>(facc, rv, qv);
+      }
+    } else if constexpr (std::is_same<T, int8_t>::value) {
+      const int4* rs = reinterpret_cast<const int4*>(st + tid * G_PITCH);
+#pragma unroll
+      for (int g = 0; g < G_SB / 16; ++g) {
+        const int4 a = rs[g], b = reinterpret_cast<const int4*>(qs)[g];
+        iacc = __dp4a(a.x, b.x, iacc);
+        iacc = __dp4a(a.y, b.y, iacc);
+        iacc = __dp4a(a.z, b.z, iacc);
+        iacc = __dp4a(a.w, b.w, iacc);
+      }
+    } else {
+      const int t4 = lane & 3;
+#pragma unroll
+      for (int kk = 0; kk < F; kk += 16) {
+        if (s * F + kk >= D) break;  // no step wholly past D
+        // B: features kk + 2 t4, +1 and kk + 2 t4 + 8, +9 of the query, in
+        // every column
+        const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(qs + 2 * (kk + 2 * t4)),
+                               *reinterpret_cast<const uint32_t*>(qs + 2 * (kk + 2 * t4 + 8))};
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          uint32_t a[4];
+          ldmatrix_x4(a, reinterpret_cast<const __nv_bfloat16*>(st + a_off + m * 16 * G_PITCH +
+                                                                2 * kk));
+          mma_k16(macc[m], a, b);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // only empty groups are left
+
+  const float nan = __uint_as_float(0x7fffffffu);
+  float* o = out + (size_t)t * C + s0;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if ((lane & 3) == 0) {  // column 0: rows lane / 4 and lane / 4 + 8 of each tile
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = G_WARP_ROWS * warp + 16 * m + (lane >> 2) + 8 * h;
+          if (s0 + r < C) o[r] = src[r] != nullptr ? macc[m][2 * h] : nan;
+        }
+    }
+  } else if (s0 + tid < C) {
+    float score;
+    if constexpr (std::is_same<T, int8_t>::value)
+      score = int8_score(iacc);
     else
-      fma_chunk<1, 1>(acc, rs + tid, GLD, qs, 1, GDK);
-    __syncthreads();
-  }
-  if constexpr (BF16) {
-    store_staged<2>(macc, tid & ~31, 1, rs, GR);
-    __syncthreads();
-    acc[0][0] = rs[tid];
-  }
-  const int s = s0 + tid;
-  if (s < C) {
-    const int uid = my_ids[s / unit];
-    out[(size_t)t * C + s] = (uid >= 0 && uid < n_units) ? acc[0][0] : __uint_as_float(0x7fffffffu);
+      score = facc[0][0];
+    o[tid] = src[tid] != nullptr ? score : nan;
   }
 }
 
-// K2 on int8 operands: the same blocks and NaN rule, packs staged GDKP at a
-// time, one int32 dot per gathered row, one int8_score.
-__global__ void __launch_bounds__(GR)
-k2_gather_rescore_i8(const int8_t* __restrict__ q, const int8_t* __restrict__ shard,
-                     const int32_t* __restrict__ ids, int R, int D, int KS, int unit,
-                     float* __restrict__ out) {
-  __shared__ int rs[GDKP * GLD];
-  __shared__ int qs[GDKP];
-  const int t = blockIdx.y, s0 = blockIdx.x * GR, tid = threadIdx.x;
-  const int C = KS * unit, n_units = R / unit;
-  const int32_t* my_ids = ids + (size_t)t * KS;
-  const bool s_al = packs_aligned(shard, D), q_al = packs_aligned(q, D);
-  int acc[1][1] = {{0}};
-  for (int d0 = 0; d0 < D; d0 += 4 * GDKP) {
-    for (int e = tid; e < GR * GDKP; e += GR) {
-      const int r = e / GDKP, p = e % GDKP, gd = d0 + 4 * p, s = s0 + r;
-      int v = 0;
-      if (s < C && gd < D) {
-        const int uid = my_ids[s / unit];
-        if (uid >= 0 && uid < n_units)
-          v = load_pack(shard + ((size_t)uid * unit + s % unit) * D, gd, D, s_al);
-      }
-      rs[p * GLD + r] = v;
-    }
-    if (tid < GDKP) {
-      const int gd = d0 + 4 * tid;
-      qs[tid] = gd < D ? load_pack(q + (size_t)t * D, gd, D, q_al) : 0;
-    }
-    __syncthreads();
-    dp4a_chunk<1, 1>(acc, rs + tid, GLD, qs, 1, GDKP);
-    __syncthreads();
-  }
-  const int s = s0 + tid;
-  if (s < C) {
+// K2: query t's KS selected unit-row blocks (ids [T, KS]) rescored by the
+// dtype's rule (gather_scores); C = KS * unit candidate rows.
+template <typename T>
+__global__ void __launch_bounds__(G_TILE, G_MIN_BLOCKS)
+k2_gather_rescore(const T* __restrict__ q, const T* __restrict__ shard,
+                  const int32_t* __restrict__ ids, int R, int D, int KS, int unit,
+                  float* __restrict__ out) {
+  const int32_t* my_ids = ids + (size_t)blockIdx.y * KS;
+  const int n_units = R / unit;
+  gather_scores<T>(q, shard, KS * unit, D, [=](int s) -> const T* {
     const int uid = my_ids[s / unit];
-    out[(size_t)t * C + s] =
-        (uid >= 0 && uid < n_units) ? int8_score(acc[0][0]) : __uint_as_float(0x7fffffffu);
-  }
+    return uid >= 0 && uid < n_units ? shard + ((size_t)uid * unit + s % unit) * D : nullptr;
+  }, out);
 }
 
 // K6: query t against its own C pre-gathered rows (gathered [T, C, D]).
 // Replaces block_scores (topk_pallas.py:846, body :828), whose keep-row-r
 // Mosaic dots existed to pin the scoring pass's arithmetic. Here the blocks,
-// the GDK-feature staging and the product (fma_chunk on f32, mma_staged on
-// bf16) are K2's, row s of query t being gathered[t, s] instead of a store
-// row, so K6 == K2 == K3 bit for bit.
-// Bound on the card: the gathered bytes (read once), far above the time of
-// the 2*T*C*D FLOPs.
+// the slabs and the product are K2's (gather_scores), row s of query t being
+// gathered[t, s] instead of a store row, so K6 == K2 == K3 bit for bit.
 template <typename T>
-__global__ void __launch_bounds__(GR)
+__global__ void __launch_bounds__(G_TILE, G_MIN_BLOCKS)
 k6_block_scores(const T* __restrict__ q, const T* __restrict__ gathered, int C, int D,
                 float* __restrict__ out) {
-  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  __shared__ float rs[GDK * GLD];
-  __shared__ float qs[GDK];
-  const int t = blockIdx.y, s0 = blockIdx.x * GR, tid = threadIdx.x;
-  const T* rows = gathered + (size_t)t * C * D;
-  float acc[1][1] = {{0.0f}};
-  float macc[2][4] = {};
-  for (int d0 = 0; d0 < D; d0 += GDK) {
-    for (int e = tid; e < GR * GDK; e += GR) {
-      const int r = e / GDK, dd = e % GDK, gd = d0 + dd, s = s0 + r;
-      rs[dd * GLD + r] = (s < C && gd < D) ? widen(rows[(size_t)s * D + gd]) : 0.0f;
-    }
-    if (tid < GDK) qs[tid] = d0 + tid < D ? widen(q[(size_t)t * D + d0 + tid]) : 0.0f;
-    __syncthreads();
-    if constexpr (BF16)
-      mma_staged<2>(macc, rs, GLD, tid & ~31, qs, 1, 1, d0, GDK, D);
-    else
-      fma_chunk<1, 1>(acc, rs + tid, GLD, qs, 1, GDK);
-    __syncthreads();
-  }
-  if constexpr (BF16) {
-    store_staged<2>(macc, tid & ~31, 1, rs, GR);
-    __syncthreads();
-    acc[0][0] = rs[tid];
-  }
-  const int s = s0 + tid;
-  if (s < C) out[(size_t)t * C + s] = acc[0][0];
-}
-
-// K6 on int8 operands: K2 int8's packs, dp4a_chunk and int8_score.
-__global__ void __launch_bounds__(GR)
-k6_block_scores_i8(const int8_t* __restrict__ q, const int8_t* __restrict__ gathered,
-                   int C, int D, float* __restrict__ out) {
-  __shared__ int rs[GDKP * GLD];
-  __shared__ int qs[GDKP];
-  const int t = blockIdx.y, s0 = blockIdx.x * GR, tid = threadIdx.x;
-  const int8_t* rows = gathered + (size_t)t * C * D;
-  const bool s_al = packs_aligned(gathered, D), q_al = packs_aligned(q, D);
-  int acc[1][1] = {{0}};
-  for (int d0 = 0; d0 < D; d0 += 4 * GDKP) {
-    for (int e = tid; e < GR * GDKP; e += GR) {
-      const int r = e / GDKP, p = e % GDKP, gd = d0 + 4 * p, s = s0 + r;
-      rs[p * GLD + r] = (s < C && gd < D) ? load_pack(rows + (size_t)s * D, gd, D, s_al) : 0;
-    }
-    if (tid < GDKP) {
-      const int gd = d0 + 4 * tid;
-      qs[tid] = gd < D ? load_pack(q + (size_t)t * D, gd, D, q_al) : 0;
-    }
-    __syncthreads();
-    dp4a_chunk<1, 1>(acc, rs + tid, GLD, qs, 1, GDKP);
-    __syncthreads();
-  }
-  const int s = s0 + tid;
-  if (s < C) out[(size_t)t * C + s] = int8_score(acc[0][0]);
+  const T* rows = gathered + (size_t)blockIdx.y * C * D;
+  gather_scores<T>(q, gathered, C, D, [=](int s) -> const T* { return rows + (size_t)s * D; },
+                   out);
 }
 
 // K4: pure data movement, replacing gather_rows (topk_pallas.py:747, body
@@ -1636,11 +1644,9 @@ k11_gather_copy(const uint8_t* __restrict__ shard, const int32_t* __restrict__ i
 // on the SMs:
 //  * gather items: query t's candidate slots [s0, s0 + NT) of C = KS * unit
 //    (ids [T, KS] into unit-row blocks), staged GDK features at a time,
-//    widened and multiplied by mma_staged as K2 does, 8 warps of 32 slots, so
-//    the scores equal K2's bit for bit (the bf16 rule of the header); NaN for
-//    an id outside [0, R/unit). K2's staging is written out again here rather
-//    than shared, so K2's kernel stays as it is (a body shared with K6 once
-//    cost K2 9 %);
+//    widened and multiplied by mma_staged in K2's k16 steps, 8 warps of 32
+//    slots, so the scores equal K2's bit for bit (the bf16 rule of the
+//    header); NaN for an id outside [0, R/unit);
 //  * product items: `copies` copies of K5's score tiles of mmq [tq, D]
 //    against mms [mm_rows, D], each copy's 128-row block maxima stored to
 //    mmo [tq, mm_rows / 128] by store_block_max: K5's bm_t transposed, bit for
@@ -1731,11 +1737,11 @@ k12_gather_rescore_mm(const T* __restrict__ q, const T* __restrict__ shard,
 // in the G layout [k/G, T, C] directly. Keeping a == r gives K2's scores at
 // this unit (extract_diag in bench/proto_fused.py). Block (x, j, i) covers
 // candidates [x*GR, x*GR + GR) of step j of group i: one candidate row per
-// thread, staged GDK features at a time as K2 stages, against the group's 8
+// thread, staged GDK features at a time, widened, against the group's 8
 // queries staged beside it as B's 8 columns, multiplied by mma_staged, which
 // gives each (row, query) pair K2's bits (the same rows in A, the same k
-// steps; K2 has the query in column 0 and zeros beside it, and no element of
-// an mma result depends on another column): the diagonal is K2's bit for
+// steps; K2 has its one query in every column, and no element of an mma
+// result depends on another column): the diagonal is K2's bit for
 // bit. Each candidate row is read once per group, not once per
 // query as K2 at 8x ids would read it: that traffic is what the prototype
 // measures. An id outside [0, R/unit) scores NaN for all 8 queries. bf16
@@ -1948,28 +1954,20 @@ int launch_k5(const void* q, const void* shard, int Tn, int R, int D, int valid_
 template <typename T>
 int launch_k2(const void* q, const void* shard, const int32_t* ids, int Tn, int R,
               int D, int KS, int unit, float* out, cudaStream_t st) {
-  dim3 grid((KS * unit + GR - 1) / GR, Tn);
-  if constexpr (std::is_same<T, int8_t>::value)
-    k2_gather_rescore_i8<<<grid, GR, 0, st>>>(static_cast<const T*>(q),
-                                              static_cast<const T*>(shard), ids, R, D,
-                                              KS, unit, out);
-  else
-    k2_gather_rescore<T><<<grid, GR, 0, st>>>(static_cast<const T*>(q),
-                                              static_cast<const T*>(shard), ids, R, D,
-                                              KS, unit, out);
+  if (int err = raise_smem(k2_gather_rescore<T>, G_SMEM)) return err;
+  dim3 grid((KS * unit + G_TILE - 1) / G_TILE, Tn);
+  k2_gather_rescore<T><<<grid, G_TILE, G_SMEM, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(shard), ids, R, D, KS, unit, out);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_k6(const void* q, const void* gathered, int Tn, int C, int D, float* out,
               cudaStream_t st) {
-  dim3 grid((C + GR - 1) / GR, Tn);
-  if constexpr (std::is_same<T, int8_t>::value)
-    k6_block_scores_i8<<<grid, GR, 0, st>>>(static_cast<const T*>(q),
-                                            static_cast<const T*>(gathered), C, D, out);
-  else
-    k6_block_scores<T><<<grid, GR, 0, st>>>(static_cast<const T*>(q),
-                                            static_cast<const T*>(gathered), C, D, out);
+  if (int err = raise_smem(k6_block_scores<T>, G_SMEM)) return err;
+  dim3 grid((C + G_TILE - 1) / G_TILE, Tn);
+  k6_block_scores<T><<<grid, G_TILE, G_SMEM, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(gathered), C, D, out);
   return (int)cudaGetLastError();
 }
 

@@ -13,6 +13,10 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    nomic-embed-text-v1.5's width, queried 512 at a time, top-100), max
    |diff| <= 1e-5 (the plain versions sum in cuBLAS's f32 order, not the
    kernels' mma.sync k16 steps);
+   then K2 and K6 on the gather mainloop's staging paths (D 768, 130 and
+   99 on f32, bf16 and int8; views off the 16-byte boundary; ids -1 and
+   n_units score NaN), bit for bit ``fma_chain_scores`` (f32), the plain
+   version (int8) or K3 (bf16), K6 over K4's rows bit for bit K2;
 3. the search kernels against each other, bit for bit (one mma.sync
    instruction and one k16 order per bf16 score); the same identity on
    phase 4's 1M x 768 f32 store at the rescore pass's geometry (K1 sub 64
@@ -29,8 +33,9 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    launch count over that run;
 5. timings: queries/sec of search and search_device on the 1M bf16 store,
    a torch.profiler split of one 512-query tile of search_device (K1, K2,
-   glue, device idle), and each search kernel's time beside its plain
-   version's;
+   glue, device idle), how many of the tile's queries share each unit K2
+   gathers (argmax path and full gather), and each search kernel's time
+   beside its plain version's;
 6. K8 fused_attention_qkv against its plain version at the encoder's shape
    (B=256, S=512, H=12, hd=64, bf16; per-row key padding, one row fully
    padded): max |diff| < 0.02 and cosine > 0.999 on valid query rows, the
@@ -204,6 +209,7 @@ tree are seeded (``--seed``); nothing is downloaded.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -417,12 +423,107 @@ def check_kernels(store, store_100k, gen):
         2 * 256 * store_100k.data.shape[0] * d, peak)
     del sims, bm_t, p_sims, p_bm_t
 
+    check_gather_paths(gen)
+
     # phase 3: K2 at each unit's argmax row == K1's unit max == K3's score
     same, pairs = unit_identity(tk, q, data, n, bms, key, gen)
     phase(f"phase 3 identity on {pairs} (query, unit argmax) pairs: "
           f"K1 == K2 == K3 bitwise: {same}")
     assert same
     return errs, times
+
+
+def check_gather_paths(gen):
+    """Phase 2, the gather mainloop's staging paths (K2 and K6 on every
+    dtype): D 768 (16-byte copies), 130 (4-byte; bytes on int8) and 99
+    (4-byte on f32, bytes otherwise), and views one element off their
+    buffers' 16-byte boundary; ids -1 and n_units score NaN; K2 bit for bit
+    ``fma_chain_scores`` on f32, its plain version on int8, K3's scores on
+    bf16, and K6 over K4's rows bit for bit K2."""
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+    from better_search_rag_rust_tpu_torch.ops.quantize import quantize_unit
+
+    ok, cases = True, 0
+    for dim in (768, 130, 99):
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            for offset in (0, 1):
+                m = torch.randn((2048 + 24, dim), generator=gen, device="cuda")
+                m = m / m.norm(dim=1, keepdim=True)
+                m = quantize_unit(m) if dtype == torch.int8 else m.to(dtype)
+                buf = torch.zeros(m.numel() + offset, dtype=dtype, device="cuda")
+                both = buf[offset:].view(m.shape)
+                both.copy_(m)
+                q, mat = both[2048:], both[:2048]
+                ids = torch.sort(torch.randint(0, 128, (24, 9), generator=gen,
+                                               device="cuda"), dim=1).values
+                ids = ids.to(torch.int32).contiguous()
+                bad = ids.clone()
+                bad[0, 0], bad[5, 8] = -1, 128
+                out = tk.gather_rescore(q, mat, bad, unit=16)
+                cols = (ids.long()[:, :, None] * 16
+                        + torch.arange(16, device="cuda")).reshape(24, -1)
+                if dtype == torch.float32:
+                    want = tk.fma_chain_scores(q, mat[cols])
+                elif dtype == torch.int8:
+                    want = tk.gather_rescore_plain(q, mat, ids, unit=16)
+                else:
+                    sims, _ = tk.matmul_blockmax(q.contiguous(), mat.contiguous(),
+                                                 2048)
+                    want = torch.gather(sims, 1, cols)
+                nan = torch.zeros_like(out, dtype=torch.bool)
+                nan[0, :16] = nan[5, 128:] = True
+                k6 = tk.block_scores(q, tk.gather_rows(mat, ids, unit=16))
+                torch.cuda.synchronize()
+                ok &= (bool(out[nan].isnan().all())
+                       and torch.equal(out[~nan], want[~nan])
+                       and torch.equal(k6, tk.gather_rescore(q, mat, ids, unit=16)))
+                cases += 1
+    phase(f"phase 2 K2/K6 staging paths (D 768/130/99 x f32/bf16/int8 x "
+          f"aligned/offset views, ids -1 and n_units): {cases} cases, every "
+          f"score bit for bit its reference and NaN for the bad ids: {ok}")
+    assert ok
+
+
+def unit_sharing(engine, store, gen, card):
+    """Phase 5: how many queries of one 512-query tile share each unit the
+    rescore route gathers (the case for reading each selected unit once for
+    all the queries that chose it): K2's ids on the argmax path (the danger
+    units) and with ``rescore_argmax="off"`` (the full gather)."""
+    from better_search_rag_rust_tpu_torch.ops import engine as engine_mod
+    from better_search_rag_rust_tpu_torch.ops import topk as topk_mod
+
+    rows = torch.randint(0, store.num_rows, (T,), generator=gen, device="cuda")
+    qdev = store.data[rows].float()
+    seen = []
+    orig = topk_mod.gather_rescore
+
+    def recording(q, shard, ids, *, unit):
+        seen.append((ids.clone(), unit))
+        return orig(q, shard, ids, unit=unit)
+
+    topk_mod.gather_rescore = recording
+    try:
+        parts = []
+        for mode in ("auto", "off"):
+            seen.clear()
+            eng = engine_mod.SearchEngine(store, dataclasses.replace(
+                engine.config, rescore_argmax=mode))
+            eng.search_device(qdev, K)
+            torch.cuda.synchronize()
+            if not seen:
+                parts.append(f"argmax {mode}: no gather")
+                continue
+            ids, unit = seen[-1]
+            n_sel = ids.numel()
+            _, counts = torch.unique(ids, return_counts=True)
+            parts.append(
+                f"argmax {mode}: {tuple(ids.shape)} ids of {unit}-row units, "
+                f"{counts.numel()} distinct ({n_sel / counts.numel():.3f} "
+                f"queries a unit, at most {int(counts.max())})")
+    finally:
+        topk_mod.gather_rescore = orig
+    phase(f"phase 5 [{card}] unit sharing in K2's selections, one {T}-query "
+          f"tile of the 1M store: " + "; ".join(parts))
 
 
 def unit_identity(tk, q, data, n, bms, key, gen=None):
@@ -2376,6 +2477,7 @@ def main() -> int:
     phase(f"phase 5 [{card}] 1M x 768 bf16, 1024 queries, k={K}: "
           f"search {host_qps:.1f} q/s, search_device {dev_qps:.1f} q/s")
     search_split(engine, store, gen, card)
+    unit_sharing(engine, store, gen, card)
     for name, rec in times.items():
         phase(f"phase 5 [{card}] " + timing_line(name, rec))
 

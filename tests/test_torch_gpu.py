@@ -1222,3 +1222,134 @@ def test_k8_k7_unaligned_operands_are_copied(cuda):
     q_off.copy_(q)
     assert torch.equal(ak.fused_attention(q_off, k, v, c2, s2, bias, scale),
                        ak.fused_attention(q, k, v, c2, s2, bias, scale))
+
+
+# -- K2 / K6 on the gather mainloop (gather_scores) ----------------------------
+
+
+def _gather_operands(cuda, dtype, dim, rows=2048, t=24, offset=0):
+    """Unit rows and queries of ``dtype`` (int8: the lattice); ``offset``
+    elements in front of each in its buffer, so that a nonzero offset gives
+    bases off the 16-byte (and for 1 or 2, the 4-byte) boundary."""
+    if dtype == torch.int8:
+        q, mat = _int8_operands(cuda, dim, rows=rows, t=t)
+    else:
+        q, mat = _operands(cuda, dtype, rows=rows, dim=dim, t=t)
+    if not offset:
+        return q, mat
+
+    def shifted(x):
+        buf = torch.zeros(x.numel() + offset, dtype=x.dtype, device=cuda)
+        view = buf[offset:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    return shifted(q), shifted(mat)
+
+
+def _gather_ids(cuda, t, n_units, ks, seed):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    ids = torch.randint(0, n_units, (t, ks), generator=g, device=cuda)
+    return torch.sort(ids, dim=1).values.to(torch.int32).contiguous()
+
+
+def _check_k2_k6(q, mat, ids, unit):
+    """K2 bit for bit: f32 ``fma_chain_scores`` of the same pairs (and its
+    plain version within TOL), int8 its plain version, bf16 K3's scores of
+    the same pairs; K6 over K4's rows bit for bit K2."""
+    t = q.shape[0]
+    out = tk.gather_rescore(q, mat, ids, unit=unit)
+    cols = (ids.long()[:, :, None] * unit
+            + torch.arange(unit, device=q.device)).reshape(t, -1)
+    if mat.dtype == torch.float32:
+        chain = tk.fma_chain_scores(q, mat[cols])
+        assert torch.equal(out, chain)
+        ref = tk.gather_rescore_plain(q, mat, ids, unit=unit)
+        assert (out - ref).abs().max() <= TOL
+    elif mat.dtype == torch.int8:
+        assert torch.equal(out, tk.gather_rescore_plain(q, mat, ids, unit=unit))
+    else:
+        sims, _ = tk.matmul_blockmax(q.contiguous(), mat.contiguous(), mat.shape[0])
+        assert torch.equal(out, torch.gather(sims, 1, cols))
+        ref = tk.gather_rescore_plain(q, mat, ids, unit=unit)
+        assert (out - ref).abs().max() <= TOL
+    rows = tk.gather_rows(mat, ids, unit=unit)
+    k6 = tk.block_scores(q, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(k6, out)
+    if mat.dtype == torch.int8:
+        assert torch.equal(k6, tk.block_scores_plain(q, rows))
+    else:
+        assert (k6 - tk.block_scores_plain(q, rows)).abs().max() <= TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dim", [768, 256, 130, 100, 99])
+@pytest.mark.parametrize("unit,ks", [(64, 4), (8, 100), (16, 9)])
+def test_gather_mainloop_bitwise(cuda, dtype, dim, unit, ks):
+    """The 16-byte, 4-byte and byte staging paths (by D * itemsize) and a
+    last block of fewer than 128 candidate rows (16 x 9)."""
+    q, mat = _gather_operands(cuda, dtype, dim)
+    ids = _gather_ids(cuda, q.shape[0], mat.shape[0] // unit, ks, seed=dim)
+    _check_k2_k6(q, mat, ids, unit)
+
+
+@pytest.mark.parametrize("dtype,offset", [
+    (torch.float32, 1), (torch.float32, 3), (torch.bfloat16, 1),
+    (torch.bfloat16, 2), (torch.int8, 1), (torch.int8, 4)])
+@pytest.mark.parametrize("dim", [768, 100])
+def test_gather_mainloop_unaligned_views(cuda, dtype, offset, dim):
+    """Row-offset views whose bases sit off the 16-byte boundary (offset
+    elements into their buffers) take the 4-byte copies (f32; bf16 at 4
+    bytes; int8 at 4) or the byte copies (bf16 at 2 bytes, int8 at 1),
+    with the same bits."""
+    q, mat = _gather_operands(cuda, dtype, dim, offset=offset)
+    assert (mat.data_ptr() | q.data_ptr()) % 16
+    ids = _gather_ids(cuda, q.shape[0], mat.shape[0] // 16, 12, seed=offset)
+    _check_k2_k6(q, mat, ids, 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dim", [768, 99])
+def test_gather_mainloop_invalid_ids_score_nan(cuda, dtype, dim):
+    """Ids -1, n_units and 2^31 - 1 read nothing and score NaN over their
+    whole unit; the other units keep their bits."""
+    q, mat = _gather_operands(cuda, dtype, dim)
+    unit, n_units = 16, mat.shape[0] // 16
+    ids = _gather_ids(cuda, q.shape[0], n_units, 8, seed=5)
+    bad = ids.clone()
+    bad[0, 0], bad[3, 7], bad[5, 2] = -1, n_units, 2**31 - 1
+    out = tk.gather_rescore(q, mat, bad, unit=unit).view(q.shape[0], 8, unit)
+    good = tk.gather_rescore(q, mat, ids, unit=unit).view(q.shape[0], 8, unit)
+    mask = torch.zeros(out.shape[:2], dtype=torch.bool, device=cuda)
+    mask[0, 0] = mask[3, 7] = mask[5, 2] = True
+    assert bool(out[mask].isnan().all())
+    assert torch.equal(out[~mask], good[~mask])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("argmax", ["auto", "off"])
+def test_rescore_nonfinite_inputs_on_the_card(cuda, dtype, argmax):
+    """The non-finite probe of ``tests/test_torch_nonfinite.py`` on the
+    card: a NaN store row (row 5) with queries rows 5 and 6, k 4, gives the
+    JAX engine's ids (read on the CPU: ``[[0, 1, 2, 3], [5, 6, 12, 27]]``);
+    a NaN and a +-inf query entry give the port's oracle's ids; no finite
+    query gets an id past the store."""
+    rng = np.random.default_rng(0)
+    mat = rng.standard_normal((64, 32)).astype(np.float32)
+    mat[10], mat[7] = mat[3], 0.0
+    nan_mat = mat.copy()
+    nan_mat[5, 0] = np.nan
+    cfg = SearchConfig(kernel="rescore", rescore_argmax=argmax)
+    eng = SearchEngine(DeviceStore.from_host(nan_mat, dtype, device=cuda), cfg)
+    ids = eng.search(nan_mat[[5, 6]], 4)[0]
+    np.testing.assert_array_equal(ids, [[0, 1, 2, 3], [5, 6, 12, 27]])
+    eng = SearchEngine(DeviceStore.from_host(mat, dtype, device=cuda), cfg)
+    assert eng._argmax_enabled() is (argmax == "auto")
+    for value in (np.nan, np.inf, -np.inf):
+        q = mat[[0, 1, 9]].copy()
+        q[:2, 0] = value
+        ids = eng.search(q, 3)[0]
+        np.testing.assert_array_equal(ids, eng.oracle_topk(q, 3)[0])
+        assert (ids[2] < 64).all()
