@@ -29,12 +29,12 @@ to its shared loads); ``@f32_qg2`` and ``@f32_qg8``, the queries'
 fragments loaded 2 or 8 at a time beside the rows' instead of 4; the
 gather mainloop's (K2, K6): ``@g_stages4``, a 4-slab ring at 3 blocks an SM
 instead of 6 slabs at 2; ``@g_no_l2``, the 16-byte copies without their
-256-byte L2 prefetch; ``@g_tile64`` and ``@g_tile32``, 64 or 32 candidate
-rows (and threads) a block, at 4 or 7 blocks an SM; ``@g_sb256``, slabs of
-256 bytes a row, 3 of them at 2 blocks an SM; ``@g_t32_sb512``, 32 rows a
-block in slabs of 512 bytes (one warp's copy is one row's 512 bytes);
-``@g_pf4``, each row's 4 slabs past the coming ones prefetched into L2 by
-one bulk prefetch every 4 slabs). Every
+256-byte L2 prefetch; ``@g_tile64``, 64 candidate rows (and threads) a
+block at 4 blocks an SM; ``@g_sb256``, slabs of 256 bytes a row, 3 of them
+at 2 blocks an SM; ``@g_t32_sb512``, 32 rows a block in slabs of 512 bytes
+(one warp's copy is one row's 512 bytes); ``@g_pf4``, each row's 4 slabs
+past the coming ones prefetched into L2 by one bulk prefetch every 4
+slabs). Every
 build uses the package's nvcc
 flags (:data:`.._build.NVCC_FLAGS`), all started together, and is bound with
 the package's C signatures, so every build must keep the entry points of the
@@ -80,8 +80,9 @@ printed beside it — what decides an arithmetic change, where the times
 decide a geometry. With ``--routes``, the engine itself on every build in
 turn (its library swapped in under :func:`.._build.library`): ``search_device``
 queries/sec of the two f32 routes, ``rescore`` and ``f32cert``, on
-``search_1m_f32``'s store (1M x 768 f32, 1024 queries, k 100), and whether
-every build returns the first build's ids and scores bit for bit. The last
+``search_1m_f32``'s store and of ``rescore`` on ``search_1m``'s bf16 store
+and ``search_1m_int8``'s lattice (1M x 768, 1024 queries, k 100), and
+whether every build returns the first build's ids and scores bit for bit. The last
 lines are the ptxas report of each build's bf16, f32 and int8 kernel bodies
 (registers, spills) and the card's name and power limit. Needs a CUDA card; ``chip_smoke.py`` holds each kernel to its
 plain version.
@@ -224,7 +225,6 @@ VARIANTS = {
     "g_stages4": lambda src: _g_ring(src, 4, 3),
     "g_no_l2": lambda src: _edit(src, _G_COPY16_L2, _G_COPY16),
     "g_tile64": lambda src: _g_ring(_g_tile(src, 64), 6, 4),
-    "g_tile32": lambda src: _g_ring(_g_tile(src, 32), 6, 7),
     "g_sb256": lambda src: _g_ring(_g_sb(src, 256), 3, 2),
     "g_t32_sb512": lambda src: _g_ring(_g_sb(_g_tile(src, 32), 512), 6, 2),
     "g_pf4": lambda src: _g_bulk_prefetch(src, 4),
@@ -493,52 +493,63 @@ def score_errors(libs, seed):
 
 
 def route_rates(libs, seed, iters=3):
-    """One line per f32 route: ``search_device`` queries/sec of each build
-    (two passes, in turns) on ``search_1m_f32``'s store, and whether every
-    build's ids and scores equal the first build's bit for bit."""
+    """One line per route: ``search_device`` queries/sec of each build (two
+    passes, in turns) on 1M x 768 stores, 1024 queries, k 100 — the f32
+    routes ``rescore`` and ``f32cert`` on ``search_1m_f32``'s store, and
+    ``rescore`` on ``search_1m``'s bf16 store and ``search_1m_int8``'s
+    lattice — and whether every build's ids and scores equal the first
+    build's bit for bit."""
     import time
 
     from ..config import SearchConfig
     from ..ops.engine import SearchEngine
     from ..store import DeviceStore
 
-    store = DeviceStore.synthetic(N1, D1, "float32", seed + 2, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 3)
-    qdev = store.data[torch.randint(0, N1, (1024,), generator=gen, device="cuda")]
-    engines = {"rescore": SearchEngine(store, SearchConfig(top_k=100)),
-               "f32cert": SearchEngine(store, SearchConfig(
-                   top_k=100, f32_certified="on"))}
-    for route, eng in engines.items():
-        assert eng.kernel_name(100) == route, (route, eng.kernel_name(100))
+    engines, queries = {}, {}
+    for i, dtype in enumerate(("float32", "bfloat16", "int8")):
+        store = DeviceStore.synthetic(N1, D1, dtype, seed + 2 + 3 * i, device="cuda")
+        rows = torch.randint(0, N1, (1024,), generator=gen, device="cuda")
+        qdev = store.data[rows].float()  # store rows (lattice rows on int8)
+        engines[f"{dtype} rescore"] = SearchEngine(store, SearchConfig(top_k=100))
+        queries[f"{dtype} rescore"] = qdev
+        if dtype == "float32":
+            engines["float32 f32cert"] = SearchEngine(store, SearchConfig(
+                top_k=100, f32_certified="on"))
+            queries["float32 f32cert"] = qdev
+    for label, eng in engines.items():
+        route = label.split()[1]
+        assert eng.kernel_name(100) == route, (label, eng.kernel_name(100))
     names = list(libs)
-    rates = {route: {name: [] for name in names} for route in engines}
-    first, same = {}, {route: True for route in engines}
+    rates = {label: {name: [] for name in names} for label in engines}
+    first, same = {}, {label: True for label in engines}
     saved = _build._LIBRARIES.get("topk")
     try:
         for name in names + names[::-1]:
             lib = libs[name][0]
             _build._LIBRARIES["topk"] = _build.KernelLibrary(lib, Path(lib._name), 0.0, "")
-            for route, eng in engines.items():
+            for label, eng in engines.items():
+                qdev = queries[label]
                 out = eng.search_device(qdev, 100)
                 torch.cuda.synchronize()
-                ref = first.setdefault(route, out)
-                same[route] &= all(torch.equal(a, b) for a, b in zip(out, ref))
+                ref = first.setdefault(label, out)
+                same[label] &= all(torch.equal(a, b) for a, b in zip(out, ref))
                 t0 = time.perf_counter()
                 for _ in range(iters):
                     eng.search_device(qdev, 100)
                 torch.cuda.synchronize()
-                rates[route][name].append(1024 * iters / (time.perf_counter() - t0))
+                rates[label][name].append(1024 * iters / (time.perf_counter() - t0))
     finally:
         if saved is None:
             _build._LIBRARIES.pop("topk", None)
         else:
             _build._LIBRARIES["topk"] = saved
-    return [f"route f32 {route} search_device q/s (1M x 768, 1024 queries, k 100): "
+    return [f"route {label} search_device q/s (1M x 768, 1024 queries, k 100): "
             + "; ".join(f"{name} {' / '.join(f'{r:.1f}' for r in v)}"
                         for name, v in by.items())
-            + f"; ids and scores bit for bit {names[0]}'s: {same[route]}"
-            for route, by in rates.items()]
+            + f"; ids and scores bit for bit {names[0]}'s: {same[label]}"
+            for label, by in rates.items()]
 
 
 def device_ms(fn, iters):

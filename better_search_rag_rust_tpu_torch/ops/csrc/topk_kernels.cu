@@ -205,11 +205,8 @@ constexpr int GDK = 32;
 constexpr int GLD = GR + 4;
 static_assert(TR == TQ, "score_tile stages rows and queries in one loop");
 
-template <typename T> __device__ __forceinline__ float widen(T x);
-template <> __device__ __forceinline__ float widen<float>(float x) { return x; }
-template <> __device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// K12's gather and K13 stage bf16 rows widened to f32 (exact).
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // THE f32 dot routine (see the header): advance every accumulator acc[i][j]
 // by K consecutive features, row i's in r[i][0 .. K-1] and query j's in
