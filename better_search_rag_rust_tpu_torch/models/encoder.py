@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import EncoderConfig, torch_dtype
+from ..utils.device import resolve_device
 from ..utils.logging import host_log
 from .hash_encoder import HashEncoder
 from .nomic import (
@@ -201,13 +202,15 @@ class EncoderService:
 
 
 def create_encoder(cfg: Optional[EncoderConfig] = None,
-                   device: torch.device | str = "cpu",
+                   device: Optional[torch.device | str] = None,
                    seed: int = 0) -> EncoderService:
     """Backend by ``cfg.backend``: ``nomic`` (the HF checkpoint under
     ``cfg.checkpoint_dir`` when there is one, else random weights from
     ``seed``), ``hash``, or ``auto`` (nomic when a checkpoint dir exists,
-    else hash). Every tensor lives on ``device``."""
+    else hash). Every tensor lives on ``device`` (``None``: the CUDA card,
+    raising without one)."""
     cfg = cfg or EncoderConfig()
+    device = resolve_device(device)
     backend = cfg.backend
     if backend == "auto":
         backend = ("nomic" if cfg.checkpoint_dir

@@ -10,24 +10,28 @@ artifact. Plain PyTorch: the reference has no Pallas kernel here either.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from ..config import torch_dtype
+from ..utils.device import resolve_device
 from .nomic import upload_tokens
 from .tokenizer import HashingTokenizer
 
 
 class HashEncoder:
-    """Token ids + mask -> deterministic ``[B, dim]`` f32 embeddings."""
+    """Token ids + mask -> deterministic ``[B, dim]`` f32 embeddings
+    (``device=None``: the CUDA card, raising without one)."""
 
     def __init__(self, dim: int = 768, max_tokens: int = 512,
                  vocab_size: int = 30528, seed: int = 0,
                  dtype: str = "bfloat16",
-                 device: torch.device | str = "cpu"):
+                 device: Optional[torch.device | str] = None):
         self.dim = dim
         self.max_tokens = max_tokens
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.tokenizer = HashingTokenizer(vocab_size, max_tokens)
         # numpy is stable across devices and versions: both packages hold the
         # same table

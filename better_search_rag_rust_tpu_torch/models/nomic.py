@@ -38,6 +38,7 @@ from torch import nn
 
 from ..config import EncoderConfig, torch_dtype
 from ..ops.attention_kernels import fused_attention_qkv, rotary_roll_tables
+from ..utils.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -365,15 +366,16 @@ def init_random(model: NomicBertModel, seed: int) -> None:
 
 class NomicEncoder:
     """Text-encoder head around :class:`NomicBertModel`: ``[B, S]`` ids and
-    mask -> ``[B, dim]`` f32 embeddings, one row per text."""
+    mask -> ``[B, dim]`` f32 embeddings, one row per text (``device=None``:
+    the CUDA card, raising without one)."""
 
     def __init__(self, config: NomicBertConfig,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  matryoshka_dim: Optional[int] = None, seed: int = 0,
-                 device: torch.device | str = "cpu"):
+                 device: Optional[torch.device | str] = None):
         _resolve_attention_impl(config.attention_impl)  # refuse flash early
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model = NomicBertModel(config, device=self.device)
         if state_dict is None:
             init_random(self.model, seed)

@@ -69,7 +69,8 @@ def _pair(jdtype, tdtype, impl, seed=3):
                       seed=seed)
     sd = params_from_flax(jax.tree.map(np.asarray, jenc.params))
     penc_ = NomicEncoder(NomicBertConfig(dtype=tdtype, attention_impl=impl,
-                                         **SMALL), state_dict=sd)
+                                         **SMALL), state_dict=sd,
+                         device="cpu")
     return jenc, penc_
 
 
@@ -104,8 +105,8 @@ def test_hf_state_matches_committed_golden():
     blob = np.load(GOLDEN)
     cfg = NomicBertConfig(dtype=torch.float32, attention_impl="xla", **CFG)
     sd = convert_hf_state(synth_hf_state(int(blob["state_seed"])), cfg)
-    got = NomicEncoder(cfg, state_dict=sd).encode_tokens(blob["ids"],
-                                                         blob["mask"])
+    got = NomicEncoder(cfg, state_dict=sd, device="cpu").encode_tokens(
+        blob["ids"], blob["mask"])
     want = blob["embeddings"]
     np.testing.assert_allclose(got, want, atol=5e-4)
     assert _row_cos(got, want).min() > 0.99999
@@ -135,10 +136,11 @@ def test_attention_impl_resolution():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _resolve_attention_impl("flash")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NomicEncoder(NomicBertConfig(attention_impl="flash", **SMALL))
+        NomicEncoder(NomicBertConfig(attention_impl="flash", **SMALL),
+                     device="cpu")
     svc = penc.create_encoder(EncoderConfig(
         backend="nomic", dim=64, num_layers=1, num_heads=4, mlp_dim=64,
-        max_tokens=64, vocab_size=211))
+        max_tokens=64, vocab_size=211), device="cpu")
     assert svc.numerics["attention_impl"] == "torch-fused"
     jsvc = jax_create_encoder(EncoderConfig(
         backend="nomic", dim=64, num_layers=1, num_heads=4, mlp_dim=64,
@@ -177,8 +179,8 @@ def test_tokenizer_windows_bitwise():
 
 def test_hash_encoder_matches_jax():
     ids, mask = _tokens(seed=2, vocab=500)
-    got = HashEncoder(dim=32, max_tokens=64, vocab_size=500).encode_tokens(
-        ids, mask)
+    got = HashEncoder(dim=32, max_tokens=64, vocab_size=500,
+                      device="cpu").encode_tokens(ids, mask)
     want = JaxHashEncoder(dim=32, max_tokens=64, vocab_size=500).encode_tokens(
         ids, mask)
     np.testing.assert_allclose(got, want, atol=1e-6)
@@ -189,7 +191,7 @@ def _service(backend, **kw):
                         mlp_dim=64, max_tokens=32, vocab_size=211,
                         batch_size=4, dtype="float32",
                         attention_impl="xla", **kw)
-    return penc.create_encoder(cfg), jax_create_encoder(cfg)
+    return penc.create_encoder(cfg, device="cpu"), jax_create_encoder(cfg)
 
 
 def test_encoder_contract_empty_inputs():
@@ -222,3 +224,21 @@ def test_encoder_long_doc_mean_matches_jax():
     assert got.shape == (2, 64)
     np.testing.assert_allclose(got, want, atol=1e-6)
     assert svc.get_embeddings_device(texts) is None  # host-side window pool
+
+
+def test_encoders_default_to_the_card(monkeypatch):
+    """Without a card, every encoder entry point raises unless the CPU is
+    named: the JAX twins run on the default device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = NomicBertConfig(**SMALL)
+    for backend in ("nomic", "hash"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            penc.create_encoder(EncoderConfig(
+                backend=backend, dim=64, num_layers=1, num_heads=4,
+                mlp_dim=64, max_tokens=32, vocab_size=211))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NomicEncoder(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HashEncoder(dim=32, max_tokens=64, vocab_size=500)
+    assert NomicEncoder(cfg, device="cpu").device == torch.device("cpu")
+    assert HashEncoder(dim=32, device="cpu").table.device.type == "cpu"
