@@ -14,7 +14,8 @@ counterpart is easy to find:
                      exact selection (:mod:`.ops.topk`) and the
                      ``SearchEngine``
 * :mod:`.models`   — tokenizers, NomicBERT, the encoder service and the
-                     contrastive trainer (:mod:`.models.train`)
+                     contrastive trainer (:mod:`.models.train`; data-,
+                     tensor- and sequence-parallel over a mesh of ranks)
 * :mod:`.pipeline` — build and serve mode
 * :mod:`.cli`      — ``run``, ``ingest``, ``search``, ``evaluate`` and
                      ``finetune``

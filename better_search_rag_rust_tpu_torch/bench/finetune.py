@@ -9,7 +9,11 @@ the card with CUDA events over ``steps`` steps after three warm-up steps,
 reference's two-point N-fit was a workaround for its relay, and is not
 carried over). ``value`` is the best window's files/s; ``launches`` counts
 the attention kernels of one window. ``mfu`` counts 3x the two towers'
-forward FLOPs (fwd:bwd = 1:2), as the reference does.
+forward FLOPs (fwd:bwd = 1:2), as the reference does. Under a process
+group every rank calls it and the trainer runs data-parallel over the
+world, a ``(world, 1)`` mesh, as the reference's suite takes a
+``(devices, 1)`` mesh; the batch grows to a multiple of the world, each
+rank times its own steps, and ``devices`` is the mesh's size.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from ..models.nomic import NomicBertConfig, _resolve_attention_impl
 from ..models.train import ContrastiveTrainer
 from ..ops import attention_kernels as ak
+from ..parallel.mesh import create_mesh, process_info
 from ..utils.device import resolve_device
 from .suite import (
     REPEATS,
@@ -48,8 +53,11 @@ def run_finetune_suite(batch: int = 64, steps: int = 8, max_tokens: int = 512,
                            f"got device {device}")
     cfg = NomicBertConfig(max_tokens=max_tokens, num_layers=num_layers,
                           hidden_size=hidden, mlp_dim=4 * hidden)
+    world = process_info()[1]
+    mesh = create_mesh((world, 1), ("data", "model"), devices=[device])
+    batch += (-batch) % world  # DP splits the batch over the data axis
     trainer = ContrastiveTrainer(cfg, learning_rate=1e-5, seed=seed,
-                                 device=device)
+                                 mesh=mesh)
     rng = np.random.default_rng(seed)
     shape = (batch, max_tokens)
     ids_a = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=shape)).to(device)
@@ -89,7 +97,8 @@ def run_finetune_suite(batch: int = 64, steps: int = 8, max_tokens: int = 512,
         "batch": batch,
         "steps": steps,
         "max_tokens": max_tokens,
-        "attention_impl": _resolve_attention_impl(cfg.attention_impl,
-                                                  max_tokens, cfg.head_dim),
+        "attention_impl": _resolve_attention_impl(
+            trainer.config.attention_impl, max_tokens, cfg.head_dim),
         **_platform(device),
+        "devices": mesh.size,
     }

@@ -8,8 +8,8 @@ and result printing are in :mod:`.cli_args`. ``run`` ingests the corpus, merges 
 persisted store; ``update`` reconciles the store with the edited tree;
 ``serve`` is the JSONL server over stdin/stdout or TCP (``--port``),
 optionally through the micro-batcher (``--serve-window-ms``); ``finetune``
-trains the encoder contrastively on pairs from the corpus (one device;
-``--tp`` above 1 is the multi-GPU slice); ``bench --suite NAME`` runs one
+trains the encoder contrastively on pairs from the corpus, over a
+``(world / tp, tp)`` mesh of the ranks; ``bench --suite NAME`` runs one
 measurement suite of :mod:`.bench.suite` and prints its result
 (``--json``: one JSON line). ``--snapshot`` keeps a device-store snapshot
 for fast restarts. ``--profile-dir DIR`` on any subcommand writes a trace
@@ -20,8 +20,9 @@ without one the command fails (``--device cpu`` runs on the CPU).
 Several processes: with the ``BSR_*`` env (:mod:`.launch`) ``main`` joins
 the world before any work; ``run``, ``ingest``, ``search``, ``evaluate``
 and ``update`` then run on every rank (each ingests its block, rank 0
-merges, the store shards over the ranks) and only rank 0 prints. ``serve``,
-``finetune`` and ``bench`` run one process.
+merges, the store shards over the ranks) and only rank 0 prints;
+``finetune`` trains on every rank (data- and tensor-parallel, ``--tp``) and
+rank 0 prints and saves. ``serve`` and ``bench`` run one process.
 """
 
 from __future__ import annotations
@@ -176,18 +177,21 @@ def _serve(args) -> int:
 
 def _finetune(args) -> int:
     """Contrastive fine-tuning on corpus pairs: the reference's
-    ``_finetune`` (``cli.py:169-223``) on one device."""
+    ``_finetune`` (``cli.py:169-223``) over a ``(data, model)`` mesh of the
+    world's ranks, one shard a rank, ``--tp`` of them on the model axis.
+    Every rank reads the same pairs (each trains on its data block); rank
+    0 prints and writes ``--save-dir``."""
     from .models.nomic import NomicBertConfig, load_hf_checkpoint
     from .models.tokenizer import load_tokenizer
     from .models.train import ContrastiveTrainer
     from .models.train_data import corpus_pair_batches
+    from .parallel.mesh import create_mesh
+    from .utils.device import resolve_device
 
-    if args.tp > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: tensor parallelism is the multi-GPU training "
-            "slice of the port (ROADMAP.md, Queue 1 item 2); the port "
-            "trains on one device")
-    _single_process("finetune")
+    rank, world = process_info()
+    tp = max(1, args.tp)
+    if world % tp:
+        raise SystemExit(f"--tp {tp} does not divide {world} devices")
     cfg = _config_from_args(args, skip_process=True)
     enc_cfg = cfg.encoder
     model_cfg = NomicBertConfig.from_encoder_config(enc_cfg)
@@ -195,8 +199,10 @@ def _finetune(args) -> int:
     if enc_cfg.checkpoint_dir:
         model_cfg, params = load_hf_checkpoint(enc_cfg.checkpoint_dir,
                                                model_cfg)
+    mesh = create_mesh((world // tp, tp), ("data", "model"),
+                       devices=[resolve_device(args.device)])
     trainer = ContrastiveTrainer(model_cfg, learning_rate=args.learning_rate,
-                                 params=params, device=args.device)
+                                 params=params, mesh=mesh)
     tokenizer = load_tokenizer(enc_cfg.checkpoint_dir, enc_cfg.max_tokens,
                                enc_cfg.vocab_size)
     batches = corpus_pair_batches(
@@ -210,17 +216,18 @@ def _finetune(args) -> int:
             break
         loss = trainer.train_step(a_ids, a_mask, p_ids, p_mask)
         losses.append(loss)
-        if step % 10 == 0 or step == args.steps - 1:
+        if rank == 0 and (step % 10 == 0 or step == args.steps - 1):
             print(f"step {step:>5}  loss {loss:.4f}")
     if not losses:
-        print("no training steps ran (--steps must be positive)")
+        if rank == 0:
+            print("no training steps ran (--steps must be positive)")
         return 1
     if args.save_dir:
-        from .models.checkpoint import save_params
-
-        save_params(args.save_dir, trainer.state.params)
-        print(f"params saved to {args.save_dir}")
-    print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+        trainer.save(args.save_dir)
+        if rank == 0:
+            print(f"params saved to {args.save_dir}")
+    if rank == 0:
+        print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
     return 0
 
 
@@ -273,8 +280,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ft.add_argument("--learning-rate", type=float, default=2e-5)
     ft.add_argument("--train-batch", type=int, default=32)
     ft.add_argument("--tp", type=int, default=1,
-                    help="model (tensor-parallel) axis size; only 1 is "
-                         "ported")
+                    help="model (tensor-parallel) mesh axis size")
     ft.add_argument("--save-dir", default=None,
                     help="checkpoint dir for the tuned params")
     bp = sub.add_parser("bench", help="performance benchmark suite")

@@ -41,6 +41,14 @@ def _backend(nproc: int) -> str:
     return "gloo"
 
 
+def dist_timeout() -> datetime.timedelta:
+    """How long the rendezvous and each collective may wait:
+    ``BSR_DIST_TIMEOUT_S`` seconds (default :data:`DEFAULT_TIMEOUT_S`); the
+    default group and every sub-group of a mesh take it."""
+    return datetime.timedelta(seconds=float(
+        os.environ.get("BSR_DIST_TIMEOUT_S", DEFAULT_TIMEOUT_S)))
+
+
 def maybe_init_distributed() -> bool:
     """Join the world the ``BSR_*`` env asks for; ``False`` (nothing done)
     without that env. Safe to call again once joined (``True``). Raises
@@ -62,14 +70,14 @@ def maybe_init_distributed() -> bool:
     rank = int(os.environ.get("BSR_PROCESS_ID", "0"))
     if world < 1 or not 0 <= rank < world:
         raise ValueError(f"BSR_PROCESS_ID {rank} is outside a world of {world}")
-    timeout = float(os.environ.get("BSR_DIST_TIMEOUT_S", DEFAULT_TIMEOUT_S))
+    timeout = dist_timeout()
     backend = _backend(world)
     if backend == "nccl":
         # one card per rank; NCCL's collectives run on the current device
         torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(
         backend=backend, init_method=f"tcp://{coord}", world_size=world,
-        rank=rank, timeout=datetime.timedelta(seconds=timeout))
+        rank=rank, timeout=timeout)
     host_log(f"joined {coord} as process {rank}/{world} ({backend}, "
-             f"timeout {timeout:g}s)")
+             f"timeout {timeout.total_seconds():g}s)")
     return True

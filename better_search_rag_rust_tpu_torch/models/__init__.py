@@ -1,10 +1,10 @@
 """Embedding models: the NomicBERT encoder (on the K8 attention kernel), the
 hermetic hash encoder, their tokenizers and the encoder service; training
 (``train``, ``train_data``, ``checkpoint``: the contrastive trainer on K8
-and K9) is imported from its modules.
+and K9, on one device or over a ``(data, model)`` mesh of ranks) is
+imported from its modules.
 
-Counterpart of ``better_search_rag_rust_tpu/models`` (its multi-device
-trainer is a later slice of the port).
+Counterpart of ``better_search_rag_rust_tpu/models``.
 """
 
 from .encoder import EncoderService, create_encoder  # noqa: F401

@@ -203,20 +203,26 @@ class EncoderService:
 
 def create_encoder(cfg: Optional[EncoderConfig] = None,
                    device: Optional[torch.device | str] = None,
-                   seed: int = 0) -> EncoderService:
+                   seed: int = 0, mesh=None) -> EncoderService:
     """Backend by ``cfg.backend``: ``nomic`` (the HF checkpoint under
     ``cfg.checkpoint_dir`` when there is one, else random weights from
     ``seed``), ``hash``, or ``auto`` (nomic when a checkpoint dir exists,
     else hash). Every tensor lives on ``device`` (``None``: the CUDA card,
-    raising without one)."""
+    raising without one).
+
+    ``mesh``: the nomic forward's mesh (:class:`.nomic.NomicEncoder`): each
+    ``batch_size`` batch splits over this process's shards of it, which
+    must divide it (the numerics record ``dp_devices``), and a model axis
+    splits the model over ranks. The hash backend, which runs no model,
+    ignores it."""
     cfg = cfg or EncoderConfig()
-    device = resolve_device(device)
     backend = cfg.backend
     if backend == "auto":
         backend = ("nomic" if cfg.checkpoint_dir
                    and os.path.isdir(cfg.checkpoint_dir) else "hash")
 
     if backend == "hash":
+        device = resolve_device(device)
         enc = HashEncoder(dim=cfg.matryoshka_dim or cfg.dim,
                           max_tokens=cfg.max_tokens,
                           vocab_size=cfg.vocab_size, dtype=cfg.dtype,
@@ -231,6 +237,12 @@ def create_encoder(cfg: Optional[EncoderConfig] = None,
         return svc
 
     if backend == "nomic":
+        n_local = 1 if mesh is None else len(mesh.local_shards())
+        if cfg.batch_size % n_local:
+            raise ValueError(f"batch_size {cfg.batch_size} does not divide "
+                             f"over the {n_local}-device mesh")
+        if mesh is None:
+            device = resolve_device(device)
         model_cfg = NomicBertConfig.from_encoder_config(cfg)
         state = None
         if cfg.checkpoint_dir:
@@ -242,7 +254,7 @@ def create_encoder(cfg: Optional[EncoderConfig] = None,
                 host_log(f"checkpoint missing ({exc}); using random init")
         enc = NomicEncoder(model_cfg, state_dict=state,
                            matryoshka_dim=cfg.matryoshka_dim, seed=seed,
-                           device=device)
+                           device=device, mesh=mesh)
         tokenizer = load_tokenizer(cfg.checkpoint_dir, cfg.max_tokens,
                                    cfg.vocab_size)
         svc = EncoderService(tokenizer, enc, enc.dim,
@@ -263,6 +275,10 @@ def create_encoder(cfg: Optional[EncoderConfig] = None,
             "long_doc": cfg.long_doc,
             "matryoshka_dim": cfg.matryoshka_dim,
         }
+        if n_local > 1:
+            # a batch split over shards computes its blocks apart: record
+            # it, so a shard-count change between ingest and serve warns
+            svc.numerics["dp_devices"] = n_local
         return svc
 
     raise ValueError(f"unknown encoder backend {backend!r}")

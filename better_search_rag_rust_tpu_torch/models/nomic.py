@@ -21,6 +21,19 @@ plain f32-logit chain, ``xla_bf16`` the plain bf16-logit chain; ``auto`` is
 not divisible by 8. ``flash`` (the reference's library kernel) is not
 ported. The encoder meta records the port's names (``torch-fused``, ...), so
 a store mixing the two packages warns at query time.
+
+Tensor parallelism (:class:`TensorParallel`, one rank of a mesh's model
+axis; the JAX package's ``param_specs`` and its head-sharded ``shard_map``
+of the fused kernel): ``Wqkv`` and the MLP's input products are split by
+output features (``Wqkv`` by heads, so each rank's ``qkv`` is K8's layout
+for its ``H/tp`` heads), ``out_proj`` and ``fc2`` by input features, their
+partial products reduced over the model group in f32 and rounded once
+after the bias, which is added once. Attention whose heads do not split
+(:func:`mesh_attention_impl`) runs whole on every rank and only the MLP
+is split. With sequence parallelism the embeddings, residual adds and
+LayerNorms run on the rank's ``S/tp`` rows of the sequence, gathered
+before each split product and reduce-scattered after it
+(:mod:`..parallel.collectives`).
 """
 
 from __future__ import annotations
@@ -29,7 +42,7 @@ import json
 import math
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +51,20 @@ from torch import nn
 
 from ..config import EncoderConfig, torch_dtype
 from ..ops.attention_kernels import fused_attention_qkv, rotary_roll_tables
+from ..parallel.mesh import (
+    MODEL_AXIS,
+    axis_group,
+    axis_index,
+    axis_size,
+)
+from ..parallel.collectives import (
+    copy_to_group,
+    gather_for_product,
+    gather_rows,
+    own_rows,
+    reduce_from_group,
+    reduce_scatter_to_rows,
+)
 from ..utils.device import resolve_device
 
 
@@ -133,6 +160,53 @@ def _resolve_attention_impl(impl: str, seq_len: Optional[int] = None,
     return impl
 
 
+def mesh_attention_impl(impl: str, config: "NomicBertConfig", data: int,
+                        model: int) -> str:
+    """The attention a ``(data, model)`` mesh runs, by the JAX trainer's
+    rule (its ``models/train.py:139-190``): on a mesh of several shards
+    ``auto``/``fused`` is ``fused``, and with ``model`` above 1 only where
+    the heads split over it and the kernel's tiles hold (``H % model``,
+    ``hd % 8`` and ``max_tokens % 8`` all 0), else ``xla_bf16``; any
+    other impl, and one shard, as asked. The heads split over the model
+    axis exactly when this is ``fused``."""
+    if impl not in ("auto", "fused") or data * model == 1:
+        return impl
+    if model == 1 or (config.num_heads % model == 0
+                      and config.head_dim % 8 == 0
+                      and config.max_tokens % 8 == 0):
+        return "fused"
+    return "xla_bf16"
+
+
+def tensor_parallel(mesh, config: "NomicBertConfig", heads: bool,
+                    sequence: bool) -> Optional["TensorParallel"]:
+    """This rank's :class:`TensorParallel` on ``mesh``'s model axis (one
+    shard a rank), ``None`` where that axis has one shard. ``heads`` splits
+    the attention heads too; ``sequence`` asks for sequence parallelism,
+    which needs ``max_tokens`` to split as well (the JAX trainer's
+    condition)."""
+    size = axis_size(mesh, MODEL_AXIS)
+    if size == 1:
+        return None
+    return TensorParallel(axis_group(mesh, MODEL_AXIS), size,
+                          axis_index(mesh, MODEL_AXIS), heads=heads,
+                          sequence=sequence and config.max_tokens % size == 0)
+
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """This rank's place on a mesh's model axis: the axis's process group,
+    its size and the rank's index on it; whether the attention heads split
+    over it (else attention runs whole on every rank) and whether the
+    sequence does (sequence parallelism)."""
+
+    group: object
+    size: int
+    rank: int
+    heads: bool
+    sequence: bool
+
+
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
@@ -164,6 +238,67 @@ class _Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
+class _PartialProduct(torch.autograd.Function):
+    """``x @ w.T`` of compute-dtype operands with an f32 result: on CUDA one
+    tensor-core GEMM that accumulates in f32 and leaves its output
+    unrounded, elsewhere the f32 product of the operands (every product
+    exact). Its gradients are compute-dtype GEMMs, as the one-device
+    product's are: the output's gradient is a compute-dtype value cast to
+    f32 (the rounding after the bias), so casting it back is exact."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.is_cuda and x.dtype != torch.float32:
+            out = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        else:
+            out = torch.mm(x2.float(), w.float().t())
+        return out.view(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gw = g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+        return g @ w, gw
+
+
+class _RowLinear(_Linear):
+    """The row-parallel half of a split product: the rank's input features
+    (``d_in`` of them) times its columns of the weight, an f32 partial
+    product of compute-dtype operands (:class:`_PartialProduct`), reduced
+    over the model group in f32 (all-reduced, or reduce-scattered onto the
+    rank's rows under sequence parallelism), the bias added once, then one
+    rounding to the compute dtype."""
+
+    def __init__(self, cfg: NomicBertConfig, d_in: int, d_out: int,
+                 tp: TensorParallel, device=None):
+        super().__init__(cfg, d_in, d_out, True, device)
+        self.tp = tp
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt, tp = self.compute_dtype, self.tp
+        partial = _PartialProduct.apply(x.to(dt), self.weight.to(dt))
+        if tp.sequence:
+            y = reduce_scatter_to_rows(partial, tp.group)
+        else:
+            y = reduce_from_group(partial, tp.group)
+        return (y + self.bias.to(dt).float()).to(dt)
+
+
+def _enter_split(x: torch.Tensor, tp: Optional[TensorParallel]
+                 ) -> torch.Tensor:
+    """The input of a split product: the sequence gathered from the ranks'
+    rows under sequence parallelism, else the whole input, its gradient
+    summed over the group."""
+    if tp is None:
+        return x
+    if tp.sequence:
+        return gather_for_product(x, tp.group)
+    return copy_to_group(x, tp.group)
+
+
 class _Embedding(nn.Embedding):
     """``nn.Embedding`` holding its table in ``cfg.weight_dtype``; the rows
     it gathers are cast to ``cfg.dtype``."""
@@ -188,23 +323,35 @@ class _AttentionInputs:
 
 
 class NomicAttention(nn.Module):
-    def __init__(self, cfg: NomicBertConfig, device=None):
+    def __init__(self, cfg: NomicBertConfig, device=None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         d = cfg.hidden_size
         self.cfg = cfg
-        self.Wqkv = _Linear(cfg, d, 3 * d, cfg.qkv_bias, device)
-        self.out_proj = _Linear(cfg, d, d, True, device)
+        self.tp = tp
+        split = tp is not None and tp.heads
+        self.heads = cfg.num_heads // tp.size if split else cfg.num_heads
+        d_local = self.heads * cfg.head_dim
+        self.Wqkv = _Linear(cfg, d, 3 * d_local, cfg.qkv_bias, device)
+        self.out_proj = (_RowLinear(cfg, d_local, d, tp, device) if split
+                         else _Linear(cfg, d, d, True, device))
 
     def forward(self, x: torch.Tensor, rope: _AttentionInputs) -> torch.Tensor:
-        cfg = self.cfg
-        b, s, d = x.shape
-        h, hd = cfg.num_heads, cfg.head_dim
+        cfg, tp = self.cfg, self.tp
+        if tp is not None and (tp.heads or tp.sequence):
+            # attention that runs whole on every rank needs the whole
+            # sequence under sequence parallelism; each rank then keeps its
+            # rows of the output (_output), so every rank's copy of the
+            # weights gets its rows' share of the gradient
+            x = _enter_split(x, tp)
+        b, s, _ = x.shape
+        h, hd = self.heads, cfg.head_dim
         qkv = self.Wqkv(x)
         impl = _resolve_attention_impl(cfg.attention_impl, s, hd)
         if impl == "fused":
             ctx = fused_attention_qkv(qkv, rope.cos2, rope.s2, rope.bias2, h,
                                       1.0 / math.sqrt(hd))
-            return self.out_proj(ctx)
+            return self._output(ctx)
         qkv = qkv.view(b, s, 3, h, hd)
         q = apply_rotary(qkv[:, :, 0], rope.cos, rope.sin)
         k = apply_rotary(qkv[:, :, 1], rope.cos, rope.sin)
@@ -221,22 +368,38 @@ class NomicAttention(nn.Module):
             logits = logits / math.sqrt(hd) + rope.mask_bias
         probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
         ctx = torch.einsum("bhst,bthd->bshd", probs.float(), v.float())
-        return self.out_proj(ctx.to(cfg.dtype).reshape(b, s, d))
+        return self._output(ctx.to(cfg.dtype).reshape(b, s, h * hd))
+
+    def _output(self, ctx: torch.Tensor) -> torch.Tensor:
+        tp = self.tp
+        out = self.out_proj(ctx)
+        if tp is not None and not tp.heads and tp.sequence:
+            out = own_rows(out, tp.group)
+        return out
 
 
 class NomicMlp(nn.Module):
-    def __init__(self, cfg: NomicBertConfig, device=None):
+    def __init__(self, cfg: NomicBertConfig, device=None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         d, inner = cfg.hidden_size, cfg.mlp_dim
+        self.tp = tp
+        if tp is not None:
+            if inner % tp.size:
+                raise ValueError(f"mlp_dim {inner} does not split over "
+                                 f"{tp.size} model ranks")
+            inner //= tp.size
         self.swiglu = cfg.activation == "swiglu"
         if self.swiglu:
             self.fc11 = _Linear(cfg, d, inner, cfg.mlp_bias, device)
             self.fc12 = _Linear(cfg, d, inner, cfg.mlp_bias, device)
         else:
             self.fc1 = _Linear(cfg, d, inner, True, device)
-        self.fc2 = _Linear(cfg, inner, d, True, device)
+        self.fc2 = (_Linear(cfg, inner, d, True, device) if tp is None
+                    else _RowLinear(cfg, inner, d, tp, device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _enter_split(x, self.tp)
         if self.swiglu:
             y = self.fc11(x) * F.silu(self.fc12(x))
         else:
@@ -253,10 +416,11 @@ class NomicLayer(nn.Module):
     """Post-LN block: x = LN1(x + attn(x)); x = LN2(x + mlp(x)), the norms
     in f32."""
 
-    def __init__(self, cfg: NomicBertConfig, device=None):
+    def __init__(self, cfg: NomicBertConfig, device=None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
-        self.attn = NomicAttention(cfg, device)
-        self.mlp = NomicMlp(cfg, device)
+        self.attn = NomicAttention(cfg, device, tp)
+        self.mlp = NomicMlp(cfg, device, tp)
         self.norm1 = _layer_norm(cfg, device)
         self.norm2 = _layer_norm(cfg, device)
 
@@ -275,21 +439,26 @@ class NomicEmbeddings(nn.Module):
 
 
 class NomicEncoderLayers(nn.Module):
-    def __init__(self, cfg: NomicBertConfig, device=None):
+    def __init__(self, cfg: NomicBertConfig, device=None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         self.layers = nn.ModuleList(
-            NomicLayer(cfg, device) for _ in range(cfg.num_layers))
+            NomicLayer(cfg, device, tp) for _ in range(cfg.num_layers))
 
 
 class NomicBertModel(nn.Module):
-    """Token ids + mask ``[B, S]`` -> final hidden states ``[B, S, D]``."""
+    """Token ids + mask ``[B, S]`` -> final hidden states ``[B, S, D]``
+    (with ``tp``, this rank's shard of the model; every rank of the model
+    axis takes the same batch and returns the same hidden states)."""
 
-    def __init__(self, cfg: NomicBertConfig, device=None):
+    def __init__(self, cfg: NomicBertConfig, device=None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         self.embeddings = NomicEmbeddings(cfg, device)
         self.emb_ln = _layer_norm(cfg, device)
-        self.encoder = NomicEncoderLayers(cfg, device)
+        self.encoder = NomicEncoderLayers(cfg, device, tp)
         self._tables: Dict[Tuple[int, torch.device], tuple] = {}
 
     def _rotary(self, seq_len: int, device: torch.device):
@@ -304,11 +473,14 @@ class NomicBertModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        tok = self.embeddings.word_embeddings(input_ids)
+        cfg, tp = self.cfg, self.tp
+        sp = tp is not None and tp.sequence
+        # under sequence parallelism the embeddings, and every residual add
+        # and norm after them, cover the rank's rows of the sequence
+        rows = own_rows(input_ids, tp.group) if sp else input_ids
+        tok = self.embeddings.word_embeddings(rows)
         # every real token is type 0 for retrieval encoding
-        typ = self.embeddings.token_type_embeddings(
-            torch.zeros_like(input_ids))
+        typ = self.embeddings.token_type_embeddings(torch.zeros_like(rows))
         x = self.emb_ln((tok + typ).float()).to(cfg.dtype)
         # additive key-padding bias: 0 where attendable, -1e9 where padded
         bias2 = torch.where(attention_mask > 0, 0.0, -1e9).to(torch.float32)
@@ -317,7 +489,7 @@ class NomicBertModel(nn.Module):
                      bias2=bias2.contiguous())
         for layer in self.encoder.layers:
             x = layer(x, rope)
-        return x
+        return gather_rows(x, tp.group, dim=1) if sp else x
 
 
 def mean_pool(hidden: torch.Tensor, attention_mask: torch.Tensor
@@ -364,24 +536,170 @@ def init_random(model: NomicBertModel, seed: int) -> None:
             p.copy_(w.mul_(std))
 
 
+# ---------------------------------------------------------------------------
+# Tensor-parallel layout of the parameters
+# ---------------------------------------------------------------------------
+
+#: modules split by output features (column-parallel) and by input
+#: features (row-parallel): the JAX package's ``_spec_for_path`` names
+COLUMN_PARALLEL = ("Wqkv", "fc11", "fc12", "fc1")
+ROW_PARALLEL = ("out_proj", "fc2")
+
+
+def param_spec(name: str, heads: bool = True) -> tuple:
+    """How the parameter ``name`` splits over the model axis, as a spec
+    over its torch dims — the JAX ``param_specs`` spec of its flax kernel,
+    transposed: ``("model", None)`` for a column-parallel weight ``[out,
+    in]``, ``(None, "model")`` for a row-parallel one, ``()`` for what
+    every rank holds whole (embeddings, norms, row-parallel biases, and the
+    attention's parameters where its heads do not split, ``heads=False``).
+    A column-parallel bias is ``("model",)``, split with its rows: JAX
+    replicates it and lets XLA slice it."""
+    *_, module, kind = name.split(".")
+    if module in ("Wqkv", "out_proj") and not heads:
+        return ()
+    if module in COLUMN_PARALLEL:
+        return (MODEL_AXIS, None) if kind == "weight" else (MODEL_AXIS,)
+    if module in ROW_PARALLEL and kind == "weight":
+        return (None, MODEL_AXIS)
+    return ()
+
+
+def param_specs(params, heads: bool = True) -> Dict[str, tuple]:
+    """:func:`param_spec` of every name of a state dict."""
+    return {name: param_spec(name, heads) for name in params}
+
+
+def _pieces(name: str, t: torch.Tensor, spec: tuple, size: int) -> list:
+    """``t``'s ``size`` shards in rank order. ``Wqkv``'s rows are q, k, v,
+    each head-major, so a rank takes its heads' rows from each third: its
+    ``qkv`` is then K8's layout for ``H/size`` heads (a cut of the flat
+    rows would give rank 0 all of q)."""
+    dim = spec.index(MODEL_AXIS)
+    qkv = name.split(".")[-2] == "Wqkv"
+    rows = t.shape[dim] // 3 if qkv else t.shape[dim]
+    if rows % size:
+        raise ValueError(f"{name} {tuple(t.shape)} does not split over "
+                         f"{size} model ranks")
+    if qkv:
+        thirds = [c.chunk(size, 0) for c in t.chunk(3, 0)]
+        return [torch.cat([third[r] for third in thirds])
+                for r in range(size)]
+    return list(t.chunk(size, dim))
+
+
+def shard_params(params: Dict[str, torch.Tensor], size: int, rank: int,
+                 heads: bool = True) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s shard of a whole state dict over ``size`` model
+    ranks (:func:`param_spec`); the state dict of the model built with a
+    :class:`TensorParallel` of that rank."""
+    out = {}
+    for name, t in params.items():
+        spec = param_spec(name, heads)
+        out[name] = (_pieces(name, t, spec, size)[rank].contiguous()
+                     if MODEL_AXIS in spec else t)
+    return out
+
+
+def merge_shards(shards: Sequence[Dict[str, torch.Tensor]],
+                 heads: bool = True) -> Dict[str, torch.Tensor]:
+    """Every rank's shard, in rank order, back into the whole state dict:
+    :func:`shard_params` undone, bit for bit."""
+    out = {}
+    for name, t in shards[0].items():
+        spec = param_spec(name, heads)
+        if MODEL_AXIS not in spec:
+            out[name] = t
+            continue
+        parts = [s[name] for s in shards]
+        if name.split(".")[-2] == "Wqkv":
+            thirds = [p.chunk(3, 0) for p in parts]
+            out[name] = torch.cat([th[k] for k in range(3) for th in thirds])
+        else:
+            out[name] = torch.cat(parts, dim=spec.index(MODEL_AXIS))
+    return out
+
+
+def gather_params(params: Dict[str, torch.Tensor], group,
+                  heads: bool = True) -> Dict[str, torch.Tensor]:
+    """The whole state dict from this rank's shard and its model group's
+    (an ``all_gather`` per split tensor; every rank of the group calls
+    it); ``group=None``: ``params`` as they are."""
+    if group is None:
+        return dict(params)
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    shards = [dict(params) for _ in range(n)]
+    for name, t in params.items():
+        if MODEL_AXIS in param_spec(name, heads):
+            parts = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            for shard, part in zip(shards, parts):
+                shard[name] = part
+    return merge_shards(shards, heads)
+
+
+def build_model(config: NomicBertConfig, device: torch.device, seed: int = 0,
+                state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                tp: Optional[TensorParallel] = None) -> NomicBertModel:
+    """The model on ``device`` with the weights ``state_dict``, or random
+    ones from ``seed`` (:func:`init_random`); with ``tp``, this rank's shard
+    of them. Random weights are drawn for the whole model, as one device
+    draws them, and then cut, so every mesh starts from the same weights."""
+    if state_dict is None:
+        full = NomicBertModel(config, device=device)
+        init_random(full, seed)
+        if tp is None:
+            return full
+        state_dict = full.state_dict()
+    model = NomicBertModel(config, device=device, tp=tp)
+    if tp is not None:
+        state_dict = shard_params(state_dict, tp.size, tp.rank, tp.heads)
+    model.load_state_dict(state_dict)
+    return model
+
+
 class NomicEncoder:
     """Text-encoder head around :class:`NomicBertModel`: ``[B, S]`` ids and
-    mask -> ``[B, dim]`` f32 embeddings, one row per text (``device=None``:
-    the CUDA card, raising without one)."""
+    mask -> ``[B, dim]`` f32 embeddings, one row per text.
+
+    Without ``mesh`` it runs on ``device`` (``None``: the CUDA card, raising
+    without one). With one (the JAX encoder's ``mesh``), this process's
+    shards of it split every batch into equal blocks, in shard order (the
+    JAX encoder's data parallelism; a device named twice takes two blocks,
+    and each distinct device holds one copy of the weights), and a model
+    axis above 1 splits the model over the ranks of that axis
+    (:class:`TensorParallel`, one shard a rank; every rank of the axis is
+    given the same batch and returns the same embeddings). As in the JAX
+    encoder, the attention heads split too where their number divides
+    over the axis and the attention is ``auto``/``fused``; else the
+    attention runs whole on every rank."""
 
     def __init__(self, config: NomicBertConfig,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  matryoshka_dim: Optional[int] = None, seed: int = 0,
-                 device: Optional[torch.device | str] = None):
+                 device: Optional[torch.device | str] = None, mesh=None):
         _resolve_attention_impl(config.attention_impl)  # refuse flash early
-        self.config = config
-        self.device = resolve_device(device)
-        self.model = NomicBertModel(config, device=self.device)
-        if state_dict is None:
-            init_random(self.model, seed)
+        tp = None
+        if mesh is None:
+            self.devices = [resolve_device(device)]
         else:
-            self.model.load_state_dict(state_dict)
-        self.model.eval().requires_grad_(False)
+            self.devices = [s.device for _i, s in mesh.local_shards()]
+            heads = (config.attention_impl in ("auto", "fused")
+                     and config.num_heads % axis_size(mesh, MODEL_AXIS) == 0)
+            tp = tensor_parallel(mesh, config, heads, sequence=False)
+        self.config = config
+        self.device = self.devices[0]
+        self.model = build_model(config, self.device, seed, state_dict, tp)
+        self._models = {self.device: self.model}
+        for d in self.devices[1:]:
+            if d not in self._models:
+                copy = NomicBertModel(config, device=d)
+                copy.load_state_dict(self.model.state_dict())
+                self._models[d] = copy
+        for model in self._models.values():
+            model.eval().requires_grad_(False)
         self.matryoshka_dim = matryoshka_dim
 
     @property
@@ -390,13 +708,25 @@ class NomicEncoder:
 
     def encode_tokens_device(self, input_ids, attention_mask) -> torch.Tensor:
         """``[B, S]`` ids + mask -> ``[B, dim]`` f32 embeddings, left on the
-        device (queued, not waited for)."""
-        ids = upload_tokens(input_ids, self.device)
-        mask = upload_tokens(attention_mask, self.device)
-        with torch.no_grad():
-            hidden = self.model(ids, mask)
-            return finalize_embeddings(mean_pool(hidden, mask),
-                                       self.matryoshka_dim)
+        (first) device, queued, not waited for. Over several local shards
+        ``B`` must split into equal blocks."""
+        n = len(self.devices)
+        b = input_ids.shape[0]
+        if b % n:
+            raise ValueError(f"a batch of {b} rows does not split over "
+                             f"{n} local shards")
+        out = []
+        for i, device in enumerate(self.devices):
+            rows = slice(i * b // n, (i + 1) * b // n)
+            ids = upload_tokens(input_ids[rows], device)
+            mask = upload_tokens(attention_mask[rows], device)
+            with torch.no_grad():
+                hidden = self._models[device](ids, mask)
+                out.append(finalize_embeddings(mean_pool(hidden, mask),
+                                               self.matryoshka_dim))
+        if n == 1:
+            return out[0]
+        return torch.cat([o.to(self.device) for o in out])
 
     def encode_tokens(self, input_ids, attention_mask) -> np.ndarray:
         out = self.encode_tokens_device(input_ids, attention_mask)

@@ -18,15 +18,28 @@ The collectives the sharded store and engine need (:func:`gather_ranks`,
 :func:`gather_objects`, :func:`barrier`) run on the default process group;
 gloo's ``all_gather`` takes CUDA tensors as NCCL's does (measured with
 torch 2.11 on the H100), so no caller stages through host memory.
+
+Training takes a ``(data, model)`` mesh of one shard a rank (the JAX
+trainer's mesh, with ``create_mesh``'s rank-major order): the rank's
+coordinate on each axis is :func:`axis_index`, and :func:`axis_group` is
+the process group of the ranks it shares an axis line with — the ranks
+with its model index form its data group, those with its data index its
+model group.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+
+#: the axis names of a training mesh (the JAX trainer's DATA_AXIS and
+#: MODEL_AXIS)
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
 
 
 @dataclass(frozen=True)
@@ -46,6 +59,8 @@ class Mesh:
     axis_names: Tuple[str, ...]
     rank: int = 0
     world_size: int = 1
+    #: the process group of each axis, built at first use (axis_group)
+    groups: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def shape(self) -> dict:
@@ -128,6 +143,65 @@ def create_mesh(
 
 def data_axis_size(mesh: Mesh, axis: str = "data") -> int:
     return mesh.shape[axis]
+
+
+def axis_size(mesh: Mesh, name: str) -> int:
+    """Shards along axis ``name``; 1 for an axis the mesh does not have."""
+    return mesh.shape.get(name, 1)
+
+
+def own_shard(mesh: Mesh, what: str) -> int:
+    """The world index of this rank's shard. Raises ``ValueError`` when
+    the rank owns more than one: ``what`` (training, a tensor-parallel
+    encoder) runs one process a shard, each driving its own device."""
+    local = mesh.local_shards()
+    if len(local) != 1:
+        raise ValueError(
+            f"{what} runs one process a shard, and this process owns "
+            f"{len(local)} shards of the mesh; launch one process a shard "
+            "through the BSR_* env (BSR_COORDINATOR, BSR_NUM_PROCESSES, "
+            "BSR_PROCESS_ID; see launch.py) with one device each")
+    return local[0][0]
+
+
+def axis_index(mesh: Mesh, name: str) -> int:
+    """This rank's coordinate on axis ``name`` (0 on an absent axis)."""
+    if name not in mesh.axis_names:
+        return 0
+    ax = mesh.axis_names.index(name)
+    stride = math.prod(mesh.axis_sizes[ax + 1:])
+    return own_shard(mesh, "an axis coordinate") // stride % mesh.axis_sizes[ax]
+
+
+def axis_group(mesh: Mesh, name: str):
+    """The process group of the ranks whose shards differ from this rank's
+    on axis ``name`` alone, in axis order; ``None`` where the axis has one
+    shard (nothing to communicate). Built at first use and kept on the
+    mesh: every rank builds every group of the axis in the same order
+    (``new_group`` is collective over the world), each with the world's
+    timeout (:func:`..launch.dist_timeout`)."""
+    size = axis_size(mesh, name)
+    if size == 1:
+        return None
+    if name not in mesh.groups:
+        import torch.distributed as dist
+
+        from ..launch import dist_timeout
+
+        me = own_shard(mesh, "an axis group")
+        ax = mesh.axis_names.index(name)
+        stride = math.prod(mesh.axis_sizes[ax + 1:])
+        own = None
+        for base in range(mesh.size):
+            if base // stride % size:
+                continue            # each line once, from its index-0 shard
+            line = [base + j * stride for j in range(size)]
+            group = dist.new_group([mesh.shards[i].rank for i in line],
+                                   timeout=dist_timeout())
+            if me in line:
+                own = group
+        mesh.groups[name] = own
+    return mesh.groups[name]
 
 
 # ---------------------------------------------------------------------------

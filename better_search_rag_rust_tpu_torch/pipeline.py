@@ -179,9 +179,32 @@ class Pipeline:
 
                 timer = self.bench.start("llm_service_loading")
                 self._encoder = create_encoder(
-                    self.config.encoder, device=self.device, seed=self._seed)
+                    self.config.encoder, device=self.device, seed=self._seed,
+                    mesh=self._local_encode_mesh())
                 self.bench.record(timer.stop(device=self.device))
             return self._encoder
+
+    def _local_encode_mesh(self):
+        """The mesh the nomic forward splits each batch over (the reference's
+        ``_local_encode_mesh``): the pipeline's mesh where this process owns
+        several of its shards (a device named twice counts twice), and the
+        batch size divides them; else ``None``, one device. The hash
+        backend runs no model and takes none."""
+        enc = self.config.encoder
+        if enc.backend == "hash" or (
+                enc.backend == "auto" and not (
+                    enc.checkpoint_dir and os.path.isdir(enc.checkpoint_dir))):
+            return None
+        # the default mesh is this process's one device; a mesh handed to
+        # the constructor is the only one with several local shards
+        local = [] if self._mesh is None else self._mesh.local_shards()
+        if len(local) <= 1:
+            return None
+        if enc.batch_size % len(local):
+            host_log(f"encode batch_size {enc.batch_size} does not divide "
+                     f"{len(local)} local devices; encoding on one")
+            return None
+        return self._mesh
 
     # -- phase 1: ingest + embed ---------------------------------------------------
 

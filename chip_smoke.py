@@ -199,7 +199,26 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    phase 8's nomic store: rank 0's ids and distances of 1024 queries bit
    for bit one process's, CLI ``search`` on both ranks with rank 0's top
    rows equal to one process's, and whether gloo's ``all_gather`` takes
-   CUDA tensors.
+   CUDA tensors;
+26. multi-GPU training on the one card, every world's ranks gloo processes
+   sharing cuda:0 (the ``BSR_*`` env): (a) ``bench/train_parallel.py`` at
+   12 x 768, random weights from ``--seed``, 8 pairs of 512 tokens, on the
+   meshes 2 x 1 (DP) and 1 x 2 (TP) over 2 ranks and 2 x 2 (DP x TP) over
+   4, sequence parallelism on: the first step's loss within 5e-3 of the
+   one-process trainer's and every parameter's gradient at cosine above
+   0.99 and its norm within 5 %, then 3 steps with finite, decreasing
+   losses equal on every rank, and exactly 24 K8 and 24 K9 launches a step
+   on each rank (2 towers x 12 layers); steps/s of each world; (b) CLI
+   ``finetune --tp 2`` on phase 8's tree under 2 ranks: rc 0 on both, rank
+   0 alone prints; a one-process trainer takes the same 2 steps from the
+   same seed on the same pairs: rank 0's printed losses within 5e-3 of
+   its losses, the checkpoint's update of the whole model at cosine above
+   0.99 to its update and every parameter's update norm within 5 % of
+   its, and the checkpoint reloads into a one-process trainer bit for bit
+   (a format check); (c) a ``Pipeline`` over a mesh of 2 shards on cuda:0
+   builds phase 8's tree with the nomic backend, every batch split over
+   the two: the store's rows within 2e-3 of phase 8's one-shard store
+   (``tests/test_torch_encode_mesh.py``'s bf16 bound), ``dp_devices`` 2.
 
 Every kernel's time is printed beside its plain version's, one PyTorch call
 computing the same function where there is one (``library``: the product
@@ -224,6 +243,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -284,6 +304,11 @@ TREE_FILES = 4096
 #: the finetune shape (the JAX finetune suite's batch) and the smaller batch
 #: at which the plain attention's gradients fit beside the kernels'
 B_TRAIN, B_GRAD = 64, 8
+#: phase 26's worlds (ranks, meshes over them) and its bounds: the first
+#: step's loss against one process's, a gradient's norm (relative), and the
+#: rows of a store built over 2 local shards against one shard's
+TRAIN_WORLDS = ((2, "2x1,1x2"), (4, "2x2"))
+PAR_LOSS_TOL, PAR_NORM_DEV, SHARD_TOL = 5e-3, 0.05, 2e-3
 BWD_REL, BWD_COS, GRAD_COS = 1e-2, 0.999, 0.99
 TIMED_STEPS = 8
 #: published H100 SXM rates (NVIDIA's data sheet, dense, at 700 W)
@@ -2613,6 +2638,200 @@ def check_sharded(seed, gen, card, store_dir):
           f"{time.perf_counter() - t0:.1f}s")
 
 
+def _start_ranks(argv, world):
+    """``argv`` on ``world`` gloo ranks sharing cuda:0 (the ``BSR_*`` env),
+    started together."""
+    import sys
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    return [subprocess.Popen(
+        [sys.executable, *argv], cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=repo,
+                 BSR_COORDINATOR=f"127.0.0.1:{port}",
+                 BSR_NUM_PROCESSES=str(world), BSR_PROCESS_ID=str(rank),
+                 BSR_DIST_TIMEOUT_S="120"))
+        for rank in range(world)]
+
+
+def _finish_ranks(procs, argv, timeout=300):
+    """``[stdout]`` of :func:`_start_ranks`' ranks in rank order. A rank
+    that fails or passes ``timeout`` fails the phase; every rank is
+    stopped."""
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, (_o, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, (argv[:4], rank, p.returncode, err[-3000:])
+    return [o for o, _e in outs]
+
+
+def check_training_parallel(seed, card, tmp, src, store_dir):
+    """Phase 26: (a) DP, TP and DP x TP training worlds against one
+    process, (b) CLI ``finetune --tp 2`` and its checkpoint against one
+    process's 2 steps, (c) the
+    pipeline's local encode mesh against phase 8's store."""
+    from better_search_rag_rust_tpu_torch.config import (
+        CorpusConfig,
+        EncoderConfig,
+        PipelineConfig,
+        SearchConfig,
+        StoreConfig,
+    )
+    from better_search_rag_rust_tpu_torch.bench.train_parallel import (
+        gradient_agreement,
+    )
+    from better_search_rag_rust_tpu_torch.models.checkpoint import load_params
+    from better_search_rag_rust_tpu_torch.models.nomic import NomicBertConfig
+    from better_search_rag_rust_tpu_torch.models.tokenizer import (
+        load_tokenizer,
+    )
+    from better_search_rag_rust_tpu_torch.models.train import (
+        ContrastiveTrainer,
+    )
+    from better_search_rag_rust_tpu_torch.models.train_data import (
+        corpus_pair_batches,
+    )
+    from better_search_rag_rust_tpu_torch.parallel.mesh import create_mesh
+    from better_search_rag_rust_tpu_torch.pipeline import Pipeline
+    from better_search_rag_rust_tpu_torch.store import vectorstore as pvs
+
+    t0 = time.perf_counter()
+    for world, meshes in TRAIN_WORLDS:
+        out = os.path.join(tmp, f"train_parallel_{world}.json")
+        t_world = time.perf_counter()
+        argv = ["-m", "better_search_rag_rust_tpu_torch.bench.train_parallel",
+                "--meshes", meshes, "--batch", str(B_GRAD), "--steps", "3",
+                "--seed", str(seed), "--out", out]
+        _finish_ranks(_start_ranks(argv, world), argv)
+        world_s = time.perf_counter() - t_world
+        for res in json.loads(open(out).read()):
+            c, ranks = res["check"], res["ranks"]
+            losses = ranks[0]["losses"]
+            shape = "x".join(map(str, res["mesh"]))
+            phase(f"phase 26 [{card}] mesh {shape} on {world} gloo ranks "
+                  f"sharing cuda:0 (attention {res['attention_impl']}, "
+                  f"heads split {res['heads_split']}, sequence parallel "
+                  f"{res['sequence_parallel']}, row-parallel output by "
+                  f"{res['collective']}), {res['batch']} pairs x {S_ENC} "
+                  f"tokens: first step loss {c['loss']:.6f}, one process "
+                  f"{c['one_process_loss']:.6f}; gradient cosine over "
+                  f"{c['params']} parameters min {c['min_cos']:.6f} "
+                  f"({c['min_cos_param']}), norms within "
+                  f"{c['max_norm_dev']:.2e}; 3 steps' losses "
+                  f"{[round(x, 6) for x in losses]}; launches a step per "
+                  f"rank {[r['launches_per_step'] for r in ranks]}; "
+                  f"steps/s per rank (ranks sharing one card) "
+                  f"{[round(r['steps_per_sec'], 4) for r in ranks]}")
+            assert res["backend"] == "gloo"
+            assert abs(c["loss"] - c["one_process_loss"]) <= PAR_LOSS_TOL
+            assert c["min_cos"] > GRAD_COS and c["params"] > 100
+            assert c["max_norm_dev"] <= PAR_NORM_DEV, c
+            assert all(math.isfinite(x) for x in losses)
+            assert losses[-1] < losses[0], losses
+            want = {"fused_attention_qkv": 24, "fused_attention_qkv_bwd": 24}
+            for r in ranks:
+                assert r["losses"] == losses, (r["rank"], r["losses"])
+                assert r["first_step_launches"] == want, r
+                assert r["launches_per_step"] == want, r
+        phase(f"phase 26 [{card}] world of {world} ranks: {world_s:.1f}s "
+              f"(start, build, check, steps)")
+
+    # (b) runs while (c) builds the tree in this process: nothing of either
+    # is timed
+    ckpt = os.path.join(tmp, "finetuned_tp2")
+    cli_argv = ["-m", "better_search_rag_rust_tpu_torch", "finetune",
+                "--root", src, "--extensions", "java", "--steps", "2",
+                "--train-batch", str(B_GRAD), "--tp", "2", "--save-dir", ckpt]
+    cli_ranks = _start_ranks(cli_argv, 2)
+    try:
+        dp_dir = os.path.join(tmp, "nomic_dp2")
+        cfg = PipelineConfig(
+            corpus=CorpusConfig(root=src, extensions=("java",),
+                                files_per_batch=256),
+            encoder=EncoderConfig(backend="nomic", batch_size=256),
+            store=StoreConfig(dir=dp_dir),
+            search=SearchConfig(top_k=K, store_dtype="bfloat16"))
+        pipe = Pipeline(cfg, device="cuda", seed=seed,
+                        mesh=create_mesh(devices=["cuda:0", "cuda:0"]))
+        result = pipe.run()
+        dp = pipe.encoder.numerics.get("dp_devices")
+        del pipe
+        torch.cuda.empty_cache()
+    finally:
+        outs = _finish_ranks(cli_ranks, cli_argv)
+    got = pvs.global_store(dp_dir, empty=False).matrix()
+    want = pvs.global_store(store_dir, empty=False).matrix()
+    same_rows = pvs.load_manifest(dp_dir) == pvs.load_manifest(store_dir)
+    diff = float(np.abs(got - want).max())
+    phase(f"phase 26 [{card}] pipeline over 2 shards of cuda:0, nomic "
+          f"backend, batch 256 split in 2: {got.shape[0]} rows, manifest "
+          f"== phase 8's: {same_rows}; max |rows - one shard's| {diff:.3g} "
+          f"(bound {SHARD_TOL}); dp_devices {dp}; MRR {result.mrr}")
+    assert same_rows and got.shape == want.shape and diff <= SHARD_TOL
+    assert dp == 2 and result.mrr == 1.0
+
+    for line in outs[0].splitlines():
+        if not line.startswith("20"):            # log lines carry a date
+            phase(f"phase 26 [{card}] cli finetune --tp 2 rank 0 | {line}")
+    # the same 2 steps in one process, from the same seed on the same pairs
+    # (the CLI's model and batches): its losses against those rank 0
+    # printed, its parameter updates against the checkpoint's. Every
+    # parameter's update norm is held (a wrong merge of same-shape shards
+    # moves it by the weights' own size) and the whole model's update
+    # cosine; one parameter's cosine is printed, not held: AdamW's first
+    # steps are near lr * sign(gradient), so a parameter whose gradient
+    # elements sit near zero flips signs on bf16 rounding alone
+    model_cfg = NomicBertConfig.from_encoder_config(EncoderConfig())
+    one = ContrastiveTrainer(model_cfg, device="cuda")
+    init = {k: v.clone() for k, v in one.state.params.items()}
+    pairs = corpus_pair_batches(
+        src, ("java",), load_tokenizer(None, model_cfg.max_tokens,
+                                       model_cfg.vocab_size), B_GRAD)
+    one_losses = [one.train_step(*next(pairs)) for _ in range(2)]
+    step0 = re.search(r"^step +0  loss (\S+)$", outs[0], re.M)
+    final = re.search(r"^final loss (\S+) ", outs[0], re.M)
+    assert step0 and final, outs[0]
+    printed = [float(step0[1]), float(final[1])]
+    saved = load_params(ckpt)
+    mine = one.state.params
+    got = {k: (v.to("cuda") - init[k]).double() for k, v in saved.items()}
+    want = {k: (v - init[k]).double() for k, v in mine.items()}
+    upd = gradient_agreement(got, want)
+    dot, n_got, n_want = (sum(float((a[k] * b[k]).sum()) for k in want)
+                          for a, b in ((got, want), (got, got),
+                                       (want, want)))
+    whole_cos = dot / math.sqrt(n_got * n_want)
+    del one, mine, init, got, want
+    # a format check: the file loads into a one-process trainer unchanged
+    reloaded = ContrastiveTrainer(model_cfg, params=saved, device="cuda")
+    equal = all(torch.equal(reloaded.state.params[k].cpu(), v)
+                for k, v in saved.items())
+    phase(f"phase 26 [{card}] cli finetune --tp 2 on 2 ranks: rc 0 on both;"
+          f" rank 1 printed no step; rank 0's losses {printed} (4 places), "
+          f"one process's on the same pairs {[round(x, 6) for x in one_losses]}"
+          f"; the checkpoint's 2-step updates against one process's: cosine "
+          f"{whole_cos:.6f} over the model, per parameter min "
+          f"{upd['min_cos']:.6f} ({upd['min_cos_param']}), norms of "
+          f"{upd['params']} parameters within {upd['max_norm_dev']:.2e}"
+          f"; {len(saved)} tensors reload into one process bitwise: {equal}")
+    assert all(abs(a - b) <= PAR_LOSS_TOL + 5e-5
+               for a, b in zip(printed, one_losses)), (printed, one_losses)
+    assert whole_cos > GRAD_COS and upd["params"] > 100, (whole_cos, upd)
+    assert upd["max_norm_dev"] <= PAR_NORM_DEV, upd
+    assert equal and f"params saved to {ckpt}" in outs[0]
+    assert "final loss" in outs[0] and "loss" not in outs[1]
+    del reloaded, saved
+    torch.cuda.empty_cache()
+    phase(f"phase 26 [{card}] multi-GPU training and encode mesh: "
+          f"{time.perf_counter() - t0:.1f}s")
+
+
 def free_port() -> int:
     """A localhost port free now, for a rendezvous."""
     import socket
@@ -2623,8 +2842,8 @@ def free_port() -> int:
 
 
 def run_tree_phases(args, gen, card, tmp, cfg, errs, times, launches):
-    """Phases 8-25: everything from the seeded tree's build mode on; the
-    tree and its stores live in ``tmp`` until phase 25 has used them."""
+    """Phases 8-26: everything from the seeded tree's build mode on; the
+    tree and its stores live in ``tmp`` until phase 26 has used them."""
     from better_search_rag_rust_tpu_torch.bench.suite import write_java_tree
     from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
     from better_search_rag_rust_tpu_torch.store import DeviceStore
@@ -2715,6 +2934,8 @@ def run_tree_phases(args, gen, card, tmp, cfg, errs, times, launches):
         check_exactness_sweep(args.seed, card, dtype)
 
     check_sharded(args.seed, gen, card, os.path.join(tmp, "nomic"))
+    check_training_parallel(args.seed, card, tmp, src,
+                            os.path.join(tmp, "nomic"))
 
 
 def main() -> int:

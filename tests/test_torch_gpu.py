@@ -1507,3 +1507,66 @@ def test_nccl_ranks_equal_one_process(cards, dtype, tmp_path):
     np.testing.assert_array_equal(got["o_ids"], ids)
     want = one.store.take_rows(np.array([0, len(mat) // 2, len(mat) - 1]))
     np.testing.assert_array_equal(got["rows"], want.float().cpu().numpy())
+
+
+@pytest.fixture
+def four_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four or more CUDA cards")
+    return torch.cuda.device_count()
+
+
+@pytest.mark.parametrize("world, meshes", [(2, "2x1,1x2"), (4, "2x2")])
+def test_nccl_training_ranks_match_one_process(four_cards, tmp_path, world,
+                                               meshes):
+    """DP 2 x 1, TP 1 x 2 and DP x TP 2 x 2 (sequence parallel) at 12 x
+    768 on NCCL, one rank a card (``bench/train_parallel.py``): the first
+    step's loss and gradients against one process's on cuda:0 (chip_smoke
+    phase 26's bounds), 3 decreasing steps equal on every rank, 24 K8 and
+    24 K9 launches a step on each."""
+    import json
+    import math
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = tmp_path / "result.json"
+    env = dict(os.environ, PYTHONPATH=str(repo),
+               BSR_COORDINATOR=f"127.0.0.1:{port}",
+               BSR_NUM_PROCESSES=str(world), BSR_DIST_TIMEOUT_S="120")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m",
+         "better_search_rag_rust_tpu_torch.bench.train_parallel",
+         "--meshes", meshes, "--out", str(out)],
+        env=dict(env, BSR_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, (_o, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, (r, err[-3000:])
+    want = {"fused_attention_qkv": 24, "fused_attention_qkv_bwd": 24}
+    for res in json.loads(out.read_text()):
+        c, ranks = res["check"], res["ranks"]
+        assert res["backend"] == "nccl"
+        assert [r["device"] for r in ranks] == [f"cuda:{i}"
+                                                for i in range(world)]
+        assert abs(c["loss"] - c["one_process_loss"]) <= 5e-3
+        assert c["min_cos"] > 0.99 and c["max_norm_dev"] <= 0.05, c
+        losses = ranks[0]["losses"]
+        assert all(math.isfinite(x) for x in losses)
+        assert losses[-1] < losses[0]
+        for r in ranks:
+            assert r["losses"] == losses
+            assert r["first_step_launches"] == want
+            assert r["launches_per_step"] == want

@@ -283,8 +283,9 @@ def test_corpus_pair_batches_equal_jax(tmp_path):
 
 
 def test_cli_finetune(tmp_path, capsys):
-    """Ports tests/test_train.py:357-376 on the CPU; ``--tp 2`` is the
-    multi-GPU slice and raises."""
+    """Ports tests/test_train.py:357-376 on the CPU; ``--tp 2`` over one
+    process exits with the JAX package's message (two ranks:
+    ``test_torch_train_parallel.py``)."""
     root = tmp_path / "src"
     _tree(root, 8, 30)
     argv = ["finetune", "--root", str(root), "--steps", "3",
@@ -298,5 +299,5 @@ def test_cli_finetune(tmp_path, capsys):
     assert f"params saved to {tmp_path / 'ckpt'}" in out
     params = load_params(tmp_path / "ckpt")
     assert params["encoder.layers.0.attn.Wqkv.weight"].shape == (96, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="--tp 2 does not divide 1 devices"):
         cli.main(argv[:-2] + ["--tp", "2"])
