@@ -73,8 +73,9 @@ class EncoderConfig:
     #: Compute dtype for the forward pass.
     dtype: str = "bfloat16"
     #: Attention implementation: "auto" and "fused" run the fused attention
-    #: kernel (K8), "xla" the plain chain with f32 logits, "xla_bf16" the
-    #: plain chain with bf16 logits; "flash" is not ported.
+    #: kernel (K8, up to 1,024 tokens), "xla" the plain chain with f32
+    #: logits, "xla_bf16" the plain chain with bf16 logits, "flash" the
+    #: flash kernels (K14-K16: long contexts, max_tokens a multiple of 128).
     attention_impl: str = "auto"
     #: Long-document handling: "truncate" keeps the reference's semantics
     #: (text beyond max_tokens is dropped, src/llm/hf.rs:62-67); "mean"

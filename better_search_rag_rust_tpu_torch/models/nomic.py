@@ -18,9 +18,14 @@ the hand-written K8 kernel (:mod:`..ops.attention_kernels`), differentiable
 with the hand-written K9 kernel as its backward, ``xla`` the
 plain f32-logit chain, ``xla_bf16`` the plain bf16-logit chain; ``auto`` is
 ``fused``, which falls to ``xla_bf16`` for a sequence length or head width
-not divisible by 8. ``flash`` (the reference's library kernel) is not
-ported. The encoder meta records the port's names (``torch-fused``, ...), so
-a store mixing the two packages warns at query time.
+not divisible by 8. ``flash`` (the reference's library Pallas flash kernel,
+for contexts past K8's 1,024 tokens) runs the hand-written K14 forward and
+K15 + K16 backward (:mod:`..ops.flash_kernels`) on rotated ``[B, H, S, hd]``
+q, k and v, the key padding as segment ids: pad tokens form their own
+segment, so a real query never sees a pad key and a pad query attends only
+among pads. Like the library, it takes ``max_tokens`` a multiple of 128. The
+encoder meta records the port's names (``torch-fused``, ``torch-flash``,
+...), so a store mixing the two packages warns at query time.
 
 Tensor parallelism (:class:`TensorParallel`, one rank of a mesh's model
 axis; the JAX package's ``param_specs`` and its head-sharded ``shard_map``
@@ -51,6 +56,7 @@ from torch import nn
 
 from ..config import EncoderConfig, torch_dtype
 from ..ops.attention_kernels import fused_attention_qkv, rotary_roll_tables
+from ..ops.flash_kernels import SegmentIds, flash_attention
 from ..parallel.mesh import (
     MODEL_AXIS,
     axis_group,
@@ -85,7 +91,8 @@ class NomicBertConfig:
     qkv_bias: bool = False
     mlp_bias: bool = False
     dtype: torch.dtype = torch.bfloat16
-    #: "auto" | "fused" | "xla" | "xla_bf16" (see _resolve_attention_impl)
+    #: "auto" | "fused" | "xla" | "xla_bf16" | "flash" (see
+    #: _resolve_attention_impl)
     attention_impl: str = "auto"
     #: dtype of the Linear and Embedding weights; None: ``dtype``
     param_dtype: Optional[torch.dtype] = None
@@ -144,15 +151,10 @@ def _resolve_attention_impl(impl: str, seq_len: Optional[int] = None,
     """The attention implementation that actually runs: ``auto`` ->
     ``fused`` (K8); ``fused`` -> ``xla_bf16`` when seq_len or head_dim is
     not divisible by 8 (the reference's rule, recorded in the encoder meta);
-    ``xla`` and ``xla_bf16`` as asked."""
+    ``xla``, ``xla_bf16`` and ``flash`` (K14-K16) as asked."""
     if impl == "auto":
         impl = "fused"
-    if impl == "flash":
-        raise NotImplementedError(
-            "attention_impl='flash' (the reference's library Pallas flash "
-            "kernel) is not ported to the PyTorch package; see ROADMAP.md. "
-            "Use 'fused' (K8), 'xla' or 'xla_bf16'.")
-    if impl not in ("fused", "xla", "xla_bf16"):
+    if impl not in ("fused", "xla", "xla_bf16", "flash"):
         raise ValueError(f"unknown attention_impl {impl!r}")
     if impl == "fused" and ((seq_len is not None and seq_len % 8)
                             or (head_dim is not None and head_dim % 8)):
@@ -168,7 +170,10 @@ def mesh_attention_impl(impl: str, config: "NomicBertConfig", data: int,
     the heads split over it and the kernel's tiles hold (``H % model``,
     ``hd % 8`` and ``max_tokens % 8`` all 0), else ``xla_bf16``; any
     other impl, and one shard, as asked. The heads split over the model
-    axis exactly when this is ``fused``."""
+    axis exactly when this is ``fused``. ``flash`` on several shards
+    raises, as the JAX trainer's step does: its library kernel is a bare
+    ``pallas_call``, which the mesh's partitioner does not split."""
+    refuse_flash_on_mesh(impl, data * model)
     if impl not in ("auto", "fused") or data * model == 1:
         return impl
     if model == 1 or (config.num_heads % model == 0
@@ -176,6 +181,18 @@ def mesh_attention_impl(impl: str, config: "NomicBertConfig", data: int,
                       and config.max_tokens % 8 == 0):
         return "fused"
     return "xla_bf16"
+
+
+def refuse_flash_on_mesh(impl: str, shards: int) -> None:
+    """``flash`` runs on one device: the JAX trainer and encoder fail on a
+    mesh of several (the partitioner cannot split the library's
+    ``pallas_call``; on the CPU its first step raises), and the port adds
+    no mesh feature the JAX package lacks."""
+    if impl == "flash" and shards > 1:
+        raise NotImplementedError(
+            f"attention_impl='flash' runs on one device, not on a mesh of "
+            f"{shards} shards (the JAX package's flash step does not "
+            f"partition either); use 'fused' or 'xla_bf16' on a mesh")
 
 
 def tensor_parallel(mesh, config: "NomicBertConfig", heads: bool,
@@ -315,11 +332,12 @@ class _Embedding(nn.Embedding):
 class _AttentionInputs:
     """Per-forward attention inputs shared by every layer."""
 
-    def __init__(self, cos, sin, cos2, s2, mask_bias, bias2):
+    def __init__(self, cos, sin, cos2, s2, mask_bias, bias2, seg):
         self.cos, self.sin = cos, sin            # [S, hd/2] f32
         self.cos2, self.s2 = cos2, s2            # [S, hd] f32 (K8)
         self.mask_bias = mask_bias               # [B, 1, 1, S] f32
         self.bias2 = bias2                       # [B, S] f32 (K8)
+        self.seg = seg                           # [B, S] int32 (flash)
 
 
 class NomicAttention(nn.Module):
@@ -356,6 +374,15 @@ class NomicAttention(nn.Module):
         q = apply_rotary(qkv[:, :, 0], rope.cos, rope.sin)
         k = apply_rotary(qkv[:, :, 1], rope.cos, rope.sin)
         v = qkv[:, :, 2]
+        if impl == "flash":
+            # K14 (K15 + K16 backward) on [B, H, S, hd]; the key padding
+            # rides segment ids, so no [B, H, S, S] logits exist
+            ctx = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2),
+                                  SegmentIds(rope.seg, rope.seg),
+                                  1.0 / math.sqrt(hd))
+            return self._output(ctx.transpose(1, 2).to(cfg.dtype)
+                                .reshape(b, s, h * hd))
         # Products of the rounded operands are exact in f32 (TF32 off).
         logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float())
         if impl == "xla_bf16":
@@ -486,7 +513,8 @@ class NomicBertModel(nn.Module):
         bias2 = torch.where(attention_mask > 0, 0.0, -1e9).to(torch.float32)
         rope = _AttentionInputs(*self._rotary(input_ids.shape[1], input_ids.device),
                      mask_bias=bias2[:, None, None, :],
-                     bias2=bias2.contiguous())
+                     bias2=bias2.contiguous(),
+                     seg=attention_mask.to(torch.int32))
         for layer in self.encoder.layers:
             x = layer(x, rope)
         return gather_rows(x, tp.group, dim=1) if sp else x
@@ -680,11 +708,12 @@ class NomicEncoder:
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  matryoshka_dim: Optional[int] = None, seed: int = 0,
                  device: Optional[torch.device | str] = None, mesh=None):
-        _resolve_attention_impl(config.attention_impl)  # refuse flash early
+        _resolve_attention_impl(config.attention_impl)  # refuse a bad name early
         tp = None
         if mesh is None:
             self.devices = [resolve_device(device)]
         else:
+            refuse_flash_on_mesh(config.attention_impl, mesh.size)
             self.devices = [s.device for _i, s in mesh.local_shards()]
             heads = (config.attention_impl in ("auto", "fused")
                      and config.num_heads % axis_size(mesh, MODEL_AXIS) == 0)

@@ -10,7 +10,9 @@ default), as the JAX trainer's Flax modules do. With ``attention_impl``
 ``fused`` (the default) every attention layer runs the hand-written K8
 kernel forward and the K9 kernel backward
 (:class:`~..ops.attention_kernels.FusedAttentionQKV`), on each rank's batch
-block and heads.
+block and heads; with ``flash`` the K14 kernel forward and the K15 + K16
+kernels backward (:class:`~..ops.flash_kernels.FlashAttention`), on one
+device only, as in the JAX package.
 
 The mesh (:func:`..parallel.mesh.create_mesh` under the ``BSR_*`` launch)
 has one shard a rank, where the JAX trainer has one device a shard; one
@@ -116,15 +118,15 @@ class ContrastiveTrainer:
                 raise ValueError(f"a training mesh has the axes "
                                  f"{(DATA_AXIS, MODEL_AXIS)}, got "
                                  f"{mesh.axis_names}")
-            self.device = mesh.shards[own_shard(mesh, "training")].device
             self.dp = axis_size(mesh, DATA_AXIS)
             self.tp = axis_size(mesh, MODEL_AXIS)
-            self.data_rank = axis_index(mesh, DATA_AXIS)
-            self.data_group = axis_group(mesh, DATA_AXIS)
-            self.model_group = axis_group(mesh, MODEL_AXIS)
             config = dataclasses.replace(config, attention_impl=(
                 mesh_attention_impl(config.attention_impl, config, self.dp,
                                     self.tp)))
+            self.device = mesh.shards[own_shard(mesh, "training")].device
+            self.data_rank = axis_index(mesh, DATA_AXIS)
+            self.data_group = axis_group(mesh, DATA_AXIS)
+            self.model_group = axis_group(mesh, MODEL_AXIS)
         self.mesh = mesh
         self.config = dataclasses.replace(config, param_dtype=torch.float32)
         self.temperature = temperature

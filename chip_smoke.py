@@ -218,12 +218,29 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    (a format check); (c) a ``Pipeline`` over a mesh of 2 shards on cuda:0
    builds phase 8's tree with the nomic backend, every batch split over
    the two: the store's rows within 2e-3 of phase 8's one-shard store
-   (``tests/test_torch_encode_mesh.py``'s bf16 bound), ``dp_devices`` 2.
+   (``tests/test_torch_encode_mesh.py``'s bf16 bound), ``dp_devices`` 2;
+27. ``attention_impl="flash"`` (K14 forward, K15 + K16 backward) past K8's
+   1,024 tokens: (a) K14 against its plain version on bf16 [32, 12, 2048,
+   64] with random padding per row (every row, pad rows included, within
+   K8's bound; both against float64 on a slice), its time beside its
+   bound, plain and SDPA with the boolean segment mask; K14 alone at
+   [2, 12, 8192, 64]; K14 at K8's shape beside K8 in the same run; (b)
+   K15 and K16 against the plain backward at [8, 12, 2048, 64], the
+   step's shape (K9's bound), two backward runs bit for bit, their times
+   beside bound, plain and SDPA's backward (each bound counts the pairs
+   the segment rule leaves, not all S x S); (c) the encoder at 12 x 768 on 32 x 2,048 tokens:
+   12 K14 launches a forward, files/s, its device split, pooled cosine
+   0.999 to the ``xla`` path on 4 unpadded rows; (d) build mode on phase
+   8's tree at ``max_tokens`` 2,048: the store's meta ``torch-flash``,
+   oracle overlap 1.0; (e) one finetune step on 8 pairs x 2,048: a finite
+   loss, 24 launches each of K14, K15 and K16, the step's device split;
+   at 2 pairs every gradient at cosine 0.99 to the ``xla`` path's.
 
 Every kernel's time is printed beside its plain version's, one PyTorch call
 computing the same function where there is one (``library``: the product
 alone for K1/K3/K5, ``scaled_dot_product_attention`` on rotated q/k/v for
-K7/K8/K9, indexing for K4, ``bmm`` for K6; none for K2, K11, K12 and K13), and
+K7/K8/K9 and with the boolean segment mask for K14 (its whole backward for
+K15/K16), indexing for K4, ``bmm`` for K6; none for K2, K11, K12 and K13), and
 its bound: the larger of the bytes it must move (a gather: the distinct
 units it selects) over 3.35 TB/s and its operations (K12: every copy of
 its product) over the named peak
@@ -260,6 +277,7 @@ TOL = 1e-5
 #: (fma_chain_scores runs D steps in float64 over T x CHAIN_ROWS pairs)
 CHAIN_ROWS = 16_384
 CSRC = "better_search_rag_rust_tpu_torch/ops/csrc/"
+LIB_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 #: kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "matmul_blockmax2_only": (CSRC + "topk_kernels.cu",
@@ -296,6 +314,14 @@ KERNELS = {
     "gather_rescore_mm": (CSRC + "topk_kernels.cu", "scripts/proto_dma3.py:80"),
     # P17's fused cross scores; timed at 1m S=16 G=2 by bench/proto_fused.py
     "gather_cross": (CSRC + "topk_kernels.cu", "scripts/proto_fused.py:139"),
+    # the library's flash attention, which the JAX encoder calls with
+    # attention_impl="flash" (jax 0.9.0)
+    "flash_attention_fwd": (CSRC + "flash_kernels.cu",
+                            LIB_FLASH + ":758"),
+    "flash_attention_bwd_dkv": (CSRC + "flash_kernels.cu",
+                                LIB_FLASH + ":1121"),
+    "flash_attention_bwd_dq": (CSRC + "flash_kernels.cu",
+                               LIB_FLASH + ":1456"),
 }
 #: the encoder's shape: batch, sequence, heads, head width
 B_ENC, S_ENC, H_ENC, HD_ENC = 256, 512, 12, 64
@@ -311,6 +337,10 @@ TRAIN_WORLDS = ((2, "2x1,1x2"), (4, "2x2"))
 PAR_LOSS_TOL, PAR_NORM_DEV, SHARD_TOL = 5e-3, 0.05, 2e-3
 BWD_REL, BWD_COS, GRAD_COS = 1e-2, 0.999, 0.99
 TIMED_STEPS = 8
+#: phase 27: the flash path's context (past K8's 1,024 tokens), its
+#: encoder batch, the backward's batch and the finetune step's pairs
+S_FLASH, B_FLASH, B_FLASH_STEP = 2048, 32, 8
+B_FLASH_BWD = B_FLASH_STEP
 #: published H100 SXM rates (NVIDIA's data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"fp32 SIMT": 67e12, "bf16 tensor": 989e12,
@@ -757,10 +787,16 @@ def _rotated_qkv(qkv, c2, s2, bias, h):
     return rot(x[0]), rot(x[1]), x[2].contiguous(), mask
 
 
-def _device_profile(fn):
+#: kernel groups of a device-time split: name -> parts of the kernels' names
+K8_K9 = {"K8": ("k8_fused_attention_qkv",), "K9": ("k9_bwd_", "k9_rotate_k")}
+K14_K16 = {"K14": ("k14_flash_fwd",), "K15": ("k15_flash_bwd_dkv",),
+           "K16": ("k16_flash_bwd_dq",)}
+
+
+def _device_profile(fn, groups=K8_K9):
     """Device time by kernel over one call of ``fn`` (torch.profiler):
-    ({"K8": ms, "K9": ms, "GEMMs": ms, "rest": ms}, total ms, [(ms, kernel)]
-    longest first)."""
+    ({group: ms, ..., "GEMMs": ms, "rest": ms}, total ms, [(ms, kernel)]
+    longest first), the groups as ``groups`` names them."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -774,15 +810,13 @@ def _device_profile(fn):
                          getattr(evt, "self_cuda_time_total", 0))
             rows.append((us / 1e3, evt.key))
     rows.sort(reverse=True)
-    split = {
-        "K8": sum(ms for ms, key in rows if "k8_fused_attention_qkv" in key),
-        "K9": sum(ms for ms, key in rows
-                  if "k9_bwd_" in key or "k9_rotate_k" in key),
-        "GEMMs": sum(ms for ms, key in rows
-                     if not key.startswith(("k8_", "k9_")) and any(
-                         w in key.lower()
-                         for w in ("gemm", "nvjet", "xmma", "cutlass"))),
-    }
+    split = {name: sum(ms for ms, key in rows if any(p in key for p in parts))
+             for name, parts in groups.items()}
+    ours = [p for parts in groups.values() for p in parts]
+    split["GEMMs"] = sum(ms for ms, key in rows
+                         if not any(p in key for p in ours) and any(
+                             w in key.lower()
+                             for w in ("gemm", "nvjet", "xmma", "cutlass")))
     total = sum(ms for ms, _ in rows)
     split["rest"] = total - sum(split.values())
     return split, total, rows
@@ -2832,6 +2866,327 @@ def check_training_parallel(seed, card, tmp, src, store_dir):
           f"{time.perf_counter() - t0:.1f}s")
 
 
+def _flash_operands(gen, b, h, s, hd, lens_lo):
+    """Seeded bf16 q, k, v, do ``[B, H, S, hd]`` and segment ids from a
+    random attention mask per row (lengths in [lens_lo, S]; row 0 whole):
+    pad tokens are their own segment, as the encoder passes them."""
+    q, k, v, do = (torch.randn((b, h, s, hd), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    lens = torch.randint(lens_lo, s + 1, (b,), generator=gen, device="cuda")
+    lens[0] = s
+    seg = (torch.arange(s, device="cuda")[None, :]
+           < lens[:, None]).to(torch.int32)
+    return q, k, v, do, seg
+
+
+def segment_pairs(seg) -> int:
+    """The query-key pairs the segment rule leaves: per row, the square of
+    each segment's length. A query sees its own key, so its row maximum is
+    a real logit and a key of another segment adds exactly 0: the least
+    work counts these pairs only, not all S x S."""
+    return sum(int(((seg == v).sum(1).long() ** 2).sum())
+               for v in torch.unique(seg))
+
+
+def bound_share(rec) -> str:
+    return (f", {100 * rec['bound_ms'] / rec['ms']:.1f} % of bound over "
+            f"the segments' pairs")
+
+
+def flash_reference64(q, k, v, seg, scale):
+    """Float64 softmax attention of the same bf16 operands under the
+    segment rule (a query sees the keys of its own segment only)."""
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2)) * scale
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    s = s.masked_fill(~same, -math.inf)
+    return torch.matmul(torch.softmax(s, dim=-1), v.double())
+
+
+def _agreement(a, r):
+    """max |a - r| and the cosine of the two, over every cell."""
+    a, r = a.double(), r.double()
+    return (float((a - r).abs().max()),
+            float((a * r).sum() / (a.norm() * r.norm())))
+
+
+def check_flash_kernels(gen, card):
+    """Phase 27 (a) and (b): K14 against its plain version at 32 x 2,048
+    tokens (and alone at 8,192; at K8's shape beside K8), K15 and K16
+    against the plain backward at 8 x 2,048, two backward runs bit for
+    bit; each kernel's time beside its bound, its plain version and SDPA
+    (timed as the yardstick only)."""
+    from better_search_rag_rust_tpu_torch.models.nomic import rotary_tables
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+    from better_search_rag_rust_tpu_torch.ops import flash_kernels as fk
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    errs, times = {}, {}
+    b, h, s, hd = B_FLASH, H_ENC, S_FLASH, HD_ENC
+    scale = 1.0 / math.sqrt(hd)
+    q, k, v, _do, seg = _flash_operands(gen, b, h, s, hd, s // 8)
+
+    def kern():
+        return fk.flash_attention_fwd(q, k, v, seg, seg, scale)
+
+    def plain():
+        return fk.flash_attention_fwd_plain(q, k, v, seg, seg, scale)
+
+    (o, l, m), (po, pl, _pm) = kern(), plain()
+    torch.cuda.synchronize()
+    err, cos = _agreement(o, po)
+    finite = bool(torch.isfinite(o.float()).all())
+    pad_rows = seg == 0
+    pad_err, _ = _agreement(o.transpose(1, 2)[pad_rows],
+                            po.transpose(1, 2)[pad_rows])
+    ref = flash_reference64(q[:2, :2], k[:2, :2], v[:2, :2], seg[:2], scale)
+    e_k = float((o[:2, :2].double() - ref).abs().max())
+    e_p = float((po[:2, :2].double() - ref).abs().max())
+    phase(f"phase 27 [{card}] K14 [{b} x {h} x {s} x {hd}] bf16, random "
+          f"padding per row ({int(pad_rows.sum())} pad tokens): "
+          f"max|o-plain| every row "
+          f"{err:.4g} (bound {ATT_TOL}), pad rows {pad_err:.4g}, cosine "
+          f"{cos:.7f} (bound {ATT_COS}), all finite {finite}; l max rel "
+          f"{float(((l - pl).abs() / pl).max()):.3g}; vs float64 on rows "
+          f"0-1 x heads 0-1: kernel max {e_k:.4g}, plain max {e_p:.4g}")
+    assert err < ATT_TOL and cos > ATT_COS and finite
+    errs["flash_attention_fwd"] = err
+    mask = (seg[:, None, :, None] == seg[:, None, None, :])
+    times["flash_attention_fwd"] = timing(
+        cuda_ms(kern), cuda_ms(plain),
+        cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale)),
+        nbytes(q, k, v, o, l, m, seg), 4 * h * hd * segment_pairs(seg),
+        "bf16 tensor")
+    phase(f"phase 27 [{card}] " + timing_line("flash_attention_fwd",
+                                              times["flash_attention_fwd"])
+          + bound_share(times["flash_attention_fwd"]))
+    del o, l, m, po, pl, _pm, mask, q, k, v, _do
+    torch.cuda.empty_cache()
+
+    # a context K8 cannot take, and K8's own shape
+    q, k, v, _do, seg = _flash_operands(gen, 2, h, 8192, hd, 1024)
+    o, _, _ = fk.flash_attention_fwd(q, k, v, seg, seg, scale)
+    po, _, _ = fk.flash_attention_fwd_plain(q, k, v, seg, seg, scale)
+    err8k, cos8k = _agreement(o, po)
+    ms8k = cuda_ms(lambda: fk.flash_attention_fwd(q, k, v, seg, seg, scale))
+    bound8k = 1e3 * 4 * h * hd * segment_pairs(seg) / PEAK_OPS["bf16 tensor"]
+    phase(f"phase 27 [{card}] K14 [2 x {h} x 8192 x {hd}] (past K8's "
+          f"{ak.KERNEL_MAX_SEQ}): {ms8k:.3f} ms, bound {bound8k:.3f} ms "
+          f"(operations; {100 * bound8k / ms8k:.1f} % of bound), max|o-plain| {err8k:.4g}, cosine {cos8k:.7f}")
+    assert err8k < ATT_TOL and cos8k > ATT_COS
+    del q, k, v, _do, o, po
+    torch.cuda.empty_cache()
+    bk8, sk8 = B_ENC, S_ENC
+    q, k, v, _do, seg = _flash_operands(gen, bk8, h, sk8, hd, 1)
+    ms_k14 = cuda_ms(lambda: fk.flash_attention_fwd(q, k, v, seg, seg, scale))
+    qkv = torch.cat([t.transpose(1, 2).reshape(bk8, sk8, h * hd)
+                     for t in (q, k, v)], dim=-1).contiguous()
+    bias = torch.where(seg > 0, 0.0, -1e9).to(torch.float32).contiguous()
+    cos_t, sin_t = (torch.from_numpy(t).cuda()
+                    for t in rotary_tables(sk8, hd, 1000.0))
+    c2, s2 = ak.rotary_roll_tables(cos_t, sin_t)
+    ms_k8 = cuda_ms(lambda: ak.fused_attention_qkv(qkv, c2, s2, bias, h,
+                                                   scale))
+    phase(f"phase 27 [{card}] K14 at K8's shape [{bk8} x {h} x {sk8} x "
+          f"{hd}]: {ms_k14:.3f} ms; K8 (rotary + attention off Wqkv) "
+          f"{ms_k8:.3f} ms in this run")
+    del q, k, v, _do, qkv, bias
+    torch.cuda.empty_cache()
+
+    # the backward at the finetune step's shape
+    b = B_FLASH_BWD
+    q, k, v, do, seg = _flash_operands(gen, b, h, s, hd, s // 8)
+    o, l, m = fk.flash_attention_fwd(q, k, v, seg, seg, scale)
+    di = (o.float() * do.float()).sum(-1)
+    args = (q, k, v, seg, seg, l, m, do, di, scale)
+    dk, dv = fk.flash_attention_bwd_dkv(*args)
+    dq = fk.flash_attention_bwd_dq(*args)
+    dk2, dv2 = fk.flash_attention_bwd_dkv(*args)
+    dq2 = fk.flash_attention_bwd_dq(*args)
+    pdk, pdv = fk.flash_attention_bwd_dkv_plain(*args)
+    pdq = fk.flash_attention_bwd_dq_plain(*args)
+    torch.cuda.synchronize()
+    same = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+            and torch.equal(dv, dv2))
+    parts = []
+    for name, got, want in (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
+        diff, c = _agreement(got, want)
+        top = float(want.float().abs().max())
+        parts.append((name, diff, top, c))
+        assert bool(torch.isfinite(got.float()).all())
+        assert diff <= BWD_REL * top and c >= BWD_COS, (name, diff, top, c)
+    phase(f"phase 27 [{card}] K15/K16 [{b} x {h} x {s} x {hd}] bf16: "
+          + "; ".join(
+        f"{n} max|diff|={d:.4g} (bound {BWD_REL} x {t:.4g}) cosine={c:.7f}"
+        f" (bound {BWD_COS})" for n, d, t, c in parts)
+        + f"; two backward runs bitwise equal: {same}")
+    assert same
+    errs["flash_attention_bwd_dq"] = parts[0][1]
+    errs["flash_attention_bwd_dkv"] = max(parts[1][1], parts[2][1])
+    del pdk, pdv, pdq, dk2, dv2, dq2
+    torch.cuda.empty_cache()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    mask = (seg[:, None, :, None] == seg[:, None, None, :])
+    out = sdpa(*leaves, attn_mask=mask, scale=scale)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                   retain_graph=True))
+    moved = nbytes(q, k, v, do, l, m, di, seg)
+    pairs = segment_pairs(seg)
+    times["flash_attention_bwd_dkv"] = timing(
+        cuda_ms(lambda: fk.flash_attention_bwd_dkv(*args)),
+        cuda_ms(lambda: fk.flash_attention_bwd_dkv_plain(*args)), sdpa_bwd,
+        moved + nbytes(dk, dv), 8 * h * hd * pairs, "bf16 tensor")
+    times["flash_attention_bwd_dq"] = timing(
+        cuda_ms(lambda: fk.flash_attention_bwd_dq(*args)),
+        cuda_ms(lambda: fk.flash_attention_bwd_dq_plain(*args)), sdpa_bwd,
+        moved + nbytes(dq), 6 * h * hd * pairs, "bf16 tensor")
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        phase(f"phase 27 [{card}] " + timing_line(name, times[name])
+              + bound_share(times[name])
+              + " (library: SDPA's whole backward)")
+    del q, k, v, do, o, l, m, di, dk, dv, dq, leaves, out, mask, args
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+def check_flash_paths(seed, card, tmp, src):
+    """Phase 27 (c)-(e): the encoder at full width on 32 x 2,048 tokens,
+    build mode on phase 8's tree at 2,048 tokens, one finetune step; the
+    main path's launches of K14 (build mode) and K15 / K16 (the step)."""
+    from better_search_rag_rust_tpu_torch.config import (
+        CorpusConfig,
+        EncoderConfig,
+        PipelineConfig,
+        SearchConfig,
+        StoreConfig,
+    )
+    from better_search_rag_rust_tpu_torch.models.nomic import (
+        NomicBertConfig,
+        NomicEncoder,
+    )
+    from better_search_rag_rust_tpu_torch.models.train import (
+        ContrastiveTrainer,
+    )
+    from better_search_rag_rust_tpu_torch.ops import flash_kernels as fk
+    from better_search_rag_rust_tpu_torch.pipeline import Pipeline
+    from better_search_rag_rust_tpu_torch.store import vectorstore as pvs
+
+    cfg = NomicBertConfig(attention_impl="flash", max_tokens=S_FLASH)
+    flash = NomicEncoder(cfg, seed=seed, device="cuda")
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, cfg.vocab_size, size=(B_FLASH, S_FLASH))
+    lens = rng.integers(S_FLASH // 8, S_FLASH + 1, size=B_FLASH)
+    mask = (np.arange(S_FLASH)[None, :] < lens[:, None]).astype(np.int64)
+    ids_d, mask_d = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+    flash.encode_tokens_device(ids_d, mask_d)
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    emb = flash.encode_tokens_device(ids_d, mask_d)
+    torch.cuda.synchronize()
+    per_forward = fk.launch_counts["flash_attention_fwd"]
+    rate = B_FLASH / (cuda_ms(lambda: flash.encode_tokens_device(
+        ids_d, mask_d)) / 1e3)
+    split, total, _top = _device_profile(
+        lambda: flash.encode_tokens_device(ids_d, mask_d), K14_K16)
+    plain = NomicEncoder(dataclasses.replace(cfg, attention_impl="xla"),
+                         state_dict=flash.model.state_dict(), device="cuda")
+    a = flash.encode_tokens(ids[:4], np.ones_like(mask[:4]))
+    b = plain.encode_tokens(ids[:4], np.ones_like(mask[:4]))
+    cos = np.sum(a * b, axis=1)
+    phase(f"phase 27 [{card}] encoder 12 x 768 flash, {B_FLASH} x {S_FLASH} "
+          f"tokens: {per_forward} K14 launches a forward, {rate:.1f} files/s; "
+          f"device time {total:.2f} ms: " + ", ".join(
+              f"{k_} {v_:.2f} ms ({100 * v_ / total:.1f} %)"
+              for k_, v_ in split.items() if v_)
+          + f"; pooled cosine vs xla on 4 unpadded rows min {cos.min():.6f} "
+          f"(bound {ATT_COS})")
+    assert per_forward == cfg.num_layers and cos.min() >= ATT_COS
+    assert bool(torch.isfinite(emb).all()) and emb.shape == (B_FLASH, 768)
+    del flash, plain, emb, ids_d, mask_d
+    torch.cuda.empty_cache()
+
+    store_dir = os.path.join(tmp, "nomic_flash")
+    pcfg = PipelineConfig(
+        corpus=CorpusConfig(root=src, extensions=("java",),
+                            files_per_batch=256),
+        encoder=EncoderConfig(backend="nomic", batch_size=B_FLASH,
+                              max_tokens=S_FLASH, attention_impl="flash"),
+        store=StoreConfig(dir=store_dir),
+        search=SearchConfig(top_k=K, store_dtype="bfloat16"),
+    )
+    pipe = Pipeline(pcfg, device="cuda", seed=seed)
+    pipe.encoder.get_embeddings(["warm up the forward"])
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = pipe.run()
+    run_s = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": fk.launch_counts["flash_attention_fwd"]}
+    report = pipe.evaluate(num_queries=1024, k=K)
+    meta = pvs.load_encoder_meta(store_dir)
+    phase(f"phase 27 [{card}] build mode nomic flash, max_tokens "
+          f"{S_FLASH}: {result.ingest.embeddings} files, run() {run_s:.2f}s = "
+          f"{result.ingest.embeddings / run_s:.1f} files/s; store meta "
+          f"attention_impl {meta['attention_impl']}; evaluate {report}; K14 "
+          f"launches {launches['flash_attention_fwd']}")
+    assert result.ingest.embeddings == TREE_FILES
+    assert meta["attention_impl"] == "torch-flash"
+    assert report["oracle_overlap"] == 1.0
+    assert launches["flash_attention_fwd"] > 0
+    del pipe
+    torch.cuda.empty_cache()
+
+    tr = ContrastiveTrainer(cfg, seed=seed, device="cuda")
+    batch = _pairs(np.random.default_rng(seed + 2), cfg, B_FLASH_STEP)
+    tr.train_step(*batch)
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = tr.train_step(*batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step = dict(fk.launch_counts)
+    split, total, _top = _device_profile(
+        lambda: tr.train_step_device(*batch), K14_K16)
+    phase(f"phase 27 [{card}] finetune step flash, {B_FLASH_STEP} pairs x "
+          f"{S_FLASH} tokens: loss {loss:.6f}, {step_s * 1e3:.1f} ms host "
+          f"clock, launches {step}; device time {total:.2f} ms: "
+          + ", ".join(f"{k_} {v_:.2f} ms ({100 * v_ / total:.1f} %)"
+                      for k_, v_ in split.items()))
+    want = 2 * cfg.num_layers
+    assert math.isfinite(loss) and step == dict.fromkeys(step, want), step
+    launches["flash_attention_bwd_dkv"] = step["flash_attention_bwd_dkv"]
+    launches["flash_attention_bwd_dq"] = step["flash_attention_bwd_dq"]
+    del tr, batch
+    torch.cuda.empty_cache()
+
+    flash_tr = ContrastiveTrainer(cfg, seed=seed, device="cuda")
+    xla_tr = ContrastiveTrainer(dataclasses.replace(cfg, attention_impl="xla"),
+                                params=flash_tr.state.params, device="cuda")
+    batch = _pairs(np.random.default_rng(seed + 3), cfg, 2)
+    losses = []
+    for t in (flash_tr, xla_tr):
+        lo = t.loss(*batch)
+        lo.backward()
+        losses.append(float(lo.detach()))
+    worst, checked = (1.0, ""), 0
+    for (name, pf), (_, px) in zip(flash_tr.model.named_parameters(),
+                                   xla_tr.model.named_parameters()):
+        x, y = pf.grad.double().ravel(), px.grad.double().ravel()
+        if float(x.norm()) < 1e-12 and float(y.norm()) < 1e-12:
+            continue
+        worst = min(worst, (float(x @ y / (x.norm() * y.norm())), name))
+        checked += 1
+    phase(f"phase 27 [{card}] trainer flash vs xla, 2 pairs x {S_FLASH} "
+          f"tokens: loss "
+          f"{losses[0]:.6f} vs {losses[1]:.6f}; gradient cosine over "
+          f"{checked} parameters min {worst[0]:.6f} ({worst[1]}; bound "
+          f"{GRAD_COS})")
+    assert worst[0] > GRAD_COS and checked > 100
+    del flash_tr, xla_tr, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
 def free_port() -> int:
     """A localhost port free now, for a rendezvous."""
     import socket
@@ -2842,8 +3197,8 @@ def free_port() -> int:
 
 
 def run_tree_phases(args, gen, card, tmp, cfg, errs, times, launches):
-    """Phases 8-26: everything from the seeded tree's build mode on; the
-    tree and its stores live in ``tmp`` until phase 26 has used them."""
+    """Phases 8-27: everything from the seeded tree's build mode on; the
+    tree and its stores live in ``tmp`` until phase 27 has used them."""
     from better_search_rag_rust_tpu_torch.bench.suite import write_java_tree
     from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
     from better_search_rag_rust_tpu_torch.store import DeviceStore
@@ -2936,6 +3291,11 @@ def run_tree_phases(args, gen, card, tmp, cfg, errs, times, launches):
     check_sharded(args.seed, gen, card, os.path.join(tmp, "nomic"))
     check_training_parallel(args.seed, card, tmp, src,
                             os.path.join(tmp, "nomic"))
+
+    flash_errs, flash_times = check_flash_kernels(gen, card)
+    errs.update(flash_errs)
+    times.update(flash_times)
+    launches.update(check_flash_paths(args.seed, card, tmp, src))
 
 
 def main() -> int:

@@ -1570,3 +1570,156 @@ def test_nccl_training_ranks_match_one_process(four_cards, tmp_path, world,
             assert r["losses"] == losses
             assert r["first_step_launches"] == want
             assert r["launches_per_step"] == want
+
+
+# -- K14 / K15 / K16 flash attention -------------------------------------------
+
+
+def _flash_operands(cuda, b, h, s, hd, seed=0, sq=None):
+    """bf16 q, do ``[B, H, Sq, hd]``, k, v ``[B, H, S, hd]`` and segment ids
+    from the attention mask (row 0 whole, the last row a third real, the
+    rest random lengths): pad tokens are their own segment."""
+    sq = sq or s
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    q, do = (torch.randn((b, h, sq, hd), generator=g, device=cuda)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, h, s, hd), generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+
+    def seg(n):
+        lens = torch.randint(1, n + 1, (b,), generator=g, device=cuda)
+        lens[0], lens[-1] = n, max(1, n // 3)
+        return (torch.arange(n, device=cuda)[None, :]
+                < lens[:, None]).to(torch.int32)
+
+    return q, k, v, do, seg(sq), seg(s) if sq != s else None
+
+
+def _close(a, r, rel=1e-2):
+    a, r = a.double(), r.double()
+    cos = float((a * r).sum() / (a.norm() * r.norm()))
+    return float((a - r).abs().max()) <= rel * float(r.abs().max()) and \
+        cos >= 0.999
+
+
+@pytest.mark.parametrize("b,h,s,hd", [
+    (2, 3, 256, 16), (2, 3, 384, 32), (4, 12, 512, 64), (2, 2, 256, 128),
+    (1, 2, 2048, 64),
+])
+def test_flash_kernels_match_plain(cuda, b, h, s, hd):
+    """K14 against plain K14 on every row, pad rows included (max |diff| <
+    0.02, cosine > 0.999: K8's bound; l and m to 1e-5 relative); K15 and
+    K16 against their plain versions on the kernel's own l and m (max
+    |diff| <= 1e-2 of the largest entry, cosine >= 0.999: K9's bound)."""
+    from better_search_rag_rust_tpu_torch.ops import flash_kernels as fk
+
+    q, k, v, do, seg, _ = _flash_operands(cuda, b, h, s, hd)
+    scale = 1.0 / hd ** 0.5
+    before = dict(fk.launch_counts)
+    o, l, m = fk.flash_attention_fwd(q, k, v, seg, seg, scale)
+    po, pl, pm = fk.flash_attention_fwd_plain(q, k, v, seg, seg, scale)
+    di = (o.float() * do.float()).sum(-1)
+    dk, dv = fk.flash_attention_bwd_dkv(q, k, v, seg, seg, l, m, do, di, scale)
+    dq = fk.flash_attention_bwd_dq(q, k, v, seg, seg, l, m, do, di, scale)
+    pdk, pdv = fk.flash_attention_bwd_dkv_plain(q, k, v, seg, seg, l, m, do,
+                                                di, scale)
+    pdq = fk.flash_attention_bwd_dq_plain(q, k, v, seg, seg, l, m, do, di,
+                                          scale)
+    torch.cuda.synchronize()
+    assert {n: fk.launch_counts[n] - before[n] for n in before} == dict.fromkeys(
+        before, 1)
+    assert torch.isfinite(o.float()).all()
+    a, r = o.float(), po.float()
+    assert (a - r).abs().max() < 0.02
+    assert float((a * r).sum() / (a.norm() * r.norm())) > 0.999
+    assert float(((l - pl).abs() / pl).max()) <= 1e-5
+    assert float(((m - pm).abs() / pm.abs().clamp_min(1.0)).max()) <= 1e-5
+    for got, want in ((dq, pdq), (dk, pdk), (dv, pdv)):
+        assert torch.isfinite(got.float()).all() and _close(got, want)
+
+
+def test_flash_cross_lengths_and_no_segments(cuda):
+    """Sq 256 against Sk 384 with segment ids of each length, and no
+    segment ids at all (one segment), against the plain versions."""
+    from better_search_rag_rust_tpu_torch.ops import flash_kernels as fk
+
+    q, k, v, do, seg_q, seg_kv = _flash_operands(cuda, 2, 2, 384, 64, sq=256)
+    for sq_ids, kv_ids in ((seg_q, seg_kv), (None, None)):
+        o, l, m = fk.flash_attention_fwd(q, k, v, sq_ids, kv_ids, 0.125)
+        po, _, _ = fk.flash_attention_fwd_plain(q, k, v, sq_ids, kv_ids, 0.125)
+        di = (o.float() * do.float()).sum(-1)
+        dq = fk.flash_attention_bwd_dq(q, k, v, sq_ids, kv_ids, l, m, do, di,
+                                       0.125)
+        pdq = fk.flash_attention_bwd_dq_plain(q, k, v, sq_ids, kv_ids, l, m,
+                                              do, di, 0.125)
+        assert (o.float() - po.float()).abs().max() < 0.02
+        assert _close(dq, pdq)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_backward_bitwise_across_runs(cuda, hd):
+    """No atomics: two backward passes through :class:`FlashAttention` give
+    the same bits."""
+    from better_search_rag_rust_tpu_torch.ops import flash_kernels as fk
+
+    q, k, v, do, seg, _ = _flash_operands(cuda, 2, 3, 512, hd, seed=4)
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fk.flash_attention(*leaves, fk.SegmentIds(seg, seg),
+                           1.0 / hd ** 0.5).backward(do)
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_flash_refuses_what_it_does_not_take(cuda):
+    from better_search_rag_rust_tpu_torch.ops import flash_kernels as fk
+
+    q, k, v, _do, seg, _ = _flash_operands(cuda, 1, 2, 256, 64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fk.flash_attention_fwd(q.float(), k.float(), v.float(), seg, seg)
+    wide = torch.zeros((1, 2, 256, 48), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fk.flash_attention_fwd(wide, wide, wide, seg, seg)
+    with pytest.raises(ValueError, match="divisible"):
+        fk.flash_attention_fwd(q[:, :, :200], k[:, :, :200], v[:, :, :200],
+                               seg[:, :200], seg[:, :200])
+
+
+def test_flash_encoder_and_trainer_run_the_kernels(cuda):
+    """The encoder and the trainer with ``attention_impl="flash"`` at 2
+    layers: one K14 launch a layer in a forward, 2 x 2 K14, K15 and K16
+    launches in a training step (two towers); embeddings at cosine 0.999
+    per row of the ``xla`` path's on the same weights; a finite loss."""
+    from better_search_rag_rust_tpu_torch.models.nomic import (
+        NomicBertConfig,
+        NomicEncoder,
+    )
+    from better_search_rag_rust_tpu_torch.models.train import (
+        ContrastiveTrainer,
+    )
+    from better_search_rag_rust_tpu_torch.ops import flash_kernels as fk
+
+    cfg = dict(vocab_size=1000, hidden_size=256, num_layers=2, num_heads=4,
+               mlp_dim=512, max_tokens=256)
+    flash = NomicEncoder(NomicBertConfig(attention_impl="flash", **cfg),
+                         seed=1, device=cuda)
+    plain = NomicEncoder(NomicBertConfig(attention_impl="xla", **cfg),
+                         state_dict=flash.model.state_dict(), device=cuda)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(3, 1000, size=(8, 256)).astype(np.int32)
+    mask = (np.arange(256)[None, :]
+            < rng.integers(1, 257, size=8)[:, None]).astype(np.int32)
+    fk.reset_launch_counts()
+    a = flash.encode_tokens(ids, mask)
+    assert fk.launch_counts["flash_attention_fwd"] == 2
+    assert np.all(np.sum(a * plain.encode_tokens(ids, mask), axis=1) >= 0.999)
+    tr = ContrastiveTrainer(NomicBertConfig(attention_impl="flash", **cfg),
+                            device=cuda)
+    fk.reset_launch_counts()
+    loss = tr.train_step(ids, mask, ids[::-1].copy(), mask[::-1].copy())
+    assert np.isfinite(loss)
+    assert fk.launch_counts == dict.fromkeys(fk.launch_counts, 4)

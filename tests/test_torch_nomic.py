@@ -133,11 +133,11 @@ def test_attention_impl_resolution():
     assert _resolve_attention_impl("fused", 60, 64) == "xla_bf16"
     assert _resolve_attention_impl("fused", 64, 12) == "xla_bf16"
     assert _resolve_attention_impl("xla", 60, 12) == "xla"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _resolve_attention_impl("flash")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NomicEncoder(NomicBertConfig(attention_impl="flash", **SMALL),
-                     device="cpu")
+    assert _resolve_attention_impl("flash", 60, 12) == "flash"
+    assert penc.create_encoder(EncoderConfig(
+        backend="nomic", dim=64, num_layers=1, num_heads=4, mlp_dim=64,
+        max_tokens=128, vocab_size=211, attention_impl="flash"),
+        device="cpu").numerics["attention_impl"] == "torch-flash"
     svc = penc.create_encoder(EncoderConfig(
         backend="nomic", dim=64, num_layers=1, num_heads=4, mlp_dim=64,
         max_tokens=64, vocab_size=211), device="cpu")
