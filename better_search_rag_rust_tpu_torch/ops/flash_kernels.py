@@ -30,6 +30,9 @@ the unnormalised ``p`` rounded to v's dtype per block (one block: ``p``
 normalised first, its single-step kernel); the backward recomputes ``p =
 exp(s - m) * (1 / l)``. The CUDA kernels walk 64-key tiles, so on the card
 they agree with the plain versions to a tolerance, not bit for bit.
+
+The backward kernels skip the tile pairs that add exact zeros
+(:func:`backward_tile_plan`); the plain versions compute every pair.
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 BLOCK = 128
 #: Head widths the CUDA kernels are instantiated for.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+#: Tokens of a tile of :func:`backward_tile_plan`.
+PLAN_TILE = 64
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 launch_counts: Dict[str, int] = {"flash_attention_fwd": 0,
@@ -250,6 +255,35 @@ def flash_attention_bwd_plain(q, k, v, segment_ids: Optional[SegmentIds], o,
     return dq, dk, dv
 
 
+def backward_tile_plan(seg_q: Optional[torch.Tensor],
+                       seg_kv: Optional[torch.Tensor],
+                       m: torch.Tensor) -> Optional[torch.Tensor]:
+    """The backward's tile plan: ``[B, Sq/64, Sk/64]`` bool, True where the
+    (query tile, key tile) pair of 64 tokens each adds exact zeros to dk, dv
+    and dq, so K15 and K16 skip it. A pair is skipped only when the tiles'
+    segment-id ranges ``[min, max]`` are disjoint (every query-key pair
+    then takes the mask, for any ids, contiguous or not) and every query
+    row of the tile has a real maximum in every head, ``m > MASK / 2``: a
+    row with a key of its own segment has a real logit as its ``m``, so
+    ``exp(MASK + x - m)`` underflows to exactly 0 and so does ``ds``. A row
+    without one has ``m`` near the mask value and a non-zero ``p``, and its
+    tile is never skipped. No segment ids: None (nothing is skipped).
+    ``Sq`` and ``Sk`` are multiples of 64; ``m`` is the forward's ``[B, H,
+    Sq]``."""
+    if seg_q is None:
+        return None
+    b, sq = seg_q.shape
+    sk = seg_kv.shape[1]
+    qmin, qmax = seg_q.reshape(b, sq // PLAN_TILE, PLAN_TILE).aminmax(dim=-1)
+    kmin, kmax = ((qmin, qmax) if seg_kv is seg_q else
+                  seg_kv.reshape(b, sk // PLAN_TILE, PLAN_TILE).aminmax(dim=-1))
+    real = m.reshape(b, -1, sq // PLAN_TILE, PLAN_TILE).amin(dim=(1, 3)) \
+        > DEFAULT_MASK_VALUE / 2
+    disjoint = ((qmax[:, :, None] < kmin[:, None, :])
+                | (kmax[:, None, :] < qmin[:, :, None]))
+    return disjoint & real[:, :, None]
+
+
 def _check_kernel(name: str, *tensors) -> None:
     """What the CUDA kernels take beyond the library's shapes: bf16 q/k/v
     (and do), their head widths, contiguous operands and a grid that
@@ -264,8 +298,8 @@ def _check_kernel(name: str, *tensors) -> None:
                          f"{KERNEL_HEAD_DIMS}, got {hd}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"the {name} kernel takes contiguous operands")
-    if b * h * max(sq, tensors[1].shape[2]) // 64 >= 2**31:
-        raise ValueError(f"grid of {b} x {h} heads x {sq} rows too large")
+    if b * h * max(sq, tensors[1].shape[2]) >= 2**31:
+        raise ValueError(f"{b} x {h} heads x {sq} rows too large")
 
 
 def _kernel_segments(seg_q, seg_kv, b: int, sq: int, sk: int, device
@@ -280,8 +314,9 @@ def _kernel_segments(seg_q, seg_kv, b: int, sq: int, sk: int, device
 
 
 def _aligned16(*tensors) -> tuple:
-    """The kernels stage 16 bytes per ``cp.async``: an operand off a
-    16-byte boundary (a view may be; a fresh tensor is not) is copied."""
+    """The kernels stage 16 bytes per ``cp.async`` (K14) and read their
+    operands by TMA (K15, K16): an operand off a 16-byte boundary (a view
+    may be; a fresh tensor is not) is copied."""
     return tuple(t.clone() if t.data_ptr() % 16 else t for t in tensors)
 
 
@@ -332,15 +367,23 @@ def _check_bwd_operands(q, k, l, m, do, di) -> None:
     _check_backward(sq)
 
 
-def _launch_bwd(name: str, q, k, v, seg_q, seg_kv, l, m, do, di, sm_scale,
-                outs) -> None:
+def _backward_extras(seg_q, seg_kv, l, m
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """What K15 and K16 read beside the operands: ``1 / l`` (one correctly
+    rounded reciprocal a row) and the tile plan (None: skip nothing)."""
+    return torch.reciprocal(l), backward_tile_plan(seg_q, seg_kv, m)
+
+
+def _launch_bwd(name: str, q, k, v, seg_q, seg_kv, inv_l, m, do, di, plan,
+                sm_scale, outs) -> None:
     """Launch K15 (``outs`` = dk, dv) or K16 (``outs`` = dq)."""
     _check_kernel(name, q, k, v, do)
     b, h, sq, hd = q.shape
     sk = k.shape[2]
     sq_i, skv_i = _kernel_segments(seg_q, seg_kv, b, sq, sk, q.device)
-    q, k, v, do = _aligned16(q, k, v, do)
-    l, m, di = (t.contiguous() for t in (l, m, di))
+    q, k, v, do, sq_i, skv_i = _aligned16(q, k, v, do, sq_i, skv_i)
+    inv_l, m, di = _aligned16(*(t.contiguous() for t in (inv_l, m, di)))
+    plan_ptr = None if plan is None else plan.contiguous().data_ptr()
     from ._build import library
 
     lib = library("flash")
@@ -350,10 +393,28 @@ def _launch_bwd(name: str, q, k, v, seg_q, seg_kv, l, m, do, di, sm_scale,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib.lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), sq_i.data_ptr(),
-            skv_i.data_ptr(), l.data_ptr(), m.data_ptr(), do.data_ptr(),
-            di.data_ptr(), b, h, sq, sk, hd, float(sm_scale),
+            skv_i.data_ptr(), inv_l.data_ptr(), m.data_ptr(), do.data_ptr(),
+            di.data_ptr(), plan_ptr, b, h, sq, sk, hd, float(sm_scale),
             *(t.data_ptr() for t in outs), stream)
     lib.check(entry, err)
+    launch_counts[{"K15": "flash_attention_bwd_dkv",
+                   "K16": "flash_attention_bwd_dq"}[name]] += 1
+
+
+def _bwd_dkv_kernel(q, k, v, seg_q, seg_kv, inv_l, m, do, di, plan,
+                    sm_scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("K15", q, k, v, seg_q, seg_kv, inv_l, m, do, di, plan,
+                sm_scale, (dk, dv))
+    return dk, dv
+
+
+def _bwd_dq_kernel(q, k, v, seg_q, seg_kv, inv_l, m, do, di, plan,
+                   sm_scale) -> torch.Tensor:
+    dq = torch.empty_like(q)
+    _launch_bwd("K16", q, k, v, seg_q, seg_kv, inv_l, m, do, di, plan,
+                sm_scale, (dq,))
+    return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, seg_q, seg_kv, l, m, do, di,
@@ -361,18 +422,17 @@ def flash_attention_bwd_dkv(q, k, v, seg_q, seg_kv, l, m, do, di,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K15. ``(dk, dv)`` from the forward's operands, its ``l`` and ``m``,
     the output's gradient ``do`` and ``di = sum(o * do)`` (f32 ``[B, H,
-    Sq]``). Replaces ``_flash_attention_bwd_dkv`` (:1121)."""
+    Sq]``). Replaces ``_flash_attention_bwd_dkv`` (:1121). On the card it
+    skips the pairs of :func:`backward_tile_plan`."""
     segs = None if seg_q is None else SegmentIds(seg_q, seg_kv)
     _check_inputs(q, k, v, segs)
     _check_bwd_operands(q, k, l, m, do, di)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, seg_q, seg_kv, l, m, do,
                                              di, sm_scale)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("K15", q, k, v, seg_q, seg_kv, l, m, do, di, sm_scale,
-                (dk, dv))
-    launch_counts["flash_attention_bwd_dkv"] += 1
-    return dk, dv
+    inv_l, plan = _backward_extras(seg_q, seg_kv, l, m)
+    return _bwd_dkv_kernel(q, k, v, seg_q, seg_kv, inv_l, m, do, di, plan,
+                           sm_scale)
 
 
 def flash_attention_bwd_dq(q, k, v, seg_q, seg_kv, l, m, do, di,
@@ -385,10 +445,9 @@ def flash_attention_bwd_dq(q, k, v, seg_q, seg_kv, l, m, do, di,
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, seg_q, seg_kv, l, m, do,
                                             di, sm_scale)
-    dq = torch.empty_like(q)
-    _launch_bwd("K16", q, k, v, seg_q, seg_kv, l, m, do, di, sm_scale, (dq,))
-    launch_counts["flash_attention_bwd_dq"] += 1
-    return dq
+    inv_l, plan = _backward_extras(seg_q, seg_kv, l, m)
+    return _bwd_dq_kernel(q, k, v, seg_q, seg_kv, inv_l, m, do, di, plan,
+                          sm_scale)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -396,7 +455,8 @@ class FlashAttention(torch.autograd.Function):
     ``_flash_attention`` custom VJP (:254-322). Saves q, k, v, o, l, m and
     the segment ids; ``di = sum(o * do)`` is computed here in plain torch,
     as the library computes it outside its kernels. The segment ids and
-    ``sm_scale`` get no gradient."""
+    ``sm_scale`` get no gradient. On the card the tile plan and ``1 / l``
+    are made once for both kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg_q, seg_kv, sm_scale):
@@ -410,10 +470,18 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, l, m, seg_q, seg_kv = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
         di = (o.float() * do.float()).sum(dim=-1)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, seg_q, seg_kv, l, m, do, di,
-                                         ctx.sm_scale)
-        dq = flash_attention_bwd_dq(q, k, v, seg_q, seg_kv, l, m, do, di,
-                                    ctx.sm_scale)
+        if q.device.type == "cpu":
+            dk, dv = flash_attention_bwd_dkv(q, k, v, seg_q, seg_kv, l, m, do,
+                                             di, ctx.sm_scale)
+            dq = flash_attention_bwd_dq(q, k, v, seg_q, seg_kv, l, m, do, di,
+                                        ctx.sm_scale)
+            return dq, dk, dv, None, None, None
+        _check_bwd_operands(q, k, l, m, do, di)
+        inv_l, plan = _backward_extras(seg_q, seg_kv, l, m)
+        dk, dv = _bwd_dkv_kernel(q, k, v, seg_q, seg_kv, inv_l, m, do, di,
+                                 plan, ctx.sm_scale)
+        dq = _bwd_dq_kernel(q, k, v, seg_q, seg_kv, inv_l, m, do, di, plan,
+                            ctx.sm_scale)
         return dq, dk, dv, None, None, None
 
 

@@ -3028,24 +3028,123 @@ def check_flash_kernels(gen, card):
     mask = (seg[:, None, :, None] == seg[:, None, None, :])
     out = sdpa(*leaves, attn_mask=mask, scale=scale)
     sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, do,
-                                                   retain_graph=True))
+                                                   retain_graph=True), 10)
     moved = nbytes(q, k, v, do, l, m, di, seg)
     pairs = segment_pairs(seg)
+    ms15, ms16, plan_ms = flash_bwd_kernel_ms(fk, args)
     times["flash_attention_bwd_dkv"] = timing(
-        cuda_ms(lambda: fk.flash_attention_bwd_dkv(*args)),
-        cuda_ms(lambda: fk.flash_attention_bwd_dkv_plain(*args)), sdpa_bwd,
+        ms15, cuda_ms(lambda: fk.flash_attention_bwd_dkv_plain(*args)), sdpa_bwd,
         moved + nbytes(dk, dv), 8 * h * hd * pairs, "bf16 tensor")
     times["flash_attention_bwd_dq"] = timing(
-        cuda_ms(lambda: fk.flash_attention_bwd_dq(*args)),
-        cuda_ms(lambda: fk.flash_attention_bwd_dq_plain(*args)), sdpa_bwd,
+        ms16, cuda_ms(lambda: fk.flash_attention_bwd_dq_plain(*args)), sdpa_bwd,
         moved + nbytes(dq), 6 * h * hd * pairs, "bf16 tensor")
     for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
         phase(f"phase 27 [{card}] " + timing_line(name, times[name])
               + bound_share(times[name])
               + " (library: SDPA's whole backward)")
-    del q, k, v, do, o, l, m, di, dk, dv, dq, leaves, out, mask, args
+    phase(f"phase 27 [{card}] K15/K16 tile plan and 1/l (made once a "
+          f"backward, outside the kernels' times): {plan_ms:.3f} ms")
+    plan = fk.backward_tile_plan(seg, seg, m)
+    skipped = int(plan.sum())
+    phase(f"phase 27 [{card}] K15/K16 tile plan [{b} x {s}]: {skipped} of "
+          f"{plan.numel()} pairs of 64 x 64 tiles skipped (exact zeros), "
+          f"{plan.numel() - skipped} computed")
+    del q, k, v, do, o, l, m, di, dk, dv, dq, leaves, out, mask, args, plan
     torch.cuda.empty_cache()
+    check_flash_backward_cases(gen, card)
     return errs, times
+
+
+def flash_bwd_kernel_ms(fk, args, iters: int = 10):
+    """K15's and K16's ms on the wrappers' ``args`` with the tile plan and
+    1 / l made once, as ``FlashAttention.backward`` makes them for both
+    kernels, and the ms of making them: a wrapper call makes them itself,
+    and its few small torch ops cost host time that a short timing window
+    would count as the kernel's."""
+    q, k, v, seg_q, seg_kv, l, m, do, di, scale = args
+    inv_l, plan = fk._backward_extras(seg_q, seg_kv, l, m)
+    ms15 = cuda_ms(lambda: fk._bwd_dkv_kernel(q, k, v, seg_q, seg_kv, inv_l,
+                                              m, do, di, plan, scale), iters)
+    ms16 = cuda_ms(lambda: fk._bwd_dq_kernel(q, k, v, seg_q, seg_kv, inv_l, m,
+                                             do, di, plan, scale), iters)
+    plan_ms = cuda_ms(lambda: fk._backward_extras(seg_q, seg_kv, l, m),
+                      iters)
+    return ms15, ms16, plan_ms
+
+
+def _flash_bwd_agreement(fk, args):
+    """K15/K16 against their plain versions on ``args``: the (name, max
+    |diff|, largest entry, cosine) of dq, dk, dv, each asserted within
+    BWD_REL of the largest entry and at cosine BWD_COS."""
+    dk, dv = fk.flash_attention_bwd_dkv(*args)
+    dq = fk.flash_attention_bwd_dq(*args)
+    pdk, pdv = fk.flash_attention_bwd_dkv_plain(*args)
+    pdq = fk.flash_attention_bwd_dq_plain(*args)
+    torch.cuda.synchronize()
+    parts = []
+    for name, got, want in (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
+        diff, c = _agreement(got, want)
+        top = float(want.float().abs().max())
+        parts.append((name, diff, top, c))
+        assert bool(torch.isfinite(got.float()).all())
+        assert diff <= BWD_REL * top and c >= BWD_COS, (name, diff, top, c)
+    return parts
+
+
+def check_flash_backward_cases(gen, card):
+    """Phase 27 (b), continued: K15/K16 on unpadded operands at the step's
+    shape (nothing to skip: each against PR 19's time through the mainloop
+    alone), timed beside its bound over all S x S pairs and SDPA's whole
+    backward without a mask; and against their plain versions where one
+    query row has no key of its own segment (its tile never skipped)."""
+    from better_search_rag_rust_tpu_torch.ops import flash_kernels as fk
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h, s, hd = B_FLASH_BWD, H_ENC, S_FLASH, HD_ENC
+    scale = 1.0 / math.sqrt(hd)
+    q, k, v, do, seg = _flash_operands(gen, b, h, s, hd, s)  # one segment
+    o, l, m = fk.flash_attention_fwd(q, k, v, seg, seg, scale)
+    di = (o.float() * do.float()).sum(-1)
+    args = (q, k, v, seg, seg, l, m, do, di, scale)
+    parts = _flash_bwd_agreement(fk, args)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = sdpa(*leaves, scale=scale)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                   retain_graph=True), 10)
+    ms15, ms16, _plan_ms = flash_bwd_kernel_ms(fk, args)
+    pairs = b * s * s
+    b15 = 1e3 * 8 * h * hd * pairs / PEAK_OPS["bf16 tensor"]
+    b16 = 1e3 * 6 * h * hd * pairs / PEAK_OPS["bf16 tensor"]
+    phase(f"phase 27 [{card}] K15/K16 unpadded [{b} x {h} x {s} x {hd}] "
+          f"(no tile to skip): K15 {ms15:.3f} ms (bound {b15:.3f} ms over all "
+          f"S x S pairs, operations; {100 * b15 / ms15:.1f} % of bound), K16 "
+          f"{ms16:.3f} ms (bound {b16:.3f}; {100 * b16 / ms16:.1f} %); SDPA's "
+          f"whole backward, no mask, {sdpa_bwd:.3f} ms; " + "; ".join(
+              f"{n} max|diff|={d:.4g} (bound {BWD_REL} x {t:.4g}) cosine="
+              f"{c:.7f}" for n, d, t, c in parts))
+    del q, k, v, do, o, l, m, di, args, leaves, out
+    torch.cuda.empty_cache()
+
+    b = 2
+    q, k, v, do, seg = _flash_operands(gen, b, h, s, hd, s // 8)
+    seg_q = seg.clone()
+    seg_q[1, 100] = 5  # no key has segment 5: m of that row is the mask
+    o, l, m = fk.flash_attention_fwd(q, k, v, seg_q, seg, scale)
+    di = (o.float() * do.float()).sum(-1)
+    args = (q, k, v, seg_q, seg, l, m, do, di, scale)
+    parts = _flash_bwd_agreement(fk, args)
+    plan = fk.backward_tile_plan(seg_q, seg, m)
+    lonely = bool((m[1, :, 100] < fk.DEFAULT_MASK_VALUE / 2).all())
+    phase(f"phase 27 [{card}] K15/K16 [{b} x {h} x {s} x {hd}] with query "
+          f"token 100 of row 1 in a segment no key has (its m the mask value: "
+          f"{lonely}; its tile, disjoint by ids from the pad tiles, in a "
+          f"skipped pair: {bool(plan[1, 1].any())}; "
+          f"{int(plan.sum())} pairs skipped): " + "; ".join(
+              f"{n} max|diff|={d:.4g} (bound {BWD_REL} x {t:.4g}) cosine="
+              f"{c:.7f}" for n, d, t, c in parts))
+    assert lonely and not bool(plan[1, 1].any())
+    del q, k, v, do, o, l, m, di, args, plan
+    torch.cuda.empty_cache()
 
 
 def check_flash_paths(seed, card, tmp, src):

@@ -1639,22 +1639,67 @@ def test_flash_kernels_match_plain(cuda, b, h, s, hd):
         assert torch.isfinite(got.float()).all() and _close(got, want)
 
 
-def test_flash_cross_lengths_and_no_segments(cuda):
+def _flash_backward_close(fk, q, k, v, do, seg_q, seg_kv, scale):
+    """K15 and K16 against their plain versions on the kernel forward's l
+    and m (``_close``); returns the tile plan."""
+    o, l, m = fk.flash_attention_fwd(q, k, v, seg_q, seg_kv, scale)
+    di = (o.float() * do.float()).sum(-1)
+    args = (q, k, v, seg_q, seg_kv, l, m, do, di, scale)
+    dk, dv = fk.flash_attention_bwd_dkv(*args)
+    dq = fk.flash_attention_bwd_dq(*args)
+    pdk, pdv = fk.flash_attention_bwd_dkv_plain(*args)
+    pdq = fk.flash_attention_bwd_dq_plain(*args)
+    torch.cuda.synchronize()
+    for got, want in ((dq, pdq), (dk, pdk), (dv, pdv)):
+        assert torch.isfinite(got.float()).all() and _close(got, want)
+    return fk.backward_tile_plan(seg_q, seg_kv, m)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_cross_lengths_and_no_segments(cuda, hd):
     """Sq 256 against Sk 384 with segment ids of each length, and no
-    segment ids at all (one segment), against the plain versions."""
+    segment ids at all (one segment): K14 and K15 / K16 against the plain
+    versions."""
     from better_search_rag_rust_tpu_torch.ops import flash_kernels as fk
 
-    q, k, v, do, seg_q, seg_kv = _flash_operands(cuda, 2, 2, 384, 64, sq=256)
+    q, k, v, do, seg_q, seg_kv = _flash_operands(cuda, 2, 2, 384, hd, sq=256)
+    scale = 1.0 / hd ** 0.5
     for sq_ids, kv_ids in ((seg_q, seg_kv), (None, None)):
-        o, l, m = fk.flash_attention_fwd(q, k, v, sq_ids, kv_ids, 0.125)
-        po, _, _ = fk.flash_attention_fwd_plain(q, k, v, sq_ids, kv_ids, 0.125)
-        di = (o.float() * do.float()).sum(-1)
-        dq = fk.flash_attention_bwd_dq(q, k, v, sq_ids, kv_ids, l, m, do, di,
-                                       0.125)
-        pdq = fk.flash_attention_bwd_dq_plain(q, k, v, sq_ids, kv_ids, l, m,
-                                              do, di, 0.125)
+        o, _, _ = fk.flash_attention_fwd(q, k, v, sq_ids, kv_ids, scale)
+        po, _, _ = fk.flash_attention_fwd_plain(q, k, v, sq_ids, kv_ids, scale)
         assert (o.float() - po.float()).abs().max() < 0.02
-        assert _close(dq, pdq)
+        _flash_backward_close(fk, q, k, v, do, sq_ids, kv_ids, scale)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_backward_shuffled_and_lonely_segments(cuda, hd):
+    """Two cases of the tile plan on the card, K15 and K16 within
+    ``_close`` of their plain versions: shuffled, non-contiguous segment
+    ids (each 64-token tile draws a base id, each token the base plus 0-2,
+    shuffled within the tile: some tiles' ranges disjoint, so pairs are
+    skipped), and a query row with no key of its own segment (its tile is
+    never skipped)."""
+    from better_search_rag_rust_tpu_torch.ops import flash_kernels as fk
+
+    b, s = 2, 512
+    q, k, v, do, _seg, _ = _flash_operands(cuda, b, 2, s, hd, seed=6)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(7)
+    base = torch.randint(0, 4, (b, s // 64, 1), generator=g, device=cuda) * 10
+    ids = (base + torch.randint(0, 3, (b, s // 64, 64), generator=g,
+                                device=cuda)).reshape(b, s)
+    perm = torch.argsort(torch.rand((b, s // 64, 64), generator=g,
+                                    device=cuda), dim=-1)
+    ids = torch.gather(ids.reshape(b, s // 64, 64), 2, perm).reshape(b, s)
+    ids = ids.to(torch.int32).contiguous()
+    plan = _flash_backward_close(fk, q, k, v, do, ids, ids, 1.0 / hd ** 0.5)
+    assert bool(plan.any())
+    seg = torch.zeros((b, s), dtype=torch.int32, device=cuda)
+    seg[:, 256:] = 1
+    seg_q = seg.clone()
+    seg_q[0, 70] = -5  # no key has segment -5
+    plan = _flash_backward_close(fk, q, k, v, do, seg_q, seg, 1.0 / hd ** 0.5)
+    assert not bool(plan[0, 1].any()) and bool(plan[1].any())
 
 
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
