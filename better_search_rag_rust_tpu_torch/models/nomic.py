@@ -23,7 +23,13 @@ for contexts past K8's 1,024 tokens) runs the hand-written K14 forward and
 K15 + K16 backward (:mod:`..ops.flash_kernels`) on rotated ``[B, H, S, hd]``
 q, k and v, the key padding as segment ids: pad tokens form their own
 segment, so a real query never sees a pad key and a pad query attends only
-among pads. Like the library, it takes ``max_tokens`` a multiple of 128. The
+among pads. Like the library, it takes ``max_tokens`` a multiple of 128; the
+model makes the kernels' tile plan from the segment ids once a forward and
+hands it to every layer. On the card K8 and K9 take sequences up to
+``KERNEL_MAX_SEQ`` (1,024) tokens, so an encoder or trainer built there
+with ``max_tokens`` above it and an attention that resolves to ``fused``
+raises at construction (:func:`refuse_fused_past_kernel`), naming
+``flash``; the resolution itself stays the JAX package's. The
 encoder meta records the port's names (``torch-fused``, ``torch-flash``,
 ...), so a store mixing the two packages warns at query time.
 
@@ -55,8 +61,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import EncoderConfig, torch_dtype
-from ..ops.attention_kernels import fused_attention_qkv, rotary_roll_tables
-from ..ops.flash_kernels import SegmentIds, flash_attention
+from ..ops.attention_kernels import (
+    KERNEL_MAX_SEQ,
+    fused_attention_qkv,
+    rotary_roll_tables,
+)
+from ..ops.flash_kernels import SegmentIds, flash_attention, segment_tile_plan
 from ..parallel.mesh import (
     MODEL_AXIS,
     axis_group,
@@ -160,6 +170,23 @@ def _resolve_attention_impl(impl: str, seq_len: Optional[int] = None,
                             or (head_dim is not None and head_dim % 8)):
         return "xla_bf16"
     return impl
+
+
+def refuse_fused_past_kernel(impl: str, max_tokens: int, head_dim: int,
+                             device_type: str) -> None:
+    """On the card, ``fused`` runs K8 (and K9 in training), which take
+    sequences up to :data:`KERNEL_MAX_SEQ` tokens: an encoder or trainer
+    whose ``max_tokens`` is above it and whose attention resolves to
+    ``fused`` (``auto`` included) would fail at its first long batch, so it
+    raises when it is built. Elsewhere, and for any other attention,
+    nothing changes."""
+    if (device_type == "cuda" and max_tokens > KERNEL_MAX_SEQ
+            and _resolve_attention_impl(impl, max_tokens, head_dim) == "fused"):
+        raise ValueError(
+            f"attention_impl={impl!r} runs the fused K8/K9 kernels, which on "
+            f"the card take sequences up to {KERNEL_MAX_SEQ} tokens, and "
+            f"max_tokens is {max_tokens}: use attention_impl='flash' (its "
+            f"max_tokens a multiple of 128) for longer contexts")
 
 
 def mesh_attention_impl(impl: str, config: "NomicBertConfig", data: int,
@@ -332,12 +359,13 @@ class _Embedding(nn.Embedding):
 class _AttentionInputs:
     """Per-forward attention inputs shared by every layer."""
 
-    def __init__(self, cos, sin, cos2, s2, mask_bias, bias2, seg):
+    def __init__(self, cos, sin, cos2, s2, mask_bias, bias2, seg, plan):
         self.cos, self.sin = cos, sin            # [S, hd/2] f32
         self.cos2, self.s2 = cos2, s2            # [S, hd] f32 (K8)
         self.mask_bias = mask_bias               # [B, 1, 1, S] f32
         self.bias2 = bias2                       # [B, S] f32 (K8)
         self.seg = seg                           # [B, S] int32 (flash)
+        self.plan = plan                         # flash's tile plan, or None
 
 
 class NomicAttention(nn.Module):
@@ -380,7 +408,7 @@ class NomicAttention(nn.Module):
             ctx = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2),
                                   SegmentIds(rope.seg, rope.seg),
-                                  1.0 / math.sqrt(hd))
+                                  1.0 / math.sqrt(hd), plan=rope.plan)
             return self._output(ctx.transpose(1, 2).to(cfg.dtype)
                                 .reshape(b, s, h * hd))
         # Products of the rounded operands are exact in f32 (TF32 off).
@@ -511,10 +539,15 @@ class NomicBertModel(nn.Module):
         x = self.emb_ln((tok + typ).float()).to(cfg.dtype)
         # additive key-padding bias: 0 where attendable, -1e9 where padded
         bias2 = torch.where(attention_mask > 0, 0.0, -1e9).to(torch.float32)
+        seg = attention_mask.to(torch.int32)
+        # flash's tile plan, once a batch for every layer (self-attention:
+        # the ids alone decide it)
+        plan = (segment_tile_plan(seg, seg)
+                if _resolve_attention_impl(cfg.attention_impl) == "flash"
+                else None)
         rope = _AttentionInputs(*self._rotary(input_ids.shape[1], input_ids.device),
                      mask_bias=bias2[:, None, None, :],
-                     bias2=bias2.contiguous(),
-                     seg=attention_mask.to(torch.int32))
+                     bias2=bias2.contiguous(), seg=seg, plan=plan)
         for layer in self.encoder.layers:
             x = layer(x, rope)
         return gather_rows(x, tp.group, dim=1) if sp else x
@@ -718,6 +751,9 @@ class NomicEncoder:
             heads = (config.attention_impl in ("auto", "fused")
                      and config.num_heads % axis_size(mesh, MODEL_AXIS) == 0)
             tp = tensor_parallel(mesh, config, heads, sequence=False)
+        for d in self.devices:
+            refuse_fused_past_kernel(config.attention_impl, config.max_tokens,
+                                     config.head_dim, torch.device(d).type)
         self.config = config
         self.device = self.devices[0]
         self.model = build_model(config, self.device, seed, state_dict, tp)

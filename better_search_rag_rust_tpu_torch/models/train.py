@@ -66,6 +66,7 @@ from .nomic import (  # noqa: F401  (param_specs .. gather_params: the API)
     merge_shards,
     param_spec,
     param_specs,
+    refuse_fused_past_kernel,
     shard_params,
     tensor_parallel,
     upload_tokens,
@@ -127,6 +128,8 @@ class ContrastiveTrainer:
             self.data_rank = axis_index(mesh, DATA_AXIS)
             self.data_group = axis_group(mesh, DATA_AXIS)
             self.model_group = axis_group(mesh, MODEL_AXIS)
+        refuse_fused_past_kernel(config.attention_impl, config.max_tokens,
+                                 config.head_dim, torch.device(self.device).type)
         self.mesh = mesh
         self.config = dataclasses.replace(config, param_dtype=torch.float32)
         self.temperature = temperature

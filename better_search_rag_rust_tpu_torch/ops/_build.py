@@ -57,7 +57,7 @@ SOURCES = {
         "bsr_error_string": (ctypes.c_char_p, [_I]),
     }),
     "flash": (CSRC / "flash_kernels.cu", {
-        "bsr_flash_attention_fwd": (_I, [_P] * 5 + [_I] * 5 + [_F] + [_P] * 4),
+        "bsr_flash_attention_fwd": (_I, [_P] * 6 + [_I] * 5 + [_F] + [_P] * 4),
         "bsr_flash_attention_bwd_dkv": (_I, [_P] * 10 + [_I] * 5 + [_F] + [_P] * 3),
         "bsr_flash_attention_bwd_dq": (_I, [_P] * 10 + [_I] * 5 + [_F] + [_P] * 2),
         "bsr_error_string": (ctypes.c_char_p, [_I]),

@@ -32,63 +32,68 @@
 // neither needs atomics; so do these. Every reduction runs in a fixed order:
 // two runs give the same bits.
 //
-// WHAT BOUNDS THEM. K14 does 4*S*S*hd FLOP per (b, h) (QK^T and PV) and
-// moves q, k, v and o once: at [32, 12, 2048, 64] 412 GFLOP, 0.417 ms at
-// the bf16 tensor rate (989 TFLOP/s), against 201 MB, 0.060 ms at 3.35
-// TB/s: operations-bound by a factor of 7. K15 recomputes QK^T and adds dp,
-// dv and dk (8*S*S*hd), K16 QK^T, dp and dq (6*S*S*hd): also
+// WHAT BOUNDS THEM. K14 does 4*hd FLOP per query-key pair and head (QK^T
+// and PV), K15 8*hd (QK^T again, dp, dv, dk), K16 6*hd (QK^T, dp, dq). The
+// segment rule makes part of that work exact zeros: for a (query tile, key
+// tile) pair whose segment-id ranges are disjoint and whose every query row
+// has a key of its own segment (m a real logit), every p = exp(MASK_VALUE
+// + x - m) underflows to 0, so the pair adds nothing to o, l, dk, dv or dq.
+// The bounds count only the pairs the rule leaves, per row L^2 + (S-L)^2
+// for a row of L real tokens: at [32, 12, 2048, 64] with chip_smoke.py
+// phase 27's padding K14's is 0.282 ms at the bf16 tensor rate (989
+// TFLOP/s; 0.417 over all S^2), against 201 MB, 0.060 ms at 3.35 TB/s:
 // operations-bound. Beside the products each logit costs an exponential
 // (the MUFU unit, 16 a cycle per SM against the tensor cores' 1024 bf16
-// FMAs), which at hd 64 is a real share of the time. The segment rule
-// makes part of that work exact zeros: for a (query tile, key tile) pair
-// whose segment-id ranges are disjoint and whose every query row has a key
-// of its own segment (m a real logit, above MASK_VALUE / 2), every p =
-// exp(MASK_VALUE + x - m) underflows to 0, so ds = 0 and the pair adds
-// nothing to dk, dv or dq. The bounds count only the pairs the rule leaves.
+// FMAs), which at hd 64 is a real share of the time.
 //
-// DESIGN.
-//   K14 (a simple, right kernel first): mma.sync m16n8k16 (bf16 in, f32
-//   accumulated in the instruction), K8's fragment routines
-//   (attention_kernels.cu) in the same layouts, copied here since each
-//   source builds into a library of its own. A block per (b, h, 64 query
-//   rows), 4 warps of 16 rows. A warp's q goes from global memory straight
-//   into mma A fragments once. Key and value tiles of 64 stream through a
-//   two-slab cp.async ring in shared memory (pitch hd + 8: the 8 rows of an
-//   ldmatrix fall in 8 distinct 16-byte bank groups), the copy of tile j +
-//   1 in flight while tile j is multiplied, with the tile's 64 kv segment
-//   ids beside them. The logits stay in registers; their C fragments repack
-//   as the A fragments of bf16(p) . V, V read transposed by ldmatrix.trans.
-//   It keeps the running max and sum of its two rows per thread in
-//   registers (the sum per thread, reduced over the quad once at the end).
-//   No [S, S] tensor exists anywhere, so S is bounded by the grid, not by
-//   K8's MAX_S. Its exponentials are __expf (ex2.approx of x * log2 e):
-//   exp(-huge) is 0 and exp(0) is 1 exactly, which the segment rule needs.
-//   K15 / K16 (the backward, on wgmma fed by TMA): the wrapper's tile plan
-//   (ops/flash_kernels.py backward_tile_plan: [B, Sq/64, Sk/64] bytes, 1
-//   where a pair is exact zeros, as above) is read by each block, which
-//   first lists the tiles it keeps (one warp, a ballot) and never loads,
-//   multiplies or exponentiates the others. 384 threads: warpgroup 0 the
-//   producer, one thread of which keeps TMA loads in flight into a ring of
-//   three stages behind mbarriers (full: the bytes landed; empty: all 256
-//   consumer threads are done with it); the tiles lie in TMA's 128-byte
-//   swizzle (64 / 32 bytes at hd 32 / 16), which the wgmma descriptors read
-//   as written; setmaxnreg gives the producer 40 registers and the two
-//   consumer warpgroups 232. Each consumer warpgroup owns 64 rows and keeps
-//   its rows' resident operand (K and V in K15 up to hd 64, q and do in
-//   K16) as wgmma A fragments in registers: S and dP on wgmma m64n64k16
-//   with B, the streamed tile, in shared memory; p and ds in registers; the
-//   gradient products on m64n{hd}k16 with bf16(p) or bf16(ds) as A from
-//   registers (the accumulator's layout is the next A fragment's) and the
-//   streamed tile read transposed (MN-major). The two warpgroups run free:
-//   one's exponentials overlap the other's products (making them take
-//   turns, FlashAttention-3's ping-pong, measured no faster: bench/
-//   ab_flash.py, PERF.md). A warp whose 2 x 16 logits of a tile
-//   all pair tokens of one segment skips the mask (a warp-uniform branch;
-//   s + 0 = s, the same bits). Exponentials are ex2.approx.ftz of x log2 e:
+// DESIGN (one for the three kernels: wgmma fed by TMA, one tile plan).
+//   The tile plan (ops/flash_kernels.py segment_tile_plan: [B, ceil(Sq/64),
+//   Sk/64] bytes, 1 where a pair is skipped) comes from the segment ids
+//   alone, once a batch: a pair is skipped where the tiles' id ranges are
+//   disjoint and every real query row of the query tile has a key of its
+//   own segment somewhere. Each block first lists the tiles it keeps (one
+//   warp, a ballot) and never loads, multiplies or exponentiates the
+//   others. The skip is exact in the forward too, in any order of the
+//   tiles: after a row's first own-segment tile a masked tile leaves m as
+//   it is, so alpha = exp(0) = 1 and every p = 0; before it, that tile's
+//   alpha = exp(MASK_VALUE - m) = 0 wipes what the masked tiles added. So
+//   o, l and m are bit for bit the same with the plan on or off.
+//   Warpgroup 0 is the producer, one thread of which keeps TMA loads in
+//   flight into a ring of three stages behind mbarriers (full: the bytes
+//   landed; empty: every consumer thread is done with it); the tiles lie in
+//   TMA's 128-byte swizzle (64 / 32 bytes at hd 32 / 16), which the wgmma
+//   descriptors read as written. K15 and K16 (and K14 at hd 128) have two
+//   consumer warpgroups, 384 threads, setmaxnreg giving the producer 40
+//   registers and the consumers 232; K14 up to hd 64 has three, 512
+//   threads at 24 / 160 (12 % faster than two: more chains an SM hide
+//   each other's latency). Each consumer warpgroup owns 64 rows and keeps
+//   its rows' resident operand (q in K14; K and V in K15 up to hd 64; q and
+//   do in K16) as wgmma A fragments in registers: S (and dP) on wgmma
+//   m64n64k16 with B, the streamed tile, in shared memory; p (and ds) in
+//   registers; the second products on m64n{hd}k16 with bf16(p) or bf16(ds)
+//   as A from registers (the accumulator's layout is the next A
+//   fragment's) and the streamed tile read transposed (MN-major). The
+//   warpgroups run free: one's exponentials overlap the others' products
+//   (making them take turns, FlashAttention-3's ping-pong, measured slower
+//   in K14 and no faster in the backward: bench/ab_flash.py, PERF.md). A
+//   warp whose 2 x 16 logits of a tile all
+//   pair tokens of one segment skips the mask (a warp-uniform branch; s + 0
+//   = s, the same bits). Exponentials are ex2.approx.ftz of x log2 e:
 //   __expf's arithmetic, one instruction, results below 2^-126 flushed to
-//   0. K15 streams query tiles past a block's 128 keys; K16 streams key
-//   tiles past 128 queries. Each accumulates in f32 registers and writes
-//   once: no atomics.
+//   0; exp(0) = 1 and exp(-inf) = 0 exactly, which the online softmax and
+//   the skip need. K14 and K16 stream key tiles past a block's 128 queries,
+//   K15 query tiles past 128 keys. Each accumulates in f32 registers and
+//   writes once: no atomics.
+//   K14 per key tile and consumer: S = q K^T, issued with the previous
+//   tile's O += bf16(p) V (FlashAttention-3's overlap within a warpgroup:
+//   that product runs under this tile's softmax); the logit and mask; each
+//   row's maximum over its quad of threads; alpha = exp(m_prev - m_next);
+//   the thread's share of l, and (once the previous product is done) the
+//   accumulator, rescaled by alpha; p = exp(s - m_next) packed straight into
+//   the A fragments of the next product. The shares of l meet over the
+//   quad once, at the end; O is scaled by 1 / l in registers and written
+//   once, rows past Sq left out (Sq may be ragged; its q rows there are
+//   zero).
 //
 // Each entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (0 on success); the Python wrapper raises on
@@ -103,9 +108,6 @@
 
 namespace {
 
-constexpr int BQ = 64;        // query rows of a K14 block
-constexpr int BK = 64;        // keys of a K14 key tile
-constexpr int NT = 128;       // 4 warps of 16 rows
 // The library's DEFAULT_MASK_VALUE: -0.7 * float32 max, in double, rounded once.
 constexpr float MASK_VALUE = (float)(-0.7 * (double)FLT_MAX);
 
@@ -127,80 +129,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(smem)),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 b16 matrices; lanes 8i .. 8i+7 give the row addresses of matrix
-// i. Plain: lane (g = lane/4, t = lane%4) gets row g, elements 2t, 2t+1 of
-// matrix i in r[i]; .trans: column g, rows 2t, 2t+1.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += A (16 x 16) B (16 x 8), f32 accumulated in the instruction. With
-// g = lane / 4, t = lane % 4 (the PTX ISA's m16n8k16 layout):
-//   a[0] (row g, k 2t..2t+1)  a[1] (row g+8, k 2t..)  a[2] (row g, k 2t+8..)
-//   a[3] (row g+8, k 2t+8..);  b0 (k 2t..2t+1, col g)  b1 (k 2t+8.., col g);
-//   c[0..1] (row g, cols 2t, 2t+1)  c[2..3] (row g+8, cols 2t, 2t+1).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Rows [r0, r0 + 64) of a [S, HD] bf16 matrix into dst[r][d] (pitch HD + 8),
-// one cp.async per 16 bytes, shared by the block's NT threads.
-template <int HD>
-__device__ __forceinline__ void stage_tile(const bf16* __restrict__ x, int r0,
-                                           bf16* dst) {
-  constexpr int LD = HD + 8;
-  constexpr int CH = HD / 8;
-  for (int i = threadIdx.x; i < 64 * CH; i += NT) {
-    const int r = i / CH;
-    const int c = (i % CH) * 8;
-    cp_async16(dst + r * LD + c, x + (size_t)(r0 + r) * HD + c);
-  }
-}
-
-// 64 consecutive 32-bit words (256 bytes) into dst, by threads 0-15.
-__device__ __forceinline__ void stage_words(const void* __restrict__ x,
-                                            void* dst) {
-  if (threadIdx.x < 16)
-    cp_async16(static_cast<char*>(dst) + 16 * threadIdx.x,
-               static_cast<const char*>(x) + 16 * threadIdx.x);
-}
-
 // A fragments of rows r0 .. r0 + 15 of a [S, HD] bf16 matrix, straight from
-// global memory (rows at or past `rows` are zero).
+// global memory (rows at or past `rows` are zero): lane (g = lane/4, t =
+// lane%4) holds, for k16 step ks, a[ks][0] (row g, k 2t, 2t+1), a[ks][1]
+// (row g + 8), a[ks][2], a[ks][3] (k + 8).
 template <int HD>
 __device__ __forceinline__ void load_a_frags(const bf16* __restrict__ x, int r0,
                                              int rows, uint32_t (&a)[HD / 16][4]) {
@@ -224,62 +161,6 @@ __device__ __forceinline__ void load_a_frags(const bf16* __restrict__ x, int r0,
   }
 }
 
-
-// acc = A . X^T for the warp's 16 rows (A fragments a, HD/16 k16 steps)
-// against the 64 rows of a staged tile xb (pitch HD + 8): acc[j] is n8 tile
-// j (rows g, g + 8; columns 8j + 2t, + 1).
-template <int HD>
-__device__ __forceinline__ void dot_tile(const uint32_t (&a)[HD / 16][4],
-                                         const bf16* xb, float (&acc)[8][4]) {
-  constexpr int LD = HD + 8;
-  const int lane = threadIdx.x & 31;
-  // matrices: rows 0-7 | 8-15 of the pair (lane bit 4), d 0-7 | 8-15 of the
-  // step (lane bit 3): r[0], r[1] are n8 tile 2p's b0, b1; r[2], r[3] 2p+1's.
-  const bf16* base =
-      xb + ((lane & 7) + ((lane >> 4) << 3)) * LD + (((lane >> 3) & 1) << 3);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-      uint32_t b[4];
-      ldsm_x4(b, base + 16 * p * LD + 16 * ks);
-      mma_bf16(acc[2 * p], a[ks], b[0], b[1]);
-      mma_bf16(acc[2 * p + 1], a[ks], b[2], b[3]);
-    }
-  }
-}
-
-
-// out += P . Y for the warp's 16 rows: P is [16, 64] as the C fragments pa
-// (bf16 pairs, n8 tile j = columns 8j ..), Y a staged [64, HD] tile (pitch
-// HD + 8) read transposed by ldmatrix.trans. n8 tiles 2kk and 2kk + 1 of P
-// make k16 step kk of the product (K8's tile_pv repack).
-template <int HD>
-__device__ __forceinline__ void pv_tile(const uint32_t (&pa)[8][2],
-                                        const bf16* yb, float (&out)[HD / 8][4]) {
-  constexpr int LD = HD + 8;
-  const int lane = threadIdx.x & 31;
-  // matrices: rows 0-7 | 8-15 of the step (lane bit 3), dims 0-7 | 8-15 of
-  // the pair (lane bit 4): r[0], r[1] are dim tile 2dq's b0, b1; r[2], r[3]
-  // 2dq+1's.
-  const bf16* base =
-      yb + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + ((lane >> 4) << 3);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {pa[2 * kk][0], pa[2 * kk][1], pa[2 * kk + 1][0],
-                           pa[2 * kk + 1][1]};
-#pragma unroll
-    for (int dq = 0; dq < HD / 16; ++dq) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, base + 16 * kk * LD + 16 * dq);
-      mma_bf16(out[2 * dq], a, b[0], b[1]);
-      mma_bf16(out[2 * dq + 1], a, b[2], b[3]);
-    }
-  }
-}
-
 // The library's logit: f32 dot times sm_scale, plus 0 or MASK_VALUE.
 __device__ __forceinline__ float logit(float dot, float scale, int sa, int sb) {
   return __fadd_rn(__fmul_rn(dot, scale), sa == sb ? 0.f : MASK_VALUE);
@@ -295,137 +176,8 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Bytes of a K14 block's shared memory: a two-slab ring of K and V
-// tiles [64][HD + 8] bf16 and their 64 kv segment ids.
-template <int HD>
-constexpr size_t ring_smem_bytes() {
-  return 2 * (2 * (size_t)BK * (HD + 8) * 2 + BK * 4);
-}
-
-
 // ---------------------------------------------------------------------------
-// K14: the forward
-// ---------------------------------------------------------------------------
-
-template <int HD>
-__global__ void __launch_bounds__(NT) k14_flash_fwd(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const int* __restrict__ seg_q,
-    const int* __restrict__ seg_kv, int H, int Sq, int Sk, int q_tiles,
-    float scale, bf16* __restrict__ o, float* __restrict__ l_out,
-    float* __restrict__ m_out) {
-  constexpr int LD = HD + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);           // [2][BK][LD]
-  bf16* vs = ks + 2 * BK * LD;                         // [2][BK][LD]
-  int* ss = reinterpret_cast<int*>(vs + 2 * BK * LD);  // [2][BK]
-
-  const int tile = blockIdx.x % q_tiles;
-  const int bh = blockIdx.x / q_tiles;
-  const int b = bh / H;
-  const bf16* qh = q + (size_t)bh * Sq * HD;
-  const bf16* kh = k + (size_t)bh * Sk * HD;
-  const bf16* vh = v + (size_t)bh * Sk * HD;
-  const int* skv = seg_kv + (size_t)b * Sk;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = tile * BQ + warp * 16;
-  const int n_tiles = Sk / BK;
-
-  auto stage = [&](int j, int slot) {
-    stage_tile<HD>(kh, j * BK, ks + slot * BK * LD);
-    stage_tile<HD>(vh, j * BK, vs + slot * BK * LD);
-    stage_words(skv + j * BK, ss + slot * BK);
-    cp_async_commit();
-  };
-  stage(0, 0);
-
-  uint32_t qa[HD / 16][4];
-  load_a_frags<HD>(qh, r0, Sq, qa);
-  const int* sqb = seg_q + (size_t)b * Sq;
-  const int sq0 = r0 + g < Sq ? sqb[r0 + g] : 0;
-  const int sq1 = r0 + g + 8 < Sq ? sqb[r0 + g + 8] : 0;
-
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      stage(j + 1, (j + 1) & 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int slot = j & 1;
-    const int* sk = ss + slot * BK;
-    float s[8][4];
-    dot_tile<HD>(qa, ks + slot * BK * LD, s);
-    float t0 = m0, t1 = m1;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int2 kv = *reinterpret_cast<const int2*>(sk + 8 * jj + 2 * t);
-      s[jj][0] = logit(s[jj][0], scale, sq0, kv.x);
-      s[jj][1] = logit(s[jj][1], scale, sq0, kv.y);
-      s[jj][2] = logit(s[jj][2], scale, sq1, kv.x);
-      s[jj][3] = logit(s[jj][3], scale, sq1, kv.y);
-      t0 = fmaxf(t0, fmaxf(s[jj][0], s[jj][1]));
-      t1 = fmaxf(t1, fmaxf(s[jj][2], s[jj][3]));
-    }
-    t0 = quad_max(t0);
-    t1 = quad_max(t1);
-    // exp(-inf) = 0 on the first tile; afterwards the underflow to 0 that
-    // wipes a pad row's masked sums (see the header)
-    const float a0 = __expf(m0 - t0), a1 = __expf(m1 - t1);
-    m0 = t0;
-    m1 = t1;
-    l0 *= a0;
-    l1 *= a1;
-#pragma unroll
-    for (int d = 0; d < HD / 8; ++d) {
-      acc[d][0] *= a0;
-      acc[d][1] *= a0;
-      acc[d][2] *= a1;
-      acc[d][3] *= a1;
-    }
-    uint32_t pa[8][2];
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const float p0 = __expf(s[jj][0] - m0), p1 = __expf(s[jj][1] - m0);
-      const float p2 = __expf(s[jj][2] - m1), p3 = __expf(s[jj][3] - m1);
-      l0 += p0 + p1;
-      l1 += p2 + p3;
-      pa[jj][0] = pack_bf16x2(p0, p1);
-      pa[jj][1] = pack_bf16x2(p2, p3);
-    }
-    pv_tile<HD>(pa, vs + slot * BK * LD, acc);
-    __syncthreads();  // the slot is restaged by the next iteration
-  }
-
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  const float i0 = 1.f / l0, i1 = 1.f / l1;
-  bf16* oh = o + (size_t)bh * Sq * HD;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = r0 + g + 8 * hr;
-    if (r >= Sq) continue;
-    const float inv = hr ? i1 : i0;
-#pragma unroll
-    for (int d = 0; d < HD / 8; ++d)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)r * HD + 8 * d + 2 * t) =
-          pack_bf16x2(acc[d][2 * hr] * inv, acc[d][2 * hr + 1] * inv);
-    if (t == 0) {
-      l_out[(size_t)bh * Sq + r] = hr ? l1 : l0;
-      m_out[(size_t)bh * Sq + r] = hr ? m1 : m0;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K15 / K16: wgmma tiles fed by TMA
+// wgmma tiles fed by TMA
 // ---------------------------------------------------------------------------
 
 constexpr int WG_ROWS = 64;   // rows of a warpgroup's tile and of a streamed tile
@@ -437,6 +189,16 @@ constexpr int STAGES = 3;
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 constexpr int LAUNCH_REGS = (PRODUCER_REGS * 128 + CONSUMER_REGS * CONSUMERS) / NT_WS;
+// K14 runs three consumer warpgroups up to hd 64 (FlashAttention-3's choice
+// at these widths: more product and softmax chains an SM to hide each
+// other's latency), at 24 x 128 + 160 x 384 = 126 x 512 registers; at hd
+// 128 two, at K15/K16's split.
+template <int HD>
+constexpr int K14_WGS = HD <= 64 ? 3 : 2;
+template <int WGS>
+constexpr int K14_PRODUCER_REGS = WGS == 3 ? 24 : PRODUCER_REGS;
+template <int WGS>
+constexpr int K14_CONSUMER_REGS = WGS == 3 ? 160 : CONSUMER_REGS;
 // Bytes of the per-row f32 / int32 vectors of a 64-row tile.
 constexpr int VEC = WG_ROWS * 4;
 
@@ -504,6 +266,11 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Wait for all but the last committed group.
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
 // Keep the compiler from moving accesses of registers that an asynchronous
 // wgmma owns (its accumulators, its A fragments) across it.
 template <int N>
@@ -519,12 +286,14 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
 }
 
+template <int N = PRODUCER_REGS>
 __device__ __forceinline__ void setmaxnreg_producer() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
+template <int N = CONSUMER_REGS>
 __device__ __forceinline__ void setmaxnreg_consumer() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // The layout of a 64-row bf16 tile [64][HD] as TMA writes it: column chunks
@@ -680,13 +449,13 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
 
 
 // The tile lists of a block: `list` gets, in increasing order, the tiles
-// j < n that the plan keeps for the block's two 64-row tiles; returns how
-// many. plan: [B][n_q][n_k] bytes, 1 where the (query tile, key tile) pair
-// is skipped (nullptr: keep every tile). K15 (by_key) walks query tiles j
-// for key tiles t0, t0 + 1; K16 key tiles j for query tiles t0, t0 + 1. One
-// warp.
+// j < n that the plan keeps for the block's `tiles` 64-row tiles t0, t0 +
+// 1, ...; returns how many. plan: [B][n_q][n_k] bytes, 1 where the (query
+// tile, key tile) pair is skipped (nullptr: keep every tile). K15 (by_key)
+// walks query tiles j for its key tiles; K14 and K16 key tiles j for their
+// query tiles (K14's last block may hold fewer: a ragged Sq). One warp.
 __device__ __forceinline__ int tile_list(const uint8_t* __restrict__ plan, int b, int n_q,
-                                         int n_k, int t0, bool by_key, int* list) {
+                                         int n_k, int t0, int tiles, bool by_key, int* list) {
   const int lane = threadIdx.x & 31;
   const int n = by_key ? n_q : n_k;
   int count = 0;
@@ -695,8 +464,11 @@ __device__ __forceinline__ int tile_list(const uint8_t* __restrict__ plan, int b
     bool keep = j < n;
     if (keep && plan != nullptr) {
       const uint8_t* pb = plan + (size_t)b * n_q * n_k;
-      keep = by_key ? !(pb[(size_t)j * n_k + t0] && pb[(size_t)j * n_k + t0 + 1])
-                    : !(pb[(size_t)t0 * n_k + j] && pb[(size_t)(t0 + 1) * n_k + j]);
+      const int end = min(t0 + tiles, by_key ? n_k : n_q);
+      bool skip = true;
+      for (int t = t0; t < end; ++t)
+        skip = skip && (by_key ? pb[(size_t)j * n_k + t] : pb[(size_t)t * n_k + j]);
+      keep = !skip;
     }
     const unsigned kept = __ballot_sync(0xffffffffu, keep);
     if (keep) list[count + __popc(kept & ((1u << lane) - 1u))] = j;
@@ -768,15 +540,18 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], int j, float v0, flo
 }
 
 // A consumer's 64 x HD f32 accumulator (the wgmma_ss64 layout at N = HD)
-// into rows [r0, r0 + 64) of a [.., HD] bf16 matrix.
+// into rows [r0, r0 + 64) of a [rows, HD] bf16 matrix, rows at or past
+// `rows` left out.
 template <int HD>
 __device__ __forceinline__ void store_rows(const float (&d)[HD / 2], bf16* __restrict__ out,
-                                           int r0) {
+                                           int r0, int rows) {
   const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    bf16* row = out + (size_t)(r0 + 16 * w + g + 8 * h) * HD + 2 * t;
+    const int r = r0 + 16 * w + g + 8 * h;
+    if (r >= rows) continue;
+    bf16* row = out + (size_t)r * HD + 2 * t;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<uint32_t*>(row + 8 * j) = pack_bf16x2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
@@ -788,6 +563,224 @@ __device__ __forceinline__ void store_rows(const float (&d)[HD / 2], bf16* __res
 struct BwdMaps {
   CUtensorMap q, k, v, dout;
 };
+
+// The producer thread of K14 and K16: the plan's key tiles (list[1 .. n])
+// of (b, h) = bh through the ring, K and V by TMA and the tile's 64 kv
+// segment ids by a bulk copy, each stage once its consumers are done with it.
+template <int HD>
+__device__ __forceinline__ void stream_kv(const BwdMaps& maps, const int* __restrict__ seg_kv,
+                                          const int* list, int n, unsigned char* ring,
+                                          uint64_t* full, uint64_t* empty, int b, int bh,
+                                          int Sk) {
+  using L = TileLayout<HD>;
+  for (int i = 0; i < n; ++i) {
+    const int stage = i % STAGES;
+    if (i >= STAGES) mbar_wait(&empty[stage], (i / STAGES - 1) & 1);
+    unsigned char* st = ring + stage * BwdSmem<HD>::STAGE;
+    const int j = list[1 + i];
+    const int row = bh * Sk + j * WG_ROWS;
+    mbar_expect_tx(&full[stage], 2 * L::BYTES + VEC);
+    load_tile<HD>(st, &maps.k, row, &full[stage]);
+    load_tile<HD>(st + L::BYTES, &maps.v, row, &full[stage]);
+    bulk_load(st + 2 * L::BYTES, seg_kv + (size_t)b * Sk + j * WG_ROWS, VEC, &full[stage]);
+  }
+}
+
+// One key tile of K14's online softmax over a thread's rows 0 and 1 (the
+// wgmma_ss64 layout: s[4j], s[4j + 1] row 0, s[4j + 2], s[4j + 3] row 1):
+// the logits from the dots s (ids sq0, sq1 of the rows, sk the tile's 64 kv
+// ids), each row's new maximum m over the quad, alpha = exp(m_prev - m)
+// (the caller rescales the accumulator by it), the thread's share of l
+// rescaled by alpha, p = exp(s - m) added to l and packed as the A
+// fragments pa of bf16(p) V.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], int sq0, int sq1, const int* sk,
+                                             float scale, float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], uint32_t (&pa)[4][4]) {
+  const int t = threadIdx.x & 3;
+  if (warp_one_segment(sq0, sq1, sk)) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = __fmul_rn(s[i], scale);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int2 kv = *reinterpret_cast<const int2*>(sk + 8 * j + 2 * t);
+      s[4 * j] = logit(s[4 * j], scale, sq0, kv.x);
+      s[4 * j + 1] = logit(s[4 * j + 1], scale, sq0, kv.y);
+      s[4 * j + 2] = logit(s[4 * j + 2], scale, sq1, kv.x);
+      s[4 * j + 3] = logit(s[4 * j + 3], scale, sq1, kv.y);
+    }
+  }
+  float m0 = m[0], m1 = m[1];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    m0 = fmaxf(m0, fmaxf(s[4 * j], s[4 * j + 1]));
+    m1 = fmaxf(m1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  // exp(-inf) = 0 on a row's first tile; afterwards the underflow to 0 that
+  // wipes a pad row's masked sums (see the header), or exp(0) = 1
+  const float a0 = exp_ftz(__fsub_rn(m[0], m0)), a1 = exp_ftz(__fsub_rn(m[1], m1));
+  alpha[0] = a0;
+  alpha[1] = a1;
+  m[0] = m0;
+  m[1] = m1;
+  float l0 = __fmul_rn(l[0], a0), l1 = __fmul_rn(l[1], a1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float p0 = exp_ftz(__fsub_rn(s[4 * j], m0)), p1 = exp_ftz(__fsub_rn(s[4 * j + 1], m0));
+    const float p2 = exp_ftz(__fsub_rn(s[4 * j + 2], m1)), p3 = exp_ftz(__fsub_rn(s[4 * j + 3], m1));
+    l0 += p0 + p1;
+    l1 += p2 + p3;
+    pack_a(pa, j, p0, p1, p2, p3);
+  }
+  l[0] = l0;
+  l[1] = l1;
+}
+
+// K14: a block per (b, h, 64 WGS queries): K16's producer warpgroup and
+// ring, and WGS consumer warpgroups (K14_WGS). Each consumer keeps its 64
+// rows of q as wgmma A fragments in registers (zero past Sq) and each
+// row's segment id, running maximum and (its share of) sum; the plan's key
+// tiles stream through the ring (k, v and their segment ids). Per tile j and consumer: S_j = Q K_j^T (B, the key
+// tile, in shared memory) and the previous tile's O += bf16(P_j-1) V_j-1
+// (A from registers, V read transposed) go out together; softmax_tile runs
+// on S_j while the product of j - 1 is in flight (FlashAttention-3's
+// overlap within a warpgroup); then O is rescaled by tile j's alpha. That
+// is the same arithmetic in the same order as one tile after the other. O
+// stays in f32 registers and is written once, scaled by 1 / l; l and m are
+// written for the rows below Sq.
+template <int HD, int WGS = K14_WGS<HD>>
+__global__ void __launch_bounds__(128 * (WGS + 1), 1) k14_flash_fwd(
+    const __grid_constant__ BwdMaps maps, const bf16* __restrict__ q,
+    const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
+    const uint8_t* __restrict__ plan, int H, int Sq, int Sk, int q_blocks, float scale,
+    bf16* __restrict__ o, float* __restrict__ l_out, float* __restrict__ m_out) {
+  using L = TileLayout<HD>;
+  using SM = BwdSmem<HD>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + STAGES;
+  int* list = reinterpret_cast<int*>(smem + 64);
+  const int n_q = (Sq + WG_ROWS - 1) / WG_ROWS, n_k = Sk / WG_ROWS;
+  // STAGES x {k, v, seg_kv}
+  unsigned char* ring = smem + ((smem_addr(smem) + 64 + 4 * (n_k + 4) + 1023) / 1024 * 1024 -
+                                smem_addr(smem));
+
+  const int qb = blockIdx.x % q_blocks;
+  const int bh = blockIdx.x / q_blocks;
+  const int b = bh / H;
+  const int q0 = qb * WGS * WG_ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * WGS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (warp == 1) {
+    const int n = tile_list(plan, b, n_q, n_k, WGS * qb, WGS, false, list + 1);
+    if (lane == 0) list[0] = n;
+  }
+  __syncthreads();
+  const int n = list[0];
+
+  if (warp < 4) {  // the producer
+    setmaxnreg_producer<K14_PRODUCER_REGS<WGS>>();
+    if (threadIdx.x == 0) stream_kv<HD>(maps, seg_kv, list, n, ring, full, empty, b, bh, Sk);
+  } else {  // a consumer: queries q0 + 64 cw .. + 63
+    setmaxnreg_consumer<K14_CONSUMER_REGS<WGS>>();
+    const int cw = (warp >> 2) - 1;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + cw * WG_ROWS + 16 * (warp & 3);
+    const int r = r0 + g;  // this thread's rows r, r + 8
+    const int* sqb = seg_q + (size_t)b * Sq;
+    const int sq0 = r < Sq ? sqb[r] : 0, sq1 = r + 8 < Sq ? sqb[r + 8] : 0;
+    uint32_t qf[HD / 16][4];
+    load_a_frags<HD>(q + (size_t)bh * Sq * HD, r0, Sq, qf);
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    uint32_t pa[4][4];  // bf16(P) of the last tile, for its product with V
+    auto pv = [&](int i) {  // O += bf16(P_i) V_i, committed
+      const uint32_t va = smem_addr(ring + (i % STAGES) * SM::STAGE + L::BYTES);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(acc, pa[kk], desc_mn<HD>(va, kk));
+      wgmma_commit();
+    };
+    for (int i = 0; i < n; ++i) {
+      const int stage = i % STAGES;
+      mbar_wait(&full[stage], (i / STAGES) & 1);
+      const unsigned char* st = ring + stage * SM::STAGE;
+      const uint32_t ka = smem_addr(st);
+      float s[32];
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) wgmma_rs64(s, qf[kk], desc_k<HD>(ka, kk), kk);
+      wgmma_commit();
+      if (i > 0) {
+        pv(i - 1);
+        wgmma_wait_one();
+      } else {
+        wgmma_wait_all();
+      }
+      fence_regs(s);
+      uint32_t pn[4][4];
+      float alpha[2];
+      softmax_tile(s, sq0, sq1, reinterpret_cast<const int*>(st + 2 * L::BYTES), scale, m, l,
+                   alpha, pn);
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(pa);
+      if (i > 0) mbar_arrive(&empty[(i - 1) % STAGES]);  // K and V of i - 1 are done
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        acc[4 * j] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pa[kk][e] = pn[kk][e];
+    }
+    if (n > 0) {
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+      pv(n - 1);
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(pa);
+    }
+    const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
+    const float i0 = 1.f / l0, i1 = 1.f / l1;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      acc[4 * j] *= i0;
+      acc[4 * j + 1] *= i0;
+      acc[4 * j + 2] *= i1;
+      acc[4 * j + 3] *= i1;
+    }
+    store_rows<HD>(acc, o + (size_t)bh * Sq * HD, q0 + cw * WG_ROWS, Sq);
+    if (t == 0) {
+      const size_t row = (size_t)bh * Sq + r;
+      if (r < Sq) {
+        l_out[row] = l0;
+        m_out[row] = m[0];
+      }
+      if (r + 8 < Sq) {
+        l_out[row + 8] = l1;
+        m_out[row + 8] = m[1];
+      }
+    }
+  }
+}
 
 // K15 keeps its warpgroup's K and V as wgmma A fragments in registers up to
 // hd 64 (32 registers: half the shared-memory reads of S^T and dP^T); at hd
@@ -845,7 +838,7 @@ __global__ void __launch_bounds__(NT_WS, 1) k15_flash_bwd_dkv(
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (warp == 1) {
-    const int n = tile_list(plan, b, n_q, n_k, 2 * kb, true, list + 1);
+    const int n = tile_list(plan, b, n_q, n_k, 2 * kb, 2, true, list + 1);
     if (lane == 0) list[0] = n;
   }
   __syncthreads();
@@ -1000,8 +993,8 @@ __global__ void __launch_bounds__(NT_WS, 1) k15_flash_bwd_dkv(
       mbar_arrive(&empty[stage]);  // this thread is done with the stage
     }
     const size_t base = (size_t)bh * Sk * HD;
-    store_rows<HD>(dka, dk + base, k0 + cw * WG_ROWS);
-    store_rows<HD>(dva, dv + base, k0 + cw * WG_ROWS);
+    store_rows<HD>(dka, dk + base, k0 + cw * WG_ROWS, Sk);
+    store_rows<HD>(dva, dv + base, k0 + cw * WG_ROWS, Sk);
   }
 }
 
@@ -1043,7 +1036,7 @@ __global__ void __launch_bounds__(NT_WS, 1) k16_flash_bwd_dq(
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (warp == 1) {
-    const int n = tile_list(plan, b, n_q, n_k, 2 * qb, false, list + 1);
+    const int n = tile_list(plan, b, n_q, n_k, 2 * qb, 2, false, list + 1);
     if (lane == 0) list[0] = n;
   }
   __syncthreads();
@@ -1051,19 +1044,7 @@ __global__ void __launch_bounds__(NT_WS, 1) k16_flash_bwd_dq(
 
   if (warp < 4) {  // the producer
     setmaxnreg_producer();
-    if (threadIdx.x == 0) {
-      for (int i = 0; i < n; ++i) {
-        const int stage = i % STAGES;
-        if (i >= STAGES) mbar_wait(&empty[stage], (i / STAGES - 1) & 1);
-        unsigned char* st = ring + stage * SM::STAGE;
-        const int j = list[1 + i];
-        const int row = bh * Sk + j * WG_ROWS;
-        mbar_expect_tx(&full[stage], 2 * L::BYTES + VEC);
-        load_tile<HD>(st, &maps.k, row, &full[stage]);
-        load_tile<HD>(st + L::BYTES, &maps.v, row, &full[stage]);
-        bulk_load(st + 2 * L::BYTES, seg_kv + (size_t)b * Sk + j * WG_ROWS, VEC, &full[stage]);
-      }
-    }
+    if (threadIdx.x == 0) stream_kv<HD>(maps, seg_kv, list, n, ring, full, empty, b, bh, Sk);
   } else {  // a consumer: queries q0 + 64 cw .. + 63
     setmaxnreg_consumer();
     const int cw = (warp >> 2) - 1;
@@ -1125,29 +1106,13 @@ __global__ void __launch_bounds__(NT_WS, 1) k16_flash_bwd_dq(
       fence_regs(acc);
       mbar_arrive(&empty[stage]);
     }
-    store_rows<HD>(acc, dq + (size_t)bh * Sq * HD, q0 + cw * WG_ROWS);
+    store_rows<HD>(acc, dq + (size_t)bh * Sq * HD, q0 + cw * WG_ROWS, Sq);
   }
 }
 
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
-
-template <int HD>
-int launch_fwd(const void* q, const void* k, const void* v, const int* sq,
-               const int* skv, int B, int H, int Sq, int Sk, float scale,
-               void* o, float* l, float* m, cudaStream_t stream) {
-  static size_t configured = 48 * 1024;
-  const size_t smem = ring_smem_bytes<HD>();
-  const int err = allow_smem(k14_flash_fwd<HD>, smem, configured);
-  if (err) return err;
-  const int q_tiles = (Sq + BQ - 1) / BQ;
-  const unsigned blocks = (unsigned)B * H * q_tiles;
-  k14_flash_fwd<HD><<<blocks, NT, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, sq, skv, H, Sq, Sk,
-      q_tiles, scale, (bf16*)o, l, m);
-  return (int)cudaGetLastError();
-}
 
 // The driver's cuTensorMapEncodeTiled, through the runtime's entry-point
 // lookup (nothing links libcuda).
@@ -1206,11 +1171,34 @@ int encode_maps(BwdMaps* maps, const void* q, const void* k, const void* v, cons
 // kernel that ptxas gave fewer registers would wait forever in
 // setmaxnreg.inc, so it is refused before it launches.
 template <typename Kernel>
-int check_launch_regs(Kernel kernel) {
+int check_launch_regs(Kernel kernel, int need = LAUNCH_REGS) {
   cudaFuncAttributes attr;
   const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return (int)e;
-  return attr.numRegs >= LAUNCH_REGS ? 0 : (int)cudaErrorInvalidConfiguration;
+  return attr.numRegs >= need ? 0 : (int)cudaErrorInvalidConfiguration;
+}
+
+template <int HD>
+int launch_fwd(const void* q, const void* k, const void* v, const int* sq, const int* skv,
+               const uint8_t* plan, int B, int H, int Sq, int Sk, float scale, void* o,
+               float* l, float* m, cudaStream_t stream) {
+  constexpr int WGS = K14_WGS<HD>;
+  static size_t configured = 48 * 1024;
+  static const int regs = check_launch_regs(
+      k14_flash_fwd<HD>,
+      (K14_PRODUCER_REGS<WGS> + K14_CONSUMER_REGS<WGS> * WGS) / (WGS + 1));
+  if (regs) return regs;
+  const size_t smem = BwdSmem<HD>::bytes(Sk / WG_ROWS, 0);
+  if (int err = allow_smem(k14_flash_fwd<HD>, smem, configured)) return err;
+  BwdMaps maps = {};
+  const long long rk = (long long)B * H * Sk;
+  if (int err = encode_rows<HD>(&maps.k, k, rk)) return err;
+  if (int err = encode_rows<HD>(&maps.v, v, rk)) return err;
+  const int q_blocks = (Sq + WGS * WG_ROWS - 1) / (WGS * WG_ROWS);
+  const unsigned blocks = (unsigned)B * H * q_blocks;
+  k14_flash_fwd<HD><<<blocks, 128 * (WGS + 1), smem, stream>>>(maps, (const bf16*)q, sq, skv, plan, H, Sq,
+                                                      Sk, q_blocks, scale, (bf16*)o, l, m);
+  return (int)cudaGetLastError();
 }
 
 template <int HD>
@@ -1255,19 +1243,20 @@ int launch_dq(const void* q, const void* k, const void* v, const int* sq, const 
 
 }  // namespace
 
-// q, k, v: [B, H, Sq|Sk, hd] bf16 contiguous; seg_q [B, Sq], seg_kv [B, Sk]
-// int32; Sk a multiple of 64 (the wrapper asks the library's 128); o [B, H,
-// Sq, hd] bf16, l and m [B, H, Sq] f32.
-extern "C" int bsr_flash_attention_fwd(const void* q, const void* k,
-                                       const void* v, const int* seg_q,
-                                       const int* seg_kv, int B, int H, int Sq,
-                                       int Sk, int hd, float scale, void* o,
+// q, k, v: [B, H, Sq|Sk, hd] bf16 contiguous (k, v 16-byte aligned);
+// seg_q [B, Sq], seg_kv [B, Sk] int32 (seg_kv 16-byte aligned); the tile
+// plan [B, ceil(Sq/64), Sk/64] bytes (1: the pair is skipped; nullptr: none
+// is); Sk a multiple of 64 (the wrapper asks the library's 128), Sq any; o
+// [B, H, Sq, hd] bf16, l and m [B, H, Sq] f32.
+extern "C" int bsr_flash_attention_fwd(const void* q, const void* k, const void* v,
+                                       const int* seg_q, const int* seg_kv, const uint8_t* plan,
+                                       int B, int H, int Sq, int Sk, int hd, float scale, void* o,
                                        float* l, float* m, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_fwd<16>(q, k, v, seg_q, seg_kv, B, H, Sq, Sk, scale, o, l, m, stream);
-    case 32: return launch_fwd<32>(q, k, v, seg_q, seg_kv, B, H, Sq, Sk, scale, o, l, m, stream);
-    case 64: return launch_fwd<64>(q, k, v, seg_q, seg_kv, B, H, Sq, Sk, scale, o, l, m, stream);
-    case 128: return launch_fwd<128>(q, k, v, seg_q, seg_kv, B, H, Sq, Sk, scale, o, l, m, stream);
+    case 16: return launch_fwd<16>(q, k, v, seg_q, seg_kv, plan, B, H, Sq, Sk, scale, o, l, m, stream);
+    case 32: return launch_fwd<32>(q, k, v, seg_q, seg_kv, plan, B, H, Sq, Sk, scale, o, l, m, stream);
+    case 64: return launch_fwd<64>(q, k, v, seg_q, seg_kv, plan, B, H, Sq, Sk, scale, o, l, m, stream);
+    case 128: return launch_fwd<128>(q, k, v, seg_q, seg_kv, plan, B, H, Sq, Sk, scale, o, l, m, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

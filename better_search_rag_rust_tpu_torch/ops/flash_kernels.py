@@ -31,13 +31,17 @@ normalised first, its single-step kernel); the backward recomputes ``p =
 exp(s - m) * (1 / l)``. The CUDA kernels walk 64-key tiles, so on the card
 they agree with the plain versions to a tolerance, not bit for bit.
 
-The backward kernels skip the tile pairs that add exact zeros
-(:func:`backward_tile_plan`); the plain versions compute every pair.
+The kernels skip the tile pairs that add exact zeros, by one tile plan
+made from the segment ids alone (:func:`segment_tile_plan`; the encoder
+makes it once a batch for all its layers, :class:`FlashAttention` saves it
+for the backward); the plain versions compute every pair.
+:func:`backward_tile_plan`, the same rule read off the forward's ``m``,
+is the tests' oracle for it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -49,8 +53,11 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 BLOCK = 128
 #: Head widths the CUDA kernels are instantiated for.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-#: Tokens of a tile of :func:`backward_tile_plan`.
+#: Tokens of a tile of :func:`segment_tile_plan`.
 PLAN_TILE = 64
+#: What a wrapper's ``plan`` takes: True, the plan of the segment ids
+#: (:func:`segment_tile_plan`); None, every tile; or a plan.
+Plan = Union[bool, None, torch.Tensor]
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 launch_counts: Dict[str, int] = {"flash_attention_fwd": 0,
@@ -258,12 +265,14 @@ def flash_attention_bwd_plain(q, k, v, segment_ids: Optional[SegmentIds], o,
 def backward_tile_plan(seg_q: Optional[torch.Tensor],
                        seg_kv: Optional[torch.Tensor],
                        m: torch.Tensor) -> Optional[torch.Tensor]:
-    """The backward's tile plan: ``[B, Sq/64, Sk/64]`` bool, True where the
-    (query tile, key tile) pair of 64 tokens each adds exact zeros to dk, dv
-    and dq, so K15 and K16 skip it. A pair is skipped only when the tiles'
-    segment-id ranges ``[min, max]`` are disjoint (every query-key pair
-    then takes the mask, for any ids, contiguous or not) and every query
-    row of the tile has a real maximum in every head, ``m > MASK / 2``: a
+    """The tile plan read off the forward's ``m``: ``[B, Sq/64, Sk/64]``
+    bool, True where the (query tile, key tile) pair of 64 tokens each adds
+    exact zeros to dk, dv and dq. The kernels take :func:`segment_tile_plan`,
+    the same rule from the ids alone; this is its oracle in the tests. A
+    pair is skipped only when the tiles' segment-id ranges ``[min, max]``
+    are disjoint (every query-key pair then takes the mask, for any ids,
+    contiguous or not) and every query row of the tile has a real maximum
+    in every head, ``m > MASK / 2``: a
     row with a key of its own segment has a real logit as its ``m``, so
     ``exp(MASK + x - m)`` underflows to exactly 0 and so does ``ds``. A row
     without one has ``m`` near the mask value and a non-zero ``p``, and its
@@ -282,6 +291,75 @@ def backward_tile_plan(seg_q: Optional[torch.Tensor],
     disjoint = ((qmax[:, :, None] < kmin[:, None, :])
                 | (kmax[:, None, :] < qmin[:, :, None]))
     return disjoint & real[:, :, None]
+
+
+def _tile_ranges(seg: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each 64-token tile's smallest and largest id, ``[B, ceil(S/64)]``
+    each; a ragged last tile over its real tokens (padded with its last
+    id, which moves neither)."""
+    b, s = seg.shape
+    pad = -s % PLAN_TILE
+    if pad:
+        seg = torch.cat([seg, seg[:, -1:].expand(b, pad)], dim=1)
+    return seg.reshape(b, -1, PLAN_TILE).aminmax(dim=-1)
+
+
+def segment_tile_plan(seg_q: Optional[torch.Tensor],
+                      seg_kv: Optional[torch.Tensor]
+                      ) -> Optional[torch.Tensor]:
+    """The tile plan of K14, K15 and K16 from the segment ids alone:
+    ``[B, ceil(Sq/64), ceil(Sk/64)]`` bool, True where the (query tile, key
+    tile) pair of 64 tokens each is skipped. A pair is skipped when the
+    tiles' id ranges ``[min, max]`` are disjoint (every query-key pair takes
+    the mask) and every real query row of the tile has a key of its own
+    segment somewhere in ``seg_kv`` (its ``m`` is then a real logit, so
+    every ``p`` of the pair is exactly 0 in the forward and the backward; a
+    row without one is never skipped). With ``seg_q is seg_kv`` (the
+    encoder's self-attention) every row sees its own key; otherwise each
+    row is looked up in its batch row's sorted ``seg_kv``. A ragged last
+    tile takes its range over its real tokens. No segment ids: None
+    (nothing is skipped). The same plan as :func:`backward_tile_plan` reads
+    off the forward's ``m``, without the forward."""
+    if seg_q is None:
+        return None
+    b, sq = seg_q.shape
+    qmin, qmax = _tile_ranges(seg_q)
+    kmin, kmax = (qmin, qmax) if seg_kv is seg_q else _tile_ranges(seg_kv)
+    disjoint = ((qmax[:, :, None] < kmin[:, None, :])
+                | (kmax[:, None, :] < qmin[:, :, None]))
+    if seg_kv is seg_q:
+        return disjoint
+    keys = seg_kv.sort(dim=1).values
+    ids = seg_q.to(keys.dtype).contiguous()
+    at = torch.searchsorted(keys, ids).clamp_max(keys.shape[1] - 1)
+    own = keys.gather(1, at) == ids  # [B, Sq]: the row has a key of its own
+    pad = -sq % PLAN_TILE
+    if pad:
+        own = torch.cat([own, own.new_ones((b, pad))], dim=1)
+    return disjoint & own.reshape(b, -1, PLAN_TILE).all(dim=-1)[:, :, None]
+
+
+def _plan_for(plan: Plan, q: torch.Tensor, k: torch.Tensor,
+              seg_q: Optional[torch.Tensor], seg_kv: Optional[torch.Tensor]
+              ) -> Optional[torch.Tensor]:
+    """The tile plan a kernel reads: ``plan`` as a wrapper takes it
+    (:data:`Plan`), made from the ids where it is True, and a given plan
+    checked against the operands' shape. The plain versions on the CPU
+    read none (every pair), so True makes nothing there."""
+    if plan is None:
+        return None
+    if plan is True:
+        if q.device.type == "cpu":
+            return None
+        return segment_tile_plan(seg_q, seg_kv)
+    b, _h, sq, _hd = q.shape
+    want = (b, -(-sq // PLAN_TILE), -(-k.shape[2] // PLAN_TILE))
+    if (tuple(plan.shape) != want or plan.dtype != torch.bool
+            or plan.device != q.device):
+        raise ValueError(f"a tile plan is bool {list(want)} on {q.device}, "
+                         f"got {plan.dtype} {list(plan.shape)} on "
+                         f"{plan.device}")
+    return plan.contiguous()
 
 
 def _check_kernel(name: str, *tensors) -> None:
@@ -314,29 +392,33 @@ def _kernel_segments(seg_q, seg_kv, b: int, sq: int, sk: int, device
 
 
 def _aligned16(*tensors) -> tuple:
-    """The kernels stage 16 bytes per ``cp.async`` (K14) and read their
-    operands by TMA (K15, K16): an operand off a 16-byte boundary (a view
-    may be; a fresh tensor is not) is copied."""
+    """The kernels read their streamed operands by TMA and bulk copies: an
+    operand off a 16-byte boundary (a view may be; a fresh tensor is not)
+    is copied."""
     return tuple(t.clone() if t.data_ptr() % 16 else t for t in tensors)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         seg_q: Optional[torch.Tensor],
-                        seg_kv: Optional[torch.Tensor], sm_scale: float = 1.0
+                        seg_kv: Optional[torch.Tensor], sm_scale: float = 1.0,
+                        plan: Plan = True
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K14. The forward with residuals: ``q [B, H, Sq, hd]``, ``k, v [B, H,
     Sk, hd]``, segment ids ``[B, Sq]`` / ``[B, Sk]`` (or both None) ->
     ``(o, l, m)``. Replaces ``_flash_attention_impl`` (:758). On the card:
-    bf16 operands, hd in :data:`KERNEL_HEAD_DIMS`, contiguous."""
+    bf16 operands, hd in :data:`KERNEL_HEAD_DIMS`, contiguous; it skips
+    the pairs of ``plan`` (:data:`Plan`), which leaves o, l and m bit for
+    bit as they are."""
     segs = None if seg_q is None else SegmentIds(seg_q, seg_kv)
     _check_inputs(q, k, v, segs)
+    plan = _plan_for(plan, q, k, seg_q, seg_kv)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, seg_q, seg_kv, sm_scale)
     _check_kernel("K14", q, k, v)
     b, h, sq, hd = q.shape
     sk = k.shape[2]
     sq_i, skv_i = _kernel_segments(seg_q, seg_kv, b, sq, sk, q.device)
-    q, k, v = _aligned16(q, k, v)
+    q, k, v, sq_i, skv_i = _aligned16(q, k, v, sq_i, skv_i)
     o = torch.empty_like(q)
     l = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -347,8 +429,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.lib.bsr_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), sq_i.data_ptr(),
-            skv_i.data_ptr(), b, h, sq, sk, hd, float(sm_scale),
-            o.data_ptr(), l.data_ptr(), m.data_ptr(), stream)
+            skv_i.data_ptr(), None if plan is None else plan.data_ptr(), b,
+            h, sq, sk, hd, float(sm_scale), o.data_ptr(), l.data_ptr(),
+            m.data_ptr(), stream)
     lib.check("flash_attention_fwd", err)
     launch_counts["flash_attention_fwd"] += 1
     return o, l, m
@@ -365,13 +448,6 @@ def _check_bwd_operands(q, k, l, m, do, di) -> None:
     if len({t.device for t in (q, k, l, m, do, di)}) != 1:
         raise ValueError("backward operands on several devices")
     _check_backward(sq)
-
-
-def _backward_extras(seg_q, seg_kv, l, m
-                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """What K15 and K16 read beside the operands: ``1 / l`` (one correctly
-    rounded reciprocal a row) and the tile plan (None: skip nothing)."""
-    return torch.reciprocal(l), backward_tile_plan(seg_q, seg_kv, m)
 
 
 def _launch_bwd(name: str, q, k, v, seg_q, seg_kv, inv_l, m, do, di, plan,
@@ -418,56 +494,61 @@ def _bwd_dq_kernel(q, k, v, seg_q, seg_kv, inv_l, m, do, di, plan,
 
 
 def flash_attention_bwd_dkv(q, k, v, seg_q, seg_kv, l, m, do, di,
-                            sm_scale: float = 1.0
+                            sm_scale: float = 1.0, plan: Plan = True
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K15. ``(dk, dv)`` from the forward's operands, its ``l`` and ``m``,
     the output's gradient ``do`` and ``di = sum(o * do)`` (f32 ``[B, H,
     Sq]``). Replaces ``_flash_attention_bwd_dkv`` (:1121). On the card it
-    skips the pairs of :func:`backward_tile_plan`."""
+    skips the pairs of ``plan`` (:data:`Plan`)."""
     segs = None if seg_q is None else SegmentIds(seg_q, seg_kv)
     _check_inputs(q, k, v, segs)
     _check_bwd_operands(q, k, l, m, do, di)
+    plan = _plan_for(plan, q, k, seg_q, seg_kv)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, seg_q, seg_kv, l, m, do,
                                              di, sm_scale)
-    inv_l, plan = _backward_extras(seg_q, seg_kv, l, m)
-    return _bwd_dkv_kernel(q, k, v, seg_q, seg_kv, inv_l, m, do, di, plan,
-                           sm_scale)
+    return _bwd_dkv_kernel(q, k, v, seg_q, seg_kv, torch.reciprocal(l), m, do,
+                           di, plan, sm_scale)
 
 
 def flash_attention_bwd_dq(q, k, v, seg_q, seg_kv, l, m, do, di,
-                           sm_scale: float = 1.0) -> torch.Tensor:
+                           sm_scale: float = 1.0, plan: Plan = True
+                           ) -> torch.Tensor:
     """K16. ``dq`` from the same operands as K15. Replaces
     ``_flash_attention_bwd_dq`` (:1456)."""
     segs = None if seg_q is None else SegmentIds(seg_q, seg_kv)
     _check_inputs(q, k, v, segs)
     _check_bwd_operands(q, k, l, m, do, di)
+    plan = _plan_for(plan, q, k, seg_q, seg_kv)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, seg_q, seg_kv, l, m, do,
                                             di, sm_scale)
-    inv_l, plan = _backward_extras(seg_q, seg_kv, l, m)
-    return _bwd_dq_kernel(q, k, v, seg_q, seg_kv, inv_l, m, do, di, plan,
-                          sm_scale)
+    return _bwd_dq_kernel(q, k, v, seg_q, seg_kv, torch.reciprocal(l), m, do,
+                          di, plan, sm_scale)
 
 
 class FlashAttention(torch.autograd.Function):
     """K14 forward; K15 then K16 backward, the counterpart of the library's
-    ``_flash_attention`` custom VJP (:254-322). Saves q, k, v, o, l, m and
-    the segment ids; ``di = sum(o * do)`` is computed here in plain torch,
-    as the library computes it outside its kernels. The segment ids and
-    ``sm_scale`` get no gradient. On the card the tile plan and ``1 / l``
-    are made once for both kernels."""
+    ``_flash_attention`` custom VJP (:254-322). The tile plan is made once
+    (or taken from the caller) and serves all three kernels. Saves q, k, v,
+    o, l, m, the segment ids and the plan; ``di = sum(o * do)`` is computed
+    here in plain torch, as the library computes it outside its kernels.
+    The segment ids, ``sm_scale`` and the plan get no gradient. On the card
+    ``1 / l`` is made once for both backward kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seg_q, seg_kv, sm_scale):
-        o, l, m = flash_attention_fwd(q, k, v, seg_q, seg_kv, sm_scale)
-        ctx.save_for_backward(q, k, v, o, l, m, seg_q, seg_kv)
+    def forward(ctx, q, k, v, seg_q, seg_kv, sm_scale, plan):
+        # the library's checks before the plan is made from the ids
+        _check_inputs(q, k, v, None if seg_q is None else SegmentIds(seg_q, seg_kv))
+        plan = _plan_for(plan, q, k, seg_q, seg_kv)
+        o, l, m = flash_attention_fwd(q, k, v, seg_q, seg_kv, sm_scale, plan)
+        ctx.save_for_backward(q, k, v, o, l, m, seg_q, seg_kv, plan)
         ctx.sm_scale = sm_scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, l, m, seg_q, seg_kv = ctx.saved_tensors
+        q, k, v, o, l, m, seg_q, seg_kv, plan = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
         di = (o.float() * do.float()).sum(dim=-1)
         if q.device.type == "cpu":
@@ -475,19 +556,20 @@ class FlashAttention(torch.autograd.Function):
                                              di, ctx.sm_scale)
             dq = flash_attention_bwd_dq(q, k, v, seg_q, seg_kv, l, m, do, di,
                                         ctx.sm_scale)
-            return dq, dk, dv, None, None, None
+            return dq, dk, dv, None, None, None, None
         _check_bwd_operands(q, k, l, m, do, di)
-        inv_l, plan = _backward_extras(seg_q, seg_kv, l, m)
+        inv_l = torch.reciprocal(l)
         dk, dv = _bwd_dkv_kernel(q, k, v, seg_q, seg_kv, inv_l, m, do, di,
                                  plan, ctx.sm_scale)
         dq = _bwd_dq_kernel(q, k, v, seg_q, seg_kv, inv_l, m, do, di, plan,
                             ctx.sm_scale)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     segment_ids: Optional[SegmentIds] = None,
-                    sm_scale: float = 1.0) -> torch.Tensor:
+                    sm_scale: float = 1.0, *, plan: Plan = True
+                    ) -> torch.Tensor:
     """Softmax attention ``[B, H, Sq, hd]`` x ``[B, H, Sk, hd]`` -> ``[B,
     H, Sq, hd]`` in q's dtype, a token attending only to tokens of its own
     segment (``segment_ids``; None: one segment), logits scaled by
@@ -498,8 +580,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     blocks of 128 ask Sq >= 128 and Sk a multiple of 128 (and, for the
     backward, Sq a multiple of 128 too), and raise its ``ValueError``
     otherwise. On the card: bf16 operands and hd in
-    :data:`KERNEL_HEAD_DIMS`; non-contiguous operands are copied."""
+    :data:`KERNEL_HEAD_DIMS`; non-contiguous operands are copied. ``plan``
+    (:data:`Plan`): the tile plan of the three kernels, made here from the
+    segment ids unless the caller made it (:func:`segment_tile_plan`, as
+    the encoder does once a batch for all its layers)."""
     seg_q, seg_kv = (None, None) if segment_ids is None else segment_ids
     if q.device.type == "cuda":
         q, k, v = (t.contiguous() for t in (q, k, v))
-    return FlashAttention.apply(q, k, v, seg_q, seg_kv, sm_scale)
+    return FlashAttention.apply(q, k, v, seg_q, seg_kv, sm_scale, plan)

@@ -222,18 +222,23 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
 27. ``attention_impl="flash"`` (K14 forward, K15 + K16 backward) past K8's
    1,024 tokens: (a) K14 against its plain version on bf16 [32, 12, 2048,
    64] with random padding per row (every row, pad rows included, within
-   K8's bound; both against float64 on a slice), its time beside its
-   bound, plain and SDPA with the boolean segment mask; K14 alone at
-   [2, 12, 8192, 64]; K14 at K8's shape beside K8 in the same run; (b)
+   K8's bound; both against float64 on a slice), bit for bit across runs
+   and with the tile plan (made from the segment ids) on and off, its
+   time with the plan and with none beside its bound, plain and SDPA with
+   the boolean segment mask, the plan's skipped and computed tile pairs;
+   unpadded beside its bound over all S x S and SDPA without a mask; K14
+   alone at [2, 12, 8192, 64]; K14 at K8's shape beside K8; (b)
    K15 and K16 against the plain backward at [8, 12, 2048, 64], the
    step's shape (K9's bound), two backward runs bit for bit, their times
    beside bound, plain and SDPA's backward (each bound counts the pairs
    the segment rule leaves, not all S x S); (c) the encoder at 12 x 768 on 32 x 2,048 tokens:
-   12 K14 launches a forward, files/s, its device split, pooled cosine
+   12 K14 launches a forward, files/s, its device split (with the largest
+   torch ops inside "the rest" named), pooled cosine
    0.999 to the ``xla`` path on 4 unpadded rows; (d) build mode on phase
    8's tree at ``max_tokens`` 2,048: the store's meta ``torch-flash``,
    oracle overlap 1.0; (e) one finetune step on 8 pairs x 2,048: a finite
-   loss, 24 launches each of K14, K15 and K16, the step's device split;
+   loss, 24 launches each of K14, K15 and K16, the step's device split
+   (the rest's largest torch ops named);
    at 2 pairs every gradient at cosine 0.99 to the ``xla`` path's.
 
 Every kernel's time is printed beside its plain version's, one PyTorch call
@@ -820,6 +825,33 @@ def _device_profile(fn, groups=K8_K9):
     total = sum(ms for ms, _ in rows)
     split["rest"] = total - sum(split.values())
     return split, total, rows
+
+
+#: aten ops whose kernels are the GEMMs of a device split
+GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
+            "aten::_scaled_mm")
+
+
+def glue_ops(fn, n: int = 8) -> str:
+    """What makes up the "rest" of a device split, by the torch op that
+    launched it: the ``n`` aten ops whose own kernels take the most device
+    time over one call of ``fn`` (torch.profiler's self device time; the
+    port's kernels are launched by no aten op, the GEMMs' ops are left
+    out), as ``op ms (calls)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0))
+        if evt.key.startswith("aten::") and evt.key not in GEMM_OPS and us > 0:
+            rows.append((us / 1e3, evt.key, evt.count))
+    rows.sort(reverse=True)
+    return "; ".join(f"{key} {ms:.2f} ms ({count})" for ms, key, count in rows[:n])
 
 
 def check_encoder(seed, card):
@@ -2924,15 +2956,22 @@ def check_flash_kernels(gen, card):
     b, h, s, hd = B_FLASH, H_ENC, S_FLASH, HD_ENC
     scale = 1.0 / math.sqrt(hd)
     q, k, v, _do, seg = _flash_operands(gen, b, h, s, hd, s // 8)
+    # the plan as the encoder makes it, once a batch (its ms printed apart)
+    plan = fk.segment_tile_plan(seg, seg)
 
-    def kern():
-        return fk.flash_attention_fwd(q, k, v, seg, seg, scale)
+    def kern(with_plan=True):
+        return fk.flash_attention_fwd(q, k, v, seg, seg, scale,
+                                      plan=plan if with_plan else None)
 
     def plain():
         return fk.flash_attention_fwd_plain(q, k, v, seg, seg, scale)
 
     (o, l, m), (po, pl, _pm) = kern(), plain()
+    again, off = kern(), kern(False)
     torch.cuda.synchronize()
+    bitwise_runs = all(torch.equal(x, y) for x, y in zip((o, l, m), again))
+    bitwise_plan = all(torch.equal(x, y) for x, y in zip((o, l, m), off))
+    del again, off
     err, cos = _agreement(o, po)
     finite = bool(torch.isfinite(o.float()).all())
     pad_rows = seg == 0
@@ -2947,37 +2986,63 @@ def check_flash_kernels(gen, card):
           f"{err:.4g} (bound {ATT_TOL}), pad rows {pad_err:.4g}, cosine "
           f"{cos:.7f} (bound {ATT_COS}), all finite {finite}; l max rel "
           f"{float(((l - pl).abs() / pl).max()):.3g}; vs float64 on rows "
-          f"0-1 x heads 0-1: kernel max {e_k:.4g}, plain max {e_p:.4g}")
+          f"0-1 x heads 0-1: kernel max {e_k:.4g}, plain max {e_p:.4g}; "
+          f"two runs bit for bit {bitwise_runs}, plan on and off bit for "
+          f"bit {bitwise_plan}")
     assert err < ATT_TOL and cos > ATT_COS and finite
+    assert bitwise_runs and bitwise_plan
     errs["flash_attention_fwd"] = err
     mask = (seg[:, None, :, None] == seg[:, None, None, :])
     times["flash_attention_fwd"] = timing(
-        cuda_ms(kern), cuda_ms(plain),
-        cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale)),
+        cuda_ms(kern, 10), cuda_ms(plain),
+        cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale), 10),
         nbytes(q, k, v, o, l, m, seg), 4 * h * hd * segment_pairs(seg),
         "bf16 tensor")
+    ms_off = cuda_ms(lambda: kern(False), 10)
+    plan_ms = cuda_ms(lambda: fk.segment_tile_plan(seg, seg), 10)
+    skipped = int(plan.sum())
     phase(f"phase 27 [{card}] " + timing_line("flash_attention_fwd",
                                               times["flash_attention_fwd"])
-          + bound_share(times["flash_attention_fwd"]))
-    del o, l, m, po, pl, _pm, mask, q, k, v, _do
+          + bound_share(times["flash_attention_fwd"])
+          + f"; plan off {ms_off:.3f} ms; tile plan [{b} x {s}]: {skipped} "
+          f"of {plan.numel()} pairs of 64 x 64 tiles skipped, "
+          f"{plan.numel() - skipped} computed; the plan made in "
+          f"{plan_ms:.3f} ms (once a batch, outside the kernel's time)")
+    del o, l, m, po, pl, _pm, mask, q, k, v, _do, plan
+    torch.cuda.empty_cache()
+    q, k, v, _do, _seg = _flash_operands(gen, b, h, s, hd, s)
+    ms_un = cuda_ms(lambda: fk.flash_attention_fwd(q, k, v, None, None, scale),
+                    10)
+    sdpa_un = cuda_ms(lambda: sdpa(q, k, v, scale=scale), 10)
+    bound_un = 1e3 * 4 * h * hd * b * s * s / PEAK_OPS["bf16 tensor"]
+    phase(f"phase 27 [{card}] K14 unpadded [{b} x {h} x {s} x {hd}] (no "
+          f"segment ids, no tile to skip): {ms_un:.3f} ms (bound "
+          f"{bound_un:.3f} ms over all S x S pairs, operations; "
+          f"{100 * bound_un / ms_un:.1f} % of bound); SDPA, no mask, "
+          f"{sdpa_un:.3f} ms")
+    del q, k, v, _do, _seg
     torch.cuda.empty_cache()
 
     # a context K8 cannot take, and K8's own shape
     q, k, v, _do, seg = _flash_operands(gen, 2, h, 8192, hd, 1024)
-    o, _, _ = fk.flash_attention_fwd(q, k, v, seg, seg, scale)
+    plan = fk.segment_tile_plan(seg, seg)
+    o, _, _ = fk.flash_attention_fwd(q, k, v, seg, seg, scale, plan=plan)
     po, _, _ = fk.flash_attention_fwd_plain(q, k, v, seg, seg, scale)
     err8k, cos8k = _agreement(o, po)
-    ms8k = cuda_ms(lambda: fk.flash_attention_fwd(q, k, v, seg, seg, scale))
+    ms8k = cuda_ms(lambda: fk.flash_attention_fwd(q, k, v, seg, seg, scale,
+                                                  plan=plan))
     bound8k = 1e3 * 4 * h * hd * segment_pairs(seg) / PEAK_OPS["bf16 tensor"]
     phase(f"phase 27 [{card}] K14 [2 x {h} x 8192 x {hd}] (past K8's "
           f"{ak.KERNEL_MAX_SEQ}): {ms8k:.3f} ms, bound {bound8k:.3f} ms "
           f"(operations; {100 * bound8k / ms8k:.1f} % of bound), max|o-plain| {err8k:.4g}, cosine {cos8k:.7f}")
     assert err8k < ATT_TOL and cos8k > ATT_COS
-    del q, k, v, _do, o, po
+    del q, k, v, _do, o, po, plan
     torch.cuda.empty_cache()
     bk8, sk8 = B_ENC, S_ENC
     q, k, v, _do, seg = _flash_operands(gen, bk8, h, sk8, hd, 1)
-    ms_k14 = cuda_ms(lambda: fk.flash_attention_fwd(q, k, v, seg, seg, scale))
+    plan = fk.segment_tile_plan(seg, seg)
+    ms_k14 = cuda_ms(lambda: fk.flash_attention_fwd(q, k, v, seg, seg, scale,
+                                                    plan=plan))
     qkv = torch.cat([t.transpose(1, 2).reshape(bk8, sk8, h * hd)
                      for t in (q, k, v)], dim=-1).contiguous()
     bias = torch.where(seg > 0, 0.0, -1e9).to(torch.float32).contiguous()
@@ -2989,7 +3054,7 @@ def check_flash_kernels(gen, card):
     phase(f"phase 27 [{card}] K14 at K8's shape [{bk8} x {h} x {sk8} x "
           f"{hd}]: {ms_k14:.3f} ms; K8 (rotary + attention off Wqkv) "
           f"{ms_k8:.3f} ms in this run")
-    del q, k, v, _do, qkv, bias
+    del q, k, v, _do, qkv, bias, plan
     torch.cuda.empty_cache()
 
     # the backward at the finetune step's shape
@@ -3042,9 +3107,11 @@ def check_flash_kernels(gen, card):
         phase(f"phase 27 [{card}] " + timing_line(name, times[name])
               + bound_share(times[name])
               + " (library: SDPA's whole backward)")
-    phase(f"phase 27 [{card}] K15/K16 tile plan and 1/l (made once a "
-          f"backward, outside the kernels' times): {plan_ms:.3f} ms")
-    plan = fk.backward_tile_plan(seg, seg, m)
+    phase(f"phase 27 [{card}] K15/K16 tile plan (from the segment ids, "
+          f"once a batch) and 1/l (once a backward), outside the kernels' "
+          f"times: {plan_ms:.3f} ms")
+    plan = fk.segment_tile_plan(seg, seg)
+    assert torch.equal(plan, fk.backward_tile_plan(seg, seg, m))
     skipped = int(plan.sum())
     phase(f"phase 27 [{card}] K15/K16 tile plan [{b} x {s}]: {skipped} of "
           f"{plan.numel()} pairs of 64 x 64 tiles skipped (exact zeros), "
@@ -3055,19 +3122,26 @@ def check_flash_kernels(gen, card):
     return errs, times
 
 
+def _plan_and_reciprocal(fk, seg_q, seg_kv, l):
+    """What K15 and K16 read beside the operands: the tile plan from the
+    segment ids (the encoder makes it once a batch) and ``1 / l``
+    (``FlashAttention.backward`` makes it once for both kernels)."""
+    return torch.reciprocal(l), fk.segment_tile_plan(seg_q, seg_kv)
+
+
 def flash_bwd_kernel_ms(fk, args, iters: int = 10):
     """K15's and K16's ms on the wrappers' ``args`` with the tile plan and
-    1 / l made once, as ``FlashAttention.backward`` makes them for both
-    kernels, and the ms of making them: a wrapper call makes them itself,
-    and its few small torch ops cost host time that a short timing window
-    would count as the kernel's."""
+    1 / l made once, as the encoder and ``FlashAttention.backward`` make
+    them, and the ms of making them: a wrapper call makes them itself, and
+    its few small torch ops cost host time that a short timing window would
+    count as the kernel's."""
     q, k, v, seg_q, seg_kv, l, m, do, di, scale = args
-    inv_l, plan = fk._backward_extras(seg_q, seg_kv, l, m)
+    inv_l, plan = _plan_and_reciprocal(fk, seg_q, seg_kv, l)
     ms15 = cuda_ms(lambda: fk._bwd_dkv_kernel(q, k, v, seg_q, seg_kv, inv_l,
                                               m, do, di, plan, scale), iters)
     ms16 = cuda_ms(lambda: fk._bwd_dq_kernel(q, k, v, seg_q, seg_kv, inv_l, m,
                                              do, di, plan, scale), iters)
-    plan_ms = cuda_ms(lambda: fk._backward_extras(seg_q, seg_kv, l, m),
+    plan_ms = cuda_ms(lambda: _plan_and_reciprocal(fk, seg_q, seg_kv, l),
                       iters)
     return ms15, ms16, plan_ms
 
@@ -3133,7 +3207,8 @@ def check_flash_backward_cases(gen, card):
     di = (o.float() * do.float()).sum(-1)
     args = (q, k, v, seg_q, seg, l, m, do, di, scale)
     parts = _flash_bwd_agreement(fk, args)
-    plan = fk.backward_tile_plan(seg_q, seg, m)
+    plan = fk.segment_tile_plan(seg_q, seg)
+    assert torch.equal(plan, fk.backward_tile_plan(seg_q, seg, m))
     lonely = bool((m[1, :, 100] < fk.DEFAULT_MASK_VALUE / 2).all())
     phase(f"phase 27 [{card}] K15/K16 [{b} x {h} x {s} x {hd}] with query "
           f"token 100 of row 1 in a segment no key has (its m the mask value: "
@@ -3186,6 +3261,7 @@ def check_flash_paths(seed, card, tmp, src):
         ids_d, mask_d)) / 1e3)
     split, total, _top = _device_profile(
         lambda: flash.encode_tokens_device(ids_d, mask_d), K14_K16)
+    glue = glue_ops(lambda: flash.encode_tokens_device(ids_d, mask_d))
     plain = NomicEncoder(dataclasses.replace(cfg, attention_impl="xla"),
                          state_dict=flash.model.state_dict(), device="cuda")
     a = flash.encode_tokens(ids[:4], np.ones_like(mask[:4]))
@@ -3196,6 +3272,7 @@ def check_flash_paths(seed, card, tmp, src):
           f"device time {total:.2f} ms: " + ", ".join(
               f"{k_} {v_:.2f} ms ({100 * v_ / total:.1f} %)"
               for k_, v_ in split.items() if v_)
+          + f"; the rest's largest ops: {glue}"
           + f"; pooled cosine vs xla on 4 unpadded rows min {cos.min():.6f} "
           f"(bound {ATT_COS})")
     assert per_forward == cfg.num_layers and cos.min() >= ATT_COS
@@ -3246,11 +3323,13 @@ def check_flash_paths(seed, card, tmp, src):
     step = dict(fk.launch_counts)
     split, total, _top = _device_profile(
         lambda: tr.train_step_device(*batch), K14_K16)
+    glue = glue_ops(lambda: tr.train_step_device(*batch))
     phase(f"phase 27 [{card}] finetune step flash, {B_FLASH_STEP} pairs x "
           f"{S_FLASH} tokens: loss {loss:.6f}, {step_s * 1e3:.1f} ms host "
           f"clock, launches {step}; device time {total:.2f} ms: "
           + ", ".join(f"{k_} {v_:.2f} ms ({100 * v_ / total:.1f} %)"
-                      for k_, v_ in split.items()))
+                      for k_, v_ in split.items())
+          + f"; the rest's largest ops: {glue}")
     want = 2 * cfg.num_layers
     assert math.isfinite(loss) and step == dict.fromkeys(step, want), step
     launches["flash_attention_bwd_dkv"] = step["flash_attention_bwd_dkv"]

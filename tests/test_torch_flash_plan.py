@@ -1,15 +1,24 @@
-"""The backward's tile plan (``ops/flash_kernels.py:backward_tile_plan``):
-K15 and K16 skip the (query tile, key tile) pairs it marks, so every pair
-it marks must add exact zeros. Checked on the CPU against the plain
-backward's own ``p = exp(s - m) * (1 / l)`` (``_recompute_p``) and ``ds``
-(``_ds``), from the plain forward's ``l`` and ``m``, on numpy-seeded inputs
-at small sizes: the encoder's contiguous masks (pad tokens their own
-segment), shuffled non-contiguous segment ids (hypothesis), Sq 256 against
-Sk 384, a query row with no key of its own segment, and no segment ids.
+"""The kernels' tile plan: K14, K15 and K16 skip the (query tile, key
+tile) pairs it marks, so every pair it marks must add exact zeros.
+
+``backward_tile_plan`` (the rule read off the forward's ``m``) is checked
+on the CPU against the plain backward's own ``p = exp(s - m) * (1 / l)``
+(``_recompute_p``) and ``ds`` (``_ds``), from the plain forward's ``l`` and
+``m``, on numpy-seeded inputs at small sizes: the encoder's contiguous
+masks (pad tokens their own segment), shuffled non-contiguous segment ids
+(hypothesis), Sq 256 against Sk 384, a query row with no key of its own
+segment, and no segment ids. ``segment_tile_plan``, the plan the kernels
+take (made from the ids alone, once a batch), is held equal to it on each
+of those layouts, and to a tile-by-tile reading of the rule on a ragged
+Sq. A plain walk of 64-key tiles in K14's order gives ``o``, ``l`` and
+``m`` bit for bit equal with the planned pairs skipped and computed. Last,
+the card-time refusal of ``auto``/``fused`` past K8's 1,024 tokens, which
+leaves the CPU's resolution the JAX package's.
 
 Tolerances: none. A skipped pair's ``p`` and ``ds`` are exactly 0.0 on
 every element (``exp`` of a difference near the mask value underflows),
-and a row whose maximum is the mask value is never skipped.
+a row whose maximum is the mask value is never skipped, and the plans and
+the walks compare with ``torch.equal``.
 """
 
 import math
@@ -20,6 +29,13 @@ import torch
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
+from better_search_rag_rust_tpu.models.nomic import (
+    _resolve_attention_impl as jax_resolve,
+)
+from better_search_rag_rust_tpu_torch.config import EncoderConfig
+from better_search_rag_rust_tpu_torch.models import nomic
+from better_search_rag_rust_tpu_torch.models.encoder import create_encoder
+from better_search_rag_rust_tpu_torch.models.train import ContrastiveTrainer
 from better_search_rag_rust_tpu_torch.ops import flash_kernels as fk
 
 T = fk.PLAN_TILE
@@ -64,7 +80,18 @@ def _check_plan(q, k, v, do, seg_q, seg_kv):
     lonely = (m <= fk.DEFAULT_MASK_VALUE / 2).any(dim=1)  # [B, Sq]
     lonely_tiles = lonely.reshape(b, sq // T, T).any(-1)
     assert not torch.any(plan & lonely_tiles[:, :, None])
+    _check_ids_plan(plan, seg_q, seg_kv)
     return plan
+
+
+def _check_ids_plan(want, seg_q, seg_kv):
+    """The kernels' plan from the ids alone equals ``want`` (the plan read
+    off the forward's ``m``), through the self-attention shortcut (``seg_q
+    is seg_kv``) where the two are one tensor, and through the per-row
+    lookup on a copy of the key ids."""
+    if seg_kv is seg_q:
+        assert torch.equal(fk.segment_tile_plan(seg_q, seg_q), want)
+    assert torch.equal(fk.segment_tile_plan(seg_q, seg_kv.clone()), want)
 
 
 @pytest.mark.parametrize("b,h,s,hd,seed", [
@@ -134,6 +161,7 @@ def test_no_segment_ids_skip_nothing():
     q, k, v, do = _operands(rng, 2, 2, 256, 256, 16)
     _o, _l, m = fk.flash_attention_fwd_plain(q, k, v, None, None, 0.25)
     assert fk.backward_tile_plan(None, None, m) is None
+    assert fk.segment_tile_plan(None, None) is None
 
 
 @settings(max_examples=12, deadline=None,
@@ -188,3 +216,206 @@ def test_plan_share_on_phase27_lengths():
     assert np.all(share >= estimate - 2 * (2 / n))
     assert abs(share.mean() - estimate.mean()) < 0.04
     assert 0.28 < share.mean() < 0.38
+
+
+def _layout(name, rng):
+    """Segment ids ``(seg_q, seg_kv)`` of one layout at Sq 256 (Sk 384
+    where the lengths cross); ``seg_kv is seg_q`` for self-attention."""
+    b = 3
+    if name == "encoder":
+        seg = _encoder_segments(rng, b, 256)
+        seg[1] = 1
+        seg[1, 100:] = 0  # 100 real tokens: pairs to skip
+        return seg, seg
+    if name == "shuffled":
+        base = rng.integers(0, 4, size=(b, 256 // T, 1)) * 10
+        tok = (base + rng.integers(0, 3, size=(b, 256 // T, T))).reshape(b, 256)
+        for row in tok:
+            for t0 in range(0, 256, T):
+                rng.shuffle(row[t0:t0 + T])
+        seg = torch.from_numpy(tok.astype(np.int32))
+        return seg, seg
+    if name == "cross":
+        seg_q = _encoder_segments(rng, b, 256)
+        seg_kv = _encoder_segments(rng, b, 384)
+        seg_q[1], seg_kv[1] = 1, 1
+        seg_q[1, 200:], seg_kv[1, 200:] = 0, 0
+        return seg_q, seg_kv
+    if name == "lonely":
+        seg = torch.zeros((b, 256), dtype=torch.int32)
+        seg[:, 128:] = 1
+        seg_q = seg.clone()
+        seg_q[0, 70] = -5  # no key has segment -5
+        seg_q[2, 200] = 7
+        return seg_q, seg
+    assert name == "none"
+    return None, None
+
+
+@pytest.mark.parametrize("layout", ["encoder", "shuffled", "cross", "lonely",
+                                    "none"])
+def test_ids_plan_equals_the_plan_read_off_m(layout):
+    """``segment_tile_plan`` (the ids alone, once a batch) equals
+    ``backward_tile_plan`` on the plain forward's ``m`` on each layout: the
+    encoder's masks, shuffled ids, cross lengths, rows whose segment no key
+    has (their tiles never skipped), no segment ids."""
+    rng = np.random.default_rng(11)
+    seg_q, seg_kv = _layout(layout, rng)
+    sk = 256 if seg_kv is None else seg_kv.shape[1]
+    q, _, _, _ = _operands(rng, 3, 2, 256, 256, 16)
+    _, k, v, _ = _operands(rng, 3, 2, sk, sk, 16)
+    _o, _l, m = fk.flash_attention_fwd_plain(q, k, v, seg_q, seg_kv, 0.25)
+    want = fk.backward_tile_plan(seg_q, seg_kv, m)
+    got = fk.segment_tile_plan(seg_q, seg_kv)
+    if layout == "none":
+        assert want is None and got is None
+        return
+    assert torch.equal(got, want)
+    _check_ids_plan(want, seg_q, seg_kv)
+    if layout == "lonely":
+        assert not got[0, 1].any() and not got[2, 3].any()
+        assert got[1, 1, 2:].all()
+
+
+def _rule_by_tiles(seg_q, seg_kv):
+    """The skip rule read tile by tile over each tile's real rows: the id
+    ranges disjoint and every real query row with a key of its own
+    segment."""
+    b, sq = seg_q.shape
+    sk = seg_kv.shape[1]
+    nq, nk = -(-sq // T), -(-sk // T)
+    want = torch.zeros((b, nq, nk), dtype=torch.bool)
+    for i in range(b):
+        keys = set(seg_kv[i].tolist())
+        for a in range(nq):
+            rows = seg_q[i, a * T:(a + 1) * T]
+            if not all(x in keys for x in rows.tolist()):
+                continue
+            for c in range(nk):
+                cols = seg_kv[i, c * T:(c + 1) * T]
+                want[i, a, c] = bool(rows.max() < cols.min()
+                                     or cols.max() < rows.min())
+    return want
+
+
+@pytest.mark.parametrize("sq", [200, 129, 256])
+def test_ragged_query_plan_takes_its_last_tile_over_real_rows(sq):
+    """A ragged Sq (the forward takes any Sq >= 128) plans ``ceil(Sq/64)``
+    query tiles, the last over its real rows only: at Sq 200, rows 192-199
+    all pad, their tile is skipped against the real key tiles (rows past
+    Sq taken as real ids would keep it)."""
+    rng = np.random.default_rng(12)
+    seg_kv = _encoder_segments(rng, 3, 256)
+    seg_kv[1] = 1
+    seg_kv[1, 150:] = 0
+    seg_q = seg_kv[:, :sq].clone()
+    got = fk.segment_tile_plan(seg_q, seg_kv)
+    assert got.shape == (3, -(-sq // T), 4)
+    assert torch.equal(got, _rule_by_tiles(seg_q, seg_kv))
+    if sq == 200:
+        assert got[1, 3, :2].all()
+
+
+def _k14_walk(q, k, v, seg_q, seg_kv, scale, skip):
+    """K14's arithmetic in plain torch, in its order: per 64-row query
+    tile, the 64-key tiles in increasing order (those ``skip`` marks left
+    out), ``m_next = max(m, rowmax(s))``, ``alpha = exp(m - m_next)``, ``l
+    = alpha l + sum(p)``, ``acc = alpha acc + bf16(p) v``; ``o = acc / l``.
+    Returns ``(o, l, m)``."""
+    b, h, sq, hd = q.shape
+    sk = k.shape[2]
+    s_all = fk._logits(q, k, seg_q, seg_kv, scale)
+    o = torch.empty((b, h, sq, hd))
+    l_out = torch.empty((b, h, sq))
+    m_out = torch.empty((b, h, sq))
+    for a in range(-(-sq // T)):
+        rows = slice(a * T, min(sq, (a + 1) * T))
+        n = rows.stop - rows.start
+        m = torch.full((b, h, n, 1), -torch.inf)
+        l = torch.zeros((b, h, n, 1))
+        acc = torch.zeros((b, h, n, hd))
+        for c in range(sk // T):
+            keep = ~skip[:, a, c]
+            if not keep.any():
+                continue
+            cols = slice(c * T, (c + 1) * T)
+            s = s_all[:, :, rows, cols]
+            m_next = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_next)
+            p = torch.exp(s - m_next)
+            l_new = l * alpha + p.sum(-1, keepdim=True)
+            acc_new = acc * alpha + torch.matmul(
+                p.to(torch.bfloat16).float(), v[:, :, cols].float())
+            sel = keep[:, None, None, None]
+            m = torch.where(sel, m_next, m)
+            l = torch.where(sel, l_new, l)
+            acc = torch.where(sel, acc_new, acc)
+        o[:, :, rows] = acc / l
+        l_out[:, :, rows], m_out[:, :, rows] = l[..., 0], m[..., 0]
+    return o, l_out, m_out
+
+
+@pytest.mark.parametrize("layout,sq", [("encoder", 256), ("shuffled", 256),
+                                       ("cross", 256), ("lonely", 256),
+                                       ("encoder", 200)])
+def test_k14_walk_is_bitwise_with_the_plan_on_and_off(layout, sq):
+    """Skipping the planned pairs leaves K14's ``o``, ``l`` and ``m`` bit
+    for bit as they are: after a row's first own-segment tile a masked tile
+    gives alpha = exp(0) = 1 and p = 0; before it, that tile's alpha = 0
+    wipes the masked sums. Checked with a plain walk of K14's tile order on
+    bf16-valued operands, pad rows and a ragged Sq included; the plan skips
+    pairs on every layout."""
+    rng = np.random.default_rng(13)
+    seg_q, seg_kv = _layout(layout, rng)
+    seg_q = seg_q[:, :sq]
+    if seg_kv is not seg_q and seg_kv.shape[1] == sq:
+        seg_kv = seg_kv.clone()
+    sk = seg_kv.shape[1]
+    q, _, _, _ = _operands(rng, 3, 2, sq, sq, 32)
+    _, k, v, _ = _operands(rng, 3, 2, sk, sk, 32)
+    q, k, v = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    plan = fk.segment_tile_plan(seg_q, seg_kv)
+    assert plan.any()
+    scale = 1.0 / math.sqrt(32)
+    on = _k14_walk(q, k, v, seg_q, seg_kv, scale, plan)
+    off = _k14_walk(q, k, v, seg_q, seg_kv, scale, torch.zeros_like(plan))
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
+    po, _pl, pm = fk.flash_attention_fwd_plain(q, k, v, seg_q, seg_kv, scale)
+    assert torch.equal(on[2], pm)
+    assert float((on[0] - po).abs().max()) < 1e-2
+
+
+@pytest.mark.parametrize("impl,max_tokens,device,raises", [
+    ("auto", 2048, "cuda", True), ("fused", 1032, "cuda", True),
+    ("auto", 1024, "cuda", False), ("flash", 2048, "cuda", False),
+    ("xla_bf16", 2048, "cuda", False), ("auto", 2044, "cuda", False),
+    ("auto", 2048, "cpu", False), ("fused", 4096, "cpu", False),
+])
+def test_fused_past_k8_refused_on_the_card(impl, max_tokens, device, raises):
+    """On a CUDA device, ``auto``/``fused`` past ``KERNEL_MAX_SEQ`` raises
+    a ``ValueError`` that names ``flash`` (no card needed: the device type
+    is an argument); ``max_tokens`` 2,044 resolves to ``xla_bf16`` (not a
+    multiple of 8), which takes any length; the CPU is not refused."""
+    if raises:
+        with pytest.raises(ValueError, match="attention_impl='flash'"):
+            nomic.refuse_fused_past_kernel(impl, max_tokens, 64, device)
+    else:
+        nomic.refuse_fused_past_kernel(impl, max_tokens, 64, device)
+
+
+def test_cpu_encoder_past_k8_resolves_as_the_jax_package():
+    """Built on the CPU at 2,048 tokens with ``auto``, the encoder service
+    and the trainer construct, and the resolution is the JAX package's
+    (``fused``, recorded as ``torch-fused``)."""
+    small = dict(dim=32, num_layers=1, num_heads=2, mlp_dim=64,
+                 vocab_size=128, max_tokens=2048)
+    svc = create_encoder(EncoderConfig(backend="nomic", **small),
+                         device="cpu")
+    want = jax_resolve("auto", seq_len=2048, head_dim=16)
+    assert want == "fused"
+    assert svc.numerics["attention_impl"] == f"torch-{want}"
+    assert nomic._resolve_attention_impl("auto", 2048, 16) == want
+    cfg = nomic.NomicBertConfig(hidden_size=32, num_layers=1, num_heads=2,
+                                mlp_dim=64, vocab_size=128, max_tokens=2048)
+    ContrastiveTrainer(cfg, device="cpu")

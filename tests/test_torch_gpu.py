@@ -1652,7 +1652,10 @@ def _flash_backward_close(fk, q, k, v, do, seg_q, seg_kv, scale):
     torch.cuda.synchronize()
     for got, want in ((dq, pdq), (dk, pdk), (dv, pdv)):
         assert torch.isfinite(got.float()).all() and _close(got, want)
-    return fk.backward_tile_plan(seg_q, seg_kv, m)
+    plan = fk.backward_tile_plan(seg_q, seg_kv, m)
+    ids_plan = fk.segment_tile_plan(seg_q, seg_kv)
+    assert (plan is None and ids_plan is None) or torch.equal(ids_plan, plan)
+    return plan
 
 
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
@@ -1718,6 +1721,52 @@ def test_flash_backward_bitwise_across_runs(cuda, hd):
     torch.cuda.synchronize()
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+def _k14_layouts(cuda, hd):
+    """K14's layouts beside the padded self-attention: ``(name, q, k, v,
+    seg_q, seg_kv)`` with a ragged Sq (200 queries against 256 keys, the
+    query ids the key ids' first 200), cross lengths (256 against 384), a
+    query row whose segment no key has, and no segment ids."""
+    q, k, v, _do, seg_q, seg_kv = _flash_operands(cuda, 3, 2, 384, hd, seed=8,
+                                                  sq=256)
+    k2, v2 = k[:, :, :256].contiguous(), v[:, :, :256].contiguous()
+    lonely = seg_kv[:, :256].clone()
+    lonely[1, 70] = 9  # no key has segment 9
+    return [("ragged", q[:, :, :200].contiguous(), k2, v2,
+             seg_kv[:, :200].contiguous(), seg_kv[:, :256].contiguous()),
+            ("cross", q, k, v, seg_q, seg_kv),
+            ("lonely", q, k2, v2, lonely, seg_kv[:, :256].contiguous()),
+            ("none", q, k2, v2, None, None)]
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_forward_layouts_plan_and_bits(cuda, hd):
+    """K14 against its plain version at every head width on a ragged Sq,
+    cross lengths, a lonely query row and no segment ids (o within K8's
+    bound, l and m to 1e-5 relative); with the ids' tile plan on and off
+    (o, l and m bit for bit; the plan skips pairs on every layout with
+    ids), and two runs bit for bit."""
+    from better_search_rag_rust_tpu_torch.ops import flash_kernels as fk
+
+    scale = 1.0 / hd ** 0.5
+    for name, q, k, v, seg_q, seg_kv in _k14_layouts(cuda, hd):
+        plan = fk.segment_tile_plan(seg_q, seg_kv)
+        on = fk.flash_attention_fwd(q, k, v, seg_q, seg_kv, scale, plan=plan)
+        again = fk.flash_attention_fwd(q, k, v, seg_q, seg_kv, scale, plan=plan)
+        off = fk.flash_attention_fwd(q, k, v, seg_q, seg_kv, scale, plan=None)
+        po, pl, pm = fk.flash_attention_fwd_plain(q, k, v, seg_q, seg_kv, scale)
+        torch.cuda.synchronize()
+        assert name == "none" or bool(plan.any()), name
+        for a, b, c in zip(on, again, off):
+            assert torch.equal(a, b) and torch.equal(a, c), name
+        o, l, m = on
+        assert torch.isfinite(o.float()).all(), name
+        a, r = o.float(), po.float()
+        assert (a - r).abs().max() < 0.02, name
+        assert float((a * r).sum() / (a.norm() * r.norm())) > 0.999, name
+        assert float(((l - pl).abs() / pl).max()) <= 1e-5, name
+        assert float(((m - pm).abs() / pm.abs().clamp_min(1.0)).max()) <= 1e-5
 
 
 def test_flash_refuses_what_it_does_not_take(cuda):
