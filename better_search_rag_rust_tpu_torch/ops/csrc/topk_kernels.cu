@@ -20,6 +20,8 @@
 //                                  :57): K2's scores plus a resident product
 //   K13 bsr_gather_cross        <- scripts/proto_fused.py fused_scores (:139,
 //                                  body :119): each 8-query group's full cross
+//   K17 bsr_cast_bf16           <- no Pallas kernel: the store's and the
+//                                  queries' bf16 cast, the JAX package's NaN bits
 //
 // K4 and K11 move bytes only. K6 is K2's mainloop (gather_scores) over
 // pre-gathered rows, so what is said of K2 below holds for it; K12's gather
@@ -958,6 +960,34 @@ __device__ __forceinline__ void any_score_tile(const T* __restrict__ q,
   }
 }
 
+// NaN. The float bodies' maxima propagate a NaN score, as the plain
+// versions' amax and the JAX kernels' jnp.max do (topk_pallas.py:114, 189,
+// 353-354, 425-452); fmaxf would drop it, leaving a unit or block that holds a
+// NaN row a finite maximum, which no selection then ranks first. max_nan is
+// the one such max: PTX max.NaN, one instruction like fmaxf, writes the
+// canonical NaN 0x7FFFFFFF, the bits every NaN score on the card has already
+// (the plain versions' cuBLAS product writes the same). A unit whose max is
+// NaN has no attaining row: its argmax is `sub` (unit_arg), and its m2 the
+// NaN max itself, as the plain `where(eq, iota, sub).amin()` gives. The int8
+// unit pass takes max_nan too; its integer scores are never NaN.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// One step of a unit's argmax scan: a greater score names its row (strict:
+// the lowest attaining row wins a tie); a NaN score makes the max NaN.
+__device__ __forceinline__ void argmax_step(float v, int r, float& m1, int& arg) {
+  if (v > m1) arg = r;
+  m1 = max_nan(m1, v);
+}
+
+// The argmax of a finished scan: `sub` (no row) where the max is NaN.
+__device__ __forceinline__ int unit_arg(float m1, int arg, int sub) {
+  return m1 != m1 ? sub : arg;
+}
+
 // m2_sort_key + pack_m2_argmax_key (topk_pallas.py:267-304): m2's
 // order-preserving uint image (-0.0 folded into +0.0) rounded UP to a
 // multiple of 128, OR the sub-local argmax, sign bit flipped into int32.
@@ -1032,11 +1062,11 @@ __device__ __forceinline__ void unit_pass_i8_lg(const float* st, int sub, Emit&&
     for (int r = k + split; r < sub; r += split) {
       const float v = col[r * LD];
       if (v > m1) {  // strict: lowest attaining row
-        m2 = fmaxf(m2, m1);
+        m2 = max_nan(m2, m1);
         m1 = v;
         a = r;
       } else {
-        m2 = fmaxf(m2, v);
+        m2 = max_nan(m2, v);
       }
     }
 #pragma unroll
@@ -1045,11 +1075,11 @@ __device__ __forceinline__ void unit_pass_i8_lg(const float* st, int sub, Emit&&
       const float o2 = __shfl_xor_sync(0xffffffffu, m2, off);
       const int oa = __shfl_xor_sync(0xffffffffu, a, off);
       if (o1 > m1 || (o1 == m1 && oa < a)) {
-        m2 = fmaxf(o2, m1);
+        m2 = max_nan(o2, m1);
         m1 = o1;
         a = oa;
       } else {
-        m2 = fmaxf(m2, o1);
+        m2 = max_nan(m2, o1);
       }
     }
     if (live && k == 0) emit(u, c, m1, a, m2);
@@ -1121,10 +1151,8 @@ k1_blockmax2(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
       const float* col = st + (size_t)u * sub * LD + c;
       float m1 = col[0];
       int arg = 0;
-      for (int r = 1; r < sub; ++r) {
-        const float v = col[r * LD];
-        if (v > m1) { m1 = v; arg = r; }  // strict: lowest attaining row
-      }
+      for (int r = 1; r < sub; ++r) argmax_step(col[r * LD], r, m1, arg);
+      arg = unit_arg(m1, arg, sub);
       um[u * TQ + c] = m1;
       if (q0 + c >= Tn) continue;
       const size_t o = (size_t)(row0 / sub + u) * Tn + q0 + c;
@@ -1132,7 +1160,7 @@ k1_blockmax2(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
       if (key != nullptr) {
         // second max: the max with the argmax ROW replaced by PAD_SIM
         float m2 = __uint_as_float(0xff800000u);  // -inf
-        for (int r = 0; r < sub; ++r) m2 = fmaxf(m2, r == arg ? PAD_SIM : col[r * LD]);
+        for (int r = 0; r < sub; ++r) m2 = max_nan(m2, r == arg ? PAD_SIM : col[r * LD]);
         key[o] = pack_key(m2, arg);
       }
     }
@@ -1144,7 +1172,7 @@ k1_blockmax2(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
     const int g = p / TQ, c = p % TQ;
     if (q0 + c >= Tn) continue;
     float m = um[(g * per) * TQ + c];
-    for (int u = 1; u < per; ++u) m = fmaxf(m, um[(g * per + u) * TQ + c]);
+    for (int u = 1; u < per; ++u) m = max_nan(m, um[(g * per + u) * TQ + c]);
     bm[(size_t)(row0 / ew + g) * Tn + q0 + c] = m;
   }
 }
@@ -1175,7 +1203,7 @@ __device__ __forceinline__ void store_block_max(const float* st, int block, int 
       if (q0 + c >= Tn) continue;
       const float* col = st + (size_t)g * block * LD + c;
       float m = col[0];
-      for (int r = 1; r < block; ++r) m = fmaxf(m, col[r * LD]);
+      for (int r = 1; r < block; ++r) m = max_nan(m, col[r * LD]);
       out[(size_t)(row0 / block + g) * g_stride + (size_t)(q0 + c) * q_stride] = m;
     }
   }
@@ -1206,7 +1234,7 @@ k3_blockmax(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int R,
     if (q0 + c >= Tn) continue;
     const float* col = st + (size_t)g * block * LDO + c;
     float m = col[0];
-    for (int r = 1; r < block; ++r) m = fmaxf(m, col[r * LDO]);
+    for (int r = 1; r < block; ++r) m = max_nan(m, col[r * LDO]);
     bm_t[(size_t)(row0 / block + g) * Tn + q0 + c] = m;
   }
 }
@@ -1325,10 +1353,8 @@ k10_blockmax2x(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int
         const float* col = st + (size_t)u * sub * LD + c;
         float m1 = col[0];
         int a = 0;
-        for (int r = 1; r < sub; ++r) {
-          const float v = col[r * LD];
-          if (v > m1) { m1 = v; a = r; }  // strict: lowest attaining row
-        }
+        for (int r = 1; r < sub; ++r) argmax_step(col[r * LD], r, m1, a);
+        a = unit_arg(m1, a, sub);
         um[u * TQ + c] = m1;
         if (q0 + c >= Tn) continue;
         const size_t o = at(row0 / sub + u, c);
@@ -1336,7 +1362,7 @@ k10_blockmax2x(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int
         if (arg != nullptr) arg[o] = a;
         if (m2 != nullptr || key != nullptr) {
           float s2 = __uint_as_float(0xff800000u);  // -inf
-          for (int r = 0; r < sub; ++r) s2 = fmaxf(s2, r == a ? PAD_SIM : col[r * LD]);
+          for (int r = 0; r < sub; ++r) s2 = max_nan(s2, r == a ? PAD_SIM : col[r * LD]);
           if (m2 != nullptr) m2[o] = s2;
           if (key != nullptr) key[o] = pack_key(s2, a);
         }
@@ -1350,11 +1376,11 @@ k10_blockmax2x(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int
           const int g = p / TQ, c = p % TQ;
           if (q0 + c >= Tn) continue;
           float m = um[(g * per) * TQ + c];
-          for (int u = 1; u < per; ++u) m = fmaxf(m, um[(g * per + u) * TQ + c]);
+          for (int u = 1; u < per; ++u) m = max_nan(m, um[(g * per + u) * TQ + c]);
           bm[(size_t)(row0 / ew + g) * Tn + q0 + c] = m;
         }
       } else if (threadIdx.x < TQ) {
-        for (int u = 0; u < units; ++u) cmax = fmaxf(cmax, um[u * TQ + threadIdx.x]);
+        for (int u = 0; u < units; ++u) cmax = max_nan(cmax, um[u * TQ + threadIdx.x]);
       }
     }
     if (tiles > 1) __syncthreads();  // the next tile's staging overwrites st
@@ -1987,6 +2013,38 @@ int launch_k12(const void* q, const void* shard, const int32_t* ids, int Tn, int
   return (int)cudaGetLastError();
 }
 
+// K17: the bf16 cast of normalized rows, store and queries
+// (ops/quantize.py:cast_rows_to; the JAX package casts with XLA's convert,
+// better_search_rag_rust_tpu/ops/quantize.py:cast_rows_to, no Pallas
+// kernel). Round to nearest even, as the card's cvt.rn.bf16.f32, except a
+// NaN: ml_dtypes' bits, 0x7FC0 with the input's sign (cvt writes 0x7FFF).
+// The NaN's sign decides its rank on the CPU (m2_sort_key), so the store
+// and queries must hold the JAX package's bits. Bound: the bytes, 4 read
+// and 2 written an element; one pass, 16-byte loads where x is aligned.
+__device__ __forceinline__ uint16_t bf16_bits(float v) {
+  if (v != v) return (uint16_t)(((__float_as_uint(v) >> 16) & 0x8000u) | 0x7FC0u);
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+constexpr int CAST_THREADS = 256;
+
+__global__ void __launch_bounds__(CAST_THREADS)
+k17_cast_bf16(const float* __restrict__ x, uint16_t* __restrict__ y, long long n, int vec) {
+  const long long stride = (long long)gridDim.x * CAST_THREADS;
+  const long long t = (long long)blockIdx.x * CAST_THREADS + threadIdx.x;
+  const long long n4 = vec ? n / 4 : 0;
+  for (long long i = t; i < n4; i += stride) {
+    const float4 v = reinterpret_cast<const float4*>(x)[i];
+    ushort4 o;
+    o.x = bf16_bits(v.x);
+    o.y = bf16_bits(v.y);
+    o.z = bf16_bits(v.z);
+    o.w = bf16_bits(v.w);
+    reinterpret_cast<ushort4*>(y)[i] = o;
+  }
+  for (long long i = 4 * n4 + t; i < n; i += stride) y[i] = bf16_bits(x[i]);
+}
+
 }  // namespace
 
 extern "C" {
@@ -2126,6 +2184,19 @@ int bsr_gather_cross(const void* q, const void* shard, const int32_t* ids, int T
   k13_gather_cross<<<grid, GR, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(shard), ids, Tn,
       R, D, k, unit, G, out);
+  return (int)cudaGetLastError();
+}
+
+// K17: x [n] f32 -> y [n] bf16 bits; y 8-byte aligned (the wrapper
+// allocates it), x read 16 bytes at a time where it is 16-byte aligned.
+int bsr_cast_bf16(const float* x, void* y, long long n, void* stream) {
+  if (n <= 0) return 0;
+  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const long long items = vec ? (n + 3) / 4 : n;
+  const long long want = (items + CAST_THREADS - 1) / CAST_THREADS;
+  const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
+  k17_cast_bf16<<<blocks, CAST_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, static_cast<uint16_t*>(y), n, vec);
   return (int)cudaGetLastError();
 }
 

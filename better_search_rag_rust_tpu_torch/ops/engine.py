@@ -418,9 +418,9 @@ class SearchEngine:
         and under ``"auto"`` off for low-dim int8 stores (``dim * 2 <
         1024``, e.g. ``search_10m_int8_mat256``), which take the full
         gather geometry — and off, whatever the mode, for a store that
-        holds a NaN or an infinity (:meth:`_store_finite`): the card's K1
-        keeps a unit's maximum and key finite past a NaN row, so the fast
-        path could not see that row, which the full gather ranks. Such a
+        holds a NaN or an infinity (:meth:`_store_finite`): the fast path's
+        masks and argmax rows assume ordered, finite scores, and a unit
+        whose maximum is NaN names no argmax row (K1 emits ``sub``). Such a
         store answers as under ``"off"``. Exactness never depends on the
         choice."""
         mode = self.config.rescore_argmax

@@ -72,12 +72,30 @@ def quantize_unit_host(x: np.ndarray) -> np.ndarray:
     ).astype(np.int8)
 
 
+#: The bf16 bits of a NaN with its sign clear and set, as ml_dtypes (the JAX
+#: package's cast) writes them, whatever the payload: 0x7FC0 and 0xFFC0.
+BF16_NAN_BITS = 0x7FC0
+BF16_NEG_NAN_BITS = 0xFFC0 - (1 << 16)  # as int16
+
+
 def cast_rows_to(x: torch.Tensor, dtype) -> torch.Tensor:
     """Normalized f32 rows -> store dtype: the lattice for int8, a round to
-    nearest even otherwise."""
+    nearest even otherwise, and for bf16 a NaN written as the JAX package
+    writes it (:data:`BF16_NAN_BITS`, :data:`BF16_NEG_NAN_BITS`, by the
+    input's sign). Torch's own cast writes 0xFFFF for every NaN on its
+    vectorised CPU path, 0x7FC0 on its scalar one and 0x7FFF on the card;
+    the sign of a NaN score decides its rank (:func:`.topk_kernels.
+    m2_sort_key`), so the bits must be the reference's. Finite values and
+    infinities keep torch's bits, which are ml_dtypes' (round to nearest
+    even). The bf16 cast is K17 (:func:`.topk_kernels.cast_bf16`): one
+    pass on the card, its plain version on the CPU."""
     dt = store_dtype(dtype)
     if dt == torch.int8:
         return quantize_unit(x)
+    if dt == torch.bfloat16:
+        from .topk_kernels import cast_bf16
+
+        return cast_bf16(x.to(torch.float32))
     return x.to(dt)
 
 

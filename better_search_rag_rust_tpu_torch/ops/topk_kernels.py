@@ -25,6 +25,8 @@ K12 :func:`gather_rescore_mm`     K2's scores plus ``copies`` copies of a
 K13 :func:`gather_cross`          each 8-query group against all of its
                                   queries' selected units, the full cross
                                   (bf16)
+K17 :func:`cast_bf16`             f32 rows -> bf16, a NaN as the JAX
+                                  package writes it (no Pallas twin)
 === ============================= ======================================
 
 K10 replaces the block-max prototypes of the TPU measurement record
@@ -77,7 +79,7 @@ from typing import Dict
 
 import torch
 
-from .quantize import INT8_INV_SCALE2
+from .quantize import BF16_NAN_BITS, BF16_NEG_NAN_BITS, INT8_INV_SCALE2
 
 #: Default row-block width for block maxima.
 BLOCK = 128
@@ -123,6 +125,7 @@ launch_counts: Dict[str, int] = {
     "gather_copy": 0,
     "gather_rescore_mm": 0,
     "gather_cross": 0,
+    "cast_bf16": 0,
 }
 
 
@@ -219,10 +222,14 @@ def m2_sort_key(x: torch.Tensor) -> torch.Tensor:
     """Order-preserving int32 image of f32 ``x`` (-0.0 folded into +0.0):
     ``x >= y  <=>  m2_sort_key(x) >= m2_sort_key(y)``. Bitwise the
     reference's uint32 transform: ``b`` (the int32 view of ``x + 0.0``) for
-    non-negative x, ``b ^ 0x7FFFFFFF`` for negative x."""
+    non-negative x, ``b ^ 0x7FFFFFFF`` for negative x, and ``b`` with the
+    sign cleared for a NaN, so that a NaN of either sign ranks above +inf.
+    The sign of a NaN score is the CPU's alone (it keeps an operand's NaN);
+    the card writes every NaN score as 0x7FFFFFFF, so one rule for both signs
+    gives one answer on both."""
     z = x.to(torch.float32) + 0.0
     b = z.view(torch.int32)
-    return torch.where(z < 0, b ^ 0x7FFFFFFF, b)
+    return torch.where(z < 0, b ^ 0x7FFFFFFF, b & 0x7FFFFFFF)
 
 
 def pack_m2_argmax_key(m2: torch.Tensor, arg: torch.Tensor) -> torch.Tensor:
@@ -456,6 +463,18 @@ def gather_cross_plain(queries, shard, ids, *, unit, G):
         bad = (~ok)[..., None].expand(ng, G, nq, unit).reshape(ng, 1, c)
         out[j] = s.masked_fill_(bad, float("nan")).reshape(t, c)
     return out
+
+
+def cast_bf16_plain(x):
+    """Plain K17: torch's cast (round to nearest even), then every NaN
+    rewritten as :data:`.quantize.BF16_NAN_BITS` or, with the sign set,
+    :data:`.quantize.BF16_NEG_NAN_BITS` — the same on every ATen CPU
+    capability (torch's vectorised cast writes 0xFFFF, its scalar one
+    0x7FC0)."""
+    nan_bits = torch.where(torch.signbit(x), BF16_NEG_NAN_BITS, BF16_NAN_BITS)
+    return torch.where(torch.isnan(x), nan_bits.to(torch.int16),
+                       x.to(torch.bfloat16).view(torch.int16)
+                       ).view(torch.bfloat16)
 
 
 def block_scores_plain(queries, gathered):
@@ -942,3 +961,21 @@ def gather_cross(queries, shard, ids, *, unit, G):
                 shard.data_ptr(), ids.data_ptr(), t, r, d, k, unit, G,
                 out.data_ptr(), int8_body=False)
     return out
+
+
+def cast_bf16(x):
+    """K17. f32 ``x`` (any shape) -> bf16: round to nearest even, a NaN as
+    0x7FC0 with its sign (ml_dtypes' bits, the JAX package's cast; the
+    card's own cast writes 0x7FFF). The one funnel of the store's and the
+    queries' bf16 rows (:func:`.quantize.cast_rows_to`). No Pallas twin:
+    the JAX package casts with XLA's convert."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"K17 casts float32, got {x.dtype}")
+    if x.device.type == "cpu":
+        return cast_bf16_plain(x)
+    x = x.contiguous()
+    y = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    if x.numel():
+        _launch("cast_bf16", "bsr_cast_bf16", x, x.data_ptr(), y.data_ptr(),
+                x.numel(), int8_body=False)
+    return y

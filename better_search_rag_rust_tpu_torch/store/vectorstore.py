@@ -52,6 +52,28 @@ def load_manifest(store_dir: str | os.PathLike) -> Optional[List[str]]:
     return json.loads(p.read_text())
 
 
+def _arrow():
+    """``pyarrow``, with Arrow's default memory pool (process-wide) set to
+    the system allocator. With torch in the process, Arrow's bundled
+    allocator (mimalloc, pyarrow 25) now and then segfaults in the first
+    Parquet read that follows a write: on the CPU, 6 of 150 CLI ``ingest``
+    runs crashed in the merge's read with the bundled pool, none of 246
+    with the system one (8 at a time on 8 cores). The pool decides where
+    Arrow's buffers live, never what they hold."""
+    import pyarrow as pa
+
+    pa.set_memory_pool(pa.system_memory_pool())
+    return pa
+
+
+def _parquet():
+    """``pyarrow.parquet``, after :func:`_arrow`."""
+    _arrow()
+    import pyarrow.parquet as pq
+
+    return pq
+
+
 def partial_merge_marker(store_dir: str | os.PathLike) -> Path:
     """Marker beside global.parquet when a merge skipped shards."""
     return Path(store_dir) / "global.parquet.partial"
@@ -60,7 +82,7 @@ def partial_merge_marker(store_dir: str | os.PathLike) -> Path:
 def parquet_row_count(path: str | os.PathLike) -> int:
     """Row count from Parquet metadata only — no data read. A missing or
     zero-byte file counts as empty."""
-    import pyarrow.parquet as pq
+    pq = _parquet()
 
     path = Path(path)
     if not path.exists() or path.stat().st_size == 0:
@@ -70,7 +92,7 @@ def parquet_row_count(path: str | os.PathLike) -> int:
 
 def _column_matrix(col) -> np.ndarray:
     """One row group's ``embeddings`` column as a ``[rows, D]`` f32 matrix."""
-    import pyarrow as pa
+    pa = _arrow()
 
     mats = []
     for chunk in col.chunks:
@@ -93,7 +115,7 @@ def read_matrix_slice(
 ) -> np.ndarray:
     """Rows ``[offset, offset + length)`` as an ``[length, D]`` f32 matrix,
     reading only the row groups that overlap the slice."""
-    import pyarrow.parquet as pq
+    pq = _parquet()
 
     if length <= 0:
         return np.zeros((0, 0), dtype=np.float32)
@@ -150,8 +172,8 @@ def _warm_parquet_writer() -> None:
 
     def _go() -> None:
         try:
-            import pyarrow as pa
-            import pyarrow.parquet as pq
+            pa = _arrow()
+            pq = _parquet()
 
             pq.write_table(pa.table({EMBEDDINGS_COLUMN: pa.array(
                 [1.0], pa.float32())}), pa.BufferOutputStream(),
@@ -197,7 +219,7 @@ class ParquetVectorStore:
         if self.path.stat().st_size == 0:  # foreign zero-byte file: empty
             self._chunks, self._count = [], 0
             return
-        import pyarrow.parquet as pq
+        pq = _parquet()
 
         table = pq.read_table(self.path, columns=[EMBEDDINGS_COLUMN],
                               memory_map=True)
@@ -208,7 +230,7 @@ class ParquetVectorStore:
 
     @staticmethod
     def _empty_table():
-        import pyarrow as pa
+        pa = _arrow()
 
         return pa.table({EMBEDDINGS_COLUMN: pa.array(
             [], type=pa.list_(pa.float32()))})
@@ -217,7 +239,7 @@ class ParquetVectorStore:
         """Atomic write: a reader or a resume never sees a torn file. No
         compression, no dictionary, no statistics (near-incompressible
         float rows; PLAIN pages map straight into memory)."""
-        import pyarrow.parquet as pq
+        pq = _parquet()
 
         self.path.parent.mkdir(parents=True, exist_ok=True)
         tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
@@ -308,7 +330,7 @@ class ParquetVectorStore:
 
     def persist(self) -> None:
         """Write every row to the Parquet file, atomically."""
-        import pyarrow as pa
+        pa = _arrow()
 
         mat = self.matrix()
         if mat.size == 0:

@@ -240,12 +240,32 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    loss, 24 launches each of K14, K15 and K16, the step's device split
    (the rest's largest torch ops named);
    at 2 pairs every gradient at cosine 0.99 to the ``xla`` path's.
+28. non-finite search: (a) the 64 x 32 cases of
+   tests/test_torch_nonfinite.py (:func:`nan_case`: a NaN row, NaN
+   queries, a +-inf query, each NaN and infinity of either sign), stores
+   built by the port on the card, f32/bf16/int8, routes ``rescore``
+   (argmax auto/off/on), ``global`` and (f32) ``f32cert``: every route's
+   ids are :data:`NAN_PINS`, the CPU tests' pins; (b) 1,000,448 x 768
+   bf16, f32 and int8 stores, 1024 queries (a NaN entry of each sign,
+   +-inf entries, and, once the rows are NaN, two NaN rows as queries),
+   k = 100, first finite (the argmax fast path handing NaN query tiles to
+   the full gather), then with NaN rows of either sign at a unit's first
+   row, mid-unit and in the last block (int8: the lattice's zero rows):
+   every route's ids and distances equal the same route run with the
+   plain versions of K1, K2, K3, K4 and K6 (:func:`plain_kernels`; bit
+   for bit on int8, else within TOL with ids equal wherever two rows do
+   not lie within 2 * TOL), every finite query ranks the NaN rows first,
+   the store-finiteness gate turns the argmax fast path off, and the
+   route kernels launched; K17 (the bf16 cast) bit for bit its plain
+   version on 1024 x 768 queries with NaNs of both signs, beside torch's
+   own cast.
 
 Every kernel's time is printed beside its plain version's, one PyTorch call
 computing the same function where there is one (``library``: the product
 alone for K1/K3/K5, ``scaled_dot_product_attention`` on rotated q/k/v for
 K7/K8/K9 and with the boolean segment mask for K14 (its whole backward for
-K15/K16), indexing for K4, ``bmm`` for K6; none for K2, K11, K12 and K13), and
+K15/K16), indexing for K4, ``bmm`` for K6, torch's own cast for K17; none
+for K2, K11, K12 and K13), and
 its bound: the larger of the bytes it must move (a gather: the distinct
 units it selects) over 3.35 TB/s and its operations (K12: every copy of
 its product) over the named peak
@@ -261,6 +281,7 @@ tree are seeded (``--seed``); nothing is downloaded.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -327,6 +348,10 @@ KERNELS = {
                                 LIB_FLASH + ":1121"),
     "flash_attention_bwd_dq": (CSRC + "flash_kernels.cu",
                                LIB_FLASH + ":1456"),
+    # no Pallas kernel: the JAX package's bf16 cast of store and query rows
+    # (XLA's convert), whose NaN bits K17 writes
+    "cast_bf16": (CSRC + "topk_kernels.cu",
+                  "better_search_rag_rust_tpu/ops/quantize.py:74"),
 }
 #: the encoder's shape: batch, sequence, heads, head width
 B_ENC, S_ENC, H_ENC, HD_ENC = 256, 512, 12, 64
@@ -346,6 +371,43 @@ TIMED_STEPS = 8
 #: encoder batch, the backward's batch and the finetune step's pairs
 S_FLASH, B_FLASH, B_FLASH_STEP = 2048, 32, 8
 B_FLASH_BWD = B_FLASH_STEP
+#: phase 28's pinned ids on the 64 x 32 cases of
+#: tests/test_torch_nonfinite.py (a NaN of either sign ranks above +inf; the
+#: int8 lattice quantizes a NaN to 0), which the CPU tests hold too
+NAN_PINS = {
+    "nan_row": {"float32": [[0, 1, 2, 3], [5, 6, 12, 27]],
+                "bfloat16": [[0, 1, 2, 3], [5, 6, 12, 27]],
+                "int8": [[0, 1, 2, 3], [6, 12, 27, 15]]},
+    "nan_query": dict.fromkeys(("float32", "bfloat16", "int8"),
+                               [[0, 1, 2], [0, 1, 2]]),
+    "inf_query": dict.fromkeys(("float32", "bfloat16", "int8"), [[0, 1, 2]]),
+}
+
+
+def nan_case(case: str, sign: int):
+    """``(matrix, queries, k)`` of a pinned case: the 64 x 32 matrices of
+    tests/test_torch_nonfinite.py (standard normal, seed 0, row 10 = row 3,
+    row 7 = 0), with row 5 NaN (queries: rows 5 and 6), queries 0 and 1
+    with a NaN first entry, or query 1 with an infinite one; every NaN and
+    infinity takes ``sign``."""
+    rng = np.random.default_rng(0)
+    mat = rng.standard_normal((64, 32)).astype(np.float32)
+    mat[10] = mat[3]
+    mat[7] = 0.0
+    nan = np.array([0x7FC00000 if sign > 0 else 0xFFC00000],
+                   np.uint32).view(np.float32)[0]
+    if case == "nan_row":
+        mat[5, 0] = nan
+        return mat, mat[[5, 6]], 4
+    if case == "nan_query":
+        q = mat[[0, 1]].copy()
+        q[:, 0] = nan
+        return mat, q, 3
+    q = mat[[1]].copy()
+    q[0, 0] = sign * np.inf
+    return mat, q, 3
+
+
 #: published H100 SXM rates (NVIDIA's data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"fp32 SIMT": 67e12, "bf16 tensor": 989e12,
@@ -3476,6 +3538,211 @@ def run_tree_phases(args, gen, card, tmp, cfg, errs, times, launches):
     launches.update(check_flash_paths(args.seed, card, tmp, src))
 
 
+# -- phase 28: non-finite search ----------------------------------------------
+
+#: phase 28's routes: (route, rescore_argmax); f32cert on f32 stores only
+NAN_ROUTES = (("rescore", "auto"), ("rescore", "off"), ("rescore", "on"),
+              ("global", "auto"), ("f32cert", "auto"))
+#: phase 28's NaN rows of the 1M-row stores and their signs: a unit's first
+#: row, mid-unit (the rescore route's 64-row units) and the last block
+NAN_STORE_ROWS = ((64_000, 1), (128_031, -1), (500_017, 1), (999_990, 1),
+                  (999_999, -1))
+#: the 1,024 queries' non-finite entries: (query, first entry)
+NAN_QUERY_ENTRIES = ((17, "nan"), (18, "-nan"), (19, "inf"), (20, "-inf"))
+
+
+def _route_config(route, argmax):
+    from better_search_rag_rust_tpu_torch.config import SearchConfig
+
+    if route == "f32cert":  # the reference's rule: "auto" routes it
+        return SearchConfig(kernel="auto", f32_certified="on", top_k=K)
+    return SearchConfig(kernel=route, rescore_argmax=argmax, top_k=K)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within the block the search routes call the plain versions of K1,
+    K2, K3, K4 and K6 instead of the kernels, on the card: the yardstick a
+    route's answer is held to."""
+    from better_search_rag_rust_tpu_torch.ops import engine as eng_mod
+    from better_search_rag_rust_tpu_torch.ops import topk as topk_mod
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+
+    names = ("matmul_blockmax2_only", "gather_rescore", "matmul_blockmax",
+             "gather_rows", "block_scores")
+    saved = [(mod, name, getattr(mod, name)) for mod in (topk_mod, eng_mod)
+             for name in names if hasattr(mod, name)]
+    for mod, name, _fn in saved:
+        setattr(mod, name, getattr(tk, name + "_plain"))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def same_answer(label, got, want, exact):
+    """Phase 28's comparison of a route's ``(ids, distances)`` with the
+    plain versions' run: NaN distances in the same places; ``exact`` (int8:
+    every score an exact integer dot) ids and distances bit for bit; else
+    distances within TOL (the plain product sums in another order) and ids
+    equal wherever a distance stands more than 2 * TOL from its neighbours
+    — two rows nearer than that may trade places on rounding. Returns the
+    count of such positions whose ids differ."""
+    (ids, d), (p_ids, p_d) = got, want
+    nan = np.isnan(d)
+    assert np.array_equal(nan, np.isnan(p_d)), label
+    if exact:
+        assert np.array_equal(ids, p_ids), label
+        assert np.array_equal(d.view(np.uint32)[~nan],
+                              p_d.view(np.uint32)[~nan]), label
+        return 0
+    assert np.abs(d[~nan] - p_d[~nan]).max(initial=0.0) <= TOL, label
+    gap = np.diff(np.where(nan, -1.0, d), axis=1)
+    near = np.zeros(d.shape, dtype=bool)
+    near[:, 1:] |= np.abs(gap) <= 2 * TOL
+    near[:, :-1] |= np.abs(gap) <= 2 * TOL
+    near &= ~nan
+    assert np.array_equal(ids[~near], p_ids[~near]), label
+    return int(np.sum(ids[near] != p_ids[near]))
+
+
+def _sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _nan_bits(dtype, sign):
+    if dtype == torch.bfloat16:
+        return torch.int16, 0x7FC0 if sign > 0 else 0xFFC0 - (1 << 16)
+    return torch.int32, 0x7FC00000 if sign > 0 else 0xFFC00000 - (1 << 32)
+
+
+def check_nonfinite_search(seed, gen, card, device="cuda", rows=1_000_000):
+    """Phase 28: non-finite search on the card (module docstring, item 28).
+    Returns K17's error against its plain version and its timing record.
+    ``device`` and ``rows`` (with :data:`NAN_STORE_ROWS` inside them)
+    rehearse it on the CPU, where every wrapper runs its plain version and
+    nothing launches (the launch check then fails)."""
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+    from better_search_rag_rust_tpu_torch.ops.distance import normalize_rows
+    from better_search_rag_rust_tpu_torch.ops.engine import SearchEngine
+    from better_search_rag_rust_tpu_torch.ops.quantize import cast_rows_to
+    from better_search_rag_rust_tpu_torch.store import DeviceStore
+
+    t0 = time.perf_counter()
+    pinned = 0
+    for case, by_dtype in NAN_PINS.items():
+        for sign in (1, -1):
+            mat, queries, k = nan_case(case, sign)
+            for dtype, pin in by_dtype.items():
+                store = DeviceStore.from_host(mat, dtype, device=device)
+                for route, argmax in NAN_ROUTES:
+                    if route == "f32cert" and dtype != "float32":
+                        continue
+                    eng = SearchEngine(store, _route_config(route, argmax))
+                    assert eng.kernel_name(k) == route, (case, dtype, route)
+                    ids = eng.search(queries, k)[0]
+                    assert np.array_equal(ids, pin), (case, sign, dtype,
+                                                      route, argmax, ids)
+                    pinned += 1
+    phase(f"phase 28 pinned 64 x 32 cases (NaN row, NaN query, +-inf "
+          f"query; each sign; f32/bf16/int8 stores built on the card): "
+          f"{pinned} route runs, every one the CPU tests' ids "
+          f"({time.perf_counter() - t0:.1f}s)")
+
+    launches = dict.fromkeys(("matmul_blockmax2_only", "gather_rescore",
+                              "matmul_blockmax", "gather_rows",
+                              "block_scores"), 0)
+    for dtype in ("bfloat16", "float32", "int8"):
+        t1 = time.perf_counter()
+        store = DeviceStore.synthetic(rows, 768, dtype, seed + 5,
+                                      device=device)
+        picks = torch.randint(0, store.num_rows, (1024,), generator=gen,
+                              device=device)
+        queries = store.data[picks].float().cpu().numpy()
+        for q, what in NAN_QUERY_ENTRIES:
+            queries[q, 0] = {"nan": np.nan, "-nan": -np.nan, "inf": np.inf,
+                             "-inf": -np.inf}[what]
+        queries[18].view(np.uint32)[0] |= 0x80000000  # the NaN's sign set
+        ties = {}
+        for stage in ("finite store", "NaN rows"):
+            if stage == "NaN rows":
+                for r, sign in NAN_STORE_ROWS:
+                    if store.dtype == torch.int8:  # the lattice's NaN row
+                        nan_row = torch.full((1, 768), float("nan"),
+                                             device=device)
+                        store.data[r] = cast_rows_to(normalize_rows(nan_row),
+                                                     torch.int8)[0]
+                    else:
+                        ints, bits = _nan_bits(store.dtype, sign)
+                        store.data[r].view(ints).fill_(bits)
+                for j, (r, _sign) in enumerate(NAN_STORE_ROWS[:2]):
+                    queries[21 + j] = store.data[r].float().cpu().numpy()
+            for route, argmax in NAN_ROUTES:
+                if route == "f32cert" and dtype != "float32":
+                    continue
+                eng = SearchEngine(store, _route_config(route, argmax))
+                assert eng.kernel_name(K) == route, (dtype, route)
+                finite = dtype == "int8" or stage == "finite store"
+                assert eng._store_finite() is finite
+                if route == "rescore" and argmax == "on":
+                    assert eng._argmax_enabled() is finite
+                _sync(device)
+                tk.reset_launch_counts()
+                got = eng.search(queries, K)
+                _sync(device)
+                for name in launches:
+                    n = (tk.launch_counts[name]
+                         + tk.launch_counts.get(name + "_int8", 0))
+                    launches[name] += n
+                with plain_kernels():
+                    want = eng.search(queries, K)
+                label = f"{dtype} {stage} {route} {argmax}"
+                ties[label] = same_answer(label, got, want,
+                                          exact=dtype == "int8")
+                nan_q = np.isnan(got[1]).all(axis=1)
+                assert nan_q[list(q for q, _ in NAN_QUERY_ENTRIES)].all() \
+                    or dtype == "int8", label
+                if stage == "NaN rows" and dtype != "int8":
+                    # every finite query ranks the NaN rows first
+                    first = np.sort(got[0][~nan_q, :len(NAN_STORE_ROWS)],
+                                    axis=1)
+                    assert (first == sorted(r for r, _ in NAN_STORE_ROWS)
+                            ).all(), label
+        del store
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        phase(f"phase 28 [{card}] {rows:,} x 768 {dtype}, 1024 queries "
+              f"(NaN of each sign, +-inf, NaN rows as queries), k={K}, "
+              f"finite store then NaN rows of each sign at rows "
+              f"{[r for r, _ in NAN_STORE_ROWS]}: every route's ids and "
+              f"distances equal the plain versions' run"
+              f"{' bit for bit' if dtype == 'int8' else ''}; ids traded "
+              f"between rows within 2e-5: {ties} "
+              f"({time.perf_counter() - t1:.1f}s)")
+    phase(f"phase 28 kernel launches over the routes: {launches}")
+    assert all(launches.values()), launches
+    # K17 on a query batch: NaNs of both signs and payloads, infinities
+    q = torch.randn((1024, 768), generator=gen, device=device)
+    bits = q.view(torch.int32)
+    bits[3, ::5], bits[4, ::7] = 0x7FC00000, 0xFFC00000 - (1 << 32)
+    bits[5, ::3], bits[6, :2] = 0x7F800001, 0x7F800000
+    got = tk.cast_bf16(q)
+    want = tk.cast_bf16_plain(q)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    err = max_abs(got.float().nan_to_num(), want.float().nan_to_num())
+    rec = timing(cuda_ms(lambda: tk.cast_bf16(q), 50),
+                 cuda_ms(lambda: tk.cast_bf16_plain(q), 50),
+                 cuda_ms(lambda: q.to(torch.bfloat16), 50),
+                 q.numel() * (4 + 2), 0, "fp32 SIMT")
+    phase(f"phase 28 [{card}] K17 on 1024 x 768 queries (NaN of both signs, "
+          f"+-inf), bit for bit its plain version: " + timing_line(
+              "cast_bf16", rec) + " (library: torch's own cast, which writes "
+          "other NaN bits)")
+    return err, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3531,7 +3798,8 @@ def main() -> int:
                     bitwise=True)
     torch.cuda.synchronize()
     launches = {name: tk.launch_counts[name] for name in
-                ("matmul_blockmax2_only", "gather_rescore", "matmul_blockmax")}
+                ("matmul_blockmax2_only", "gather_rescore", "matmul_blockmax",
+                 "cast_bf16")}
     phase(f"phase 4 kernel launches over the main path: {launches}")
     assert all(v > 0 for v in launches.values()), launches
     check_f32_rescore_pass(store_f32, gen, card)
@@ -3558,6 +3826,8 @@ def main() -> int:
         run_tree_phases(args, gen, card, tree, cfg, errs, times, launches)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
+    errs["cast_bf16"], times["cast_bf16"] = check_nonfinite_search(
+        args.seed, gen, card)
 
     print(card)
     print(json.dumps({"kernels": [

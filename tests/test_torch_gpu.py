@@ -1817,3 +1817,135 @@ def test_flash_encoder_and_trainer_run_the_kernels(cuda):
     loss = tr.train_step(ids, mask, ids[::-1].copy(), mask[::-1].copy())
     assert np.isfinite(loss)
     assert fk.launch_counts == dict.fromkeys(fk.launch_counts, 4)
+
+
+# -- NaN rows and queries: the kernels' maxima propagate NaN ------------------
+
+#: a NaN's bits in each float store dtype, sign clear and set (ml_dtypes')
+NAN_BITS = {torch.bfloat16: (0x7FC0, 0xFFC0 - (1 << 16)),
+            torch.float32: (0x7FC00000, 0xFFC00000 - (1 << 32))}
+#: store rows made NaN: a unit's first row, mid-unit, the last block, and a
+#: whole 64-row unit
+NAN_ROWS = (64, 200, 3990, *range(320, 384))
+
+
+def _nan_operands(cuda, dtype, sign, t=40):
+    """``_operands`` with ``NAN_ROWS`` set to NaN of ``sign``, query 3 NaN
+    and query 5 the NaN row 200."""
+    q, mat = _operands(cuda, dtype, t=t)
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    bits = NAN_BITS[dtype][sign < 0]
+    mat.view(ints)[list(NAN_ROWS)] = bits
+    q.view(ints)[3] = bits
+    q[5] = mat[200]
+    return q, mat
+
+
+def _same_nans(out, ref, tol=TOL):
+    """NaN in the same places and with the same bits; every other value
+    within ``tol`` (the plain product sums in another order)."""
+    nan = torch.isnan(out)
+    assert torch.equal(nan, torch.isnan(ref))
+    assert torch.equal(out.view(torch.int32)[nan], ref.view(torch.int32)[nan])
+    assert (out[~nan] - ref[~nan]).abs().max() <= tol
+    return nan
+
+
+@pytest.mark.parametrize("sign", [1, -1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sub,block,ew", [(8, 128, 128), (16, 128, 0),
+                                          (64, 128, 0), (64, 1024, 256)])
+def test_k1_propagates_nan_like_plain(cuda, dtype, sign, sub, block, ew):
+    """K1 (ew 256: K10's row-tile walk) on NaN rows and queries of either
+    sign: unit and coarse maxima NaN where the plain version's are, with
+    its bits; on a NaN unit the key bit for bit the plain one (no
+    attaining row: argmax ``sub``, m2 NaN); elsewhere the argmax where the
+    unit's top two differ."""
+    q, mat = _nan_operands(cuda, dtype, sign)
+    kw = dict(sub=sub, block=block, emit_block=True, emit_argmax=True,
+              emit_width=ew)
+    bms, key, bm = tk.matmul_blockmax2_only(q, mat, 4001, **kw)
+    p_bms, p_key, p_bm = tk.matmul_blockmax2_only_plain(q, mat, 4001, **kw)
+    torch.cuda.synchronize()
+    nan = _same_nans(bms, p_bms)
+    assert nan[320 // sub:384 // sub].all() and nan[:4001 // sub, 3].all()
+    assert nan[64 // sub].all() and nan[3990 // sub].all()
+    assert torch.equal(key[nan], p_key[nan])
+    assert ((key[nan] & 0x7F) == sub % 128).all()
+    _same_nans(bm, p_bm)
+    sims = tk.matmul_blockmax_plain(q, mat, 4001)[0]
+    top2 = sims.T.reshape(-1, sub, q.shape[0]).topk(2, dim=1).values
+    clear = ((top2[:, 0] - top2[:, 1]) > TOL) & ~nan
+    assert torch.equal((key & 0x7F)[clear], (p_key & 0x7F)[clear])
+
+
+@pytest.mark.parametrize("sign", [1, -1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("block", [128, 32])
+def test_k3_k5_propagate_nan_like_plain(cuda, dtype, sign, block):
+    """K3's scores and block maxima, and K5's (bit for bit K3's), on NaN
+    rows and queries of either sign: NaN where the plain version has it,
+    with its bits; every block holding a NaN row has a NaN maximum."""
+    q, mat = _nan_operands(cuda, dtype, sign)
+    sims, bm = tk.matmul_blockmax(q, mat, 4001, block=block)
+    p_sims, p_bm = tk.matmul_blockmax_plain(q, mat, 4001, block=block)
+    bm5 = tk.matmul_blockmax_only(q, mat, 4001, block=block)
+    torch.cuda.synchronize()
+    _same_nans(sims, p_sims)
+    nan = _same_nans(bm, p_bm)
+    for r in NAN_ROWS:
+        assert nan[r // block].all()
+    assert torch.equal(bm5.view(torch.int32), bm.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype,kernel,argmax", [
+    (dt, kernel, argmax) for dt in ("float32", "bfloat16", "int8")
+    for kernel, argmax in (("rescore", "auto"), ("rescore", "off"),
+                           ("rescore", "on"), ("global", "auto"),
+                           ("f32cert", "auto"))
+    if kernel != "f32cert" or dt == "float32"])
+@pytest.mark.parametrize("sign", [1, -1])
+@pytest.mark.parametrize("case", ["nan_row", "nan_query", "inf_query"])
+def test_nan_pins_on_the_card(cuda, case, sign, dtype, kernel, argmax):
+    """The 64 x 32 cases of tests/test_torch_nonfinite.py, the store built
+    by the port on the card: every route answers the CPU tests' pins
+    (``chip_smoke.NAN_PINS``) for a NaN or an infinity of either sign."""
+    import chip_smoke
+
+    mat, queries, k = chip_smoke.nan_case(case, sign)
+    store = DeviceStore.from_host(mat, dtype=dtype, device=cuda)
+    cfg = (SearchConfig(kernel="auto", f32_certified="on")
+           if kernel == "f32cert" else
+           SearchConfig(kernel=kernel, rescore_argmax=argmax))
+    eng = SearchEngine(store, cfg)
+    assert eng.kernel_name(k) == kernel
+    np.testing.assert_array_equal(eng.search(queries, k)[0],
+                                  chip_smoke.NAN_PINS[case][dtype])
+
+
+@pytest.mark.parametrize("offset", [0, 1])  # 1: x off the 16-byte boundary
+@pytest.mark.parametrize("n", [1, 7, 16, 33, 4096, 1024 * 768])
+def test_k17_cast_is_its_plain_version_bitwise(cuda, n, offset):
+    """K17 writes the plain version's bf16 bits — ml_dtypes' NaN (0x7FC0 /
+    0xFFC0 by sign, any payload), round to nearest even elsewhere (+-inf,
+    overflow, subnormals, ties) — on its 16-byte path and its scalar one,
+    one launch a call."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(n)
+    x = torch.randn(n + offset, generator=g, device=cuda)
+    bits = x.view(torch.int32)
+    bits[offset::3] = 0x7FC00000
+    bits[offset + 1::7] = 0xFFC00000 - (1 << 32)
+    bits[offset + 2::11] = 0x7F800001
+    bits[offset + 4::13] = 0x7F7FFFFF   # rounds up to +inf
+    bits[offset + 5::17] = 0x00000001   # the smallest subnormal
+    bits[offset + 6::19] = 0x3F808000   # a tie: 1 + 2^-8, to even (1.0)
+    v = x[offset:]
+    before = tk.launch_counts["cast_bf16"]
+    got = tk.cast_bf16(v)
+    assert tk.launch_counts["cast_bf16"] == before + 1
+    want = tk.cast_bf16_plain(v)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(got.view(torch.int16).cpu(),
+                       tk.cast_bf16_plain(v.cpu()).view(torch.int16))

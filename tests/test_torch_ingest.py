@@ -267,3 +267,29 @@ def test_cli_run_and_ingest(tree, tmp_path):
     assert proc.returncode == 0, proc.stderr
     first = [ln for ln in proc.stdout.splitlines() if "  1. " in ln]
     assert first and str(target) in first[0]
+
+
+def test_parquet_io_takes_the_system_allocator(tree, tmp_path):
+    """The port's Parquet reads and writes run on Arrow's system memory
+    pool: with torch in the process, Arrow's bundled mimalloc pool
+    segfaulted now and then in the merge's first read (the CLI runs of
+    ``test_cli_run_and_ingest`` and the two-process run of
+    ``test_torch_multiprocess.py`` died with -11 under a loaded machine)."""
+    import pyarrow as pa
+
+    p = Pipeline(_cfg(tree, tmp_path / "pool"), device="cpu")
+    p.ingest_shard()
+    assert p.merge() == N_FILES
+    assert pa.default_memory_pool().backend_name == "system"
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import torch, pyarrow as pa\n"
+         "from better_search_rag_rust_tpu_torch.store import vectorstore\n"
+         f"vectorstore.ParquetVectorStore("
+         f"{str(tmp_path / 'pool' / 'global.parquet')!r},"
+         " empty=False)\n"
+         "print(pa.default_memory_pool().backend_name)"],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["system"]
