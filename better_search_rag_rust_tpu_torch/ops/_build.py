@@ -48,7 +48,7 @@ SOURCES = {
         "bsr_gather_rescore_mm": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I,
                                        _P, _P, _P]),
         "bsr_gather_cross": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
-        "bsr_cast_bf16": (_I, [_P, _P, ctypes.c_longlong, _P]),
+        "bsr_normalize_cast": (_I, [_P, _P, ctypes.c_longlong, _I, _I, _I, _P]),
         "bsr_error_string": (ctypes.c_char_p, [_I]),
     }),
     "attention": (CSRC / "attention_kernels.cu", {

@@ -20,8 +20,9 @@
 //                                  :57): K2's scores plus a resident product
 //   K13 bsr_gather_cross        <- scripts/proto_fused.py fused_scores (:139,
 //                                  body :119): each 8-query group's full cross
-//   K17 bsr_cast_bf16           <- no Pallas kernel: the store's and the
-//                                  queries' bf16 cast, the JAX package's NaN bits
+//   K17 bsr_normalize_cast      <- no Pallas kernel: the XLA fusion that
+//                                  normalizes and casts the store's and the
+//                                  queries' rows (store/device_store.py:62)
 //
 // K4 and K11 move bytes only. K6 is K2's mainloop (gather_scores) over
 // pre-gathered rows, so what is said of K2 below holds for it; K12's gather
@@ -77,6 +78,20 @@
 // -0.0 only where a negative sum underflows, and -0.0 compares equal to +0.0,
 // so no selection sees it. TF32 would not be exact, so f32 stays off the
 // tensor cores (the TPU's Mosaic f32 product was not exact either).
+//
+// THE NORM ORDER (K17, the store's and the queries' normalization). A row's
+// sum of squares s is fixed bit for bit, on the card and in the plain version
+// (ops/topk_kernels.py:normalize_cast_plain, torch f32 ops on either device):
+// each feature squared with one rounded multiply and added with one rounded
+// add (__fmul_rn, __fadd_rn: no FMA contraction); D zero-padded to a multiple
+// of 128; lane l of 32 starts from +0.0 and adds its features 128c + 4l + j,
+// c ascending and, inside each c, j = 0..3 in order; then the lane sums halve,
+// v[i] += v[i + h] for h = 16, 8, 4, 2, 1, and s = v[0]. The order is over
+// feature indices, not loads, so 16-byte and 4-byte loads give the same bits
+// (a +0.0 pad term leaves a sum as it is: every term is +0.0 or more). Then n
+// = sqrt_rn(s), n == 0 becomes 1 (the reference's zero guard), and y_d = x_d
+// /rn n. Finite rows give the same bits on the CPU and the card; a NaN row
+// the plain version's bits on the same device (the card's NaN is canonical).
 //
 // INT8 STORES (the lattice of ops/quantize.py) take the third rule: one
 // exact int32 dot per score, then ONE int8_score(): __fmul_rn(float(acc),
@@ -2013,36 +2028,176 @@ int launch_k12(const void* q, const void* shard, const int32_t* ids, int Tn, int
   return (int)cudaGetLastError();
 }
 
-// K17: the bf16 cast of normalized rows, store and queries
-// (ops/quantize.py:cast_rows_to; the JAX package casts with XLA's convert,
-// better_search_rag_rust_tpu/ops/quantize.py:cast_rows_to, no Pallas
-// kernel). Round to nearest even, as the card's cvt.rn.bf16.f32, except a
-// NaN: ml_dtypes' bits, 0x7FC0 with the input's sign (cvt writes 0x7FFF).
-// The NaN's sign decides its rank on the CPU (m2_sort_key), so the store
-// and queries must hold the JAX package's bits. Bound: the bytes, 4 read
-// and 2 written an element; one pass, 16-byte loads where x is aligned.
+// K17: the store's and the queries' rows, f32 [N, D] -> the store dtype, in
+// one pass: the L2 norm in the NORM ORDER stated above, the zero guard, the
+// division and the store dtype's rounding (ops/topk_kernels.py:
+// normalize_cast; plain twin normalize_cast_plain, bit for bit). It replaces
+// no Pallas kernel: the JAX package does this as one XLA fusion,
+// better_search_rag_rust_tpu/store/device_store.py:_normalize_cast (:62) for
+// the store and cast_rows_to(normalize_rows(q)) inside the jitted search
+// (better_search_rag_rust_tpu/ops/engine.py:396) for queries. Output rule per
+// element y: f32 y; bf16 round to nearest even, as the card's cvt.rn.bf16.f32,
+// except a NaN: ml_dtypes' bits, 0x7FC0 with the input's sign (cvt writes
+// 0x7FFF; the NaN's sign decides its rank on the CPU, m2_sort_key, so rows
+// must hold the JAX package's bits); int8 the lattice of ops/quantize.py,
+// clip(rint(y *rn 127), -127, 127), a NaN to 0 (XLA's convert).
+//
+// Bound: the bytes, each input read once and each output written once (4 +
+// 4, 2 or 1 bytes an element); 3 f32 operations an element are far below the
+// ridge point. Design: one warp a row, lane l holding features 128c + 4l ..
+// 128c + 4l + 3 as one 16-byte load a chunk c, so a warp reads 512
+// contiguous bytes a chunk and the sum order above falls out of the loads.
+// The first K17_REG_CHUNKS chunks (D <= 1024; 6 float4 a lane at D 768) stay
+// in registers: device memory is read once and the divide and write come
+// from registers. A wider D re-reads its later chunks for the write, from L2
+// as a rule (the bound still counts them once). 4-byte loads and scalar
+// writes where D % 4 != 0 or a base is misaligned, feature by feature in the
+// same order, so both paths give the same bits.
+//
+// With normalization off (NORM false; cast_rows_to on the card) the same
+// kernel is the bf16 cast alone: it skips the norm and the divide, and its
+// warps stride over the 128-element chunks of all rows * D elements taken as
+// one flat row, with the same loads and writes.
 __device__ __forceinline__ uint16_t bf16_bits(float v) {
   if (v != v) return (uint16_t)(((__float_as_uint(v) >> 16) & 0x8000u) | 0x7FC0u);
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
-constexpr int CAST_THREADS = 256;
+__device__ __forceinline__ int8_t lattice_i8(float v) {
+  const float r = rintf(__fmul_rn(v, 127.0f));
+  if (r != r) return 0;
+  return (int8_t)fminf(fmaxf(r, -127.0f), 127.0f);
+}
 
-__global__ void __launch_bounds__(CAST_THREADS)
-k17_cast_bf16(const float* __restrict__ x, uint16_t* __restrict__ y, long long n, int vec) {
-  const long long stride = (long long)gridDim.x * CAST_THREADS;
-  const long long t = (long long)blockIdx.x * CAST_THREADS + threadIdx.x;
-  const long long n4 = vec ? n / 4 : 0;
-  for (long long i = t; i < n4; i += stride) {
-    const float4 v = reinterpret_cast<const float4*>(x)[i];
-    ushort4 o;
-    o.x = bf16_bits(v.x);
-    o.y = bf16_bits(v.y);
-    o.z = bf16_bits(v.z);
-    o.w = bf16_bits(v.w);
-    reinterpret_cast<ushort4*>(y)[i] = o;
+__device__ __forceinline__ void k17_put(float* y, int f, float v) { y[f] = v; }
+__device__ __forceinline__ void k17_put(uint16_t* y, int f, float v) { y[f] = bf16_bits(v); }
+__device__ __forceinline__ void k17_put(int8_t* y, int f, float v) { y[f] = lattice_i8(v); }
+
+__device__ __forceinline__ void k17_put4(float* y, float4 v) {
+  *reinterpret_cast<float4*>(y) = v;
+}
+__device__ __forceinline__ void k17_put4(uint16_t* y, float4 v) {
+  ushort4 o;
+  o.x = bf16_bits(v.x);
+  o.y = bf16_bits(v.y);
+  o.z = bf16_bits(v.z);
+  o.w = bf16_bits(v.w);
+  *reinterpret_cast<ushort4*>(y) = o;
+}
+__device__ __forceinline__ void k17_put4(int8_t* y, float4 v) {
+  char4 o;
+  o.x = lattice_i8(v.x);
+  o.y = lattice_i8(v.y);
+  o.z = lattice_i8(v.z);
+  o.w = lattice_i8(v.w);
+  *reinterpret_cast<char4*>(y) = o;
+}
+
+constexpr int K17_THREADS = 256;
+constexpr int K17_ROWS = K17_THREADS / 32;  // rows a block: one warp a row
+constexpr int K17_REG_CHUNKS = 8;           // 128-feature chunks kept in registers
+
+// Lane `lane`'s features 128c + 4 lane + j, j = 0..3, of row xr; +0.0 past D.
+__device__ __forceinline__ float4 k17_chunk(const float* __restrict__ xr, long long D,
+                                            long long c, int lane, int vec) {
+  const long long f = 128 * c + 4 * lane;
+  if (vec) return f < D ? *reinterpret_cast<const float4*>(xr + f) : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 v;
+  v.x = f < D ? xr[f] : 0.0f;
+  v.y = f + 1 < D ? xr[f + 1] : 0.0f;
+  v.z = f + 2 < D ? xr[f + 2] : 0.0f;
+  v.w = f + 3 < D ? xr[f + 3] : 0.0f;
+  return v;
+}
+
+// The NORM ORDER's step over one chunk: j = 0..3 in order, no contraction.
+__device__ __forceinline__ float k17_sumsq4(float acc, float4 v) {
+  acc = __fadd_rn(acc, __fmul_rn(v.x, v.x));
+  acc = __fadd_rn(acc, __fmul_rn(v.y, v.y));
+  acc = __fadd_rn(acc, __fmul_rn(v.z, v.z));
+  return __fadd_rn(acc, __fmul_rn(v.w, v.w));
+}
+
+// Chunk c's lane values into row yr, rounded to the store dtype.
+template <typename OutT>
+__device__ __forceinline__ void k17_store(OutT* __restrict__ yr, long long D, long long c,
+                                          int lane, int vec, float4 v) {
+  const long long f = 128 * c + 4 * lane;
+  if (f >= D) return;
+  if (vec) {
+    k17_put4(yr + f, v);
+    return;
   }
-  for (long long i = 4 * n4 + t; i < n; i += stride) y[i] = bf16_bits(x[i]);
+  k17_put(yr, f, v.x);
+  if (f + 1 < D) k17_put(yr, f + 1, v.y);
+  if (f + 2 < D) k17_put(yr, f + 2, v.z);
+  if (f + 3 < D) k17_put(yr, f + 3, v.w);
+}
+
+template <typename OutT>
+__device__ __forceinline__ void k17_write(OutT* __restrict__ yr, int D, int c, int lane,
+                                          int vec, float4 v, float n) {
+  v.x = __fdiv_rn(v.x, n);
+  v.y = __fdiv_rn(v.y, n);
+  v.z = __fdiv_rn(v.z, n);
+  v.w = __fdiv_rn(v.w, n);
+  k17_store(yr, D, c, lane, vec, v);
+}
+
+template <typename OutT, bool NORM>
+__global__ void __launch_bounds__(K17_THREADS)
+k17_normalize_cast(const float* __restrict__ x, OutT* __restrict__ y, long long rows, int D,
+                   int vec) {
+  const int lane = threadIdx.x & 31;
+  if (!NORM) {  // the cast alone: rows * D elements as one flat row
+    const long long n = rows * D, chunks = (n + 127) / 128;
+    const long long warps = (long long)gridDim.x * K17_ROWS;
+    for (long long c = (long long)blockIdx.x * K17_ROWS + (threadIdx.x >> 5); c < chunks;
+         c += warps)
+      k17_store(y, n, c, lane, vec, k17_chunk(x, n, c, lane, vec));
+    return;
+  }
+  const long long row = (long long)blockIdx.x * K17_ROWS + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp: one row a warp
+  const float* xr = x + row * D;
+  OutT* yr = y + row * D;
+  const int C = (D + 127) / 128;
+  float4 keep[K17_REG_CHUNKS];
+  float acc = 0.0f;
+#pragma unroll
+  for (int c = 0; c < K17_REG_CHUNKS; ++c) {
+    if (c < C) {
+      keep[c] = k17_chunk(xr, D, c, lane, vec);
+      acc = k17_sumsq4(acc, keep[c]);
+    }
+  }
+  for (int c = K17_REG_CHUNKS; c < C; ++c) acc = k17_sumsq4(acc, k17_chunk(xr, D, c, lane, vec));
+  // the halving tree: lane i < h takes v[i] + v[i + h]; lane 0 ends with s
+#pragma unroll
+  for (int h = 16; h > 0; h >>= 1) acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, h));
+  float n = __fsqrt_rn(__shfl_sync(0xffffffffu, acc, 0));
+  if (n == 0.0f) n = 1.0f;  // the reference's zero guard
+#pragma unroll
+  for (int c = 0; c < K17_REG_CHUNKS; ++c)
+    if (c < C) k17_write(yr, D, c, lane, vec, keep[c], n);
+  for (int c = K17_REG_CHUNKS; c < C; ++c)
+    k17_write(yr, D, c, lane, vec, k17_chunk(xr, D, c, lane, vec), n);
+}
+
+template <typename OutT, bool NORM>
+int launch_k17(const float* x, void* y, long long rows, int D, cudaStream_t st) {
+  // a warp a row, or without normalization a warp a chunk of the flat row,
+  // at most 16 blocks an SM of the 132 striding over the chunks
+  const long long len = NORM ? D : rows * D;
+  const long long warps = NORM ? rows : (len + 127) / 128;
+  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && len % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(y) % (4 * sizeof(OutT)) == 0;
+  long long blocks = (warps + K17_ROWS - 1) / K17_ROWS;
+  if (!NORM && blocks > 132 * 16) blocks = 132 * 16;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  k17_normalize_cast<OutT, NORM><<<(unsigned)blocks, K17_THREADS, 0, st>>>(
+      x, static_cast<OutT*>(y), rows, D, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -2187,17 +2342,22 @@ int bsr_gather_cross(const void* q, const void* shard, const int32_t* ids, int T
   return (int)cudaGetLastError();
 }
 
-// K17: x [n] f32 -> y [n] bf16 bits; y 8-byte aligned (the wrapper
-// allocates it), x read 16 bytes at a time where it is 16-byte aligned.
-int bsr_cast_bf16(const float* x, void* y, long long n, void* stream) {
-  if (n <= 0) return 0;
-  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const long long items = vec ? (n + 3) / 4 : n;
-  const long long want = (items + CAST_THREADS - 1) / CAST_THREADS;
-  const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
-  k17_cast_bf16<<<blocks, CAST_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, static_cast<uint16_t*>(y), n, vec);
-  return (int)cudaGetLastError();
+// K17: x [rows, D] f32, contiguous -> y [rows, D] in dtype (0 f32, 1 bf16,
+// 2 int8), each row normalized. normalize == 0: the same kernel with the
+// norm and the divide off, the bf16 cast alone of rows * D elements (dtype
+// must be 1). 16-byte loads where the bases allow them.
+int bsr_normalize_cast(const float* x, void* y, long long rows, int D, int dtype,
+                       int normalize, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || D <= 0) return 0;
+  if (!normalize) {
+    if (dtype != DTYPE_BF16) return (int)cudaErrorInvalidValue;
+    return launch_k17<uint16_t, false>(x, y, rows, D, st);
+  }
+  if (dtype == DTYPE_F32) return launch_k17<float, true>(x, y, rows, D, st);
+  if (dtype == DTYPE_BF16) return launch_k17<uint16_t, true>(x, y, rows, D, st);
+  if (dtype == DTYPE_INT8) return launch_k17<int8_t, true>(x, y, rows, D, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* bsr_error_string(int err) {

@@ -1,11 +1,12 @@
 """Row normalization with the reference's zero-magnitude guard, and
 cosine scores of small matrices.
 
-Counterpart of ``better_search_rag_rust_tpu/ops/distance.py`` and of the
-device store's ``_normalize_cast`` (``store/device_store.py:62-71``): rows
-are L2-normalized in float32, and a zero row stays the zero vector, so its
+Counterpart of ``better_search_rag_rust_tpu/ops/distance.py``: rows are
+L2-normalized in float32, and a zero row stays the zero vector, so its
 similarity is 0 and its cosine distance exactly 1.0; similarities are
-clamped to [-1, 1] before ``1 - sim``.
+clamped to [-1, 1] before ``1 - sim``. The store's and the engine's rows
+take K17 instead (:func:`.topk_kernels.normalize_cast`: the same guard, the
+norm in one stated order, the cast in the same pass).
 """
 
 from __future__ import annotations

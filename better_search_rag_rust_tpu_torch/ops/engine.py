@@ -46,8 +46,8 @@ import torch
 from ..config import SearchConfig
 from ..parallel.mesh import gather_ranks
 from ..store.device_store import DeviceStore
-from .distance import distances_from_sims, normalize_rows
-from .quantize import cast_rows_to, cast_rows_to_host
+from .distance import distances_from_sims
+from .quantize import cast_rows_to_host
 from .topk import (
     global_topk,
     rescore_f32_certified,
@@ -61,6 +61,7 @@ from .topk_kernels import (
     PAD_SIM,
     kernel_scoring_exact_for,
     matmul_blockmax,
+    normalize_cast,
 )
 
 #: Routes of the reference that the port does not have yet (ROADMAP.md).
@@ -128,9 +129,9 @@ class SearchEngine:
         return min(k, self.store.num_rows)
 
     def _cast_queries(self, queries: torch.Tensor) -> torch.Tensor:
-        """Device f32 queries -> normalized, store-dtype, contiguous."""
-        return cast_rows_to(normalize_rows(queries),
-                            self.store.dtype).contiguous()
+        """Device f32 queries -> normalized, store-dtype, contiguous: one
+        K17 launch on the card (:func:`.topk_kernels.normalize_cast`)."""
+        return normalize_cast(queries.to(torch.float32), self.store.dtype)
 
     def prepare_device_queries(self, queries) -> torch.Tensor:
         """Host ``[Q, D]`` queries -> f32 device tensor, the input

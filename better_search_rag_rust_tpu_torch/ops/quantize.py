@@ -87,15 +87,16 @@ def cast_rows_to(x: torch.Tensor, dtype) -> torch.Tensor:
     the sign of a NaN score decides its rank (:func:`.topk_kernels.
     m2_sort_key`), so the bits must be the reference's. Finite values and
     infinities keep torch's bits, which are ml_dtypes' (round to nearest
-    even). The bf16 cast is K17 (:func:`.topk_kernels.cast_bf16`): one
-    pass on the card, its plain version on the CPU."""
+    even). The bf16 cast is K17 with normalization off
+    (:func:`.topk_kernels.normalize_cast`): one pass on the card, its plain
+    version on the CPU. Rows still to be normalized take K17 whole."""
     dt = store_dtype(dtype)
     if dt == torch.int8:
         return quantize_unit(x)
     if dt == torch.bfloat16:
-        from .topk_kernels import cast_bf16
+        from .topk_kernels import normalize_cast
 
-        return cast_bf16(x.to(torch.float32))
+        return normalize_cast(x.to(torch.float32), dt, normalize=False)
     return x.to(dt)
 
 

@@ -25,8 +25,9 @@ K12 :func:`gather_rescore_mm`     K2's scores plus ``copies`` copies of a
 K13 :func:`gather_cross`          each 8-query group against all of its
                                   queries' selected units, the full cross
                                   (bf16)
-K17 :func:`cast_bf16`             f32 rows -> bf16, a NaN as the JAX
-                                  package writes it (no Pallas twin)
+K17 :func:`normalize_cast`        f32 rows -> normalized rows in the store
+                                  dtype, one pass (no Pallas twin); with
+                                  normalization off the bf16 cast alone
 === ============================= ======================================
 
 K10 replaces the block-max prototypes of the TPU measurement record
@@ -79,7 +80,13 @@ from typing import Dict
 
 import torch
 
-from .quantize import BF16_NAN_BITS, BF16_NEG_NAN_BITS, INT8_INV_SCALE2
+from .quantize import (
+    BF16_NAN_BITS,
+    BF16_NEG_NAN_BITS,
+    INT8_INV_SCALE2,
+    INT8_SCALE,
+    store_dtype,
+)
 
 #: Default row-block width for block maxima.
 BLOCK = 128
@@ -125,7 +132,7 @@ launch_counts: Dict[str, int] = {
     "gather_copy": 0,
     "gather_rescore_mm": 0,
     "gather_cross": 0,
-    "cast_bf16": 0,
+    "normalize_cast": 0,
 }
 
 
@@ -465,16 +472,77 @@ def gather_cross_plain(queries, shard, ids, *, unit, G):
     return out
 
 
-def cast_bf16_plain(x):
-    """Plain K17: torch's cast (round to nearest even), then every NaN
-    rewritten as :data:`.quantize.BF16_NAN_BITS` or, with the sign set,
+#: K17's norm order (``csrc/topk_kernels.cu``, THE NORM ORDER): lanes, and
+#: the features of one lane's chunk step (``128 c + 4 l + j``).
+NORM_LANES = 32
+NORM_CHUNK = 4 * NORM_LANES
+
+
+def row_sumsq_plain(x):
+    """``[N]`` f32 sums of squares of ``x [N, D]`` in K17's norm order: lane
+    ``l`` of 32 adds the squares of its features ``128 c + 4 l + j`` (``c``
+    ascending, then ``j = 0..3``) from +0.0, one rounded multiply and one
+    rounded add each; then the lane sums halve, ``v[i] += v[i + h]`` for
+    ``h = 16, 8, 4, 2, 1``. Features past ``D`` are the zero pad, which
+    leaves every sum as it is, so they are skipped. Plain f32 torch ops, so
+    the same bits on the CPU and the card for finite rows."""
+    acc = torch.zeros((x.shape[0], NORM_LANES), dtype=torch.float32,
+                      device=x.device)
+    for c0 in range(0, x.shape[1], NORM_CHUNK):
+        for j in range(4):
+            col = x[:, c0 + j:c0 + NORM_CHUNK:4]   # lane l's feature j
+            acc[:, :col.shape[1]] += col * col
+    h = NORM_LANES // 2
+    while h:
+        acc[:, :h] += acc[:, h:2 * h]
+        h //= 2
+    return acc[:, 0]
+
+
+def _cast_bf16_plain(x):
+    """torch's cast (round to nearest even), then every NaN rewritten as
+    :data:`.quantize.BF16_NAN_BITS` or, with the sign set,
     :data:`.quantize.BF16_NEG_NAN_BITS` — the same on every ATen CPU
     capability (torch's vectorised cast writes 0xFFFF, its scalar one
-    0x7FC0)."""
+    0x7FC0, the card 0x7FFF)."""
     nan_bits = torch.where(torch.signbit(x), BF16_NEG_NAN_BITS, BF16_NAN_BITS)
     return torch.where(torch.isnan(x), nan_bits.to(torch.int16),
                        x.to(torch.bfloat16).view(torch.int16)
                        ).view(torch.bfloat16)
+
+
+def _check_normalize(x, dt, normalize):
+    """K17 normalizes rows ``[N, D]``; without normalization it is the bf16
+    cast alone."""
+    if not normalize and dt != torch.bfloat16:
+        raise ValueError(f"K17 without normalization casts to bf16, not {dt}")
+    if normalize and x.dim() != 2:
+        raise ValueError(f"K17 normalizes rows [N, D], got {tuple(x.shape)}")
+
+
+def normalize_cast_plain(x, dtype, *, normalize=True):
+    """Plain K17: f32 rows ``[N, D]`` -> the store dtype. Each row divided
+    by ``n = sqrt(s)`` of :func:`row_sumsq_plain` (``n == 0`` becomes 1, the
+    reference's zero guard); then f32 as it is, bf16 by
+    :func:`_cast_bf16_plain`, int8 on the lattice ``clip(rint(y * 127),
+    -127, 127)`` with a NaN to 0. ``normalize=False`` (bf16 only): the cast
+    alone, any shape."""
+    dt = store_dtype(dtype)
+    x = x.to(torch.float32)
+    _check_normalize(x, dt, normalize)
+    if not normalize:
+        return _cast_bf16_plain(x)
+    # sqrt_rn: the f64 root rounded to f32 is the correctly rounded f32 root
+    # (53 >= 2 * 24 + 2 bits); torch's f32 sqrt on the CPU is not, on a
+    # fifth of the values in torch 2.13's CPU build
+    n = torch.sqrt(row_sumsq_plain(x).double()).float()[:, None]
+    y = x / torch.where(n == 0.0, torch.ones_like(n), n)
+    if dt == torch.bfloat16:
+        return _cast_bf16_plain(y)
+    if dt == torch.int8:
+        r = torch.clamp(torch.round(y * INT8_SCALE), -INT8_SCALE, INT8_SCALE)
+        return torch.where(torch.isnan(r), 0.0, r).to(torch.int8)
+    return y
 
 
 def block_scores_plain(queries, gathered):
@@ -963,19 +1031,36 @@ def gather_cross(queries, shard, ids, *, unit, G):
     return out
 
 
-def cast_bf16(x):
-    """K17. f32 ``x`` (any shape) -> bf16: round to nearest even, a NaN as
-    0x7FC0 with its sign (ml_dtypes' bits, the JAX package's cast; the
-    card's own cast writes 0x7FFF). The one funnel of the store's and the
-    queries' bf16 rows (:func:`.quantize.cast_rows_to`). No Pallas twin:
-    the JAX package casts with XLA's convert."""
+def normalize_cast(x, dtype, *, normalize=True, out=None):
+    """K17. f32 rows ``x [N, D]`` -> the store dtype in one pass: each row
+    L2-normalized in K17's norm order (:func:`row_sumsq_plain`, the zero
+    guard), then f32 as it is, bf16 rounded to nearest even with a NaN as
+    0x7FC0 by its sign (ml_dtypes' bits, the JAX package's cast; the card's
+    own cast writes 0x7FFF), int8 on the lattice with a NaN to 0. Bit for
+    bit :func:`normalize_cast_plain` on the same device. The one funnel of
+    the store's rows (:meth:`..store.DeviceStore._fill`) and the queries'
+    (:meth:`.engine.SearchEngine._cast_queries`). ``normalize=False``: the
+    bf16 cast alone, any shape (:func:`.quantize.cast_rows_to`). ``out``: a
+    contiguous tensor of ``x``'s shape in the store dtype to write into. No
+    Pallas twin: the JAX package normalizes and casts in one XLA fusion
+    (``store/device_store.py:_normalize_cast``)."""
+    dt = store_dtype(dtype)
     if x.dtype != torch.float32:
-        raise TypeError(f"K17 casts float32, got {x.dtype}")
+        raise TypeError(f"K17 takes float32, got {x.dtype}")
+    if out is not None and (out.shape != x.shape or out.dtype != dt
+                            or out.device != x.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be contiguous {dt} {tuple(x.shape)} on "
+                         f"{x.device}")
     if x.device.type == "cpu":
-        return cast_bf16_plain(x)
+        y = normalize_cast_plain(x, dt, normalize=normalize)
+        return y if out is None else out.copy_(y)
+    _check_normalize(x, dt, normalize)
     x = x.contiguous()
-    y = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    y = torch.empty(x.shape, dtype=dt, device=x.device) if out is None else out
     if x.numel():
-        _launch("cast_bf16", "bsr_cast_bf16", x, x.data_ptr(), y.data_ptr(),
-                x.numel(), int8_body=False)
+        rows, d = x.shape if normalize else (x.numel(), 1)
+        _launch("normalize_cast", "bsr_normalize_cast", x, x.data_ptr(),
+                y.data_ptr(), rows, d, _DTYPE_CODES[dt], int(normalize),
+                int8_body=False)
     return y

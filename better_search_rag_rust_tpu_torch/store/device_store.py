@@ -31,8 +31,8 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.distance import normalize_rows
-from ..ops.quantize import cast_rows_to, store_dtype
+from ..ops.quantize import store_dtype
+from ..ops.topk_kernels import normalize_cast
 from ..parallel.mesh import Mesh, data_axis_size, gather_objects, gather_ranks
 from ..parallel.partition import pad_to_multiple
 
@@ -173,10 +173,11 @@ class DeviceStore:
 
     @staticmethod
     def _fill(data: torch.Tensor, start: int, rows_f32: torch.Tensor) -> None:
-        """Normalize + cast ``rows_f32`` into ``data[start:]``."""
+        """Normalize + cast ``rows_f32`` into ``data[start:]``: one K17
+        launch on the card, written in place."""
         n = rows_f32.shape[0]
-        data[start:start + n] = cast_rows_to(normalize_rows(rows_f32),
-                                             data.dtype)
+        normalize_cast(rows_f32.to(torch.float32), data.dtype,
+                       out=data[start:start + n])
 
     @staticmethod
     def _build(n: int, d: int, dtype, device, mesh: Optional[Mesh],

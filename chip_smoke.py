@@ -256,16 +256,34 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    for bit on int8, else within TOL with ids equal wherever two rows do
    not lie within 2 * TOL), every finite query ranks the NaN rows first,
    the store-finiteness gate turns the argmax fast path off, and the
-   route kernels launched; K17 (the bf16 cast) bit for bit its plain
-   version on 1024 x 768 queries with NaNs of both signs, beside torch's
-   own cast.
+   route kernels launched;
+29. K17 ``normalize_cast`` (the store's and the queries' normalize and
+   cast in one pass) on 1024 x 768 queries and on one 131,072 x 768 store
+   block (``_BUILD_ROWS``), to bf16, int8 and f32, with NaN rows of each
+   sign, +-inf, a zero row and a row whose sum of squares overflows: bit
+   for bit its plain version on the card, its finite rows bit for bit the
+   CPU plain version's; its device time alone (CUDA events over 200
+   launches queued behind a sleep kernel) and the profiler's kernel time,
+   its time as called, its bound, the plain version's, the parent's chain
+   (``cast_rows_to(normalize_rows(x))``) and, as a yardstick of another
+   function, ``F.normalize(x).to(dtype)``; the same kernel with
+   normalization off (the bf16 cast alone) on the same rows, bit for bit
+   its plain version, beside torch's own cast; then the engine's query
+   prep and the store's block fill: one K17 launch a call, no aten op
+   dispatched but an allocation or a view (a TorchDispatchMode log), and
+   torch.profiler, after a warm-up cycle, records K17 kernels and no other
+   kernel or aten op on the card.
+
+The kernels line's ``ms`` is every kernel's time as called (CUDA events
+around back-to-back calls, :func:`cuda_ms`); ``device_alone_ms`` is K17's
+device time alone (:func:`queued_ms`), null for the others.
 
 Every kernel's time is printed beside its plain version's, one PyTorch call
 computing the same function where there is one (``library``: the product
 alone for K1/K3/K5, ``scaled_dot_product_attention`` on rotated q/k/v for
 K7/K8/K9 and with the boolean segment mask for K14 (its whole backward for
-K15/K16), indexing for K4, ``bmm`` for K6, torch's own cast for K17; none
-for K2, K11, K12 and K13), and
+K15/K16), indexing for K4, ``bmm`` for K6; none for K2, K11, K12, K13 and
+K17), and
 its bound: the larger of the bytes it must move (a gather: the distinct
 units it selects) over 3.35 TB/s and its operations (K12: every copy of
 its product) over the named peak
@@ -348,10 +366,10 @@ KERNELS = {
                                 LIB_FLASH + ":1121"),
     "flash_attention_bwd_dq": (CSRC + "flash_kernels.cu",
                                LIB_FLASH + ":1456"),
-    # no Pallas kernel: the JAX package's bf16 cast of store and query rows
-    # (XLA's convert), whose NaN bits K17 writes
-    "cast_bf16": (CSRC + "topk_kernels.cu",
-                  "better_search_rag_rust_tpu/ops/quantize.py:74"),
+    # no Pallas kernel: the JAX package's XLA fusion that normalizes and
+    # casts store rows (and, inside the jitted search, query rows)
+    "normalize_cast": (CSRC + "topk_kernels.cu",
+                       "better_search_rag_rust_tpu/store/device_store.py:62"),
 }
 #: the encoder's shape: batch, sequence, heads, head width
 B_ENC, S_ENC, H_ENC, HD_ENC = 256, 512, 12, 64
@@ -2496,12 +2514,8 @@ def check_exactness_sweep(seed, card, dtype):
 
     from better_search_rag_rust_tpu_torch.config import SearchConfig
     from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
-    from better_search_rag_rust_tpu_torch.ops.distance import normalize_rows
     from better_search_rag_rust_tpu_torch.ops.engine import SearchEngine
-    from better_search_rag_rust_tpu_torch.ops.quantize import (
-        INT8_INV_SCALE2,
-        cast_rows_to,
-    )
+    from better_search_rag_rust_tpu_torch.ops.quantize import INT8_INV_SCALE2
     from better_search_rag_rust_tpu_torch.store import DeviceStore
 
     totals = {"configs": 0, "not_feasible": 0, "bounded_pairs": 0,
@@ -2515,7 +2529,7 @@ def check_exactness_sweep(seed, card, dtype):
             name.encode(), digest_size=4).digest(), "little")
         queries = mat[np.random.default_rng(qseed).integers(0, n, SWEEP_Q)]
         q_dev = torch.from_numpy(queries).cuda()
-        qc = cast_rows_to(normalize_rows(q_dev), store.dtype).contiguous()
+        qc = tk.normalize_cast(q_dev, store.dtype)
         oracle = SearchEngine(store, SearchConfig(kernel="global"))
         configs = pairs = 0
         store_worst = 0.0
@@ -3620,14 +3634,11 @@ def _nan_bits(dtype, sign):
 
 def check_nonfinite_search(seed, gen, card, device="cuda", rows=1_000_000):
     """Phase 28: non-finite search on the card (module docstring, item 28).
-    Returns K17's error against its plain version and its timing record.
     ``device`` and ``rows`` (with :data:`NAN_STORE_ROWS` inside them)
     rehearse it on the CPU, where every wrapper runs its plain version and
     nothing launches (the launch check then fails)."""
     from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
-    from better_search_rag_rust_tpu_torch.ops.distance import normalize_rows
     from better_search_rag_rust_tpu_torch.ops.engine import SearchEngine
-    from better_search_rag_rust_tpu_torch.ops.quantize import cast_rows_to
     from better_search_rag_rust_tpu_torch.store import DeviceStore
 
     t0 = time.perf_counter()
@@ -3672,8 +3683,8 @@ def check_nonfinite_search(seed, gen, card, device="cuda", rows=1_000_000):
                     if store.dtype == torch.int8:  # the lattice's NaN row
                         nan_row = torch.full((1, 768), float("nan"),
                                              device=device)
-                        store.data[r] = cast_rows_to(normalize_rows(nan_row),
-                                                     torch.int8)[0]
+                        store.data[r] = tk.normalize_cast(nan_row,
+                                                          torch.int8)[0]
                     else:
                         ints, bits = _nan_bits(store.dtype, sign)
                         store.data[r].view(ints).fill_(bits)
@@ -3723,24 +3734,213 @@ def check_nonfinite_search(seed, gen, card, device="cuda", rows=1_000_000):
               f"({time.perf_counter() - t1:.1f}s)")
     phase(f"phase 28 kernel launches over the routes: {launches}")
     assert all(launches.values()), launches
-    # K17 on a query batch: NaNs of both signs and payloads, infinities
-    q = torch.randn((1024, 768), generator=gen, device=device)
-    bits = q.view(torch.int32)
-    bits[3, ::5], bits[4, ::7] = 0x7FC00000, 0xFFC00000 - (1 << 32)
-    bits[5, ::3], bits[6, :2] = 0x7F800001, 0x7F800000
-    got = tk.cast_bf16(q)
-    want = tk.cast_bf16_plain(q)
-    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
-    err = max_abs(got.float().nan_to_num(), want.float().nan_to_num())
-    rec = timing(cuda_ms(lambda: tk.cast_bf16(q), 50),
-                 cuda_ms(lambda: tk.cast_bf16_plain(q), 50),
-                 cuda_ms(lambda: q.to(torch.bfloat16), 50),
-                 q.numel() * (4 + 2), 0, "fp32 SIMT")
-    phase(f"phase 28 [{card}] K17 on 1024 x 768 queries (NaN of both signs, "
-          f"+-inf), bit for bit its plain version: " + timing_line(
-              "cast_bf16", rec) + " (library: torch's own cast, which writes "
-          "other NaN bits)")
-    return err, rec
+
+
+#: phase 29: K17's shapes, a query batch and one store block
+#: (``store/device_store.py:_BUILD_ROWS``), and its launches per timing
+K17_SHAPES = ((1024, 768), (131_072, 768))
+K17_QUEUED = 200
+K17_DTYPES = (torch.bfloat16, torch.int8, torch.float32)
+K17_INTS = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.int8: torch.int8}
+
+
+def queued_ms(fn, n: int = K17_QUEUED) -> float:
+    """Device time of one call of ``fn`` alone (CUDA events): ``n`` calls
+    queued behind a sleep kernel, so that the card runs them back to back
+    whatever the host's pace; the sleep grows until the host has queued all
+    ``n`` before the card reaches the start event."""
+    fn()
+    torch.cuda.synchronize()
+    for cycles in (50_000_000, 400_000_000, 3_200_000_000):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / n
+    raise AssertionError("the host could not queue the launches ahead")
+
+
+#: the aten ops a caller of K17 may dispatch on the card: an allocation and
+#: a view, no arithmetic
+K17_CALLER_OPS = {"aten.empty", "aten.slice"}
+
+
+def k17_profile(fn, n: int, tries: int = 3):
+    """torch.profiler over ``n`` calls of ``fn``, after a warm-up cycle of
+    ``n`` calls that it does not record: the mean device ms of the K17
+    kernels it recorded, how many it recorded, and every other kernel and
+    aten op with device time that it saw. Without the warm-up cycle the
+    profiler recorded only some of the kernels, or none, late in a long
+    process; the mean is over those it recorded, a run that recorded no K17
+    kernel is made again, up to ``tries`` times, and the caller asserts
+    that one was recorded before it reads "no other kernel" as evidence."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(tries):
+        traces = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: traces.append(p.key_averages())
+                     ) as prof:
+            for _step in range(2):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        us = count = 0
+        others = []
+        for evt in traces[0] if traces else ():
+            t = getattr(evt, "self_device_time_total",
+                        getattr(evt, "self_cuda_time_total", 0))
+            if evt.key.startswith("ProfilerStep"):
+                continue  # the schedule's own step marks, on both timelines
+            if str(evt.device_type).endswith("CUDA"):
+                if "k17_normalize_cast" in evt.key:
+                    us, count = us + t, count + evt.count
+                else:
+                    others.append(evt.key)
+            elif evt.key.startswith("aten::") and t:
+                others.append(evt.key)
+        if count:
+            return us / 1e3 / count, count, others
+    return None, 0, others
+
+
+def dispatched_ops(fn) -> set:
+    """Every aten op one call of ``fn`` dispatches (a TorchDispatchMode log,
+    which sees each op whatever the profiler records)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ops = set()
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.add(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    with Log():
+        fn()
+    return ops
+
+
+def check_normalize_cast(gen, card):
+    """Phase 29: K17 (module docstring, item 29). Returns its error against
+    its plain version and the timing record of the main path's query batch
+    (1024 x 768 to bf16)."""
+    import torch.nn.functional as F
+
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+    from better_search_rag_rust_tpu_torch.ops.distance import normalize_rows
+    from better_search_rag_rust_tpu_torch.ops.engine import SearchEngine
+    from better_search_rag_rust_tpu_torch.ops.quantize import cast_rows_to
+    from better_search_rag_rust_tpu_torch.store import DeviceStore
+
+    err, recs = 0.0, {}
+    for rows, d in K17_SHAPES:
+        x = torch.randn((rows, d), generator=gen, device="cuda")
+        bits = x.view(torch.int32)
+        bits[3, ::5], bits[4, ::7] = 0x7FC00000, 0xFFC00000 - (1 << 32)
+        bits[5, ::3], bits[6, :2] = 0x7F800001, 0x7F800000
+        x[7] = 0.0
+        x[8] *= 1e20   # the sum of squares overflows
+        finite = x[7:4096].cpu()
+        for dtype in K17_DTYPES:
+            ints = K17_INTS[dtype]
+            got = tk.normalize_cast(x, dtype)
+            want = tk.normalize_cast_plain(x, dtype)
+            assert torch.equal(got.view(ints), want.view(ints)), (rows, dtype)
+            assert torch.equal(got[7:4096].view(ints).cpu(), tk.normalize_cast_plain(
+                finite, dtype).view(ints)), (rows, dtype)
+            err = max(err, max_abs(got.float().nan_to_num(),
+                                   want.float().nan_to_num()))
+            # ms: as called, the method of every kernel's ms (cuda_ms)
+            rec = timing(cuda_ms(lambda: tk.normalize_cast(x, dtype),
+                                 K17_QUEUED),
+                         cuda_ms(lambda: tk.normalize_cast_plain(x, dtype), 20),
+                         None, x.numel() * (4 + got.element_size()),
+                         3 * x.numel(), "fp32 SIMT")
+            rec["device_alone_ms"] = queued_ms(
+                lambda: tk.normalize_cast(x, dtype))
+            rec["profiler_ms"], recorded, _ = k17_profile(
+                lambda: tk.normalize_cast(x, dtype), 50)
+            rec["chain_ms"] = cuda_ms(
+                lambda: cast_rows_to(normalize_rows(x), dtype), 20)
+            rec["yardstick_ms"] = cuda_ms(
+                lambda: F.normalize(x, dim=-1).to(dtype), 20)
+            prof = rec["profiler_ms"]
+            phase(f"phase 29 [{card}] K17 {rows} x {d} f32 -> "
+                  f"{str(dtype).split('.')[-1]}, bit for bit its plain version "
+                  f"(NaN rows of each sign, +-inf, a zero row, an overflowing "
+                  f"row; finite rows also the CPU plain version's): device "
+                  f"alone {rec['device_alone_ms']:.5f} ms ({K17_QUEUED} "
+                  f"queued launches), profiler "
+                  f"{'not measured' if prof is None else f'{prof:.5f} ms'} "
+                  f"({recorded} of 50 launches recorded), as called "
+                  f"{rec['ms']:.5f} ms, bound "
+                  f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}), plain "
+                  f"{rec['plain_ms']:.5f} ms, the parent's chain "
+                  f"cast_rows_to(normalize_rows(x)) {rec['chain_ms']:.5f} ms, "
+                  f"yardstick F.normalize(x).to(dtype) (another function: "
+                  f"its epsilon, its NaN bits) {rec['yardstick_ms']:.5f} ms")
+            recs[(rows, dtype)] = rec
+        # the same kernel with normalization off: the bf16 cast alone
+        # (cast_rows_to on the card) keeps each NaN's sign and payload rule
+        got = tk.normalize_cast(x, torch.bfloat16, normalize=False)
+        want = tk.normalize_cast_plain(x, torch.bfloat16, normalize=False)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16)), rows
+        assert torch.equal(got[:4096].view(torch.int16).cpu(),
+                           tk.normalize_cast_plain(
+                               x[:4096].cpu(), torch.bfloat16,
+                               normalize=False).view(torch.int16)), rows
+        err = max(err, max_abs(got.float().nan_to_num(),
+                               want.float().nan_to_num()))
+        cast = timing(cuda_ms(lambda: tk.normalize_cast(
+                          x, torch.bfloat16, normalize=False), K17_QUEUED),
+                      cuda_ms(lambda: tk.normalize_cast_plain(
+                          x, torch.bfloat16, normalize=False), 20),
+                      cuda_ms(lambda: x.to(torch.bfloat16), K17_QUEUED),
+                      x.numel() * (4 + 2), 0, "fp32 SIMT")
+        phase(f"phase 29 [{card}] K17 with normalization off (the bf16 cast "
+              f"alone) on {rows} x {d} (NaN of both signs and payloads, "
+              f"+-inf), bit for bit its plain version on the card and, on "
+              f"4,096 rows, on the CPU: " + timing_line(
+                  "normalize_cast(normalize=False)", cast) + " (library: "
+              "torch's own cast, which writes other NaN bits)")
+        del x, finite, got, want
+    # the main path's two callers: one launch, no torch normalization
+    for dtype in K17_DTYPES:
+        store = DeviceStore.synthetic(4096, 768, dtype, 0, device="cuda")
+        eng = SearchEngine(store)
+        q = torch.randn((1024, 768), generator=gen, device="cuda")
+        block = torch.randn((K17_SHAPES[1][0], 768), generator=gen,
+                            device="cuda")
+        data = torch.empty((K17_SHAPES[1][0], 768), dtype=dtype, device="cuda")
+        for what, fn in (("query prep", lambda: eng._cast_queries(q)),
+                         ("store block fill",
+                          lambda: DeviceStore._fill(data, 0, block))):
+            fn()
+            before = tk.launch_counts["normalize_cast"]
+            ops = dispatched_ops(fn)
+            launched = tk.launch_counts["normalize_cast"] - before
+            _ms, recorded, others = k17_profile(fn, 20)
+            assert (launched == 1 and ops <= K17_CALLER_OPS and recorded
+                    and not others), (what, dtype, launched, ops, recorded,
+                                      others)
+            phase(f"phase 29 {what} on {str(dtype).split('.')[-1]}: "
+                  f"{launched} K17 launch a call, aten ops dispatched "
+                  f"{sorted(ops)} (no arithmetic); the profiler over 20 "
+                  f"calls after 20 unrecorded: {recorded} K17 kernels "
+                  f"recorded, no other kernel and no aten op on the card")
+        del store, eng, q, block, data
+    torch.cuda.empty_cache()
+    return err, recs[(K17_SHAPES[0][0], torch.bfloat16)]
 
 
 def main() -> int:
@@ -3799,7 +3999,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {name: tk.launch_counts[name] for name in
                 ("matmul_blockmax2_only", "gather_rescore", "matmul_blockmax",
-                 "cast_bf16")}
+                 "normalize_cast")}
     phase(f"phase 4 kernel launches over the main path: {launches}")
     assert all(v > 0 for v in launches.values()), launches
     check_f32_rescore_pass(store_f32, gen, card)
@@ -3826,8 +4026,9 @@ def main() -> int:
         run_tree_phases(args, gen, card, tree, cfg, errs, times, launches)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
-    errs["cast_bf16"], times["cast_bf16"] = check_nonfinite_search(
-        args.seed, gen, card)
+    check_nonfinite_search(args.seed, gen, card)
+    errs["normalize_cast"], times["normalize_cast"] = check_normalize_cast(
+        gen, card)
 
     print(card)
     print(json.dumps({"kernels": [
@@ -3838,7 +4039,8 @@ def main() -> int:
          "bound_ms": times[name]["bound_ms"],
          "bound_by": times[name]["bound_by"],
          "library_ms": times[name]["library_ms"],
-         "lib_ms": times[name]["library_ms"]}
+         "lib_ms": times[name]["library_ms"],
+         "device_alone_ms": times[name].get("device_alone_ms")}
         for name, (source, replaces) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1926,10 +1926,10 @@ def test_nan_pins_on_the_card(cuda, case, sign, dtype, kernel, argmax):
 @pytest.mark.parametrize("offset", [0, 1])  # 1: x off the 16-byte boundary
 @pytest.mark.parametrize("n", [1, 7, 16, 33, 4096, 1024 * 768])
 def test_k17_cast_is_its_plain_version_bitwise(cuda, n, offset):
-    """K17 writes the plain version's bf16 bits — ml_dtypes' NaN (0x7FC0 /
-    0xFFC0 by sign, any payload), round to nearest even elsewhere (+-inf,
-    overflow, subnormals, ties) — on its 16-byte path and its scalar one,
-    one launch a call."""
+    """K17 with normalization off (the bf16 cast alone) writes the plain
+    version's bf16 bits — ml_dtypes' NaN (0x7FC0 / 0xFFC0 by sign, any
+    payload), round to nearest even elsewhere (+-inf, overflow, subnormals,
+    ties) — on its 16-byte path and its scalar one, one launch a call."""
     g = torch.Generator(device=cuda)
     g.manual_seed(n)
     x = torch.randn(n + offset, generator=g, device=cuda)
@@ -1941,11 +1941,125 @@ def test_k17_cast_is_its_plain_version_bitwise(cuda, n, offset):
     bits[offset + 5::17] = 0x00000001   # the smallest subnormal
     bits[offset + 6::19] = 0x3F808000   # a tie: 1 + 2^-8, to even (1.0)
     v = x[offset:]
-    before = tk.launch_counts["cast_bf16"]
-    got = tk.cast_bf16(v)
-    assert tk.launch_counts["cast_bf16"] == before + 1
-    want = tk.cast_bf16_plain(v)
+    before = tk.launch_counts["normalize_cast"]
+    got = tk.normalize_cast(v, torch.bfloat16, normalize=False)
+    assert tk.launch_counts["normalize_cast"] == before + 1
+    want = tk.normalize_cast_plain(v, torch.bfloat16, normalize=False)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
-    assert torch.equal(got.view(torch.int16).cpu(),
-                       tk.cast_bf16_plain(v.cpu()).view(torch.int16))
+    assert torch.equal(got.view(torch.int16).cpu(), tk.normalize_cast_plain(
+        v.cpu(), torch.bfloat16, normalize=False).view(torch.int16))
+
+
+def _k17_rows(cuda, n, d, offset, seed=0):
+    """``[n, d]`` f32 rows on the card (``offset`` floats past an aligned
+    base: 1 takes K17's 4-byte path) with, where n allows, a zero row, a
+    subnormal row, a tiny row (squares subnormal), an overflowing row (sum
+    of squares inf), +inf, -inf and all-inf rows and NaN rows of each
+    sign; and the indices of the rows left finite."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed + n + d)
+    buf = torch.randn(n * d + offset, generator=g, device=cuda)
+    x = buf[offset:].view(n, d)
+    edits = [lambda r: r.zero_(), lambda r: r.mul_(1e-40),
+             lambda r: r.mul_(1e-21), lambda r: r.mul_(1e20),
+             lambda r: r[d // 2:d // 2 + 1].fill_(float("inf")),
+             lambda r: r[:1].fill_(-float("inf")),
+             lambda r: r.fill_(float("inf")),
+             lambda r: r.view(torch.int32)[-1:].fill_(0x7FC00000),
+             lambda r: r.view(torch.int32)[1:2].fill_(0xFFC00001 - (1 << 32)),
+             lambda r: r.view(torch.int32).fill_(0x7FC00000)]
+    rows = torch.randperm(n, generator=torch.Generator().manual_seed(n))
+    special = rows[:len(edits)].tolist() if n >= 2 * len(edits) else []
+    for r, edit in zip(special, edits):
+        edit(x[r])
+    nonfinite = set(special[4:])
+    return x, [r for r in range(n) if r not in nonfinite]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [32, 100, 768, 1024])
+@pytest.mark.parametrize("n", [1, 7, 1024, 131072])
+def test_k17_normalize_cast_is_its_plain_version_bitwise(cuda, n, d, offset,
+                                                         dtype):
+    """K17 is one launch a call and writes its plain version's bits on the
+    card, every row included (zero, subnormal, overflowing, infinite and
+    NaN rows; the card's NaN is canonical, so a NaN row's bits are the
+    plain version's on the same device), on the 16-byte path (offset 0,
+    D % 4 == 0) and the 4-byte one; its finite rows are also the CPU
+    plain version's bits (on up to 4,096 of them)."""
+    x, finite = _k17_rows(cuda, n, d, offset)
+    before = tk.launch_counts["normalize_cast"]
+    got = tk.normalize_cast(x, dtype)
+    assert tk.launch_counts["normalize_cast"] == before + 1
+    want = tk.normalize_cast_plain(x, dtype)
+    torch.cuda.synchronize()
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.int8: torch.int8}[dtype]
+    assert torch.equal(got.view(ints), want.view(ints))
+    rows = torch.tensor(finite[:4096], device=cuda)
+    cpu = tk.normalize_cast_plain(x[rows].cpu(), dtype)
+    assert torch.equal(got[rows].view(ints).cpu(), cpu.view(ints))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_k17_fills_the_store_in_place(cuda, dtype):
+    """``DeviceStore.from_host`` fills each block with one K17 launch,
+    written into the store: its rows are the CPU store's bits."""
+    import better_search_rag_rust_tpu_torch.store.device_store as ds
+
+    mat = np.random.default_rng(4).standard_normal((3000, 100)).astype(
+        np.float32)
+    before = tk.launch_counts["normalize_cast"]
+    old = ds._BUILD_ROWS
+    ds._BUILD_ROWS = 1024
+    try:
+        store = DeviceStore.from_host(mat, dtype, device=cuda)
+    finally:
+        ds._BUILD_ROWS = old
+    assert tk.launch_counts["normalize_cast"] == before + 3
+    cpu = DeviceStore.from_host(mat, dtype, device="cpu")
+    assert torch.equal(store.data.cpu(), cpu.data)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_k17_effective_queries_are_the_card_bits(cuda, dtype):
+    """``effective_queries`` (the plain version, on the CPU) equals the bits
+    the card's ``_cast_queries`` scores, on finite queries."""
+    rng = np.random.default_rng(5)
+    store = DeviceStore.from_host(
+        rng.standard_normal((4096, 768)).astype(np.float32), dtype,
+        device=cuda)
+    eng = SearchEngine(store)
+    qs = rng.standard_normal((300, 768)).astype(np.float32)
+    card = eng._cast_queries(torch.from_numpy(qs).to(cuda))
+    np.testing.assert_array_equal(
+        card.float().cpu().numpy().view(np.int32),
+        eng.effective_queries(qs).view(np.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_k17_query_prep_runs_no_torch_normalization(cuda, dtype):
+    """On the card ``_cast_queries`` is one K17 launch: it dispatches no
+    aten op but an allocation (so no ``aten::mul``, ``aten::sum``,
+    ``aten::div`` or ``aten::sqrt``), and the profiler, after a warm-up
+    cycle, records its kernel and no other kernel or aten op with device
+    time."""
+    import chip_smoke
+
+    store = DeviceStore.synthetic(4096, 768, dtype, 0, device=cuda)
+    eng = SearchEngine(store)
+    q = torch.randn((1024, 768), device=cuda)
+    ops = chip_smoke.dispatched_ops(lambda: eng._cast_queries(q))
+    assert ops == {"aten.empty"}
+    for op in ("aten.mul", "aten.sum", "aten.div", "aten.sqrt"):
+        assert op not in ops, (op, ops)
+    torch.cuda.synchronize()
+    before = tk.launch_counts["normalize_cast"]
+    eng._cast_queries(q)
+    assert tk.launch_counts["normalize_cast"] == before + 1
+    _ms, recorded, others = chip_smoke.k17_profile(
+        lambda: eng._cast_queries(q), 4)
+    assert recorded, "the profiler recorded no K17 kernel"
+    assert not others, others
