@@ -8,15 +8,29 @@ tree's, or a copy with one edit (a tile constant, a launch bound, the grid
 order) — or the name of a variant that this module writes from the tree's
 source into ``build/ab/`` (:data:`VARIANTS`: ``@mma_sync``, the int8 tile on
 ``mma.sync`` m16n8k32 (``i8_tile_mma_sync.cuh`` spliced in place of the
-shipped block); ``@noepi``, K1 and K10 without their int8 unit pass, which
-with the tree's build gives the epilogue's share of K1 int8; ``@scalar_st``,
-the int8 score tile written with K3's odd leading dimension, one 4-byte
-store at a time; ``@nosplit``, every int8 pass one lane per column;
-``@stages4``, a 4-slab ring, one block per SM; ``@noqload`` and
-``@nosload``, the int8 tile loading only the store's or only the queries'
-half of each slab — wrong scores, half the operand traffic: what the
-tile's time owes to its loads; the f32 tile's levers: ``@f32_nt256``,
-256 threads of 8 x 8 accumulators (16 FMAs per 16-byte shared load, 128
+shipped int8 block); ``@bf16_mma_sync``, the bf16 tile on ``mma.sync``
+m16n8k16 fed by ``ldmatrix`` from a ``cp.async`` ring, as shipped before the
+``wgmma`` tile (``bf16_tile_mma_sync.cuh`` in place of the shipped bf16
+block); ``@bf16_n64``, the bf16 wgmma tile on m64n64k16, two wgmmas a k16
+step; ``@bf16_n64_p4``, the same with four product fragments (three
+wgmmas running while one product is added); ``@bf16_one_product``, the
+bf16 wgmma tile with one product fragment, each product's adds after its
+wgmma instead of under the next;
+``@bf16_noadd``, the bf16 wgmma tile adding one element of each product
+instead of 64 — wrong scores: what the tile's time owes to the rule's adds;
+``@bf16_nomma``, the bf16 tile with no wgmma and no add (the ring, the
+barriers and the epilogue alone; scores 0); ``@bf16_phases``, the tree's
+bf16 tile timing its own prologue, k loop and drain with ``clock64``
+(printed after the bit-for-bit lines, :func:`phase_lines`);
+``@noepi``, K1 and K10 without their int8 unit pass, which with the tree's
+build gives the epilogue's share of K1 int8; ``@scalar_st``, the wgmma tile
+(int8 and bf16) writing st at K3's odd leading dimension, one 4-byte store
+at a time; ``@nosplit``, every int8 pass one lane per column;
+``@stages4``, the wgmma tile's 4-slab ring (int8: one block per SM);
+``@noqload`` and ``@nosload``, the wgmma tile loading only the store's or
+only the queries' half of each slab (TMA) — wrong scores, half the operand
+traffic: what the tile's time owes to its loads; the f32 tile's levers:
+``@f32_nt256``, 256 threads of 8 x 8 accumulators (16 FMAs per 16-byte shared load, 128
 registers a thread) instead of 128 threads of 8 x 16 (21 FMAs a load);
 ``@f32_nt256_one_block``, the same at one block per SM and up to 255
 registers; ``@f32_stages3``, a 3-slab ring; ``@f32_slab_branch``, every
@@ -46,7 +60,9 @@ between the two passes rather than as a difference between builds:
 * K1 ``matmul_blockmax2_only`` at 512 x 1,000,448 x 768, sub 64, argmax and
   block maxima (``search_1m``'s pass, and ``search_1m_f32``'s under
   ``rescore``), on bf16, f32 and the int8 lattice; f32 also at sub 8 with
-  block maxima at emit width 128 (the ``f32cert`` route's pass);
+  block maxima at emit width 128 (the ``f32cert`` route's pass); bf16 also
+  at sub 8 and 16 (P8/P9's and P1's), and K10 bf16 with the scores, unit
+  argmax and second max at sub 16 (P3/P11's outputs);
 * K3 ``matmul_blockmax`` at 256 x 100,352 x 768 (``search_100k``'s tile),
   bf16, f32 and int8; K5 at K1's shape, bf16 and f32;
 * the int8 lattice at 1M x 768: K3 at 256 x 1,000,448 (the oracle's tile),
@@ -70,8 +86,9 @@ with every build's two times (``--only`` keeps the cases whose label holds
 one of its values; it may be given more than once). Then each case's
 outputs of every build against the first build's, bit for bit (an int8
 score is an exact integer dot, an f32 score one FMA chain in a fixed order
-and a bf16 score one ``mma.sync`` per k16 step in a fixed order, so every
-build that keeps the rules must agree); for each build, the error of K3's bf16
+and a bf16 score one k16 product per step, ``wgmma`` or ``mma.sync``, added
+in a fixed order, so every build that keeps the rules must agree); for each
+build, the error of K3's bf16
 scores (256 x 100,352 x 768) against the float64 product of the same
 operands, on unit queries (the search path's) and on raw normal queries
 (the prototypes' data, whose scores run to ~5): max and mean, and the max
@@ -109,14 +126,16 @@ R10, N10, D10 = 10_158_080, 10_000_000, 256
 T = 512
 CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 TREE_SOURCE = _build.SOURCES["topk"][0]
-BLOCK_BEGIN = "// ==== int8 score tile: begin"
-BLOCK_END = "// ==== int8 score tile: end ====\n"
+HERE = Path(__file__).parent
 
 
-def _splice(src: str, block: str) -> str:
-    """``src`` with its int8 score-tile block replaced by ``block``."""
-    a = src.index(BLOCK_BEGIN)
-    b = src.index(BLOCK_END) + len(BLOCK_END)
+def _splice(src: str, block: str, dtype: str = "int8") -> str:
+    """``src`` with its ``dtype`` (int8 or bf16) score-tile block, between
+    its begin and end markers, replaced by ``block``."""
+    begin = f"// ==== {dtype} score tile: begin"
+    end = f"// ==== {dtype} score tile: end ====\n"
+    a = src.index(begin)
+    b = src.index(end) + len(end)
     return src[:a] + block + src[b:]
 
 
@@ -126,11 +145,11 @@ def _edit(src: str, old: str, new: str) -> str:
     return src.replace(old, new)
 
 
-#: The int8 tile's two TMA loads of a slab (the store's, the queries').
+#: The wgmma tile's two TMA loads of a slab (the store's, the queries').
 _TMA_LOADS = """\
-          mbar_expect_tx(&full[stage], I8_STAGE_BYTES);
-          tma_load_2d(rs, &maps.shard, s * I8_SLAB, row0, &full[stage]);
-          tma_load_2d(qs, &maps.q, s * I8_SLAB, q0, &full[stage]);"""
+          mbar_expect_tx(&full[stage], WG_STAGE_BYTES);
+          tma_load_2d(rs, &maps.shard, s * F, row0, &full[stage]);
+          tma_load_2d(qs, &maps.q, s * F, q0, &full[stage]);"""
 
 def _f32_nt256(src: str) -> str:
     """The f32 tile at 256 threads of 8 x 8 accumulators (two warps side by
@@ -188,25 +207,81 @@ _F32_QREG = """\
                                      rv[(F32_QG * h + j) % MR][2], rv[j][3]);"""
 
 
+def _bf16_phases(src: str) -> str:
+    """The bf16 tile with each block's consumer thread 0 reading clock64 at
+    the tile's start, when its first slab has landed, at the end of its k
+    loop and at the tile's end, summed over the blocks into a device array
+    that ``bsr_tile_phases`` reads (and zeroes): the tile's prologue, k loop
+    and drain in SM cycles (:func:`phase_lines`)."""
+    src = _edit(src, "template <typename T, bool RAW, int LD>\n"
+                "__device__ __forceinline__ void score_tile_wg(",
+                "__device__ unsigned long long g_phase[4];\n\n"
+                "template <typename T, bool RAW, int LD>\n"
+                "__device__ __forceinline__ void score_tile_wg(")
+    src = _edit(src, "  const int tid = threadIdx.x, warp = warp_index(), lane = tid & 31;\n",
+                "  const int tid = threadIdx.x, warp = warp_index(), lane = tid & 31;\n"
+                "  long long ph0 = clock64(), ph1 = 0, ph2 = 0;\n")
+    src = _edit(src, "      mbar_wait(&full[stage], (s / WG_STAGES) & 1);\n",
+                "      mbar_wait(&full[stage], (s / WG_STAGES) & 1);\n"
+                "      if (s == 0) ph1 = clock64();\n")
+    src = _edit(src, '    asm volatile("bar.sync 1, %0;\\n" ::"n"(WG_CONSUMERS) : "memory");\n',
+                '    ph2 = clock64();\n'
+                '    asm volatile("bar.sync 1, %0;\\n" ::"n"(WG_CONSUMERS) : "memory");\n')
+    src = _edit(src, "    if constexpr (BF) setmaxnreg_dec<BF16_LAUNCH_REGS>();  // the scores are in st\n"
+                "  }\n  __syncthreads();\n}\n",
+                "    if constexpr (BF) setmaxnreg_dec<BF16_LAUNCH_REGS>();  // the scores are in st\n"
+                "  }\n  __syncthreads();\n"
+                "  if (BF && tid == 0) {\n"
+                "    const long long ph3 = clock64();\n"
+                "    atomicAdd(&g_phase[0], (unsigned long long)(ph1 - ph0));\n"
+                "    atomicAdd(&g_phase[1], (unsigned long long)(ph2 - ph1));\n"
+                "    atomicAdd(&g_phase[2], (unsigned long long)(ph3 - ph2));\n"
+                "    atomicAdd(&g_phase[3], 1ull);\n"
+                "  }\n}\n")
+    return _edit(src, "const char* bsr_error_string(int err) {",
+                 "int bsr_tile_phases(unsigned long long* out) {\n"
+                 "  cudaMemcpyFromSymbol(out, g_phase, sizeof g_phase);\n"
+                 "  const unsigned long long zero[4] = {0, 0, 0, 0};\n"
+                 "  cudaMemcpyToSymbol(g_phase, zero, sizeof zero);\n"
+                 "  return (int)cudaGetLastError();\n"
+                 "}\n\n"
+                 "const char* bsr_error_string(int err) {")
+
+
 #: Variant name -> its source from the tree's source text (module
 #: docstring).
 VARIANTS = {
-    "mma_sync": lambda src: _splice(
-        src, (Path(__file__).parent / "i8_tile_mma_sync.cuh").read_text()),
+    "mma_sync": lambda src: _splice(src, (HERE / "i8_tile_mma_sync.cuh").read_text()),
+    "bf16_mma_sync": lambda src: _splice(
+        src, (HERE / "bf16_tile_mma_sync.cuh").read_text(), "bf16"),
+    "bf16_n64": lambda src: _edit(src, "constexpr int BF16_N = 128;",
+                                  "constexpr int BF16_N = 64;"),
+    "bf16_n64_p4": lambda src: _edit(_edit(src, "constexpr int BF16_N = 128;",
+                                           "constexpr int BF16_N = 64;"),
+                                     "constexpr int BF16_PRODUCTS = 2;",
+                                     "constexpr int BF16_PRODUCTS = 4;"),
+    "bf16_one_product": lambda src: _edit(src, "constexpr int BF16_PRODUCTS = 2;",
+                                          "constexpr int BF16_PRODUCTS = 1;"),
+    "bf16_phases": _bf16_phases,
+    "bf16_nomma": lambda src: _edit(
+        src, "for (int i = 0; i < LIVE + PROD - 1; ++i) {", "for (int i = 0; i < 0; ++i) {"),
+    "bf16_noadd": lambda src: _edit(
+        src, "      for (int e = 0; e < W; ++e)\n        acc[(j % NS) * W + e]",
+        "      for (int e = 0; e < 1; ++e)\n        acc[(j % NS) * W + e]"),
     "noepi": lambda src: _edit(
         src, "  const int n = ((TR / sub) * TQ) << LG;\n", "  const int n = 0;\n"),
-    "scalar_st": lambda src: _edit(src, "  static constexpr int ld = LDO_I8;",
-                                   "  static constexpr int ld = LDO;"),
+    "scalar_st": lambda src: _edit(src, "constexpr int WG_LD = LDO_I8;",
+                                   "constexpr int WG_LD = LDO;"),
     "nosplit": lambda src: _edit(
         src, "  return columns * 2 <= NTH;", "  return false;"),
-    "stages4": lambda src: _edit(src, "constexpr int I8_STAGES = 3;",
-                                 "constexpr int I8_STAGES = 4;"),
+    "stages4": lambda src: _edit(src, "constexpr int WG_STAGES = 3;",
+                                 "constexpr int WG_STAGES = 4;"),
     "noqload": lambda src: _edit(src, _TMA_LOADS, """\
-          mbar_expect_tx(&full[stage], TR * I8_SLAB);
-          tma_load_2d(rs, &maps.shard, s * I8_SLAB, row0, &full[stage]);"""),
+          mbar_expect_tx(&full[stage], TR * SLAB_BYTES);
+          tma_load_2d(rs, &maps.shard, s * F, row0, &full[stage]);"""),
     "nosload": lambda src: _edit(src, _TMA_LOADS, """\
-          mbar_expect_tx(&full[stage], TQ * I8_SLAB);
-          tma_load_2d(qs, &maps.q, s * I8_SLAB, q0, &full[stage]);"""),
+          mbar_expect_tx(&full[stage], TQ * SLAB_BYTES);
+          tma_load_2d(qs, &maps.q, s * F, q0, &full[stage]);"""),
     "f32_nt256": lambda src: _f32_nt256(src),
     "f32_nt256_one_block": lambda src: _edit(
         _f32_nt256(src), "constexpr int F32_MIN_BLOCKS = 2;",
@@ -258,9 +333,10 @@ def _entry_name(line: str) -> str:
 
 def build(paths, library="topk", out=OUT, entry=_score_tile_entry):
     """``{name: (ctypes library, ptxas lines of the entries for which
-    ``entry`` holds: the score-tile bodies)}``, one nvcc per source, all
-    started together into ``out``, bound with the C signatures of the
-    package's library ``library``."""
+    ``entry`` holds: the score-tile bodies, then the names of those whose
+    wgmmas ptxas serialized)}``, one nvcc per source, all started together
+    into ``out``, bound with the C signatures of the package's library
+    ``library`` (an entry point an older source lacks is left unbound)."""
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, path in enumerate(paths):
@@ -281,8 +357,13 @@ def build(paths, library="topk", out=OUT, entry=_score_tile_entry):
                   + "; ".join(x.split(":", 1)[-1].strip()[:60] for x in lines[i + 2:i + 4])
                   for i, ln in enumerate(lines)
                   if "Compiling entry" in ln and entry(ln)]
+        serialized = sorted({_entry_name(f" '{ln.split(chr(39))[-2]}'")
+                             for ln in lines if "serialized" in ln and chr(39) in ln})
+        report.append("wgmma serialized in: " + (", ".join(serialized) or "none"))
         lib = ctypes.CDLL(str(lib_path))
         for fn, (restype, argtypes) in _build.SOURCES[library][1].items():
+            if not hasattr(lib, fn):
+                continue
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
         libs[name] = (lib, report)
@@ -355,6 +436,16 @@ def cases(seed):
             scale, None, bms.data_ptr(), None, None, raw.data_ptr(), None, stream()),
             iters, (bms, raw))
 
+    def k10_bf16(q, m, valid, sub, iters):
+        r = m.shape[0]
+        sims = empty(r, q.shape[0])
+        bms, m2 = empty(r // sub, q.shape[0]), empty(r // sub, q.shape[0])
+        arg = empty(r // sub, q.shape[0], dtype=torch.int32)
+        return (lambda lib: lib.bsr_matmul_blockmax2x(
+            q.data_ptr(), m.data_ptr(), 1, q.shape[0], r, m.shape[1], valid, sub, 0, 0,
+            1.0, sims.data_ptr(), bms.data_ptr(), arg.data_ptr(), m2.data_ptr(), None,
+            None, stream()), iters, (sims, bms, arg, m2))
+
     for dt in (torch.bfloat16, torch.float32, torch.int8):
         if dt == torch.int8:
             q, m = (qf * 127).round().to(dt), (mf * 127).round().to(dt)
@@ -365,6 +456,10 @@ def cases(seed):
         if dt == torch.float32:
             out["K1 float32 sub 8, ew 128"] = k1(q, m, R1, N1, 8, 128, 128, 3,
                                                  argmax=False)
+        if dt == torch.bfloat16:
+            for sub in (8, 16):
+                out[f"K1 bfloat16 sub {sub}"] = k1(q, m, R1, N1, sub, 128, 128, 3)
+            out["K10 bfloat16 sims + arg + m2, sub 16"] = k10_bf16(q, m, N1, 16, 2)
         ids = _ids(gen, dev, R1 // 64, 100)
         for ks in (100, 4):
             k2_ids = ids[:, :ks].contiguous()
@@ -552,6 +647,31 @@ def route_rates(libs, seed, iters=3):
             for label, by in rates.items()]
 
 
+def phase_lines(libs, work):
+    """For each build with ``bsr_tile_phases`` (``@bf16_phases``): the bf16
+    tile's prologue (tile start to the first slab landed), k loop and drain
+    (to the tile's end), SM cycles per tile, in one launch of each bf16 K1,
+    K3 and K5 case."""
+    lines = []
+    for name, (lib, _report) in libs.items():
+        if not hasattr(lib, "bsr_tile_phases"):
+            continue
+        lib.bsr_tile_phases.argtypes = [ctypes.c_void_p]
+        out = (ctypes.c_ulonglong * 4)()
+        for label, (fn, _iters, _outs) in work.items():
+            if "bfloat16" not in label or not label.startswith(("K1", "K3", "K5")):
+                continue
+            torch.cuda.synchronize()
+            lib.bsr_tile_phases(ctypes.addressof(out))
+            fn(lib)
+            torch.cuda.synchronize()
+            lib.bsr_tile_phases(ctypes.addressof(out))
+            n = max(out[3], 1)
+            lines.append(f"tile phases {name} {label}: {out[3]} tiles; cycles a tile: prologue "
+                         f"{out[0] / n:.0f}, k loop {out[1] / n:.0f}, drain {out[2] / n:.0f}")
+    return lines
+
+
 def device_ms(fn, iters):
     if fn():
         raise RuntimeError("a kernel launch failed")
@@ -608,6 +728,8 @@ def main(argv=None) -> int:
         print(f"K1 int8 epilogue (unit pass) share: {share[2]:.3f} "
               f"({share[0]:.4f} ms with it, {share[1]:.4f} without)", flush=True)
     for line in same_outputs(libs, work):
+        print(line, flush=True)
+    for line in phase_lines(libs, work):
         print(line, flush=True)
     for line in score_errors(libs, args.seed):
         print(line, flush=True)

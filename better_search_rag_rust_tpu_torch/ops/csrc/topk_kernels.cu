@@ -41,22 +41,29 @@
 // (topk_pallas.py:47-66, _sims_dot). There is no split-K anywhere.
 //
 // BF16 STORES: the tensor cores. Every score starts at +0.0 and advances over
-// D in 16-feature steps d0 = 0, 16, 32, ... in increasing order: one
-//     mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
-// per step from a +0.0 accumulator, then score = __fadd_rn(score, that sum)
-// (mma_k16() below, the only code that advances a bf16 score), store rows in
-// A, queries in B, feature d0 + j in k slot j; a ragged last step is
-// zero-padded in both operands, and no step lies wholly past D. Each element
-// of an mma result depends only on its own row of A and its own column of B
-// (and the +0.0 it starts from), so how a kernel tiles rows, queries or D,
-// and what sits in the other rows and columns of the instruction, cannot
-// change a pair's bits: K1/K3/K5/K10/K12's product stage bf16 slabs and load
-// fragments with ldmatrix (score_tile<__nv_bfloat16>), and K2/K6 from their
-// own bf16 row slabs the same way (gather_scores), K12's gather/K13 build them
-// from their widened staging (mma_staged(), exact: the values were bf16),
-// the same k slots either way. The sum of 16 products inside the
-// instruction is not a chain of rounded FMAs and may truncate; the adds round
-// to nearest. The score's error against the exact product of the same bf16
+// D in 16-feature steps d0 = 0, 16, 32, ... in increasing order: the step's
+// sum of 16 products from nothing, then score = __fadd_rn(score, that sum),
+// store rows in A, queries in B, feature d0 + j in k slot j; a ragged last
+// step is zero-padded in both operands, and no step lies wholly past D. The
+// step's sum comes from one of two instructions, which give the same f32
+// bits (the probe below, k_probe_bf16_k16: bit for bit on every cell of
+// unit, normal, cancelling and mixed-exponent rows and of random bit
+// patterns with subnormals, +-inf and NaN; PERF.md):
+//     wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16, scale-d = 0
+// in K1/K3/K5/K10's score tile and K12's product (score_tile_wg on bf16,
+// bf16_slab(): slabs written by TMA in the 128-byte swizzle, operands read
+// through shared-memory descriptors), and
+//     mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 from +0.0
+// (mma_k16()) in K2/K6 (gather_scores: A fragments by ldmatrix from their
+// own bf16 row slabs) and K12's gather/K13 (mma_staged(): fragments built
+// from their widened staging, exact: the values were bf16). bf16_slab() and
+// mma_k16() are the only code that advances a bf16 score. Each element of
+// either result depends only on its own row of A and its own column of B,
+// so how a kernel tiles rows, queries or D, and what sits in the other rows
+// and columns of the instruction, cannot change a pair's bits. The sum of 16
+// products inside the instruction is not a chain of rounded FMAs and may
+// truncate (it differs from the float64 sum rounded once on 8-24 % of the
+// probe's cells); the adds round to nearest. The score's error against the exact product of the same bf16
 // operands is at most D * 2^-23 * sum_d |row_d q_d| (twice f32's round-off of
 // D terms; ops/topk_kernels.py:score_bound, which chip_smoke.py and the gpu
 // tests hold every kernel to).
@@ -135,8 +142,8 @@ constexpr float PAD_SIM = -3.0f;
 // f32(1) / f32(127 * 127), bitwise ops/quantize.py's INT8_INV_SCALE2.
 constexpr uint32_t INT8_INV_SCALE2_BITS = 0x38820610u;
 
-// Score tile of K1/K3: TR store rows x TQ queries per block, NT threads
-// (int8: NT_I8, see score_tile_i8).
+// Score tile of K1/K3/K5/K10: TR store rows x TQ queries per block (threads:
+// Tile<T>::threads). NT: the candidate slots of one K12 gather item.
 constexpr int TR = 128;
 constexpr int TQ = 128;
 constexpr int NT = 256;
@@ -173,33 +180,19 @@ constexpr int F32_QG = 4;
 constexpr int F32_PAD = 16;
 constexpr int F32_MIN_BLOCKS = 2;  // launch bound: 2 x 128 threads, up to 255 registers each
 constexpr int F32_SLAB = TR * F32_SLD;  // floats of one operand's slab
+// The f32 score tile st [TR][LDO] and the f32 ring (Tile<float>::smem).
+constexpr size_t ST_BYTES = sizeof(float) * (size_t)TR * LDO;
+constexpr size_t F32_RING_BYTES = sizeof(float) * (size_t)F32_STAGES * 2 * F32_SLAB;
 static_assert(MR * F32_RSTEP == F32_ROWS_W && MQ * F32_LQ == F32_QUERIES_W,
               "the micro-tiles cover each warp's tile");
 static_assert(F32_SLD % 8 == 4 && F32_SK % 4 == 0 && F32_PAD % 4 == 0 &&
                   MQ % F32_QG == 0 && F32_STAGES >= 2,
               "f32 slab geometry");
-// The int8 tile's, where the epilogue reads st only along rows (K1, K5,
-// K10): LDO_I8 = 8 (mod 32) makes each warp's 8-byte stores of its
+// The wgmma tile's (WG_LD), where the epilogue reads st only along rows
+// (K1, K5, K10): LDO_I8 = 8 (mod 32) makes each warp's 8-byte stores of its
 // accumulator pairs free of bank conflicts (the odd LDO is 4-way
 // conflicted for that layout, and K3's transposed read needs it odd).
 constexpr int LDO_I8 = TQ + 8;
-// bf16: WM x WN warps, each a (TR / WM) x (TQ / WN) tile of MT x NQ8 mma
-// fragments (64 f32 accumulators a thread); D staged SK features at a time,
-// row-major bf16, in an NSTAGE ring of cp.async slabs whose rows are padded
-// to SLD (144 bytes: the 8 rows of an ldmatrix fall in 8 disjoint bank
-// quarters, so it is free of bank conflicts). On the card (bench/ab_topk.py,
-// PERF.md) SK 64 x 2 stages beat SK 32 x 3, which spills at the 128-register
-// cap, and 2 CTAs per SM beat 1 with 255 registers; 4 x 2 and 2 x 4 warps
-// time alike.
-constexpr int WM = 4;
-constexpr int WN = 2;
-constexpr int MT = TR / WM / 16;
-constexpr int NQ8 = TQ / WN / 8;
-constexpr int SK = 64;
-constexpr int SLD = SK + 8;
-constexpr int NSTAGE = 2;
-constexpr int SLAB = TR * SLD;    // bf16 elements of one operand's slab
-static_assert(WM * WN * 32 == NT, "one warp per warp tile");
 
 // K2/K6 (gather_scores): one query x G_TILE candidate rows per block of
 // G_TILE threads; D through a ring of G_STAGES slabs of G_SB bytes of each of
@@ -305,13 +298,18 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat1
 // the largest error and 6x the mean error of this form on raw normal queries
 // (bench/ab_topk.py), and K13 left the plain version's 1e-5 on the
 // prototype's data (chip_smoke.py phase 22), for 20 % of K1's time.
-__device__ __forceinline__ void mma_k16(float (&c)[4], const uint32_t (&a)[4],
-                                        const uint32_t (&b)[2]) {
-  float p[4];
+__device__ __forceinline__ void mma_k16_product(float (&p)[4], const uint32_t (&a)[4],
+                                                const uint32_t (&b)[2]) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
       : "=f"(p[0]), "=f"(p[1]), "=f"(p[2]), "=f"(p[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
+}
+
+__device__ __forceinline__ void mma_k16(float (&c)[4], const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+  float p[4];
+  mma_k16_product(p, a, b);
 #pragma unroll
   for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], p[e]);
 }
@@ -327,8 +325,8 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // that K12's gather and K13 fill — against B's columns j < nq, query j's staged feature k at
 // qs[k * q_ld + j] (columns nq .. 7 zero), by the k16 steps of a chunk of dk
 // staged features whose first is feature d0, skipping steps at or past D as
-// score_tile<__nv_bfloat16> does. Staged feature d0 + kk + j sits in k slot j
-// of step d0 + kk, as in score_tile's ldmatrix fragments.
+// the score tile does. Staged feature d0 + kk + j sits in k slot j of step
+// d0 + kk, as in the score tile's and gather_scores' fragments.
 template <int M16>
 __device__ __forceinline__ void mma_staged(float (&acc)[M16][4], const float* rs, int r_ld,
                                            int rb, const float* qs, int q_ld, int nq,
@@ -514,125 +512,6 @@ __device__ __forceinline__ void score_tile<float>(const float* __restrict__ q,
   __syncthreads();
 }
 
-// The bf16 score tile, on the tensor cores; the same contract as above.
-// Bound: the 2*TR*TQ*D operations of the product at the bf16 tensor rate
-// against the operand bytes, 2*(TR + TQ)*D per tile: the product wins by far
-// (K1 at 512 queries of 1M x 768: 0.80 ms of operations, 0.24 of reading the
-// store once), so the tile keeps the tensor cores fed and the store streamed
-// once. Operands stay bf16: each thread copies 16-byte pieces of the next
-// slabs (SK features of the TR rows and TQ queries) with cp.async, NSTAGE - 1
-// slabs ahead of the one the warps multiply, so one barrier pair covers SK
-// features (the SIMT tile took two per 16) and the loads hide under the
-// mma.sync steps. Fragments come from ldmatrix; each warp multiplies a 32 x 64
-// tile, 16 mma.sync per k16 step. The ring (72 KB) becomes the f32 score
-// tile after the k loop, and K1/K3/K5/K10/K12 keep 2 CTAs per SM
-// (__launch_bounds__(NT, 2): at most 128 registers a thread, 64 of them
-// scores). A ragged D, or a row base that is not 16-byte aligned, stages
-// element by element into the same slabs with the same zero padding: the
-// same fragments, the same bits.
-template <>
-__device__ __forceinline__ void score_tile<__nv_bfloat16>(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ shard, int Tn,
-    int D, int valid_rows, int row0, int q0, float* smem) {
-  using bf16 = __nv_bfloat16;
-  bf16* ring = reinterpret_cast<bf16*>(smem);  // NSTAGE x {rows [TR][SLD], queries [TQ][SLD]}
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr = (warp / WN) * (TR / WM), wq = (warp % WN) * (TQ / WN);
-  const bool vec = (D & 7) == 0 &&
-      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(shard)) & 15) == 0;
-  const int slabs = (D + SK - 1) / SK;
-
-  auto stage = [&](int s) {
-    bf16* rs = ring + (s % NSTAGE) * 2 * SLAB;
-    bf16* qs = rs + SLAB;
-    const int d0 = s * SK;
-    if (vec) {
-      constexpr int CH = SK / 8;  // 16-byte pieces per slab row
-      for (int e = tid; e < TR * CH; e += NT) {
-        const int r = e / CH, gd = d0 + 8 * (e % CH), gq = q0 + r;
-        const bool in = gd < D, q_in = in && gq < Tn;  // D % 8 == 0: whole pieces
-        cp_async16_or_zero(rs + r * SLD + gd - d0, shard + (size_t)(row0 + r) * D + (in ? gd : 0),
-                           in);
-        cp_async16_or_zero(qs + r * SLD + gd - d0, q + (q_in ? (size_t)gq * D + gd : 0), q_in);
-      }
-    } else {
-      const bf16 zero = __float2bfloat16(0.0f);
-      for (int e = tid; e < TR * SK; e += NT) {
-        const int r = e / SK, dd = e % SK, gd = d0 + dd, gq = q0 + r;
-        rs[r * SLD + dd] = gd < D ? shard[(size_t)(row0 + r) * D + gd] : zero;
-        qs[r * SLD + dd] = (gd < D && gq < Tn) ? q[(size_t)gq * D + gd] : zero;
-      }
-    }
-  };
-
-  float acc[MT][NQ8][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NQ8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-  // ldmatrix row addresses of this lane: A rows wr + (lane & 15), features
-  // +8 for lanes 16-31; B (two n8 tiles per x4) queries (lane & 7) + 8 *
-  // (lane >> 4), features +8 for lanes 8-15 and 24-31.
-  const int a_off = (wr + (lane & 15)) * SLD + ((lane >> 4) << 3);
-  const int b_off = (wq + (lane & 7) + ((lane >> 4) << 3)) * SLD + (((lane >> 3) & 1) << 3);
-#pragma unroll
-  for (int s = 0; s < NSTAGE - 1; ++s) {
-    if (s < slabs) stage(s);
-    cp_async_commit();
-  }
-  for (int s = 0; s < slabs; ++s) {
-    if (s + NSTAGE - 1 < slabs) stage(s + NSTAGE - 1);  // the slot slab s-1 left
-    cp_async_commit();
-    cp_async_wait<NSTAGE - 1>();  // this thread's pieces of slab s have landed
-    __syncthreads();              // ... and every thread's
-    const bf16* rs = ring + (s % NSTAGE) * 2 * SLAB;
-    const bf16* qs = rs + SLAB;
-#pragma unroll
-    for (int kk = 0; kk < SK; kk += 16) {
-      if (s * SK + kk >= D) break;  // no step wholly past D
-      uint32_t b[NQ8][2];
-#pragma unroll
-      for (int p = 0; p < NQ8 / 2; ++p) {
-        uint32_t r4[4];
-        ldmatrix_x4(r4, qs + b_off + p * 16 * SLD + kk);
-        b[2 * p][0] = r4[0];
-        b[2 * p][1] = r4[1];
-        b[2 * p + 1][0] = r4[2];
-        b[2 * p + 1][1] = r4[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        uint32_t a[4];
-        ldmatrix_x4(a, rs + a_off + i * 16 * SLD + kk);
-#pragma unroll
-        for (int j = 0; j < NQ8; ++j) mma_k16(acc[i][j], a, b[j]);
-      }
-    }
-    __syncthreads();  // slab s's slot is refilled next iteration
-  }
-  cp_async_wait<0>();  // only empty groups are left; the ring becomes st
-
-  float* st = smem;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = wr + i * 16 + g + 8 * h;
-      const bool ok = row0 + r < valid_rows;
-#pragma unroll
-      for (int j = 0; j < NQ8; ++j) {
-        const int c = wq + j * 8 + 2 * t;
-        st[r * LDO + c] = ok ? acc[i][j][2 * h] : PAD_SIM;
-        st[r * LDO + c + 1] = ok ? acc[i][j][2 * h + 1] : PAD_SIM;
-      }
-    }
-  __syncthreads();
-}
-
 // ---- int8 lattice (see the header) ----
 
 // THE int8 score: one rounded multiply of the exact dot, by the lattice's
@@ -648,7 +527,7 @@ __device__ __forceinline__ float int8_score(int acc) {
 // K10's raw int8 key pads masked rows with this integer.
 constexpr int32_t PAD_ACC = -(1 << 24);  // below any dot at D <= 1040
 
-// ---- int8 on the tensor cores: wgmma fed by TMA ----
+// ---- int8 and bf16 on the tensor cores: wgmma fed by TMA ----
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
@@ -729,6 +608,54 @@ __device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da, u
       : "l"(da), "l"(db), "r"(1));
 }
 
+// The bf16 product of one k16 step (THE bf16 dot step's sum, on wgmma): d
+// (f32, 64 store rows x N queries over one warpgroup, the register map of
+// wgmma_s8_m64n128k32) = A (64 rows x 16 features) * B (16 features x N
+// queries), both K-major in shared memory, with scale-d = 0: d's old values
+// are not read, so each product starts from nothing, as mma_k16's from +0.0.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_k16(float (&d)[N / 2], uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_k16<128>(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      " %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      " %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
+      " %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
+      " %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_k16<64>(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      " %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      " %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -741,155 +668,309 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-// Keeps the compiler from moving accesses of the accumulators across the
-// asynchronous wgmma that owns them.
-__device__ __forceinline__ void fence_regs(int (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+// Wait until at most N committed wgmma groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// What a TMA box of the int8 tile carries: the tensor maps of the queries
-// [Tn, D] and the store [R, D] (box 128 rows x 128 bytes, 128-byte swizzle,
-// zero fill past either edge), or tma == 0 where TMA cannot read them (D %
-// 16 != 0 or a base that is not 16-byte aligned).
-struct I8Maps {
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous wgmma that owns them.
+template <typename V, int N>
+__device__ __forceinline__ void fence_regs(V (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if constexpr (std::is_same<V, float>::value)
+      asm volatile("" : "+f"(d[i])::"memory");
+    else
+      asm volatile("" : "+r"(d[i])::"memory");
+  }
+}
+
+// Bytes of one slab row of the wgmma tiles: one TMA box's width, the
+// 128-byte swizzle's row.
+constexpr int SLAB_BYTES = 128;
+
+// Rows [r0, r0 + rows) x features [d0, d0 + 128 / sizeof(T)) of a row-major
+// matrix m [n, D] into a slab as a 128-byte-swizzled TMA box lays it out
+// (row r's 16-byte chunk c at r * 128 + 16 * (c ^ (r & 7))), zeros at or
+// past n and D; thread `lane` of `threads`.
+template <typename T>
+__device__ __forceinline__ void stage_slab(uint8_t* slab, const T* __restrict__ m, int n, int D,
+                                           int r0, int d0, int lane, int threads = 32,
+                                           int rows = 128) {
+  constexpr int B = (int)sizeof(T), E = 16 / B;  // bytes of an element, elements of a chunk
+  using U = typename std::conditional<B == 1, uint8_t, uint16_t>::type;
+  const U* bits = reinterpret_cast<const U*>(m);
+  for (int e = lane; e < rows * 8; e += threads) {
+    const int r = e >> 3, c = e & 7, gr = r0 + r, gd = d0 + E * c;
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (gr < n) {
+#pragma unroll
+      for (int b = 0; b < E; ++b)
+        if (gd + b < D) w[b * B / 4] |= (uint32_t)bits[(size_t)gr * D + gd + b] << (8 * ((b * B) & 3));
+    }
+    *reinterpret_cast<uint4*>(slab + r * SLAB_BYTES + 16 * (c ^ (r & 7))) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// What the wgmma tile's TMA boxes carry: the tensor maps of the queries
+// [Tn, D] and the store [R, D] (boxes of 128 rows x SLAB_BYTES bytes, the
+// 128-byte swizzle, zero fill past either edge), or tma == 0 where TMA
+// cannot read them (a row's bytes not a multiple of 16, or a base that is
+// not 16-byte aligned).
+struct WgMaps {
   CUtensorMap q, shard;
   int tma;
 };
+struct NoMaps {};
 
-// ==== int8 score tile: begin (bench/ab_topk.py swaps this block) ====
-
-// score_tile for int8 operands: the same contract (st [TR][LD] f32 =
-// int8_score(acc, scale), rows at or past valid_rows PAD_SIM; RAW keeps the
-// exact int32 dots instead, masked rows PAD_ACC, for K10's integer key), on
-// the s8 tensor cores; LD is LDO or LDO_I8 (each thread's accumulator pairs
-// then go out as 8-byte stores). NT_I8 threads: two consumer warpgroups,
-// warpgroup w owning rows 64w .. 64w + 63 against all TQ queries (64 s32
-// accumulators a thread), and one producer warp that keeps a ring of
-// I8_STAGES slabs full: D in slabs of I8_SLAB = 128 features, each the store
-// rows' and the queries' 128 bytes a row, written by TMA (two boxes, the
-// 128-byte swizzle wgmma's descriptors read) into 1024-byte-aligned shared
-// memory, guarded
-// by mbarriers (full: the box bytes landed; empty: all 256 consumers are
-// done with the slot). Per slab each warpgroup issues four wgmma
-// m64n128k32, skipping those wholly past D; the s32 sum stays in the
-// instruction across all of D, exact in any order, so it needs no per-step
-// rule. TMA zero-fills past D and past Tn; where TMA cannot read the
-// operands, the producer warp stages the same swizzled slabs itself with
-// the same zero padding, and the same wgmma multiply them. Bound: the
-// 2*TR*TQ*D operations at the int8 tensor rate (K1 at 512 queries of 1M x
-// 768: 0.40 ms) against the operand bytes (0.24 ms of reading the store
-// once): the ring keeps the tensor cores fed while the store streams. After
-// the k loop the ring (96 KB) becomes st; with K1's unit maxima a block
-// takes ~97 KB, so 2 CTAs share an SM (__launch_bounds__(NT_I8, 2)): one
-// block's epilogue (the st pass in f32, as every dtype's) runs under the
-// other's product. On the card (bench/ab_topk.py, PERF.md) 4 stages at one
-// block per SM ran 1.6x slower, and halving the loads moved K1 by under 5 %:
-// a block's own start (the first slab's latency) and epilogue, not the
-// operand traffic, keep the tensor cores at about half their rate.
-constexpr int I8_CONSUMERS = 256;
-constexpr int NT_I8 = I8_CONSUMERS + 32;
-constexpr int I8_SLAB = 128;
-constexpr int I8_STAGES = 3;
-constexpr int I8_STAGE_BYTES = (TR + TQ) * I8_SLAB;
-constexpr size_t I8_RING_BYTES = (size_t)I8_STAGES * I8_STAGE_BYTES;
-constexpr size_t I8_ST_BYTES = sizeof(float) * (size_t)TR * LDO_I8;
-// The tile's shared memory, and what precedes it: the mbarriers (64
-// bytes) and the slack that aligns the ring to 1024 bytes.
-constexpr size_t I8_TILE_BYTES = I8_RING_BYTES > I8_ST_BYTES ? I8_RING_BYTES : I8_ST_BYTES;
-constexpr size_t I8_SMEM_PAD = 1024 + 64;
+// THE WGMMA SCORE TILE (int8 and bf16 operands): score_tile's contract (st
+// [TR][LD] f32, rows at or past valid_rows PAD_SIM) on the tensor cores,
+// for K1/K3/K5/K10 (and K12's product on bf16); LD is LDO or WG_LD (each
+// thread's score pairs then go out as 8-byte stores). NT_WG threads: two
+// consumer warpgroups, warpgroup w owning store rows 64w .. 64w + 63 against
+// all TQ queries (rows in A, queries in B; 64 scores a thread), and one
+// producer warp that keeps a ring of WG_STAGES slabs full: D in slabs of
+// SLAB_BYTES a row (128 int8 or 64 bf16 features), each the store rows' and
+// the queries' 128 bytes, written by TMA (two boxes, the 128-byte swizzle
+// wgmma's descriptors read) into 1024-byte-aligned shared memory, guarded by
+// mbarriers (full: the box bytes landed; empty: all 256 consumers are done
+// with the slot). Each descriptor advances 32 bytes a k step: k32 on int8,
+// k16 on bf16, 4 steps a slab, none wholly past D. TMA zero-fills past D and
+// past Tn; where TMA cannot read the operands, the producer warp stages the
+// same swizzled slabs itself (stage_slab) with the same zero padding, and
+// the same wgmma multiply them. After the k loop the ring (96 KB) becomes
+// st; with K1's unit maxima a block takes ~97 KB of shared memory.
+//  * int8: per slab each warpgroup issues four wgmma m64n128k32 s8 into its
+//    s32 scores, which stay in the instruction across all of D, exact in
+//    any order, then int8_score (or, RAW, the exact dots, masked rows
+//    PAD_ACC, for K10's integer key). 2 blocks an SM (__launch_bounds__(
+//    NT_WG, 2), at most 112 registers): one block's epilogue runs under the
+//    other's product. Bound: the 2*TR*TQ*D operations at the int8 tensor
+//    rate (K1 at 512 queries of 1M x 768: 0.40 ms) against the operand
+//    bytes (0.24 ms of reading the store once). On the card
+//    (bench/ab_topk.py, PERF.md) 4 stages at one block per SM ran 1.6x
+//    slower, and halving the loads moved K1 by under 5 %.
+//  * bf16: THE bf16 dot step of the header on wgmma (bf16_slab): each k16
+//    step is TQ / BF16_N wgmma m64nBF16_Nk16 with scale-d = 0, each into one
+//    of BF16_PRODUCTS product fragments taken in turn, then one __fadd_rn a
+//    score, in increasing step order; the adds of one product run while the
+//    next is in the tensor cores (wait_group BF16_PRODUCTS - 1). Bound: the
+//    2*TR*TQ*D operations at the bf16 tensor rate (K1: 0.80 ms) and, as
+//    long, the rule's one f32 add a score a k16 step on the FP32 pipes
+//    (K1: 2.46e10 adds, 128 a clock on each of 132 SMs): the two overlap
+//    only while the adds leave the issue slots to little else, which the
+//    descriptors (no fragment loads) allow. 64 scores and two 64-register
+//    products a consumer thread: NT_BF16 threads (the producer a whole
+//    warpgroup, warp 8 of it working), one block an SM (BF16_MIN_BLOCKS;
+//    168 registers a thread at launch), setmaxnreg giving each consumer
+//    BF16_CONSUMER_REGS and the producer warpgroup BF16_PRODUCER_REGS for
+//    the k loop, and all threads back to BF16_LAUNCH_REGS for the epilogue
+//    (the scores stay in the consumers' branch until they are in st: code
+//    shared with the producer's 40 registers cannot hold them). On the card
+//    (bench/ab_topk.py, PERF.md) a k16 step of both warpgroups takes ~290
+//    cycles against 128 at the tensor rate, the adds a quarter of K1's time
+//    and the ring, barriers and epilogue alone ~60 %; m64n64 products (two
+//    or four), one product, a 4-slab ring, and a full slab's last wgmma
+//    left running into the next slab (ptxas then serializes) time alike or
+//    lose.
+// The warp index comes through __shfl_sync, so ptxas knows each role's
+// branch is uniform in its warp and need not serialize the wgmmas inside
+// (it did for the int8 tile before: K1 int8 ~9 % slower).
+constexpr int WG_CONSUMERS = 256;
+constexpr int NT_WG = WG_CONSUMERS + 32;
+constexpr int NT_BF16 = WG_CONSUMERS + 128;
+constexpr int WG_STAGES = 3;
+constexpr int WG_STAGE_BYTES = (TR + TQ) * SLAB_BYTES;
+constexpr size_t WG_RING_BYTES = (size_t)WG_STAGES * WG_STAGE_BYTES;
+// The leading dimension of st in K1, K5 and K10 on the wgmma tile.
+constexpr int WG_LD = LDO_I8;
+// What precedes the ring in a block's dynamic shared memory: the mbarriers
+// (64 bytes) and the slack that aligns the ring to 1024 bytes.
+constexpr size_t WG_SMEM_PAD = 1024 + 64;
+constexpr int BF16_N = 128;
+constexpr int BF16_PRODUCTS = 2;
+constexpr int BF16_MIN_BLOCKS = 1;
+constexpr int BF16_LAUNCH_REGS = 168;  // 65,536 / 384, on the allocation's 8-register grain
+constexpr int BF16_PRODUCER_REGS = 40;
+constexpr int BF16_CONSUMER_REGS = 232;
+static_assert(BF16_PRODUCER_REGS * (NT_BF16 - WG_CONSUMERS) +
+                      BF16_CONSUMER_REGS * WG_CONSUMERS <=
+                  BF16_LAUNCH_REGS * NT_BF16,
+              "setmaxnreg stays inside the block's allocation");
 static_assert(TR == 2 * 64 && TQ == 128, "two m64 warpgroups, n128");
+static_assert(TQ % BF16_N == 0 && BF16_PRODUCTS >= 1 && BF16_PRODUCTS <= 4,
+              "bf16 product fragments");
 
 // The ring's start in a block's dynamic shared memory: 1024-byte aligned,
 // with 64 bytes of mbarriers before it.
-__device__ __forceinline__ float* i8_tile_base(float4* raw) {
+__device__ __forceinline__ float* wg_tile_base(float4* raw) {
   const uint32_t a = smem_addr(raw);
   return reinterpret_cast<float*>(reinterpret_cast<char*>(raw) +
                                   (((a + 64 + 1023) & ~1023u) - a));
 }
 
-// Rows [r0, r0 + 128) x features [d0, d0 + 128) of an int8 matrix [n, D] into
-// a slab as a 128-byte-swizzled TMA box lays it out (row r's 16-byte chunk c
-// at r * 128 + 16 * (c ^ (r & 7))), zeros at or past n and D; one warp.
-__device__ __forceinline__ void stage_slab_i8(uint8_t* slab, const int8_t* __restrict__ m, int n,
-                                              int D, int r0, int d0, int lane) {
-  for (int e = lane; e < 128 * 8; e += 32) {
-    const int r = e >> 3, c = e & 7, gr = r0 + r, gd = d0 + 16 * c;
-    uint32_t w[4] = {0u, 0u, 0u, 0u};
-    if (gr < n) {
+// Dynamic shared memory of a block on the wgmma tile: the ring, or st at
+// leading dimension ld plus `extra` bytes past it (K1/K10's unit maxima),
+// whichever is larger, and the pad.
+constexpr size_t wg_smem(int ld, size_t extra) {
+  const size_t past_st = sizeof(float) * (size_t)TR * (ld > LDO ? ld : LDO) + extra;
+  return WG_SMEM_PAD + (WG_RING_BYTES > past_st ? WG_RING_BYTES : past_st);
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// This thread's warp, through a shuffle from lane 0: ptxas then knows it is
+// uniform in the warp.
+__device__ __forceinline__ int warp_index() {
+  return __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 5), 0);
+}
+
+// One staged slab's bf16 k16 steps for a consumer thread (score_tile_wg):
+// its first LIVE of 4 * TQ / BF16_N wgmmas (step i / (TQ / BF16_N),
+// queries BF16_N * (i % (TQ / BF16_N)) onwards), each product added to its
+// scores while the next one runs; every product is added before it
+// returns. LIVE is a template argument, so the wgmmas and waits run
+// unconditionally.
+template <int LIVE>
+__device__ __forceinline__ void bf16_slab(float (&acc)[64],
+                                          float (&p)[BF16_PRODUCTS][BF16_N / 2],
+                                          const uint8_t* rs, const uint8_t* qs) {
+  constexpr int NS = TQ / BF16_N, PROD = BF16_PRODUCTS, W = BF16_N / 2;
 #pragma unroll
-      for (int b = 0; b < 16; ++b)
-        if (gd + b < D) w[b >> 2] |= (uint32_t)(uint8_t)m[(size_t)gr * D + gd + b] << (8 * (b & 3));
+  for (int i = 0; i < LIVE + PROD - 1; ++i) {
+    if (i < LIVE) {
+      fence_regs(p[i % PROD]);
+      wgmma_fence();
+      wgmma_bf16_k16<BF16_N>(p[i % PROD], sw128_desc(rs + 32 * (i / NS)),
+                             sw128_desc(qs + (i % NS) * BF16_N * SLAB_BYTES + 32 * (i / NS)));
+      wgmma_commit();
     }
-    *reinterpret_cast<uint4*>(slab + r * I8_SLAB + 16 * (c ^ (r & 7))) =
-        make_uint4(w[0], w[1], w[2], w[3]);
+    const int j = i - (PROD - 1);  // the wgmma whose product is added now
+    if (j >= 0) {
+      const int later = (i < LIVE ? i : LIVE - 1) - j;  // wgmmas issued after it
+      if (later >= 3)
+        wgmma_wait<3>();
+      else if (later == 2)
+        wgmma_wait<2>();
+      else if (later == 1)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+      fence_regs(p[j % PROD]);
+#pragma unroll
+      for (int e = 0; e < W; ++e)
+        acc[(j % NS) * W + e] = __fadd_rn(acc[(j % NS) * W + e], p[j % PROD][e]);
+    }
   }
 }
 
-template <bool RAW, int LD>
-__device__ __forceinline__ void score_tile_i8(const int8_t* __restrict__ q,
-                                              const int8_t* __restrict__ shard, int Tn, int D,
+template <typename T, bool RAW, int LD>
+__device__ __forceinline__ void score_tile_wg(const T* __restrict__ q,
+                                              const T* __restrict__ shard, int Tn, int D,
                                               int valid_rows, int row0, int q0, float* smem,
-                                              const I8Maps& maps, float scale) {
-  // I8_STAGES x {rows [TR][128], queries [TQ][128]}
+                                              const WgMaps& maps, float scale) {
+  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+  static_assert(BF || std::is_same<T, int8_t>::value, "int8 or bf16 operands");
+  static_assert(!(BF && RAW), "RAW keeps int8 dots");
+  constexpr int F = SLAB_BYTES / (int)sizeof(T);  // features of a slab row
+  constexpr int KF = 32 / (int)sizeof(T);         // features of a k step
+  using Acc = typename std::conditional<BF, float, int>::type;
+  // WG_STAGES x {rows [TR][SLAB_BYTES], queries [TQ][SLAB_BYTES]}
   uint8_t* ring = reinterpret_cast<uint8_t*>(smem);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring) - 2 * I8_STAGES;
-  uint64_t* empty = full + I8_STAGES;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int slabs = (D + I8_SLAB - 1) / I8_SLAB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring) - 2 * WG_STAGES;
+  uint64_t* empty = full + WG_STAGES;
+  const int tid = threadIdx.x, warp = warp_index(), lane = tid & 31;
+  const int slabs = (D + F - 1) / F;
   if (tid == 0) {
-    for (int s = 0; s < I8_STAGES; ++s) {
+    for (int s = 0; s < WG_STAGES; ++s) {
       mbar_init(&full[s], maps.tma ? 1 : 32);  // TMA: one arrival + the bytes
-      mbar_init(&empty[s], I8_CONSUMERS);
+      mbar_init(&empty[s], WG_CONSUMERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  int acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0;
-  if (warp == I8_CONSUMERS / 32) {  // the producer
-    for (int s = 0; s < slabs; ++s) {
-      const int stage = s % I8_STAGES;
-      uint8_t* rs = ring + stage * I8_STAGE_BYTES;
-      uint8_t* qs = rs + TR * I8_SLAB;
-      if (s >= I8_STAGES) mbar_wait(&empty[stage], (s / I8_STAGES - 1) & 1);
+  if (warp >= WG_CONSUMERS / 32) {  // the producer: warp 8 works
+    if constexpr (BF) setmaxnreg_dec<BF16_PRODUCER_REGS>();
+    for (int s = 0; warp == WG_CONSUMERS / 32 && s < slabs; ++s) {
+      const int stage = s % WG_STAGES;
+      uint8_t* rs = ring + stage * WG_STAGE_BYTES;
+      uint8_t* qs = rs + TR * SLAB_BYTES;
+      if (s >= WG_STAGES) mbar_wait(&empty[stage], (s / WG_STAGES - 1) & 1);
       if (maps.tma) {
         if (lane == 0) {
-          mbar_expect_tx(&full[stage], I8_STAGE_BYTES);
-          tma_load_2d(rs, &maps.shard, s * I8_SLAB, row0, &full[stage]);
-          tma_load_2d(qs, &maps.q, s * I8_SLAB, q0, &full[stage]);
+          mbar_expect_tx(&full[stage], WG_STAGE_BYTES);
+          tma_load_2d(rs, &maps.shard, s * F, row0, &full[stage]);
+          tma_load_2d(qs, &maps.q, s * F, q0, &full[stage]);
         }
       } else {
-        stage_slab_i8(rs, shard, row0 + TR, D, row0, s * I8_SLAB, lane);
-        stage_slab_i8(qs, q, Tn, D, q0, s * I8_SLAB, lane);
+        stage_slab(rs, shard, row0 + TR, D, row0, s * F, lane);
+        stage_slab(qs, q, Tn, D, q0, s * F, lane);
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
         mbar_arrive(&full[stage]);
       }
     }
+    if constexpr (BF) setmaxnreg_inc<BF16_LAUNCH_REGS>();  // once the consumers gave theirs back
   } else {
+    // The consumers keep their scores to themselves until they are in st:
+    // no code they share with the producer (whose registers are fewer)
+    // holds them.
+    if constexpr (BF) setmaxnreg_inc<BF16_CONSUMER_REGS>();
     const int wg = warp >> 2;
-    for (int s = 0; s < slabs; ++s) {
-      const int stage = s % I8_STAGES;
-      const uint8_t* rs = ring + stage * I8_STAGE_BYTES + wg * 64 * I8_SLAB;
-      const uint8_t* qs = ring + stage * I8_STAGE_BYTES + TR * I8_SLAB;
-      mbar_wait(&full[stage], (s / I8_STAGES) & 1);
-      fence_regs(acc);
-      wgmma_fence();
+    Acc acc[64];
 #pragma unroll
-      for (int k = 0; k < I8_SLAB / 32; ++k)
-        if (s * I8_SLAB + 32 * k < D)  // no step wholly past D
-          wgmma_s8_m64n128k32(acc, sw128_desc(rs + 32 * k), sw128_desc(qs + 32 * k));
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(acc);
+    for (int i = 0; i < 64; ++i) acc[i] = 0;
+    float p[BF16_PRODUCTS][BF16_N / 2];  // bf16: the product fragments
+    if constexpr (BF) {
+#pragma unroll
+      for (int k = 0; k < BF16_PRODUCTS; ++k)
+#pragma unroll
+        for (int e = 0; e < BF16_N / 2; ++e) p[k][e] = 0.0f;
+    }
+    for (int s = 0; s < slabs; ++s) {
+      const int stage = s % WG_STAGES;
+      const uint8_t* rs = ring + stage * WG_STAGE_BYTES + wg * 64 * SLAB_BYTES;
+      const uint8_t* qs = ring + stage * WG_STAGE_BYTES + TR * SLAB_BYTES;
+      mbar_wait(&full[stage], (s / WG_STAGES) & 1);
+      if constexpr (BF) {
+        constexpr int NS = TQ / BF16_N;
+        const int steps = min(4, (D - s * F + KF - 1) / KF);  // no step wholly past D
+        if (steps == 4)
+          bf16_slab<4 * NS>(acc, p, rs, qs);
+        else if (steps == 3)
+          bf16_slab<3 * NS>(acc, p, rs, qs);
+        else if (steps == 2)
+          bf16_slab<2 * NS>(acc, p, rs, qs);
+        else
+          bf16_slab<NS>(acc, p, rs, qs);
+      } else {
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < SLAB_BYTES / 32; ++k)
+          if (s * F + KF * k < D)  // no step wholly past D
+            wgmma_s8_m64n128k32(acc, sw128_desc(rs + 32 * k), sw128_desc(qs + 32 * k));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+      }
       mbar_arrive(&empty[stage]);  // this thread's wgmmas are done with the slot
     }
-  }
-  __syncthreads();  // every wgmma has read its slabs: the ring becomes st
-  if (tid == 0)
-    for (int s = 0; s < 2 * I8_STAGES; ++s) mbar_inval(&full[s]);
-  if (warp < I8_CONSUMERS / 32) {
+    // Every consumer's wgmmas have read their slabs (and every slab has
+    // landed: each was waited for), so the ring becomes st.
+    asm volatile("bar.sync 1, %0;\n" ::"n"(WG_CONSUMERS) : "memory");
+    if (tid == 0)
+      for (int s = 0; s < 2 * WG_STAGES; ++s) mbar_inval(&full[s]);
     const int g = lane >> 2, t = lane & 3;
     int* ist = reinterpret_cast<int*>(smem);
 #pragma unroll
@@ -898,7 +979,8 @@ __device__ __forceinline__ void score_tile_i8(const int8_t* __restrict__ q,
       const bool ok = row0 + r < valid_rows;
 #pragma unroll
       for (int j = 0; j < TQ / 8; ++j) {
-        const int c = 8 * j + 2 * t, a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
+        const int c = 8 * j + 2 * t;
+        const Acc a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
         if constexpr (RAW) {
           const int2 v = ok ? make_int2(a0, a1) : make_int2(PAD_ACC, PAD_ACC);
           if constexpr (LD % 2 == 0) {
@@ -908,8 +990,13 @@ __device__ __forceinline__ void score_tile_i8(const int8_t* __restrict__ q,
             ist[r * LD + c + 1] = v.y;
           }
         } else {
-          const float2 v = ok ? make_float2(int8_score(a0, scale), int8_score(a1, scale))
-                              : make_float2(PAD_SIM, PAD_SIM);
+          float2 v = make_float2(PAD_SIM, PAD_SIM);
+          if (ok) {
+            if constexpr (BF)
+              v = make_float2(a0, a1);
+            else
+              v = make_float2(int8_score(a0, scale), int8_score(a1, scale));
+          }
           if constexpr (LD % 2 == 0) {
             *reinterpret_cast<float2*>(smem + r * LD + c) = v;
           } else {
@@ -919,48 +1006,155 @@ __device__ __forceinline__ void score_tile_i8(const int8_t* __restrict__ q,
         }
       }
     }
+    if constexpr (BF) setmaxnreg_dec<BF16_LAUNCH_REGS>();  // the scores are in st
   }
   __syncthreads();
 }
 
-// ==== int8 score tile: end ====
-
 // Per score-tile dtype: the block size, the blocks an SM should hold (the
-// launch bound), the leading dimension of st in K1, K5 and K10, and what
-// the int8 tile's TMA needs (nothing for the others).
-struct NoMaps {};
+// launch bound), the leading dimension of st in K1, K5 and K10, what the
+// wgmma tile's TMA needs (nothing for the f32 tile), a block's dynamic
+// shared memory with `extra` bytes past st (K1/K10's unit maxima), and
+// where st starts in it.
 template <typename T>
-struct Tile {
-  static constexpr int threads = NT;
-  static constexpr int min_blocks = 2;
-  static constexpr int ld = LDO;
-  using Maps = NoMaps;
-};
+struct Tile;
 template <>
 struct Tile<float> {
   static constexpr int threads = F32_NT;
   static constexpr int min_blocks = F32_MIN_BLOCKS;
   static constexpr int ld = LDO;
   using Maps = NoMaps;
+  // the ring is drained before st and the unit maxima are written
+  static constexpr size_t smem(size_t extra) {
+    return F32_RING_BYTES > ST_BYTES + extra ? F32_RING_BYTES : ST_BYTES + extra;
+  }
+  static __device__ __forceinline__ float* base(float4* raw) {
+    return reinterpret_cast<float*>(raw);
+  }
 };
+
+// ==== int8 score tile: begin (bench/ab_topk.py swaps this block) ====
+
+// The int8 score tile: the wgmma tile on s8 operands, each score
+// int8_score(acc, scale) of its exact dot (RAW: the dots themselves, for
+// K10's integer key).
 template <>
 struct Tile<int8_t> {
-  static constexpr int threads = NT_I8;
+  static constexpr int threads = NT_WG;
   static constexpr int min_blocks = 2;
-  static constexpr int ld = LDO_I8;
-  using Maps = I8Maps;
+  static constexpr int ld = WG_LD;
+  using Maps = WgMaps;
+  static constexpr size_t smem(size_t extra) { return wg_smem(ld, extra); }
+  static __device__ __forceinline__ float* base(float4* raw) { return wg_tile_base(raw); }
 };
 
-// The kernel's shared score tile in its dynamic shared memory.
-template <typename T>
-__device__ __forceinline__ float* tile_base(float4* raw) {
-  if constexpr (std::is_same<T, int8_t>::value)
-    return i8_tile_base(raw);
-  else
-    return reinterpret_cast<float*>(raw);
+template <bool RAW, int LD>
+__device__ __forceinline__ void score_tile_i8(const int8_t* __restrict__ q,
+                                              const int8_t* __restrict__ shard, int Tn, int D,
+                                              int valid_rows, int row0, int q0, float* smem,
+                                              const WgMaps& maps, float scale) {
+  score_tile_wg<int8_t, RAW, LD>(q, shard, Tn, D, valid_rows, row0, q0, smem, maps, scale);
 }
 
-// The score tile of dtype T into st [TR][LD] (LD: LDO, or LDO_I8 on int8).
+// ==== int8 score tile: end ====
+
+// ==== bf16 score tile: begin (bench/ab_topk.py swaps this block) ====
+
+// The bf16 score tile: the wgmma tile on bf16 operands, each k16 step one
+// wgmma product added to the score by one __fadd_rn (bf16_slab).
+template <>
+struct Tile<__nv_bfloat16> {
+  static constexpr int threads = NT_BF16;
+  static constexpr int min_blocks = BF16_MIN_BLOCKS;
+  static constexpr int ld = WG_LD;
+  using Maps = WgMaps;
+  static constexpr size_t smem(size_t extra) { return wg_smem(ld, extra); }
+  static __device__ __forceinline__ float* base(float4* raw) { return wg_tile_base(raw); }
+};
+
+template <int LD>
+__device__ __forceinline__ void score_tile_bf16(const __nv_bfloat16* __restrict__ q,
+                                                const __nv_bfloat16* __restrict__ shard, int Tn,
+                                                int D, int valid_rows, int row0, int q0,
+                                                float* smem, const WgMaps& maps) {
+  score_tile_wg<__nv_bfloat16, false, LD>(q, shard, Tn, D, valid_rows, row0, q0, smem, maps,
+                                          1.0f);
+}
+
+// ==== bf16 score tile: end ====
+
+// ---- the instruction probe: one bf16 k16 step on wgmma and on mma.sync ----
+//
+// Rows [64 b, 64 b + 64) of rows [R, D] (block b) against the 128 queries q
+// [128, D]: each k16 step's f32 sum, both ways, [steps][R][128] each with
+// steps = ceil(D / 16):
+//  * out_wg: wgmma_bf16_k16<128> with scale-d = 0 on slabs staged as the
+//    score tile lays them out (stage_slab), descriptors 32 bytes a step;
+//  * out_mma: mma_k16_product from +0.0, rows in A, queries in B, feature
+//    d0 + j in k slot j, the fragments read from device memory.
+// Whether the two agree bit for bit decides whether K1/K3's score tile
+// (wgmma) and K2/K6's gather (mma.sync) score a pair alike (PERF.md). It
+// replaces no TPU kernel; it measures the card.
+constexpr int PROBE_ROWS = 64;
+
+__global__ void __launch_bounds__(128)
+k_probe_bf16_k16(const __nv_bfloat16* __restrict__ rows, const __nv_bfloat16* __restrict__ q,
+                 int R, int D, float* __restrict__ out_wg, float* __restrict__ out_mma) {
+  __shared__ __align__(1024) uint8_t slab[(PROBE_ROWS + TQ) * SLAB_BYTES];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * PROBE_ROWS, steps = (D + 15) / 16;
+  uint8_t* rs = slab;
+  uint8_t* qs = slab + PROBE_ROWS * SLAB_BYTES;
+  float d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.0f;
+  for (int s = 0; 64 * s < D; ++s) {
+    __syncthreads();  // the last slab's wgmmas have been waited for
+    stage_slab(rs, rows, R, D, r0, 64 * s, tid, 128, PROBE_ROWS);
+    stage_slab(qs, q, TQ, D, 0, 64 * s, tid, 128, TQ);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    __syncthreads();
+    for (int k = 0; k < 4 && 64 * s + 16 * k < D; ++k) {
+      fence_regs(d);
+      wgmma_fence();
+      wgmma_bf16_k16<128>(d, sw128_desc(rs + 32 * k), sw128_desc(qs + 32 * k));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(d);
+      float* o = out_wg + ((size_t)(4 * s + k) * R + r0) * TQ;
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        o[(16 * warp + g + 8 * ((i >> 1) & 1)) * TQ + 8 * (i >> 2) + 2 * t + (i & 1)] = d[i];
+    }
+  }
+  const uint16_t* rb = reinterpret_cast<const uint16_t*>(rows);
+  const uint16_t* qb = reinterpret_cast<const uint16_t*>(q);
+  auto pair = [&](const uint16_t* m, int n, int r, int f) -> uint32_t {  // features f, f + 1
+    const uint32_t lo = (r < n && f < D) ? m[(size_t)r * D + f] : 0u;
+    const uint32_t hi = (r < n && f + 1 < D) ? m[(size_t)r * D + f + 1] : 0u;
+    return lo | (hi << 16);
+  };
+  const int ra = r0 + 16 * warp + g;
+  for (int st = 0; st < steps; ++st) {
+    const int d0 = 16 * st;
+    const uint32_t a[4] = {pair(rb, R, ra, d0 + 2 * t), pair(rb, R, ra + 8, d0 + 2 * t),
+                           pair(rb, R, ra, d0 + 2 * t + 8), pair(rb, R, ra + 8, d0 + 2 * t + 8)};
+    float* o = out_mma + ((size_t)st * R + r0) * TQ;
+    for (int j = 0; j < TQ / 8; ++j) {
+      const uint32_t b[2] = {pair(qb, TQ, 8 * j + g, d0 + 2 * t),
+                             pair(qb, TQ, 8 * j + g, d0 + 2 * t + 8)};
+      float p[4];
+      mma_k16_product(p, a, b);
+      const int c = 8 * j + 2 * t;
+      o[(16 * warp + g) * TQ + c] = p[0];
+      o[(16 * warp + g) * TQ + c + 1] = p[1];
+      o[(16 * warp + g + 8) * TQ + c] = p[2];
+      o[(16 * warp + g + 8) * TQ + c + 1] = p[3];
+    }
+  }
+}
+
+// The score tile of dtype T into st [TR][LD] (LD: LDO, or Tile<T>::ld).
 template <typename T, int LD>
 __device__ __forceinline__ void any_score_tile(const T* __restrict__ q,
                                                const T* __restrict__ shard, int Tn,
@@ -969,8 +1163,10 @@ __device__ __forceinline__ void any_score_tile(const T* __restrict__ q,
   if constexpr (std::is_same<T, int8_t>::value) {
     score_tile_i8<false, LD>(q, shard, Tn, D, valid_rows, row0, q0, smem, maps,
                              __uint_as_float(INT8_INV_SCALE2_BITS));
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    score_tile_bf16<LD>(q, shard, Tn, D, valid_rows, row0, q0, smem, maps);
   } else {
-    static_assert(LD == LDO, "the bf16 and f32 tiles write st [TR][LDO]");
+    static_assert(LD == LDO, "the f32 tile writes st [TR][LDO]");
     score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
   }
 }
@@ -1109,14 +1305,6 @@ __device__ __forceinline__ void unit_pass_i8(const float* st, int sub, Emit&& em
     unit_pass_i8_lg<NTH, LD, 0>(st, sub, emit);
 }
 
-// The score tile st [TR][LDO] f32, or the staging it replaces, whichever is
-// larger (the bf16 ring); K1 and K10 keep their unit maxima past st, where
-// only a ring that is done with can lie. The f32 ring is sized apart
-// (tile_smem).
-constexpr size_t ST_BYTES = sizeof(float) * (size_t)TR * LDO;
-constexpr size_t RING_BYTES = sizeof(__nv_bfloat16) * (size_t)NSTAGE * 2 * SLAB;
-constexpr size_t SCORE_SMEM = ST_BYTES > RING_BYTES ? ST_BYTES : RING_BYTES;
-constexpr size_t F32_RING_BYTES = sizeof(float) * (size_t)F32_STAGES * 2 * F32_SLAB;
 constexpr int MAX_UNITS = TR / 8;                                // sub >= 8
 
 // Block b of the 1-D grid of K1/K3/K5/K10 takes query tile b % qt of row
@@ -1145,7 +1333,7 @@ k1_blockmax2(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
              const __grid_constant__ typename Tile<T>::Maps maps) {
   constexpr int NTH = Tile<T>::threads, LD = Tile<T>::ld;
   extern __shared__ float4 smem4[];
-  float* smem = tile_base<T>(smem4);
+  float* smem = Tile<T>::base(smem4);
   const int qt = query_tiles(Tn);
   const int row0 = (blockIdx.x / qt) * TR, q0 = (blockIdx.x % qt) * TQ;
   any_score_tile<T, LD>(q, shard, Tn, D, valid_rows, row0, q0, smem, maps);
@@ -1233,7 +1421,7 @@ k3_blockmax(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int R,
             float* __restrict__ bm_t, const __grid_constant__ typename Tile<T>::Maps maps) {
   constexpr int NTH = Tile<T>::threads;
   extern __shared__ float4 smem4[];
-  float* smem = tile_base<T>(smem4);
+  float* smem = Tile<T>::base(smem4);
   const int qt = query_tiles(Tn);
   const int row0 = (blockIdx.x / qt) * TR, q0 = (blockIdx.x % qt) * TQ;
   any_score_tile<T, LDO>(q, shard, Tn, D, valid_rows, row0, q0, smem, maps);
@@ -1269,7 +1457,7 @@ k5_blockmax_only(const T* __restrict__ q, const T* __restrict__ shard, int Tn,
                  const __grid_constant__ typename Tile<T>::Maps maps) {
   constexpr int LD = Tile<T>::ld;
   extern __shared__ float4 smem4[];
-  float* smem = tile_base<T>(smem4);
+  float* smem = Tile<T>::base(smem4);
   const int qt = query_tiles(Tn);
   const int row0 = (blockIdx.x / qt) * TR, q0 = (blockIdx.x % qt) * TQ;
   any_score_tile<T, LD>(q, shard, Tn, D, valid_rows, row0, q0, smem, maps);
@@ -1310,7 +1498,7 @@ k10_blockmax2x(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int
                float* __restrict__ bm, const __grid_constant__ typename Tile<T>::Maps maps) {
   constexpr int NTH = Tile<T>::threads, LD = Tile<T>::ld;
   extern __shared__ float4 smem4[];
-  float* smem = tile_base<T>(smem4);
+  float* smem = Tile<T>::base(smem4);
   const float* st = smem;
   float* um = smem + TR * LD;  // [MAX_UNITS][TQ] unit maxima
   const int qt = query_tiles(Tn), rg = blockIdx.x / qt;  // rg: this block's row tile group
@@ -1342,7 +1530,7 @@ k10_blockmax2x(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int
         __syncthreads();
       }
     } else {
-      score_tile<T>(q, shard, Tn, D, valid_rows, row0, q0, smem);
+      any_score_tile<T, LD>(q, shard, Tn, D, valid_rows, row0, q0, smem, maps);
     }
     if (sims != nullptr) {
       // consecutive threads -> consecutive queries of one row: coalesced
@@ -1430,7 +1618,7 @@ k10_blockmax2x(const T* __restrict__ q, const T* __restrict__ shard, int Tn, int
 //    one of the query, fma_features); the chain runs over D rounded up to
 //    the G_SB / 4 = 32 features of a slab, as every earlier K2/K6 ran it;
 //  * bf16: warp w multiplies rows 32w .. 32w + 31 as two m16 tiles in
-//    score_tile<__nv_bfloat16>'s k order: A fragments by ldmatrix straight
+//    the score tile's k order: A fragments by ldmatrix straight
 //    from the slab, the query in every column of B (so every column of the
 //    result is the score), mma_k16 from +0.0 per k16 step, no step wholly
 //    past D;
@@ -1498,7 +1686,7 @@ __device__ __forceinline__ void gather_scores(const T* __restrict__ q,
   float facc[1][1] = {{0.0f}};  // f32: row tid's chain
   int iacc = 0;                 // int8: row tid's dot
   float macc[2][4] = {};        // bf16: this warp's rows, two m16 tiles
-  // ldmatrix row addresses of this lane (score_tile's A map): rows
+  // ldmatrix row addresses of this lane: rows
   // G_WARP_ROWS * warp + (lane & 15), features +8 for lanes 16-31
   const int a_off = (G_WARP_ROWS * warp + (lane & 15)) * G_PITCH + ((lane >> 4) << 4);
 #pragma unroll
@@ -1681,34 +1869,42 @@ k11_gather_copy(const uint8_t* __restrict__ shard, const int32_t* __restrict__ i
 // grid, so the gather's loads and the product's arithmetic run side by side
 // on the SMs:
 //  * gather items: query t's candidate slots [s0, s0 + NT) of C = KS * unit
-//    (ids [T, KS] into unit-row blocks), staged GDK features at a time,
-//    widened and multiplied by mma_staged in K2's k16 steps, 8 warps of 32
-//    slots, so the scores equal K2's bit for bit (the bf16 rule of the
-//    header); NaN for an id outside [0, R/unit);
+//    (ids [T, KS] into unit-row blocks), staged GDK features at a time by
+//    all the block's threads, widened and multiplied by mma_staged in K2's
+//    k16 steps, NT / 32 warps of 32 slots (a block's further warps take
+//    part in the staging and the barriers only), so the scores equal K2's
+//    bit for bit (the bf16 rule of the header); NaN for an id outside [0,
+//    R/unit);
 //  * product items: `copies` copies of K5's score tiles of mmq [tq, D]
-//    against mms [mm_rows, D], each copy's 128-row block maxima stored to
-//    mmo [tq, mm_rows / 128] by store_block_max: K5's bm_t transposed, bit for
-//    bit. Every copy writes the same values to the same places. Identical
-//    floats stored by several CTAs are benign, and storing every copy's
-//    maxima, under no condition of its own, keeps the compiler from dropping
-//    any copy's arithmetic.
+//    against mms [mm_rows, D] (score_tile_bf16, K5's tile and its TMA
+//    maps), each copy's 128-row block maxima stored to mmo [tq, mm_rows /
+//    128] by store_block_max: K5's bm_t transposed, bit for bit. Every copy
+//    writes the same values to the same places. Identical floats stored by
+//    several CTAs are benign, and storing every copy's maxima, under no
+//    condition of its own, keeps the compiler from dropping any copy's
+//    arithmetic.
 // The TPU kernel recomputes the product in each of its (T/8)·(KS/cpg) grid
 // steps; the wrapper passes that count as `copies` (0: no product, mmo is not
 // written). CTA b runs product item b (if b < n_product) and gather items
 // [b·G/n, (b+1)·G/n) of G, n = gridDim.x, so the gather is spread evenly over
-// the launch. Bound on the card: the 2·copies·tq·mm_rows·D operations of the
-// copies (on the tensor cores: K5's bf16 score tile) while copies > 0, else
-// the gathered bytes (read once), as K2.
+// the launch. With product items a block is the bf16 score tile's
+// (Tile<__nv_bfloat16>: its threads and shared memory); without, NT threads,
+// 2 blocks an SM. Bound on the card: the
+// 2·copies·tq·mm_rows·D operations of the copies (on the tensor cores: K5's
+// bf16 score tile) while copies > 0, else the gathered bytes (read once), as
+// K2.
 constexpr int MLD = NT + 4;
 constexpr size_t K12_GATHER_SMEM = sizeof(float) * (GDK * MLD + GDK);
-static_assert(K12_GATHER_SMEM <= SCORE_SMEM, "one buffer serves both kinds of item");
+static_assert(K12_GATHER_SMEM <= Tile<__nv_bfloat16>::smem(0),
+              "one buffer serves both kinds of item");
 
-template <typename T>
+template <typename T, int NTH>
 __device__ __forceinline__ void k12_gather_item(const T* __restrict__ q,
                                                 const T* __restrict__ shard,
                                                 const int32_t* __restrict__ ids, int R,
                                                 int D, int KS, int unit, int item,
                                                 float* __restrict__ out, float* smem) {
+  static_assert(NTH >= NT, "a slot for each of NT threads");
   float* rs = smem;              // [GDK][MLD]
   float* qs = smem + GDK * MLD;  // [GDK]
   const int C = KS * unit, per_q = (C + NT - 1) / NT, n_units = R / unit;
@@ -1716,7 +1912,7 @@ __device__ __forceinline__ void k12_gather_item(const T* __restrict__ q,
   const int32_t* my_ids = ids + (size_t)t * KS;
   float macc[2][4] = {};  // this warp's slots (tid & ~31) + 0 .. 31
   for (int d0 = 0; d0 < D; d0 += GDK) {
-    for (int e = tid; e < NT * GDK; e += NT) {
+    for (int e = tid; e < NT * GDK; e += NTH) {
       const int r = e / GDK, dd = e % GDK, gd = d0 + dd, s = s0 + r;
       float v = 0.0f;
       if (s < C && gd < D) {
@@ -1728,41 +1924,49 @@ __device__ __forceinline__ void k12_gather_item(const T* __restrict__ q,
     }
     if (tid < GDK) qs[tid] = d0 + tid < D ? widen(q[(size_t)t * D + d0 + tid]) : 0.0f;
     __syncthreads();
-    mma_staged<2>(macc, rs, MLD, tid & ~31, qs, 1, 1, d0, GDK, D);
+    if (tid < NT) mma_staged<2>(macc, rs, MLD, tid & ~31, qs, 1, 1, d0, GDK, D);
     __syncthreads();
   }
-  store_staged<2>(macc, tid & ~31, 1, rs, NT);
+  if (tid < NT) store_staged<2>(macc, tid & ~31, 1, rs, NT);
   __syncthreads();
-  const float score = rs[tid];
+  const float score = tid < NT ? rs[tid] : 0.0f;
   __syncthreads();  // the next item restages rs
   const int s = s0 + tid;
-  if (s < C) {
+  if (tid < NT && s < C) {
     const int uid = my_ids[s / unit];
     out[(size_t)t * C + s] = (uid >= 0 && uid < n_units) ? score : __uint_as_float(0x7fffffffu);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT, 2)
+// PRODUCT: the launch has product items, so its blocks are the score
+// tile's; without, NT threads at 2 blocks an SM, as K2's gather.
+template <typename T, bool PRODUCT>
+__global__ void __launch_bounds__(PRODUCT ? Tile<T>::threads : NT,
+                                  PRODUCT ? Tile<T>::min_blocks : 2)
 k12_gather_rescore_mm(const T* __restrict__ q, const T* __restrict__ shard,
                       const int32_t* __restrict__ ids, int R, int D, int KS, int unit,
                       int n_gather, const T* __restrict__ mmq, const T* __restrict__ mms,
                       int tq, int mm_rows, int n_product, float* __restrict__ out,
-                      float* __restrict__ mmo) {
+                      float* __restrict__ mmo,
+                      const __grid_constant__ typename Tile<T>::Maps maps) {
+  constexpr int NTH = PRODUCT ? Tile<T>::threads : NT, LD = Tile<T>::ld;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  // without a product the block holds the gather's buffer alone (no tile pad)
+  float* smem = PRODUCT ? Tile<T>::base(smem4) : reinterpret_cast<float*>(smem4);
   const long long b = blockIdx.x, nb = gridDim.x;
-  if (b < n_product) {
-    const int row_tiles = mm_rows / TR;
-    const int tile = (int)(b % ((long long)row_tiles * ((tq + TQ - 1) / TQ)));  // of copy b / tiles
-    const int row0 = (tile % row_tiles) * TR, q0 = (tile / row_tiles) * TQ;
-    score_tile<T>(mmq, mms, tq, D, mm_rows, row0, q0, smem);
-    store_block_max(smem, TR, tq, row0, q0, mmo, 1, row_tiles);
-    __syncthreads();  // the gather items restage smem
+  if constexpr (PRODUCT) {
+    if (b < n_product) {
+      const int row_tiles = mm_rows / TR;
+      const int tile = (int)(b % ((long long)row_tiles * ((tq + TQ - 1) / TQ)));  // of copy b / tiles
+      const int row0 = (tile % row_tiles) * TR, q0 = (tile / row_tiles) * TQ;
+      any_score_tile<T, LD>(mmq, mms, tq, D, mm_rows, row0, q0, smem, maps);
+      store_block_max<NTH, LD>(smem, TR, tq, row0, q0, mmo, 1, row_tiles);
+      __syncthreads();  // the gather items restage smem
+    }
   }
   const int lo = (int)(b * n_gather / nb), hi = (int)((b + 1) * n_gather / nb);
   for (int item = lo; item < hi; ++item)
-    k12_gather_item<T>(q, shard, ids, R, D, KS, unit, item, out, smem);
+    k12_gather_item<T, NTH>(q, shard, ids, R, D, KS, unit, item, out, smem);
 }
 
 // K13: P17's fused cross scores (scripts/proto_fused.py fused_scores, :139;
@@ -1843,24 +2047,6 @@ constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
 constexpr int DTYPE_INT8 = 2;
 
-// Dynamic shared memory of a K1/K3/K5/K10 block: the score tile (or the
-// ring it replaces) plus `extra` bytes past st (K1/K10's unit maxima); the
-// f32 ring may be larger than both (it is drained before st and the unit
-// maxima are written); the int8 tile's ring is larger, 1024-byte aligned,
-// and has its mbarriers.
-template <typename T>
-size_t tile_smem(size_t extra) {
-  if constexpr (std::is_same<T, int8_t>::value) {
-    const size_t past_st = I8_ST_BYTES + extra;
-    return I8_SMEM_PAD + (I8_TILE_BYTES > past_st ? I8_TILE_BYTES : past_st);
-  }
-  if constexpr (std::is_same<T, float>::value) {
-    const size_t past_st = ST_BYTES + extra;
-    return F32_RING_BYTES > past_st ? F32_RING_BYTES : past_st;
-  }
-  return SCORE_SMEM + extra;
-}
-
 // The driver's cuTensorMapEncodeTiled, through the runtime's entry-point
 // lookup (nothing links libcuda).
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1883,36 +2069,41 @@ EncodeTiled lookup_encode_tiled() {
              : nullptr;
 }
 
-// The int8 tile's tensor map of a row-major int8 matrix [rows, D]: boxes of
-// 128 rows x I8_SLAB bytes in the 128-byte swizzle, zeros past either edge.
-int encode_i8(CUtensorMap* map, const void* base, int rows, int D) {
+// The wgmma tile's tensor map of a row-major matrix [rows, D] of T (int8
+// or bf16): boxes of 128 rows x SLAB_BYTES bytes in the 128-byte swizzle,
+// zeros past either edge.
+template <typename T>
+int encode_tile_map(CUtensorMap* map, const void* base, int rows, int D) {
   static const EncodeTiled encode = lookup_encode_tiled();  // once, thread-safe
   if (encode == nullptr) return (int)cudaErrorNotSupported;
+  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
   const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D};
-  const cuuint32_t box[2] = {(cuuint32_t)I8_SLAB, (cuuint32_t)TR};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)(SLAB_BYTES / sizeof(T)), (cuuint32_t)TR};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+  const CUresult r = encode(map, BF ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                            2, const_cast<void*>(base), dims,
                             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// What the score tile of dtype T needs beside its pointers: for int8, the
-// two tensor maps where TMA can read the operands (D % 16 == 0, both bases
+// What the score tile of dtype T needs beside its pointers: on the wgmma
+// tile, the two tensor maps where TMA can read the operands (a row's bytes
+// a multiple of 16: D % 16 == 0 on int8, D % 8 == 0 on bf16; both bases
 // 16-byte aligned), else tma = 0 and the producer warp stages the slabs.
 // Returns a CUDA error if a map cannot be encoded.
 template <typename T>
 int tile_maps(typename Tile<T>::Maps* maps, const void* q, const void* shard, int Tn, int R,
               int D) {
-  if constexpr (std::is_same<T, int8_t>::value) {
+  if constexpr (std::is_same<typename Tile<T>::Maps, WgMaps>::value) {
     memset(maps, 0, sizeof *maps);
-    maps->tma = D % 16 == 0 &&
+    maps->tma = (D * sizeof(T)) % 16 == 0 &&
                 ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(shard)) & 15) == 0;
     if (!maps->tma) return 0;
-    if (int err = encode_i8(&maps->q, q, Tn, D)) return err;
-    return encode_i8(&maps->shard, shard, R, D);
+    if (int err = encode_tile_map<T>(&maps->q, q, Tn, D)) return err;
+    return encode_tile_map<T>(&maps->shard, shard, R, D);
   }
   return 0;
 }
@@ -1922,7 +2113,7 @@ int launch_k10(const void* q, const void* shard, int Tn, int R, int D, int valid
                int sub, int ew, int t_major, float inv_scale2, float* sims, float* bms,
                int32_t* arg, float* m2, int32_t* key, int32_t* raw_key, float* bm,
                cudaStream_t st) {
-  const size_t smem = tile_smem<T>(sizeof(float) * MAX_UNITS * TQ);
+  const size_t smem = Tile<T>::smem(sizeof(float) * MAX_UNITS * TQ);
   if (int err = raise_smem(k10_blockmax2x<T>, smem)) return err;
   const int tiles = (bm != nullptr && ew > TR) ? ew / TR : 1;
   const unsigned grid = tile_grid(R / (TR * tiles), Tn);
@@ -1947,7 +2138,7 @@ int launch_k1(const void* q, const void* shard, int Tn, int R, int D, int valid_
     return launch_k10<T>(q, shard, Tn, R, D, valid_rows, sub, ew, 0, inv_scale2,
                          nullptr, bm_sub, nullptr, nullptr, key, nullptr, bm, st);
   }
-  const size_t smem = tile_smem<T>(sizeof(float) * MAX_UNITS * TQ);
+  const size_t smem = Tile<T>::smem(sizeof(float) * MAX_UNITS * TQ);
   if (int err = raise_smem(k1_blockmax2<T>, smem)) return err;
   const unsigned grid = tile_grid(R / TR, Tn);
   if (grid == 0) return (int)cudaErrorInvalidValue;
@@ -1962,7 +2153,7 @@ int launch_k1(const void* q, const void* shard, int Tn, int R, int D, int valid_
 template <typename T>
 int launch_k3(const void* q, const void* shard, int Tn, int R, int D, int valid_rows,
               int block, float* sims, float* bm_t, cudaStream_t st) {
-  const size_t smem = tile_smem<T>(0);
+  const size_t smem = Tile<T>::smem(0);
   if (int err = raise_smem(k3_blockmax<T>, smem)) return err;
   const unsigned grid = tile_grid(R / TR, Tn);
   if (grid == 0) return (int)cudaErrorInvalidValue;
@@ -1977,7 +2168,7 @@ int launch_k3(const void* q, const void* shard, int Tn, int R, int D, int valid_
 template <typename T>
 int launch_k5(const void* q, const void* shard, int Tn, int R, int D, int valid_rows,
               int block, float* bm_t, cudaStream_t st) {
-  const size_t smem = tile_smem<T>(0);
+  const size_t smem = Tile<T>::smem(0);
   if (int err = raise_smem(k5_blockmax_only<T>, smem)) return err;
   const unsigned grid = tile_grid(R / TR, Tn);
   if (grid == 0) return (int)cudaErrorInvalidValue;
@@ -2019,12 +2210,23 @@ int launch_k12(const void* q, const void* shard, const int32_t* ids, int Tn, int
   const long long nb = n_gather > n_product ? n_gather : n_product;
   if (nb == 0) return 0;
   if (nb > 0x7fffffffLL || mm_rows % TR) return (int)cudaErrorInvalidValue;
-  const size_t smem = n_product ? SCORE_SMEM : K12_GATHER_SMEM;
-  if (int err = raise_smem(k12_gather_rescore_mm<T>, smem)) return err;
-  k12_gather_rescore_mm<T><<<(unsigned)nb, NT, smem, st>>>(
+  typename Tile<T>::Maps maps;
+  memset(&maps, 0, sizeof maps);
+  if (n_product == 0) {
+    if (int err = raise_smem(k12_gather_rescore_mm<T, false>, K12_GATHER_SMEM)) return err;
+    k12_gather_rescore_mm<T, false><<<(unsigned)nb, NT, K12_GATHER_SMEM, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(shard), ids, R, D, KS, unit,
+        (int)n_gather, static_cast<const T*>(mmq), static_cast<const T*>(mms), tq, mm_rows, 0,
+        out, mmo, maps);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = Tile<T>::smem(0);
+  if (int err = raise_smem(k12_gather_rescore_mm<T, true>, smem)) return err;
+  if (int err = tile_maps<T>(&maps, mmq, mms, tq, mm_rows, D)) return err;
+  k12_gather_rescore_mm<T, true><<<(unsigned)nb, Tile<T>::threads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(shard), ids, R, D, KS, unit,
       (int)n_gather, static_cast<const T*>(mmq), static_cast<const T*>(mms), tq, mm_rows,
-      (int)n_product, out, mmo);
+      (int)n_product, out, mmo, maps);
   return (int)cudaGetLastError();
 }
 
@@ -2358,6 +2560,17 @@ int bsr_normalize_cast(const float* x, void* y, long long rows, int D, int dtype
   if (dtype == DTYPE_BF16) return launch_k17<uint16_t, true>(x, y, rows, D, st);
   if (dtype == DTYPE_INT8) return launch_k17<int8_t, true>(x, y, rows, D, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The instruction probe: bf16 rows [R, D] (R % 64 == 0) and queries [128,
+// D]; out_wg and out_mma [ceil(D / 16), R, 128] f32.
+int bsr_probe_bf16_k16(const void* rows, const void* q, int R, int D, float* out_wg,
+                       float* out_mma, void* stream) {
+  if (R <= 0 || R % PROBE_ROWS || D <= 0) return (int)cudaErrorInvalidValue;
+  k_probe_bf16_k16<<<R / PROBE_ROWS, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(rows), static_cast<const __nv_bfloat16*>(q), R, D,
+      out_wg, out_mma);
+  return (int)cudaGetLastError();
 }
 
 const char* bsr_error_string(int err) {

@@ -28,6 +28,8 @@ K13 :func:`gather_cross`          each 8-query group against all of its
 K17 :func:`normalize_cast`        f32 rows -> normalized rows in the store
                                   dtype, one pass (no Pallas twin); with
                                   normalization off the bf16 cast alone
+--  :func:`probe_bf16_k16`        one bf16 k16 step on ``wgmma`` and on
+                                  ``mma.sync`` (a measurement of the card)
 === ============================= ======================================
 
 K10 replaces the block-max prototypes of the TPU measurement record
@@ -43,11 +45,14 @@ launches the kernel or raises — there is no fallback. Each kernel launch
 adds one to :data:`launch_counts`.
 
 The CUDA kernels agree with each other bit for bit, one arithmetic rule per
-dtype (see the source note): bf16 scores run on the tensor cores, one
-``mma.sync`` m16n8k16 per 16 features from a +0.0 accumulator, rows in A
-and queries in B, its sum added to the score with one rounded f32 add, in
-increasing feature order, in every kernel (the TPU reference's one MXU dot
-per score); f32 scores are one exact f32 FMA chain on the SIMT
+dtype (see the source note): bf16 scores run on the tensor cores, one k16
+product per 16 features from nothing, rows in A and queries in B, its sum
+added to the score with one rounded f32 add, in increasing feature order,
+in every kernel (the TPU reference's one MXU dot per score) — ``wgmma``
+m64n128k16 with scale-d = 0 on TMA-fed slabs in the score tile of K1, K3,
+K5, K10 and K12's product, ``mma.sync`` m16n8k16 from +0.0 in K2, K6, K12's
+gather and K13, whose f32 sums the card gives bit for bit alike
+(:func:`probe_bf16_k16`); f32 scores are one exact f32 FMA chain on the SIMT
 pipes (TF32 would not be exact); int8 scores an exact integer dot (K1, K3,
 K5 and K10 on the s8 tensor cores, ``wgmma`` fed by TMA; K2 and K6 on
 ``__dp4a``: an integer sum is exact in any order). The
@@ -133,6 +138,7 @@ launch_counts: Dict[str, int] = {
     "gather_rescore_mm": 0,
     "gather_cross": 0,
     "normalize_cast": 0,
+    "probe_bf16_k16": 0,
 }
 
 
@@ -1029,6 +1035,48 @@ def gather_cross(queries, shard, ids, *, unit, G):
                 shard.data_ptr(), ids.data_ptr(), t, r, d, k, unit, G,
                 out.data_ptr(), int8_body=False)
     return out
+
+
+def probe_bf16_k16_plain(rows, queries):
+    """:func:`probe_bf16_k16` on any device: each k16 step's sum over its 16
+    features in float64, rounded once to f32 (both outputs the same)."""
+    steps = -(-rows.shape[1] // 16)
+    pad = 16 * steps - rows.shape[1]
+    r = torch.nn.functional.pad(rows.double(), (0, pad)).reshape(rows.shape[0], steps, 16)
+    q = torch.nn.functional.pad(queries.double(), (0, pad, 0, 128 - queries.shape[0]))
+    p = torch.einsum("rsf,qsf->srq", r, q.reshape(128, steps, 16)).float()
+    return p, p.clone()
+
+
+def probe_bf16_k16(rows, queries):
+    """The instruction probe (a measurement; no TPU twin). bf16 ``rows [R,
+    D]`` (R a multiple of 64) against at most 128 bf16 ``queries [T, D]``
+    (zero rows fill up to 128): each 16-feature step's f32 sum of every
+    (row, query) pair, ``(wg, mma)``, each ``[ceil(D / 16), R, 128]``: ``wg``
+    from ``wgmma`` m64n128k16 with scale-d = 0 on the score tile's swizzled
+    slabs, ``mma`` from ``mma.sync`` m16n8k16 from +0.0 (rows in A, queries
+    in B, feature ``d0 + j`` in k slot ``j``). Whether they agree bit for bit
+    is whether the score tile and the gathers score a pair alike. On the CPU
+    :func:`probe_bf16_k16_plain`."""
+    if rows.dtype != torch.bfloat16 or queries.dtype != torch.bfloat16:
+        raise TypeError("the probe takes bf16 rows and queries")
+    if rows.shape[0] % 64 or rows.shape[1] != queries.shape[1] or queries.shape[0] > 128:
+        raise ValueError(f"probe: rows {tuple(rows.shape)} must be a multiple of 64 "
+                         f"rows of the queries' width, queries {tuple(queries.shape)} "
+                         f"at most 128")
+    _check_device(queries, rows)
+    if rows.device.type == "cpu":
+        return probe_bf16_k16_plain(rows, queries)
+    r, d = rows.shape
+    q = torch.zeros((128, d), dtype=torch.bfloat16, device=rows.device)
+    q[:queries.shape[0]] = queries
+    rows = rows.contiguous()
+    steps = -(-d // 16)
+    wg = torch.empty((steps, r, 128), dtype=torch.float32, device=rows.device)
+    mma = torch.empty_like(wg)
+    _launch("probe_bf16_k16", "bsr_probe_bf16_k16", rows, rows.data_ptr(), q.data_ptr(),
+            r, d, wg.data_ptr(), mma.data_ptr(), int8_body=False)
+    return wg, mma
 
 
 def normalize_cast(x, dtype, *, normalize=True, out=None):

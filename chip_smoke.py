@@ -6,19 +6,25 @@ and serving paths.
 Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
 (one nvcc per source, started together), then:
 
-1. device: card name and power limit; kernel build times;
-2. each search kernel (K1 matmul_blockmax2_only, K2 gather_rescore, K3
+1. device: card name and power limit; kernel build times, registers,
+   spills and how many functions ptxas serialized wgmmas in;
+2. the instruction probe: one bf16 k16 step's f32 sums on wgmma
+   (m64n128k16, scale-d = 0: K1/K3's score tile) and on mma.sync (m16n8k16
+   from +0.0: K2/K6's gather), bit for bit on unit, normal, cancelling /
+   mixed-exponent rows and random bit patterns (subnormals, +-inf, NaN),
+   and how often each differs from the float64 sum rounded once;
+   each search kernel (K1 matmul_blockmax2_only, K2 gather_rescore, K3
    matmul_blockmax; bf16 on the tensor cores) against its plain PyTorch
    version at the search path's shapes (a 1M x 768 store,
    nomic-embed-text-v1.5's width, queried 512 at a time, top-100), max
    |diff| <= 1e-5 (the plain versions sum in cuBLAS's f32 order, not the
-   kernels' mma.sync k16 steps);
+   kernels' k16 steps);
    then K2 and K6 on the gather mainloop's staging paths (D 768, 130 and
    99 on f32, bf16 and int8; views off the 16-byte boundary; ids -1 and
    n_units score NaN), bit for bit ``fma_chain_scores`` (f32), the plain
    version (int8) or K3 (bf16), K6 over K4's rows bit for bit K2;
-3. the search kernels against each other, bit for bit (one mma.sync
-   instruction and one k16 order per bf16 score); the same identity on
+3. the search kernels against each other, bit for bit (one k16 sum, on
+   either instruction, and one k16 order per bf16 score); the same identity on
    phase 4's 1M x 768 f32 store at the rescore pass's geometry (K1 sub 64
    with argmax; one exact FMA chain per f32 score), K1's maxima and keys on
    its first 16,384 rows bit for bit ``fma_chain_scores`` (the chain
@@ -493,6 +499,90 @@ def product_ms(q, rows):
 
 def phase(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: the instruction probe's kinds of data (probe_operands)
+PROBE_KINDS = ("unit", "normal", "cancel_mixed", "special")
+
+
+def probe_operands(kind: str, seed: int, rows: int = 4096, dim: int = 768,
+                   device="cuda"):
+    """bf16 ``(rows [rows, dim], queries [128, dim])`` for the instruction
+    probe, from numpy's generator: unit rows, the queries among them; raw
+    normal rows and queries; rows built for cancellation (the first half:
+    odd features the exact negation of the even ones, every 8th feature
+    free, against queries whose odd features repeat the even ones) and for
+    mixed exponents (the second half: features near 2^-10 with one near
+    2^10 in every 16-feature step); random bf16 bit patterns on a quarter
+    of the entries (subnormals, +-inf, NaN, the extremes) among normal
+    values."""
+    rng = np.random.default_rng(seed + 97 * PROBE_KINDS.index(kind))
+    m = rng.standard_normal((rows, dim)).astype(np.float32)
+    q = rng.standard_normal((128, dim)).astype(np.float32)
+    if kind == "unit":
+        m /= np.linalg.norm(m, axis=1, keepdims=True)
+        q = m[rng.integers(0, rows, 128)]
+    elif kind == "cancel_mixed":
+        half = rows // 2
+        m = torch.from_numpy(m).to(torch.bfloat16).float().numpy()
+        q = torch.from_numpy(q).to(torch.bfloat16).float().numpy()
+        free = np.zeros(dim, dtype=bool)
+        free[1::8] = True
+        odd = np.arange(1, dim, 2)
+        keep = odd[~free[odd]]
+        m[:half, keep] = -m[:half, keep - 1]
+        q[:, keep] = q[:, keep - 1]
+        m[half:] *= 2.0 ** -10
+        big = np.arange(0, dim, 16)[None, :] + rng.integers(
+            0, 16, (rows - half, -(-dim // 16)))
+        big = np.minimum(big, dim - 1)
+        np.put_along_axis(m[half:], big, rng.standard_normal(big.shape)
+                          .astype(np.float32) * 2.0 ** 10, axis=1)
+    out = []
+    for a in (m, q):
+        t = torch.from_numpy(a).to(torch.bfloat16)
+        if kind == "special":
+            bits = t.view(torch.int16).numpy().copy()
+            pick = rng.random(bits.shape) < 0.25
+            bits[pick] = rng.integers(-32768, 32768, int(pick.sum())).astype(
+                np.int16)
+            t = torch.from_numpy(bits).view(torch.bfloat16)
+        out.append(t.to(device).contiguous())
+    return out[0], out[1]
+
+
+def probe_counts(wg, mma):
+    """How the probe's two instructions' sums differ, cell by cell:
+    ``cells``; ``differ`` (any bit); ``zero_sign`` (+0.0 against -0.0);
+    ``nan_bits`` (NaN on both, other bits); ``nan`` (cells NaN on either)."""
+    a, b = wg.view(torch.int32), mma.view(torch.int32)
+    differ = a != b
+    zero = differ & (wg == 0) & (mma == 0)
+    nan_both = differ & torch.isnan(wg) & torch.isnan(mma)
+    return {"cells": wg.numel(), "differ": int(differ.sum()),
+            "zero_sign": int(zero.sum()), "nan_bits": int(nan_both.sum()),
+            "nan": int((torch.isnan(wg) | torch.isnan(mma)).sum())}
+
+
+def check_probe(seed: int) -> None:
+    """Phase 2's instruction probe: a bf16 k16 step's f32 sums on ``wgmma``
+    (scale-d = 0, the score tile's) and on ``mma.sync`` from +0.0 (the
+    gathers'), bit for bit on every kind of data; fails otherwise."""
+    from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
+
+    for kind in PROBE_KINDS:
+        rows, q = probe_operands(kind, seed)
+        wg, mma = tk.probe_bf16_k16(rows, q)
+        plain, _ = tk.probe_bf16_k16_plain(rows, q)
+        torch.cuda.synchronize()
+        counts = probe_counts(wg, mma)
+        fin = torch.isfinite(wg) & torch.isfinite(plain)
+        off = int((wg.view(torch.int32) != plain.view(torch.int32))[fin].sum())
+        phase(f"phase 2 bf16 k16 probe, {kind} [{rows.shape[0]} x "
+              f"{rows.shape[1]} x 128]: wgmma vs mma.sync {counts}; wgmma vs "
+              f"the float64 sum rounded once, on {int(fin.sum())} finite "
+              f"cells: {off} differ")
+        assert counts["differ"] == 0, (kind, counts)
 
 
 def check_kernels(store, store_100k, gen):
@@ -3973,10 +4063,12 @@ def main() -> int:
         spills = [ln.strip() for ln in lib.log.splitlines()
                   if "spill" in ln and not ln.strip().startswith(
                       "0 bytes stack frame, 0 bytes spill stores")]
+        serialized = sum("serialized" in ln for ln in lib.log.splitlines())
         phase(f"phase 1 device: {card} | torch {torch.__version__} cuda "
               f"{torch.version.cuda} | {lib.path.name} built in "
               f"{lib.build_s:.1f}s; ptxas: {' / '.join(regs)}; spills: "
-              f"{' / '.join(spills) or 'none'}")
+              f"{' / '.join(spills) or 'none'}; functions whose wgmmas "
+              f"ptxas serialized: {serialized}")
     phase(f"phase 1 kernel builds, in parallel: {build_wall:.1f}s wall")
 
     gen = torch.Generator(device="cuda")
@@ -3985,6 +4077,7 @@ def main() -> int:
                                   device="cuda")
     store_100k = DeviceStore.synthetic(100_000, 768, "bfloat16",
                                        args.seed + 1, device="cuda")
+    check_probe(args.seed)
     errs, times = check_kernels(store, store_100k, gen)
 
     cfg = PipelineConfig(search=SearchConfig(top_k=K), skip_process=True)

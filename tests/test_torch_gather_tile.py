@@ -15,7 +15,7 @@ int8: thread r takes ``__dp4a`` over the slab's packs. The emulation reads
 the constants out of the source, so it cannot drift from them, and checks
 that every copy lands once and zero-fills, that each f32 accumulator sees d
 in order (and that a crossed pair fails), that the bf16 fragments put
-feature d0 + j in k slot j as ``score_tile``'s do, that the shared reads
+feature d0 + j in k slot j as the score tile's wgmma descriptors do, that the shared reads
 and writes are free of bank conflicts, that the ring fits its blocks, and
 that the emulated scores are :func:`fma_chain_scores` and the plain K2/K6
 bit for bit. The card holds the kernels to the same
@@ -268,9 +268,13 @@ def a_fragment(addr_of_lane):
 @pytest.mark.parametrize("warp", range(C["G_TILE"] // 32))
 def test_bf16_k_slot_of_feature_d0_plus_j_is_score_tiles(warp):
     """A fragments from the slab hold, in k slot j of step kk, feature kk + j
-    of the tile's row 32 w + 16 m + row, exactly as score_tile's ldmatrix
-    map (SLD bf16 per row) puts feature kk + j of its rows in slot j."""
-    sld = C["SLD"]
+    of the tile's row 32 w + 16 m + row, exactly as the score tile's wgmma
+    descriptors (the swizzled slab read 32 bytes a k16 step; emulated in
+    test_torch_bf16_tile.py) put feature kk + j of its rows in slot j."""
+    from test_torch_bf16_tile import desc_read, tma_box
+
+    tags = np.arange(64 * 64).reshape(64, 64)   # row r, feature f: 64 r + f
+    smem = tma_box(tags, 0, 0)
     for m in range(2):
         for kk in range(0, SB // 2, 16):
             tile = a_fragment(ldmatrix_addrs(warp, m, kk))
@@ -278,10 +282,7 @@ def test_bf16_k_slot_of_feature_d0_plus_j_is_score_tiles(warp):
             assert np.array_equal(row, (C["G_WARP_ROWS"] * warp + 16 * m
                                         + np.arange(16))[:, None].repeat(16, 1))
             assert np.array_equal(feat // 2, kk + np.arange(16)[None, :].repeat(16, 0))
-            lane = np.arange(32)
-            st_off = (lane & 15) * sld + ((lane >> 4) << 3)   # score_tile, elements
-            st_tile = a_fragment(2 * (st_off + kk))
-            st_row, st_feat = np.divmod(st_tile // 2, sld)
+            st_row, st_feat = np.divmod(desc_read(smem, 32 * (kk // 16), 16), 64)
             assert np.array_equal(st_feat, feat // 2)
             assert np.array_equal(st_row, row - C["G_WARP_ROWS"] * warp - 16 * m)
 

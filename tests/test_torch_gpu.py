@@ -7,6 +7,9 @@ conftest (which imports jax):
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
 
+import contextlib
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -2063,3 +2066,162 @@ def test_k17_query_prep_runs_no_torch_normalization(cuda, dtype):
         lambda: eng._cast_queries(q), 4)
     assert recorded, "the profiler recorded no K17 kernel"
     assert not others, others
+
+
+@pytest.mark.parametrize("kind", ["unit", "normal", "cancel_mixed", "special"])
+def test_wgmma_k16_step_is_mma_sync_bitwise(cuda, kind):
+    """The instruction probe: one bf16 k16 step's f32 sums on ``wgmma``
+    m64n128k16 with scale-d = 0 (the score tile of K1/K3/K5/K10/K12) and on
+    ``mma.sync`` m16n8k16 from +0.0 (K2/K6's gather, K12's gather and K13)
+    agree bit for bit on unit rows, raw normal rows, rows built for
+    cancellation and mixed exponents, and random bit patterns (subnormals,
+    +-inf, NaN): what K1 = K2 = K3 rests on."""
+    import chip_smoke
+
+    rows, q = chip_smoke.probe_operands(kind, 0, rows=1024, dim=768,
+                                        device=cuda)
+    wg, mma = tk.probe_bf16_k16(rows, q)
+    torch.cuda.synchronize()
+    counts = chip_smoke.probe_counts(wg, mma)
+    assert counts["differ"] == 0, counts
+
+
+# -- the bf16 score tile on wgmma against the mma.sync tile -------------------
+
+
+@pytest.fixture(scope="module")
+def bf16_mma_sync_lib():
+    """The search kernels built with the bf16 score tile on ``mma.sync``
+    (``bench/ab_topk.py``'s ``@bf16_mma_sync``: the tile as shipped before
+    the wgmma tile), bound with the package's signatures."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from better_search_rag_rust_tpu_torch.bench import ab_topk
+
+    builds = ab_topk.build([ab_topk.source_path("@bf16_mma_sync")])
+    return next(iter(builds.values()))[0]
+
+
+@contextlib.contextmanager
+def _topk_library(lib):
+    """The wrappers launch from the ctypes library ``lib`` inside the block."""
+    from better_search_rag_rust_tpu_torch.ops import _build
+
+    saved = _build._LIBRARIES.get("topk")
+    _build._LIBRARIES["topk"] = _build.KernelLibrary(lib, Path(lib._name), 0.0, "")
+    try:
+        yield
+    finally:
+        if saved is None:
+            _build._LIBRARIES.pop("topk", None)
+        else:
+            _build._LIBRARIES["topk"] = saved
+
+
+def _bf16_tile_operands(cuda, case, rows=2048, t=200):
+    """bf16 operands of one case: unit rows, the queries three store rows
+    and negated store rows (200: a ragged query tile), at D 768 or 64 (TMA)
+    or 100 (a k16 step 4 features into D: the producer stages the slabs);
+    ``_offset``: 768-d views whose rows start 2 bytes past 16-byte
+    alignment (staged); ``_nan``: NaN in rows 5 (either sign) and 1000."""
+    rng = np.random.default_rng(len(case) + rows)
+    dim = int(case.split("_")[0][1:])
+    m = rng.standard_normal((rows, dim)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=1, keepdims=True)
+    q = np.concatenate([m[[3, 100, 7]], -m[rng.integers(0, rows, t - 3)]])
+    mat = torch.from_numpy(m).to(cuda).to(torch.bfloat16)
+    q = torch.from_numpy(q).to(cuda).to(torch.bfloat16)
+    if case.endswith("nan"):  # 0x7FC0 and 0xFFC0
+        mat.view(torch.int16)[5, 0] = 0x7FC0
+        mat.view(torch.int16)[1000, dim // 2] = -64
+    if case.endswith("offset"):
+        def shifted(x):
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+            view = buf[1:].view(x.shape)
+            view.copy_(x)
+            return view
+        q, mat = shifted(q), shifted(mat)
+        assert q.data_ptr() % 16 and mat.data_ptr() % 16 and mat.is_contiguous()
+    return q.contiguous(), mat.contiguous()
+
+
+def _bf16_tile_outputs(q, mat, valid):
+    """Every output of the bf16 score tile's kernels: K1 at sub 8, 16 and 64
+    (key, block maxima at ew 128) and at sub 128 / ew 256 (K10's walk), K3,
+    K5 at block 32, K10 (scores, argmax, second max at sub 16) and K12 (one
+    copy of the product, and its gather)."""
+    cuda = q.device
+    outs = []
+    for sub in (8, 16, 64):
+        outs += tk.matmul_blockmax2_only(q, mat, valid, sub=sub, block=128,
+                                         emit_block=True, emit_argmax=True)
+    outs += tk.matmul_blockmax2_only(q, mat, valid, sub=128, block=1024,
+                                     emit_block=True, emit_argmax=True,
+                                     emit_width=256)
+    outs += tk.matmul_blockmax(q, mat, valid)
+    outs.append(tk.matmul_blockmax_only(q, mat, valid, block=32))
+    outs += tk.matmul_blockmax2x(q, mat, valid, sub=16, emit_sims=True,
+                                 emit_arg=True, emit_m2=True)
+    ids = _unit_ids(cuda, mat.shape[0] // 16, q.shape[0], 8, 2)
+    outs += tk.gather_rescore_mm(q, mat, ids, q, mat, unit=16, copies=1)
+    torch.cuda.synchronize()
+    return outs
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("case", ["d768", "d64", "d100", "d768_offset",
+                                  "d768_nan"])
+def test_bf16_tile_is_the_mma_sync_tile_bitwise(cuda, bf16_mma_sync_lib, case):
+    """The bf16 score tile on wgmma fed by TMA (or by the producer warp
+    where TMA cannot read: D 100, bases 2 bytes off) gives every output of
+    K1, K3, K5, K10 and K12 bit for bit what the mma.sync tile gives:
+    ``valid_rows`` inside the last tile, 200 queries (a ragged query
+    tile), NaN rows of either sign. Each launch is counted."""
+    q, mat = _bf16_tile_operands(cuda, case)
+    valid = mat.shape[0] - 37
+    names = ("matmul_blockmax2_only", "matmul_blockmax", "matmul_blockmax_only",
+             "matmul_blockmax2x", "gather_rescore_mm")
+    before = {n: tk.launch_counts[n] for n in names}
+    got = _bf16_tile_outputs(q, mat, valid)
+    assert {n: tk.launch_counts[n] - before[n] for n in names} == {
+        "matmul_blockmax2_only": 4, "matmul_blockmax": 1,
+        "matmul_blockmax_only": 1, "matmul_blockmax2x": 1,
+        "gather_rescore_mm": 1}
+    with _topk_library(bf16_mma_sync_lib):
+        want = _bf16_tile_outputs(q, mat, valid)
+    assert len(got) == len(want) == 21
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(_bits(a), _bits(b)), i
+
+
+def test_bf16_identity_on_nan_rows(cuda):
+    """Phase 3's identity on a bf16 store with NaN rows of either sign: on a
+    finite unit K2 at K1's argmax row == K1's unit max == K3's score there,
+    bit for bit; a unit holding a NaN row has K1's max NaN (0x7FFFFFFF),
+    its argmax ``sub``, and K2's scores of the unit are K3's bit for bit."""
+    sub = 64
+    q, mat = _bf16_tile_operands(cuda, "d768_nan", rows=4096, t=40)
+    n = mat.shape[0]
+    bms, key = tk.matmul_blockmax2_only(q, mat, n, sub=sub, block=128,
+                                        emit_argmax=True)
+    sims, _ = tk.matmul_blockmax(q, mat, n)
+    units = torch.arange(n // sub, device=cuda).repeat(q.shape[0], 1)
+    resc = tk.gather_rescore(q, mat, units.to(torch.int32).contiguous(),
+                             unit=sub).view(q.shape[0], -1, sub)
+    torch.cuda.synchronize()
+    s3 = sims.view(q.shape[0], -1, sub)
+    nan_unit = s3.isnan().any(dim=2)
+    assert bool(nan_unit[:, [0, 1000 // sub]].all()) and int(nan_unit.sum()) == 2 * q.shape[0]
+    arg = (key & 0x7F).T.long()
+    k1_max = bms.T
+    assert bool((arg[nan_unit] == sub).all())
+    assert bool((k1_max[nan_unit].view(torch.int32) == 0x7FFFFFFF).all())
+    assert torch.equal(_bits(resc[nan_unit]), _bits(s3[nan_unit]))
+    fin = ~nan_unit
+    a = arg.clamp(max=sub - 1)[:, :, None]
+    k2_at = torch.gather(resc, 2, a)[:, :, 0]
+    k3_at = torch.gather(s3, 2, a)[:, :, 0]
+    assert torch.equal(k2_at[fin], k1_max[fin]) and torch.equal(k3_at[fin], k1_max[fin])
