@@ -11,21 +11,20 @@ of two tiles that 8 warps step through together, two blocks per SM, each
 K tile rotated as it lands in each pass (what the resident, once-rotated
 K and V and 16 free-running warps buy); ``@fastexp``, ``__expf``
 (ex2.approx) in place of the accurate ``expf`` (its gain, and the float64
-lines that decided against it); ``@acc``, QK^T's k16 steps accumulated inside the ``mma``
-instead of each from +0.0 with one rounded add (what the rounded add
-costs, and the error it saves; K9 calls the same ``qk_tile``, so both of
-its passes move with it); ``@nopass1``, pass 1 skipped and e taken
-against 0 (wrong answers: what the exact max costs); ``@bwdacc``, K9's
-dp, dv, dk and dq accumulated inside the ``mma`` instead of a rounded add
-per k16 step (``K9_STEP_ADDS``: its cost, and the error it saves);
-``@dump``, a debug build (``K9_DUMP``) whose K9 writes both passes' p, dp
-and ds behind its statistics, compared bit for bit (:func:`k9_dump_compare`;
-not timed);
-``@norotq``, K9's key pass without the rotary of its q tiles (wrong
-answers: what rotating each q tile as it lands costs); ``@kq64``, K9's key
-pass on 64-query tiles at two blocks per SM (what the 32-query tiles and
-a third block buy). ``@stream``,
-``@fastexp`` and ``@nopass1`` leave K9 as it is.
+lines that decided against it); ``@acc``, K8's QK^T k16 steps accumulated
+inside the ``mma`` instead of each from +0.0 with one rounded add (what
+the rounded add costs, and the error it saves); ``@nopass1``, pass 1
+skipped and e taken against 0 (wrong answers: what the exact max costs);
+``@bwdacc``, K9's dp, dv, dk and dq accumulated inside the ``wgmma``
+instead of a rounded add per k16 step (``K9_STEP_ADDS``: its cost, and the
+error it saves); ``@k9noadd``, every K9 product accumulated inside the
+``wgmma``, QK^T too (``K9_QK_ADDS`` and ``K9_STEP_ADDS``: what the rule's
+adds cost); ``@k9fastexp``, K9's ``expf`` taken as ``__expf``, and
+``@k9fastdiv``, its p = e / l as e times 1/l (other answers: what the
+accurate exponential and the exact division cost); ``@dump``, a debug build (``K9_DUMP``) whose K9
+writes both kernels' p, dp and ds behind its scratch, compared bit for bit
+(:func:`k9_dump_compare`; not timed). ``@stream``, ``@fastexp``, ``@acc``
+and ``@nopass1`` leave K9 as it is.
 Every build uses the package's nvcc flags (:data:`.._build.NVCC_FLAGS`),
 all started together, and is bound with the package's C signatures, so
 every build must keep the entry points of the tree.
@@ -37,7 +36,9 @@ builds: K8 ``fused_attention_qkv`` and K7 ``fused_attention`` at the
 encoder's shape (B 256, S 512, H 12, hd 64; random key lengths, one batch
 row fully padded), K9 ``fused_attention_qkv_bwd`` at the finetune shape
 (B 64), with K9's device time split over its three kernels (torch.profiler:
-the rotary of K, the query pass, the key pass). Then, per build: K8's and K9's error against a float64 evaluation of the
+the rotary pre-pass, the query kernel, the key kernel). Every build gets
+the tree's K9 scratch (:func:`..ops.attention_kernels.k9_scratch_floats`),
+which holds an older build's ``[3, B, H, S]`` statistics at its start. Then, per build: K8's and K9's error against a float64 evaluation of the
 same function with the same rounding points (rotary in f32 rounded to
 bf16, f32 logits, the exact max, the denominator over the unrounded e, PV on bf16(e),
 the division after PV): max and mean over valid query rows and the count
@@ -109,11 +110,13 @@ VARIANTS = {
                                 "constexpr bool K9_STEP_ADDS = false;"),
     "dump": lambda src: _edit(src, "#include <cuda_bf16.h>",
                               "#define K9_DUMP 1\n#include <cuda_bf16.h>"),
-    "norotq": lambda src: _edit(
-        src, "    rotate_rows<HD, NT_>(qb, q0, KQ, S, cos2, s2);\n", ""),
-    "kq64": lambda src: _edit(_edit(
-        src, "constexpr int KQ = 32;", "constexpr int KQ = 64;"),
-        "constexpr int KEY_BLOCKS = 3;", "constexpr int KEY_BLOCKS = 2;"),
+    "k9noadd": lambda src: _edit(_edit(
+        src, "constexpr bool K9_QK_ADDS = true;", "constexpr bool K9_QK_ADDS = false;"),
+        "constexpr bool K9_STEP_ADDS = true;", "constexpr bool K9_STEP_ADDS = false;"),
+    "k9fastexp": lambda src: _edit(src, "  return expf(x);", "  return __expf(x);"),
+    "k9fastdiv": lambda src: _edit(_edit(
+        src, "  return __fmaf_rn(__fmaf_rn(-l, q0, e), y, q0);", "  return q0;"),
+        "  return e == 0.f || (bits >= (27 << 23) && fabsf(r) < thr);", "  return true;"),
 }
 
 
@@ -136,7 +139,7 @@ def build(paths):
     one nvcc per source, all started together."""
     return ab_topk.build(paths, library="attention", out=OUT,
                          entry=lambda line: "k8_fused" in line
-                         or "k9_bwd" in line)
+                         or "k9_" in line)
 
 
 def operands(b, seed):
@@ -246,8 +249,8 @@ def k9_dump_compare(lib, qkv, c2, s2, bias, g, heads, scale):
     wrote every (query, key) cell of every head)."""
     b, s, width = qkv.shape
     hd = width // (3 * heads)
-    bhs = b * heads * s
-    scratch = torch.full((3 * bhs + 6 * b * heads * s * s,), float("nan"),
+    head = ak.k9_scratch_floats(b, heads, s, hd)
+    scratch = torch.full((head + 6 * b * heads * s * s,), float("nan"),
                          dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
     if lib.bsr_fused_attention_qkv_bwd(
@@ -256,7 +259,7 @@ def k9_dump_compare(lib, qkv, c2, s2, bias, g, heads, scale):
             dqkv.data_ptr(), torch.cuda.current_stream().cuda_stream):
         raise RuntimeError("a kernel launch failed")
     torch.cuda.synchronize()
-    dump = scratch[3 * bhs:].view(2, b * heads, 3, s, s)
+    dump = scratch[head:].view(2, b * heads, 3, s, s)
     bits = dump.view(torch.int32)
     res = {name: bool(torch.equal(bits[0, :, c], bits[1, :, c]))
            for c, name in enumerate(("p", "dp", "ds"))}
@@ -279,7 +282,8 @@ def cases(seed):
     g = torch.randn((B_BWD, S, H * HD), generator=gen,
                     device="cuda").to(torch.bfloat16)
     dqkv = torch.empty_like(gq)
-    stats = torch.empty((3, B_BWD, H, S), dtype=torch.float32, device="cuda")
+    stats = torch.empty((ak.k9_scratch_floats(B_BWD, H, S, HD),),
+                        dtype=torch.float32, device="cuda")
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     work = {
         f"K8 [{B} x {S} x {H} x {HD}]": (lambda lib: lib.bsr_fused_attention_qkv(
@@ -355,7 +359,8 @@ def k9_error_lines(libs, bwd, scale):
     del plain
     torch.cuda.empty_cache()
     stream = torch.cuda.current_stream().cuda_stream
-    stats = torch.empty((3, B_BWD, H, S), dtype=torch.float32, device="cuda")
+    stats = torch.empty((ak.k9_scratch_floats(B_BWD, H, S, HD),),
+                        dtype=torch.float32, device="cuda")
     for name, (lib, _report) in libs.items():
         outs = []
         for _ in range(2):
@@ -386,15 +391,16 @@ def k9_dump_line(name, lib, bwd, scale):
 
 def k9_split(fn, iters=3):
     """Device ms per launch of K9's three kernels under ``fn`` (one K9
-    launch), by torch.profiler: ``{"rotate": ms, "query": ms, "key": ms}``."""
+    launch), by torch.profiler: ``{"rotate": ms, "query": ms, "key": ms}``
+    (the tree's kernel names and the mma.sync build's)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    names = {"k9_rotate_k": "rotate", "k9_bwd_query": "query",
-             "k9_bwd_key": "key"}
+    names = {"k9_rotate_": "rotate", "k9_wg_query": "query",
+             "k9_bwd_query": "query", "k9_wg_key": "key", "k9_bwd_key": "key"}
     split = dict.fromkeys(names.values(), 0.0)
     for ev in prof.key_averages():
         for kernel, part in names.items():

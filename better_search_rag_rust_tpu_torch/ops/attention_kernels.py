@@ -37,9 +37,21 @@ launch_counts: Dict[str, int] = {"fused_attention": 0,
 
 #: Head widths the CUDA kernels are instantiated for (their register tiles).
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-#: Longest sequence the kernels take (``MAX_S`` in the CUDA source): a warp
-#: of the backward's query pass holds at most two 64-key tiles of logits.
+#: Longest sequence the kernels take (``MAX_S`` in the CUDA source): the
+#: backward keeps a head's key bias, and its softmax statistics, in shared
+#: memory.
 KERNEL_MAX_SEQ = 1024
+
+
+def k9_scratch_floats(b: int, heads: int, s: int, hd: int) -> int:
+    """f32 elements of K9's scratch: the softmax statistics ``[4, B, H, S]``
+    f32 (max, sum, ``sum(dp * p)`` and the sum's reciprocal per query row,
+    from the query kernel to the key kernel), behind them the rotated q and
+    k ``[2, B, H, S, hd]`` bf16 that both kernels read through TMA, then a
+    byte per (b, h, 16-row group, 64-key tile) where the query kernel's
+    division fell back (``k9_flag_bytes`` in the source), in whole f32."""
+    flag_bytes = b * heads * -(-s // 128) * 8 * -(-s // 64)
+    return (4 + hd) * b * heads * s + -(-flag_bytes // 4)
 
 
 def reset_launch_counts() -> None:
@@ -146,10 +158,10 @@ def _check_kernel(name: str, hd: int, heads: int, s: int, *tensors) -> None:
 
 
 def _aligned16(*tensors) -> tuple:
-    """The kernels stage q, k, v (and g) 16 bytes per ``cp.async`` and
-    read the rotary tables 8 bytes at a time: an operand off a 16-byte
-    boundary (a view may be; a fresh tensor is not) is copied to one that
-    is on it, the rest are passed as they are."""
+    """K8/K7 stage q, k and v 16 bytes per ``cp.async``, K9 reads qkv and
+    g through TMA, and both read the rotary tables 8 bytes at a time: an
+    operand off a 16-byte boundary (a view may be; a fresh tensor is not)
+    is copied to one that is on it, the rest are passed as they are."""
     return tuple(t.clone() if t.data_ptr() % 16 else t for t in tensors)
 
 
@@ -293,9 +305,8 @@ def fused_attention_qkv_bwd(qkv: torch.Tensor, cos2: torch.Tensor,
     _check_kernel("K9", hd, heads, s, qkv, cos2, s2, bias, g)
     qkv, cos2, s2, bias, g = _aligned16(qkv, cos2, s2, bias, g)
     dqkv = torch.empty_like(qkv)
-    # per-row softmax max, sum and sum(dp * p), pass 1 to pass 2
-    stats = torch.empty((3, b, heads, s), dtype=torch.float32,
-                        device=qkv.device)
+    stats = torch.empty((k9_scratch_floats(b, heads, s, hd),),
+                        dtype=torch.float32, device=qkv.device)
     if b == 0:
         return dqkv
     from ._build import library

@@ -81,84 +81,98 @@
 // K9 — WHAT BOUNDS IT. Five products of S*S*hd per head (QK^T, dp, dv, dq,
 // dk: 10*S*S*hd FLOP): at the finetune shape (B 64, S 512, H 12, hd 64) 129
 // GFLOP, 0.130 ms at the bf16 tensor rate, against ~0.03 ms for its bytes
-// (qkv and g in, dqkv out): operations-bound. The design below computes
-// seven products, not five: with no atomics and no residual beyond K8's
-// inputs, a pass over a key block cannot know the softmax statistics of a
-// query row without a pass over all of that row's keys, so QK^T and dp run
-// in both kernels — three products in the query pass (QK^T, dp, dq) and four
-// in the key pass (S^T, dP^T, dv, dk) — with an exponential per logit in
-// each.
+// (qkv and g in, dqkv out): operations-bound. With no atomics and no
+// residual beyond K8's inputs the design below computes eleven products
+// (each 25.8 GFLOP there, 0.026 ms at the tensor rate): a query row's
+// statistics need every key first, so the query kernel sweeps the head's
+// keys four times (S; S; S and dP; S, dP and dQ: seven) and the key kernel
+// once (S^T, dP^T, dV, dK: four). Beside the products each logit costs, per
+// the rule below, one f32 add a k16 step of each product, four expf and
+// three __fdiv_rn over the two kernels (the FP32 pipes, 128 a clock an SM,
+// against the tensor cores' 1,024 bf16 FMAs): those, not the tensor cores,
+// set its floor.
 //
 // K9 — DESIGN. Three kernels, deterministic (no atomics), every product on
-// mma.sync m16n8k16 (bf16 in, f32 out) in K8's fragment layout.
-// (0) k9_rotate_k: k_r, each key's rotary once per head, into dqkv's own k
-// lanes (no scratch beyond the statistics): the query pass reads it there,
-// and each key-pass block stages its own rows of it before it overwrites
-// them with dk. Rotating K in every query block instead reads the rotary
-// tables again for every 16 query rows. q_r cannot take the same road: the
-// only lanes free for it would be dq's or dv's, written while other blocks
-// still read it, so the key pass rotates each q tile as it lands.
-// (a) k9_bwd_query: a block per (b, h, 16 query rows); its 8 warps split the
-// keys, warp w taking the 64-key tiles w and w + 8. Every warp holds the
-// rotated q (load_q_frags) and g of the 16 rows as A fragments, read from
-// global memory. A warp stages its V tile with cp.async into a slot of its
-// own (pitch hd + 8), takes dp = g v^T (dot_tile, V by ldmatrix), stages its
-// K_r tile into the same slot and takes the logits by K8's own qk_tile, so
-// they are K8's bit for bit. The f32 logits of its tiles (at most two: S <=
-// 1024) stay in registers, their dp in the thread's own shared-memory slots;
-// the exact row max, the sum of the f32 e and row = sum(dp * p) are reduced
-// over the quad and then over the 8 warps through shared memory, in a fixed
-// order. ds = bf16(p * (dp - row) *
-// scale) is repacked from the C fragments into the A fragments of ds . K_r
-// (tile_pv's repack; K_r by ldmatrix.trans from the slot, restaged where a
-// warp had two tiles), and the 8 partial dq are summed in warp order through
-// shared memory before the rotary adjoint and one rounding. m, l and row go
-// to the [3, B, H, S] f32 scratch. Three products: the logits and dp are
-// kept, not recomputed.
-// (b) k9_bwd_key: a block per (b, h, KB keys), KW warps of 16 keys each: the
-// keys are the M rows. K_r and V of the block's keys stay in shared memory;
-// q, g and the statistics of KQ-query tiles stream through a two-tile
-// cp.async ring, each q tile rotated as it lands. Per tile a warp takes S^T
-// = K_r Q_r^T by qk_tile (its A fragments by ldmatrix from K_r), p from the
-// stored m and l, dP^T = V g^T by dot_tile and ds, then dV += bf16(P)^T g
-// and dK += dS^T Q_r, both A operands repacked C -> A and g, Q_r by
-// ldmatrix.trans. dV accumulates in registers, dK (and a tile's p, while
-// dP^T runs) in the thread's own shared-memory slots; dK's rotary adjoint
-// pairs lane d with its partner d + hd/2, which the same thread holds. Four
-// products.
-// Rounding: QK^T is qk_tile's (each k16 step from +0.0, one rounded add);
-// dp, dv, dk and dq follow K9_STEP_ADDS, chosen by bench/ab_attn.py's float64
-// line (the variant @bwdacc flips it).
+// wgmma (bf16 in, f32 out) with its operands in shared memory written by
+// TMA, or, for the second products, A from registers repacked from an
+// accumulator (C -> A). The split, and why: a wgmma tile is 64 rows a
+// warpgroup, and the exact softmax needs a row's whole sum before any p; at
+// 64 rows x S 512 a row block's f32 logits and dp would take 256 KB, so they
+// are recomputed, never kept.
+// (0) k9_rotate_qk: q_r and k_r, each query's and key's rotary once per
+// head (f32, one rounding to bf16), into a scratch [2, B, H, S, hd] bf16
+// behind the statistics, which both kernels read as 64-row TMA boxes.
+// (a) k9_wg_query: a block per (b, h, 128 query rows), 384 threads: a
+// producer warpgroup (one thread issues every TMA copy; setmaxnreg 40) and
+// two consumer warpgroups of 64 rows (setmaxnreg 232), each with its q_r
+// and g tiles and the head's key bias resident. The head's k_r tiles (and
+// from sweep 3 its v tiles, read straight out of qkv) stream through a
+// three-stage ring behind mbarriers, four times: 1. S = Q_r K_r^T, the exact
+// row max m; 2. S again, l = the f32 sum of e = expf(l - m); 3. S and dP = G
+// V^T, p = e / l, row = sum(dp * p); 4. S and dP, p, ds =
+// bf16(p (dp - row) scale), repacked C -> A, and dQ_r += dS K_r (K_r read
+// MN-major). Then dq's rotary adjoint and one rounding, and m, l, row and
+// 1/l to the statistics [4, B, H, S] f32.
+// (b) k9_wg_key: a block per (b, h, 128 keys), the same warpgroups; each
+// consumer's k_r and v tiles and the head's m, l and row resident; the
+// head's q_r and g tiles stream through the ring once. Per tile: S^T = K_r
+// Q_r^T, p from the stored m and l, dV += bf16(P)^T G (A repacked C -> A, G
+// read MN-major); dP^T = V G^T, ds with the stored row, dK_r += dS^T Q_r.
+// dK and dV stay in f32 registers (p in the thread's shared-memory slots at
+// hd 128, where dK and dV take 128 registers) and are written once, dk
+// through the rotary adjoint, whose partner lane d + hd/2 the same thread
+// holds.
+// The tiles lie in TMA's swizzle (128 bytes; 64 / 32 at hd 32 / 16), which
+// the wgmma descriptors read as written (K-major for S, S^T, dP and dP^T;
+// MN-major for the B of dQ, dV and dK); hd 128 runs each second product as
+// two n64 units, one per 64-column chunk.
+// Rounding and order: S and S^T take each k16 step from +0.0 (scale-d = 0)
+// and add it with one __fadd_rn in increasing step order (K9_QK_ADDS, K8's
+// qk_tile rule: wgmma's k16 sums are mma.sync's bits, PERF.md §6); dp,
+// dv, dk and dq the same under K9_STEP_ADDS (bench/ab_attn.py's float64
+// line; @bwdacc flips it), each (step, column unit) of dv, dk and dq into
+// a product fragment added while the next runs. l and row: a thread sums
+// its 16 cells of a row in a tile in order (j, then the pair) into the
+// tile's share, the shares tile after tile, then its quad (xor 1, xor 2).
+// dq: each key tile's share from +0.0 (its four k16 steps), the shares
+// added tile after tile (the mma.sync build's per-warp partials); dk and dv
+// the query tiles' k16 steps in order.
+// The division p = e / l is __fdiv_rn's (k9_div), taken branch free: q = e
+// (1/l) corrected once by the residual (k9_quot). Sweep 3 certifies each q
+// exact by its residual (k9_certified); a warp with any uncertified cell
+// takes k9_div for the tile and records it (a byte per 16-row group and key
+// tile behind the rotated scratch). Sweep 4 and the key kernel, which
+// compute the same q from the same bits, take it alone, and k9_div where
+// the record says so: one certificate a cell, not three.
 //
 // K9 — WHERE TROUBLE LIES.
 // 1. p and ds must agree bit for bit between the two kernels, or bf16(p)
-//    and ds would drift between dq and dk/dv. The query pass takes Q K^T and
-//    g V^T, the key pass K Q^T and V g^T: the same routines on the same bf16
-//    operands, and a k16 step of m16n8k16 sums the same 16 exact products at
-//    the same k positions whichever operand is A. The card shows that the two
-//    orientations give the same f32 (a build with K9_DUMP, which writes both
-//    kernels' p, dp and ds behind the statistics: tests/test_torch_gpu.py).
-//    Then the same logit_of epilogue, expf (not __expf) of an exact
-//    __fsub_rn, the __fdiv_rn by the stored f32 sum; row is read, not
-//    recomputed.
-// 2. Padding. Keys at or past S get the logit -inf in the query pass (e = 0)
-//    and p = 0 in the key pass, against zero K, V, q and g rows — never the
-//    -1e9 bias: a fully padded batch row has every real logit at ~ -1e9, so
-//    p = 1/S there. With S % 16 == 8 half of the last k16 step is empty.
-//    Query rows at or past S run on zero q and g and are not stored.
-// 3. Registers. The key pass's dV and dK are hd/2 f32 each per thread, beside
-//    a tile's p and dp. 32-query tiles (KQ; @kq64 shows 64) halve p and dp;
-//    dK and p wait in shared memory (the __fdiv_rn of p has a slow-path call
-//    whose caller-saved registers spill otherwise), so that three blocks
-//    share an SM. The query pass keeps a tile's logits in registers (one
-//    tile below S 512: two blocks per SM; two above: one) and its dp in
-//    shared memory. No instantiation below hd 128 spills; bench/ab_attn.py
-//    prints the ptxas report of every one.
-// 4. bench/ab_attn.py's variants edit this source by exact text. K9 calls
-//    qk_tile, so @acc moves both kernels' QK^T together; @bwdacc flips
-//    K9_STEP_ADDS; @dump defines K9_DUMP; @fastexp, @stream and @nopass1
+//    and ds would drift between dq and dk/dv. The query kernel takes Q K^T
+//    and G V^T, the key kernel K Q^T and V G^T: the same dot64 on the same
+//    bf16 tiles, and a k16 step sums the same 16 exact products at the same
+//    k positions whichever operand is A (a build with K9_DUMP writes both
+//    kernels' p, dp and ds behind the scratch: tests/test_torch_gpu.py).
+//    Then the same logit_of, k9_exp of an exact __fsub_rn, k9_div's p by
+//    the stored f32 sum; both read the same m, l and row.
+// 2. Padding. Keys at or past S get the logit -inf in the query kernel (e
+//    = 0) and p = 0 in the key kernel, against the zero rows TMA writes past
+//    S — never the -1e9 bias: a fully padded batch row has every real
+//    logit at ~ -1e9, so p = 1/S there. Query rows at or past S run on zero
+//    q_r and g and are not stored; S % 64 != 0 leaves a partial last tile.
+// 3. Registers. Up to hd 64 a consumer holds its accumulators (dq and a
+//    tile's share of it; dk and dv), S and dP (32 each), p (32) and two
+//    product fragments (32 each). At hd 128 the key kernel's dK and dV take
+//    128, so it keeps one product fragment and p in shared memory; the query
+//    kernel adds dq's steps to dq itself (a share would spill). ptxas
+//    reports every body without spills (tests/test_torch_gpu.py), and
+//    bench/ab_attn.py prints the report.
+// 4. bench/ab_attn.py's variants edit this source by exact text: @bwdacc
+//    flips K9_STEP_ADDS; @k9noadd both K9_QK_ADDS and K9_STEP_ADDS (what
+//    the rule's adds cost); @k9fastexp takes __expf, @k9fastdiv p = e (1/l)
+//    (what the accurate exponential and the exact division cost; other
+//    answers); @dump defines K9_DUMP; @acc, @fastexp, @stream and @nopass1
 //    leave K9 as it is.
-// 5. Determinism: every reduction (k16 steps, tiles, the quad, the warps)
+// 5. Determinism: every reduction (k16 steps, tiles, the pair, the quad)
 //    runs in a fixed order.
 //
 // The rotary, the logit epilogues and the softmax-gradient algebra use
@@ -170,6 +184,7 @@
 // returns cudaGetLastError() (0 on success); the Python wrapper raises on
 // anything else.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -177,7 +192,7 @@
 
 namespace {
 
-constexpr int MAX_S = 1024;   // longest sequence: two key tiles per K9 warp
+constexpr int MAX_S = 1024;   // longest sequence (K9 keeps per-head vectors of it)
 
 __device__ __forceinline__ float logit_of(float acc, float scale, float bias) {
   return __fadd_rn(__fmul_rn(acc, scale), bias);
@@ -398,8 +413,7 @@ __device__ __forceinline__ void load_q_frags(const __nv_bfloat16* __restrict__ q
 // but leaves two fifths more outputs off the float64 value
 // (bench/ab_attn.py, @acc). Pass 1 and pass 2 run the same chain, so they see the same logits
 // bit for bit. Unless FULL, 16-key pairs at or past `keys` are skipped
-// (staged rows up to `keys` rounded up to 16 are read). NK: the tile's keys
-// (K8 and K9's query pass AKN, K9's key pass KQ queries).
+// (staged rows up to `keys` rounded up to 16 are read). NK: the tile's keys.
 template <int HD, bool FULL, int NK = AKN>
 __device__ __forceinline__ void qk_tile(const uint32_t (&qa)[HD / 16][4],
                                         const __nv_bfloat16* kb, int keys,
@@ -786,19 +800,66 @@ int launch_k7(const void* q, const void* k, const void* v, const float* cos2,
 }
 
 // ---------------------------------------------------------------------------
-// K9: the recompute backward on the tensor cores (see the header)
+// K9: the recompute backward on wgmma fed by TMA (see the header)
 // ---------------------------------------------------------------------------
 
-constexpr int QW = 8;  // warps of a query-pass block; warp w: key tiles w, w + QW
-constexpr int KW = 4;  // warps of a key-pass block, 16 keys each
-constexpr int KB = 16 * KW;  // keys of a key-pass block
-constexpr int KQ = 32;       // queries of a key-pass tile
-constexpr int KEY_BLOCKS = 3;  // key-pass blocks per SM (registers)
-static_assert(2 * QW * AKN >= MAX_S, "a query-pass warp holds two key tiles");
+typedef __nv_bfloat16 bf16;
 
+constexpr int WG_ROWS = 64;      // rows of a warpgroup's tile and of a streamed tile
+constexpr int K9_STAGES = 3;     // the ring of streamed tiles
+constexpr int K9_SWEEPS = 4;     // the query kernel's sweeps over the head's keys
+constexpr int K9_STATS = 4;      // per query row: m, l, row and 1/l
+// A block is a producer warpgroup and two consumer warpgroups of 64 rows.
+// (Three consumer warpgroups in the query kernel, at 160 registers each,
+// ran 2 % faster at hd 64 and spilled there: PERF.md §6.)
+constexpr int K9_ROWS = 2 * WG_ROWS;  // query rows (keys) of a query (key) block
+constexpr int K9_THREADS = 384;
+constexpr int K9_CONSUMERS = 256;
+// setmaxnreg: 40 x 128 + 232 x 256 = 168 x 384 registers, the block's
+// allocation at __launch_bounds__(K9_THREADS, 1).
+constexpr int K9_PRODUCER_REGS = 40;
+constexpr int K9_CONSUMER_REGS = 232;
+constexpr int K9_LAUNCH_REGS =
+    (K9_PRODUCER_REGS * 128 + K9_CONSUMER_REGS * K9_CONSUMERS) / K9_THREADS;
+static_assert(K9_LAUNCH_REGS * K9_THREADS <= 65536, "one block an SM");
+
+// QK^T (S and S^T): each k16 step from +0.0 and added with one rounded add,
+// in increasing step order (true; K8's qk_tile rule), or accumulated inside
+// the wgmma (false: a measurement variant only).
+constexpr bool K9_QK_ADDS = true;
 // dp, dv, dk and dq: each k16 step from +0.0 and added with one rounded add,
-// as qk_tile takes QK^T (true), or accumulated inside the mma (false).
+// as QK^T (true), or accumulated inside the wgmma (false).
 constexpr bool K9_STEP_ADDS = true;
+
+// The exponential and the division of p = exp(l - m) / sum: the accurate
+// expf (not __expf) and the correctly rounded division, in both kernels.
+__device__ __forceinline__ float k9_exp(float x) {
+  return expf(x);
+}
+
+__device__ __forceinline__ float k9_div(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+
+// e / l, branch free, nearly always k9_div(e, l): e y corrected once by the
+// residual (Markstein's step). y ~ 1/l: its accuracy moves only how often
+// the certificate fails, never p's bits.
+__device__ __forceinline__ float k9_quot(float e, float l, float y) {
+  const float q0 = __fmul_rn(e, y);
+  return __fmaf_rn(__fmaf_rn(-l, q0, e), y, q0);
+}
+
+// Whether q is k9_div(e, l), for e in [0, 1] and l >= 1 (a softmax row's
+// sum): the exact residual r = e - l q below half an ulp of q times l (a
+// quarter below a power of two) makes q the float nearest e / l. False on a
+// tie, an off-by-one and a quotient below 2^-100.
+__device__ __forceinline__ bool k9_certified(float e, float l, float q) {
+  const float r = __fmaf_rn(-l, q, e);
+  const int bits = __float_as_int(q);
+  const float hl = __fmul_rn(__int_as_float((bits & 0x7f800000) - (24 << 23)), l);
+  const float thr = ((bits & 0x7fffff) == 0 && r < 0.f) ? __fmul_rn(hl, 0.5f) : hl;
+  return e == 0.f || (bits >= (27 << 23) && fabsf(r) < thr);
+}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -809,159 +870,436 @@ __device__ __forceinline__ float ds_of(float p, float dp, float row,
   return bf16_round(__fmul_rn(__fmul_rn(p, __fsub_rn(dp, row)), scale));
 }
 
-// c += A B under K9_STEP_ADDS.
-__device__ __forceinline__ void mma_k9(float (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  if constexpr (K9_STEP_ADDS) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    mma_bf16(s, a, b0, b1);
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// The quad's rounded sum, the same bits in its four threads.
+__device__ __forceinline__ float quad_sum(float x) {
+  x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// This thread's warp, through a shuffle from lane 0: ptxas then knows it is
+// uniform in the warp and need not serialize the wgmmas of a role's branch.
+__device__ __forceinline__ int warp_index() {
+  return __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 5), 0);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Arrive and add `bytes` to the transactions the phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed. (No __trap: a trap
+// anywhere in the kernel keeps ptxas from honouring setmaxnreg.)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 3-D tensor map (x the lane, y the row, z the plane) into
+// shared memory; its bytes complete a transaction of `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int x,
+                                            int y, int z, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of global
+// memory into shared memory; they complete a transaction of `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], "
+      "%2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of registers that an asynchronous
+// wgmma owns (its accumulators, its A fragments) across it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], s[e]);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+template <int NC, int N>
+__device__ __forceinline__ void fence_regs(float (&d)[NC][N]) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) fence_regs(d[c]);
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// The layout of a 64-row bf16 tile [64][HD] as TMA writes it: column chunks
+// of W = min(2 HD, 128) bytes a row (HD 128: two), each chunk's 64 rows
+// packed at pitch W in TMA's W-byte swizzle (16-byte piece c of row r at
+// r W + 16 (c ^ ((r / (128 / W)) % (W / 16)))), chunks one after the other.
+// The wgmma descriptors read the same swizzle (layout type SWIZZLE).
+template <int HD>
+struct TileLayout {
+  static constexpr int W = 2 * HD < 128 ? 2 * HD : 128;
+  static constexpr int CHUNKS = 2 * HD / W;
+  static constexpr int CHUNK_BYTES = WG_ROWS * W;
+  static constexpr int BYTES = WG_ROWS * HD * 2;
+  static constexpr int SWIZZLE = W == 128 ? 1 : (W == 64 ? 2 : 3);
+};
+
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
+}
+
+// The descriptor of k16 step kk of a tile read K-major (the contraction over
+// its HD columns: its 64 rows are M or N): 8-row groups SBO = 8 W apart, the
+// step 32 bytes into its chunk.
+template <int HD>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  using L = TileLayout<HD>;
+  constexpr int KPC = L::W / 32;  // k16 steps per chunk
+  return gmma_desc(tile + (kk / KPC) * L::CHUNK_BYTES + (kk % KPC) * 32, 16, 8 * L::W,
+                   L::SWIZZLE);
+}
+
+// The descriptor of k16 step kk of a tile read MN-major (the contraction
+// over its 64 rows, columns 64 c .. of its HD the N of the product): the
+// step's 16 rows, 8-row groups SBO = 8 W apart, column chunk c.
+template <int HD>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk, int c) {
+  using L = TileLayout<HD>;
+  return gmma_desc(tile + c * L::CHUNK_BYTES + kk * 16 * L::W, L::CHUNK_BYTES, 8 * L::W,
+                   L::SWIZZLE);
+}
+
+// Rows [y, y + 64) of lanes [x, x + HD) of plane z of a 3-D tensor map into
+// a tile; rows past the map's end land as zeros.
+template <int HD>
+__device__ __forceinline__ void load_tile(unsigned char* tile, const CUtensorMap* map, int x,
+                                          int y, int z, uint64_t* bar) {
+  using L = TileLayout<HD>;
+#pragma unroll
+  for (int c = 0; c < L::CHUNKS; ++c)
+    tma_load_3d(tile + c * L::CHUNK_BYTES, map, x + c * (L::W / 2), y, z, bar);
+}
+
+// d (64 x 64 f32 over one warpgroup; register d[4j + e] of lane l in warp w
+// holds row 16w + l/4 + 8(e/2), column 8j + 2(l%4) + e%2) = A B^T (+ d if
+// acc): A 64 x 16 and B 64 x 16, both K-major in shared memory. acc = 0
+// (scale-d = 0) does not read d: the step's sum starts from nothing.
+__device__ __forceinline__ void wg_ss64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      " %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x N, the layout of wg_ss64) = A B (+ d if acc): A 64 x 16 bf16 in
+// registers (lane l of warp w: a[0] row 16w + l/4, k 2(l%4), +1; a[1] the
+// row + 8; a[2], a[3] k + 8), B 16 x N MN-major in shared memory
+// (transposed: N contiguous).
+template <int N>
+__device__ __forceinline__ void wg_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                      int acc);
+
+template <>
+__device__ __forceinline__ void wg_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                          int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wg_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                          int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wg_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                          int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      " %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35},"
+      " %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// A consumer's 64 x HD f32 accumulator of dq, dk or dv: UC units of UN
+// columns (column 64 c + 8 j + 2 t + e of a thread's row h in acc[c][4 j + 2
+// h + e]; one unit below hd 128, two at hd 128), one wgmma m64nUNk16 each.
+template <int HD>
+constexpr int UN = HD < 64 ? HD : 64;
+template <int HD>
+constexpr int UC = HD / UN<HD>;
+// Product fragments in flight beside an accumulator: two (each k16 step's
+// product added while the next runs), one where registers are short (the
+// key kernel at hd 128, whose dk and dv take 128). The query kernel keeps
+// two: with one, its dq at hd 128 came out wrong on the card (PERF.md §6),
+// where the key kernel's dk and dv with one are right.
+template <int HD>
+constexpr int K9_KEY_PRODUCTS = HD > 64 ? 1 : 2;
+constexpr int K9_QUERY_PRODUCTS = 2;
+// dq sums each key tile's share from +0.0 before adding it (the mma.sync
+// build's per-warp partials, the float64 line's choice) up to hd 64; at hd
+// 128 the share's 64 registers would spill, and dq takes the steps in order.
+template <int HD>
+constexpr bool K9_DQ_SHARES = HD <= 64;
+
+// Element (column group j < HD / 8, row h, e) of a 64 x HD accumulator.
+template <int HD>
+__device__ __forceinline__ float& acc_at(float (&acc)[UC<HD>][UN<HD> / 2], int j, int h,
+                                         int e) {
+  constexpr int JN = UN<HD> / 8;
+  return acc[j / JN][4 * (j % JN) + 2 * h + e];
+}
+
+// d (64 x 64 over the warpgroup, the layout of wg_ss64) = the HD-deep dot of
+// the 64 rows of tile ta with the 64 rows of tile tb, both read K-major.
+// ADDS: each k16 step from +0.0 (scale-d = 0), step 0 straight into d and
+// every later one into one of NP product fragments, added to d with one
+// __fadd_rn in increasing step order while the next step runs; else
+// accumulated inside the wgmma. Every wgmma is complete on return.
+template <int HD, bool ADDS, int NP>
+__device__ __forceinline__ void dot64(float (&d)[32], uint32_t ta, uint32_t tb) {
+  constexpr int KS = HD / 16;
+  fence_regs(d);
+  wgmma_fence();
+  if constexpr (!ADDS || KS == 1) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) wg_ss64(d, desc_k<HD>(ta, kk), desc_k<HD>(tb, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
   } else {
-    mma_bf16(c, a, b0, b1);
-  }
-}
-
-// A fragments of rows r0 .. r0 + 15 of x (rows ld_in elements apart) straight
-// from global memory, load_q_frags's layout without the rotary: thread (g, t)
-// holds rows g and g + 8 at lanes 8u + 2t, + 1. Rows at or past S are zero.
-template <int HD>
-__device__ __forceinline__ void load_a_frags(const __nv_bfloat16* __restrict__ x,
-                                             int ld_in, int r0, int S,
-                                             uint32_t (&a)[HD / 16][4]) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+    float p[NP][32];
+    wg_ss64(d, desc_k<HD>(ta, 0), desc_k<HD>(tb, 0), 0);
+    wgmma_commit();
+    wg_ss64(p[0], desc_k<HD>(ta, 1), desc_k<HD>(tb, 1), 0);
+    wgmma_commit();
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int s = r0 + g + 8 * hr;
+    for (int v = 1; v < KS; ++v) {  // step v's product is in p[(v - 1) % NP]
+      if (NP > 1 && v + 1 < KS) {
+        fence_regs(d);
+        wgmma_fence();
+        wg_ss64(p[v % NP], desc_k<HD>(ta, v + 1), desc_k<HD>(tb, v + 1), 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs(d);
+      fence_regs(p[(v - 1) % NP]);
 #pragma unroll
-    for (int u = 0; u < HD / 8; ++u)
-      a[u >> 1][(u & 1) * 2 + hr] =
-          s < S ? *reinterpret_cast<const uint32_t*>(x + (size_t)s * ld_in +
-                                                     8 * u + 2 * t)
-                : 0u;
-  }
-}
-
-// A fragments of the staged rows 0 .. 15 of ta (pitch HD + 8) by ldmatrix:
-// matrices rows 0-7 | 8-15 (lane bit 3), k 0-7 | 8-15 of the step (lane bit
-// 4), which is m16n8k16's a[0] .. a[3].
-template <int HD>
-__device__ __forceinline__ void ldsm_a_frags(const __nv_bfloat16* ta,
-                                             uint32_t (&a)[HD / 16][4]) {
-  constexpr int LD = HD + 8;
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* base =
-      ta + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + ((lane >> 4) << 3);
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) ldsm_x4(a[ks], base + 16 * ks);
-}
-
-// The dots of the warp's 16 A rows with the NK rows of the staged tile tb
-// (pitch HD + 8), as qk_tile lays them out (acc[j]: rows g, g + 8; tile rows
-// 8j + 2t, + 1) but under K9_STEP_ADDS: dp = g v^T in the query pass, dP^T
-// = v g^T in the key pass. Unless FULL, 16-row pairs at or past n are
-// skipped.
-template <int HD, bool FULL, int NK>
-__device__ __forceinline__ void dot_tile(const uint32_t (&a)[HD / 16][4],
-                                         const __nv_bfloat16* tb, int n,
-                                         float (&acc)[NK / 8][4]) {
-  constexpr int LD = HD + 8;
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* base =
-      tb + ((lane & 7) + ((lane >> 4) << 3)) * LD + (((lane >> 3) & 1) << 3);
-#pragma unroll
-  for (int j = 0; j < NK / 8; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int p = 0; p < NK / 16; ++p) {
-    if (!FULL && 16 * p >= n) break;
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-      uint32_t b[4];
-      ldsm_x4(b, base + 16 * p * LD + 16 * ks);
-      mma_k9(acc[2 * p], a[ks], b[0], b[1]);
-      mma_k9(acc[2 * p + 1], a[ks], b[2], b[3]);
+      for (int e = 0; e < 32; ++e) d[e] = __fadd_rn(d[e], p[(v - 1) % NP][e]);
+      if (NP == 1 && v + 1 < KS) {
+        fence_regs(d);
+        wgmma_fence();
+        wg_ss64(p[0], desc_k<HD>(ta, v + 1), desc_k<HD>(tb, v + 1), 0);
+        wgmma_commit();
+      }
     }
   }
+  fence_regs(d);
 }
 
-// bf16 pairs of a [16, NK] f32 tile held as C fragments: pa[j][0] row g,
-// pa[j][1] row g + 8 (tile_pv's repack; n8 tiles 2kk, 2kk + 1 make k16 step
-// kk of the next product).
-template <int NK>
-__device__ __forceinline__ void pack_tile(const float (&c)[NK / 8][4],
-                                          uint32_t (&pa)[NK / 8][2]) {
+// acc (the 64 x HD accumulator) += A B: A the 64 x 64 tile repacked from an
+// accumulator into four k16 steps of A fragments (a[kk], C -> A), B the 64 x
+// HD tile tb read MN-major (the contraction over its 64 rows). ADDS: each
+// (k16 step, column unit) from +0.0 into one of NP product fragments and
+// added with one __fadd_rn, a unit's steps in increasing order; else
+// accumulated inside the wgmma. Every wgmma is complete on return.
+template <int HD, bool ADDS, int NP>
+__device__ __forceinline__ void acc_rows(float (&acc)[UC<HD>][UN<HD> / 2],
+                                         uint32_t (&a)[4][4], uint32_t tb) {
+  constexpr int N = UN<HD>, NC = UC<HD>, U = 4 * NC;
+  fence_regs(a);
+  fence_regs(acc);
+  wgmma_fence();
+  if constexpr (!ADDS) {
 #pragma unroll
-  for (int j = 0; j < NK / 8; ++j) {
-    pa[j][0] = pack_bf16x2(c[j][0], c[j][1]);
-    pa[j][1] = pack_bf16x2(c[j][2], c[j][3]);
-  }
-}
-
-// o += A . tb, A the repacked [16, NK] tile pa, tb's B fragments by
-// ldmatrix.trans (tile_pv's map), under K9_STEP_ADDS: ds . K_r in the query
-// pass, bf16(P)^T . g and dS^T . Q_r in the key pass. Unless FULL, k16 steps
-// at or past n are skipped.
-template <int HD, bool FULL, int NK>
-__device__ __forceinline__ void pv_acc(const uint32_t (&pa)[NK / 8][2],
-                                       const __nv_bfloat16* tb, int n,
-                                       float (&o)[HD / 8][4]) {
-  constexpr int LD = HD + 8;
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* base =
-      tb + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + ((lane >> 4) << 3);
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-  for (int kk = 0; kk < NK / 16; ++kk) {
-    if (!FULL && 16 * kk >= n) break;
-    const uint32_t a[4] = {pa[2 * kk][0], pa[2 * kk][1], pa[2 * kk + 1][0],
-                           pa[2 * kk + 1][1]};
+      for (int c = 0; c < NC; ++c) wg_rs<N>(acc[c], a[kk], desc_mn<HD>(tb, kk, c), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+  } else {
+    float p[NP][N / 2];
+    wg_rs<N>(p[0], a[0], desc_mn<HD>(tb, 0, 0), 0);
+    wgmma_commit();
 #pragma unroll
-    for (int dq = 0; dq < HD / 16; ++dq) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, base + 16 * kk * LD + 16 * dq);
-      mma_k9(o[2 * dq], a, b[0], b[1]);
-      mma_k9(o[2 * dq + 1], a, b[2], b[3]);
+    for (int v = 0; v < U; ++v) {  // unit v = (step v / NC, column unit v % NC)
+      if (NP > 1 && v + 1 < U) {
+        fence_regs(acc);
+        wgmma_fence();
+        wg_rs<N>(p[(v + 1) % NP], a[(v + 1) / NC], desc_mn<HD>(tb, (v + 1) / NC, (v + 1) % NC),
+                 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs(acc[v % NC]);
+      fence_regs(p[v % NP]);
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) acc[v % NC][e] = __fadd_rn(acc[v % NC][e], p[v % NP][e]);
+      if (NP == 1 && v + 1 < U) {
+        fence_regs(acc[v % NC]);
+        wgmma_fence();
+        wg_rs<N>(p[0], a[(v + 1) / NC], desc_mn<HD>(tb, (v + 1) / NC, (v + 1) % NC), 0);
+        wgmma_commit();
+      }
     }
   }
+  fence_regs(acc);
+  fence_regs(a);
 }
 
-// pv_acc with the accumulator in the thread's lane-contiguous shared-memory
-// slots os (element (j, e) of o at os[(j * 4 + e) * 32]) instead of
-// registers: each pair of n8 output tiles is loaded, takes its k16 steps in
-// increasing order and is stored back, so every output element sees the
-// same adds in the same order as pv_acc's. (pv_acc walked in this order too
-// makes the key pass spill at hd 64, so the two loops stay apart.)
-template <int HD, bool FULL, int NK>
-__device__ __forceinline__ void pv_acc_smem(const uint32_t (&pa)[NK / 8][2],
-                                            const __nv_bfloat16* tb, int n,
-                                            float* os) {
-  constexpr int LD = HD + 8;
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* base =
-      tb + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + ((lane >> 4) << 3);
+// The four bf16 pairs of n8 columns 8j .. 8j + 7 of a 64 x 64 f32 tile (the
+// wg_ss64 layout) as the A fragment of k16 step j / 2 of the next product:
+// the accumulator's columns become the contraction.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], int j, float v0, float v1, float v2,
+                                       float v3) {
+  a[j >> 1][2 * (j & 1)] = pack_bf16x2(v0, v1);
+  a[j >> 1][2 * (j & 1) + 1] = pack_bf16x2(v2, v3);
+}
+
+// p = k9_div(e, l) of a thread's 32 cells, ly(i) = (l, y) the cell's row
+// sum and its reciprocal. CERTIFY: k9_quot, each cell certified; if any
+// lane of the warp was not, k9_div for every cell of the warp (a
+// warp-uniform branch, rare); returns whether it was. Else `exact`
+// (warp-uniform: what an earlier certification of these cells returned)
+// picks k9_div or k9_quot alone, whose bits are then certified already. e =
+// 0 gives p = 0 whatever l (a key kernel's cell past S reads no real
+// statistics), as k9_div(0, l) does.
+template <bool CERTIFY, typename LY>
+__device__ __forceinline__ bool k9_probs(const float (&e)[32], LY ly, bool exact,
+                                         float (&p)[32]) {
+  bool slow = false;
 #pragma unroll
-  for (int dq = 0; dq < HD / 16; ++dq) {
-    float o0[4], o1[4];
+  for (int i = 0; i < 32; ++i) {
+    const float2 v = ly(i);
+    const float q = k9_quot(e[i], v.x, v.y);
+    if constexpr (CERTIFY) slow = slow || !k9_certified(e[i], v.x, q);
+    p[i] = e[i] == 0.f ? 0.f : q;
+  }
+  slow = CERTIFY ? __any_sync(0xffffffffu, slow) : exact;
+  if (slow) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      o0[e] = os[(2 * dq * 4 + e) * 32];
-      o1[e] = os[((2 * dq + 1) * 4 + e) * 32];
-    }
+    for (int i = 0; i < 32; ++i) p[i] = e[i] == 0.f ? 0.f : k9_div(e[i], ly(i).x);
+  }
+  return slow;
+}
+
+// Where sweep 3 of the query kernel fell back to k9_div: a byte per (b, h,
+// 16-row group, 64-key tile), 1 where any cell of the warp's rows and that
+// tile was not certified. Sweep 4 and the key kernel take k9_quot alone on
+// every other cell (the same function of the same bits).
+__host__ __device__ __forceinline__ size_t k9_flag_bytes(size_t BH, int S) {
+  return BH * (size_t)((S + K9_ROWS - 1) / K9_ROWS) * (K9_ROWS / 16) *
+         (size_t)((S + WG_ROWS - 1) / WG_ROWS);
+}
+
+// The logits of a query-major S tile in place: f32 dot times scale plus the
+// key's bias (bias points at the head's first key), -inf for keys at or past
+// S (an n8 group of keys is wholly below S or wholly past it).
+__device__ __forceinline__ void q_logits(float (&s)[32], const float* bias, int k0, int S,
+                                         float scale) {
+  const int t = threadIdx.x & 3;
 #pragma unroll
-    for (int kk = 0; kk < NK / 16; ++kk) {
-      if (!FULL && 16 * kk >= n) break;
-      const uint32_t a[4] = {pa[2 * kk][0], pa[2 * kk][1], pa[2 * kk + 1][0],
-                             pa[2 * kk + 1][1]};
-      uint32_t b[4];
-      ldsm_x4_trans(b, base + 16 * kk * LD + 16 * dq);
-      mma_k9(o0, a, b[0], b[1]);
-      mma_k9(o1, a, b[2], b[3]);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      os[(2 * dq * 4 + e) * 32] = o0[e];
-      os[((2 * dq + 1) * 4 + e) * 32] = o1[e];
+  for (int j = 0; j < 8; ++j) {
+    const int k = k0 + 8 * j + 2 * t;
+    if (k0 + 8 * j < S) {
+      const float2 bk = *reinterpret_cast<const float2*>(bias + k);
+      s[4 * j] = logit_of(s[4 * j], scale, bk.x);
+      s[4 * j + 1] = logit_of(s[4 * j + 1], scale, bk.y);
+      s[4 * j + 2] = logit_of(s[4 * j + 2], scale, bk.x);
+      s[4 * j + 3] = logit_of(s[4 * j + 3], scale, bk.y);
+    } else {
+      s[4 * j] = s[4 * j + 1] = s[4 * j + 2] = s[4 * j + 3] = -INFINITY;
     }
   }
 }
@@ -969,7 +1307,7 @@ __device__ __forceinline__ void pv_acc_smem(const uint32_t (&pa)[NK / 8][2],
 #ifdef K9_DUMP
 // Debug builds (bench/ab_attn.py @dump): p, dp and ds of (query q, key k)
 // as each kernel saw them, at dump[((pass * BH + bh) * 3 + c) * S * S +
-// q * S + k] behind the statistics (c = 0 p, 1 dp, 2 ds).
+// q * S + k] behind the scratch (c = 0 p, 1 dp, 2 ds).
 __device__ __forceinline__ void k9_dump(float* dump, int pass, size_t bh,
                                         size_t BH, int S, int q, int k,
                                         float p, float dp, float ds) {
@@ -980,535 +1318,567 @@ __device__ __forceinline__ void k9_dump(float* dump, int pass, size_t bh,
 }
 #endif
 
-// Query pass, one key tile of a warp (sweep 1): V into the warp's slot, dp
-// with g's A fragments ga, stored to the thread's shared-memory slots dps
-// (stride 32) at once so that it does not hold registers; K_r (rotated by
-// k9_rotate_k) into the slot, the logits with q_r's qa (keys at or past S:
-// -inf) and the running maxima mx[0] (row g), mx[1] (row g + 8). Leaves K_r
-// in the slot.
-template <int HD, bool FULL>
-__device__ __forceinline__ void q_tile_logits(
-    const uint32_t (&qa)[HD / 16][4], const uint32_t (&ga)[HD / 16][4],
-    const __nv_bfloat16* __restrict__ kp,
-    const __nv_bfloat16* __restrict__ vp, int ld_in,
-    const float* __restrict__ brow, int S, float scale, int k0, int keys,
-    __nv_bfloat16* slot, float (&lg)[AKN / 8][4], float* dps,
-    float (&mx)[2]) {
-  const int lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  float dp[AKN / 8][4];
-  stage_rows_by<HD>(vp, ld_in, k0, AKN, S, slot, lane, 32);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncwarp();
-  dot_tile<HD, FULL, AKN>(ga, slot, keys, dp);
-#pragma unroll
-  for (int j = 0; j < AKN / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dps[(j * 4 + e) * 32] = dp[j][e];
-  __syncwarp();  // every lane's reads of V are done
-  stage_rows_by<HD>(kp, ld_in, k0, AKN, S, slot, lane, 32);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncwarp();
-  qk_tile<HD, FULL>(qa, slot, keys, lg);
-#pragma unroll
-  for (int j = 0; j < AKN / 8; ++j) {
-    const int key = k0 + 8 * j + 2 * t;  // an n8 tile is wholly < S or >= S
-    if (FULL || key < S) {
-      const float2 bt = *reinterpret_cast<const float2*>(brow + key);
-      lg[j][0] = logit_of(lg[j][0], scale, bt.x);
-      lg[j][1] = logit_of(lg[j][1], scale, bt.y);
-      lg[j][2] = logit_of(lg[j][2], scale, bt.x);
-      lg[j][3] = logit_of(lg[j][3], scale, bt.y);
-    } else {
-      lg[j][0] = lg[j][1] = lg[j][2] = lg[j][3] = -INFINITY;
-    }
-    mx[0] = fmaxf(mx[0], fmaxf(lg[j][0], lg[j][1]));
-    mx[1] = fmaxf(mx[1], fmaxf(lg[j][2], lg[j][3]));
-  }
-}
+// The tensor maps K9 reads through: the rotated q and k (the scratch [2, B,
+// H, S, HD]: planes c * B * H + b * H + h), qkv (for v: planes b, lanes (2 H
+// + h) HD ..) and g (planes b, lanes h HD ..); rows past S land as zeros.
+struct K9Maps {
+  CUtensorMap rot, qkv, g;
+};
 
-// Shared memory of a query-pass block: a [AKN][HD + 8] bf16 slot per warp
-// (its V tile, then its rotated K tile, at last its partial dq in f32), the
-// per-warp row partials of the max, the sum and row, and each thread's dp
-// (TPW tiles of AKN / 8 x 4 f32, lane-contiguous), kept out of registers
-// across the block's reductions.
-template <int HD, int TPW>
-__host__ __device__ __forceinline__ size_t k9q_smem_bytes() {
-  return (size_t)QW * AKN * (HD + 8) * 2 + (size_t)3 * QW * 16 * 4 +
-         (size_t)QW * TPW * AKN * 16 * 4;
-}
-
-// Quad, then warps 0 .. QW-1 in order, through red[QW][16]: the block's
-// value of rows g (v[0]) and g + 8 (v[1]) in every thread. MAX: fmaxf, else
-// a rounded sum.
-template <bool MAX>
-__device__ __forceinline__ void block_rows(float (&v)[2], float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1)
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const float o = __shfl_xor_sync(0xffffffffu, v[k], off);
-      v[k] = MAX ? fmaxf(v[k], o) : __fadd_rn(v[k], o);
-    }
-  if ((lane & 3) == 0) {
-    red[warp * 16 + (lane >> 2)] = v[0];
-    red[warp * 16 + (lane >> 2) + 8] = v[1];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    float s = MAX ? -INFINITY : 0.f;
-#pragma unroll
-    for (int w = 0; w < QW; ++w) {
-      const float o = red[w * 16 + (lane >> 2) + 8 * k];
-      s = MAX ? fmaxf(s, o) : __fadd_rn(s, o);
-    }
-    v[k] = s;
-  }
-}
-
-// Pass (a): a block per (b, h, 16 query rows). TPW key tiles per warp (1
-// where S <= QW * AKN, else 2). Writes dq and the row statistics m, l, row
-// to stats [3][B*H*S].
-template <int HD, int TPW>
-__global__ void __launch_bounds__(QW * 32, (HD <= 64 && TPW == 1) ? 2 : 1)
-    k9_bwd_query(const __nv_bfloat16* __restrict__ qkv,
-                 const float* __restrict__ cos2, const float* __restrict__ s2,
-                 const float* __restrict__ bias,
-                 const __nv_bfloat16* __restrict__ g, int S, int H,
-                 float scale, float* __restrict__ stats,
-                 __nv_bfloat16* __restrict__ dqkv) {
-  constexpr int LD = HD + 8;
-  extern __shared__ __align__(16) unsigned char k9_smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, t = lane & 3;
-  auto* slots = reinterpret_cast<__nv_bfloat16*>(k9_smem);
-  __nv_bfloat16* slot = slots + warp * AKN * LD;
-  float* red = reinterpret_cast<float*>(slots + QW * AKN * LD);  // [3][QW][16]
-  // the thread's dp: element (i, j, e) at dps[((i * AKN / 8 + j) * 4 + e) * 32]
-  float* dps = red + 3 * QW * 16 + warp * TPW * AKN * 16 + lane;
-  const int nq = (S + 15) / 16;
-  const int h = (blockIdx.x / nq) % H;
-  const int b = blockIdx.x / (nq * H);
-  const int r0 = (blockIdx.x % nq) * 16;
-  const int nkt = (S + AKN - 1) / AKN;
-  const int row_stride = 3 * H * HD, g_stride = H * HD;
-  const __nv_bfloat16* base = qkv + (size_t)b * S * row_stride;
-  // k_r, rotated by k9_rotate_k into dqkv's k lanes
-  const __nv_bfloat16* kp = dqkv + (size_t)b * S * row_stride + (1 * H + h) * HD;
-  const __nv_bfloat16* vp = base + (2 * H + h) * HD;
-  const float* brow = bias + (size_t)b * S;
-  uint32_t qa[HD / 16][4], ga[HD / 16][4];
-  load_q_frags<HD>(base + (0 * H + h) * HD, row_stride, r0, S, cos2, s2, qa);
-  load_a_frags<HD>(g + (size_t)b * S * g_stride + h * HD, g_stride, r0, S, ga);
-
-  // Sweep 1: the logits of the warp's tiles, kept in registers, and dp.
-  float lg[TPW][AKN / 8][4];
-  float m[2];  // row maxima (not K8's initializer text: @nopass1 edits that)
-  m[0] = m[1] = -INFINITY;
-#pragma unroll
-  for (int i = 0; i < TPW; ++i) {
-    const int kt = warp + QW * i;
-    if (kt >= nkt) {  // no tile: e = 0 (and its dp is never read)
-#pragma unroll
-      for (int j = 0; j < AKN / 8; ++j)
-        lg[i][j][0] = lg[i][j][1] = lg[i][j][2] = lg[i][j][3] = -INFINITY;
-      continue;
-    }
-    const int k0 = kt * AKN, keys = min(AKN, S - k0);
-    float* dpi = dps + i * AKN * 16;
-    if (keys == AKN)
-      q_tile_logits<HD, true>(qa, ga, kp, vp, row_stride, brow, S, scale, k0,
-                              keys, slot, lg[i], dpi, m);
-    else
-      q_tile_logits<HD, false>(qa, ga, kp, vp, row_stride, brow, S, scale, k0,
-                               keys, slot, lg[i], dpi, m);
-  }
-
-  // The exact row max, e and l = the f32 sum of e, p = e / l and row =
-  // sum(dp * p): each over the thread's values, the quad, the warps.
-  block_rows<true>(m, red);
-  float l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < TPW; ++i)
-#pragma unroll
-    for (int j = 0; j < AKN / 8; ++j) {
-      float* x = lg[i][j];
-      x[0] = expf(__fsub_rn(x[0], m[0]));
-      x[1] = expf(__fsub_rn(x[1], m[0]));
-      x[2] = expf(__fsub_rn(x[2], m[1]));
-      x[3] = expf(__fsub_rn(x[3], m[1]));
-      l[0] = __fadd_rn(__fadd_rn(l[0], x[0]), x[1]);
-      l[1] = __fadd_rn(__fadd_rn(l[1], x[2]), x[3]);
-    }
-  block_rows<false>(l, red + QW * 16);
-  float row[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < TPW; ++i) {
-    if (warp + QW * i >= nkt) continue;  // p = 0 there
-#pragma unroll
-    for (int j = 0; j < AKN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        lg[i][j][e] = __fdiv_rn(lg[i][j][e], l[e >> 1]);
-        row[e >> 1] = __fadd_rn(
-            row[e >> 1],
-            __fmul_rn(dps[((i * AKN / 8 + j) * 4 + e) * 32], lg[i][j][e]));
-      }
-  }
-  block_rows<false>(row, red + 2 * QW * 16);
-
-  // Sweep 2: ds, repacked, times K_r; the slot still holds the warp's last
-  // tile, an earlier one is staged again.
-  float dq[HD / 8][4];
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-  bool in_slot = true;
-#pragma unroll
-  for (int i = TPW - 1; i >= 0; --i) {
-    const int kt = warp + QW * i;
-    if (kt >= nkt) continue;
-    const int k0 = kt * AKN, keys = min(AKN, S - k0);
-    if (!in_slot) {
-      __syncwarp();  // the slot's reads are done
-      stage_rows_by<HD>(kp, row_stride, k0, AKN, S, slot, lane, 32);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncwarp();
-    }
-    in_slot = false;
-    // ds over p in place
-#pragma unroll
-    for (int j = 0; j < AKN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float dp = dps[((i * AKN / 8 + j) * 4 + e) * 32];
-        const float ds = ds_of(lg[i][j][e], dp, row[e >> 1], scale);
-#ifdef K9_DUMP
-        const int q = r0 + gq + 8 * (e >> 1), k = k0 + 8 * j + 2 * t + (e & 1);
-        if (q < S && k < S)
-          k9_dump(stats + 3 * (size_t)(gridDim.x / nq) * S, 0,
-                  blockIdx.x / nq, gridDim.x / nq, S, q, k, lg[i][j][e], dp,
-                  ds);
-#endif
-        lg[i][j][e] = ds;
-      }
-    uint32_t pa[AKN / 8][2];
-    pack_tile<AKN>(lg[i], pa);
-    if (keys == AKN)
-      pv_acc<HD, true, AKN>(pa, slot, keys, dq);
-    else
-      pv_acc<HD, false, AKN>(pa, slot, keys, dq);
-  }
-
-  // The 8 partial dq in warp order, the rotary adjoint, one rounding.
-  __syncwarp();
-  float* part = reinterpret_cast<float*>(slot);  // [16][HD] f32
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    *reinterpret_cast<float2*>(part + gq * HD + 8 * j + 2 * t) =
-        make_float2(dq[j][0], dq[j][1]);
-    *reinterpret_cast<float2*>(part + (gq + 8) * HD + 8 * j + 2 * t) =
-        make_float2(dq[j][2], dq[j][3]);
-  }
-  __syncthreads();
-  __nv_bfloat16* out = dqkv + (size_t)b * S * row_stride + (0 * H + h) * HD;
-  for (int idx = threadIdx.x; idx < 16 * HD; idx += QW * 32) {
-    const int r = idx / HD, d = idx % HD, s = r0 + r;
-    if (s >= S) continue;
-    const int dpart = (d + HD / 2) % HD;
-    float x = 0.f, y = 0.f;
-#pragma unroll
-    for (int w = 0; w < QW; ++w) {
-      const float* pw = reinterpret_cast<const float*>(slots + w * AKN * LD);
-      x = __fadd_rn(x, pw[r * HD + d]);
-      y = __fadd_rn(y, pw[r * HD + dpart]);
-    }
-    out[(size_t)s * row_stride + d] = __float2bfloat16_rn(
-        __fadd_rn(__fmul_rn(x, cos2[(size_t)s * HD + d]),
-                  __fmul_rn(y, s2[(size_t)s * HD + dpart])));
-  }
-  if (threadIdx.x < 16 && r0 + (int)threadIdx.x < S) {
-    // red holds every warp's partials of row threadIdx.x: reduce as above
-    const int r = threadIdx.x;
-    float mm = -INFINITY, ll = 0.f, rr = 0.f;
-#pragma unroll
-    for (int w = 0; w < QW; ++w) {
-      mm = fmaxf(mm, red[w * 16 + r]);
-      ll = __fadd_rn(ll, red[QW * 16 + w * 16 + r]);
-      rr = __fadd_rn(rr, red[2 * QW * 16 + w * 16 + r]);
-    }
-    const size_t bhs = (size_t)(gridDim.x / nq) * S;
-    const size_t at = ((size_t)b * H + h) * S + r0 + r;
-    stats[at] = mm;
-    stats[bhs + at] = ll;
-    stats[2 * bhs + at] = rr;
-  }
-}
-
-// Key pass, one KQ-query tile of a warp (its 16 keys kr, kr + 8): S^T and
-// p from the stored statistics, dv += bf16(P)^T g; then dP^T and ds, dk +=
-// dS^T Q_r. dv's product runs before dP^T; p waits for ds, and dk
-// accumulates, in the thread's lane-contiguous shared-memory slots ps and
-// dks (stride 32) rather than in registers, so that the key pass does not
-// spill. qb / gb: the staged rotated q and g of the tile; st: its m, l, row.
-template <int HD, bool FULL>
-__device__ __forceinline__ void k_tile(const __nv_bfloat16* ks,
-                                       const __nv_bfloat16* vs,
-                                       const __nv_bfloat16* qb,
-                                       const __nv_bfloat16* gb,
-                                       const float* st, int q0, int qn, int kr,
-                                       const float (&bk)[2], int S,
-                                       float scale, float (&dv)[HD / 8][4],
-                                       float* dks, float* ps, float* dump,
-                                       size_t bh, size_t BH) {
-  const int t = threadIdx.x & 3;
-  uint32_t fa[HD / 16][4];
-  uint32_t pa[KQ / 8][2];
-  float p[KQ / 8][4], dpt[KQ / 8][4];
-  ldsm_a_frags<HD>(ks, fa);
-  qk_tile<HD, FULL, KQ>(fa, qb, qn, p);
-#pragma unroll
-  for (int j = 0; j < KQ / 8; ++j) {
-    const int c = 8 * j + 2 * t;  // an n8 tile of queries is wholly < S or >= S
-    const float2 m = *reinterpret_cast<const float2*>(st + c);
-    const float2 l = *reinterpret_cast<const float2*>(st + KQ + c);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool ok = q0 + c < S && kr + 8 * (e >> 1) < S;
-      const float lg = logit_of(p[j][e], scale, bk[e >> 1]);
-      p[j][e] = ok ? __fdiv_rn(expf(__fsub_rn(lg, (e & 1) ? m.y : m.x)),
-                               (e & 1) ? l.y : l.x)
-                   : 0.f;
-      ps[(j * 4 + e) * 32] = p[j][e];
-    }
-  }
-  pack_tile<KQ>(p, pa);
-  pv_acc<HD, FULL, KQ>(pa, gb, qn, dv);
-  ldsm_a_frags<HD>(vs, fa);
-  dot_tile<HD, FULL, KQ>(fa, gb, qn, dpt);
-#pragma unroll
-  for (int j = 0; j < KQ / 8; ++j) {
-    const int c = 8 * j + 2 * t;
-    const float2 r = *reinterpret_cast<const float2*>(st + 2 * KQ + c);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool ok = q0 + c < S && kr + 8 * (e >> 1) < S;
-      const float pe = ps[(j * 4 + e) * 32];
-      const float ds =
-          ok ? ds_of(pe, dpt[j][e], (e & 1) ? r.y : r.x, scale) : 0.f;
-#ifdef K9_DUMP
-      if (ok)
-        k9_dump(dump, 1, bh, BH, S, q0 + c + (e & 1), kr + 8 * (e >> 1), pe,
-                dpt[j][e], ds);
-#endif
-      dpt[j][e] = ds;
-    }
-  }
-  pack_tile<KQ>(dpt, pa);
-  pv_acc_smem<HD, FULL, KQ>(pa, qb, qn, dks);
-}
-
-// Shared memory of a key-pass block: K_r and V of its KB keys, a ring of
-// two (rotated q, g) tiles of KQ queries, the ring's statistics [2][3][KQ]
-// f32, and each thread's p of a tile (KQ / 8 x 4 f32) and dk accumulator
-// (HD / 8 x 4 f32), lane-contiguous.
+// A K9 block's dynamic shared memory: 64 bytes of mbarriers (full[STAGES],
+// empty[STAGES], the resident tiles'), up to the next 1024-byte boundary;
+// the two consumers' resident tiles (q_r[2], g[2]; k_r[2], v[2]); STAGES
+// stages of two streamed tiles (k_r and v; q_r and g); K9_STATS per-head
+// f32 vectors of MAX_S (the key bias; m, l, row and 1/l); at hd 128 the key
+// kernel's p slots (32 f32 a consumer thread, element e of thread i at e *
+// K9_CONSUMERS + i).
 template <int HD>
-__host__ __device__ __forceinline__ size_t k9k_smem_bytes() {
-  return (size_t)(2 * KB + 4 * KQ) * (HD + 8) * 2 + (size_t)2 * 3 * KQ * 4 +
-         (size_t)KW * (KQ + HD) * 16 * 4;
+struct K9Layout {
+  static constexpr int TILE = TileLayout<HD>::BYTES;
+  static constexpr int RESIDENT = 4 * TILE;
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int VEC = 4 * MAX_S;
+  static constexpr bool P_SMEM = HD > 64;
+  static constexpr int PSLOTS = P_SMEM ? 32 * 4 * K9_CONSUMERS : 0;
+  static constexpr int BYTES =
+      1024 + 64 + RESIDENT + K9_STAGES * STAGE + K9_STATS * VEC + PSLOTS;
+};
+static_assert(K9Layout<128>::BYTES <= SMEM_OPTIN, "K9's shared memory fits a block");
+
+// The resident tiles' start: the next 1024-byte boundary past the mbarriers.
+__device__ __forceinline__ unsigned char* k9_tiles(unsigned char* smem) {
+  const uint32_t a = smem_addr(smem);
+  return smem + ((a + 64 + 1023) / 1024 * 1024 - a);
 }
 
-// Pass (b): a block per (b, h, KB keys). Walks every query tile, recomputes
-// p from the stored m and l, and writes dk (over the block's own rows of
-// k_r, staged before) and dv.
+__device__ __forceinline__ void k9_init_barriers(uint64_t* full, uint64_t* empty,
+                                                 uint64_t* res) {
+  for (int s = 0; s < K9_STAGES; ++s) {
+    mbar_init(&full[s], 1);
+    mbar_init(&empty[s], K9_CONSUMERS);
+  }
+  mbar_init(res, 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The query kernel: a block per (b, h, 128 query rows). Warpgroup 0 is the
+// producer (one thread issues every copy); consumer warpgroup cw owns rows
+// q0 + 64 cw .. + 63, its rotated q and g tiles resident. The head's key
+// tiles stream through the ring four times (sweeps): 1. S = Q_r K_r^T, the
+// exact row max; 2. S, e = exp(l - m), the f32 sum l; 3. S and dP = G V^T,
+// p = e / l, row = sum(dp p); 4. S and dP, p, ds, dQ_r += dS K_r. Then the
+// rotary adjoint of dq and one rounding, and m, l, row to the statistics.
 template <int HD>
-__global__ void __launch_bounds__(KW * 32, KEY_BLOCKS)
-    k9_bwd_key(const __nv_bfloat16* __restrict__ qkv,
-               const float* __restrict__ cos2, const float* __restrict__ s2,
-               const float* __restrict__ bias,
-               const __nv_bfloat16* __restrict__ g, int S, int H, float scale,
-               float* __restrict__ stats, __nv_bfloat16* __restrict__ dqkv) {
-  constexpr int LD = HD + 8;
-  constexpr int NT_ = KW * 32;
+__global__ void __launch_bounds__(K9_THREADS, 1)
+    k9_wg_query(const __grid_constant__ K9Maps maps, const float* __restrict__ cos2,
+                const float* __restrict__ s2, const float* __restrict__ bias, int S, int H,
+                float scale, float* __restrict__ stats, bf16* __restrict__ dqkv) {
+  using L = TileLayout<HD>;
+  using Y = K9Layout<HD>;
   extern __shared__ __align__(16) unsigned char k9_smem[];
-  auto* Ks = reinterpret_cast<__nv_bfloat16*>(k9_smem);  // [KB][LD]
-  __nv_bfloat16* Vs = Ks + KB * LD;       // [KB][LD]
-  __nv_bfloat16* Qs = Vs + KB * LD;       // [2][KQ][LD]
-  __nv_bfloat16* Gs = Qs + 2 * KQ * LD;   // [2][KQ][LD]
-  auto* St = reinterpret_cast<float*>(Gs + 2 * KQ * LD);  // [2][3][KQ]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* ps = St + 2 * 3 * KQ + warp * KQ * 16 + lane;  // the thread's p
-  float* dks = St + 2 * 3 * KQ + KW * KQ * 16 + warp * HD * 16 + lane;  // dk
-  const int nkb = (S + KB - 1) / KB, nqt = (S + KQ - 1) / KQ;
-  const int h = (blockIdx.x / nkb) % H;
-  const int b = blockIdx.x / (nkb * H);
-  const int k0 = (blockIdx.x % nkb) * KB;
-  const int row_stride = 3 * H * HD, g_stride = H * HD;
-  const __nv_bfloat16* base = qkv + (size_t)b * S * row_stride;
-  const __nv_bfloat16* qp = base + (0 * H + h) * HD;
-  const __nv_bfloat16* gp = g + (size_t)b * S * g_stride + h * HD;
-  const size_t BH = gridDim.x / nkb, bhs = BH * S;
-  const float* st = stats + ((size_t)b * H + h) * S;
-  float* dump = stats + 3 * bhs;
+  uint64_t* full = reinterpret_cast<uint64_t*>(k9_smem);
+  uint64_t* empty = full + K9_STAGES;
+  uint64_t* res = empty + K9_STAGES;
+  unsigned char* tiles = k9_tiles(k9_smem);  // q_r[2], g[2]
+  unsigned char* ring = tiles + Y::RESIDENT;  // STAGES x {k_r, v}
+  float* bs = reinterpret_cast<float*>(ring + K9_STAGES * Y::STAGE);  // the key bias
+  const int n = (S + WG_ROWS - 1) / WG_ROWS;
+  const int blocks = (S + K9_ROWS - 1) / K9_ROWS;
+  const int bh = blockIdx.x / blocks, b = bh / H, h = bh % H;
+  const int BH = gridDim.x / blocks;
+  const int q0 = (blockIdx.x % blocks) * K9_ROWS;
+  const int warp = warp_index(), lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) k9_init_barriers(full, empty, res);
+  __syncthreads();
 
-  // the tile of queries from q0 into ring slot sl: q and g rows, m, l, row
-  auto stage_q = [&](int q0, int sl) {
-    stage_rows<HD, NT_>(qp, row_stride, q0, KQ, S, Qs + sl * KQ * LD);
-    stage_rows<HD, NT_>(gp, g_stride, q0, KQ, S, Gs + sl * KQ * LD);
-    for (int i = threadIdx.x; i < 3 * KQ / 4; i += NT_) {
-      const int c = i / (KQ / 4), q = q0 + 4 * (i % (KQ / 4));
-      const bool in = q < S;  // a 4-query chunk is wholly < S or >= S
-      cp_async16_or_zero(St + (sl * 3 + c) * KQ + 4 * (i % (KQ / 4)),
-                         st + c * bhs + (in ? q : 0), in);
+  if (warp < 4) {  // the producer
+    setmaxnreg_dec<K9_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(res, 4 * L::BYTES + 4 * S);
+      for (int c = 0; c < 2; ++c) {
+        load_tile<HD>(tiles + c * L::BYTES, &maps.rot, 0, q0 + c * WG_ROWS, bh, res);
+        load_tile<HD>(tiles + (2 + c) * L::BYTES, &maps.g, h * HD, q0 + c * WG_ROWS, b, res);
+      }
+      bulk_load(bs, bias + (size_t)b * S, 4 * S, res);
+      for (int i = 0; i < K9_SWEEPS * n; ++i) {
+        const int stage = i % K9_STAGES;
+        if (i >= K9_STAGES) mbar_wait(&empty[stage], (i / K9_STAGES - 1) & 1);
+        unsigned char* st = ring + stage * Y::STAGE;
+        const int k0 = (i % n) * WG_ROWS;
+        const bool with_v = i >= 2 * n;  // sweeps 3 and 4 take dP
+        mbar_expect_tx(&full[stage], (with_v ? 2 : 1) * L::BYTES);
+        load_tile<HD>(st, &maps.rot, 0, k0, BH + bh, &full[stage]);
+        if (with_v) load_tile<HD>(st + L::BYTES, &maps.qkv, (2 * H + h) * HD, k0, b, &full[stage]);
+      }
     }
-  };
-  __nv_bfloat16* out = dqkv + (size_t)b * S * row_stride;
-  stage_rows<HD, NT_>(out + (1 * H + h) * HD, row_stride, k0, KB, S, Ks);
-  stage_rows<HD, NT_>(base + (2 * H + h) * HD, row_stride, k0, KB, S, Vs);
-  cp_async_commit();
-  stage_q(0, 0);
-  cp_async_commit();
-  const int kr = k0 + 16 * warp + (lane >> 2);  // the thread's keys kr, kr + 8
-  const float bk[2] = {kr < S ? bias[(size_t)b * S + kr] : 0.f,
-                       kr + 8 < S ? bias[(size_t)b * S + kr + 8] : 0.f};
+  } else {  // a consumer: query rows q0 + 64 cw .. + 63
+    setmaxnreg_inc<K9_CONSUMER_REGS>();
+    constexpr int NP = K9_QUERY_PRODUCTS;
+    const int cw = (warp >> 2) - 1;
+    const int g = lane >> 2, t = lane & 3;
+    const int r = q0 + cw * WG_ROWS + 16 * (warp & 3) + g;  // this thread's rows r, r + 8
+    const uint32_t qa = smem_addr(tiles + cw * L::BYTES);
+    const uint32_t ga = smem_addr(tiles + (2 + cw) * L::BYTES);
+    mbar_wait(res, 0);
+    int i = 0;  // the ring's running tile
 
-  float dv[HD / 8][4];
+    // Sweep 1: the exact row max.
+    float m0 = -INFINITY, m1 = -INFINITY;
+    for (int j = 0; j < n; ++j, ++i) {
+      mbar_wait(&full[i % K9_STAGES], (i / K9_STAGES) & 1);
+      const uint32_t ka = smem_addr(ring + (i % K9_STAGES) * Y::STAGE);
+      float s[32];
+      dot64<HD, K9_QK_ADDS, NP>(s, qa, ka);
+      mbar_arrive(&empty[i % K9_STAGES]);
+      q_logits(s, bs, j * WG_ROWS, S, scale);
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dv[j][e] = 0.f;
-      dks[(j * 4 + e) * 32] = 0.f;
+      for (int jj = 0; jj < 8; ++jj) {
+        m0 = fmaxf(m0, fmaxf(s[4 * jj], s[4 * jj + 1]));
+        m1 = fmaxf(m1, fmaxf(s[4 * jj + 2], s[4 * jj + 3]));
+      }
     }
-  for (int qt = 0; qt < nqt; ++qt) {
-    const int q0 = qt * KQ, qn = min(KQ, S - q0), sl = qt & 1;
-    if (qt + 1 < nqt) stage_q(q0 + KQ, sl ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // tile qt (and K_r, V) have landed
-    __nv_bfloat16* qb = Qs + sl * KQ * LD;
-    rotate_rows<HD, NT_>(qb, q0, KQ, S, cos2, s2);
-    __syncthreads();
-    const __nv_bfloat16* ks = Ks + 16 * warp * LD;
-    const __nv_bfloat16* vs = Vs + 16 * warp * LD;
-    if (qn == KQ)
-      k_tile<HD, true>(ks, vs, qb, Gs + sl * KQ * LD, St + sl * 3 * KQ, q0,
-                       qn, kr, bk, S, scale, dv, dks, ps, dump,
-                       blockIdx.x / nkb, BH);
-    else
-      k_tile<HD, false>(ks, vs, qb, Gs + sl * KQ * LD, St + sl * 3 * KQ, q0,
-                        qn, kr, bk, S, scale, dv, dks, ps, dump,
-                        blockIdx.x / nkb, BH);
-    __syncthreads();  // slot sl is consumed
-  }
+    m0 = quad_max(m0);
+    m1 = quad_max(m1);
 
-  // dv straight out, dk through the rotary adjoint (lane d's partner d +
-  // HD/2 is n8 tile j + HD/16 of the same thread).
-  const int t = lane & 3;
+    // Sweep 2: l, the f32 sum of e = exp(l - m), key tile after key tile.
+    float l0 = 0.f, l1 = 0.f;
+    for (int j = 0; j < n; ++j, ++i) {
+      mbar_wait(&full[i % K9_STAGES], (i / K9_STAGES) & 1);
+      const uint32_t ka = smem_addr(ring + (i % K9_STAGES) * Y::STAGE);
+      float s[32];
+      dot64<HD, K9_QK_ADDS, NP>(s, qa, ka);
+      mbar_arrive(&empty[i % K9_STAGES]);
+      q_logits(s, bs, j * WG_ROWS, S, scale);
+      float t0 = 0.f, t1 = 0.f;  // the tile's share
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int s = kr + 8 * hr;
-    if (s >= S) continue;
-    const float* c = cos2 + (size_t)s * HD;
-    const float* sn = s2 + (size_t)s * HD;
+      for (int jj = 0; jj < 8; ++jj) {
+        t0 = __fadd_rn(__fadd_rn(t0, k9_exp(__fsub_rn(s[4 * jj], m0))),
+                       k9_exp(__fsub_rn(s[4 * jj + 1], m0)));
+        t1 = __fadd_rn(__fadd_rn(t1, k9_exp(__fsub_rn(s[4 * jj + 2], m1))),
+                       k9_exp(__fsub_rn(s[4 * jj + 3], m1)));
+      }
+      l0 = __fadd_rn(l0, t0);
+      l1 = __fadd_rn(l1, t1);
+    }
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    const float y0 = __frcp_rn(l0), y1 = __frcp_rn(l1);
+    // a cell's row sum and its reciprocal (cells 4j, 4j + 1 row r; + 2, + 3 row r + 8)
+    const auto ly = [&](int i) {
+      return (i & 2) ? make_float2(l1, y1) : make_float2(l0, y0);
+    };
+
+    // Sweep 3: row = sum(dp * p), p = e / l.
+    float w0 = 0.f, w1 = 0.f;
+    uint32_t fb = 0;  // the key tiles where the warp fell back to k9_div
+    for (int j = 0; j < n; ++j, ++i) {
+      mbar_wait(&full[i % K9_STAGES], (i / K9_STAGES) & 1);
+      const unsigned char* st = ring + (i % K9_STAGES) * Y::STAGE;
+      float s[32], dp[32];
+      dot64<HD, K9_QK_ADDS, NP>(s, qa, smem_addr(st));
+      dot64<HD, K9_STEP_ADDS, NP>(dp, ga, smem_addr(st + L::BYTES));
+      mbar_arrive(&empty[i % K9_STAGES]);
+      q_logits(s, bs, j * WG_ROWS, S, scale);
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      const int d = 8 * j + 2 * t;
-      const int jp = (j + HD / 16) % (HD / 8), dpart = 8 * jp + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)s * row_stride +
-                                         (2 * H + h) * HD + d) =
-          __floats2bfloat162_rn(dv[j][2 * hr], dv[j][2 * hr + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)s * row_stride +
-                                         (1 * H + h) * HD + d) =
-          __floats2bfloat162_rn(
-              __fadd_rn(__fmul_rn(dks[(j * 4 + 2 * hr) * 32], c[d]),
-                        __fmul_rn(dks[(jp * 4 + 2 * hr) * 32], sn[dpart])),
-              __fadd_rn(__fmul_rn(dks[(j * 4 + 2 * hr + 1) * 32], c[d + 1]),
-                        __fmul_rn(dks[(jp * 4 + 2 * hr + 1) * 32],
-                                  sn[dpart + 1])));
+      for (int e = 0; e < 32; ++e) s[e] = k9_exp(__fsub_rn(s[e], (e & 2) ? m1 : m0));
+      float p[32];
+      if (k9_probs<true>(s, ly, false, p)) fb |= 1u << j;
+      float t0 = 0.f, t1 = 0.f;  // the tile's share
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        if (e & 2)
+          t1 = __fadd_rn(t1, __fmul_rn(dp[e], p[e]));
+        else
+          t0 = __fadd_rn(t0, __fmul_rn(dp[e], p[e]));
+      }
+      w0 = __fadd_rn(w0, t0);
+      w1 = __fadd_rn(w1, t1);
+    }
+    w0 = quad_sum(w0);
+    w1 = quad_sum(w1);
+
+    // Sweep 4: ds = bf16(p (dp - row) scale), repacked C -> A, dQ_r += dS K_r.
+    float dq[UC<HD>][UN<HD> / 2];
+#pragma unroll
+    for (int c = 0; c < UC<HD>; ++c)
+#pragma unroll
+      for (int e = 0; e < UN<HD> / 2; ++e) dq[c][e] = 0.f;
+    for (int j = 0; j < n; ++j, ++i) {
+      mbar_wait(&full[i % K9_STAGES], (i / K9_STAGES) & 1);
+      const unsigned char* st = ring + (i % K9_STAGES) * Y::STAGE;
+      const uint32_t ka = smem_addr(st);
+      float s[32], dp[32];
+      dot64<HD, K9_QK_ADDS, NP>(s, qa, ka);
+      dot64<HD, K9_STEP_ADDS, NP>(dp, ga, smem_addr(st + L::BYTES));
+      q_logits(s, bs, j * WG_ROWS, S, scale);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] = k9_exp(__fsub_rn(s[e], (e & 2) ? m1 : m0));
+      float p[32];
+      k9_probs<false>(s, ly, (fb >> j) & 1u, p);
+      uint32_t sa[4][4];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ds[e] = ds_of(p[4 * jj + e], dp[4 * jj + e], e < 2 ? w0 : w1, scale);
+#ifdef K9_DUMP
+          const int q = r + 8 * (e >> 1), k = j * WG_ROWS + 8 * jj + 2 * t + (e & 1);
+          if (q < S && k < S)
+            k9_dump(stats + (size_t)BH * S * (K9_STATS + HD) + (k9_flag_bytes(BH, S) + 3) / 4, 0,
+                    bh, BH, S, q, k, p[4 * jj + e], dp[4 * jj + e], ds[e]);
+#endif
+        }
+        pack_a(sa, jj, ds[0], ds[1], ds[2], ds[3]);
+      }
+      if constexpr (K9_DQ_SHARES<HD>) {  // the tile's share of dq_r from +0.0, then added
+        float part[UC<HD>][UN<HD> / 2];
+#pragma unroll
+        for (int c = 0; c < UC<HD>; ++c)
+#pragma unroll
+          for (int e = 0; e < UN<HD> / 2; ++e) part[c][e] = 0.f;
+        acc_rows<HD, K9_STEP_ADDS, NP>(part, sa, ka);
+        mbar_arrive(&empty[i % K9_STAGES]);
+#pragma unroll
+        for (int c = 0; c < UC<HD>; ++c)
+#pragma unroll
+          for (int e = 0; e < UN<HD> / 2; ++e) dq[c][e] = __fadd_rn(dq[c][e], part[c][e]);
+      } else {
+        acc_rows<HD, K9_STEP_ADDS, NP>(dq, sa, ka);
+        mbar_arrive(&empty[i % K9_STAGES]);
+      }
+    }
+
+    if (lane == 0) {  // sweep 3's fallbacks, for sweep 4's twin: the key kernel
+      uint8_t* flags = reinterpret_cast<uint8_t*>(stats + (size_t)BH * S * (K9_STATS + HD));
+      const size_t grp = (size_t)bh * blocks * (K9_ROWS / 16) + (r - g) / 16;
+      for (int j = 0; j < n; ++j) flags[grp * n + j] = (fb >> j) & 1u;
+    }
+
+    // dq through the rotary adjoint (lane d's partner d + HD/2 is column
+    // group j + HD/16 of the same thread), one rounding; m, l and row.
+    const int row_stride = 3 * H * HD;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int sq = r + 8 * hh;
+      if (sq >= S) continue;
+      const float* c = cos2 + (size_t)sq * HD;
+      const float* sn = s2 + (size_t)sq * HD;
+      bf16* out = dqkv + ((size_t)b * S + sq) * row_stride + h * HD;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const int d = 8 * j + 2 * t;
+        const int jp = (j + HD / 16) % (HD / 8), dpart = 8 * jp + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(out + d) = __floats2bfloat162_rn(
+            __fadd_rn(__fmul_rn(acc_at<HD>(dq, j, hh, 0), c[d]),
+                      __fmul_rn(acc_at<HD>(dq, jp, hh, 0), sn[dpart])),
+            __fadd_rn(__fmul_rn(acc_at<HD>(dq, j, hh, 1), c[d + 1]),
+                      __fmul_rn(acc_at<HD>(dq, jp, hh, 1), sn[dpart + 1])));
+      }
+      if (t == 0) {
+        const size_t bhs = (size_t)BH * S, at = (size_t)bh * S + sq;
+        stats[at] = hh ? m1 : m0;
+        stats[bhs + at] = hh ? l1 : l0;
+        stats[2 * bhs + at] = hh ? w1 : w0;
+        stats[3 * bhs + at] = hh ? y1 : y0;
+      }
     }
   }
 }
 
-// Pass (0): k_r, the rotary of every key of every head in f32 rounded to
-// bf16 (rotate_rows's arithmetic), into dqkv's k lanes: the query pass reads
-// it there, and each key-pass block overwrites its own rows with dk after
-// staging them. One thread per lane pair (j, j + 1) and partners j + HD/2.
+// The key kernel: a block per (b, h, 128 keys), the same three warpgroups.
+// Consumer warpgroup cw owns keys k0 + 64 cw .. + 63, its k_r and v tiles
+// resident, and the head's m, l and row (written by the query kernel) lie in
+// shared memory; the head's query tiles (q_r, g) stream through the ring
+// once. Per tile: S^T = K_r Q_r^T, p from the stored m and l, dV += bf16(P)^T
+// G; dP^T = V G^T, ds with the stored row, dK_r += dS^T Q_r. dK and dV stay
+// in f32 registers and are written once (dk through the rotary adjoint).
+template <int HD>
+__global__ void __launch_bounds__(K9_THREADS, 1)
+    k9_wg_key(const __grid_constant__ K9Maps maps, const float* __restrict__ cos2,
+              const float* __restrict__ s2, const float* __restrict__ bias, int S, int H,
+              float scale, float* __restrict__ stats, bf16* __restrict__ dqkv) {
+  using L = TileLayout<HD>;
+  using Y = K9Layout<HD>;
+  extern __shared__ __align__(16) unsigned char k9_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(k9_smem);
+  uint64_t* empty = full + K9_STAGES;
+  uint64_t* res = empty + K9_STAGES;
+  unsigned char* tiles = k9_tiles(k9_smem);  // k_r[2], v[2]
+  unsigned char* ring = tiles + Y::RESIDENT;  // STAGES x {q_r, g}
+  float* mq = reinterpret_cast<float*>(ring + K9_STAGES * Y::STAGE);  // m, l, row, 1/l
+  const int n = (S + WG_ROWS - 1) / WG_ROWS;
+  const int blocks = (S + K9_ROWS - 1) / K9_ROWS;
+  const int bh = blockIdx.x / blocks, b = bh / H, h = bh % H;
+  const int BH = gridDim.x / blocks;
+  const int k0 = (blockIdx.x % blocks) * K9_ROWS;
+  const int warp = warp_index(), lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) k9_init_barriers(full, empty, res);
+  __syncthreads();
+
+  if (warp < 4) {  // the producer
+    setmaxnreg_dec<K9_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      const size_t bhs = (size_t)BH * S;
+      mbar_expect_tx(res, 4 * L::BYTES + K9_STATS * 4 * S);
+      for (int c = 0; c < 2; ++c) {
+        load_tile<HD>(tiles + c * L::BYTES, &maps.rot, 0, k0 + c * WG_ROWS, BH + bh, res);
+        load_tile<HD>(tiles + (2 + c) * L::BYTES, &maps.qkv, (2 * H + h) * HD,
+                      k0 + c * WG_ROWS, b, res);
+      }
+      for (int c = 0; c < K9_STATS; ++c)
+        bulk_load(mq + c * MAX_S, stats + c * bhs + (size_t)bh * S, 4 * S, res);
+      for (int i = 0; i < n; ++i) {
+        const int stage = i % K9_STAGES;
+        if (i >= K9_STAGES) mbar_wait(&empty[stage], (i / K9_STAGES - 1) & 1);
+        unsigned char* st = ring + stage * Y::STAGE;
+        mbar_expect_tx(&full[stage], 2 * L::BYTES);
+        load_tile<HD>(st, &maps.rot, 0, i * WG_ROWS, bh, &full[stage]);
+        load_tile<HD>(st + L::BYTES, &maps.g, h * HD, i * WG_ROWS, b, &full[stage]);
+      }
+    }
+  } else {  // a consumer: keys k0 + 64 cw .. + 63
+    setmaxnreg_inc<K9_CONSUMER_REGS>();
+    constexpr int NP = K9_KEY_PRODUCTS<HD>;
+    const int cw = (warp >> 2) - 1;
+    const int g = lane >> 2, t = lane & 3;
+    const int r = k0 + cw * WG_ROWS + 16 * (warp & 3) + g;  // this thread's keys r, r + 8
+    const float bk0 = r < S ? bias[(size_t)b * S + r] : 0.f;
+    const float bk1 = r + 8 < S ? bias[(size_t)b * S + r + 8] : 0.f;
+    const uint32_t ka = smem_addr(tiles + cw * L::BYTES);
+    const uint32_t va = smem_addr(tiles + (2 + cw) * L::BYTES);
+    const float* lq = mq + MAX_S;
+    const float* rq = mq + 2 * MAX_S;
+    const float* yq = mq + 3 * MAX_S;
+    const uint8_t* flags =
+        reinterpret_cast<const uint8_t*>(stats + (size_t)BH * S * (K9_STATS + HD));
+    const int kt = (k0 + cw * WG_ROWS) / WG_ROWS;  // this warpgroup's key tile
+    float* ps = mq + K9_STATS * MAX_S + (threadIdx.x - 128);  // P_SMEM: this thread's p
+    float dk[UC<HD>][UN<HD> / 2], dv[UC<HD>][UN<HD> / 2];
+#pragma unroll
+    for (int c = 0; c < UC<HD>; ++c)
+#pragma unroll
+      for (int e = 0; e < UN<HD> / 2; ++e) dk[c][e] = dv[c][e] = 0.f;
+    mbar_wait(res, 0);
+#ifdef K9_DUMP
+    float* dump = stats + (size_t)BH * S * (K9_STATS + HD) + (k9_flag_bytes(BH, S) + 3) / 4;
+#endif
+    for (int i = 0; i < n; ++i) {
+      mbar_wait(&full[i % K9_STAGES], (i / K9_STAGES) & 1);
+      const unsigned char* st = ring + (i % K9_STAGES) * Y::STAGE;
+      const uint32_t qa = smem_addr(st), ga = smem_addr(st + L::BYTES);
+      const int q0 = i * WG_ROWS;
+      // S^T: rows are this warpgroup's keys, columns the tile's queries
+      float s[32];
+      dot64<HD, K9_QK_ADDS, NP>(s, ka, qa);
+      // e of each cell (0 where its query or key lies past S), then p
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = q0 + 8 * j + 2 * t;  // an n8 group of queries is wholly < S or >= S
+        const float2 m2 = *reinterpret_cast<const float2*>(mq + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = q0 + 8 * j < S && r + 8 * (e >> 1) < S;
+          const float lg = logit_of(s[4 * j + e], scale, e < 2 ? bk0 : bk1);
+          s[4 * j + e] = ok ? k9_exp(__fsub_rn(lg, (e & 1) ? m2.y : m2.x)) : 0.f;
+        }
+      }
+      // the query kernel's fallbacks on these cells: its four 16-row groups of
+      // the tile's queries against this warpgroup's key tile
+      const uint8_t* fl = flags + ((size_t)bh * blocks * (K9_ROWS / 16) + 4 * i) * n + kt;
+      const bool exact = fl[0] | fl[n] | fl[2 * n] | fl[3 * n];
+      float p[32];
+      k9_probs<false>(s, [&](int i) {
+        const int c = q0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        return make_float2(lq[c], yq[c]);
+      }, exact, p);
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) pack_a(pa, j, p[4 * j], p[4 * j + 1], p[4 * j + 2], p[4 * j + 3]);
+      if constexpr (Y::P_SMEM) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) ps[e * K9_CONSUMERS] = p[e];
+      }
+      acc_rows<HD, K9_STEP_ADDS, NP>(dv, pa, ga);
+      float dp[32];
+      dot64<HD, K9_STEP_ADDS, NP>(dp, va, ga);  // dP^T
+      uint32_t sa[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = q0 + 8 * j + 2 * t;
+        const float2 w2 = *reinterpret_cast<const float2*>(rq + c);
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = q0 + 8 * j < S && r + 8 * (e >> 1) < S;
+          float pe;
+          if constexpr (Y::P_SMEM)
+            pe = ps[(4 * j + e) * K9_CONSUMERS];
+          else
+            pe = p[4 * j + e];
+          ds[e] = ok ? ds_of(pe, dp[4 * j + e], (e & 1) ? w2.y : w2.x, scale) : 0.f;
+#ifdef K9_DUMP
+          if (ok)
+            k9_dump(dump, 1, bh, BH, S, c + (e & 1), r + 8 * (e >> 1), pe, dp[4 * j + e], ds[e]);
+#endif
+        }
+        pack_a(sa, j, ds[0], ds[1], ds[2], ds[3]);
+      }
+      acc_rows<HD, K9_STEP_ADDS, NP>(dk, sa, qa);
+      mbar_arrive(&empty[i % K9_STAGES]);
+    }
+
+    // dv straight out, dk through the rotary adjoint, one rounding each.
+    const int row_stride = 3 * H * HD;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int sk = r + 8 * hh;
+      if (sk >= S) continue;
+      const float* c = cos2 + (size_t)sk * HD;
+      const float* sn = s2 + (size_t)sk * HD;
+      bf16* out = dqkv + ((size_t)b * S + sk) * row_stride;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const int d = 8 * j + 2 * t;
+        const int jp = (j + HD / 16) % (HD / 8), dpart = 8 * jp + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(out + (2 * H + h) * HD + d) =
+            __floats2bfloat162_rn(acc_at<HD>(dv, j, hh, 0), acc_at<HD>(dv, j, hh, 1));
+        *reinterpret_cast<__nv_bfloat162*>(out + (H + h) * HD + d) = __floats2bfloat162_rn(
+            __fadd_rn(__fmul_rn(acc_at<HD>(dk, j, hh, 0), c[d]),
+                      __fmul_rn(acc_at<HD>(dk, jp, hh, 0), sn[dpart])),
+            __fadd_rn(__fmul_rn(acc_at<HD>(dk, j, hh, 1), c[d + 1]),
+                      __fmul_rn(acc_at<HD>(dk, jp, hh, 1), sn[dpart + 1])));
+      }
+    }
+  }
+}
+
+// The pre-pass: q_r and k_r, the rotary of every query and key of every
+// head in f32 rounded once to bf16 (rotate_rows's arithmetic), into the
+// scratch [2, B, H, S, HD] that both kernels read through TMA. One thread
+// per lane pair (j, j + 1) and partners j + HD/2; consecutive threads write
+// consecutive pairs of a scratch row.
 template <int HD>
 __global__ void __launch_bounds__(256)
-    k9_rotate_k(const __nv_bfloat16* __restrict__ qkv,
-                const float* __restrict__ cos2, const float* __restrict__ s2,
-                int S, int H, size_t items, __nv_bfloat16* __restrict__ dqkv) {
+    k9_rotate_qk(const bf16* __restrict__ qkv, const float* __restrict__ cos2,
+                 const float* __restrict__ s2, int B, int S, int H, size_t items,
+                 bf16* __restrict__ rot) {
   constexpr int H2 = HD / 2;
   constexpr int PAIRS = H2 / 2;
   const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
   if (i >= items) return;
   const int j = (int)(i % PAIRS) * 2;
-  const size_t bsh = i / PAIRS;  // (b * S + s) * H + h
-  const int h = (int)(bsh % H);
-  const int s = (int)((bsh / H) % S);
-  const size_t at = (bsh / H) * 3 * H * HD + (size_t)(H + h) * HD + j;
-  const float2 xl = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(qkv + at));
-  const float2 xh = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(qkv + at + H2));
-  const float* c = cos2 + (size_t)s * HD;
+  const size_t row = i / PAIRS;  // ((c * B + b) * H + h) * S + s
+  const int s = (int)(row % S);
+  const size_t cbh = row / S;
+  const int h = (int)(cbh % H);
+  const size_t cb = cbh / H;
+  const int b = (int)(cb % B), c = (int)(cb / B);
+  const size_t at = ((size_t)b * S + s) * 3 * H * HD + (size_t)(c * H + h) * HD + j;
+  const float2 xl = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qkv + at));
+  const float2 xh = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qkv + at + H2));
+  const float* cs = cos2 + (size_t)s * HD;
   const float* sn = s2 + (size_t)s * HD;
-  const float2 cl = *reinterpret_cast<const float2*>(c + j);
-  const float2 ch = *reinterpret_cast<const float2*>(c + j + H2);
+  const float2 cl = *reinterpret_cast<const float2*>(cs + j);
+  const float2 ch = *reinterpret_cast<const float2*>(cs + j + H2);
   const float2 sl = *reinterpret_cast<const float2*>(sn + j);
   const float2 sh = *reinterpret_cast<const float2*>(sn + j + H2);
-  *reinterpret_cast<__nv_bfloat162*>(dqkv + at) = __floats2bfloat162_rn(
+  bf16* out = rot + row * HD + j;
+  *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(
       __fadd_rn(__fmul_rn(xl.x, cl.x), __fmul_rn(xh.x, sl.x)),
       __fadd_rn(__fmul_rn(xl.y, cl.y), __fmul_rn(xh.y, sl.y)));
-  *reinterpret_cast<__nv_bfloat162*>(dqkv + at + H2) = __floats2bfloat162_rn(
+  *reinterpret_cast<__nv_bfloat162*>(out + H2) = __floats2bfloat162_rn(
       __fadd_rn(__fmul_rn(xh.x, ch.x), __fmul_rn(xl.x, sh.x)),
       __fadd_rn(__fmul_rn(xh.y, ch.y), __fmul_rn(xl.y, sh.y)));
 }
 
-template <int HD, int TPW>
-int launch_k9_as(const void* qkv, const float* cos2, const float* s2,
-                 const float* bias, const void* g, int B, int S, int H,
-                 float scale, float* stats, void* dqkv, cudaStream_t stream) {
-  static size_t conf_q = 48 * 1024, conf_k = 48 * 1024;
-  const size_t bytes_q = k9q_smem_bytes<HD, TPW>();
-  const size_t bytes_k = k9k_smem_bytes<HD>();
-  int e = allow_smem(k9_bwd_query<HD, TPW>, bytes_q, conf_q);
-  if (e) return e;
-  e = allow_smem(k9_bwd_key<HD>, bytes_k, conf_k);
-  if (e) return e;
-  const auto* q = static_cast<const __nv_bfloat16*>(qkv);
-  const auto* gg = static_cast<const __nv_bfloat16*>(g);
-  auto* out = static_cast<__nv_bfloat16*>(dqkv);
-  const unsigned bh = (unsigned)B * (unsigned)H;
-  const size_t items = (size_t)bh * S * (HD / 4);
-  k9_rotate_k<HD><<<(unsigned)((items + 255) / 256), 256, 0, stream>>>(
-      q, cos2, s2, S, H, items, out);
-  e = (int)cudaGetLastError();
-  if (e) return e;
-  k9_bwd_query<HD, TPW><<<bh * (unsigned)((S + 15) / 16), QW * 32, bytes_q,
-                          stream>>>(q, cos2, s2, bias, gg, S, H, scale, stats,
-                                    out);
-  e = (int)cudaGetLastError();
-  if (e) return e;
-  k9_bwd_key<HD><<<bh * (unsigned)((S + KB - 1) / KB), KW * 32, bytes_k,
-                   stream>>>(q, cos2, s2, bias, gg, S, H, scale, stats, out);
-  return (int)cudaGetLastError();
+// The driver's cuTensorMapEncodeTiled, through the runtime's entry-point
+// lookup (nothing links libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled lookup_encode_tiled() {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+  const cudaError_t err =
+      cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+  return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+             ? reinterpret_cast<EncodeTiled>(p)
+             : nullptr;
+}
+
+// The tensor map of a bf16 array [planes][S][lanes] whose rows lie `pitch`
+// bytes apart: boxes of one column chunk (TileLayout<HD>) x 64 rows x one
+// plane, in the chunk's swizzle; rows at or past S read as zeros.
+template <int HD>
+int encode_3d(CUtensorMap* map, const void* base, long long lanes, int S, long long planes,
+              long long pitch) {
+  static const EncodeTiled encode = lookup_encode_tiled();  // once, thread-safe
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  using L = TileLayout<HD>;
+  const cuuint64_t dims[3] = {(cuuint64_t)lanes, (cuuint64_t)S, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)pitch, (cuuint64_t)pitch * S};
+  const cuuint32_t box[3] = {(cuuint32_t)(L::W / 2), (cuuint32_t)WG_ROWS, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = L::W == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : L::W == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The register split of setmaxnreg needs the block's whole allocation: a
+// kernel that ptxas gave fewer registers would wait forever in
+// setmaxnreg.inc, so it is refused before it launches.
+template <typename Kernel>
+int check_launch_regs(Kernel kernel) {
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  return attr.numRegs >= K9_LAUNCH_REGS ? 0 : (int)cudaErrorInvalidConfiguration;
 }
 
 template <int HD>
 int launch_k9(const void* qkv, const float* cos2, const float* s2,
               const float* bias, const void* g, int B, int S, int H,
               float scale, float* stats, void* dqkv, cudaStream_t stream) {
-  if (S <= QW * AKN)
-    return launch_k9_as<HD, 1>(qkv, cos2, s2, bias, g, B, S, H, scale, stats,
-                               dqkv, stream);
-  return launch_k9_as<HD, 2>(qkv, cos2, s2, bias, g, B, S, H, scale, stats,
-                             dqkv, stream);
+  static size_t conf_q = 48 * 1024, conf_k = 48 * 1024;
+  static const int regs_q = check_launch_regs(k9_wg_query<HD>);
+  static const int regs_k = check_launch_regs(k9_wg_key<HD>);
+  if (regs_q) return regs_q;
+  if (regs_k) return regs_k;
+  constexpr size_t smem = K9Layout<HD>::BYTES;
+  int e = allow_smem(k9_wg_query<HD>, smem, conf_q);
+  if (e) return e;
+  e = allow_smem(k9_wg_key<HD>, smem, conf_k);
+  if (e) return e;
+  const long long bh = (long long)B * H;
+  auto* rot = reinterpret_cast<bf16*>(stats + K9_STATS * bh * S);
+  K9Maps maps;
+  if ((e = encode_3d<HD>(&maps.rot, rot, HD, S, 2 * bh, 2LL * HD))) return e;
+  if ((e = encode_3d<HD>(&maps.qkv, qkv, 3LL * H * HD, S, B, 6LL * H * HD))) return e;
+  if ((e = encode_3d<HD>(&maps.g, g, (long long)H * HD, S, B, 2LL * H * HD))) return e;
+  const size_t items = (size_t)2 * bh * S * (HD / 4);
+  k9_rotate_qk<HD><<<(unsigned)((items + 255) / 256), 256, 0, stream>>>(
+      static_cast<const bf16*>(qkv), cos2, s2, B, S, H, items, rot);
+  if ((e = (int)cudaGetLastError())) return e;
+  const unsigned blocks = (unsigned)bh * (unsigned)((S + K9_ROWS - 1) / K9_ROWS);
+  k9_wg_query<HD><<<blocks, K9_THREADS, smem, stream>>>(maps, cos2, s2, bias, S, H, scale,
+                                                        stats, static_cast<bf16*>(dqkv));
+  if ((e = (int)cudaGetLastError())) return e;
+  k9_wg_key<HD><<<blocks, K9_THREADS, smem, stream>>>(maps, cos2, s2, bias, S, H, scale,
+                                                      stats, static_cast<bf16*>(dqkv));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1553,11 +1923,14 @@ int bsr_fused_attention(const void* q, const void* k, const void* v,
   }
 }
 
-// K9. qkv, cos2, s2, bias as for K8; g [B, S, H*hd] bf16; stats a
-// [3, B, H, S] f32 scratch (m, l, row from pass (a) to pass (b)); dqkv
-// [B, S, 3*H*hd] bf16, every element written. Same geometry limits as K8.
-// A build with K9_DUMP also writes both kernels' p, dp and ds behind the
-// statistics (6 * B*H*S*S more floats, which the caller allocates).
+// K9. qkv, cos2, s2, bias as for K8; g [B, S, H*hd] bf16; stats a scratch
+// of (4 + hd) * B*H*S f32 and k9_flag_bytes: [4, B, H, S] f32 (m, l, row and
+// 1/l from the query kernel to the key kernel), then the rotated q and k [2,
+// B, H, S, hd] bf16, then the query kernel's fallback record;
+// dqkv [B, S, 3*H*hd] bf16, every element written. qkv, g and stats 16-byte
+// aligned (TMA reads them). Same geometry limits as K8. A build with
+// K9_DUMP also writes both kernels' p, dp and ds behind the scratch (6 *
+// B*H*S*S more floats, which the caller allocates).
 int bsr_fused_attention_qkv_bwd(const void* qkv, const float* cos2,
                                 const float* s2, const float* bias,
                                 const void* g, int B, int S, int H, int hd,

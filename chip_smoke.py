@@ -963,7 +963,8 @@ def _rotated_qkv(qkv, c2, s2, bias, h):
 
 
 #: kernel groups of a device-time split: name -> parts of the kernels' names
-K8_K9 = {"K8": ("k8_fused_attention_qkv",), "K9": ("k9_bwd_", "k9_rotate_k")}
+K8_K9 = {"K8": ("k8_fused_attention_qkv",),
+         "K9": ("k9_rotate_qk", "k9_wg_query", "k9_wg_key")}
 K14_K16 = {"K14": ("k14_flash_fwd",), "K15": ("k15_flash_bwd_dkv",),
            "K16": ("k16_flash_bwd_dq",)}
 

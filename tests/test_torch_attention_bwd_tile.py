@@ -1,8 +1,11 @@
-"""The tensor-core backward K9 on the CPU: its fragment maps in numpy and a
+"""The mma.sync backward K9 on the CPU: its fragment maps in numpy and a
 numpy reference in the kernel's tile order against the JAX kernel.
 
-On the card ``k9_bwd_query`` and ``k9_bwd_key`` (``ops/csrc/
-attention_kernels.cu``) run every product on
+This is the design the wgmma K9 replaced (``tests/
+test_torch_attention_bwd_wgmma.py`` emulates the tree's); it stays as the
+older build that ``bench/ab_attn.py`` times the tree against, and as K8's
+fragment maps seen from the backward. There ``k9_bwd_query`` and
+``k9_bwd_key`` ran every product on
 ``mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`` in K8's fragment
 layout (``tests/test_torch_attention_tile.py`` emulates K8's routines; this
 file reuses them). The query pass holds the rotated q and g of 16 query

@@ -8,6 +8,7 @@ conftest (which imports jax):
 """
 
 import contextlib
+import re
 from pathlib import Path
 
 import numpy as np
@@ -622,15 +623,15 @@ def k9_dump_lib():
 
 @pytest.mark.parametrize("s,hd", [
     (136, 64), (512, 64), (520, 64), (72, 128), (1024, 128), (200, 16),
-    (136, 32),
+    (136, 32), (72, 16), (1024, 32), (40, 64),
 ])
 def test_k9_p_and_ds_bitwise_across_passes(cuda, k9_dump_lib, s, hd):
-    """The query pass takes Q K^T and g V^T, the key pass K Q^T and V g^T:
-    m16n8k16 must give each (query, key) cell the same f32 both ways, so
-    that p, dp and ds agree bit for bit between the passes (else bf16(p)
-    and ds drift between dq and dk/dv). Every cell of every head, with a
-    fully padded batch row, on both sides of the query pass's one-tile /
-    two-tile edge (S 512 / 520) and at S % 16 == 8."""
+    """The query kernel takes Q K^T and G V^T, the key kernel K Q^T and V
+    G^T: each k16 step must give each (query, key) cell the same f32 both
+    ways, so that p, dp and ds agree bit for bit between the kernels (else
+    bf16(p) and ds drift between dq and dk/dv). Every cell of every head,
+    with a fully padded batch row, at partial 64-row tiles (S % 64 != 0,
+    S 40 below one tile), S % 16 == 8, every head width and S 1024."""
     from better_search_rag_rust_tpu_torch.bench import ab_attn
 
     b, h = 2, 2
@@ -643,21 +644,40 @@ def test_k9_p_and_ds_bitwise_across_passes(cuda, k9_dump_lib, s, hd):
 
 @pytest.mark.parametrize("s,hd", [
     (72, 64), (136, 64), (72, 128), (136, 128),   # S % 16 == 8
-    (512, 64), (520, 64), (512, 128), (520, 128),  # one / two tiles a warp
+    (512, 64), (520, 64), (512, 128), (520, 128),  # whole / partial last tile
     (1024, 64), (1024, 128),                       # the longest sequence
+    (72, 16), (520, 16), (1024, 16),               # hd 16: the 32-byte swizzle
+    (72, 32), (520, 32), (1024, 32),               # hd 32: the 64-byte swizzle
+    (8, 64), (40, 16), (64, 128), (128, 32),       # one tile or less a block
 ])
 def test_k9_at_the_layout_edges(cuda, s, hd):
-    """Both sides of the query pass's edge (a warp holds one key tile's
-    logits and dp up to S 512, two above, restaging the first), half-empty
-    k16 steps (S % 16 == 8) and S 1024, with a fully padded batch row:
-    within phase 9's bound of the plain version, the fully padded row too,
-    every value finite and two launches bit for bit."""
+    """Partial 64-row tiles (S % 64 != 0, rows past S read as zeros and not
+    stored; a consumer whose whole tile lies past S), half-empty k16 steps
+    (S % 16 == 8), one block's worth of rows or fewer, and S 1024, at every
+    head width, with a fully padded batch row: within phase 9's bound of
+    the plain version, the fully padded row too, every value finite and
+    two launches bit for bit."""
     out, again, ref, valid = _k9_case(cuda, 2, s, 2, hd)
     assert not bool(valid[-1].any())
     assert torch.equal(out, again)
     assert torch.isfinite(out.float()).all()
     _k9_within_bound(out, ref)
     _k9_within_bound(out[-1], ref[-1])
+
+
+def test_k9_bodies_do_not_spill(cuda):
+    """ptxas's report of the tree's attention source: the rotary pre-pass,
+    the query kernel and the key kernel at hd 16, 32, 64 and 128, each
+    with 0 bytes of spill stores and loads."""
+    from better_search_rag_rust_tpu_torch.bench import ab_attn
+
+    _lib, report = next(iter(ab_attn.build([ab_attn.TREE_SOURCE]).values()))
+    bodies = [line for line in report
+              if any(k in line for k in ("k9_rotate_qk", "k9_wg_query", "k9_wg_key"))]
+    assert len(bodies) == 12, report
+    for line in bodies:
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill", line)
+        assert spills and spills.groups() == ("0", "0"), line
 
 
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
@@ -681,7 +701,7 @@ def test_k9_with_qkv_scaled_by_8(cuda):
 
 
 def test_k9_unaligned_operands_are_copied(cuda):
-    """K9 stages qkv and g 16 bytes per cp.async: views off a 16-byte
+    """K9 reads qkv and g through TMA: views off a 16-byte
     boundary are copied to aligned ones, and the result is the aligned
     operands' bit for bit."""
     from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
