@@ -6,15 +6,26 @@ Each argument is a copy of ``ops/csrc/attention_kernels.cu`` — the parent
 commit's (unpack it with ``git archive`` into a git-ignored directory), the
 tree's, or a copy with one edit — or the name of a variant that this module
 writes from the tree's source into ``build/ab_attn/`` (:data:`VARIANTS`;
-``@a+b`` applies both edits): ``@stream``, K and V streamed through rings
-of two tiles that 8 warps step through together, two blocks per SM, each
-K tile rotated as it lands in each pass (what the resident, once-rotated
-K and V and 16 free-running warps buy); ``@fastexp``, ``__expf``
-(ex2.approx) in place of the accurate ``expf`` (its gain, and the float64
-lines that decided against it); ``@acc``, K8's QK^T k16 steps accumulated
-inside the ``mma`` instead of each from +0.0 with one rounded add (what
-the rounded add costs, and the error it saves); ``@nopass1``, pass 1
-skipped and e taken against 0 (wrong answers: what the exact max costs);
+``@a+b`` applies both edits): ``@mma_sync``, K8/K7 on ``mma.sync`` as
+shipped before the ``wgmma`` body (``attend_mma_sync.cuh`` spliced in place
+of the forward block: the reference the new body is held to bit for bit);
+``@stream``, K and V streamed through the four-stage TMA ring at every S,
+a block per 128 query rows, each K tile rotated as it lands in each pass
+(what the resident, once-rotated K and V buy); ``@kres``, a block a head,
+K resident and rotated by all its threads before any product, V streamed
+through the ring for each pair of query tiles, at every S (where the
+persistent blocks run: what rotating the next head's K under the current
+head's products buys); ``@fastexp``, ``__expf`` (ex2.approx) in place of
+the accurate ``expf`` (its gain, and the float64 lines that decided
+against it);
+``@acc``, K8's QK^T k16 steps accumulated inside the ``wgmma``
+(``ATT_QK_ADDS``) instead of each from +0.0 with one rounded add (what the
+rounded add costs, and the error it saves); ``@nopass1``, pass 1 skipped
+and e taken against 0, no key tile skipped (wrong answers: what the
+exact max costs); ``@noskip``, pass 2 runs every key tile, those whose e
+is all 0 too (what the skip buys); ``@ringonce``, the ring (hd 128 above S
+512) rotates each K tile for pass 1 only (wrong answers: what the second
+rotation costs);
 ``@bwdacc``, K9's dp, dv, dk and dq accumulated inside the ``wgmma``
 instead of a rounded add per k16 step (``K9_STEP_ADDS``: its cost, and the
 error it saves); ``@k9noadd``, every K9 product accumulated inside the
@@ -23,11 +34,22 @@ adds cost); ``@k9fastexp``, K9's ``expf`` taken as ``__expf``, and
 ``@k9fastdiv``, its p = e / l as e times 1/l (other answers: what the
 accurate exponential and the exact division cost); ``@dump``, a debug build (``K9_DUMP``) whose K9
 writes both kernels' p, dp and ds behind its scratch, compared bit for bit
-(:func:`k9_dump_compare`; not timed). ``@stream``, ``@fastexp``, ``@acc``
-and ``@nopass1`` leave K9 as it is.
+(:func:`k9_dump_compare`; not timed). The K8/K7 variants leave K9 as it
+is.
 Every build uses the package's nvcc flags (:data:`.._build.NVCC_FLAGS`),
 all started together, and is bound with the package's C signatures, so
 every build must keep the entry points of the tree.
+
+``--batch``, ``--seq``, ``--hd`` set K8/K7's shape (and K9's S and hd),
+``--unpadded`` makes every key valid, ``--k8-only`` leaves K9 out.
+``--lengths`` draws K8/K7's key lengths (:data:`LENGTHS`): ``uniform`` on
+[1, S] with the last row fully padded (the default), or a corpus's token
+counts (:func:`corpus_lengths`): ``java``, the tree that ``chip_smoke.py``'s
+build mode ingests, or ``jabref``, the JabRef-like corpus of
+``bench/jabref.py``. The run prints its batch's padded-key share and the
+share of its 64-key tiles past a row's length (the tiles pass 2 skips).
+``--shares`` prints those shares over each whole corpus and exits; it
+needs no card.
 
 Timed with CUDA events (:data:`ITERS` launches after a warm-up), every
 build in turn and then in reverse order, so that a drift of the card shows
@@ -47,8 +69,8 @@ mean, which the output's own rounding dominates), beside the plain
 version's (K9: :func:`reference64_bwd`, every cell of dqkv); whether K7
 on the transposed operands equals K8 bit for bit and two launches of K8,
 and of K9, agree bit for bit; for a ``@dump`` build, whether K9's two
-passes saw the same p, dp and ds; the ptxas report of the K8 and K9
-bodies (registers, spills); the card's name and power limit. Needs a CUDA
+passes saw the same p, dp and ds; the ptxas report of the K8, K7 and
+K9 bodies (registers, spills); the card's name and power limit. Needs a CUDA
 card; ``chip_smoke.py`` holds each kernel to its plain version.
 """
 
@@ -58,8 +80,10 @@ import argparse
 import math
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..ops import _build
@@ -71,41 +95,73 @@ OUT = _build.BUILD_DIR.parent / "ab_attn"
 ITERS = 5
 B, S, H, HD = 256, 512, 12, 64
 B_BWD = 64
+#: Every key valid (``--unpadded``): no key tile's e is 0 throughout.
+UNPADDED = False
+#: How K8/K7's key lengths are drawn (``--lengths``: ``uniform``, ``java``,
+#: ``jabref``).
+LENGTHS = "uniform"
+#: The corpora's sizes for ``--shares``: ``chip_smoke.py``'s build-mode tree
+#: (TREE_FILES) and the JabRef corpus (``jabref.JABREF_FILES``).
+CORPUS_FILES = {"java": 4096, "jabref": 2305}
 TREE_SOURCE = _build.SOURCES["attention"][0]
 
 
-#: QK^T's mma steps as the tree takes them (each step after the first from
-#: +0.0, added with one rounded add), and accumulated in the instruction.
-_QK_MMA_ADD = """\
-      if (ks == 0) {  // 0 + c = c: the first step lands in the zeroed acc
-        mma_bf16(acc[2 * p], qa[0], b[0], b[1]);
-        mma_bf16(acc[2 * p + 1], qa[0], b[2], b[3]);
-      } else {
-        float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_bf16(c0, qa[ks], b[0], b[1]);
-        mma_bf16(c1, qa[ks], b[2], b[3]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[2 * p][e] = __fadd_rn(acc[2 * p][e], c0[e]);
-          acc[2 * p + 1][e] = __fadd_rn(acc[2 * p + 1][e], c1[e]);
-        }
-      }"""
-_QK_MMA = """\
-      mma_bf16(acc[2 * p], qa[ks], b[0], b[1]);
-      mma_bf16(acc[2 * p + 1], qa[ks], b[2], b[3]);"""
-_RESIDENT = "  return HD < 128 && attn_smem_bytes<HD>(S, true) <= SMEM_OPTIN;"
+_PERSISTENT = "  if (att_smem_bytes<HD>(S, ATT_PERSISTENT) <= SMEM_OPTIN) return ATT_PERSISTENT;\n"
+_KRES = "  if (att_smem_bytes<HD>(S, ATT_KRES) <= SMEM_OPTIN) return ATT_KRES;\n"
+_RING_USED = "  constexpr bool ring = att_smem_bytes<HD>(MAX_S, ATT_KRES) > SMEM_OPTIN;"
+_KRES_USED = "  constexpr bool kres = att_smem_bytes<HD>(MAX_S, ATT_PERSISTENT) > SMEM_OPTIN;"
+#: Pass 2's skip of a key tile whose e is all 0.
+_SKIP = """          if (!active || (!((need >> j) & 1u) && !(STREAM && v_tile_nonfinite<HD>(vt, 1 + cw)))) {
+"""
+#: The ring's rotation of each K tile as it lands (both passes' tiles).
+_RING_ROTATE = "        rotate_tile<HD, 2>(ktile(0, st), (i % n) * WG_ROWS, S, cos2, s2, tid, 128);\n"
+#: Pass 1's work on a tile (the first ``if (active)`` of ``attend``'s key
+#: loops: the only one followed by the tile maxima's comment).
+_PASS1 = """          if (active) {
+            float s[32];
+            s_tile<HD, NP, false>(s, qa, kt, o, pa, vt);
+            const int k0 = j * WG_ROWS;
+            float t0, t1;  // the tile's maxima"""
+
+HERE = Path(__file__).resolve().parent
+
+
+def _between(src: str, what: str, block: str) -> str:
+    """``src`` with its ``what`` block (between ``// ==== what: begin`` and
+    ``// ==== what: end ====``) replaced by ``block``."""
+    begin, end = f"// ==== {what}: begin", f"// ==== {what}: end ====\n"
+    a = src.index(begin)
+    b = src.index(end) + len(end)
+    return src[:a] + block + src[b:]
+
+
+def _mma_sync(src: str) -> str:
+    """K8/K7 on ``mma.sync`` as shipped before the ``wgmma`` body:
+    ``attend_mma_sync.cuh`` (device code and launchers) in place of the
+    forward block, the tree's launchers dropped."""
+    src = _between(src, "K8/K7 launchers", "")
+    return _between(src, "K8/K7 forward", (HERE / "attend_mma_sync.cuh").read_text())
+
 
 #: Variant name -> its source from the tree's source text (module
 #: docstring).
 VARIANTS = {
-    "stream": lambda src: _edit(src, _RESIDENT, "  return false;"),
+    "mma_sync": _mma_sync,
+    "stream": lambda src: _edit(_edit(_edit(src, _PERSISTENT, ""), _KRES, ""),
+                                _RING_USED, "  constexpr bool ring = true;"),
+    "kres": lambda src: _edit(_edit(src, _PERSISTENT, ""), _KRES_USED,
+                              "  constexpr bool kres = true;"),
     "fastexp": lambda src: src.replace("= expf(__fsub_rn(logit_of",
                                        "= __expf(__fsub_rn(logit_of"),
-    "acc": lambda src: _edit(src, _QK_MMA_ADD, _QK_MMA),
+    "acc": lambda src: _edit(src, "constexpr bool ATT_QK_ADDS = true;",
+                             "constexpr bool ATT_QK_ADDS = false;"),
     "nopass1": lambda src: _edit(_edit(
-        src, "float m[2] = {-INFINITY, -INFINITY};", "float m[2] = {0.f, 0.f};"),
-        "    if constexpr (RES) {\n      if (active) {",
-        "    if constexpr (RES) {\n      if (false) {"),
+        src, "may be nonzero.\n        float m0 = -INFINITY, m1 = -INFINITY;",
+        "may be nonzero.\n        float m0 = 0.f, m1 = 0.f;"),
+        _PASS1, _PASS1.replace("if (active) {", "if (false) {", 1)).replace(
+            "uint32_t need = 0u;", "uint32_t need = ~0u;"),
+    "noskip": lambda src: _edit(src, _SKIP, "          if (!active) {\n"),
+    "ringonce": lambda src: _edit(src, _RING_ROTATE, "        if (i < n)\n  " + _RING_ROTATE),
     "bwdacc": lambda src: _edit(src, "constexpr bool K9_STEP_ADDS = true;",
                                 "constexpr bool K9_STEP_ADDS = false;"),
     "dump": lambda src: _edit(src, "#include <cuda_bf16.h>",
@@ -135,17 +191,54 @@ def source_path(arg: str) -> Path:
 
 
 def build(paths):
-    """``{name: (ctypes library, ptxas lines of the K8 and K9 bodies)}``,
+    """``{name: (ctypes library, ptxas lines of the K8, K7 and K9
+    bodies)}``,
     one nvcc per source, all started together."""
     return ab_topk.build(paths, library="attention", out=OUT,
                          entry=lambda line: "k8_fused" in line
-                         or "k9_" in line)
+                         or "k7_fused" in line or "k9_" in line)
+
+
+def corpus_lengths(kind, files, seq, seed=0):
+    """The token count (the mask's length) of each of the first ``files``
+    files of corpus ``kind``, in name order, through the port's hashing
+    tokenizer at ``seq`` tokens (the nomic backend's without a checkpoint):
+    ``java``, :func:`.suite.write_java_tree`'s tree (400 words a file);
+    ``jabref``, :func:`.jabref.synthesize_jabref_corpus`'s. Written into a
+    temporary directory and removed; host work only."""
+    from ..models.tokenizer import HashingTokenizer
+
+    with tempfile.TemporaryDirectory(prefix="bsr_ab_attn_") as tmp:
+        root = Path(tmp) / "src"
+        if kind == "java":
+            from .suite import write_java_tree
+
+            write_java_tree(str(root), files, seed)
+        else:
+            from .jabref import synthesize_jabref_corpus
+
+            synthesize_jabref_corpus(root, files, seed)
+        texts = [p.read_text() for p in sorted(root.rglob("*.java"))]
+    tok = HashingTokenizer(max_tokens=seq)
+    return np.concatenate([tok.encode_batch(texts[i:i + 256])[1].sum(axis=1)
+                           for i in range(0, len(texts), 256)])
+
+
+def pad_shares(lens, seq):
+    """The padded keys' share of rows of ``lens`` keys at ``seq``, and the
+    share of their 64-key tiles wholly past a row's length (those pass 2
+    skips; a fully padded row's tiles all run)."""
+    lens = np.asarray(lens, dtype=np.float64)
+    tiles = -(-seq // 64)
+    run = np.where(lens == 0, tiles, np.ceil(lens / 64))
+    return 1 - lens.mean() / seq, 1 - run.mean() / tiles
 
 
 def operands(b, seed):
     """qkv [b, S, 3 H HD] bf16, the rotary tables, the key bias (random
-    lengths, the last row fully padded), the valid-key mask and the
-    scale."""
+    lengths, the last row fully padded; :data:`LENGTHS` a corpus: its first
+    b files' token counts; :data:`UNPADDED`: every key valid), the
+    valid-key mask and the scale."""
     from ..models.nomic import rotary_tables
 
     dev = torch.device("cuda")
@@ -154,6 +247,10 @@ def operands(b, seed):
     qkv = torch.randn((b, S, 3 * H * HD), generator=gen, device=dev)
     lens = torch.randint(1, S + 1, (b,), generator=gen, device=dev)
     lens[-1] = 0
+    if LENGTHS != "uniform":
+        lens = torch.from_numpy(corpus_lengths(LENGTHS, b, S, seed)).to(dev)
+    if UNPADDED:
+        lens.fill_(S)
     valid = torch.arange(S, device=dev)[None, :] < lens[:, None]
     bias = torch.where(valid, 0.0, -1e9).to(torch.float32).contiguous()
     cos, sin = (torch.from_numpy(t).to(dev) for t in rotary_tables(S, HD, 1000.0))
@@ -303,10 +400,10 @@ def cases(seed):
                   (gq, gc2, gs2, gbias, g))
 
 
-def error_lines(libs, operands_):
+def error_lines(libs, operands_, k9=True):
     """Per build: K8's error against :func:`reference64` (max and mean on
-    valid query rows) beside the plain version's, K7 = K8 and run-to-run
-    equality, bit for bit."""
+    valid query rows) beside the plain version's, K7 = K8, run-to-run
+    equality and K8 against the first build's, bit for bit."""
     qkv, c2, s2, bias, valid, scale, q, k, v, bwd = operands_
     ref = reference64(qkv, c2, s2, bias, H, scale)[valid]
     ref_bf16 = ref.to(torch.bfloat16)
@@ -322,6 +419,7 @@ def error_lines(libs, operands_):
 
     stream = torch.cuda.current_stream().cuda_stream
     lines = [f"plain K8 vs float64: {stats(plain)}"]
+    first = None  # the first build's K8 output and name
     for name, (lib, _report) in libs.items():
         outs = []
         for _ in range(2):
@@ -338,14 +436,17 @@ def error_lines(libs, operands_):
             raise RuntimeError("a kernel launch failed")
         torch.cuda.synchronize()
         k7 = torch.equal(o7.permute(0, 2, 1, 3).reshape(B, S, H * HD), outs[0])
+        first = first or (outs[0], name)
         lines.append(
             f"K8 vs float64, {name}: {stats(outs[0])}; max|k - plain| "
             f"{float((outs[0].float() - plain.float())[valid].abs().max()):.4g};"
             f" two launches bitwise {torch.equal(outs[0], outs[1])}; K7 = K8 "
-            f"bitwise {k7}")
+            f"bitwise {k7}; bitwise {first[1]}'s K8 "
+            f"{torch.equal(outs[0], first[0])}")
     del plain, ref, ref_bf16
     torch.cuda.empty_cache()
-    lines += k9_error_lines(libs, bwd, scale)
+    if k9:
+        lines += k9_error_lines(libs, bwd, scale)
     return lines
 
 
@@ -410,17 +511,47 @@ def k9_split(fn, iters=3):
 
 
 def main(argv=None) -> int:
+    global B, S, HD, UNPADDED, LENGTHS
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("sources", nargs="+",
+    ap.add_argument("sources", nargs="*",
                     help="copies of attention_kernels.cu, or @variant names")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--batch", type=int, default=B, help="K8/K7's batch rows")
+    ap.add_argument("--seq", type=int, default=S, help="S of every kernel")
+    ap.add_argument("--hd", type=int, default=HD, help="head width of every kernel")
+    ap.add_argument("--unpadded", action="store_true", help="every key valid")
+    ap.add_argument("--k8-only", action="store_true",
+                    help="time and check K8/K7 alone (no K9)")
+    ap.add_argument("--lengths", choices=("uniform", "java", "jabref"),
+                    default=LENGTHS, help="how K8/K7's key lengths are drawn")
+    ap.add_argument("--shares", action="store_true",
+                    help="print each corpus's padded shares and exit")
     args = ap.parse_args(argv)
+    if args.shares:
+        for kind, files in CORPUS_FILES.items():
+            lens = corpus_lengths(kind, files, args.seq, args.seed)
+            keys, tiles = pad_shares(lens, args.seq)
+            print(f"{kind}, {files} files at S {args.seq}: mean length "
+                  f"{lens.mean():.2f}, {int((lens == args.seq).sum())} rows "
+                  f"full; padded keys {100 * keys:.2f} %, key tiles past a "
+                  f"row's length {100 * tiles:.2f} %")
+        return 0
+    if not args.sources:
+        ap.error("the sources are required")
     if not torch.cuda.is_available():
         raise SystemExit("ab_attn: no CUDA device")
+    B, S, HD, UNPADDED = args.batch, args.seq, args.hd, args.unpadded
+    LENGTHS = args.lengths
     torch.backends.cuda.matmul.allow_tf32 = False
     libs = build([source_path(s) for s in args.sources])
     timed = {name: v for name, v in libs.items() if "dump" not in name}
     work, ops = cases(args.seed)
+    keys, tiles = pad_shares(ops[4].sum(dim=1).cpu().numpy(), S)
+    print(f"K8/K7 key lengths {'all S' if UNPADDED else LENGTHS}: padded keys "
+          f"{100 * keys:.2f} %, key tiles past a row's length "
+          f"{100 * tiles:.2f} %", flush=True)
+    if args.k8_only:
+        work = {label: v for label, v in work.items() if not label.startswith("K9")}
     times = {label: {name: [] for name in timed} for label in work}
     for name in list(timed) + list(timed)[::-1]:
         lib = timed[name][0]
@@ -430,12 +561,12 @@ def main(argv=None) -> int:
         print(f"{label}: " + "; ".join(
             f"{name} {' / '.join(f'{ms:.4f}' for ms in v)} ms"
             for name, v in by_build.items()), flush=True)
-    k9 = next(label for label in work if label.startswith("K9"))
-    for name, (lib, _report) in timed.items():
+    k9 = next((label for label in work if label.startswith("K9")), None)
+    for name, (lib, _report) in (timed.items() if k9 else ()):
         split = k9_split(lambda: work[k9][0](lib))
         print(f"{k9} split, {name}: " + ", ".join(
             f"{part} {ms:.4f} ms" for part, ms in split.items()), flush=True)
-    for line in error_lines(timed, ops):
+    for line in error_lines(timed, ops, k9=k9 is not None):
         print(line, flush=True)
     for name, (lib, _report) in libs.items():
         if "dump" in name:

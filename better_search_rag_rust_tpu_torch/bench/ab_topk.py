@@ -109,6 +109,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import re
 import subprocess
 import sys
@@ -336,20 +337,32 @@ def build(paths, library="topk", out=OUT, entry=_score_tile_entry):
     ``entry`` holds: the score-tile bodies, then the names of those whose
     wgmmas ptxas serialized)}``, one nvcc per source, all started together
     into ``out``, bound with the C signatures of the package's library
-    ``library`` (an entry point an older source lacks is left unbound)."""
+    ``library`` (an entry point an older source lacks is left unbound). A
+    source that ``out`` already holds a build of, by the hash of its text
+    and the nvcc flags, is loaded from there with its ptxas report."""
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, path in enumerate(paths):
         name = f"{i}:{Path(path).name}"
-        lib_path = out / f"ab{i}_{Path(path).stem}.so"
-        procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), str(path)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), lib_path)
+        key = hashlib.sha1(Path(path).read_bytes()
+                           + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
+        lib_path = out / f"ab_{Path(path).stem}_{key}.so"
+        proc = None
+        if not lib_path.with_suffix(".ptxas").exists():
+            proc = subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), str(path)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        procs[name] = (proc, lib_path)
     libs = {}
     for name, (proc, lib_path) in procs.items():
-        _out, err = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{err[-4000:]}")
+        log = lib_path.with_suffix(".ptxas")
+        if proc is None:
+            err = log.read_text()
+        else:
+            _out, err = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed on {name}:\n{err[-4000:]}")
+            log.write_text(err)
         lines = err.splitlines()
         # after each entry: "Function properties", the spill line, "Used N
         # registers"

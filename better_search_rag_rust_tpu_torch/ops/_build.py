@@ -56,6 +56,7 @@ SOURCES = {
         "bsr_fused_attention": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P]),
         "bsr_fused_attention_qkv": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P]),
         "bsr_fused_attention_qkv_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P]),
+        "bsr_probe_pv_acc": (_I, [_P, _P, _I, _I, _P, _P, _P]),
         "bsr_error_string": (ctypes.c_char_p, [_I]),
     }),
     "flash": (CSRC / "flash_kernels.cu", {

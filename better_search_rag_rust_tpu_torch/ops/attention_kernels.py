@@ -17,6 +17,9 @@ of ``fused_attention_qkv_diff`` (:358). On the CPU the backward is the plain
 K9, not autograd of the plain forward, so the CPU tests hold the port's
 backward arithmetic against the JAX kernel's.
 
+:func:`probe_pv_acc` measures the card for K8's design: whether ``wgmma``
+and ``mma.sync`` accumulate a product's k16 steps to the same bits.
+
 The kernels and their plain versions sum in different orders (the plain
 versions go through [B, H, S, S] f32 tensors and f32 matrix products), so
 on the card they agree to a tolerance, not bit for bit: the JAX package's
@@ -33,7 +36,8 @@ import torch
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 launch_counts: Dict[str, int] = {"fused_attention": 0,
                                  "fused_attention_qkv": 0,
-                                 "fused_attention_qkv_bwd": 0}
+                                 "fused_attention_qkv_bwd": 0,
+                                 "probe_pv_acc": 0}
 
 #: Head widths the CUDA kernels are instantiated for (their register tiles).
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -158,10 +162,11 @@ def _check_kernel(name: str, hd: int, heads: int, s: int, *tensors) -> None:
 
 
 def _aligned16(*tensors) -> tuple:
-    """K8/K7 stage q, k and v 16 bytes per ``cp.async``, K9 reads qkv and
-    g through TMA, and both read the rotary tables 8 bytes at a time: an
-    operand off a 16-byte boundary (a view may be; a fresh tensor is not)
-    is copied to one that is on it, the rest are passed as they are."""
+    """K8/K7 read k and v (qkv) and K9 reads qkv and g through TMA, which
+    takes 16-byte aligned bases, and all read the rotary tables 8 bytes at a
+    time: an operand off a 16-byte boundary (a view may be; a fresh tensor
+    is not) is copied to one that is on it, the rest are passed as they
+    are."""
     return tuple(t.clone() if t.data_ptr() % 16 else t for t in tensors)
 
 
@@ -321,6 +326,58 @@ def fused_attention_qkv_bwd(qkv: torch.Tensor, cos2: torch.Tensor,
     lib.check("fused_attention_qkv_bwd", err)
     launch_counts["fused_attention_qkv_bwd"] += 1
     return dqkv
+
+
+def probe_pv_acc_plain(a: torch.Tensor, b: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`probe_pv_acc` on any device: the product ``a b`` with each
+    k16 step's 16 products summed exactly (float64) and added to the
+    running f32 sum with one rounding, steps in increasing order from
+    +0.0 (both outputs the same)."""
+    steps = a.shape[1] // 16
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for st in range(steps):
+        k = slice(16 * st, 16 * st + 16)
+        acc = (acc.double() + a[:, k].double() @ b[k].double()).float()
+    return acc, acc.clone()
+
+
+def probe_pv_acc(a: torch.Tensor, b: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The PV probe (a measurement; no TPU twin). bf16 ``a [R, 16 steps]``
+    (R a multiple of 64, steps a multiple of 4) times bf16 ``b [16 steps,
+    64]``, the k16 steps accumulated in increasing order: ``(wg, mma)``,
+    each ``[R, 64]`` f32, ``wg`` from ``wgmma`` m64n64k16 with scale-d = 1
+    from zero (K8's PV: A from registers, b read MN-major from the 128-byte
+    swizzle), ``mma`` from ``mma.sync`` m16n8k16 accumulated from +0.0 (the
+    ``mma.sync`` K8's PV). Whether they agree bit for bit is whether K8's
+    PV can accumulate inside ``wgmma`` and keep the older build's bits. On
+    the CPU :func:`probe_pv_acc_plain`."""
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError("the PV probe takes bf16 operands")
+    if (a.dim() != 2 or a.shape[0] % 64 or a.shape[1] % 64 or not a.shape[1]
+            or tuple(b.shape) != (a.shape[1], 64)):
+        raise ValueError(f"PV probe: a {tuple(a.shape)} must be [64 m, 64 n] "
+                         f"and b {tuple(b.shape)} [a's width, 64]")
+    if a.device != b.device:
+        raise ValueError(f"a on {a.device}, b on {b.device}")
+    if a.device.type == "cpu":
+        return probe_pv_acc_plain(a, b)
+    a, b = _aligned16(a.contiguous(), b.contiguous())
+    wg = torch.empty((a.shape[0], 64), dtype=torch.float32, device=a.device)
+    mma = torch.empty_like(wg)
+    from ._build import library
+
+    lib = library("attention")
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.lib.bsr_probe_pv_acc(a.data_ptr(), b.data_ptr(), a.shape[0],
+                                       a.shape[1] // 16, wg.data_ptr(),
+                                       mma.data_ptr(), stream)
+    lib.check("probe_pv_acc", err)
+    launch_counts["probe_pv_acc"] += 1
+    return wg, mma
 
 
 class FusedAttentionQKV(torch.autograd.Function):

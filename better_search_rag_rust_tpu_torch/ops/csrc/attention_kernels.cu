@@ -25,43 +25,88 @@
 // at the encoder's shape (B = 256, S = 512, H = 12, hd = 64) 206 GFLOP per
 // call, 0.208 ms at the bf16 tensor rate (989 TFLOP/s), against 604 MB of
 // qkv in and 201 MB of context out, 0.241 ms at 3.35 TB/s: bytes-bound, near
-// the ridge. The design below does three products (309 GFLOP) on mma.sync,
-// an exponential per logit (S*S per head) and, with 16 query rows per warp,
-// reads every K and V fragment from shared memory once per warp and product;
-// each warp's chain (QK^T, softmax, PV) is serial, so what bounds it on the
-// card is latency, hidden by 16 warps per SM (bench/ab_attn.py).
+// the ridge. The design below does three products (309 GFLOP, 0.31 ms) and,
+// per logit over its two passes, ~23 FP32-pipe instructions (the k16 rule's
+// adds, the logit, the max, the exponential, the sum, the pack): 1.9e10 in
+// all, ~0.6 ms at 128 lanes a clock on 132 SMs. The FP32 work, not the
+// tensor cores, sets its floor; a block's two consumer warpgroups overlap
+// one's products with the other's softmax.
 //
-// K8 — DESIGN. A block per (b, h). K is staged with cp.async, rotated once
-// in shared memory as bf16 (pitch hd + 8: the 8 rows of an ldmatrix fall in
-// 8 distinct 16-byte bank groups) and stays there with V staged whole
-// beside it, while 16 warps walk every query tile of the head without a
-// barrier: each key's rotary is computed once per (b, h). That holds where
-// both fit (hd <= 32 at every S, hd 64 with S <= 784: the encoder's case);
-// elsewhere (hd 64 above that, hd 128) K and V stream through rings of two
-// cp.async tiles whose copy of tile j + 1 overlaps the products of tile j,
-// stepped through by 8 warps together (two blocks per SM below hd 128),
-// and each pass rotates each K tile as it lands. A warp owns 16 query rows;
-// their rotated q goes from global memory straight into mma A fragments
-// (the rotary partner of each lane a thread holds is held by the same
-// thread). Two passes over the keys, QK^T on mma.sync m16n8k16 (bf16 in,
-// each k16 step from +0.0 and added to the dot with one rounded add, d
-// increasing) in both: pass 1 takes the exact row max over all S keys;
-// pass 2 recomputes the same logits bit for bit, takes e = exp(l - m) in
-// f32, sums the unrounded e, and repacks bf16(e) from the accumulator
-// fragments straight into the A fragments of bf16(e) . V (FlashAttention-2's
-// register reuse), V's B fragments by ldmatrix.trans, PV accumulated in the
-// instruction. The exponential is the accurate expf: __expf (ex2.approx) is
-// 9 % faster but, against a float64 evaluation of the function, leaves 5 %
-// more outputs off by one bf16 step (bench/ab_attn.py, @fastexp). Every
-// rounding point is the TPU kernel's; an
-// online softmax, which rounds e against a partial max, is a different
-// function. Keys at or past S get e = 0 and zero V rows (S % 16 == 8 leaves
-// half of the last k16 step empty; an n8 tile of keys is wholly valid or
-// wholly past S since S % 8 == 0); query rows at or past S run on zero q and
-// are not stored. Three products rather than two: keeping the [rows, S] f32
-// logits in shared memory for the max (the SIMT design's way) reads as many
-// shared-memory bytes per logit as recomputing them, and at 32 KB per 16
-// rows at S 512 leaves room for at most 7 warps on an SM.
+// K8 — DESIGN. Every product on wgmma (bf16 in, f32 out); K and V reach
+// shared memory by TMA as 64-row boxes of 3-D tensor maps (rows past S land
+// as zeros) in TileLayout's swizzle, which the wgmma descriptors read. A
+// block is K9's: a producer warpgroup and two consumer warpgroups of 64
+// query rows. How a block holds a head's K and V is the first of three
+// modes that fits its shared memory (ATT_PERSISTENT .. ATT_RING): persistent
+// blocks, one an SM, walk heads with two K buffers and one V buffer — the
+// producer loads and rotates the next head's K, and loads its V once the
+// last head is done, while the consumers work on this one (hd 16 and 32 at
+// every S, hd 64 up to S 512: the encoder's case, hd 128 up to 256); a block
+// a head, its K rotated by all 384 threads before the roles split and its V
+// streamed through a four-stage ring behind mbarriers (landed, empty) once
+// for each pair of query tiles, which the two consumer warpgroups take in
+// step (hd 64 above S 512, hd 128 up to 512); above that a block per 128
+// query rows, the head's K tiles (pass 1), then its K and V tiles (pass 2),
+// streaming through the ring, each K tile rotated as it lands: twice a
+// block, once for each pass (2n rotations of n tiles; @ringonce in
+// bench/ab_attn.py times the second). Each key's rotary is computed once
+// per (b, h) in the first two modes. The rotary in place:
+// lane d's partner d + hd/2 lies in the same row — at hd 128 at the same
+// place of the other 64-lane column chunk, below that in 16-byte piece p ^
+// hd/16 of the same swizzled row (the swizzle XORs a piece index with bits
+// of the row only); a thread takes four lanes and their partners with 16-byte reads of
+// the rotary tables, several items' reads in flight; the writers' stores
+// reach wgmma (the async proxy) through fence.proxy.async before the barrier
+// or mbarrier that releases the tile. Rotated q stays in registers as
+// wgmma's A fragments, loaded from global memory (a warp's 16 rows of a
+// 64-row tile have mma.sync's m16 A layout, and each lane's rotary partner
+// is the same thread's). Two passes over the keys, S = Q_r K_r^T on wgmma
+// m64n64k16 (A from registers, B the K tile read K-major, S's k16 steps
+// issued in batches, all four at hd 64, with one wait a batch) in both:
+// pass 1 takes the exact row max over all S keys; pass 2 recomputes the
+// same logits bit for bit, takes e = exp(l - m) in f32, sums the unrounded
+// e, and repacks bf16(e) from the accumulator straight into the A fragments
+// of bf16(e) . V (C -> A, as K9 does), the V tile read MN-major; that
+// product goes out behind the next tile's S. Full key tiles take a
+// branch-free body (the compiler interleaves all 32 cells' exponentials).
+// Pass 1 also marks the key tiles whose e may be nonzero: a tile where every
+// thread's tile maximum lies at least 120 below its running maximum (no NaN
+// among its logits) has every e exactly 0 in f32 (expf(-120) is 0; the
+// final maximum is no lower), so pass 2 skips it — keys padded past a
+// row's length, bias -1e9, are such tiles — unless its V tile holds a NaN
+// or an inf (bf16(0) times either is NaN, which the TPU kernel's PV and the
+// mma.sync build's keep: a consumer warpgroup reads a streamed V tile as it
+// comes in pass 2 and votes with one bar.red; in a persistent block the
+// producer marks the head's V tiles once they land, off the consumers'
+// loop, which a check there slowed by 8 %), with no bit of l or of the
+// context changed (in a ring the pending product goes out before a skipped
+// tile's stage is freed, so no stage is held across a skip). The
+// exponential is the accurate expf: __expf (ex2.approx) was 9 % faster in
+// the mma.sync build but, against a float64 evaluation of the function,
+// left 5 % more outputs off by one bf16 step (bench/ab_attn.py, @fastexp).
+// Every rounding point is the TPU kernel's; an online softmax, which
+// rounds e against a partial max, is a different function. Keys at or
+// past S get e = 0 against TMA's zero rows of V (S % 16 == 8 leaves half
+// of the last k16 step empty; an n8 group of keys is wholly below S or
+// wholly past it, since S % 8 == 0); query rows
+// at or past S run on zero q and are not stored. The context goes out eight
+// rows a warp at a time through shared-memory staging rows, as 16-byte
+// stores. Three products rather than two: a 64-row tile's f32 logits at S
+// 512 are 128 KB, which leaves no room for K and V.
+//
+// K8 — ROUNDING AND ORDER. S: each k16 step from +0.0 (scale-d = 0) and
+// added with one __fadd_rn in increasing step order (ATT_QK_ADDS, the search
+// kernels' rule; @acc in bench/ab_attn.py accumulates inside the wgmma). A
+// wgmma k16 step with scale-d = 0 gives mma.sync's f32 bits (PERF.md §6),
+// and wgmma's accumulator holds a thread's cells at mma.sync's places (row
+// g or g + 8, column 8j + 2t), so the logits, m, e and l are the mma.sync
+// build's bit for bit: l sums a thread's cells in increasing key order, then
+// its quad (xor 1, xor 2). PV: accumulated inside the wgmma from o = 0, k16
+// steps in increasing key order, as the mma.sync build accumulated inside
+// mma.sync; the PV probe (k_probe_pv_acc) finds the two instructions'
+// accumulations bit for bit alike (PERF.md §6). A partial last key tile runs
+// all four k16 steps of PV, its empty ones adding exact zeros. Then the
+// division after PV and one rounding: every output the mma.sync build's.
 //
 // K7 — K8 on head-major operands: q, k and v are three [B, H, S, hd] bf16
 // tensors and the context is [B, H, S, hd]. Both run one body (attend) with
@@ -128,7 +173,7 @@
 // two n64 units, one per 64-column chunk.
 // Rounding and order: S and S^T take each k16 step from +0.0 (scale-d = 0)
 // and add it with one __fadd_rn in increasing step order (K9_QK_ADDS, K8's
-// qk_tile rule: wgmma's k16 sums are mma.sync's bits, PERF.md §6); dp,
+// s_tile rule: wgmma's k16 sums are mma.sync's bits, PERF.md §6); dp,
 // dv, dk and dq the same under K9_STEP_ADDS (bench/ab_attn.py's float64
 // line; @bwdacc flips it), each (step, column unit) of dv, dk and dq into
 // a product fragment added while the next runs. l and row: a thread sums
@@ -170,8 +215,10 @@
 //    flips K9_STEP_ADDS; @k9noadd both K9_QK_ADDS and K9_STEP_ADDS (what
 //    the rule's adds cost); @k9fastexp takes __expf, @k9fastdiv p = e (1/l)
 //    (what the accurate exponential and the exact division cost; other
-//    answers); @dump defines K9_DUMP; @acc, @fastexp, @stream and @nopass1
-//    leave K9 as it is.
+//    answers); @dump defines K9_DUMP; K8's variants (@mma_sync, which
+//    splices bench/attend_mma_sync.cuh between the "K8/K7 forward" and
+//    "K8/K7 launchers" markers, @stream, @kres, @nopersist, @acc, @fastexp,
+//    @nopass1) leave K9 as it is.
 // 5. Determinism: every reduction (k16 steps, tiles, the pair, the quad)
 //    runs in a fixed order.
 //
@@ -189,6 +236,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -210,71 +260,10 @@ int allow_smem(Kernel kernel, size_t bytes, size_t& configured) {
   return 0;
 }
 
-// ---------------------------------------------------------------------------
-// K8 and K7: the forward on the tensor cores (see the header)
-// ---------------------------------------------------------------------------
-
-constexpr int AKN = 64;                // keys per K / V tile
 constexpr size_t SMEM_OPTIN = 232448;  // an sm_90 block's dynamic shared memory
-
-// Threads of a forward block: 16 warps that never wait on each other where
-// K and V are resident (one block per SM), 8 that step through the K and V
-// rings together otherwise (two blocks per SM below hd 128).
-__host__ __device__ constexpr int att_threads(bool res) {
-  return res ? 512 : 256;
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from gmem, or 16 zero bytes when !full (gmem is then not read).
-__device__ __forceinline__ void cp_async16_or_zero(void* smem, const void* gmem,
-                                                   bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(smem)),
-               "l"(gmem), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 b16 matrices; lanes 8i .. 8i+7 give the row addresses of matrix
-// i. Plain: lane (g = lane/4, t = lane%4) gets row g, elements 2t, 2t+1 of
-// matrix i in r[i]; .trans: column g, rows 2t, 2t+1.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
-                                        const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const __nv_bfloat16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += A (16 x 16) B (16 x 8), f32 accumulated in the instruction. With
-// g = lane / 4, t = lane % 4 (the PTX ISA's m16n8k16 layout):
-//   a[0] (row g, k 2t..2t+1)  a[1] (row g+8, k 2t..)  a[2] (row g, k 2t+8..)
-//   a[3] (row g+8, k 2t+8..);  b0 (k 2t..2t+1, col g)  b1 (k 2t+8.., col g);
-//   c[0..1] (row g, cols 2t, 2t+1)  c[2..3] (row g+8, cols 2t, 2t+1).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -282,523 +271,19 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Bytes of a forward block's shared memory: rotated K and then V, both
-// resident ([S16][HD + 8] each, S16 = S rounded up to 16) or both streamed
-// (a ring of two [AKN][HD + 8] tiles each), and the key bias [S16] f32.
-template <int HD>
-__host__ __device__ __forceinline__ size_t attn_smem_bytes(int S, bool res) {
-  const size_t ld = HD + 8, s16 = (size_t)(S + 15) / 16 * 16;
-  return 2 * 2 * (res ? s16 * ld : 2 * AKN * ld) + 4 * s16;
+// c += A (16 x 16) B (16 x 8), f32 accumulated in the instruction (the PV
+// probe's mma.sync side: the mma.sync build's PV). With g = lane / 4, t =
+// lane % 4 (the PTX ISA's m16n8k16 layout): a[0] (row g, k 2t..2t+1), a[1]
+// (row g+8, k 2t..), a[2] (row g, k 2t+8..), a[3] (row g+8, k 2t+8..); b0
+// (k 2t..2t+1, col g), b1 (k 2t+8.., col g); c[0..1] (row g, cols 2t, 2t+1),
+// c[2..3] (row g+8, cols 2t, 2t+1).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-// Rows [s0, s0 + rows) of one head's x (rows ld_in elements apart) into
-// dst[r][d] (pitch HD + 8) as bf16, one cp.async per 16 bytes; rows at or
-// past S are zero-filled. Threads tid, tid + nt, .. of those that share the
-// copy take its 16-byte chunks.
-template <int HD>
-__device__ __forceinline__ void stage_rows_by(const __nv_bfloat16* __restrict__ x,
-                                              int ld_in, int s0, int rows, int S,
-                                              __nv_bfloat16* dst, int tid,
-                                              int nt) {
-  constexpr int LD = HD + 8;
-  constexpr int CH = HD / 8;
-  for (int i = tid; i < rows * CH; i += nt) {
-    const int r = i / CH;
-    const int c = (i % CH) * 8;
-    const int s = s0 + r;
-    const bool in = s < S;
-    cp_async16_or_zero(dst + r * LD + c, x + (size_t)(in ? s : 0) * ld_in + c,
-                       in);
-  }
-}
-
-// stage_rows_by over the NT_ threads of a block.
-template <int HD, int NT_>
-__device__ __forceinline__ void stage_rows(const __nv_bfloat16* __restrict__ x,
-                                           int ld_in, int s0, int rows, int S,
-                                           __nv_bfloat16* dst) {
-  stage_rows_by<HD>(x, ld_in, s0, rows, S, dst, threadIdx.x, NT_);
-}
-
-// The rotary of staged rows [0, rows) (positions s0 ..) in place, with
-// load_q_frags's arithmetic: f32 from the bf16 input, one rounding to bf16.
-// Rows at or past S stay as staged (zero). Threads tid, tid + nt, .. share
-// the work.
-template <int HD>
-__device__ __forceinline__ void rotate_rows_by(__nv_bfloat16* x, int s0,
-                                               int rows, int S,
-                                               const float* __restrict__ cos2,
-                                               const float* __restrict__ s2,
-                                               int tid, int nt) {
-  constexpr int LD = HD + 8;
-  constexpr int H2 = HD / 2;
-  constexpr int PAIRS = H2 / 2;
-  for (int i = tid; i < rows * PAIRS; i += nt) {
-    const int r = i / PAIRS;
-    const int j = (i % PAIRS) * 2;
-    const int s = s0 + r;
-    if (s >= S) continue;
-    auto* lo = reinterpret_cast<__nv_bfloat162*>(x + r * LD + j);
-    auto* hi = reinterpret_cast<__nv_bfloat162*>(x + r * LD + j + H2);
-    const float2 xl = __bfloat1622float2(*lo), xh = __bfloat1622float2(*hi);
-    const float* c = cos2 + (size_t)s * HD;
-    const float* sn = s2 + (size_t)s * HD;
-    const float2 cl = *reinterpret_cast<const float2*>(c + j);
-    const float2 ch = *reinterpret_cast<const float2*>(c + j + H2);
-    const float2 sl = *reinterpret_cast<const float2*>(sn + j);
-    const float2 sh = *reinterpret_cast<const float2*>(sn + j + H2);
-    // roll(x, HD/2) brings lane j + HD/2 to lane j and lane j to j + HD/2.
-    *lo = __floats2bfloat162_rn(
-        __fadd_rn(__fmul_rn(xl.x, cl.x), __fmul_rn(xh.x, sl.x)),
-        __fadd_rn(__fmul_rn(xl.y, cl.y), __fmul_rn(xh.y, sl.y)));
-    *hi = __floats2bfloat162_rn(
-        __fadd_rn(__fmul_rn(xh.x, ch.x), __fmul_rn(xl.x, sh.x)),
-        __fadd_rn(__fmul_rn(xh.y, ch.y), __fmul_rn(xl.y, sh.y)));
-  }
-}
-
-// rotate_rows_by over the NT_ threads of a block.
-template <int HD, int NT_>
-__device__ __forceinline__ void rotate_rows(__nv_bfloat16* x, int s0, int rows,
-                                            int S,
-                                            const float* __restrict__ cos2,
-                                            const float* __restrict__ s2) {
-  rotate_rows_by<HD>(x, s0, rows, S, cos2, s2, threadIdx.x, NT_);
-}
-
-// A fragments of rotated q for query rows r0 .. r0 + 15, straight from
-// global memory, one k16 step per qa[ks]: thread (g, t) holds rows g and
-// g + 8 at lanes 8u + 2t and 8u + 2t + 1 (u < HD/8), and the rotary partner
-// of lane 8u + 2t is lane 8u' + 2t with u' = u + HD/16 mod HD/8 — the same
-// thread's, so q needs no shared memory. Rows at or past S are zero.
-template <int HD>
-__device__ __forceinline__ void load_q_frags(const __nv_bfloat16* __restrict__ q,
-                                             int ld_in, int r0, int S,
-                                             const float* __restrict__ cos2,
-                                             const float* __restrict__ s2,
-                                             uint32_t (&qa)[HD / 16][4]) {
-  constexpr int NU = HD / 8;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int s = r0 + g + 8 * hr;
-    float2 x[NU], c[NU], sn[NU];
-#pragma unroll
-    for (int u = 0; u < NU; ++u) {
-      const int d = 8 * u + 2 * t;
-      x[u] = c[u] = sn[u] = make_float2(0.f, 0.f);
-      if (s < S) {
-        x[u] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            q + (size_t)s * ld_in + d));
-        c[u] = *reinterpret_cast<const float2*>(cos2 + (size_t)s * HD + d);
-        sn[u] = *reinterpret_cast<const float2*>(s2 + (size_t)s * HD + d);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < NU; ++u) {
-      const int up = (u + NU / 2) % NU;
-      qa[u >> 1][(u & 1) * 2 + hr] = pack_bf16x2(
-          __fadd_rn(__fmul_rn(x[u].x, c[u].x), __fmul_rn(x[up].x, sn[u].x)),
-          __fadd_rn(__fmul_rn(x[u].y, c[u].y), __fmul_rn(x[up].y, sn[u].y)));
-    }
-  }
-}
-
-// Raw dots of the warp's 16 query rows against the AKN keys of a staged
-// tile kb (pitch HD + 8): acc[j] is n8 tile j (rows g, g + 8; keys 8j + 2t,
-// + 1). Each dot is HD/16 mma steps in increasing d, each step from +0.0
-// and added to the dot with one rounded __fadd_rn (the search kernels'
-// bf16 rule): accumulating the steps inside the instruction is 9 % faster
-// but leaves two fifths more outputs off the float64 value
-// (bench/ab_attn.py, @acc). Pass 1 and pass 2 run the same chain, so they see the same logits
-// bit for bit. Unless FULL, 16-key pairs at or past `keys` are skipped
-// (staged rows up to `keys` rounded up to 16 are read). NK: the tile's keys.
-template <int HD, bool FULL, int NK = AKN>
-__device__ __forceinline__ void qk_tile(const uint32_t (&qa)[HD / 16][4],
-                                        const __nv_bfloat16* kb, int keys,
-                                        float (&acc)[NK / 8][4]) {
-  constexpr int LD = HD + 8;
-  const int lane = threadIdx.x & 31;
-  // matrices: keys 0-7 | 8-15 of the pair (lane bit 4), d 0-7 | 8-15 of the
-  // step (lane bit 3): r[0], r[1] are n8 tile 2p's b0, b1; r[2], r[3] 2p+1's.
-  const __nv_bfloat16* base =
-      kb + ((lane & 7) + ((lane >> 4) << 3)) * LD + (((lane >> 3) & 1) << 3);
-#pragma unroll
-  for (int j = 0; j < NK / 8; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int p = 0; p < NK / 16; ++p) {
-    if (!FULL && 16 * p >= keys) break;
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-      uint32_t b[4];
-      ldsm_x4(b, base + 16 * p * LD + 16 * ks);
-      if (ks == 0) {  // 0 + c = c: the first step lands in the zeroed acc
-        mma_bf16(acc[2 * p], qa[0], b[0], b[1]);
-        mma_bf16(acc[2 * p + 1], qa[0], b[2], b[3]);
-      } else {
-        float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_bf16(c0, qa[ks], b[0], b[1]);
-        mma_bf16(c1, qa[ks], b[2], b[3]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[2 * p][e] = __fadd_rn(acc[2 * p][e], c0[e]);
-          acc[2 * p + 1][e] = __fadd_rn(acc[2 * p + 1][e], c1[e]);
-        }
-      }
-    }
-  }
-}
-
-// Pass 1's epilogue: the logits of a tile into the running maxima m[0] (row
-// g) and m[1] (row g + 8); bias points at the tile's first key.
-template <bool FULL>
-__device__ __forceinline__ void tile_max(const float (&acc)[AKN / 8][4],
-                                         const float* bias, int keys,
-                                         float scale, float (&m)[2]) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < AKN / 8; ++j) {
-    if (!FULL && 8 * j >= keys) break;
-    const float2 bt = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * t);
-    m[0] = fmaxf(m[0], fmaxf(logit_of(acc[j][0], scale, bt.x),
-                             logit_of(acc[j][1], scale, bt.y)));
-    m[1] = fmaxf(m[1], fmaxf(logit_of(acc[j][2], scale, bt.x),
-                             logit_of(acc[j][3], scale, bt.y)));
-  }
-}
-
-// Pass 2 on a tile: e = exp(l - m) in f32 against the exact row max (m[0]
-// row g, m[1] row g + 8), the unrounded e summed
-// into l, and bf16(e) · V into o. The C fragments of the logits repack as A
-// fragments of the product (n8 tiles 2kk and 2kk + 1 make k16 step kk), so
-// bf16(e) never leaves the registers; V's B fragments come from the staged
-// tile vb with ldmatrix.trans. Keys at or past `keys` get e = 0 (their V
-// rows are staged as zeros). expf, not __expf: see the header.
-template <int HD, bool FULL>
-__device__ __forceinline__ void tile_pv(const float (&acc)[AKN / 8][4],
-                                        const float* bias, int keys,
-                                        float scale, const float (&m)[2],
-                                        float (&l)[2], const __nv_bfloat16* vb,
-                                        float (&o)[HD / 8][4]) {
-  constexpr int LD = HD + 8;
-  const int lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  uint32_t pa[AKN / 8][2];
-#pragma unroll
-  for (int j = 0; j < AKN / 8; ++j) {
-    pa[j][0] = pa[j][1] = 0u;
-    if (FULL || 8 * j < keys) {
-      const float2 bt = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * t);
-      const float* a = acc[j];
-      const float e0 = expf(__fsub_rn(logit_of(a[0], scale, bt.x), m[0]));
-      const float e1 = expf(__fsub_rn(logit_of(a[1], scale, bt.y), m[0]));
-      const float e2 = expf(__fsub_rn(logit_of(a[2], scale, bt.x), m[1]));
-      const float e3 = expf(__fsub_rn(logit_of(a[3], scale, bt.y), m[1]));
-      l[0] = __fadd_rn(__fadd_rn(l[0], e0), e1);
-      l[1] = __fadd_rn(__fadd_rn(l[1], e2), e3);
-      pa[j][0] = pack_bf16x2(e0, e1);
-      pa[j][1] = pack_bf16x2(e2, e3);
-    }
-  }
-  // matrices: keys 0-7 | 8-15 of the step (lane bit 3), dims 0-7 | 8-15 of
-  // the pair (lane bit 4): r[0], r[1] are dim tile 2dq's b0, b1 (transposed:
-  // keys 2t, 2t+1 of dim g); r[2], r[3] 2dq+1's.
-  const __nv_bfloat16* base =
-      vb + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + ((lane >> 4) << 3);
-#pragma unroll
-  for (int kk = 0; kk < AKN / 16; ++kk) {
-    if (!FULL && 16 * kk >= keys) break;
-    const uint32_t a[4] = {pa[2 * kk][0], pa[2 * kk][1], pa[2 * kk + 1][0],
-                           pa[2 * kk + 1][1]};
-#pragma unroll
-    for (int dq = 0; dq < HD / 16; ++dq) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, base + 16 * kk * LD + 16 * dq);
-      mma_bf16(o[2 * dq], a, b[0], b[1]);
-      mma_bf16(o[2 * dq + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// One (b, h): q, k and v point at the head's row 0 (rows ld_in elements
-// apart), brow at its key bias, out at its context row 0 (rows ld_out
-// apart). RES: K is rotated once into shared memory, V staged whole beside
-// it, and the 16 warps walk their query tiles without a barrier; otherwise
-// (where the two do not fit) each pass streams K and V tiles through rings
-// that the 8 warps step through together, and rotates each K tile as it
-// lands. K8 and K7 run this body with different pointers and strides, so
-// they agree bit for bit.
-template <int HD, bool RES>
-__device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
-                                       const __nv_bfloat16* __restrict__ k,
-                                       const __nv_bfloat16* __restrict__ v,
-                                       int ld_in, const float* __restrict__ cos2,
-                                       const float* __restrict__ s2,
-                                       const float* __restrict__ brow, int S,
-                                       float scale,
-                                       __nv_bfloat16* __restrict__ out,
-                                       int ld_out) {
-  constexpr int LD = HD + 8;
-  constexpr int NT_ = att_threads(RES);
-  constexpr int NW = NT_ / 32;
-  extern __shared__ __align__(16) unsigned char att_smem[];
-  const int S16 = (S + 15) & ~15;
-  auto* Ks = reinterpret_cast<__nv_bfloat16*>(att_smem);
-  __nv_bfloat16* Vs = Ks + (RES ? S16 : 2 * AKN) * LD;
-  auto* Bs = reinterpret_cast<float*>(Vs + (RES ? S16 : 2 * AKN) * LD);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int nkt = (S + AKN - 1) / AKN;
-
-  for (int i = threadIdx.x; i < S16; i += NT_) Bs[i] = i < S ? brow[i] : 0.f;
-  if constexpr (RES) {
-    stage_rows<HD, NT_>(k, ld_in, 0, S16, S, Ks);
-    cp_async_commit();
-    stage_rows<HD, NT_>(v, ld_in, 0, S16, S, Vs);
-    cp_async_commit();
-    cp_async_wait<1>();  // K has landed (V may still be in flight)
-    __syncthreads();
-    rotate_rows<HD, NT_>(Ks, 0, S, S, cos2, s2);
-    cp_async_wait<0>();
-  }
-  __syncthreads();  // Bs (and the rotated K and V) are ready
-
-  // Query tiles of 16 rows, NW at a time. With the rings every warp takes
-  // every barrier, and a warp whose rows all lie at or past S computes
-  // nothing.
-  for (int r0 = 16 * warp; r0 - 16 * warp < S; r0 += 16 * NW) {
-    const bool active = r0 < S;
-    if constexpr (RES) {
-      if (!active) break;
-    } else {
-      stage_rows<HD, NT_>(v, ld_in, 0, AKN, S, Vs);  // V tile 0, under pass 1
-      cp_async_commit();
-    }
-    uint32_t qa[HD / 16][4];
-    if (active) load_q_frags<HD>(q, ld_in, r0, S, cos2, s2, qa);
-
-    // Pass 1: the exact max of each row over all S keys.
-    float m[2] = {-INFINITY, -INFINITY};
-    if constexpr (RES) {
-      if (active) {
-        for (int k0 = 0; k0 < S; k0 += AKN) {
-          const int keys = min(AKN, S - k0);
-          float acc[AKN / 8][4];
-          if (keys == AKN) {
-            qk_tile<HD, true>(qa, Ks + k0 * LD, keys, acc);
-            tile_max<true>(acc, Bs + k0, keys, scale, m);
-          } else {
-            qk_tile<HD, false>(qa, Ks + k0 * LD, keys, acc);
-            tile_max<false>(acc, Bs + k0, keys, scale, m);
-          }
-        }
-      }
-    } else {
-      stage_rows<HD, NT_>(k, ld_in, 0, AKN, S, Ks);
-      cp_async_commit();
-      for (int kt = 0; kt < nkt; ++kt) {
-        const int k0 = kt * AKN, keys = min(AKN, S - k0);
-        if (kt + 1 < nkt)
-          stage_rows<HD, NT_>(k, ld_in, k0 + AKN, AKN, S,
-                              Ks + ((kt + 1) & 1) * AKN * LD);
-        cp_async_commit();
-        cp_async_wait<1>();
-        __syncthreads();
-        __nv_bfloat16* kb = Ks + (kt & 1) * AKN * LD;
-        rotate_rows<HD, NT_>(kb, k0, AKN, S, cos2, s2);
-        __syncthreads();
-        if (active) {
-          float acc[AKN / 8][4];
-          if (keys == AKN) {
-            qk_tile<HD, true>(qa, kb, keys, acc);
-            tile_max<true>(acc, Bs + k0, keys, scale, m);
-          } else {
-            qk_tile<HD, false>(qa, kb, keys, acc);
-            tile_max<false>(acc, Bs + k0, keys, scale, m);
-          }
-        }
-        __syncthreads();  // slot kt & 1 is consumed
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      m[0] = fmaxf(m[0], __shfl_xor_sync(0xffffffffu, m[0], off));
-      m[1] = fmaxf(m[1], __shfl_xor_sync(0xffffffffu, m[1], off));
-    }
-
-    // Pass 2: the logits again, e against m, the sums and bf16(e) · V.
-    float l[2] = {0.f, 0.f};
-    float o[HD / 8][4];
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-    if constexpr (!RES) {
-      stage_rows<HD, NT_>(k, ld_in, 0, AKN, S, Ks);
-      cp_async_commit();
-    }
-    for (int kt = 0; kt < nkt; ++kt) {
-      const int k0 = kt * AKN, keys = min(AKN, S - k0);
-      const __nv_bfloat16* kb = Ks + k0 * LD;
-      const __nv_bfloat16* vb = Vs + k0 * LD;
-      if constexpr (!RES) {
-        if (kt + 1 < nkt) {
-          stage_rows<HD, NT_>(v, ld_in, k0 + AKN, AKN, S,
-                              Vs + ((kt + 1) & 1) * AKN * LD);
-          stage_rows<HD, NT_>(k, ld_in, k0 + AKN, AKN, S,
-                              Ks + ((kt + 1) & 1) * AKN * LD);
-        }
-        cp_async_commit();
-        cp_async_wait<1>();
-        __syncthreads();  // tile kt of V and K has landed
-        vb = Vs + (kt & 1) * AKN * LD;
-        kb = Ks + (kt & 1) * AKN * LD;
-        rotate_rows<HD, NT_>(Ks + (kt & 1) * AKN * LD, k0, AKN, S, cos2, s2);
-        __syncthreads();
-      }
-      if (active) {
-        float acc[AKN / 8][4];
-        if (keys == AKN) {
-          qk_tile<HD, true>(qa, kb, keys, acc);
-          tile_pv<HD, true>(acc, Bs + k0, keys, scale, m, l, vb, o);
-        } else {
-          qk_tile<HD, false>(qa, kb, keys, acc);
-          tile_pv<HD, false>(acc, Bs + k0, keys, scale, m, l, vb, o);
-        }
-      }
-      if constexpr (!RES) __syncthreads();  // slot kt & 1 is consumed
-    }
-
-    // Epilogue: the row sums over the quad, normalization after PV, one
-    // rounding to bf16; rows at or past S are not stored.
-    if (active) {
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        l[0] = __fadd_rn(l[0], __shfl_xor_sync(0xffffffffu, l[0], off));
-        l[1] = __fadd_rn(l[1], __shfl_xor_sync(0xffffffffu, l[1], off));
-      }
-      const int s = r0 + g;
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        __nv_bfloat16* dst = out + (size_t)s * ld_out + 8 * j + 2 * t;
-        if (s < S)
-          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(
-              __fdiv_rn(o[j][0], l[0]), __fdiv_rn(o[j][1], l[0]));
-        if (s + 8 < S)
-          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * (size_t)ld_out) =
-              __floats2bfloat162_rn(__fdiv_rn(o[j][2], l[1]),
-                                    __fdiv_rn(o[j][3], l[1]));
-      }
-    }
-  }
-}
-
-// K8: a block per (b, h), heads of one batch row side by side in the grid.
-template <int HD, bool RES>
-__global__ void __launch_bounds__(att_threads(RES), (RES || HD >= 128) ? 1 : 2)
-    k8_fused_attention_qkv(const __nv_bfloat16* __restrict__ qkv,
-                           const float* __restrict__ cos2,
-                           const float* __restrict__ s2,
-                           const float* __restrict__ bias, int S, int H,
-                           float scale, __nv_bfloat16* __restrict__ out) {
-  const int h = blockIdx.x % H;
-  const int b = blockIdx.x / H;
-  const int row_stride = 3 * H * HD;
-  const __nv_bfloat16* base = qkv + (size_t)b * S * row_stride;
-  attend<HD, RES>(base + (0 * H + h) * HD, base + (1 * H + h) * HD,
-                         base + (2 * H + h) * HD, row_stride, cos2, s2,
-                         bias + (size_t)b * S, S, scale,
-                         out + (size_t)b * S * H * HD + h * HD, H * HD);
-}
-
-// K7: K8 on head-major operands, a block per (b, h) = blockIdx.x.
-template <int HD, bool RES>
-__global__ void __launch_bounds__(att_threads(RES), (RES || HD >= 128) ? 1 : 2)
-    k7_fused_attention(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       const float* __restrict__ cos2,
-                       const float* __restrict__ s2,
-                       const float* __restrict__ bias, int S, int H,
-                       float scale, __nv_bfloat16* __restrict__ out) {
-  const int b = blockIdx.x / H;
-  const size_t head = (size_t)blockIdx.x * S * HD;
-  attend<HD, RES>(q + head, k + head, v + head, HD, cos2, s2,
-                         bias + (size_t)b * S, S, scale, out + head, HD);
-}
-
-template <int HD, bool RES>
-int launch_k8_as(const void* qkv, const float* cos2, const float* s2,
-                 const float* bias, int B, int S, int H, float scale,
-                 void* out, cudaStream_t stream) {
-  static size_t configured = 48 * 1024;
-  const size_t bytes = attn_smem_bytes<HD>(S, RES);
-  const int e =
-      allow_smem(k8_fused_attention_qkv<HD, RES>, bytes, configured);
-  if (e) return e;
-  k8_fused_attention_qkv<HD, RES>
-      <<<(unsigned)B * (unsigned)H, att_threads(RES), bytes, stream>>>(
-          static_cast<const __nv_bfloat16*>(qkv), cos2, s2, bias, S, H, scale,
-          static_cast<__nv_bfloat16*>(out));
-  return (int)cudaGetLastError();
-}
-
-template <int HD, bool RES>
-int launch_k7_as(const void* q, const void* k, const void* v,
-                 const float* cos2, const float* s2, const float* bias, int B,
-                 int S, int H, float scale, void* out, cudaStream_t stream) {
-  static size_t configured = 48 * 1024;
-  const size_t bytes = attn_smem_bytes<HD>(S, RES);
-  const int e =
-      allow_smem(k7_fused_attention<HD, RES>, bytes, configured);
-  if (e) return e;
-  k7_fused_attention<HD, RES>
-      <<<(unsigned)B * (unsigned)H, att_threads(RES), bytes, stream>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v), cos2, s2, bias, S, H, scale,
-          static_cast<__nv_bfloat16*>(out));
-  return (int)cudaGetLastError();
-}
-
-// K and V stay resident where both fit (every S <= MAX_S at HD 16 and 32,
-// S <= 784 at HD 64); above that, and at HD 128 (whose 512-thread blocks
-// would spill), both stream. Only HD 64 and 128 reach the streamed body.
-template <int HD>
-bool attn_resident(int S) {
-  return HD < 128 && attn_smem_bytes<HD>(S, true) <= SMEM_OPTIN;
-}
-constexpr int ATT_STREAM_FROM_HD = 64;
-
-template <int HD>
-int launch_k8(const void* qkv, const float* cos2, const float* s2,
-              const float* bias, int B, int S, int H, float scale, void* out,
-              cudaStream_t stream) {
-  if constexpr (HD < 128)
-    if (attn_resident<HD>(S))
-      return launch_k8_as<HD, true>(qkv, cos2, s2, bias, B, S, H, scale, out,
-                                    stream);
-  if constexpr (HD >= ATT_STREAM_FROM_HD)
-    return launch_k8_as<HD, false>(qkv, cos2, s2, bias, B, S, H, scale, out,
-                                   stream);
-  return (int)cudaErrorInvalidValue;
-}
-
-template <int HD>
-int launch_k7(const void* q, const void* k, const void* v, const float* cos2,
-              const float* s2, const float* bias, int B, int S, int H,
-              float scale, void* out, cudaStream_t stream) {
-  if constexpr (HD < 128)
-    if (attn_resident<HD>(S))
-      return launch_k7_as<HD, true>(q, k, v, cos2, s2, bias, B, S, H, scale,
-                                    out, stream);
-  if constexpr (HD >= ATT_STREAM_FROM_HD)
-    return launch_k7_as<HD, false>(q, k, v, cos2, s2, bias, B, S, H, scale,
-                                   out, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
 // ---------------------------------------------------------------------------
 // K9: the recompute backward on wgmma fed by TMA (see the header)
 // ---------------------------------------------------------------------------
@@ -824,7 +309,7 @@ constexpr int K9_LAUNCH_REGS =
 static_assert(K9_LAUNCH_REGS * K9_THREADS <= 65536, "one block an SM");
 
 // QK^T (S and S^T): each k16 step from +0.0 and added with one rounded add,
-// in increasing step order (true; K8's qk_tile rule), or accumulated inside
+// in increasing step order (true; K8's s_tile rule), or accumulated inside
 // the wgmma (false: a measurement variant only).
 constexpr bool K9_QK_ADDS = true;
 // dp, dv, dk and dq: each k16 step from +0.0 and added with one rounded add,
@@ -1754,7 +1239,7 @@ __global__ void __launch_bounds__(K9_THREADS, 1)
 }
 
 // The pre-pass: q_r and k_r, the rotary of every query and key of every
-// head in f32 rounded once to bf16 (rotate_rows's arithmetic), into the
+// head in f32 rounded once to bf16 (rotate_tile's arithmetic), into the
 // scratch [2, B, H, S, HD] that both kernels read through TMA. One thread
 // per lane pair (j, j + 1) and partners j + HD/2; consecutive threads write
 // consecutive pairs of a scratch row.
@@ -1790,6 +1275,889 @@ __global__ void __launch_bounds__(256)
   *reinterpret_cast<__nv_bfloat162*>(out + H2) = __floats2bfloat162_rn(
       __fadd_rn(__fmul_rn(xh.x, ch.x), __fmul_rn(xl.x, sh.x)),
       __fadd_rn(__fmul_rn(xh.y, ch.y), __fmul_rn(xl.y, sh.y)));
+}
+
+// ---------------------------------------------------------------------------
+// K8 and K7: the forward on wgmma fed by TMA (see the header)
+// ---------------------------------------------------------------------------
+
+// The byte of lane d of row r in a 64-row tile as TMA writes it
+// (TileLayout): column chunk d / (W / 2), 16-byte piece x / 8 of the row
+// at its swizzled place, x = d % (W / 2).
+template <int HD>
+__device__ __forceinline__ int tile_byte(int r, int d) {
+  using L = TileLayout<HD>;
+  constexpr int LPC = L::W / 2;  // lanes of a column chunk
+  const int x = d % LPC;
+  return (d / LPC) * L::CHUNK_BYTES + r * L::W +
+         16 * ((x / 8) ^ ((r / (128 / L::W)) % (L::W / 16))) + 2 * (x % 8);
+}
+
+// Writes by threads become visible to the async proxy (wgmma) only through
+// this fence, made by the writers before they signal the readers.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ==== K8/K7 forward: begin ====
+
+// A forward block is K9's: a producer warpgroup and two consumer
+// warpgroups of 64 query rows, one block an SM, setmaxnreg 40 / 232 where
+// the producer only copies and 56 / 224 where it also rotates K (the
+// persistent and streamed modes: two rotary items in flight a thread).
+constexpr int ATT_THREADS = 384;
+constexpr int ATT_CONSUMERS = 256;
+constexpr int ATT_PRODUCER_REGS = 40;
+constexpr int ATT_CONSUMER_REGS = 232;
+constexpr int ATT_ROTATING_PRODUCER_REGS = 56;
+constexpr int ATT_ROTATING_CONSUMER_REGS = 224;
+static_assert(ATT_THREADS == K9_THREADS &&
+                  ATT_PRODUCER_REGS * 128 + ATT_CONSUMER_REGS * ATT_CONSUMERS ==
+                      K9_LAUNCH_REGS * K9_THREADS &&
+                  ATT_ROTATING_PRODUCER_REGS * 128 +
+                          ATT_ROTATING_CONSUMER_REGS * ATT_CONSUMERS ==
+                      K9_LAUNCH_REGS * K9_THREADS,
+              "check_launch_regs holds the forward to K9's register allocation");
+constexpr int ATT_STAGES = 4;                       // the streamed ring
+constexpr int ATT_MAX_TILES = MAX_S / WG_ROWS;      // 64-row tiles of the longest S
+// S = Q_r K_r^T: each k16 step from +0.0 (scale-d = 0) and added with one
+// rounded add in increasing step order (true: the search kernels' rule, and
+// the mma.sync build's), or accumulated inside the wgmma (false: @acc, a
+// measurement variant). PV always accumulates inside the wgmma from o = 0,
+// the mma.sync build's rule: the PV probe holds the two instructions'
+// accumulations to each other (k_probe_pv_acc).
+constexpr bool ATT_QK_ADDS = true;
+// Product fragments of S's k16 steps in flight beside S (NP + 1 steps a
+// batch, one wait a batch): all of hd 64's four steps at once; one at hd
+// 128, whose o takes 64 registers (two spilled there).
+template <int HD>
+constexpr int ATT_PRODUCTS = HD == 64 ? 3 : 1;
+
+// Pass 2 skips a key tile where every e of the warpgroup's rows is exactly
+// 0: pass 1 finds each thread's tile maximum at least this far below its
+// running maximum (expf(-120) is 0 in f32; the final maximum is no lower).
+constexpr float ATT_SKIP_BELOW = -120.f;
+
+// How a forward block holds a head's K and V (the launcher takes the first
+// of these that fits a block's shared memory):
+//  ATT_PERSISTENT: a block an SM walks heads; two K buffers and one V
+//    buffer, each of the head's n = ceil(S / 64) tiles, so that the
+//    producer loads and rotates the next head's K, and loads its V, while
+//    the consumers work (every S at hd 16 and 32, S <= 512 at hd 64, S <=
+//    256 at hd 128);
+//  ATT_KRES: a block a head, its K resident and rotated by every thread
+//    before the warpgroups split, its V streamed through ATT_STAGES stages
+//    once for each pair of query tiles, which the two consumer warpgroups
+//    take in step (hd 64 above S 512, hd 128 up to 512; a block a head with
+//    V resident too was at most 2.5 % faster there and up to 10 % slower:
+//    PERF.md §6);
+//  ATT_RING: a block per 128 query rows; the head's K tiles, then its K and
+//    V tiles, stream through ATT_STAGES stages, K rotated as it lands (hd
+//    128 above 512).
+constexpr int ATT_RING = 0;
+constexpr int ATT_PERSISTENT = 1;
+constexpr int ATT_KRES = 2;
+// mbarriers: kfull[2][MT] (K landed; ATT_KRES: kfull[1] a V stage landed),
+// kready[2][MT], third[MT] (V landed; the rings' empty), the bias's [2],
+// done[2] (a head's consumers finished with a K buffer and the V buffer),
+// vmarked (the producer warps marked a persistent head's V tiles), MT =
+// ATT_MAX_TILES.
+constexpr int ATT_BARRIERS = 5 * ATT_MAX_TILES + 5;
+
+// 64-row tiles of a forward block's K and V (n: the head's key tiles).
+__host__ __device__ constexpr int att_tiles(int mode, int n) {
+  return mode == ATT_RING ? 2 * ATT_STAGES : mode == ATT_KRES ? n + ATT_STAGES : 3 * n;
+}
+
+// A forward block's dynamic shared memory, from the first 1024-byte
+// boundary (up to 1024 bytes of slack): the tiles of K and V (att_tiles);
+// the key bias (64 n f32, two buffers when persistent); each consumer
+// warp's eight output staging rows (store_rows); the mbarriers; the
+// consumer warps' masks of the key tiles pass 2 needs (two query tiles'
+// worth, 2 x 8 words) and the producer warps' marks of V tiles (4 words).
+template <int HD>
+__host__ __device__ constexpr size_t att_smem_bytes(int S, int mode) {
+  const int n = (S + WG_ROWS - 1) / WG_ROWS;
+  return 1024 + (size_t)att_tiles(mode, n) * TileLayout<HD>::BYTES +
+         4 * WG_ROWS * n * (mode == ATT_PERSISTENT ? 2 : 1) +
+         (ATT_CONSUMERS / 32) * 8 * (HD + 8) * 2 + 8 * ATT_BARRIERS + 4 * 20;
+}
+
+// The rotary of the K tile of keys k0 .. k0 + 63 in place, in TMA's
+// swizzle, by threads tid, tid + nt, ..: an item is lanes j .. j + 3 of a
+// row (8 bytes of its 16-byte piece p) with their partners j + HD/2 .. —
+// the same bytes of piece p + HD/16, which at hd 128 lies at the same place
+// of the other column chunk and below it at piece p ^ HD/16 of the same
+// swizzled row (the swizzle XORs a piece index with bits of the row only).
+// f32 from the bf16 input, one rounding to bf16: load_q_frags's arithmetic,
+// lane by lane. A thread loads U items (the tile's lanes and 16-byte rows
+// of the rotary tables) before it computes any, so that U items' table
+// reads are in flight at once. Rows at or past S stay as TMA wrote them
+// (zero).
+template <int HD, int U>
+__device__ __forceinline__ void rotate_tile(unsigned char* tile, int k0, int S,
+                                            const float* __restrict__ cos2,
+                                            const float* __restrict__ s2, int tid, int nt) {
+  constexpr int H2 = HD / 2;
+  constexpr int QUADS = H2 / 4;
+  const int items = min(WG_ROWS, S - k0) * QUADS;
+  for (int i0 = tid; i0 < items; i0 += U * nt) {
+    uint2* lo[U];
+    uint2* hi[U];
+    uint2 xl[U], xh[U];
+    float4 cl[U], ch[U], sl[U], sh[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = min(i0 + u * nt, items - 1);  // a repeat of the last item is not stored
+      const int r = i / QUADS;
+      const int j = (i % QUADS) * 4;
+      const float* c = cos2 + (size_t)(k0 + r) * HD + j;
+      const float* sn = s2 + (size_t)(k0 + r) * HD + j;
+      lo[u] = reinterpret_cast<uint2*>(tile + tile_byte<HD>(r, j));
+      hi[u] = reinterpret_cast<uint2*>(tile + tile_byte<HD>(r, j + H2));
+      xl[u] = *lo[u];
+      xh[u] = *hi[u];
+      cl[u] = *reinterpret_cast<const float4*>(c);
+      ch[u] = *reinterpret_cast<const float4*>(c + H2);
+      sl[u] = *reinterpret_cast<const float4*>(sn);
+      sh[u] = *reinterpret_cast<const float4*>(sn + H2);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (i0 + u * nt >= items) break;
+      const float2 a0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xl[u].x));
+      const float2 a1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xl[u].y));
+      const float2 b0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xh[u].x));
+      const float2 b1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xh[u].y));
+      // roll(x, HD/2) brings lane j + HD/2 to lane j and lane j to j + HD/2.
+      *lo[u] = make_uint2(
+          pack_bf16x2(__fadd_rn(__fmul_rn(a0.x, cl[u].x), __fmul_rn(b0.x, sl[u].x)),
+                      __fadd_rn(__fmul_rn(a0.y, cl[u].y), __fmul_rn(b0.y, sl[u].y))),
+          pack_bf16x2(__fadd_rn(__fmul_rn(a1.x, cl[u].z), __fmul_rn(b1.x, sl[u].z)),
+                      __fadd_rn(__fmul_rn(a1.y, cl[u].w), __fmul_rn(b1.y, sl[u].w))));
+      *hi[u] = make_uint2(
+          pack_bf16x2(__fadd_rn(__fmul_rn(b0.x, ch[u].x), __fmul_rn(a0.x, sh[u].x)),
+                      __fadd_rn(__fmul_rn(b0.y, ch[u].y), __fmul_rn(a0.y, sh[u].y))),
+          pack_bf16x2(__fadd_rn(__fmul_rn(b1.x, ch[u].z), __fmul_rn(a1.x, sh[u].z)),
+                      __fadd_rn(__fmul_rn(b1.y, ch[u].w), __fmul_rn(a1.y, sh[u].w))));
+    }
+  }
+}
+
+// wgmma's A fragments of rotated q for the warp's 16 query rows r0 .. r0 +
+// 15, straight from global memory, one k16 step per qa[ks]: thread (g, t)
+// holds rows g and g + 8 at lanes 8u + 2t and 8u + 2t + 1 (u < HD/8), and
+// the rotary partner of lane 8u + 2t is lane 8u' + 2t with u' = u + HD/16
+// mod HD/8 — the same thread's, so q needs no shared memory. Rows at or
+// past S are zero.
+template <int HD>
+__device__ __forceinline__ void load_q_frags(const bf16* __restrict__ q, int ld_in, int r0,
+                                             int S, const float* __restrict__ cos2,
+                                             const float* __restrict__ s2,
+                                             uint32_t (&qa)[HD / 16][4]) {
+  constexpr int NU = HD / 8;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int s = r0 + g + 8 * hr;
+    float2 x[NU], c[NU], sn[NU];
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      const int d = 8 * u + 2 * t;
+      x[u] = c[u] = sn[u] = make_float2(0.f, 0.f);
+      if (s < S) {
+        x[u] = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(q + (size_t)s * ld_in + d));
+        c[u] = *reinterpret_cast<const float2*>(cos2 + (size_t)s * HD + d);
+        sn[u] = *reinterpret_cast<const float2*>(s2 + (size_t)s * HD + d);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      const int up = (u + NU / 2) % NU;
+      qa[u >> 1][(u & 1) * 2 + hr] = pack_bf16x2(
+          __fadd_rn(__fmul_rn(x[u].x, c[u].x), __fmul_rn(x[up].x, sn[u].x)),
+          __fadd_rn(__fmul_rn(x[u].y, c[u].y), __fmul_rn(x[up].y, sn[u].y)));
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// d (64 x 64, the layout of wg_ss64) = A B^T (+ d if acc): A 64 x 16 bf16
+// in registers (wg_rs's A), B 64 rows x 16 read K-major (desc_k).
+__device__ __forceinline__ void wg_rs64_k(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                          int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      " %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35},"
+      " %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// o (the 64 x HD accumulator, acc_rows's units) += bf16(e) V, issued and
+// not committed: A the four k16 steps of bf16(e) repacked C -> A (pa), B
+// the V tile vt read MN-major, accumulated inside the wgmma in increasing
+// key order (a partial last tile's empty steps add exact zeros).
+template <int HD>
+__device__ __forceinline__ void pv_issue(float (&o)[UC<HD>][UN<HD> / 2], uint32_t (&pa)[4][4],
+                                         uint32_t vt) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < UC<HD>; ++c) wg_rs<UN<HD>>(o[c], pa[kk], desc_mn<HD>(vt, kk, c), 1);
+}
+
+// The raw dots of a warpgroup's 64 query rows (q_r in registers) with the
+// 64 keys of the K tile kt into d, in wg_ss64's layout. ATT_QK_ADDS: each
+// k16 step from +0.0, step 0 straight into d and the others into NP product
+// fragments, issued NP + 1 steps a batch with one wait a batch and added to
+// d with one __fadd_rn in increasing step order; else every step
+// accumulated inside the wgmma. Pass 1 and pass 2 run the same chain, so
+// they see the same logits bit for bit. PV: the previous tile's product
+// (o += bf16(e) V, pa and vt) goes out behind S's first batch. Every wgmma
+// is complete on return. (Leaving PV in flight under the softmax, as
+// FlashAttention-3 does, timed no faster and gave wrong rows at hd 16 once
+// the context went out through the staging rows: PERF.md §6.)
+template <int HD, int NP, bool PV>
+__device__ __forceinline__ void s_tile(float (&d)[32], uint32_t (&qa)[HD / 16][4], uint32_t kt,
+                                       float (&o)[UC<HD>][UN<HD> / 2], uint32_t (&pa)[4][4],
+                                       uint32_t vt) {
+  constexpr int KS = HD / 16;
+  constexpr int NB = (!ATT_QK_ADDS || KS == 1) ? 1 : (KS - 1 + NP - 1) / NP;
+  fence_regs(qa);
+  fence_regs(d);
+  if constexpr (PV) {
+    fence_regs(o);
+    fence_regs(pa);
+  }
+  wgmma_fence();
+  float p[NP][32];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    const int v0 = 1 + b * NP;  // the batch's first step into p[0]
+    if constexpr (!ATT_QK_ADDS) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) wg_rs64_k(d, qa[kk], desc_k<HD>(kt, kk), kk);
+    } else {
+      if (b == 0) wg_rs64_k(d, qa[0], desc_k<HD>(kt, 0), 0);
+#pragma unroll
+      for (int k = 0; k < NP; ++k)
+        if (v0 + k < KS) wg_rs64_k(p[k], qa[v0 + k], desc_k<HD>(kt, v0 + k), 0);
+    }
+    wgmma_commit();
+    if (PV && b == 0) {
+      pv_issue<HD>(o, pa, vt);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(d);
+    if constexpr (PV) {
+      fence_regs(o);
+      fence_regs(pa);
+    }
+    if constexpr (ATT_QK_ADDS) {
+#pragma unroll
+      for (int k = 0; k < NP; ++k) {
+        if (v0 + k >= KS) break;
+        fence_regs(p[k]);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) d[e] = __fadd_rn(d[e], p[k][e]);
+      }
+      if (b + 1 < NB) {
+        fence_regs(d);
+        wgmma_fence();
+      }
+    }
+  }
+  fence_regs(d);
+  fence_regs(qa);
+}
+
+// The larger of a and b, NaN if either is (PTX max.NaN; fmaxf drops NaN).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// Pass 1 on a tile's raw dots s: the maxima t0 (row g) and t1 (row g + 8)
+// of this thread's logits (dot * scale + the key's bias; bias points at
+// the tile's first key) over the tile's keys below `keys` (FULL: all 64,
+// with no branch, so the compiler may interleave every cell's work), by
+// `mx` (fmaxf, which drops NaN, or max_nan, which keeps it).
+template <bool FULL, typename Max>
+__device__ __forceinline__ void tile_max(const float (&s)[32], const float* bias, int keys,
+                                         float scale, Max mx, float& t0, float& t1) {
+  const int t = threadIdx.x & 3;
+  t0 = t1 = -INFINITY;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    if (!FULL && 8 * jj >= keys) break;  // an n8 group of keys is wholly below S or past it
+    const float2 bk = *reinterpret_cast<const float2*>(bias + 8 * jj + 2 * t);
+    t0 = mx(t0, mx(logit_of(s[4 * jj], scale, bk.x), logit_of(s[4 * jj + 1], scale, bk.y)));
+    t1 = mx(t1, mx(logit_of(s[4 * jj + 2], scale, bk.x), logit_of(s[4 * jj + 3], scale, bk.y)));
+  }
+}
+
+// Pass 1's tile maxima (the row maxima take fmaxf's, NaN dropped, as the
+// mma.sync build's did), and whether any of the thread's logits in the tile
+// is NaN (max_nan's first, fmaxf's only then: a tile with a NaN is never
+// skipped, its e being NaN).
+template <bool FULL>
+__device__ __forceinline__ bool tile_maxima(const float (&s)[32], const float* bias, int keys,
+                                            float scale, float& t0, float& t1) {
+  tile_max<FULL>(s, bias, keys, scale, max_nan, t0, t1);
+  if (!isnan(t0) && !isnan(t1)) return false;
+  tile_max<FULL>(s, bias, keys, scale, [](float a, float b) { return fmaxf(a, b); }, t0, t1);
+  return true;
+}
+
+// Pass 2 on a tile's raw dots s: e = exp(logit - m) of this thread's cells
+// against the exact row maxima m0 (row g) and m1 (row g + 8), the unrounded
+// e summed into l0 and l1 in increasing key order, and bf16(e) packed C ->
+// A into pa; keys at or past `keys` get e = 0 (FULL: none, no branch).
+// expf, not __expf: see the header.
+template <bool FULL>
+__device__ __forceinline__ void tile_exp(const float (&s)[32], const float* bias, int keys,
+                                         float scale, float m0, float m1, float& l0, float& l1,
+                                         uint32_t (&pa)[4][4]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    float e0 = 0.f, e1 = 0.f, e2 = 0.f, e3 = 0.f;
+    if (FULL || 8 * jj < keys) {
+      const float2 bk = *reinterpret_cast<const float2*>(bias + 8 * jj + 2 * t);
+      e0 = expf(__fsub_rn(logit_of(s[4 * jj], scale, bk.x), m0));
+      e1 = expf(__fsub_rn(logit_of(s[4 * jj + 1], scale, bk.y), m0));
+      e2 = expf(__fsub_rn(logit_of(s[4 * jj + 2], scale, bk.x), m1));
+      e3 = expf(__fsub_rn(logit_of(s[4 * jj + 3], scale, bk.y), m1));
+      l0 = __fadd_rn(__fadd_rn(l0, e0), e1);
+      l1 = __fadd_rn(__fadd_rn(l1, e2), e3);
+    }
+    pack_a(pa, jj, e0, e1, e2, e3);
+  }
+}
+
+// Whether thread t's share of the V tile at shared address vt (TMA's rows,
+// zeros past S) holds a non-finite lane (a bf16 whose exponent bits are all
+// ones): the 16 bytes at 16 t + 2048 u, so that a warpgroup's 128 threads
+// read the tile once. Pass 2 skips a key tile whose e is all 0 only where
+// no lane of its V is: bf16(0) times a NaN or an inf is NaN, and the JAX
+// kernel and the mma.sync build run that product.
+template <int HD>
+__device__ __forceinline__ bool v_share_nonfinite(uint32_t vt, int t) {
+  constexpr uint32_t E = 0x7F807F80u;  // the exponent bits of two bf16
+  uint32_t bad = 0u;
+#pragma unroll
+  for (int u = 0; u < TileLayout<HD>::BYTES / 2048; ++u) {
+    uint32_t x0, x1, x2, x3;
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(x0), "=r"(x1), "=r"(x2), "=r"(x3)
+                 : "r"(vt + 16 * t + 2048 * u));
+    bad |= __vcmpeq2(x0 & E, E) | __vcmpeq2(x1 & E, E) | __vcmpeq2(x2 & E, E) |
+           __vcmpeq2(x3 & E, E);
+  }
+  return bad != 0u;
+}
+
+// v_share_nonfinite over a warpgroup, voted with one barrier reduction
+// (bar.red.or) on named barrier `id`.
+template <int HD>
+__device__ __forceinline__ bool v_tile_nonfinite(uint32_t vt, int id) {
+  const uint32_t bad = v_share_nonfinite<HD>(vt, threadIdx.x & 127);
+  uint32_t any;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 q, %1, 0;\nbar.red.or.pred p, %2, 128, q;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(any)
+      : "r"(bad), "r"(id));
+  return any != 0u;
+}
+
+// The context of a warp's 16 rows r0 .. r0 + 15 (o / l, one rounding to
+// bf16) to out (rows ld_out apart; rows at or past S not stored): eight rows
+// at a time through the warp's staging rows in shared memory (pitch HD + 8
+// bf16: the eight rows of a column fall in distinct banks), then 16-byte
+// stores, a row's HD lanes contiguous.
+template <int HD>
+__device__ __forceinline__ void store_rows(float (&o)[UC<HD>][UN<HD> / 2], float l0,
+                                           float l1, bf16* stage, bf16* __restrict__ out,
+                                           int ld_out, int r0, int S) {
+  constexpr int LDS = HD + 8;
+  constexpr int CH = HD / 8;  // 16-byte chunks of a row
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float l = hh ? l1 : l0;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(stage + g * LDS + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(__fdiv_rn(acc_at<HD>(o, j, hh, 0), l),
+                                __fdiv_rn(acc_at<HD>(o, j, hh, 1), l));
+    __syncwarp();
+    for (int i = lane; i < 8 * CH; i += 32) {
+      const int r = i / CH, c = i % CH;
+      const int s = r0 + 8 * hh + r;
+      if (s < S)
+        *reinterpret_cast<uint4*>(out + (size_t)s * ld_out + 8 * c) =
+            *reinterpret_cast<const uint4*>(stage + r * LDS + 8 * c);
+    }
+    __syncwarp();
+  }
+}
+
+// The tensor maps K and V come through: 3-D (lanes, rows, planes), rows past
+// S zero. K8: both qkv's; K7: k's and v's.
+struct AttMaps {
+  CUtensorMap k, v;
+};
+
+// Where head bh lies: its K and V at lanes kx .. and vx .. of plane `plane`
+// of the maps, its query row 0 (q), its key bias (brow) and its context row
+// 0 (out).
+struct AttHead {
+  int kx, vx, plane;
+  const bf16* q;
+  const float* brow;
+  bf16* out;
+};
+
+// A head's forward in a block of ATT_THREADS (see the header and the block
+// modes ATT_PERSISTENT .. ATT_RING): heads bh of BH from head(bh),
+// query rows ld_in and context rows ld_out elements apart. K8 and K7 run
+// this body with different maps and pointers, so they agree bit for bit.
+template <int HD, int MODE, typename Head>
+__device__ __forceinline__ void attend(const AttMaps& maps, Head head, int BH, int ld_in,
+                                       int ld_out, const float* __restrict__ cos2,
+                                       const float* __restrict__ s2, int S, float scale) {
+  using L = TileLayout<HD>;
+  constexpr int ST = ATT_STAGES, MT = ATT_MAX_TILES;
+  constexpr bool RING = MODE == ATT_RING, PERSIST = MODE == ATT_PERSISTENT;
+  constexpr bool KRES = MODE == ATT_KRES;
+  constexpr bool STREAM = RING || KRES;  // V comes through a ring
+  extern __shared__ __align__(16) unsigned char att_smem[];
+  const int n = (S + WG_ROWS - 1) / WG_ROWS;
+  unsigned char* tiles = att_smem + (1024 - smem_addr(att_smem) % 1024) % 1024;
+  // K tile j of buffer kb (RING: stage j's) and V tile j (RING, KRES: stage
+  // j's)
+  const auto ktile = [&](int kb, int j) { return tiles + (RING ? 2 * j : kb * n + j) * L::BYTES; };
+  const auto vtile = [&](int j) {
+    return tiles + (RING ? 2 * j + 1 : (PERSIST ? 2 : 1) * n + j) * L::BYTES;
+  };
+  const int nq = n;  // 64-row query tiles; pairs of them go to the two warpgroups
+  const int pairs = (nq + 1) / 2;
+  float* bias_s = reinterpret_cast<float*>(tiles + att_tiles(MODE, n) * L::BYTES);
+  bf16* staging = reinterpret_cast<bf16*>(bias_s + WG_ROWS * n * (PERSIST ? 2 : 1));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(staging + (ATT_CONSUMERS / 32) * 8 * (HD + 8));
+  // [2][8 consumer warps], then [4 producer warps] (persistent: V's marks)
+  uint32_t* masks = reinterpret_cast<uint32_t*>(bars + ATT_BARRIERS);
+  const auto kfull = [&](int kb, int j) { return bars + kb * MT + j; };        // K landed
+  const auto kready = [&](int kb, int j) { return bars + (2 + kb) * MT + j; }; // K rotated
+  const auto third = [&](int j) { return bars + 4 * MT + j; };  // V landed; the ring: empty
+  const auto bias_bar = [&](int kb) { return bars + 5 * MT + kb; };
+  const auto done = [&](int kb) { return bars + 5 * MT + 2 + kb; };  // a head is finished
+  uint64_t* vmarked = bars + 5 * MT + 4;  // persistent: the head's V tiles are marked
+  const int warp = warp_index(), lane = threadIdx.x & 31;
+  // RING: query tiles tile0 and tile0 + 1 of head blockIdx.x / per;
+  // otherwise heads blockIdx.x, + gridDim.x (persistent), ..
+  const int per = RING ? (S + 2 * WG_ROWS - 1) / (2 * WG_ROWS) : 1;
+  const int bh0 = blockIdx.x / per, tile0 = 2 * (blockIdx.x % per);
+  const int step = PERSIST ? gridDim.x : BH;
+  if (threadIdx.x == 0) {
+    const int slots = RING ? ST : n;
+    for (int kb = 0; kb < (PERSIST ? 2 : 1); ++kb) {
+      for (int j = 0; j < slots; ++j) {
+        mbar_init(kfull(kb, j), 1);
+        mbar_init(kready(kb, j), 128);
+      }
+      mbar_init(bias_bar(kb), 1);
+      mbar_init(done(kb), ATT_CONSUMERS);
+    }
+    for (int j = 0; j < slots; ++j) mbar_init(third(j), STREAM ? ATT_CONSUMERS : 1);
+    if constexpr (KRES)
+      for (int st = 0; st < ST; ++st) mbar_init(kfull(1, st), 1);
+    mbar_init(vmarked, 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (!PERSIST && threadIdx.x == 0) {
+    const AttHead hh = head(bh0);
+    mbar_expect_tx(bias_bar(0), 4 * S);
+    bulk_load(bias_s, hh.brow, 4 * S, bias_bar(0));
+    if constexpr (KRES) {
+      for (int j = 0; j < n; ++j) {
+        mbar_expect_tx(kfull(0, j), L::BYTES);
+        load_tile<HD>(ktile(0, j), &maps.k, hh.kx, j * WG_ROWS, hh.plane, kfull(0, j));
+      }
+    }
+  }
+  if constexpr (KRES) {  // every thread rotates every K tile as it lands, once
+    for (int j = 0; j < n; ++j) {
+      mbar_wait(kfull(0, j), 0);
+      rotate_tile<HD, 4>(ktile(0, j), j * WG_ROWS, S, cos2, s2, threadIdx.x, ATT_THREADS);
+    }
+    fence_proxy_async();
+    __syncthreads();
+  }
+
+  if (warp < 4) {  // the producer warpgroup: thread 0 issues the copies, all 128 rotate K
+    if constexpr (KRES)
+      setmaxnreg_dec<ATT_PRODUCER_REGS>();
+    else
+      setmaxnreg_dec<ATT_ROTATING_PRODUCER_REGS>();
+    const int tid = threadIdx.x;
+    if constexpr (RING) {
+      // tiles 0 .. n - 1: K (pass 1); n .. 2n - 1: K and V (pass 2)
+      const AttHead hh = head(bh0);
+      const int total = 2 * n;
+      const auto issue = [&](int i) {
+        const int st = i % ST;
+        if (i >= ST) mbar_wait(third(st), (i / ST - 1) & 1);
+        const int k0 = (i % n) * WG_ROWS;
+        mbar_expect_tx(kfull(0, st), (i >= n ? 2 : 1) * L::BYTES);
+        load_tile<HD>(ktile(0, st), &maps.k, hh.kx, k0, hh.plane, kfull(0, st));
+        if (i >= n) load_tile<HD>(vtile(st), &maps.v, hh.vx, k0, hh.plane, kfull(0, st));
+      };
+      if (tid == 0)
+        for (int i = 0; i < min(ST - 1, total); ++i) issue(i);
+      for (int i = 0; i < total; ++i) {
+        const int st = i % ST;
+        mbar_wait(kfull(0, st), (i / ST) & 1);
+        rotate_tile<HD, 2>(ktile(0, st), (i % n) * WG_ROWS, S, cos2, s2, tid, 128);
+        fence_proxy_async();
+        mbar_arrive(kready(0, st));
+        // the slot of tile i - 1, which the consumers are finishing
+        if (tid == 0 && i + ST - 1 < total) issue(i + ST - 1);
+      }
+    } else if constexpr (KRES) {
+      // V tile i % n of query-tile pair i / n into stage i % ST
+      const AttHead hh = head(bh0);
+      for (int i = 0; tid == 0 && i < pairs * n; ++i) {
+        const int st = i % ST;
+        if (i >= ST) mbar_wait(third(st), (i / ST - 1) & 1);
+        mbar_expect_tx(kfull(1, st), L::BYTES);
+        load_tile<HD>(vtile(st), &maps.v, hh.vx, (i % n) * WG_ROWS, hh.plane, kfull(1, st));
+      }
+    } else if constexpr (PERSIST) {
+      // head it: its bias and K into buffer it & 1 (free once head it - 2 is
+      // done), K rotated, then its V (free once head it - 1 is done)
+      for (int it = 0, bh = bh0; bh < BH; ++it, bh += step) {
+        const AttHead hh = head(bh);
+        const int kb = it & 1, use = it >> 1;
+        if (tid == 0) {
+          if (it >= 2) mbar_wait(done(kb), (use - 1) & 1);
+          mbar_expect_tx(bias_bar(kb), 4 * S);
+          bulk_load(bias_s + kb * WG_ROWS * n, hh.brow, 4 * S, bias_bar(kb));
+          for (int j = 0; j < n; ++j) {
+            mbar_expect_tx(kfull(kb, j), L::BYTES);
+            load_tile<HD>(ktile(kb, j), &maps.k, hh.kx, j * WG_ROWS, hh.plane, kfull(kb, j));
+          }
+        }
+        for (int j = 0; j < n; ++j) {
+          mbar_wait(kfull(kb, j), use & 1);
+          rotate_tile<HD, 2>(ktile(kb, j), j * WG_ROWS, S, cos2, s2, tid, 128);
+          fence_proxy_async();
+          mbar_arrive(kready(kb, j));
+        }
+        if (tid == 0) {
+          if (it >= 1) mbar_wait(done((it - 1) & 1), ((it - 1) >> 1) & 1);
+          for (int j = 0; j < n; ++j) {
+            mbar_expect_tx(third(j), L::BYTES);
+            load_tile<HD>(vtile(j), &maps.v, hh.vx, j * WG_ROWS, hh.plane, third(j));
+          }
+        }
+        // V's tiles that hold a NaN or an inf, marked for pass 2 (each
+        // warp's word; the consumers read the marks of head it before they
+        // finish it, and those of head it + 1 are written after)
+        uint32_t bad = 0u;
+        for (int j = 0; j < n; ++j) {
+          mbar_wait(third(j), it & 1);
+          bad |= (uint32_t)v_share_nonfinite<HD>(smem_addr(vtile(j)), tid) << j;
+        }
+        bad = __reduce_or_sync(0xffffffffu, bad);
+        if ((tid & 31) == 0) {
+          masks[16 + (tid >> 5)] = bad;
+          mbar_arrive(vmarked);
+        }
+      }
+    }
+  } else {  // a consumer warpgroup: 64 query rows at a time
+    if constexpr (KRES)
+      setmaxnreg_inc<ATT_CONSUMER_REGS>();
+    else
+      setmaxnreg_inc<ATT_ROTATING_CONSUMER_REGS>();
+    constexpr int NP = ATT_PRODUCTS<HD>;
+    const int cw = (warp >> 2) - 1;
+    for (int it = 0, bh = bh0; bh < BH; ++it, bh += step) {
+      const AttHead hh = head(bh);
+      const int kb = PERSIST ? it & 1 : 0, use = it >> 1;
+      mbar_wait(bias_bar(kb), PERSIST ? use & 1 : 0);
+      const float* bs = bias_s + kb * WG_ROWS * n;
+      // The K tile (and V tile) of key tile j, the ring's tile ri (RING:
+      // pass 1 ri = j, pass 2 n + j; KRES: V tiles only, ri = pair n + j),
+      // after its rotary.
+      const auto wait_tile = [&](int ri, int j, bool with_v, uint32_t& kt, uint32_t& vt) {
+        if constexpr (RING) {
+          const int st = ri % ST;
+          mbar_wait(kfull(0, st), (ri / ST) & 1);
+          mbar_wait(kready(0, st), (ri / ST) & 1);
+          kt = smem_addr(ktile(0, st));
+          vt = smem_addr(vtile(st));
+        } else if constexpr (KRES) {
+          kt = smem_addr(ktile(0, j));
+          if (with_v) mbar_wait(kfull(1, ri % ST), (ri / ST) & 1);
+          vt = smem_addr(vtile(ri % ST));
+        } else {  // persistent: the producer rotated it
+          mbar_wait(kfull(kb, j), use & 1);
+          mbar_wait(kready(kb, j), use & 1);
+          if (with_v) mbar_wait(third(j), it & 1);
+          kt = smem_addr(ktile(kb, j));
+          vt = smem_addr(vtile(j));
+        }
+      };
+      const auto release = [&](int ri) {  // the ring's tile ri is consumed
+        if constexpr (STREAM) mbar_arrive(third(ri % ST));
+      };
+      for (int pair = RING ? tile0 / 2 : 0;; ++pair) {
+        const int qt = 2 * pair + cw;
+        if (RING ? pair > tile0 / 2 : (KRES ? pair >= pairs : qt >= nq)) break;
+        // In the rings, a warpgroup whose rows all lie past S computes
+        // nothing but frees every stage.
+        const bool active = qt * WG_ROWS < S;
+        const int r0 = qt * WG_ROWS + 16 * (warp & 3);  // the warp's 16 rows
+        uint32_t qa[HD / 16][4];
+        if (active) load_q_frags<HD>(hh.q, ld_in, r0, S, cos2, s2, qa);
+        float o[UC<HD>][UN<HD> / 2];  // the context, f32
+        uint32_t pa[4][4];            // bf16(e) of the last tile, for its product with V
+
+        // Pass 1: the exact max of each row over all S keys, and the key tiles
+        // whose e may be nonzero.
+        float m0 = -INFINITY, m1 = -INFINITY;
+        uint32_t need = 0u;
+        for (int j = 0; j < n; ++j) {
+          uint32_t kt, vt;
+          wait_tile(j, j, false, kt, vt);
+          if (active) {
+            float s[32];
+            s_tile<HD, NP, false>(s, qa, kt, o, pa, vt);
+            const int k0 = j * WG_ROWS;
+            float t0, t1;  // the tile's maxima of this thread's cells
+            const bool nan = k0 + WG_ROWS <= S
+                                 ? tile_maxima<true>(s, bs + k0, WG_ROWS, scale, t0, t1)
+                                 : tile_maxima<false>(s, bs + k0, S - k0, scale, t0, t1);
+            m0 = fmaxf(m0, t0);
+            m1 = fmaxf(m1, t1);
+            // a NaN keeps the tile
+            const bool live = nan || !(__fsub_rn(t0, m0) <= ATT_SKIP_BELOW &&
+                                       __fsub_rn(t1, m1) <= ATT_SKIP_BELOW);
+            need |= (uint32_t)(__any_sync(0xffffffffu, live) != 0) << j;
+          }
+          if constexpr (RING) release(j);
+        }
+        m0 = quad_max(m0);
+        m1 = quad_max(m1);
+        if (active) {  // the warpgroup's union of its warps' tiles
+          uint32_t* wm = masks + 8 * ((qt >> 1) & 1) + 4 * cw;
+          if (lane == 0) wm[warp & 3] = need;
+          asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+          need = wm[0] | wm[1] | wm[2] | wm[3];
+          if constexpr (PERSIST) {  // the tiles whose V holds a NaN or an inf run
+            mbar_wait(vmarked, it & 1);
+            need |= masks[16] | masks[17] | masks[18] | masks[19];
+          }
+        }
+
+        // Pass 2: the logits again, e = exp(l - m), the sums, and bf16(e) V of
+        // each tile, which goes out with the next tile's S.
+        float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+        for (int c = 0; c < UC<HD>; ++c)
+#pragma unroll
+          for (int e = 0; e < UN<HD> / 2; ++e) o[c][e] = 0.f;
+        uint32_t vprev = 0;    // the V tile of pa
+        bool pending = false;  // pa's product with V is still to go out
+        int rprev = 0;         // the ring's tile of pa's V
+        // pa's product with V, alone (before a streamed tile is freed)
+        const auto flush = [&]() {
+          fence_regs(o);
+          fence_regs(pa);
+          wgmma_fence();
+          pv_issue<HD>(o, pa, vprev);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(o);
+          fence_regs(pa);
+          pending = false;
+          release(rprev);
+        };
+        for (int j = 0; j < n; ++j) {
+          const int ri = KRES ? pair * n + j : n + j;
+          uint32_t kt, vt;
+          wait_tile(ri, j, true, kt, vt);
+          // every e of the tile is 0 (a streamed V tile that holds a NaN or
+          // an inf runs; a persistent block's producer marked those)
+          if (!active || (!((need >> j) & 1u) && !(STREAM && v_tile_nonfinite<HD>(vt, 1 + cw)))) {
+            if (STREAM && pending) flush();
+            release(ri);
+            continue;
+          }
+          float s[32];
+          if (pending)
+            s_tile<HD, NP, true>(s, qa, kt, o, pa, vprev);
+          else
+            s_tile<HD, NP, false>(s, qa, kt, o, pa, vprev);
+          if (pending) release(rprev);  // its product is complete: pa is free
+          const int k0 = j * WG_ROWS;
+          if (k0 + WG_ROWS <= S)
+            tile_exp<true>(s, bs + k0, WG_ROWS, scale, m0, m1, l0, l1, pa);
+          else
+            tile_exp<false>(s, bs + k0, S - k0, scale, m0, m1, l0, l1, pa);
+          pending = true;
+          vprev = vt;
+          rprev = ri;
+        }
+        if (pending) flush();  // the last tile's PV
+
+        // The row sums over the quad, the division after PV, one rounding to
+        // bf16; rows at or past S are not stored.
+        if (active)
+          store_rows<HD>(o, quad_sum(l0), quad_sum(l1), staging + (warp - 4) * 8 * (HD + 8),
+                         hh.out, ld_out, r0, S);
+      }
+      if constexpr (PERSIST) mbar_arrive(done(kb));  // this head's K buffer and V are free
+    }
+  }
+}
+
+// K8: heads of one batch row side by side.
+template <int HD, int MODE>
+__global__ void __launch_bounds__(ATT_THREADS, 1)
+    k8_fused_attention_qkv(const __grid_constant__ AttMaps maps, const bf16* __restrict__ qkv,
+                           const float* __restrict__ cos2, const float* __restrict__ s2,
+                           const float* __restrict__ bias, int S, int H, int BH, float scale,
+                           bf16* __restrict__ out) {
+  const int row_stride = 3 * H * HD;
+  attend<HD, MODE>(
+      maps,
+      [=](int bh) {
+        const int b = bh / H, h = bh % H;
+        return AttHead{(H + h) * HD, (2 * H + h) * HD, b,
+                       qkv + (size_t)b * S * row_stride + h * HD, bias + (size_t)b * S,
+                       out + (size_t)b * S * H * HD + h * HD};
+      },
+      BH, row_stride, H * HD, cos2, s2, S, scale);
+}
+
+// K7: K8 on head-major operands, planes (b, h) of q, k, v and out.
+template <int HD, int MODE>
+__global__ void __launch_bounds__(ATT_THREADS, 1)
+    k7_fused_attention(const __grid_constant__ AttMaps maps, const bf16* __restrict__ q,
+                       const float* __restrict__ cos2, const float* __restrict__ s2,
+                       const float* __restrict__ bias, int S, int H, int BH, float scale,
+                       bf16* __restrict__ out) {
+  attend<HD, MODE>(
+      maps,
+      [=](int bh) {
+        const size_t head = (size_t)bh * S * HD;
+        return AttHead{0, 0, bh, q + head, bias + (size_t)(bh / H) * S, out + head};
+      },
+      BH, HD, HD, cos2, s2, S, scale);
+}
+
+// ==== K8/K7 forward: end ====
+
+// ---- the PV probe: k16 steps accumulated inside wgmma and inside mma.sync ----
+//
+// a [R, 16 steps] bf16 (R % 64 == 0, steps % 4 == 0) and b [16 steps, 64]
+// bf16: out = a b with the k16 steps taken in increasing order, [R, 64] f32,
+// both ways (a block a 64-row tile of a):
+//  * out_wg: wgmma m64n64k16 with scale-d = 1 from d = 0 — attend's PV
+//    (pv_issue): A from registers, B read MN-major from b's rows, staged 64
+//    at a time in the 128-byte swizzle;
+//  * out_mma: mma.sync m16n8k16 accumulated from c = +0.0 — the mma.sync
+//    build's PV (bench/attend_mma_sync.cuh).
+// Whether the two agree bit for bit decides whether PV may stay inside the
+// instruction and keep the mma.sync build's bits. It replaces no TPU
+// kernel; it measures the card.
+__global__ void __launch_bounds__(128)
+    k_probe_pv_acc(const bf16* __restrict__ a, const bf16* __restrict__ b, int steps,
+                   float* __restrict__ out_wg, float* __restrict__ out_mma) {
+  __shared__ __align__(1024) unsigned char tile[TileLayout<64>::BYTES];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int K = 16 * steps;
+  const int r = blockIdx.x * WG_ROWS + 16 * warp + g;  // this thread's rows r, r + 8
+  const uint32_t* a2 = reinterpret_cast<const uint32_t*>(a);  // bf16 pairs
+  const uint16_t* b1 = reinterpret_cast<const uint16_t*>(b);
+  const auto a_frag = [&](int st, uint32_t (&f)[4]) {
+    const size_t k = 16 * st + 2 * t;
+    f[0] = a2[((size_t)r * K + k) / 2];
+    f[1] = a2[((size_t)(r + 8) * K + k) / 2];
+    f[2] = a2[((size_t)r * K + k + 8) / 2];
+    f[3] = a2[((size_t)(r + 8) * K + k + 8) / 2];
+  };
+  float d[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) d[e] = 0.f;
+  for (int t0 = 0; t0 < steps; t0 += 4) {
+    __syncthreads();  // the last tile's wgmmas have been waited for
+    for (int i = tid; i < WG_ROWS * 8; i += 128) {  // rows 16 t0 .. of b, 16 bytes a copy
+      const int row = i / 8, p = i % 8;
+      *reinterpret_cast<uint4*>(tile + tile_byte<64>(row, 8 * p)) =
+          *reinterpret_cast<const uint4*>(b + (size_t)(16 * t0 + row) * 64 + 8 * p);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    uint32_t f[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_frag(t0 + kk, f[kk]);
+    fence_regs(f);
+    fence_regs(d);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wg_rs<64>(d, f[kk], desc_mn<64>(smem_addr(tile), kk, 0), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(d);
+    fence_regs(f);
+  }
+  float c[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+  for (int st = 0; st < steps; ++st) {
+    uint32_t f[4];
+    a_frag(st, f);
+    const size_t k = 16 * st + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + g;
+      const uint32_t b0 = b1[k * 64 + col] | ((uint32_t)b1[(k + 1) * 64 + col] << 16);
+      const uint32_t b8 = b1[(k + 8) * 64 + col] | ((uint32_t)b1[(k + 9) * 64 + col] << 16);
+      mma_bf16(c[j], f, b0, b8);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const size_t at = (size_t)(r + 8 * (e >> 1)) * 64 + 8 * j + 2 * t + (e & 1);
+      out_wg[at] = d[4 * j + e];
+      out_mma[at] = c[j][e];
+    }
 }
 
 // The driver's cuTensorMapEncodeTiled, through the runtime's entry-point
@@ -1881,6 +2249,116 @@ int launch_k9(const void* qkv, const float* cos2, const float* s2,
   return (int)cudaGetLastError();
 }
 
+// ==== K8/K7 launchers: begin ====
+
+// The first block mode whose shared memory fits (see ATT_PERSISTENT).
+template <int HD>
+int att_mode(int S) {
+  if (att_smem_bytes<HD>(S, ATT_PERSISTENT) <= SMEM_OPTIN) return ATT_PERSISTENT;
+  if (att_smem_bytes<HD>(S, ATT_KRES) <= SMEM_OPTIN) return ATT_KRES;
+  return ATT_RING;
+}
+
+// The current device's SM count into sms, read from the driver once a
+// device.
+inline int att_sm_count(int& sms) {
+  static std::atomic<int> known[64];  // zero: not read yet
+  int dev = 0;
+  int e = (int)cudaGetDevice(&dev);
+  if (e) return e;
+  if (dev < 64 && (sms = known[dev].load(std::memory_order_relaxed)) > 0) return 0;
+  if ((e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return e;
+  if (dev < 64) known[dev].store(sms, std::memory_order_relaxed);
+  return 0;
+}
+
+// One forward launch of `kernel` (K8 or K7 at HD, MODE) on maps and its
+// pointers, its shared memory allowed and its register split checked once.
+// Persistent: a block an SM, at most a block a head.
+template <int HD, int MODE, typename Kernel>
+int launch_attend(Kernel kernel, size_t& configured, int regs, const AttMaps& maps,
+                  const void* q, const float* cos2, const float* s2, const float* bias, int B,
+                  int S, int H, float scale, void* out, cudaStream_t stream) {
+  if (regs) return regs;
+  const size_t bytes = att_smem_bytes<HD>(S, MODE);
+  int e = allow_smem(kernel, bytes, configured);
+  if (e) return e;
+  const int BH = B * H;
+  unsigned blocks = (unsigned)BH;
+  if (MODE == ATT_RING) blocks *= (unsigned)((S + 2 * WG_ROWS - 1) / (2 * WG_ROWS));
+  if (MODE == ATT_PERSISTENT) {
+    int sms = 0;
+    if ((e = att_sm_count(sms))) return e;
+    blocks = (unsigned)min(BH, sms);
+  }
+  kernel<<<blocks, ATT_THREADS, bytes, stream>>>(maps, static_cast<const bf16*>(q), cos2, s2,
+                                                 bias, S, H, BH, scale, static_cast<bf16*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <int HD, int MODE>
+int launch_k8_as(const AttMaps& maps, const void* qkv, const float* cos2, const float* s2,
+                 const float* bias, int B, int S, int H, float scale, void* out,
+                 cudaStream_t stream) {
+  static size_t configured = 48 * 1024;
+  static const int regs = check_launch_regs(k8_fused_attention_qkv<HD, MODE>);
+  return launch_attend<HD, MODE>(k8_fused_attention_qkv<HD, MODE>, configured, regs, maps, qkv,
+                                 cos2, s2, bias, B, S, H, scale, out, stream);
+}
+
+template <int HD, int MODE>
+int launch_k7_as(const AttMaps& maps, const void* q, const float* cos2, const float* s2,
+                 const float* bias, int B, int S, int H, float scale, void* out,
+                 cudaStream_t stream) {
+  static size_t configured = 48 * 1024;
+  static const int regs = check_launch_regs(k7_fused_attention<HD, MODE>);
+  return launch_attend<HD, MODE>(k7_fused_attention<HD, MODE>, configured, regs, maps, q, cos2,
+                                 s2, bias, B, S, H, scale, out, stream);
+}
+
+// `launch` (a generic lambda) at block mode att_mode<HD>(S), instantiated
+// only for the modes that some S <= MAX_S reaches at HD (hd 16 and 32:
+// persistent only; hd 64: no ring).
+template <int HD, typename Launch>
+int with_mode(int S, Launch launch) {
+  constexpr bool kres = att_smem_bytes<HD>(MAX_S, ATT_PERSISTENT) > SMEM_OPTIN;
+  constexpr bool ring = att_smem_bytes<HD>(MAX_S, ATT_KRES) > SMEM_OPTIN;
+  const int mode = att_mode<HD>(S);
+  if constexpr (kres)
+    if (mode == ATT_KRES) return launch(std::integral_constant<int, ATT_KRES>{});
+  if constexpr (ring)
+    if (mode == ATT_RING) return launch(std::integral_constant<int, ATT_RING>{});
+  return launch(std::integral_constant<int, ATT_PERSISTENT>{});
+}
+
+template <int HD>
+int launch_k8(const void* qkv, const float* cos2, const float* s2, const float* bias, int B,
+              int S, int H, float scale, void* out, cudaStream_t stream) {
+  AttMaps maps;
+  const int e = encode_3d<HD>(&maps.k, qkv, 3LL * H * HD, S, B, 6LL * H * HD);
+  if (e) return e;
+  maps.v = maps.k;
+  return with_mode<HD>(S, [&](auto mode) {
+    return launch_k8_as<HD, decltype(mode)::value>(maps, qkv, cos2, s2, bias, B, S, H, scale,
+                                                   out, stream);
+  });
+}
+
+template <int HD>
+int launch_k7(const void* q, const void* k, const void* v, const float* cos2, const float* s2,
+              const float* bias, int B, int S, int H, float scale, void* out,
+              cudaStream_t stream) {
+  AttMaps maps;
+  int e = encode_3d<HD>(&maps.k, k, HD, S, (long long)B * H, 2LL * HD);
+  if (e) return e;
+  if ((e = encode_3d<HD>(&maps.v, v, HD, S, (long long)B * H, 2LL * HD))) return e;
+  return with_mode<HD>(S, [&](auto mode) {
+    return launch_k7_as<HD, decltype(mode)::value>(maps, q, cos2, s2, bias, B, S, H, scale, out,
+                                                   stream);
+  });
+}
+// ==== K8/K7 launchers: end ====
+
 }  // namespace
 
 extern "C" {
@@ -1888,7 +2366,8 @@ extern "C" {
 // Geometry the wrapper must respect (checked in Python too): hd in
 // {16, 32, 64, 128}; S % 8 == 0 and 0 < S <= MAX_S;
 // qkv [B, S, 3*H*hd] bf16, cos2 / s2 [S, hd] f32, bias [B, S] f32, out
-// [B, S, H*hd] bf16, all contiguous; B * H * ceil(S / 16) < 2^31.
+// [B, S, H*hd] bf16, all contiguous, qkv 16-byte aligned (TMA reads it);
+// B * H * ceil(S / 16) < 2^31.
 
 int bsr_fused_attention_qkv(const void* qkv, const float* cos2, const float* s2,
                             const float* bias, int B, int S, int H, int hd,
@@ -1905,8 +2384,8 @@ int bsr_fused_attention_qkv(const void* qkv, const float* cos2, const float* s2,
   }
 }
 
-// K7. q, k, v and out [B, H, S, hd] bf16; cos2, s2, bias and the geometry
-// limits as for K8.
+// K7. q, k, v and out [B, H, S, hd] bf16, k and v 16-byte aligned; cos2,
+// s2, bias and the geometry limits as for K8.
 int bsr_fused_attention(const void* q, const void* k, const void* v,
                         const float* cos2, const float* s2, const float* bias,
                         int B, int S, int H, int hd, float scale, void* out,
@@ -1953,6 +2432,16 @@ int bsr_fused_attention_qkv_bwd(const void* qkv, const float* cos2,
                             dqkv, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The PV probe: a [R, 16 steps] and b [16 steps, 64] bf16 (R % 64 == 0,
+// steps % 4 == 0, b 16-byte aligned); out_wg and out_mma [R, 64] f32.
+int bsr_probe_pv_acc(const void* a, const void* b, int R, int steps, float* out_wg,
+                     float* out_mma, void* stream) {
+  if (R <= 0 || R % WG_ROWS || steps <= 0 || steps % 4) return (int)cudaErrorInvalidValue;
+  k_probe_pv_acc<<<R / WG_ROWS, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b), steps, out_wg, out_mma);
+  return (int)cudaGetLastError();
 }
 
 const char* bsr_error_string(int err) {

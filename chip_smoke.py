@@ -12,7 +12,10 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    (m64n128k16, scale-d = 0: K1/K3's score tile) and on mma.sync (m16n8k16
    from +0.0: K2/K6's gather), bit for bit on unit, normal, cancelling /
    mixed-exponent rows and random bit patterns (subnormals, +-inf, NaN),
-   and how often each differs from the float64 sum rounded once;
+   and how often each differs from the float64 sum rounded once; the PV
+   probe: a bf16 product's k16 steps accumulated inside wgmma (m64n64k16,
+   scale-d = 1: K8's PV) and inside mma.sync (the mma.sync K8's), bit for
+   bit over 8 and 32 steps on the same data and on rows of softmax e;
    each search kernel (K1 matmul_blockmax2_only, K2 gather_rescore, K3
    matmul_blockmax; bf16 on the tensor cores) against its plain PyTorch
    version at the search path's shapes (a 1M x 768 store,
@@ -583,6 +586,55 @@ def check_probe(seed: int) -> None:
               f"the float64 sum rounded once, on {int(fin.sum())} finite "
               f"cells: {off} differ")
         assert counts["differ"] == 0, (kind, counts)
+
+
+#: the PV probe's kinds of data: the instruction probe's, and rows of e
+PV_PROBE_KINDS = PROBE_KINDS + ("softmax",)
+#: k16 steps the PV probe accumulates (a 128-key and a 512-key row)
+PV_PROBE_STEPS = (8, 32)
+
+
+def pv_probe_operands(kind: str, seed: int, steps: int, rows: int = 4096,
+                      device="cuda"):
+    """bf16 ``(a [rows, 16 steps], b [16 steps, 64])`` for the PV probe:
+    :func:`probe_operands`' rows and the first 64 queries (transposed) of
+    that kind at width 16 steps; ``softmax``: a's rows e = exp(l - max l)
+    of normal logits (what PV takes as A), b normal (V)."""
+    if kind == "softmax":
+        rng = np.random.default_rng(seed + 1000 + steps)
+        lg = 3 * rng.standard_normal((rows, 16 * steps)).astype(np.float32)
+        e = np.exp(lg - lg.max(axis=1, keepdims=True))
+        v = rng.standard_normal((16 * steps, 64)).astype(np.float32)
+        return tuple(torch.from_numpy(x).to(torch.bfloat16).to(device).contiguous()
+                     for x in (e, v))
+    a, q = probe_operands(kind, seed + steps, rows=rows, dim=16 * steps,
+                          device=device)
+    return a, q[:64].T.contiguous()
+
+
+def check_probe_pv(seed: int) -> None:
+    """Phase 2's PV probe: a bf16 product's k16 steps accumulated inside
+    ``wgmma`` (scale-d = 1 from zero: K8's PV) and inside ``mma.sync`` (from
+    +0.0: the mma.sync K8's PV), over 8 and 32 steps on every kind of
+    data, bit for bit; and each against the plain version (each step's
+    exact sum added with one f32 rounding). Fails if the two instructions
+    differ: K8's PV rests on their agreement."""
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    for kind in PV_PROBE_KINDS:
+        for steps in PV_PROBE_STEPS:
+            a, b = pv_probe_operands(kind, seed, steps)
+            wg, mma = ak.probe_pv_acc(a, b)
+            plain, _ = ak.probe_pv_acc_plain(a, b)
+            torch.cuda.synchronize()
+            counts = probe_counts(wg, mma)
+            fin = torch.isfinite(wg) & torch.isfinite(plain)
+            off = int((wg.view(torch.int32) != plain.view(torch.int32))[fin].sum())
+            phase(f"phase 2 PV probe, {kind} [{a.shape[0]} x {a.shape[1]} x 64],"
+                  f" {steps} k16 steps: wgmma vs mma.sync {counts}; wgmma vs "
+                  f"each step's exact sum added with one rounding, on "
+                  f"{int(fin.sum())} finite cells: {off} differ")
+            assert counts["differ"] == 0, (kind, steps, counts)
 
 
 def check_kernels(store, store_100k, gen):
@@ -4079,6 +4131,7 @@ def main() -> int:
     store_100k = DeviceStore.synthetic(100_000, 768, "bfloat16",
                                        args.seed + 1, device="cuda")
     check_probe(args.seed)
+    check_probe_pv(args.seed)
     errs, times = check_kernels(store, store_100k, gen)
 
     cfg = PipelineConfig(search=SearchConfig(top_k=K), skip_process=True)

@@ -1203,13 +1203,21 @@ def test_k8_k7_with_qkv_scaled_by_8(cuda):
 
 
 @pytest.mark.parametrize("hd,s", [
-    (64, 784), (64, 792),      # K and V resident / both streamed
+    (64, 784), (64, 792),      # the mma.sync build's boundary at hd 64
+    (64, 512), (64, 520),      # persistent / a block a head, K resident, V streamed
+    (64, 832), (64, 840),      # K resident, V streamed (an older mode boundary)
+    (128, 256), (128, 264),    # persistent / K resident, V streamed at hd 128
+    (128, 384), (128, 392),
+    (128, 512), (128, 520),    # K resident, V streamed / both streamed
     (128, 704), (128, 712),    # both streamed, one key tile apart
     (128, 1024),               # the longest sequence at the widest head
 ])
 def test_k8_k7_at_the_shared_memory_edges(cuda, hd, s):
-    """Each side of the shared-memory boundary between the resident and the
-    streamed staging, the streamed one at hd 128, and S 1024 at hd 128: K8
+    """Each side of the shared-memory boundaries between the block modes
+    (persistent to a block a head with V streamed: S 512 / 520 at hd 64,
+    256 / 264 at hd 128; to both streamed: 512 / 520 at hd 128; an older
+    mode's 832 / 840 and 384 / 392 and the mma.sync build's 784 / 792
+    kept), the streamed one across key tiles, and S 1024 at hd 128: K8
     within the bound of its plain version, K7 bit for bit K8."""
     from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
 
@@ -1227,9 +1235,9 @@ def test_k8_k7_at_the_shared_memory_edges(cuda, hd, s):
 
 
 def test_k8_k7_unaligned_operands_are_copied(cuda):
-    """cp.async copies 16 bytes at a time: a view off a 16-byte boundary is
-    copied to an aligned one, not read misaligned nor refused; the result
-    is the aligned operands' bit for bit."""
+    """TMA reads K and V from 16-byte aligned bases: a view off a 16-byte
+    boundary is copied to an aligned one, not read misaligned nor refused;
+    the result is the aligned operands' bit for bit."""
     from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
 
     b, s, h, hd = 2, 64, 2, 64
@@ -1245,6 +1253,173 @@ def test_k8_k7_unaligned_operands_are_copied(cuda):
     q_off.copy_(q)
     assert torch.equal(ak.fused_attention(q_off, k, v, c2, s2, bias, scale),
                        ak.fused_attention(q, k, v, c2, s2, bias, scale))
+
+
+def test_k8_k7_bodies_do_not_spill(cuda):
+    """ptxas's report of the tree's attention source: K8 and K7 in each
+    block mode a head width reaches (hd 16 and 32: persistent; hd 64 also a
+    block a head, K resident with V streamed; hd 128 also both streamed),
+    each with 0 bytes of spill stores and loads."""
+    from better_search_rag_rust_tpu_torch.bench import ab_attn
+
+    _lib, report = next(iter(ab_attn.build([ab_attn.TREE_SOURCE]).values()))
+    bodies = [line for line in report
+              if "k8_fused_attention_qkv" in line or "k7_fused_attention" in line]
+    assert len(bodies) == 14, report
+    for line in bodies:
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill", line)
+        assert spills and spills.groups() == ("0", "0"), line
+
+
+@pytest.fixture(scope="module")
+def attend_mma_sync_lib():
+    """The attention source with K8/K7 on ``mma.sync`` as shipped before
+    the wgmma body (``bench/ab_attn.py``'s ``@mma_sync``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from better_search_rag_rust_tpu_torch.bench import ab_attn
+
+    return next(iter(ab_attn.build([ab_attn.source_path("@mma_sync")]).values()))[0]
+
+
+@contextlib.contextmanager
+def _attention_library(lib):
+    """The attention wrappers launch from the ctypes library ``lib`` inside
+    the block."""
+    from better_search_rag_rust_tpu_torch.ops import _build
+
+    saved = _build._LIBRARIES.get("attention")
+    _build._LIBRARIES["attention"] = _build.KernelLibrary(lib, Path(lib._name), 0.0, "")
+    try:
+        yield
+    finally:
+        if saved is None:
+            _build._LIBRARIES.pop("attention", None)
+        else:
+            _build._LIBRARIES["attention"] = saved
+
+
+@pytest.mark.parametrize("hd,s", [
+    (16, 72), (16, 1024), (32, 200), (32, 1024),   # persistent; resident in mma.sync
+    (64, 136), (64, 512), (64, 800),                # persistent; V streamed above 512
+    (64, 840), (64, 1024),                          # V streamed in both
+    (128, 136), (128, 320), (128, 392), (128, 1024),  # persistent, V streamed, the ring
+])
+def test_k8_k7_are_the_mma_sync_build_bitwise(cuda, attend_mma_sync_lib, hd, s):
+    """Every output of K8 and K7 on wgmma is the mma.sync build's bit for
+    bit: the logits by the same k16 sums (a wgmma k16 step with scale-d = 0
+    is mma.sync's from +0.0) added in the same order, the same max, e and l
+    order, PV accumulated in the instruction in the same key order (the PV
+    probe: the two instructions' accumulations agree), at every head width,
+    S % 16 == 8, partial key tiles, both sides of each build's resident /
+    streamed boundary, and a fully padded batch row."""
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    b, h = 3, 2
+    qkv, c2, s2, bias, valid, scale = _attention_operands(cuda, b, s, h, hd, seed=s + hd)
+    hm = _head_major(qkv, h)
+    got = (ak.fused_attention_qkv(qkv, c2, s2, bias, h, scale),
+           ak.fused_attention(*hm, c2, s2, bias, scale))
+    with _attention_library(attend_mma_sync_lib):
+        want = (ak.fused_attention_qkv(qkv, c2, s2, bias, h, scale),
+                ak.fused_attention(*hm, c2, s2, bias, scale))
+    torch.cuda.synchronize()
+    assert not bool(valid[-1].any())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("kind", ["random", "constant", "scaled_negative"])
+def test_k8_k7_other_biases_are_the_mma_sync_build_bitwise(cuda, attend_mma_sync_lib, kind):
+    """Key biases other than 0 / -1e9 (a random bias on every key, one
+    constant nonzero bias) and a negative scale: every output the mma.sync
+    build's bit for bit, the pass-2 tile skip sound on each."""
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    b, s, h, hd = 2, 520, 2, 64
+    qkv, c2, s2, bias, _valid, scale = _attention_operands(cuda, b, s, h, hd, seed=11)
+    if kind == "random":
+        bias = torch.randn(bias.shape, device=cuda).contiguous()
+    elif kind == "constant":
+        bias = torch.full_like(bias, 2.5)
+    else:
+        scale = -scale
+    hm = _head_major(qkv, h)
+    got = (ak.fused_attention_qkv(qkv, c2, s2, bias, h, scale),
+           ak.fused_attention(*hm, c2, s2, bias, scale))
+    with _attention_library(attend_mma_sync_lib):
+        want = (ak.fused_attention_qkv(qkv, c2, s2, bias, h, scale),
+                ak.fused_attention(*hm, c2, s2, bias, scale))
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert torch.equal(a.view(torch.int16), w.view(torch.int16))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_k8_k7_nan_keys_are_the_mma_sync_build_bitwise(cuda, attend_mma_sync_lib, hd):
+    """A NaN in one padded key's k (past its row's length, in a key tile
+    that pass 2 would otherwise skip: every e there is 0) and one in a
+    query's q: the NaN logits keep their tiles, so every output, NaN or
+    not, has the mma.sync build's bits."""
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    b, s, h = 2, 512, 2
+    qkv, c2, s2, bias, _valid, scale = _attention_operands(cuda, b, s, h, hd, seed=7)
+    bias[0, 100:] = -1e9                             # row 0: 100 keys
+    qkv[0, 400, (h + 1) * hd + 3] = float("nan")     # a padded key of head 1, tile 6
+    qkv[1, 5, 0 * hd + 1] = float("nan")             # a query of head 0
+    hm = _head_major(qkv, h)
+    got = (ak.fused_attention_qkv(qkv, c2, s2, bias, h, scale),
+           ak.fused_attention(*hm, c2, s2, bias, scale))
+    with _attention_library(attend_mma_sync_lib):
+        want = (ak.fused_attention_qkv(qkv, c2, s2, bias, h, scale),
+                ak.fused_attention(*hm, c2, s2, bias, scale))
+    torch.cuda.synchronize()
+    assert bool(got[0][0, :, hd:].isnan().all()) and bool(got[0][1, 5, :hd].isnan().all())
+    for a, w in zip(got, want):
+        assert torch.equal(a.view(torch.int16), w.view(torch.int16))
+
+
+@pytest.mark.parametrize("value", ["nan", "inf", "-inf"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_k8_k7_nonfinite_v_at_a_padded_key_is_the_mma_sync_build_bitwise(
+        cuda, attend_mma_sync_lib, hd, value):
+    """A NaN or an inf in one padded key's v (past its row's length, in a
+    key tile whose e is all 0, which pass 2 skips where V is finite):
+    bf16(0) times it is NaN, so the tile runs, the head's column of that
+    lane is NaN on every query row, and every output has the mma.sync
+    build's bits."""
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    b, s, h = 2, 512, 2
+    qkv, c2, s2, bias, _valid, scale = _attention_operands(cuda, b, s, h, hd, seed=9)
+    bias[0, 100:] = -1e9                             # row 0: 100 keys
+    qkv[0, 400, (2 * h + 1) * hd + 5] = float(value)  # v of head 1 at a padded key, tile 6
+    hm = _head_major(qkv, h)
+    got = (ak.fused_attention_qkv(qkv, c2, s2, bias, h, scale),
+           ak.fused_attention(*hm, c2, s2, bias, scale))
+    with _attention_library(attend_mma_sync_lib):
+        want = (ak.fused_attention_qkv(qkv, c2, s2, bias, h, scale),
+                ak.fused_attention(*hm, c2, s2, bias, scale))
+    torch.cuda.synchronize()
+    nan = got[0].isnan()
+    assert bool(nan[0, :, hd + 5].all()) and int(nan.sum()) == s
+    for a, w in zip(got, want):
+        assert torch.equal(a.view(torch.int16), w.view(torch.int16))
+
+
+def test_k8_is_the_mma_sync_build_bitwise_on_the_ab_operands(cuda, attend_mma_sync_lib):
+    """The same on the operands of ``bench/ab_attn.py`` (its encoder shape,
+    S 512, H 12, hd 64, at 16 batch rows; random key lengths, the last row
+    fully padded)."""
+    from better_search_rag_rust_tpu_torch.bench import ab_attn
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    qkv, c2, s2, bias, _valid, scale = ab_attn.operands(16, 0)
+    got = ak.fused_attention_qkv(qkv, c2, s2, bias, ab_attn.H, scale)
+    with _attention_library(attend_mma_sync_lib):
+        want = ak.fused_attention_qkv(qkv, c2, s2, bias, ab_attn.H, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 # -- K2 / K6 on the gather mainloop (gather_scores) ----------------------------
@@ -2101,6 +2276,27 @@ def test_wgmma_k16_step_is_mma_sync_bitwise(cuda, kind):
     rows, q = chip_smoke.probe_operands(kind, 0, rows=1024, dim=768,
                                         device=cuda)
     wg, mma = tk.probe_bf16_k16(rows, q)
+    torch.cuda.synchronize()
+    counts = chip_smoke.probe_counts(wg, mma)
+    assert counts["differ"] == 0, counts
+
+
+@pytest.mark.parametrize("steps", [8, 32])
+@pytest.mark.parametrize("kind", ["unit", "normal", "cancel_mixed", "special",
+                                  "softmax"])
+def test_pv_probe_wgmma_accumulates_as_mma_sync(cuda, kind, steps):
+    """The PV probe's finding, stated as an assertion: a bf16 product's k16
+    steps accumulated inside ``wgmma`` m64n64k16 (scale-d = 1 from zero, A
+    from registers, B MN-major: K8's PV) and inside ``mma.sync`` m16n8k16
+    (from +0.0: the mma.sync K8's PV) agree bit for bit over 8 and 32 steps
+    on every kind of data, so K8's PV stays inside the instruction
+    (``ATT_PV_ADDS`` false) and keeps the older build's bits."""
+    import chip_smoke
+
+    from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+
+    a, b = chip_smoke.pv_probe_operands(kind, 0, steps, rows=1024, device=cuda)
+    wg, mma = ak.probe_pv_acc(a, b)
     torch.cuda.synchronize()
     counts = chip_smoke.probe_counts(wg, mma)
     assert counts["differ"] == 0, counts
