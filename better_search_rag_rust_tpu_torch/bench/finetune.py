@@ -8,8 +8,8 @@ the card with CUDA events over ``steps`` steps after three warm-up steps,
 :data:`.suite.REPEATS` times; no host sync sits inside a timed window (the
 reference's two-point N-fit was a workaround for its relay, and is not
 carried over). ``value`` is the best window's files/s; ``launches`` counts
-the attention kernels of one window. ``mfu`` counts 3x the two towers'
-forward FLOPs (fwd:bwd = 1:2), as the reference does. Under a process
+the attention and encoder-glue kernels of one window. ``mfu`` counts 3x the
+two towers' forward FLOPs (fwd:bwd = 1:2), as the reference does. Under a process
 group every rank calls it and the trainer runs data-parallel over the
 world, a ``(world, 1)`` mesh, as the reference's suite takes a
 ``(devices, 1)`` mesh; the batch grows to a multiple of the world, each
@@ -26,6 +26,7 @@ import torch
 from ..models.nomic import NomicBertConfig, _resolve_attention_impl
 from ..models.train import ContrastiveTrainer
 from ..ops import attention_kernels as ak
+from ..ops import encoder_kernels as ek
 from ..parallel.mesh import create_mesh, process_info
 from ..utils.device import resolve_device
 from .suite import (
@@ -45,8 +46,8 @@ def run_finetune_suite(batch: int = 64, steps: int = 8, max_tokens: int = 512,
                        device: Optional[torch.device | str] = None) -> dict:
     """files/s and steps/s of :class:`ContrastiveTrainer` on the CUDA card,
     the final loss, the peak memory of the timed steps and the attention
-    kernels' launches in them. Raises without a CUDA device: the timing is
-    the card's."""
+    and encoder-glue kernels' launches in them. Raises without a CUDA
+    device: the timing is the card's."""
     device = resolve_device(device)
     if device.type != "cuda":
         raise RuntimeError(f"the finetune measurement times a CUDA card; "
@@ -72,6 +73,7 @@ def run_finetune_suite(batch: int = 64, steps: int = 8, max_tokens: int = 512,
     secs = []
     for _ in range(REPEATS):
         ak.reset_launch_counts()
+        ek.reset_launch_counts()
         start.record()
         for _ in range(steps):
             loss = trainer.train_step_device(ids_a, mask, ids_b, mask)
@@ -93,7 +95,7 @@ def run_finetune_suite(batch: int = 64, steps: int = 8, max_tokens: int = 512,
         "step_ms": 1e3 * elapsed / steps,
         "final_loss": float(loss),
         "peak_memory_bytes": torch.cuda.max_memory_allocated(device),
-        "launches": dict(ak.launch_counts),
+        "launches": {**ak.launch_counts, **ek.launch_counts},
         "batch": batch,
         "steps": steps,
         "max_tokens": max_tokens,

@@ -11,7 +11,10 @@ LayerNorm, the softmax, the pooling and the final normalization in f32.
 Linear and Embedding weights are held in ``param_dtype`` and cast to
 ``dtype`` in the forward, as Flax's ``nn.Dense(dtype=...)`` does with its f32
 ``param_dtype``: the trainer holds them in f32, the serving encoder in the
-compute dtype (the same rounding, done once at load).
+compute dtype (the same rounding, done once at load). Each residual add
+with its LayerNorm runs on K18 (K18b backward) and the MLP gate on K19
+(K19b backward), one pass each (:mod:`..ops.encoder_kernels`): flax's
+LayerNorm formula, torch's silu and gelu.
 
 Attention implementations (:func:`_resolve_attention_impl`): ``fused`` runs
 the hand-written K8 kernel (:mod:`..ops.attention_kernels`), differentiable
@@ -66,6 +69,7 @@ from ..ops.attention_kernels import (
     fused_attention_qkv,
     rotary_roll_tables,
 )
+from ..ops.encoder_kernels import AddLayerNorm, SwiGlu
 from ..ops.flash_kernels import SegmentIds, flash_attention, segment_tile_plan
 from ..parallel.mesh import (
     MODEL_AXIS,
@@ -455,21 +459,32 @@ class NomicMlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _enter_split(x, self.tp)
+        # the gate on K19 (K19b backward): y * silu(gate), or gelu(y)
         if self.swiglu:
-            y = self.fc11(x) * F.silu(self.fc12(x))
+            y = SwiGlu.apply(self.fc11(x), self.fc12(x), "swiglu")
         else:
-            y = F.gelu(self.fc1(x), approximate="none")
+            y = SwiGlu.apply(None, self.fc1(x), "gelu")
         return self.fc2(y)
 
 
 def _layer_norm(cfg: NomicBertConfig, device) -> nn.LayerNorm:
+    """The holder of a norm's f32 ``weight`` and ``bias`` (the reference's
+    ``scale`` and ``bias``); :func:`add_norm` applies it."""
     return nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
                         dtype=torch.float32, device=device)
 
 
+def add_norm(x: torch.Tensor, r: torch.Tensor, norm: nn.LayerNorm
+             ) -> torch.Tensor:
+    """``norm(round(x + r))`` in x's dtype: the residual add, flax's f32
+    LayerNorm with ``norm``'s parameters and the rounding in one pass (K18,
+    K18b backward)."""
+    return AddLayerNorm.apply(x, r, norm.weight, norm.bias, norm.eps)
+
+
 class NomicLayer(nn.Module):
     """Post-LN block: x = LN1(x + attn(x)); x = LN2(x + mlp(x)), the norms
-    in f32."""
+    in f32 (:func:`add_norm`)."""
 
     def __init__(self, cfg: NomicBertConfig, device=None,
                  tp: Optional[TensorParallel] = None):
@@ -480,9 +495,8 @@ class NomicLayer(nn.Module):
         self.norm2 = _layer_norm(cfg, device)
 
     def forward(self, x: torch.Tensor, rope: _AttentionInputs) -> torch.Tensor:
-        dt = x.dtype
-        x = self.norm1((x + self.attn(x, rope)).float()).to(dt)
-        return self.norm2((x + self.mlp(x)).float()).to(dt)
+        x = add_norm(x, self.attn(x, rope), self.norm1)
+        return add_norm(x, self.mlp(x), self.norm2)
 
 
 class NomicEmbeddings(nn.Module):
@@ -536,7 +550,7 @@ class NomicBertModel(nn.Module):
         tok = self.embeddings.word_embeddings(rows)
         # every real token is type 0 for retrieval encoding
         typ = self.embeddings.token_type_embeddings(torch.zeros_like(rows))
-        x = self.emb_ln((tok + typ).float()).to(cfg.dtype)
+        x = add_norm(tok, typ, self.emb_ln)
         # additive key-padding bias: 0 where attendable, -1e9 where padded
         bias2 = torch.where(attention_mask > 0, 0.0, -1e9).to(torch.float32)
         seg = attention_mask.to(torch.int32)

@@ -32,6 +32,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: Per source (by library name): its file and the C signature of every entry
 #: point, (restype, argtypes).
 SOURCES = {
@@ -63,6 +64,13 @@ SOURCES = {
         "bsr_flash_attention_fwd": (_I, [_P] * 6 + [_I] * 5 + [_F] + [_P] * 4),
         "bsr_flash_attention_bwd_dkv": (_I, [_P] * 10 + [_I] * 5 + [_F] + [_P] * 3),
         "bsr_flash_attention_bwd_dq": (_I, [_P] * 10 + [_I] * 5 + [_F] + [_P] * 2),
+        "bsr_error_string": (ctypes.c_char_p, [_I]),
+    }),
+    "encoder": (CSRC / "encoder_kernels.cu", {
+        "bsr_add_layer_norm": (_I, [_P] * 5 + [_L, _I, _F, _I, _P]),
+        "bsr_add_layer_norm_bwd": (_I, [_P] * 8 + [_L, _I, _F, _I, _I, _P]),
+        "bsr_swiglu": (_I, [_P] * 3 + [_L, _I, _I, _P]),
+        "bsr_swiglu_bwd": (_I, [_P] * 5 + [_L, _I, _I, _P]),
         "bsr_error_string": (ctypes.c_char_p, [_I]),
     }),
 }

@@ -55,12 +55,17 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
 7. the NomicBERT encoder at full width (12 layers, 768 hidden, random
    weights from ``--seed``) on 256 x 512 tokens: the K8 forward against the
    plain f32-logit attention forward, per-row cosine >= 0.999; files/s of
-   both; K8's share of the forward's device time (torch.profiler);
+   both; exactly 25 K18 and 12 K19 launches a forward; the forward's device
+   time by group (K8, K18, K19, GEMMs, the rest; torch.profiler) and the
+   rest's largest torch ops, then the same with the parent's eager glue
+   (torch's LayerNorm, silu and multiply) in place of K18/K19;
 8. build mode end to end on a seeded 4096-file Java tree: Pipeline.run()
    with the nomic backend (ingest, shard, merge, device store, search),
    then evaluate (oracle overlap 1.0) and query() on 8 files (ids equal the
    oracle's); the same tree with the hash backend (MRR = recall = overlap =
-   1.0); ingest files/s, the report's phase times and K8's launch count;
+   1.0); ingest files/s, the report's phase times and the launch counts:
+   exactly 25 K18 and 12 K19 for every 12 K8 (one forward), none with the
+   hash backend;
 9. K9 fused_attention_qkv_bwd against its plain version at the training
    shape (B=64, S=512, H=12, hd=64, bf16; per-row key padding, one row
    fully padded): cosine >= 0.999 and max |diff| <= 1e-2 x max |plain| for
@@ -72,8 +77,10 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    the plain f32-logit attention's, per-parameter cosine > 0.99; then the
    ``finetune`` measurement (bench/finetune.py) at B=64 x 512: 3 warm-up
    steps and 3 timed windows of 8, files/s, steps/s, peak memory, a finite
-   loss and exactly 24 K9 launches per step (2 towers x 12 layers); a
-   torch.profiler split of one step into K8, K9, GEMMs and the rest;
+   loss and exactly 24 K8, 24 K9, 50 K18, 50 K18b, 24 K19 and 24 K19b
+   launches per step (2 towers x 12 layers); a torch.profiler split of one
+   step into K8, K9, K18, K18b, K19, K19b, GEMMs and the rest, and the
+   rest's largest torch ops, then the same with the parent's eager glue;
 11. ``cli.main(["finetune", ...])`` on phase 8's tree (4 steps of 64 pairs,
    ``--save-dir``): the checkpoint reloads bit for bit equal to the
    trainer's parameters;
@@ -240,10 +247,11 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    K15 and K16 against the plain backward at [8, 12, 2048, 64], the
    step's shape (K9's bound), two backward runs bit for bit, their times
    beside bound, plain and SDPA's backward (each bound counts the pairs
-   the segment rule leaves, not all S x S); (c) the encoder at 12 x 768 on 32 x 2,048 tokens:
-   12 K14 launches a forward, files/s, its device split (with the largest
-   torch ops inside "the rest" named), pooled cosine
-   0.999 to the ``xla`` path on 4 unpadded rows; (d) build mode on phase
+   the segment rule leaves, not all S x S); (c) the encoder at 12 x 768
+   on 32 x 2,048 tokens: 12 K14 launches a forward, files/s, its device
+   split (K14-K16, K18, K19, the GEMMs; the largest torch ops inside "the
+   rest" named), pooled cosine 0.999 to the ``xla`` path on 4 unpadded
+   rows; (d) build mode on phase
    8's tree at ``max_tokens`` 2,048: the store's meta ``torch-flash``,
    oracle overlap 1.0; (e) one finetune step on 8 pairs x 2,048: a finite
    loss, 24 launches each of K14, K15 and K16, the step's device split
@@ -281,7 +289,18 @@ Builds the CUDA kernels from ``better_search_rag_rust_tpu_torch/ops/csrc``
    prep and the store's block fill: one K17 launch a call, no aten op
    dispatched but an allocation or a view (a TorchDispatchMode log), and
    torch.profiler, after a warm-up cycle, records K17 kernels and no other
-   kernel or aten op on the card.
+   kernel or aten op on the card;
+30. the encoder layer's glue at full width, bf16: K18 ``add_layer_norm``
+   and K18b ``add_layer_norm_bwd`` on 131,072 (the forward's 256 x 512
+   tokens) and 32,768 (a training step's launch: one tower of 64 x 512)
+   rows of 768, K19 ``swiglu`` and K19b ``swiglu_bwd`` on the same rows of 3,072:
+   each bit for bit its plain version and two runs alike (K18b's dgamma
+   and dbeta included), on finite operands and then with a constant row, a
+   row of mean >> std, NaN, +-inf and inf - inf entries and NaN/+-inf in
+   the gate; each kernel's time beside its bytes bound, its plain
+   version's and the parent's eager chain's (``norm((x + r).float())``
+   with torch's LayerNorm, ``a * F.silu(g)``, and their autograd); K18's
+   largest difference from torch's LayerNorm, another formula.
 
 The kernels line's ``ms`` is every kernel's time as called (CUDA events
 around back-to-back calls, :func:`cuda_ms`); ``device_alone_ms`` is K17's
@@ -291,8 +310,8 @@ Every kernel's time is printed beside its plain version's, one PyTorch call
 computing the same function where there is one (``library``: the product
 alone for K1/K3/K5, ``scaled_dot_product_attention`` on rotated q/k/v for
 K7/K8/K9 and with the boolean segment mask for K14 (its whole backward for
-K15/K16), indexing for K4, ``bmm`` for K6; none for K2, K11, K12, K13 and
-K17), and
+K15/K16), indexing for K4, ``bmm`` for K6; none for K2, K11, K12, K13,
+K17, K18/K18b and K19/K19b), and
 its bound: the larger of the bytes it must move (a gather: the distinct
 units it selects) over 3.35 TB/s and its operations (K12: every copy of
 its product) over the named peak
@@ -379,6 +398,16 @@ KERNELS = {
     # casts store rows (and, inside the jitted search, query rows)
     "normalize_cast": (CSRC + "topk_kernels.cu",
                        "better_search_rag_rust_tpu/store/device_store.py:62"),
+    # no Pallas kernel: the JAX encoder layer's XLA fusions of the residual
+    # add + f32 LayerNorm + rounding and of the MLP gate, and their gradients
+    "add_layer_norm": (CSRC + "encoder_kernels.cu",
+                       "better_search_rag_rust_tpu/models/nomic.py:392"),
+    "add_layer_norm_bwd": (CSRC + "encoder_kernels.cu",
+                           "better_search_rag_rust_tpu/models/nomic.py:392"),
+    "swiglu": (CSRC + "encoder_kernels.cu",
+               "better_search_rag_rust_tpu/models/nomic.py:354"),
+    "swiglu_bwd": (CSRC + "encoder_kernels.cu",
+                   "better_search_rag_rust_tpu/models/nomic.py:354"),
 }
 #: the encoder's shape: batch, sequence, heads, head width
 B_ENC, S_ENC, H_ENC, HD_ENC = 256, 512, 12, 64
@@ -1019,25 +1048,37 @@ K8_K9 = {"K8": ("k8_fused_attention_qkv",),
          "K9": ("k9_rotate_qk", "k9_wg_query", "k9_wg_key")}
 K14_K16 = {"K14": ("k14_flash_fwd",), "K15": ("k15_flash_bwd_dkv",),
            "K16": ("k16_flash_bwd_dq",)}
+K18_K19 = {"K18": ("k18_add_layer_norm",),
+           "K18b": ("k18b_add_layer_norm_bwd", "k18b_reduce"),
+           "K19": ("k19_gate",), "K19b": ("k19b_gate_bwd",)}
+#: aten ops whose kernels are the GEMMs of a device split
+GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
+            "aten::_scaled_mm")
 
 
-def _device_profile(fn, groups=K8_K9):
-    """Device time by kernel over one call of ``fn`` (torch.profiler):
-    ({group: ms, ..., "GEMMs": ms, "rest": ms}, total ms, [(ms, kernel)]
-    longest first), the groups as ``groups`` names them."""
+def _profiled(fn):
+    """torch.profiler over one call of ``fn``: its ``key_averages()`` as
+    (self device ms, key, calls, device type)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = []
-    for evt in prof.key_averages():
-        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0))
-            rows.append((us / 1e3, evt.key))
-    rows.sort(reverse=True)
+    return [(getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0)) / 1e3,
+             evt.key, evt.count, str(getattr(evt, "device_type", "")))
+            for evt in prof.key_averages()]
+
+
+def _device_profile(fn, flash: bool = False):
+    """Device time by kernel over one call of ``fn`` (torch.profiler):
+    ({group: ms, ..., "GEMMs": ms, "rest": ms}, total ms, [(ms, kernel)]
+    longest first), the groups K8/K9 (or, ``flash``, K14-K16) and
+    K18/K18b/K19/K19b."""
+    groups = {**(K14_K16 if flash else K8_K9), **K18_K19}
+    rows = sorted(((ms, key) for ms, key, _n, dev in _profiled(fn)
+                   if dev.endswith("CUDA")), reverse=True)
     split = {name: sum(ms for ms, key in rows if any(p in key for p in parts))
              for name, parts in groups.items()}
     ours = [p for parts in groups.values() for p in parts]
@@ -1050,31 +1091,64 @@ def _device_profile(fn, groups=K8_K9):
     return split, total, rows
 
 
-#: aten ops whose kernels are the GEMMs of a device split
-GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
-            "aten::_scaled_mm")
-
-
 def glue_ops(fn, n: int = 8) -> str:
     """What makes up the "rest" of a device split, by the torch op that
     launched it: the ``n`` aten ops whose own kernels take the most device
     time over one call of ``fn`` (torch.profiler's self device time; the
     port's kernels are launched by no aten op, the GEMMs' ops are left
     out), as ``op ms (calls)``."""
-    from torch.profiler import ProfilerActivity, profile
+    rows = sorted(((ms, key, count) for ms, key, count, _dev in _profiled(fn)
+                   if key.startswith("aten::") and key not in GEMM_OPS
+                   and ms > 0), reverse=True)
+    return "; ".join(f"{key} {ms:.2f} ms ({count})"
+                     for ms, key, count in rows[:n])
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = []
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total",
-                     getattr(evt, "self_cuda_time_total", 0))
-        if evt.key.startswith("aten::") and evt.key not in GEMM_OPS and us > 0:
-            rows.append((us / 1e3, evt.key, evt.count))
-    rows.sort(reverse=True)
-    return "; ".join(f"{key} {ms:.2f} ms ({count})" for ms, key, count in rows[:n])
+
+@contextlib.contextmanager
+def parents_glue():
+    """The parent's eager glue in the model in place of K18/K19 (the
+    yardstick of phases 7 and 10): ``norm((x + r).float()).to(dt)`` with
+    torch's LayerNorm, ``a * F.silu(g)`` and ``F.gelu(g)``, the lines of
+    ``models/nomic.py`` that K18 and K19 replaced."""
+    import torch.nn.functional as F
+
+    from better_search_rag_rust_tpu_torch.models import nomic
+
+    class Eager:
+        @staticmethod
+        def apply(a, g, activation):
+            if activation == "gelu":
+                return F.gelu(g, approximate="none")
+            return a * F.silu(g)
+
+    saved = nomic.add_norm, nomic.SwiGlu
+    nomic.add_norm = lambda x, r, norm: norm((x + r).float()).to(x.dtype)
+    nomic.SwiGlu = Eager
+    try:
+        yield
+    finally:
+        nomic.add_norm, nomic.SwiGlu = saved
+
+
+def device_split(what, fn):
+    """Phases 7 and 10: ``fn``'s device time by kernel group, its longest
+    kernels and the rest's largest torch ops, on K18/K19 and then with the
+    parent's eager glue (:func:`parents_glue`, after one unprofiled call),
+    as lines to print."""
+    lines = []
+    for parents in (False, True):
+        with parents_glue() if parents else contextlib.nullcontext():
+            if parents:
+                fn()
+            split, total, top = _device_profile(fn)
+            rest_ops = glue_ops(fn, 10)
+        label = "with the parent's eager glue " if parents else ""
+        lines.append(
+            f"{what} device time {label}{total:.2f} ms: "
+            + split_line(split, total) + "; top kernels: "
+            + "; ".join(f"{key[:60]} {ms:.2f}" for ms, key in top[:6])
+            + f"; the rest's largest ops: {rest_ops}")
+    return lines
 
 
 def check_encoder(seed, card):
@@ -1083,6 +1157,7 @@ def check_encoder(seed, card):
         NomicBertConfig,
         NomicEncoder,
     )
+    from better_search_rag_rust_tpu_torch.ops import encoder_kernels as ek
 
     cfg = NomicBertConfig()
     fused = NomicEncoder(cfg, seed=seed, device="cuda")
@@ -1098,31 +1173,51 @@ def check_encoder(seed, card):
     a = fused.encode_tokens(ids, mask)
     b = plain.encode_tokens(ids, mask)
     cos = np.sum(a * b, axis=1)
+    torch.cuda.synchronize()
+    ek.reset_launch_counts()
+    fused.encode_tokens_device(ids_d, mask_d)
+    torch.cuda.synchronize()
+    glue = dict(ek.launch_counts)
     rates = {}
     for name, enc in (("K8", fused), ("plain", plain)):
         rates[name] = B_ENC / (cuda_ms(
             lambda: enc.encode_tokens_device(ids_d, mask_d)) / 1e3)
-    split, total, top = _device_profile(
-        lambda: fused.encode_tokens_device(ids_d, mask_d))
-    k8, gemm, rest = split["K8"], split["GEMMs"], split["rest"]
+    splits = device_split("forward", lambda: fused.encode_tokens_device(
+        ids_d, mask_d))
     phase(f"phase 7 [{card}] encoder 12 x 768, {B_ENC} x {S_ENC} tokens: "
           f"per-row cosine K8 vs plain attention min={cos.min():.6f} (bound "
           f"{ATT_COS}); forward {rates['K8']:.1f} files/s on K8, "
-          f"{rates['plain']:.1f} files/s plain")
-    phase(f"phase 7 [{card}] forward device time {total:.2f} ms: K8 "
-          f"{k8:.2f} ms ({100 * k8 / total:.1f} %), GEMMs {gemm:.2f} ms "
-          f"({100 * gemm / total:.1f} %), rest {rest:.2f} ms "
-          f"({100 * rest / total:.1f} %); top kernels: "
-          + "; ".join(f"{key[:60]} {ms:.2f}" for ms, key in top[:6]))
+          f"{rates['plain']:.1f} files/s plain; one forward's K18/K19 "
+          f"launches {glue}")
+    for line in splits:
+        phase(f"phase 7 [{card}] {line}")
     assert np.isfinite(a).all() and a.shape == (B_ENC, 768)
     assert cos.min() >= ATT_COS, cos.min()
+    assert glue == glue_launches(cfg, 1), glue
     del fused, plain
+
+
+def glue_launches(cfg, forwards: int, backwards: int = 0) -> dict:
+    """K18/K18b/K19/K19b launches of ``forwards`` encoder forwards and
+    ``backwards`` backwards: a K18 (K18b) for ``emb_ln`` and two a layer, a
+    K19 (K19b) a layer."""
+    norms, gates = 2 * cfg.num_layers + 1, cfg.num_layers
+    return {"add_layer_norm": norms * forwards,
+            "add_layer_norm_bwd": norms * backwards,
+            "swiglu": gates * forwards, "swiglu_bwd": gates * backwards}
+
+
+def split_line(split: dict, total: float) -> str:
+    """A device split as ``name ms (share)``, the groups that ran."""
+    return ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f} %)"
+                     for k, v in split.items() if v)
 
 
 def drive_build_mode(tmp, src, seed, card):
     """Phase 8: Pipeline.run() in build mode (nomic, then hash) on the tree
-    ``src``, evaluate and text queries; returns the K8 launches of the
-    nomic run."""
+    ``src``, evaluate and text queries; returns the K8, K18 and K19
+    launches of the nomic run (exactly 25 K18 and 12 K19 a forward: 12 K8
+    launches)."""
     from better_search_rag_rust_tpu_torch.config import (
         CorpusConfig,
         EncoderConfig,
@@ -1130,11 +1225,14 @@ def drive_build_mode(tmp, src, seed, card):
         SearchConfig,
         StoreConfig,
     )
+    from better_search_rag_rust_tpu_torch.models.nomic import NomicBertConfig
     from better_search_rag_rust_tpu_torch.ops import attention_kernels as ak
+    from better_search_rag_rust_tpu_torch.ops import encoder_kernels as ek
     from better_search_rag_rust_tpu_torch.ops import topk_kernels as tk
     from better_search_rag_rust_tpu_torch.pipeline import Pipeline
 
-    k8_launches = 0
+    model = NomicBertConfig()
+    main_path = {}
     for backend in ("nomic", "hash"):
         cfg = PipelineConfig(
             corpus=CorpusConfig(root=src, extensions=("java",),
@@ -1148,10 +1246,12 @@ def drive_build_mode(tmp, src, seed, card):
         torch.cuda.synchronize()
         tk.reset_launch_counts()
         ak.reset_launch_counts()
+        ek.reset_launch_counts()
         t0 = time.perf_counter()
         result = pipe.run()
         run_s = time.perf_counter() - t0
-        launches = {**tk.launch_counts, **ak.launch_counts}
+        launches = {**tk.launch_counts, **ak.launch_counts,
+                    **ek.launch_counts}
         report = pipe.evaluate(num_queries=1024, k=K)
         engine = pipe.engine()
         manifest = json.loads(open(os.path.join(
@@ -1175,9 +1275,14 @@ def drive_build_mode(tmp, src, seed, card):
         assert stats.embeddings == TREE_FILES and stats.failed_batches == 0
         assert report["oracle_overlap"] == 1.0
         assert np.array_equal(q_ids, o_ids)
+        forwards, odd = divmod(launches["fused_attention_qkv"],
+                               model.num_layers)
+        glue = {k: launches[k] for k in ek.launch_counts}
+        assert odd == 0 and glue == glue_launches(model, forwards), launches
         if backend == "nomic":
-            k8_launches = launches["fused_attention_qkv"]
-            assert k8_launches > 0, launches
+            assert forwards > 0, launches
+            main_path = {k: launches[k] for k in ("fused_attention_qkv",
+                                                  "add_layer_norm", "swiglu")}
         else:
             assert (result.mrr, result.recall, result.overlap) == (
                 1.0, 1.0, 1.0)
@@ -1185,7 +1290,7 @@ def drive_build_mode(tmp, src, seed, card):
             assert [rk[0][0] for rk in ranked] == [manifest[i]
                                                    for i in picks]
         del pipe, engine
-    return k8_launches
+    return main_path
 
 
 def check_attention_bwd(gen):
@@ -1272,8 +1377,9 @@ def _pairs(rng, cfg, b):
 def check_training(seed, card):
     """Phase 10: the trainer at full width. K8 + K9 gradients against the
     plain attention's at B_GRAD; then the finetune measurement at B_TRAIN
-    and a device-time split of one step. Returns K9's launches over the
-    timed steps."""
+    (exactly 24 K8, 24 K9, 50 K18, 50 K18b, 24 K19 and 24 K19b launches a
+    step) and a device-time split of one step with the rest's largest ops.
+    Returns the K9, K18b and K19b launches over the timed steps."""
     from better_search_rag_rust_tpu_torch.bench.finetune import (
         run_finetune_suite,
     )
@@ -1314,28 +1420,32 @@ def check_training(seed, card):
                              device="cuda")
     k9 = res["launches"]["fused_attention_qkv_bwd"]
     k8 = res["launches"]["fused_attention_qkv"]
+    glue = {k: res["launches"][k] for k in ("add_layer_norm",
+                                            "add_layer_norm_bwd", "swiglu",
+                                            "swiglu_bwd")}
     phase(f"phase 10 [{card}] finetune {B_TRAIN} pairs x {S_ENC} tokens, "
           f"3 x {TIMED_STEPS} timed steps after 3 warm-up: {res['value']:.2f} "
           f"files/s, {res['steps_per_sec']:.4f} steps/s ({res['step_ms']:.1f} "
           f"ms/step), peak memory {res['peak_memory_bytes'] / 2**30:.2f} GiB, "
           f"final loss {res['final_loss']:.6f}, attention "
-          f"{res['attention_impl']}; launches K8 {k8}, K9 {k9}")
+          f"{res['attention_impl']}; launches K8 {k8}, K9 {k9}, {glue}")
     assert math.isfinite(res["final_loss"])
     assert k9 == k8 == 2 * cfg.num_layers * TIMED_STEPS, res["launches"]
+    towers = 2 * TIMED_STEPS
+    assert glue == glue_launches(cfg, towers, towers), glue
     torch.cuda.empty_cache()
 
     tr = ContrastiveTrainer(cfg, seed=seed, device="cuda")
     batch = _pairs(np.random.default_rng(seed + 1), cfg, B_TRAIN)
     tr.train_step(*batch)
-    split, total, top = _device_profile(lambda: tr.train_step_device(*batch))
-    phase(f"phase 10 [{card}] one step's device time {total:.2f} ms: "
-          + ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f} %)"
-                      for k, v in split.items())
-          + "; top kernels: "
-          + "; ".join(f"{key[:60]} {ms:.2f}" for ms, key in top[:6]))
+    for line in device_split("one step's", lambda: tr.train_step_device(
+            *batch)):
+        phase(f"phase 10 [{card}] {line}")
     del tr, batch
     torch.cuda.empty_cache()
-    return k9
+    return {"fused_attention_qkv_bwd": k9,
+            "add_layer_norm_bwd": glue["add_layer_norm_bwd"],
+            "swiglu_bwd": glue["swiglu_bwd"]}
 
 
 def drive_finetune_cli(tmp, src, card):
@@ -3479,7 +3589,7 @@ def check_flash_paths(seed, card, tmp, src):
     rate = B_FLASH / (cuda_ms(lambda: flash.encode_tokens_device(
         ids_d, mask_d)) / 1e3)
     split, total, _top = _device_profile(
-        lambda: flash.encode_tokens_device(ids_d, mask_d), K14_K16)
+        lambda: flash.encode_tokens_device(ids_d, mask_d), flash=True)
     glue = glue_ops(lambda: flash.encode_tokens_device(ids_d, mask_d))
     plain = NomicEncoder(dataclasses.replace(cfg, attention_impl="xla"),
                          state_dict=flash.model.state_dict(), device="cuda")
@@ -3541,7 +3651,7 @@ def check_flash_paths(seed, card, tmp, src):
     step_s = time.perf_counter() - t0
     step = dict(fk.launch_counts)
     split, total, _top = _device_profile(
-        lambda: tr.train_step_device(*batch), K14_K16)
+        lambda: tr.train_step_device(*batch), flash=True)
     glue = glue_ops(lambda: tr.train_step_device(*batch))
     phase(f"phase 27 [{card}] finetune step flash, {B_FLASH_STEP} pairs x "
           f"{S_FLASH} tokens: loss {loss:.6f}, {step_s * 1e3:.1f} ms host "
@@ -3602,14 +3712,13 @@ def run_tree_phases(args, gen, card, tmp, cfg, errs, times, launches):
 
     src = os.path.join(tmp, "src")
     write_java_tree(src, TREE_FILES, args.seed)
-    launches["fused_attention_qkv"] = drive_build_mode(tmp, src,
-                                                       args.seed, card)
+    launches.update(drive_build_mode(tmp, src, args.seed, card))
     torch.cuda.empty_cache()
     errs["fused_attention_qkv_bwd"], times["fused_attention_qkv_bwd"] = \
         check_attention_bwd(gen)
     phase(f"phase 9 [{card}] " + timing_line(
         "fused_attention_qkv_bwd", times["fused_attention_qkv_bwd"]))
-    launches["fused_attention_qkv_bwd"] = check_training(args.seed, card)
+    launches.update(check_training(args.seed, card))
     drive_finetune_cli(tmp, src, card)
     torch.cuda.empty_cache()
 
@@ -4086,6 +4195,151 @@ def check_normalize_cast(gen, card):
     return err, recs[(K17_SHAPES[0][0], torch.bfloat16)]
 
 
+# -- phase 30: the encoder layer's glue (K18/K18b, K19/K19b) -----------------
+
+#: phase 30's rows: the forward's (256 x 512 tokens) and a training step's
+#: launch (the step encodes its two towers one after the other, each 64 x
+#: 512); the model's widths and LayerNorm epsilon
+GLUE_ROWS = (B_ENC * S_ENC, B_TRAIN * S_ENC)
+D_MODEL, D_INNER, LN_EPS = 768, 3072, 1e-12
+#: f32 operations an element, for the bounds (far below the bytes either
+#: way): K18 (add, round, two sums, square, centre, scale, multiply, shift),
+#: K18b (the statistics again, two row sums, two column sums, the
+#: gradient), K19 (silu: negate, exp, add, divide; two roundings; the
+#: product) and K19b (silu twice, silu's derivative, two products)
+GLUE_OPS = {"add_layer_norm": 9, "add_layer_norm_bwd": 20, "swiglu": 10,
+            "swiglu_bwd": 25}
+GLUE_INTS = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+
+
+def _same_bits(a, b) -> bool:
+    return torch.equal(a.contiguous().view(GLUE_INTS[a.dtype]),
+                       b.contiguous().view(GLUE_INTS[b.dtype]))
+
+
+def _glue_edges(gen, x, r, a, g, dy_inner):
+    """Writes phase 30's edge cases into the operands in place: a constant
+    row (v == 0), a row of mean >> std, NaN entries, +inf, -inf and inf -
+    inf in the norm's rows; NaN, +-inf in the gate's halves and gradient."""
+    d = x.shape[1]
+    x[0], r[0] = 3.0, 0.0
+    x[1] = 256.0
+    x[1, ::19] = 258.0
+    r[1] = 0.0
+    x[2, ::7] = float("nan")
+    x[3, d // 2] = float("inf")
+    x[4, d - 1] = -float("inf")
+    x[5, 0], r[5, 0] = float("inf"), -float("inf")
+    for t, v in ((g, "nan"), (g, "inf"), (g, "-inf"), (a, "nan"),
+                 (a, "inf"), (dy_inner, "nan")):
+        t.view(-1)[torch.randint(0, t.numel(), (64,), generator=gen,
+                                 device=t.device)] = float(v)
+
+
+def check_encoder_glue(gen, card):
+    """Phase 30: K18, K18b, K19 and K19b at the encoder's widths against
+    their plain versions, bit for bit, on finite operands and with the edge
+    cases; K18b's dgamma/dbeta bit for bit across two runs; each kernel's
+    time beside its bytes bound, its plain version's and the parent's eager
+    chain's. Returns (errors, timing records): K18/K19 at the forward's
+    rows, K18b/K19b at the step's."""
+    import torch.nn.functional as F
+
+    from better_search_rag_rust_tpu_torch.ops import encoder_kernels as ek
+
+    errs = dict.fromkeys(GLUE_OPS, 0.0)
+    times = {}
+    dt = torch.bfloat16
+    for rows in GLUE_ROWS:
+        def randn(*shape, scale=1.0):
+            return (scale * torch.randn(shape, generator=gen, device="cuda")
+                    ).to(dt)
+
+        x, r, dy = randn(rows, D_MODEL), randn(rows, D_MODEL), randn(rows, D_MODEL)
+        gamma = 1.0 + 0.1 * torch.randn(D_MODEL, generator=gen, device="cuda")
+        beta = 0.1 * torch.randn(D_MODEL, generator=gen, device="cuda")
+        a, g = randn(rows, D_INNER, scale=3.0), randn(rows, D_INNER, scale=3.0)
+        dyi = randn(rows, D_INNER)
+        # each call returns a tuple of its outputs
+        calls = {
+            "add_layer_norm": (
+                lambda: (ek.add_layer_norm(x, r, gamma, beta, LN_EPS),),
+                lambda: (ek.add_layer_norm_plain(x, r, gamma, beta, LN_EPS),)),
+            "add_layer_norm_bwd": (
+                lambda: ek.add_layer_norm_bwd(dy, x, r, gamma, LN_EPS),
+                lambda: ek.add_layer_norm_bwd_plain(dy, x, r, gamma, LN_EPS)),
+            "swiglu": (lambda: (ek.swiglu(a, g),),
+                       lambda: (ek.swiglu_plain(a, g),)),
+            "swiglu_bwd": (lambda: ek.swiglu_bwd(dyi, a, g),
+                           lambda: ek.swiglu_bwd_plain(dyi, a, g)),
+        }
+        checked = []
+        for case in ("finite", "edges"):
+            if case == "edges":
+                _glue_edges(gen, x, r, a, g, dyi)
+            for name, (kern, plain) in calls.items():
+                got, again, want = kern(), kern(), plain()
+                for u, v, w in zip(got, again, want):
+                    assert _same_bits(u, w), (rows, case, name)
+                    assert _same_bits(u, v), (rows, case, name)
+                    errs[name] = max(errs[name], max_abs(
+                        u.float().nan_to_num(), w.float().nan_to_num()))
+                if case == "finite" and name == "add_layer_norm_bwd":
+                    assert all(bool(torch.isfinite(t).all()) for t in got[1:])
+            checked.append(case)
+        # timings on the finite operands again (the edge rows rewritten)
+        x.copy_(randn(rows, D_MODEL))
+        r.copy_(randn(rows, D_MODEL))
+        a.copy_(randn(rows, D_INNER, scale=3.0))
+        g.copy_(randn(rows, D_INNER, scale=3.0))
+        dyi.copy_(randn(rows, D_INNER))
+        xe = x.detach().clone().requires_grad_()
+        re_ = r.detach().clone().requires_grad_()
+        ge, be = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+        norm_out = F.layer_norm((xe + re_).float(), (D_MODEL,), ge, be,
+                                LN_EPS).to(dt)
+        ae, gge = a.detach().clone().requires_grad_(), g.detach().clone().requires_grad_()
+        gate_out = ae * F.silu(gge)
+        eager = {
+            "add_layer_norm": lambda: F.layer_norm(
+                (x + r).float(), (D_MODEL,), gamma, beta, LN_EPS).to(dt),
+            "add_layer_norm_bwd": lambda: torch.autograd.grad(
+                norm_out, (xe, re_, ge, be), dy, retain_graph=True),
+            "swiglu": lambda: a * F.silu(g),
+            "swiglu_bwd": lambda: torch.autograd.grad(
+                gate_out, (ae, gge), dyi, retain_graph=True),
+        }
+        moved = {
+            "add_layer_norm": nbytes(x, r, gamma, beta, x),
+            "add_layer_norm_bwd": nbytes(dy, x, r, gamma, dy, gamma, beta),
+            "swiglu": nbytes(a, g, g),
+            "swiglu_bwd": nbytes(dyi, a, g, a, g),
+        }
+        for name, (kern, plain) in calls.items():
+            rec = timing(cuda_ms(kern, 20), cuda_ms(plain, 5), None,
+                         moved[name], GLUE_OPS[name] * (x if "norm" in name
+                                                        else a).numel(),
+                         "fp32 SIMT")
+            rec["eager_ms"] = cuda_ms(eager[name], 20)
+            phase(f"phase 30 [{card}] {name} [{rows} x "
+                  f"{D_MODEL if 'norm' in name else D_INNER}] bf16, bit for "
+                  f"bit its plain version ({' and '.join(checked)}; two runs "
+                  f"alike): " + timing_line(name, rec)
+                  + f", the parent's eager chain {rec['eager_ms']:.3f} ms "
+                  f"({100 * rec['bound_ms'] / rec['ms']:.0f} % of the bound)")
+            forward = name in ("add_layer_norm", "swiglu")
+            if (rows == GLUE_ROWS[0]) == forward:
+                times[name] = rec
+        ln_diff = max_abs(ek.add_layer_norm(x, r, gamma, beta, LN_EPS).float(),
+                          eager["add_layer_norm"]().float())
+        phase(f"phase 30 [{card}] K18 vs the parent's torch LayerNorm (a "
+              f"two-pass variance, rsqrt) on {rows} finite rows: max |diff| "
+              f"{ln_diff:.4g}")
+        del x, r, dy, a, g, dyi, xe, re_, ge, be, norm_out, ae, gge, gate_out
+        torch.cuda.empty_cache()
+    return errs, times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4176,6 +4430,9 @@ def main() -> int:
     check_nonfinite_search(args.seed, gen, card)
     errs["normalize_cast"], times["normalize_cast"] = check_normalize_cast(
         gen, card)
+    glue_errs, glue_times = check_encoder_glue(gen, card)
+    errs.update(glue_errs)
+    times.update(glue_times)
 
     print(card)
     print(json.dumps({"kernels": [

@@ -8,6 +8,7 @@ conftest (which imports jax):
 """
 
 import contextlib
+import math
 import re
 from pathlib import Path
 
@@ -2441,3 +2442,220 @@ def test_bf16_identity_on_nan_rows(cuda):
     k2_at = torch.gather(resc, 2, a)[:, :, 0]
     k3_at = torch.gather(s3, 2, a)[:, :, 0]
     assert torch.equal(k2_at[fin], k1_max[fin]) and torch.equal(k3_at[fin], k1_max[fin])
+
+
+# -- K18/K18b (residual add + LayerNorm) and K19/K19b (the MLP gate) ----------
+
+_INTS = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+
+
+def _bits(t):
+    return t.contiguous().view(_INTS[t.dtype])
+
+
+def _k18_operands(device, n, d, dtype, seed=0, offset=0, edges=True):
+    """Rows x, r [n, d] in dtype (``offset`` elements off the 16-byte
+    boundary) with the edge rows: a constant row (v == 0), a row of mean >>
+    std, NaN entries, +inf, -inf, inf - inf and a row whose squares
+    overflow; gamma, beta f32 [d]."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    x = torch.randn((n, d), generator=g, device=device)
+    r = torch.randn((n, d), generator=g, device=device)
+    if edges and n >= 8:
+        x[0], r[0] = 3.0, 0.0
+        x[1] = 256.0 + 2.0 * (torch.rand(d, generator=g, device=device) < 0.05)
+        r[1] = 0.0
+        x[2, ::7] = float("nan")
+        x[3, d // 2] = float("inf")
+        x[4, d - 1] = -float("inf")
+        x[5, 0], r[5, 0] = float("inf"), -float("inf")
+        x[6] *= 1e30
+    gamma = 1.0 + 0.1 * torch.randn(d, generator=g, device=device)
+    beta = 0.1 * torch.randn(d, generator=g, device=device)
+
+    def place(t):
+        buf = torch.empty(n * d + offset, dtype=dtype, device=device)
+        out = buf[offset:].view(n, d)
+        out.copy_(t)
+        return out
+
+    return place(x), place(r), gamma, beta
+
+
+#: the forward's rows (256 x 512 tokens), a training step's tower (64 x
+#: 512) and odd widths
+K18_SHAPES = [(8, 768), (1000, 768), (131_072, 768), (32_768, 768),
+              (37, 100), (64, 1024), (20, 33), (300, 256), (9, 8)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,d", K18_SHAPES)
+def test_k18_is_its_plain_version_bitwise(cuda, n, d, dtype, offset):
+    """K18 equals its plain version bit for bit on the card (edge rows
+    included: NaN and inf rows as the card's torch ops give them), and its
+    finite rows equal the CPU plain version's bits."""
+    from better_search_rag_rust_tpu_torch.ops import encoder_kernels as ek
+
+    x, r, gamma, beta = _k18_operands(cuda, n, d, dtype, offset=offset)
+    before = ek.launch_counts["add_layer_norm"]
+    got = ek.add_layer_norm(x, r, gamma, beta, 1e-12)
+    want = ek.add_layer_norm_plain(x, r, gamma, beta, 1e-12)
+    assert ek.launch_counts["add_layer_norm"] == before + 1
+    assert torch.equal(_bits(got), _bits(want))
+    rows = slice(7 if n >= 8 else 0, min(n, 4096))
+    cpu = ek.add_layer_norm_plain(x[rows].cpu(), r[rows].cpu(), gamma.cpu(),
+                                  beta.cpu(), 1e-12)
+    assert torch.equal(_bits(got[rows].cpu()), _bits(cpu))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,d", K18_SHAPES + [(65_536, 768)])
+def test_k18b_is_its_plain_version_bitwise(cuda, n, d, dtype, offset):
+    """K18b's ds, dgamma and dbeta equal its plain version bit for bit on
+    the card, on finite rows and with the edge rows, and two runs give the
+    same bits (no atomics)."""
+    from better_search_rag_rust_tpu_torch.ops import encoder_kernels as ek
+
+    for edges in (False, True):
+        x, r, gamma, _beta = _k18_operands(cuda, n, d, dtype, seed=1,
+                                           offset=offset, edges=edges)
+        g = torch.Generator(device=cuda)
+        g.manual_seed(2)
+        dy = torch.randn((n, d), generator=g, device=cuda).to(dtype)
+        got = ek.add_layer_norm_bwd(dy, x, r, gamma, 1e-12)
+        again = ek.add_layer_norm_bwd(dy, x, r, gamma, 1e-12)
+        want = ek.add_layer_norm_bwd_plain(dy, x, r, gamma, 1e-12)
+        for a, b, c in zip(got, again, want):
+            assert torch.equal(_bits(a), _bits(c)), edges
+            assert torch.equal(_bits(a), _bits(b)), edges
+        if not edges:
+            assert bool(torch.isfinite(got[1]).all())
+
+
+def _gate_operands(device, shape, dtype, seed=0, offset=0):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    n = math.prod(shape)
+    out = []
+    for _ in range(3):
+        buf = torch.empty(n + offset, dtype=dtype, device=device)
+        t = buf[offset:].view(shape)
+        t.copy_(3.0 * torch.randn(shape, generator=g, device=device))
+        out.append(t)
+    return out
+
+
+GATE_SHAPES = [(4096, 3072), (7,), (33, 99), (1, 8), (65_536, 3072),
+               (32_768, 3072)]
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "gelu"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", GATE_SHAPES)
+def test_k19_k19b_are_their_plain_versions_bitwise(cuda, shape, dtype, offset,
+                                                   activation):
+    """K19 and K19b equal torch's own ops on the card bit for bit: the
+    eager chain ``a * F.silu(g)`` (or ``F.gelu``) and its autograd."""
+    from better_search_rag_rust_tpu_torch.ops import encoder_kernels as ek
+
+    a, g, dy = _gate_operands(cuda, shape, dtype, offset=offset)
+    y = ek.swiglu(a, g, activation)
+    assert torch.equal(_bits(y), _bits(ek.swiglu_plain(a, g, activation)))
+    da, dg = ek.swiglu_bwd(dy, a, g, activation)
+    wa, wg = ek.swiglu_bwd_plain(dy, a, g, activation)
+    assert torch.equal(_bits(dg), _bits(wg))
+    assert (da is None) == (wa is None) == (activation == "gelu")
+    if da is not None:
+        assert torch.equal(_bits(da), _bits(wa))
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "gelu"])
+def test_k19_k19b_every_bf16_gate_value(cuda, activation):
+    """Every one of the 65,536 bf16 bit patterns as the gate (NaN, +-inf,
+    subnormals included), against random halves and gradients: K19 and
+    K19b bit for bit their plain versions."""
+    from better_search_rag_rust_tpu_torch.ops import encoder_kernels as ek
+
+    g = torch.arange(-32768, 32768, dtype=torch.int32, device=cuda).to(
+        torch.int16).view(torch.bfloat16).view(256, 256)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    a = torch.randn((256, 256), generator=gen, device=cuda).to(torch.bfloat16)
+    dy = torch.randn((256, 256), generator=gen, device=cuda).to(torch.bfloat16)
+    assert torch.equal(_bits(ek.swiglu(a, g, activation)),
+                       _bits(ek.swiglu_plain(a, g, activation)))
+    for got, want in zip(ek.swiglu_bwd(dy, a, g, activation),
+                         ek.swiglu_bwd_plain(dy, a, g, activation)):
+        if want is not None:
+            assert torch.equal(_bits(got), _bits(want))
+
+
+def test_training_step_on_k18_k19_matches_the_eager_glue(cuda):
+    """One full-width training step (12 x 768, 8 pairs x 512 tokens): every
+    parameter's gradient on K18/K18b/K19/K19b at cosine >= 0.999 to the
+    parent's eager glue (torch's LayerNorm, silu and multiply:
+    ``chip_smoke.parents_glue``), the loss within 1e-3; the step launches
+    50 K18, 50 K18b, 24 K19 and 24 K19b."""
+    import chip_smoke
+    from better_search_rag_rust_tpu_torch.models.nomic import NomicBertConfig
+    from better_search_rag_rust_tpu_torch.models.train import (
+        ContrastiveTrainer,
+    )
+    from better_search_rag_rust_tpu_torch.ops import encoder_kernels as ek
+
+    cfg = NomicBertConfig()
+    rng = np.random.default_rng(0)
+    batch = []
+    for _ in range(2):
+        ids = rng.integers(1, cfg.vocab_size, size=(8, 512))
+        lens = rng.integers(64, 513, size=8)
+        mask = (np.arange(512)[None, :] < lens[:, None]).astype(np.int64)
+        batch += [torch.from_numpy(ids).to(cuda), torch.from_numpy(mask).to(cuda)]
+    kern = ContrastiveTrainer(cfg, seed=0, device="cuda")
+    ek.reset_launch_counts()
+    loss_k = kern.loss(*batch)
+    loss_k.backward()
+    assert ek.launch_counts == {"add_layer_norm": 50, "add_layer_norm_bwd": 50,
+                                "swiglu": 24, "swiglu_bwd": 24}
+    grads = {n: p.grad.double().ravel() for n, p in kern.model.named_parameters()}
+    params = kern.state.params
+    del kern
+    with chip_smoke.parents_glue():
+        eager = ContrastiveTrainer(cfg, params=params, device="cuda")
+        ek.reset_launch_counts()
+        loss_e = eager.loss(*batch)
+        loss_e.backward()
+        assert not any(ek.launch_counts.values())
+    assert abs(float(loss_k) - float(loss_e)) <= 1e-3
+    worst = 1.0
+    for name, p in eager.model.named_parameters():
+        a, b = grads[name], p.grad.double().ravel()
+        if float(a.norm()) < 1e-12 and float(b.norm()) < 1e-12:
+            continue
+        worst = min(worst, float(a @ b / (a.norm() * b.norm())))
+    assert worst >= 0.999, worst
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "gelu"])
+def test_encoder_forward_runs_every_norm_and_gate_on_the_kernels(cuda,
+                                                                 activation):
+    """A forward of a 3-layer encoder launches 2 x 3 + 1 K18 and 3 K19 (gelu
+    included) and no backward kernel."""
+    from better_search_rag_rust_tpu_torch.models.nomic import (
+        NomicBertConfig,
+        NomicEncoder,
+    )
+    from better_search_rag_rust_tpu_torch.ops import encoder_kernels as ek
+
+    cfg = NomicBertConfig(num_layers=3, activation=activation)
+    enc = NomicEncoder(cfg, seed=0, device="cuda")
+    ids = torch.randint(1, cfg.vocab_size, (4, 64), device=cuda)
+    ek.reset_launch_counts()
+    out = enc.encode_tokens_device(ids, torch.ones_like(ids))
+    assert bool(torch.isfinite(out).all())
+    assert ek.launch_counts == {"add_layer_norm": 7, "add_layer_norm_bwd": 0,
+                                "swiglu": 3, "swiglu_bwd": 0}
